@@ -1,0 +1,427 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch port (mjlab_tpu_torch) runs on the GPU.
+
+Run from the root of a checkout on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+It imports nothing of JAX or of the JAX package and needs no network.
+Phases, each printing its own lines:
+  1. build every CUDA kernel from csrc/ (nvcc, in parallel) into build/kernels;
+  2. hold each kernel against its plain PyTorch version on random SPD
+     matrices at the main path's shapes (4096 × 35 × 35, float32) and time
+     kernel, plain version and the PyTorch library call beside it, over
+     distinct batches that exceed L2 (and the kernel on one L2-resident
+     batch);
+  3. drive the main path — `Simulation.step_fn()` on the G1 velocity-flat
+     scene at 4096 worlds, 50 env steps of 4 substeps, ctrl = keyframe
+     targets + a seeded small action — with the kernels' launch counters
+     set to 0 just before and read just after; check the state is finite,
+     plausible and in contact and that every substep made 12 Cholesky
+     factorizations; then hold the kernels against their plain versions
+     on that run's mass matrices and Newton Hessians;
+  4. check the card's float64 kernel path against the CPU's plain path on a
+     small input (4 worlds, 4 substeps);
+  5. time each stage of one substep with CUDA events;
+  6. profile one more env step (device time by kernel, each Cholesky
+     kernel's time per launch on the main path, and the device's busy share
+     of phase 3's steady wall time).
+Any failed check raises. The line before the last is the kernel table as
+JSON; the last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+NUM_WORLDS = 4096
+ENV_STEPS = 50
+DECIMATION = 4
+N = 35  # G1 nv
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
+# outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+HBM_SETS = 6  # distinct timing batches, 6 x 20 MB > the H100's 50 MB L2
+OUT = Path("chiprun_out")
+
+
+def card_line() -> str:
+  out = subprocess.run(
+    ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+    capture_output=True, text=True, timeout=60, check=True,
+  )
+  return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, inputs: list, iters: int = 20, warmup: int = 3) -> float:
+  """Mean ms of fn(*inputs[i % len(inputs)]) over `iters` calls. With one
+  input set it stays in L2 after the first call; with several whose total
+  exceeds L2 every call reads from HBM."""
+  for i in range(warmup):
+    fn(*inputs[i % len(inputs)])
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for i in range(iters):
+    fn(*inputs[i % len(inputs)])
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / iters
+
+
+def spd_batch(gen, batch: int, n: int, dtype):
+  X = torch.randn(batch, n, n, generator=gen, device="cuda", dtype=torch.float64)
+  A = X @ X.transpose(-1, -2) / n + 0.1 * torch.eye(n, device="cuda", dtype=torch.float64)
+  return A.to(dtype).contiguous()
+
+
+class KernelCheck:
+  """Kernel-vs-plain comparisons. Tolerance: the kernel may differ from the
+  plain version by at most max(1e-5 · max|plain|, 4 × the plain float32
+  version's own error against the plain float64 version) — i.e. it must be
+  as accurate as the plain version, up to a factor of 4. NaN patterns must
+  agree exactly."""
+
+  def __init__(self):
+    self.max_abs_err: dict[str, float] = {}
+
+  def check(self, name: str, what: str, got, plain, plain64) -> None:
+    nan_k, nan_p = torch.isnan(got), torch.isnan(plain)
+    if not torch.equal(nan_k, nan_p):
+      raise AssertionError(f"{name} on {what}: NaN pattern differs from plain")
+    ok = ~nan_p
+    err = (got - plain)[ok].abs().max().item() if ok.any() else 0.0
+    ref_err = (plain.double() - plain64)[ok].abs().max().item() if ok.any() else 0.0
+    scale = plain[ok].abs().max().item() if ok.any() else 0.0
+    tol = max(1e-5 * scale, 4.0 * ref_err)
+    print(f"  {name:18s} {what:14s} max_abs_err={err:.3e} tol={tol:.3e} "
+          f"(plain f32 vs f64 {ref_err:.3e}, scale {scale:.3e}, "
+          f"nan matrices {int(nan_p.flatten(1).any(1).sum())})")
+    if not err <= tol:
+      raise AssertionError(f"{name} on {what}: {err:.3e} > tol {tol:.3e}")
+    self.max_abs_err[name] = max(self.max_abs_err.get(name, 0.0), err)
+
+  def all_three(self, what: str, A, b) -> None:
+    from mjlab_tpu_torch.kernels import chol
+
+    A64, b64 = A.double(), b.double()
+    Lp = chol.chol_factor_plain(A)
+    L64 = chol.chol_factor_plain(A64)
+    self.check("chol_factor", what, chol.chol_factor(A), Lp, L64)
+    x64 = chol.chol_solve_plain(L64, b64)
+    self.check("chol_solve", what, chol.chol_solve(Lp, b),
+               chol.chol_solve_plain(Lp, b), chol.chol_solve_plain(Lp.double(), b64))
+    self.check("chol_factor_solve", what, chol.chol_factor_solve(A, b),
+               chol.chol_factor_solve_plain(A, b), x64)
+    torch.cuda.synchronize()
+
+
+def bounds(batch: int, n: int, elem: int = 4) -> dict[str, tuple[float, str]]:
+  """Least time (ms) per kernel at these shapes: the larger of bytes moved
+  (each input read once, each output written once) over HBM rate and FLOP
+  over the float32 rate. A factor or a solve needs only the lower triangle
+  of A or L (n(n+1)/2 elements); L is written whole, zeros included."""
+  tri, full, vec = (batch * k * elem for k in (n * (n + 1) // 2, n * n, n))
+  fac_flop, sol_flop = batch * n**3 / 3, batch * 2 * n * n
+  work = {
+    "chol_factor": (tri + full, fac_flop),
+    "chol_solve": (tri + 2 * vec, sol_flop),
+    "chol_factor_solve": (tri + 2 * vec, fac_flop + sol_flop),
+  }
+  out = {}
+  for k, (byt, flop) in work.items():
+    tb, tf = byt / PEAK_BYTES * 1e3, flop / PEAK_F32 * 1e3
+    out[k] = (max(tb, tf), "bytes" if tb >= tf else "operations")
+  return out
+
+
+def stage_times(tp, m, d, reps: int = 3) -> dict[str, float]:
+  """Mean ms of each stage of one physics substep, in the order of
+  physics.forward.step, each fed the previous stage's output."""
+  from mjlab_tpu_torch.physics import (
+    collision, constraint, kinematics, sensors, smooth, solver,
+  )
+  from mjlab_tpu_torch.physics.forward import integrate
+
+  stages = [
+    ("kinematics", kinematics.kinematics), ("com_pos", smooth.com_pos),
+    ("crb", smooth.crb), ("factor_m", smooth.factor_m),
+    ("collision", collision.collision), ("com_vel", smooth.com_vel),
+    ("make_constraint", constraint.make_constraint), ("rne", smooth.rne),
+    ("passive", smooth.passive), ("sensor_vel", sensors.sensor_vel),
+    ("fwd_actuation", smooth.fwd_actuation),
+    ("fwd_acceleration", smooth.fwd_acceleration), ("solve", solver.solve),
+    ("sensor_acc", sensors.sensor_acc), ("integrate", integrate),
+  ]
+  marks = []
+  for _ in range(reps):
+    x = d
+    for name, fn in stages:
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      x = fn(tp, m, x)
+      end.record()
+      marks.append((name, start, end))
+  torch.cuda.synchronize()
+  out = {name: 0.0 for name, _ in stages}
+  for name, start, end in marks:
+    out[name] += start.elapsed_time(end) / reps
+  return out
+
+
+def main() -> int:
+  if not torch.cuda.is_available():
+    print("chip_smoke: torch.cuda.is_available() is false; nothing run",
+          file=sys.stderr)
+    return 2
+  from mjlab_tpu_torch.assets import g1_velocity_sim_cfg, load_model_npz
+  from mjlab_tpu_torch.kernels import build, chol
+  from mjlab_tpu_torch.physics import solver
+  from mjlab_tpu_torch.sim import Simulation
+
+  OUT.mkdir(exist_ok=True)
+  card = card_line()
+  print(card)
+  print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+
+  # -- 1. build ----------------------------------------------------------------
+  t0 = time.perf_counter()
+  build.build_all()
+  print(f"phase 1 build: {time.perf_counter() - t0:.2f} s for {list(build.SOURCES)}")
+  for name, log in build.build_log.items():
+    for line in log.splitlines():
+      if "registers" in line or "spill" in line:
+        print(f"  ptxas {name}: {line.strip()}")
+
+  # -- 2. kernels against plain versions, and their times ---------------------
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  A = spd_batch(gen, NUM_WORLDS, N, torch.float32)
+  b = torch.randn(NUM_WORLDS, N, generator=gen, device="cuda")
+  checks = KernelCheck()
+  print(f"phase 2 kernels vs plain, f32 ({NUM_WORLDS}, {N}, {N}):")
+  checks.all_three("random SPD", A, b)
+  # Timing inputs: HBM_SETS distinct batches (each A is 20 MB) so that the
+  # set exceeds the 50 MB L2 and every call reads from HBM; the L2-resident
+  # time (one batch, called again and again) is printed beside it.
+  sets = [(A, b, chol.chol_factor(A))]
+  for _ in range(HBM_SETS - 1):
+    A_ = spd_batch(gen, NUM_WORLDS, N, torch.float32)
+    b_ = torch.randn(NUM_WORLDS, N, generator=gen, device="cuda")
+    sets.append((A_, b_, chol.chol_factor(A_)))
+  timing = {
+    "chol_factor": (
+      lambda A, b, L: chol.chol_factor(A), lambda A, b, L: chol.chol_factor_plain(A),
+      lambda A, b, L: torch.linalg.cholesky_ex(A),
+    ),
+    "chol_solve": (
+      lambda A, b, L: chol.chol_solve(L, b), lambda A, b, L: chol.chol_solve_plain(L, b),
+      lambda A, b, L: torch.cholesky_solve(b[..., None], L),
+    ),
+    "chol_factor_solve": (
+      lambda A, b, L: chol.chol_factor_solve(A, b),
+      lambda A, b, L: chol.chol_factor_solve_plain(A, b),
+      lambda A, b, L: torch.cholesky_solve(b[..., None], torch.linalg.cholesky_ex(A)[0]),
+    ),
+  }
+  times = {}
+  print(f"  times from HBM ({HBM_SETS} distinct batches; L2-resident in brackets):")
+  for name, (kern, plain, lib) in timing.items():
+    times[name] = (
+      time_ms(kern, sets, iters=4 * HBM_SETS), time_ms(plain, sets, iters=HBM_SETS),
+      time_ms(lib, sets, iters=4 * HBM_SETS), time_ms(kern, sets[:1]),
+    )
+    print(f"  {name:18s} kernel {times[name][0]:.4f} ms ({times[name][3]:.4f})  plain "
+          f"{times[name][1]:.4f} ms  library {times[name][2]:.4f} ms  [{card}]")
+  del A, b, sets
+  torch.cuda.empty_cache()
+
+  # -- 3. the main path ---------------------------------------------------------
+  model = load_model_npz()
+  sim = Simulation(NUM_WORLDS, g1_velocity_sim_cfg(), model)
+  dev = sim.device
+  key = torch.tensor(model.key_qpos[0], dtype=torch.float32, device=dev)
+  qadr = torch.tensor(model.jnt_qposadr[model.actuator_trnid[:, 0]], device=dev)
+  ctrl_ref = key[qadr]
+  d = sim.make_data()
+  qpos = key.expand(NUM_WORLDS, -1).clone()
+  qpos[:, 7:] += 0.02 * torch.randn(NUM_WORLDS, model.nq - 7, generator=gen, device=dev)
+  d = d.replace(qpos=qpos, ctrl=ctrl_ref.expand(NUM_WORLDS, -1).clone())
+  step = sim.step_fn()
+  # One warm-up substep in which any host-device synchronization (a
+  # host-to-device copy, a .item(), a data-dependent shape) raises.
+  torch.cuda.set_sync_debug_mode("error")
+  d = step(sim.model, d)
+  torch.cuda.set_sync_debug_mode("default")
+  torch.cuda.synchronize()
+  print("phase 3 warm-up substep: no host-device synchronization inside the step")
+  torch.cuda.reset_peak_memory_stats()
+  chol.reset_counts()
+  t0 = time.perf_counter()
+  for i in range(ENV_STEPS):
+    if i == 10:
+      torch.cuda.synchronize()
+      t10 = time.perf_counter()
+    action = 0.1 * torch.randn(NUM_WORLDS, model.nu, generator=gen, device=dev)
+    d = d.replace(ctrl=ctrl_ref + action)
+    for _ in range(DECIMATION):
+      d = step(sim.model, d)
+  torch.cuda.synchronize()
+  t1 = time.perf_counter()
+  launches = dict(chol.LAUNCHES)
+  nfact = chol.factorizations()
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  substeps = ENV_STEPS * DECIMATION
+  dt, dt_steady = t1 - t0, t1 - t10
+  print(f"phase 3 main path: G1 velocity-flat, {NUM_WORLDS} worlds, "
+        f"{ENV_STEPS} env steps x {DECIMATION} substeps, float32")
+  print(f"  wall {dt:.3f} s: {NUM_WORLDS * substeps / dt:.1f} physics-steps/s, "
+        f"{NUM_WORLDS * ENV_STEPS / dt:.1f} env-steps/s [{card}]")
+  print(f"  steady (env steps 10-49) {dt_steady:.3f} s: "
+        f"{NUM_WORLDS * (ENV_STEPS - 10) * DECIMATION / dt_steady:.1f} physics-steps/s, "
+        f"{NUM_WORLDS * (ENV_STEPS - 10) / dt_steady:.1f} env-steps/s, "
+        f"{dt_steady / ((ENV_STEPS - 10) * DECIMATION) * 1e3:.2f} ms/substep [{card}]")
+  print(f"  peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated) [{card}]")
+  print(f"  launches {launches}; factorizations {nfact} = "
+        f"{nfact / substeps:.2f}/substep")
+  for f in ("qpos", "qvel", "sensordata", "efc_force"):
+    if not torch.isfinite(getattr(d, f)).all():
+      raise AssertionError(f"non-finite {f} after the main path")
+  z = d.qpos[:, 2]
+  print(f"  root height min {z.min().item():.3f} mean {z.mean().item():.3f} "
+        f"max {z.max().item():.3f} m")
+  if not (z.min() > 0.05 and z.max() < 1.2):
+    raise AssertionError("root height outside the plausible band (0.05, 1.2) m")
+  active = (d.contact.dist < d.contact.includemargin).sum(1).float()
+  print(f"  active contacts per world: mean {active.mean().item():.2f}, "
+        f"min {active.min().item():.0f}")
+  if not active.sum() > 0:
+    raise AssertionError("no active contacts")
+  if nfact != 12 * substeps or launches["chol_solve"] != substeps:
+    raise AssertionError(f"expected 12 factorizations and 1 solve per substep, got {launches}")
+
+  print("phase 3b kernels vs plain on the run's matrices, f32:")
+  grad = torch.randn(NUM_WORLDS, N, generator=gen, device=dev)
+  checks.all_three("qM", d.qM.contiguous(), d.qfrc_smooth.contiguous())
+  checks.all_three("Newton H", solver.hessian(d, d.qacc).contiguous(), grad)
+
+  # -- 4. the card's kernel path against the CPU's plain path (float64) -------
+  cfg64 = g1_velocity_sim_cfg()
+  cfg64.dtype = "float64"
+  sims = {dv: Simulation(4, cfg64, load_model_npz(), device=dv) for dv in ("cuda", "cpu")}
+  ref = {}
+  rng = torch.Generator().manual_seed(1)
+  q0 = key.double().cpu().expand(4, -1).clone()
+  q0[:, 7:] += 0.02 * torch.randn(4, model.nq - 7, generator=rng, dtype=torch.float64)
+  ctrls = [ctrl_ref.double().cpu() + 0.1 * torch.randn(4, model.nu, generator=rng,
+                                                        dtype=torch.float64)
+           for _ in range(4)]
+  for dv, s in sims.items():
+    dd = s.make_data().replace(qpos=q0.to(dv))
+    fn = s.step_fn()
+    for c in ctrls:
+      dd = fn(s.model, dd.replace(ctrl=c.to(dv)))
+    ref[dv] = dd
+  print("phase 4 card (kernels, f64) vs CPU (plain, f64), 4 worlds x 4 substeps:")
+  for f in ("qpos", "qvel", "sensordata", "qacc"):
+    a, b_ = getattr(ref["cuda"], f).cpu(), getattr(ref["cpu"], f)
+    err = (a - b_).abs().max().item()
+    scale = max(1.0, b_.abs().max().item())
+    print(f"  {f:10s} max_abs_err {err:.3e} (tol 1e-8 x {scale:.3e})")
+    if not err <= 1e-8 * scale:
+      raise AssertionError(f"card vs CPU mismatch on {f}")
+  del sims, ref
+
+  # -- 5. where one substep's time goes, stage by stage ---------------------------
+  per_stage = stage_times(sim.tp, sim.model, d)
+  total = sum(per_stage.values())
+  print(f"phase 5 stage times of one substep (CUDA events, mean of 3) [{card}]:")
+  for name, ms in per_stage.items():
+    print(f"  {name:18s} {ms:9.3f} ms  {100 * ms / total:5.1f}%")
+  print(f"  {'sum':18s} {total:9.3f} ms")
+
+  # -- 6. where one env step's device time goes, by kernel ------------------------
+  from torch.profiler import ProfilerActivity, profile
+
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(DECIMATION):
+      d = step(sim.model, d)
+    torch.cuda.synchronize()
+  averages = prof.key_averages()
+  # Newer torch names device time "device", older "cuda".
+  attr = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
+          else "self_cuda_time_total")
+  (OUT / "chip_smoke_profile.txt").write_text(
+    averages.table(sort_by=attr, row_limit=40)
+  )
+  events = [e for e in averages if str(e.device_type).endswith("CUDA")]
+  dev_ms = sum(getattr(e, attr) for e in events) / 1e3
+  steady_env_step_ms = dt_steady / (ENV_STEPS - 10) * 1e3
+  print(f"phase 6 profile of 1 env step: device time {dev_ms:.2f} ms in "
+        f"{sum(e.count for e in events)} kernel launches; busy share "
+        f"{dev_ms / steady_env_step_ms:.3f} of phase 3's steady "
+        f"{steady_env_step_ms:.2f} ms/env step [{card}]; "
+        f"table in {OUT}/chip_smoke_profile.txt")
+  for e in sorted(events, key=lambda e: -getattr(e, attr))[:8]:
+    print(f"  {getattr(e, attr) / 1e3:8.3f} ms  x{e.count:5d}  {e.key[:90]}")
+  # Each kernel's device time per launch on the main path, from the profile.
+  path_ms = {}
+  for name in ("chol_factor", "chol_solve", "chol_factor_solve"):
+    hits = [e for e in events if f"{name}_kernel<" in e.key]
+    count = sum(e.count for e in hits)
+    if not count:
+      raise AssertionError(f"{name}: no launch of its kernel in the profile")
+    path_ms[name] = sum(getattr(e, attr) for e in hits) / 1e3 / count
+    print(f"  {name:18s} on the main path {path_ms[name]:.4f} ms/launch "
+          f"(x{count}) [{card}]")
+
+  # -- result lines ---------------------------------------------------------------
+  bnd = bounds(NUM_WORLDS, N)
+  replaces = {
+    "chol_factor": "mjlab_tpu/physics/smooth.py:233",
+    "chol_solve": "mjlab_tpu/physics/smooth.py:238",
+    "chol_factor_solve": "mjlab_tpu/physics/solver.py:227 (and forward.py:116)",
+  }
+  kernels = [
+    {
+      "name": name,
+      "route": "cuda",
+      "source": "mjlab_tpu_torch/csrc/chol.cu",
+      "replaces": replaces[name],
+      "launches": launches[name],
+      "max_abs_err": checks.max_abs_err[name],
+      "ms": times[name][0],
+      "ms_l2_resident": times[name][3],
+      "ms_main_path": path_ms[name],
+      "plain_ms": times[name][1],
+      "bound_ms": bnd[name][0],
+      "bound_by": bnd[name][1],
+      "library_ms": times[name][2],
+    }
+    for name in ("chol_factor", "chol_solve", "chol_factor_solve")
+  ]
+  print(json.dumps({"kernels": kernels}))
+  print(json.dumps({
+    "ok": True,
+    "device": {
+      "platform": "gpu",
+      "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count(),
+    },
+  }))
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

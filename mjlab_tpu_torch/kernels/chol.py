@@ -1,0 +1,167 @@
+"""Batched dense Cholesky factor and solves: the CUDA kernel's wrappers and
+their plain PyTorch versions.
+
+Replaces the XLA-fused `jnp.linalg.cholesky` + `jax.scipy.linalg.
+solve_triangular` pairs of the JAX package at mjlab_tpu/physics/smooth.py:233
+(factor_m), :238-239 (solve_m), solver.py:227-229 (Newton step) and
+forward.py:116-118 (implicit integrator); one physics substep runs 12
+factorizations (factor_m, 10 Newton iterations, integrate).
+
+Kernel: csrc/chol.cu, one thread block per matrix, the matrix in shared
+memory, one barrier per column. Its bound on the H100 at
+B=4096, n=35 in f32: the factor needs A's lower triangle (10.3 MB) and
+writes L (20.1 MB), ~9.1 µs at 3.35 TB/s; a solve needs L's lower triangle
+and b and writes x (11.5 MB), ~3.4 µs. Against only ~59 MFLOP it is memory-
+and latency-bound, not compute-bound.
+
+Semantics (JAX's): a non-positive pivot gives NaN in the whole lower
+triangle of L, and NaN in the solution, instead of raising.
+
+Each wrapper takes the plain version for a CPU tensor and launches the kernel
+for a CUDA tensor, with no fallback between them. Launches are counted in
+`LAUNCHES` (a factor-and-solve counts once); `factorizations()` sums the two
+factorizing entry points.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+MAX_N = 64
+
+LAUNCHES = {"chol_factor": 0, "chol_solve": 0, "chol_factor_solve": 0}
+
+
+def reset_counts() -> None:
+  for k in LAUNCHES:
+    LAUNCHES[k] = 0
+
+
+def factorizations() -> int:
+  return LAUNCHES["chol_factor"] + LAUNCHES["chol_factor_solve"]
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (CPU path and the kernel's check).
+# ---------------------------------------------------------------------------
+
+
+def chol_factor_plain(A: torch.Tensor) -> torch.Tensor:
+  """Column-by-column batched Cholesky, NaN on a non-positive pivot."""
+  n = A.shape[-1]
+  L = torch.zeros_like(A)
+  ok = torch.ones(A.shape[:-2], dtype=torch.bool, device=A.device)
+  for j in range(n):
+    s = A[..., j:, j] - (L[..., j:, :j] @ L[..., j, :j, None])[..., 0]
+    ok = ok & (s[..., 0] > 0)
+    djj = torch.sqrt(s[..., 0])
+    L[..., j, j] = djj
+    L[..., j + 1 :, j] = s[..., 1:] / djj[..., None]
+  lower = torch.ones(n, n, dtype=torch.bool, device=A.device).tril()
+  bad = ~ok[..., None, None] & lower
+  return torch.where(bad, torch.full_like(L, float("nan")), L)
+
+
+def chol_solve_plain(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """Solve L Lᵀ x = b by forward then back substitution."""
+  n = L.shape[-1]
+  y = torch.zeros_like(b)
+  for i in range(n):
+    y[..., i] = (b[..., i] - (L[..., i, :i] * y[..., :i]).sum(-1)) / L[..., i, i]
+  x = torch.zeros_like(b)
+  for i in range(n - 1, -1, -1):
+    acc = (L[..., i + 1 :, i] * x[..., i + 1 :]).sum(-1)
+    x[..., i] = (y[..., i] - acc) / L[..., i, i]
+  return x
+
+
+def chol_factor_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  return chol_solve_plain(chol_factor_plain(A), b)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers.
+# ---------------------------------------------------------------------------
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_bound: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _fn(name: str, dtype: torch.dtype, nptr: int):
+  key = f"{name}_{_SUFFIX[dtype]}"
+  if key not in _bound:
+    from mjlab_tpu_torch.kernels import build
+
+    f = getattr(build.library("chol"), key)
+    f.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    _bound[key] = f
+  return _bound[key]
+
+
+def _check_matrix(A: torch.Tensor, what: str) -> None:
+  if A.device.type != "cuda":
+    raise ValueError(f"{what}: expected a CUDA tensor, got {A.device}")
+  if A.dtype not in _SUFFIX:
+    raise TypeError(f"{what}: dtype {A.dtype} (float32/float64 only)")
+  if A.dim() != 3 or A.shape[1] != A.shape[2]:
+    raise ValueError(f"{what}: expected (B, n, n), got {tuple(A.shape)}")
+  if A.shape[1] > MAX_N:
+    raise ValueError(f"{what}: n={A.shape[1]} exceeds the kernel's {MAX_N}")
+  if not A.is_contiguous():
+    raise ValueError(f"{what}: tensor must be contiguous")
+
+
+def _check_rhs(A: torch.Tensor, b: torch.Tensor, what: str) -> None:
+  if b.device != A.device or b.dtype != A.dtype:
+    raise ValueError(f"{what}: rhs must match the matrix's device and dtype")
+  if b.shape != A.shape[:2]:
+    raise ValueError(f"{what}: rhs shape {tuple(b.shape)} != {tuple(A.shape[:2])}")
+  if not b.is_contiguous():
+    raise ValueError(f"{what}: rhs must be contiguous")
+
+
+def _launch(name: str, *tensors: torch.Tensor) -> None:
+  ref = tensors[0]
+  f = _fn(name, ref.dtype, len(tensors))
+  stream = torch.cuda.current_stream(ref.device).cuda_stream
+  with torch.cuda.device(ref.device):
+    rc = f(*[t.data_ptr() for t in tensors], ref.shape[0], ref.shape[1], stream)
+  if rc != 0:
+    raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+  LAUNCHES[name] += 1
+
+
+def chol_factor(A: torch.Tensor) -> torch.Tensor:
+  """Lower Cholesky factor of a batch (B, n, n) of SPD matrices."""
+  if A.device.type == "cpu":
+    return chol_factor_plain(A)
+  _check_matrix(A, "chol_factor")
+  L = torch.empty_like(A)
+  _launch("chol_factor", A, L)
+  return L
+
+
+def chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """x with L Lᵀ x = b, for L (B, n, n) lower and b (B, n)."""
+  if L.device.type == "cpu":
+    return chol_solve_plain(L, b)
+  _check_matrix(L, "chol_solve")
+  _check_rhs(L, b, "chol_solve")
+  x = torch.empty_like(b)
+  _launch("chol_solve", L, b, x)
+  return x
+
+
+def chol_factor_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """x with A x = b through A's Cholesky factor, which is not kept."""
+  if A.device.type == "cpu":
+    return chol_factor_solve_plain(A, b)
+  _check_matrix(A, "chol_factor_solve")
+  _check_rhs(A, b, "chol_factor_solve")
+  x = torch.empty_like(b)
+  _launch("chol_factor_solve", A, b, x)
+  return x

@@ -1,0 +1,68 @@
+"""Forward dynamics pipeline and the implicitfast integrator (port of
+mjlab_tpu/physics/forward.py).
+
+`forward` keeps mj_forward's stage order; `step` = forward + integrate.
+Each function takes and returns a batched Data (env axis first).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mjlab_tpu_torch.kernels import chol
+from mjlab_tpu_torch.physics import collision as coll
+from mjlab_tpu_torch.physics import constraint, kinematics, sensors, smooth, solver
+from mjlab_tpu_torch.physics.types import Data, Integrator, Model, Topology
+
+
+def fwd_position(tp: Topology, m: Model, d: Data) -> Data:
+  d = kinematics.kinematics(tp, m, d)
+  d = smooth.com_pos(tp, m, d)
+  d = smooth.crb(tp, m, d)
+  d = smooth.factor_m(tp, m, d)
+  d = coll.collision(tp, m, d)
+  d = smooth.com_vel(tp, m, d)
+  return constraint.make_constraint(tp, m, d)
+
+
+def fwd_velocity(tp: Topology, m: Model, d: Data) -> Data:
+  d = smooth.rne(tp, m, d)
+  d = smooth.passive(tp, m, d)
+  d = sensors.sensor_vel(tp, m, d)
+  return d
+
+
+def forward(tp: Topology, m: Model, d: Data) -> Data:
+  d = fwd_position(tp, m, d)
+  d = fwd_velocity(tp, m, d)
+  d = smooth.fwd_actuation(tp, m, d)
+  d = smooth.fwd_acceleration(tp, m, d)
+  d = solver.solve(tp, m, d)
+  d = sensors.sensor_acc(tp, m, d)
+  return d
+
+
+def _implicit_matrix(tp: Topology, m: Model, d: Data) -> torch.Tensor:
+  """M − h·∂f/∂v: dof damping plus, under implicitfast, the actuators'
+  affine velocity gain (−b2 = kd for PD actuators) on the dof diagonal."""
+  h = m.opt.timestep
+  diag = h * m.dof_damping
+  if m.opt.integrator == Integrator.IMPLICITFAST and tp.nu > 0:
+    _, moment = smooth.transmission(tp, m, d)
+    dfdv = -m.actuator_biasprm[:, 2]
+    diag = diag + h * torch.sum(dfdv[:, None] * moment * moment, dim=0)
+  return d.qM + torch.diag(diag)
+
+
+def integrate(tp: Topology, m: Model, d: Data) -> Data:
+  """Implicitfast velocity update, then positions (mj_implicit)."""
+  h = m.opt.timestep
+  qfrc = d.qfrc_smooth + d.qfrc_constraint
+  qacc_int = chol.chol_factor_solve(_implicit_matrix(tp, m, d), qfrc)
+  qvel = d.qvel + h * qacc_int
+  qpos = kinematics.integrate_pos(tp, m, d.qpos, qvel, h)
+  return d.replace(qpos=qpos, qvel=qvel, time=d.time + h)
+
+
+def step(tp: Topology, m: Model, d: Data) -> Data:
+  return integrate(tp, m, forward(tp, m, d))

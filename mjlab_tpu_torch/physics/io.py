@@ -1,0 +1,564 @@
+"""Host-side conversion: compiled MuJoCo model → (Topology, Model), make_data
+(port of mjlab_tpu/physics/io.py).
+
+`put_model` takes any object with `mujoco.MjModel`'s attribute names: a live
+MjModel (the tests), or the namespace `assets.load_model_npz` returns (where
+`mujoco` is not installed). It never imports `mujoco`.
+
+The port covers the features of the G1 velocity-flat scene. Everything else
+the JAX package supports is refused here with `NotImplementedError` naming
+the feature, never simulated wrong.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from mjlab_tpu_torch.physics.types import (
+  OPTION_STATIC,
+  ConeType,
+  Contact,
+  Data,
+  GeomPair,
+  Integrator,
+  Model,
+  Option,
+  Topology,
+  mjtBias,
+  mjtCone,
+  mjtDisableBit,
+  mjtDyn,
+  mjtGain,
+  mjtGeom,
+  mjtIntegrator,
+  mjtJoint,
+  mjtSensor,
+  mjtSolver,
+  mjtTrn,
+)
+
+_G = mjtGeom
+
+# Contact slots per (type1, type2) pair, type1 <= type2: the analytic pairs
+# the port's collision.py implements.
+_PAIR_NCON: dict[tuple[int, int], int] = {
+  (_G.mjGEOM_PLANE, _G.mjGEOM_SPHERE): 1,
+  (_G.mjGEOM_PLANE, _G.mjGEOM_CAPSULE): 2,
+  (_G.mjGEOM_SPHERE, _G.mjGEOM_SPHERE): 1,
+  (_G.mjGEOM_SPHERE, _G.mjGEOM_CAPSULE): 1,
+  (_G.mjGEOM_CAPSULE, _G.mjGEOM_CAPSULE): 1,
+}
+
+_SUPPORTED_SENSORS = (
+  mjtSensor.mjSENS_ACCELEROMETER,
+  mjtSensor.mjSENS_VELOCIMETER,
+  mjtSensor.mjSENS_GYRO,
+  mjtSensor.mjSENS_SUBTREEANGMOM,
+)
+
+
+def _name(m, adr: np.ndarray, i: int) -> str:
+  """Object name from MjModel.names (mj_id2name without mujoco)."""
+  names = bytes(m.names)
+  start = int(adr[i])
+  return names[start : names.index(b"\0", start)].decode() or str(i)
+
+
+def _reject_unsupported(m) -> None:
+  """Refuse every feature outside the port's slice, naming it."""
+  opt = m.opt
+
+  def no(feature: str):
+    raise NotImplementedError(f"{feature} is not supported by mjlab_tpu_torch")
+
+  if int(opt.integrator) not in (
+    mjtIntegrator.mjINT_IMPLICIT, mjtIntegrator.mjINT_IMPLICITFAST
+  ):
+    no(f"integrator {int(opt.integrator)} (Euler/RK4; implicitfast only)")
+  if int(opt.solver) != mjtSolver.mjSOL_NEWTON:
+    no(f"solver {int(opt.solver)} (CG/PGS; Newton only)")
+  if int(opt.cone) != mjtCone.mjCONE_PYRAMIDAL:
+    no("elliptic friction cone")
+  if int(opt.noslip_iterations) > 0:
+    no("noslip post-solver")
+  if float(opt.viscosity) or float(opt.density) or np.any(opt.wind):
+    no("fluid forces (density/viscosity/wind)")
+  if m.ntendon:
+    no("tendons")
+  if m.neq:
+    no("equality constraints")
+  if m.nmocap:
+    no("mocap bodies")
+  if m.npair:
+    no("explicit <pair> elements")
+  if np.any(m.body_gravcomp > 0):
+    no("gravity compensation")
+  if m.na or np.any(m.actuator_dyntype != mjtDyn.mjDYN_NONE):
+    no("actuator activation dynamics")
+  if np.any(m.actuator_gaintype != mjtGain.mjGAIN_FIXED):
+    no("actuator gain types other than fixed (muscle)")
+  if np.any(
+    ~np.isin(m.actuator_biastype, [mjtBias.mjBIAS_NONE, mjtBias.mjBIAS_AFFINE])
+  ):
+    no("actuator bias types other than none/affine (muscle)")
+  if np.any(m.actuator_trntype != mjtTrn.mjTRN_JOINT):
+    no("actuator transmissions other than joint (tendon)")
+  if np.any(m.dof_frictionloss > 0):
+    no("dof friction loss rows")
+  if np.any(m.jnt_type == mjtJoint.mjJNT_BALL):
+    no("ball joints")
+  if np.any(m.body_jntnum > 1):
+    no("bodies with more than one joint")
+  if np.any(~np.isin(m.geom_condim, [1, 3])):
+    no("contact condim other than 1 and 3")
+  for s in m.sensor_type:
+    if int(s) not in _SUPPORTED_SENSORS:
+      no(f"sensor type {int(s)}")
+  # Colliding mesh, height-field, box (incl. terrain pools), cylinder and
+  # ellipsoid geoms are refused by _candidate_pairs, which has no
+  # narrowphase for their pairs.
+
+
+def _pair_key(m, ga: int, gb: int):
+  t1, t2 = int(m.geom_type[ga]), int(m.geom_type[gb])
+  if t1 > t2:
+    ga, gb, t1, t2 = gb, ga, t2, t1
+  return ((t1, t2) if (t1, t2) in _PAIR_NCON else None), ga, gb
+
+
+def _combined_condim(m, ga: int, gb: int) -> int:
+  """mj_contactParam condim: higher-priority geom wins, else max."""
+  p1, p2 = int(m.geom_priority[ga]), int(m.geom_priority[gb])
+  if p1 != p2:
+    return int(m.geom_condim[ga if p1 > p2 else gb])
+  return max(int(m.geom_condim[ga]), int(m.geom_condim[gb]))
+
+
+def _candidate_pairs(m) -> list[GeomPair]:
+  """Collision pairs with MuJoCo's body-level filtering (same-body/weld,
+  parent-child unless disabled, <exclude>, contype/conaffinity), sorted by
+  type pair so each narrowphase group is contiguous."""
+  excluded = set()
+  for i in range(m.nexclude):
+    sig = int(m.exclude_signature[i])
+    excluded.add((sig >> 16, sig & 0xFFFF))
+  filterparent = not (int(m.opt.disableflags) & mjtDisableBit.mjDSBL_FILTERPARENT)
+
+  def compatible(g1: int, g2: int) -> bool:
+    b1, b2 = int(m.geom_bodyid[g1]), int(m.geom_bodyid[g2])
+    w1, w2 = int(m.body_weldid[b1]), int(m.body_weldid[b2])
+    if w1 == w2:
+      return False
+    pw1 = int(m.body_weldid[m.body_parentid[w1]])
+    pw2 = int(m.body_weldid[m.body_parentid[w2]])
+    if filterparent and w1 != 0 and w2 != 0 and (w1 == pw2 or w2 == pw1):
+      return False
+    if (b1, b2) in excluded or (b2, b1) in excluded:
+      return False
+    t1, t2 = int(m.geom_contype[g1]), int(m.geom_contype[g2])
+    a1, a2 = int(m.geom_conaffinity[g1]), int(m.geom_conaffinity[g2])
+    return bool((t1 & a2) or (t2 & a1))
+
+  pairs: list[GeomPair] = []
+  for g1 in range(m.ngeom):
+    for g2 in range(g1 + 1, m.ngeom):
+      if not compatible(g1, g2):
+        continue
+      key, ga, gb = _pair_key(m, g1, g2)
+      if key is None:
+        names = [_name(m, m.name_geomadr, g) for g in (ga, gb)]
+        raise NotImplementedError(
+          f"collision pair of geom types "
+          f"{(int(m.geom_type[ga]), int(m.geom_type[gb]))} between geoms "
+          f"{names} is not supported by mjlab_tpu_torch"
+        )
+      pairs.append(
+        GeomPair(
+          geom1=ga, geom2=gb, type1=key[0], type2=key[1],
+          ncon=_PAIR_NCON[key], condim=_combined_condim(m, ga, gb),
+        )
+      )
+  pairs.sort(key=lambda p: (p.type1, p.type2))
+  return pairs
+
+
+def _transmission_matrices(m) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+  """Static (nu, nq) / (nu, nv) one-hot joint transmission matrices."""
+  qmat = np.zeros((m.nu, m.nq))
+  vmat = np.zeros((m.nu, m.nv))
+  for u in range(m.nu):
+    j = int(m.actuator_trnid[u, 0])
+    if int(m.jnt_type[j]) not in (mjtJoint.mjJNT_HINGE, mjtJoint.mjJNT_SLIDE):
+      raise NotImplementedError("free/ball joint actuators")
+    qmat[u, m.jnt_qposadr[j]] = 1.0
+    vmat[u, m.jnt_dofadr[j]] = 1.0
+  return qmat, vmat, np.full(m.nu, -1, dtype=np.int32)
+
+
+def _dof_ancestor_mask(m) -> np.ndarray:
+  """mask[i, j] = 1 iff dof j is an ancestor of dof i (or j == i)."""
+  mask = np.zeros((m.nv, m.nv), dtype=bool)
+  for i in range(m.nv):
+    j = i
+    while j >= 0:
+      mask[i, j] = True
+      j = int(m.dof_parentid[j])
+  return mask
+
+
+def _body_levels(m) -> tuple[np.ndarray, ...]:
+  """Non-world bodies grouped by tree depth."""
+  depth = np.zeros(m.nbody, dtype=int)
+  for i in range(1, m.nbody):
+    depth[i] = depth[m.body_parentid[i]] + 1
+  top = depth.max() + 1 if m.nbody > 1 else 1
+  return tuple(np.nonzero(depth == lv)[0] for lv in range(1, top))
+
+
+def _body_masks(m) -> tuple[np.ndarray, np.ndarray]:
+  """(subtree[i, j]: body j in subtree of i, body_dof[i, j]: dof j moves an
+  ancestor-or-self of body i)."""
+  ancestor = np.zeros((m.nbody, m.nbody), dtype=bool)
+  for j in range(m.nbody):
+    i = j
+    while True:
+      ancestor[j, i] = True
+      if i == 0:
+        break
+      i = int(m.body_parentid[i])
+  body_dof = np.zeros((m.nbody, m.nv), dtype=bool)
+  for j in range(m.nv):
+    body_dof[:, j] = ancestor[:, m.dof_bodyid[j]]
+  return ancestor.T, body_dof
+
+
+def contact_rows(condim: int, cone: int) -> int:
+  """Constraint rows per contact slot."""
+  if cone == ConeType.PYRAMIDAL:
+    return 1 if condim == 1 else 2 * (condim - 1)
+  return condim
+
+
+def _tensor(x, dtype, device) -> torch.Tensor:
+  """A copy of array-like `x` as a tensor (never a view of host memory)."""
+  return torch.tensor(np.array(x), device=device).to(dtype)
+
+
+def default_device() -> torch.device:
+  """Entry points run on the card unless the caller asks for the CPU."""
+  return torch.device("cuda")
+
+
+def put_model(
+  m, dtype=torch.float32, device: torch.device | str | None = None
+) -> tuple[Topology, Model]:
+  """Convert a compiled model into (Topology, Model) on `device` (default
+  CUDA). Builds the device index tables of every stage once, here."""
+  device = torch.device(device) if device is not None else default_device()
+  _reject_unsupported(m)
+
+  pairs = tuple(_candidate_pairs(m))
+  ncon_max = sum(p.ncon for p in pairs)
+  cone = int(m.opt.cone)
+  limited_joints = np.nonzero(
+    (m.jnt_limited == 1)
+    & np.isin(m.jnt_type, [mjtJoint.mjJNT_HINGE, mjtJoint.mjJNT_SLIDE])
+  )[0]
+  empty = np.zeros(0, dtype=np.int64)
+  nefc = len(limited_joints) + sum(
+    p.ncon * contact_rows(p.condim, cone) for p in pairs
+  )
+  trn_qmat, trn_vmat, actuator_dyn_tendon = _transmission_matrices(m)
+  subtree, body_dof = _body_masks(m)
+
+  tp = Topology(
+    nq=m.nq, nv=m.nv, nu=m.nu, nbody=m.nbody, njnt=m.njnt, ngeom=m.ngeom,
+    nsite=m.nsite, nsensor=m.nsensor, nsensordata=m.nsensordata,
+    nmocap=m.nmocap,
+    body_parentid=m.body_parentid.copy(),
+    body_rootid=m.body_rootid.copy(),
+    body_weldid=m.body_weldid.copy(),
+    body_jntadr=m.body_jntadr.copy(),
+    body_jntnum=m.body_jntnum.copy(),
+    body_dofadr=m.body_dofadr.copy(),
+    body_dofnum=m.body_dofnum.copy(),
+    body_geomadr=m.body_geomadr.copy(),
+    body_geomnum=m.body_geomnum.copy(),
+    body_mocapid=m.body_mocapid.copy(),
+    jnt_type=m.jnt_type.copy(),
+    jnt_qposadr=m.jnt_qposadr.copy(),
+    jnt_dofadr=m.jnt_dofadr.copy(),
+    jnt_bodyid=m.jnt_bodyid.copy(),
+    jnt_limited=m.jnt_limited.copy(),
+    jnt_actfrclimited=m.jnt_actfrclimited.copy(),
+    dof_bodyid=m.dof_bodyid.copy(),
+    dof_jntid=m.dof_jntid.copy(),
+    dof_parentid=m.dof_parentid.copy(),
+    geom_type=m.geom_type.copy(),
+    geom_bodyid=m.geom_bodyid.copy(),
+    geom_condim=m.geom_condim.copy(),
+    geom_priority=m.geom_priority.copy(),
+    geom_dataid=m.geom_dataid.copy(),
+    geom_hulls={},
+    body_gravcomp_host=m.body_gravcomp.copy(),
+    has_fluid=False,
+    site_bodyid=m.site_bodyid.copy(),
+    site_type=m.site_type.copy(),
+    site_size=m.site_size.copy(),
+    actuator_trntype=m.actuator_trntype.copy(),
+    actuator_trnid=m.actuator_trnid.copy(),
+    trn_qmat=trn_qmat,
+    trn_vmat=trn_vmat,
+    ntendon=0,
+    tendon_qmat=np.zeros((0, m.nq)),
+    tendon_vmat=np.zeros((0, m.nv)),
+    tendon_length0=m.tendon_length0.copy(),
+    tendon_invweight0=m.tendon_invweight0.copy(),
+    tendon_kind=np.zeros(0, dtype=np.int32),
+    tendon_seg_sites=np.full((0, 1, 2), -1, dtype=np.int32),
+    tendon_seg_scale=np.zeros((0, 1)),
+    tendon_seg_geom=np.full((0, 1), -1, dtype=np.int32),
+    tendon_seg_side=np.full((0, 1), -1, dtype=np.int32),
+    limited_tendon_ids=empty,
+    actuator_dyn_tendon=actuator_dyn_tendon,
+    actuator_gaintype=m.actuator_gaintype.copy(),
+    actuator_biastype=m.actuator_biastype.copy(),
+    actuator_ctrllimited=m.actuator_ctrllimited.copy(),
+    actuator_forcelimited=m.actuator_forcelimited.copy(),
+    na=0,
+    actuator_dyntype=m.actuator_dyntype.copy(),
+    actuator_actadr=m.actuator_actadr.copy(),
+    actuator_actlimited=m.actuator_actlimited.copy(),
+    actuator_actearly=m.actuator_actearly.copy(),
+    act_actuator=np.zeros(0, dtype=np.int32),
+    sensor_type=m.sensor_type.copy(),
+    sensor_datatype=m.sensor_datatype.copy(),
+    sensor_objtype=m.sensor_objtype.copy(),
+    sensor_objid=m.sensor_objid.copy(),
+    sensor_reftype=m.sensor_reftype.copy(),
+    sensor_refid=m.sensor_refid.copy(),
+    sensor_adr=m.sensor_adr.copy(),
+    sensor_dim=m.sensor_dim.copy(),
+    body_levels=_body_levels(m),
+    dof_ancestor_mask=_dof_ancestor_mask(m),
+    body_subtree_mask=subtree,
+    body_dof_mask=body_dof,
+    limited_joint_ids=limited_joints,
+    limited_ball_joint_ids=empty,
+    friction_dof_ids=empty,
+    eq_type=m.eq_type.copy(),
+    eq_obj1id=m.eq_obj1id.copy(),
+    eq_obj2id=m.eq_obj2id.copy(),
+    eq_objtype=m.eq_objtype.copy(),
+    eq_active0=m.eq_active0.copy().astype(bool),
+    neq_rows=0,
+    pairs=pairs,
+    terrain_groups=(),
+    ncon_max=ncon_max,
+    nefc=nefc,
+    nhfield=0,
+    hfield_nrow=m.hfield_nrow.copy(),
+    hfield_ncol=m.hfield_ncol.copy(),
+    hfield_adr=m.hfield_adr.copy(),
+  )
+  tp = dataclasses.replace(tp, dev=device_tables(tp, dtype, device))
+
+  def arr(x):
+    return _tensor(x, dtype, device)
+
+  opt = m.opt
+  option = Option(
+    timestep=arr(opt.timestep),
+    gravity=arr(opt.gravity),
+    magnetic=arr(opt.magnetic),
+    impratio=arr(opt.impratio),
+    tolerance=arr(opt.tolerance),
+    ls_tolerance=arr(opt.ls_tolerance),
+    density=arr(opt.density),
+    viscosity=arr(opt.viscosity),
+    wind=arr(opt.wind),
+    integrator=Integrator.IMPLICITFAST,
+    cone=cone,
+    solver=int(opt.solver),
+    iterations=int(opt.iterations),
+    ls_iterations=int(opt.ls_iterations),
+  )
+  leaves = {}
+  for f in model_fields():
+    if f.startswith("pair_") or f.startswith("eq_") or f.startswith("hfield_"):
+      continue  # empty: rejected above
+    leaves[f] = arr(getattr(m, f))
+  width = {"pair_friction": 5, "pair_solref": 2, "pair_solreffriction": 2,
+           "pair_solimp": 5, "pair_margin": None, "hfield_data": None,
+           "hfield_size": 4, "eq_solref": 2, "eq_solimp": 5, "eq_data": 11}
+  for f, w in width.items():
+    leaves[f] = arr(np.zeros((0,) if w is None else (0, w)))
+  return tp, Model(opt=option, **leaves)
+
+
+def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
+  """Upload every stage's index and mask tensors (one namespace each)."""
+  from mjlab_tpu_torch.physics import collision, constraint, kinematics, smooth
+
+  return SimpleNamespace(
+    kin=kinematics.device_tables(tp, dtype, device),
+    smooth=smooth.device_tables(tp, dtype, device),
+    coll=collision.device_tables(tp, dtype, device),
+    con=constraint.device_tables(tp, dtype, device),
+  )
+
+
+def make_data(tp: Topology, model: Model, num_envs: int) -> Data:
+  """Fresh batched Data at qpos0. Call forward() to populate derived state."""
+  dtype, device = model.qpos0.dtype, model.qpos0.device
+  B, C = num_envs, tp.ncon_max
+
+  def z(*shape):
+    return torch.zeros((B,) + shape, dtype=dtype, device=device)
+
+  def tile(values, *shape):
+    t = torch.as_tensor(values, dtype=dtype, device=device)
+    return t.expand((B,) + shape + t.shape).clone()
+
+  eye3 = torch.eye(3, dtype=dtype, device=device)
+  contact = Contact(
+    dist=torch.full((B, C), 1e10, dtype=dtype, device=device),
+    pos=z(C, 3),
+    frame=tile(eye3, C),
+    includemargin=z(C),
+    friction=tile([1.0, 1.0, 0.005, 0.0001, 0.0001], C),
+    solref=tile([0.02, 1.0], C),
+    solimp=tile([0.9, 0.95, 0.001, 0.5, 2.0], C),
+    solreffriction=z(C, 2),
+  )
+  return Data(
+    time=z(),
+    qpos=model.qpos0.expand(B, tp.nq).clone(),
+    qvel=z(tp.nv),
+    act=z(tp.na),
+    ctrl=z(tp.nu),
+    qfrc_applied=z(tp.nv),
+    xfrc_applied=z(tp.nbody, 6),
+    mocap_pos=z(tp.nmocap, 3),
+    mocap_quat=tile([1.0, 0, 0, 0], tp.nmocap),
+    qacc_warmstart=z(tp.nv),
+    xanchor=z(tp.njnt, 3),
+    xaxis=z(tp.njnt, 3),
+    xpos=z(tp.nbody, 3),
+    xquat=tile([1.0, 0, 0, 0], tp.nbody),
+    xmat=tile(eye3, tp.nbody),
+    xipos=z(tp.nbody, 3),
+    ximat=tile(eye3, tp.nbody),
+    geom_xpos=z(tp.ngeom, 3),
+    geom_xmat=tile(eye3, tp.ngeom),
+    site_xpos=z(tp.nsite, 3),
+    site_xmat=tile(eye3, tp.nsite),
+    ten_length=z(tp.ntendon),
+    ten_velocity=z(tp.ntendon),
+    ten_J=z(tp.ntendon, tp.nv),
+    subtree_com=z(tp.nbody, 3),
+    cinert=z(tp.nbody, 10),
+    cdof=z(tp.nv, 6),
+    cvel=z(tp.nbody, 6),
+    cdof_dot=z(tp.nv, 6),
+    qM=z(tp.nv, tp.nv),
+    qLD=z(tp.nv, tp.nv),
+    qfrc_bias=z(tp.nv),
+    qfrc_passive=z(tp.nv),
+    qfrc_spring=z(tp.nv),
+    qfrc_damper=z(tp.nv),
+    actuator_length=z(tp.nu),
+    actuator_velocity=z(tp.nu),
+    actuator_force=z(tp.nu),
+    act_dot=z(tp.na),
+    qfrc_actuator=z(tp.nv),
+    qfrc_smooth=z(tp.nv),
+    qacc_smooth=z(tp.nv),
+    contact=contact,
+    efc_J=z(tp.nefc, tp.nv),
+    efc_D=z(tp.nefc),
+    efc_aref=z(tp.nefc),
+    efc_pos=z(tp.nefc),
+    efc_margin=z(tp.nefc),
+    efc_frictionloss=z(tp.nefc),
+    efc_force=z(tp.nefc),
+    qfrc_constraint=z(tp.nv),
+    qacc=z(tp.nv),
+    sensordata=z(tp.nsensordata),
+    subtree_linvel=z(tp.nbody, 3),
+    subtree_angmom=z(tp.nbody, 3),
+    ncon_dropped=torch.zeros(B, dtype=torch.int32, device=device),
+  )
+
+
+def model_fields() -> list[str]:
+  """Names of the Model's parameter leaves (all but opt)."""
+  return [f.name for f in dataclasses.fields(Model) if f.name != "opt"]
+
+
+# ---------------------------------------------------------------------------
+# Carrying state across: numpy dicts ⇄ port types. The tests feed both
+# engines the same model (including randomized leaves) and the same states.
+# ---------------------------------------------------------------------------
+
+
+def model_from_arrays(
+  arrays: dict[str, np.ndarray], dtype=torch.float32, device=None
+) -> Model:
+  """Model from numpy leaves named as the JAX package's Model fields; the
+  option leaves are named `opt.<field>` (static ones as 0-d integers)."""
+  device = torch.device(device) if device is not None else default_device()
+
+  def arr(x):
+    return _tensor(x, dtype, device)
+
+  opt_kw = {}
+  for f in dataclasses.fields(Option):
+    x = arrays[f"opt.{f.name}"]
+    opt_kw[f.name] = (
+      type(f.default)(np.asarray(x).item()) if f.name in OPTION_STATIC else arr(x)
+    )
+  return Model(opt=Option(**opt_kw), **{f: arr(arrays[f]) for f in model_fields()})
+
+
+def _data_leaves(d) -> dict[str, object]:
+  out = {}
+  for f in dataclasses.fields(d):
+    v = getattr(d, f.name)
+    if dataclasses.is_dataclass(v):
+      for g in dataclasses.fields(v):
+        out[f"{f.name}.{g.name}"] = getattr(v, g.name)
+    else:
+      out[f.name] = v
+  return out
+
+
+def data_to_arrays(d: Data) -> dict[str, np.ndarray]:
+  """Batched Data → {field or contact.<field>: numpy array}."""
+  return {k: v.detach().cpu().numpy() for k, v in _data_leaves(d).items()}
+
+
+def data_from_arrays(
+  arrays: dict[str, np.ndarray], dtype=torch.float32, device=None
+) -> Data:
+  """Batched Data from numpy leaves (the names `data_to_arrays` writes).
+  Integer leaves keep an integer dtype."""
+  device = torch.device(device) if device is not None else default_device()
+
+  def arr(x):
+    x = np.asarray(x)
+    t = dtype if np.issubdtype(x.dtype, np.floating) else torch.int32
+    return _tensor(x, t, device)
+
+  contact = Contact(
+    **{f.name: arr(arrays[f"contact.{f.name}"]) for f in dataclasses.fields(Contact)}
+  )
+  kw = {
+    f.name: arr(arrays[f.name]) for f in dataclasses.fields(Data)
+    if f.name != "contact"
+  }
+  return Data(contact=contact, **kw)

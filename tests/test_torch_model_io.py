@@ -1,0 +1,135 @@
+"""Model upload parity: the port's put_model against the JAX package's, on a
+toy scene and on G1 velocity-flat, and the committed G1 npz's freshness."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from mjlab_tpu_torch import assets
+from mjlab_tpu_torch.physics import io as tio
+from mjlab_tpu_torch.physics.types import Model, Option
+from tests.torch_parity import g1_mj_model, jax_model_arrays, scene
+
+SCENE_NAMES = ("toy", "g1")
+
+
+def _equal(a, b, what):
+  a, b = np.asarray(a), np.asarray(b)
+  assert a.shape == b.shape, (what, a.shape, b.shape)
+  assert np.array_equal(a, b), what
+
+
+@pytest.mark.parametrize("name", SCENE_NAMES)
+def test_topology_equal(name):
+  sc = scene(name)
+  for f in dataclasses.fields(sc.jtp):
+    want, got = getattr(sc.jtp, f.name), getattr(sc.ttp, f.name)
+    if f.name == "body_levels":
+      assert len(got) == len(want)
+      for g, w in zip(got, want):
+        _equal(g, w, f.name)
+    elif f.name == "pairs":
+      assert [dataclasses.astuple(p) for p in got] == [
+        dataclasses.astuple(p) for p in want
+      ]
+    elif isinstance(want, np.ndarray):
+      _equal(got, want, f.name)
+    else:
+      assert got == want or (not got and not want), f.name
+
+
+@pytest.mark.parametrize("name", SCENE_NAMES)
+def test_model_leaves_equal(name):
+  sc = scene(name)
+  want = jax_model_arrays(sc.jm)
+  got = {f: getattr(sc.tm, f) for f in tio.model_fields()}
+  for f, v in got.items():
+    _equal(v.numpy(), want[f], f)
+  for f in dataclasses.fields(Option):
+    v = getattr(sc.tm.opt, f.name)
+    v = v.numpy() if isinstance(v, torch.Tensor) else v
+    _equal(v, want[f"opt.{f.name}"], f"opt.{f.name}")
+
+
+@pytest.mark.parametrize("name", SCENE_NAMES)
+def test_model_from_arrays_matches_put_model(name):
+  sc = scene(name)
+  arrays = jax_model_arrays(sc.jm)
+  m = tio.model_from_arrays(arrays, dtype=torch.float64, device="cpu")
+  for f in dataclasses.fields(Model):
+    a, b = getattr(m, f.name), getattr(sc.tm, f.name)
+    if f.name == "opt":
+      for g in dataclasses.fields(Option):
+        x, y = getattr(a, g.name), getattr(b, g.name)
+        assert (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y), g.name
+    else:
+      assert a.dtype == b.dtype and torch.equal(a, b), f.name
+
+
+def test_model_from_arrays_carries_randomized_leaf():
+  sc = scene("g1")
+  arrays = jax_model_arrays(sc.jm)
+  rng = np.random.default_rng(3)
+  arrays["geom_friction"] = arrays["geom_friction"] * rng.uniform(
+    0.5, 1.5, arrays["geom_friction"].shape
+  )
+  m = tio.model_from_arrays(arrays, dtype=torch.float64, device="cpu")
+  _equal(m.geom_friction.numpy(), arrays["geom_friction"], "geom_friction")
+
+
+def test_npz_loads_like_the_live_model():
+  """put_model on the committed npz gives the live model's Topology and
+  Model (the GPU host's path)."""
+  sc = scene("g1")
+  tp, m = tio.put_model(assets.load_model_npz(), dtype=torch.float64, device="cpu")
+  assert tp.ncon_max == sc.ttp.ncon_max == 533
+  assert tp.nefc == sc.ttp.nefc == 1699
+  assert [dataclasses.astuple(p) for p in tp.pairs] == [
+    dataclasses.astuple(p) for p in sc.ttp.pairs
+  ]
+  for f in tio.model_fields():
+    assert torch.equal(getattr(m, f), getattr(sc.tm, f)), f
+
+
+def test_g1_npz_is_fresh(tmp_path):
+  """The committed npz equals save_model_npz of a fresh G1 compile.
+
+  Regenerate it with:
+  PYTHONPATH=. JAX_PLATFORMS=cpu python -c "from tests.torch_parity import g1_mj_model; from mjlab_tpu_torch.assets import save_model_npz, G1_VELOCITY_FLAT; save_model_npz(g1_mj_model(), G1_VELOCITY_FLAT)"
+  """
+  fresh = tmp_path / "g1.npz"
+  assets.save_model_npz(g1_mj_model(), fresh)
+  with np.load(fresh) as a, np.load(assets.G1_VELOCITY_FLAT) as b:
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+      assert a[k].dtype == b[k].dtype, k
+      assert np.array_equal(a[k], b[k], equal_nan=a[k].dtype.kind == "f"), k
+
+
+@pytest.mark.parametrize(
+  "xml_edit, feature",
+  [
+    ('integrator="implicitfast"', "integrator"),
+    ('iterations="10"', "solver"),
+    ('iterations="10"', "elliptic"),
+    ('damping="1"', "friction loss"),
+  ],
+)
+def test_unsupported_features_raise(xml_edit, feature):
+  import mujoco
+
+  from tests.torch_parity import TOY_XML
+
+  repl = {
+    "integrator": 'integrator="RK4"',
+    "solver": 'iterations="10" solver="CG"',
+    "elliptic": 'iterations="10" cone="elliptic"',
+    "friction loss": 'damping="1" frictionloss="0.1"',
+  }[feature]
+  m = mujoco.MjModel.from_xml_string(TOY_XML.replace(xml_edit, repl, 1))
+  with pytest.raises(NotImplementedError, match=feature.split()[0]):
+    tio.put_model(m, dtype=torch.float64, device="cpu")

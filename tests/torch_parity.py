@@ -1,0 +1,219 @@
+"""Shared helpers for the PyTorch port's parity tests (tests/test_torch_*.py).
+
+Both engines are built from the same compiled MjModel and run in float64 on
+the CPU; inputs are made with numpy from fixed seeds and handed to both as
+numpy arrays. Contact-rich states come from a JAX rollout from the
+keyframe with seeded controls, so that contacts and joint limits are active.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import mujoco
+import numpy as np
+import torch
+
+from mjlab_tpu import physics as jphysics
+from mjlab_tpu_torch.physics import io as tio
+
+# A capsule chain with hinge/slide limits on a free base, a free sphere and a
+# free capsule over a plane, PD position actuators and the four sensor types
+# of the G1 velocity task. Condim 1 and 3 geoms and a higher-priority floor
+# exercise the contact-parameter mixing.
+TOY_XML = """
+<mujoco>
+  <option timestep="0.004" iterations="10" ls_iterations="20"
+          integrator="implicitfast"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 0.1" priority="1"
+          friction="0.8 0.01 0.001"/>
+    <body name="base" pos="0 0 0.45">
+      <freejoint/>
+      <geom type="capsule" size="0.06" fromto="-0.15 0 0 0.15 0 0" mass="2"/>
+      <site name="imu" pos="0.05 0.02 0.03" quat="0.9 0.1 0.3 0"/>
+      <body name="link1" pos="0.2 0 0">
+        <joint name="j1" type="hinge" axis="0 1 0" range="-0.4 0.4"
+               damping="0.2" armature="0.01" stiffness="2"/>
+        <geom type="capsule" size="0.04" fromto="0 0 0 0.25 0 -0.1" mass="0.6"/>
+        <body name="link2" pos="0.25 0 -0.1">
+          <joint name="j2" type="hinge" axis="0 0.6 0.8" range="-0.3 0.3"
+                 armature="0.02"/>
+          <geom type="capsule" size="0.035" fromto="0 0 0 0.2 0 0" mass="0.4"
+                condim="1"/>
+          <body name="link3" pos="0.2 0 0">
+            <joint name="j3" type="slide" axis="1 0 0" range="-0.05 0.05"
+                   damping="1"/>
+            <geom type="sphere" size="0.05" mass="0.3"/>
+          </body>
+        </body>
+      </body>
+      <body name="leg" pos="-0.2 0 0">
+        <joint name="j4" type="hinge" axis="1 0 0" range="-0.6 0.6"/>
+        <geom type="capsule" size="0.04" fromto="0 0 0 0 0 -0.35" mass="0.5"/>
+      </body>
+    </body>
+    <body name="ball" pos="0.3 0.25 0.3">
+      <freejoint/>
+      <geom type="sphere" size="0.07" mass="0.5" condim="1"/>
+    </body>
+    <body name="rod" pos="-0.1 -0.3 0.25" euler="0.3 0.2 0">
+      <freejoint/>
+      <geom type="capsule" size="0.05" fromto="-0.1 0 0 0.1 0 0" mass="0.7"/>
+    </body>
+  </worldbody>
+  <actuator>
+    <position joint="j1" kp="40" kv="1.5" ctrlrange="-0.5 0.5"/>
+    <position joint="j2" kp="25" kv="1" forcerange="-3 3"/>
+    <position joint="j3" kp="100" kv="4"/>
+    <position joint="j4" kp="30"/>
+  </actuator>
+  <sensor>
+    <accelerometer site="imu"/>
+    <velocimeter site="imu"/>
+    <gyro site="imu"/>
+    <subtreeangmom body="base"/>
+  </sensor>
+  <keyframe>
+    <key qpos="0 0 0.45 1 0 0 0  0.1 -0.1 0.01 0.2
+               0.3 0.25 0.3 1 0 0 0
+               -0.1 -0.3 0.25 0.98 0.15 0.1 0"/>
+  </keyframe>
+</mujoco>
+"""
+
+
+def toy_mj_model() -> mujoco.MjModel:
+  return mujoco.MjModel.from_xml_string(TOY_XML)
+
+
+def g1_mj_model() -> mujoco.MjModel:
+  """The G1 velocity-flat scene with the task's solver options applied."""
+  from mjlab_tpu.scene import Scene
+  from mjlab_tpu.tasks.velocity.config.g1.env_cfgs import unitree_g1_flat_env_cfg
+
+  cfg = unitree_g1_flat_env_cfg()
+  m = Scene(cfg.scene).compile()
+  cfg.sim.mujoco.apply(m)
+  return m
+
+
+SCENES = {"toy": toy_mj_model, "g1": g1_mj_model}
+
+
+# ---------------------------------------------------------------------------
+# Carrying leaves across.
+# ---------------------------------------------------------------------------
+
+
+def jax_model_arrays(jm) -> dict[str, np.ndarray]:
+  """The JAX Model's leaves by name, option fields as `opt.<field>`."""
+  out = {
+    f.name: np.asarray(getattr(jm, f.name))
+    for f in dataclasses.fields(jm) if f.name != "opt"
+  }
+  for f in dataclasses.fields(jm.opt):
+    out[f"opt.{f.name}"] = np.asarray(getattr(jm.opt, f.name))
+  return out
+
+
+def jax_data_arrays(jd) -> dict[str, np.ndarray]:
+  """A (batched) JAX Data's leaves by name, contact fields as
+  `contact.<field>` — the names io.data_to_arrays writes."""
+  out = {}
+  for f in dataclasses.fields(jd):
+    v = getattr(jd, f.name)
+    if f.name == "contact":
+      for g in dataclasses.fields(v):
+        out[f"contact.{g.name}"] = np.asarray(getattr(v, g.name))
+    else:
+      out[f.name] = np.asarray(v)
+  return out
+
+
+def jax_data_from_arrays(arrays: dict[str, np.ndarray]):
+  contact = jphysics.Contact(
+    **{f.name: jnp.asarray(arrays[f"contact.{f.name}"])
+       for f in dataclasses.fields(jphysics.Contact)}
+  )
+  return jphysics.Data(
+    contact=contact,
+    **{f.name: jnp.asarray(arrays[f.name])
+       for f in dataclasses.fields(jphysics.Data) if f.name != "contact"},
+  )
+
+
+def to_torch(arrays: dict[str, np.ndarray]):
+  return tio.data_from_arrays(arrays, dtype=torch.float64, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Scenes and states.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Scene:
+  mj: mujoco.MjModel
+  jtp: object
+  jm: object
+  ttp: object
+  tm: object
+  states: dict[str, np.ndarray]  # 8 contact-rich states, batched
+  ctrl_ref: np.ndarray  # (nu,) keyframe joint targets
+
+
+def _ctrl_ref(mj: mujoco.MjModel) -> np.ndarray:
+  key = mj.key_qpos[0]
+  return np.asarray([key[mj.jnt_qposadr[mj.actuator_trnid[u, 0]]]
+                     for u in range(mj.nu)])
+
+
+@functools.lru_cache(maxsize=None)
+def jax_step(name: str):
+  sc = scene(name)
+  return jax.jit(jax.vmap(lambda d: jphysics.step(sc.jtp, sc.jm, d)))
+
+
+def rollout_states(mj, jtp, jm, n_worlds: int, n_steps: int, seed: int):
+  """JAX rollout from the keyframe with seeded joint perturbations and
+  controls (keyframe targets + noise); returns the final batched state."""
+  rng = np.random.default_rng(seed)
+  d0 = jphysics.make_data(jtp, jm)
+  qpos = np.tile(mj.key_qpos[0], (n_worlds, 1))
+  hinge = np.nonzero(mj.jnt_type == mujoco.mjtJoint.mjJNT_HINGE)[0]
+  qa = mj.jnt_qposadr[hinge]
+  qpos[:, qa] += rng.normal(0.0, 0.05, (n_worlds, len(qa)))
+  d = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (n_worlds,) + x.shape), d0)
+  d = d.replace(qpos=jnp.asarray(qpos))
+  step = jax.jit(jax.vmap(lambda d: jphysics.step(jtp, jm, d)))
+  ref = _ctrl_ref(mj)
+  for _ in range(n_steps):
+    ctrl = ref + rng.normal(0.0, 0.3, (n_worlds, mj.nu))
+    d = step(d.replace(ctrl=jnp.asarray(ctrl)))
+  return jax_data_arrays(d)
+
+
+@functools.lru_cache(maxsize=None)
+def scene(name: str) -> Scene:
+  mj = SCENES[name]()
+  jtp, jm = jphysics.put_model(mj, dtype=jnp.float64)
+  ttp, tm = tio.put_model(mj, dtype=torch.float64, device="cpu")
+  n_steps = {"toy": 60, "g1": 30}[name]
+  states = rollout_states(mj, jtp, jm, n_worlds=8, n_steps=n_steps, seed=7)
+  return Scene(mj, jtp, jm, ttp, tm, states, _ctrl_ref(mj))
+
+
+def assert_close(got, want, tol: float, what: str = "") -> float:
+  """max |got − want| <= tol · max(1, max |want|); returns that error."""
+  got, want = np.asarray(got), np.asarray(want)
+  assert got.shape == want.shape, (what, got.shape, want.shape)
+  assert np.array_equal(np.isnan(got), np.isnan(want)), what
+  ok = ~np.isnan(want)
+  err = float(np.max(np.abs(got[ok] - want[ok]), initial=0.0))
+  scale = max(1.0, float(np.max(np.abs(want[ok]), initial=0.0)))
+  assert err <= tol * scale, f"{what}: max abs err {err:.3e} > {tol:.0e} x {scale:.3e}"
+  return err
