@@ -8,24 +8,30 @@ Run from the root of a checkout on a machine with one CUDA card:
 It imports nothing of JAX or of the JAX package and needs no network.
 Phases, each printing its own lines:
   1. build every CUDA kernel from csrc/ (nvcc, in parallel) into build/kernels;
-  2. hold each kernel against its plain PyTorch version on random SPD
-     matrices at the main path's shapes (4096 × 35 × 35, float32) and time
-     kernel, plain version and the PyTorch library call beside it, over
-     distinct batches that exceed L2 (and the kernel on one L2-resident
-     batch);
+  2. hold each kernel against its plain PyTorch version at the main path's
+     shapes (float32): the Cholesky entry points on random SPD matrices
+     (4096 × 35 × 35), the Newton direction on random qM, dense weights and
+     J (4096 × 1699 × 35, 0.97 GB); time kernel, plain version and the
+     PyTorch call (or, for the Newton direction, the torch path it
+     replaces) over distinct batches that exceed L2, and the kernel on one
+     L2-resident batch (the Cholesky entry points only: one Newton input,
+     J alone, is 0.97 GB, 20 times the L2);
   3. drive the main path — `Simulation.step_fn()` on the G1 velocity-flat
      scene at 4096 worlds, 50 env steps of 4 substeps, ctrl = keyframe
      targets + a seeded small action — with the kernels' launch counters
      set to 0 just before and read just after; check the state is finite,
-     plausible and in contact and that every substep made 12 Cholesky
-     factorizations; then hold the kernels against their plain versions
-     on that run's mass matrices and Newton Hessians;
+     plausible and in contact and that every substep made 12
+     factorizations, 10 of them Newton directions; then hold the kernels
+     against their plain versions on that run's mass matrices, Newton
+     matrices and (qM, J, w) at its qacc, and time the Newton direction
+     there;
   4. check the card's float64 kernel path against the CPU's plain path on a
      small input (4 worlds, 4 substeps);
-  5. time each stage of one substep with CUDA events;
-  6. profile one more env step (device time by kernel, each Cholesky
-     kernel's time per launch on the main path, and the device's busy share
-     of phase 3's steady wall time).
+  5. time each stage of one substep with CUDA events, and the solve split
+     into its Newton directions, its linesearches and the rest;
+  6. profile one more env step (device time by kernel, each kernel's time
+     per launch on the main path, the device's busy share of phase 3's
+     steady wall time) and fail if the batched JᵀWJ product still runs.
 Any failed check raises. The line before the last is the kernel table as
 JSON; the last line is {"ok": true, "device": {...}}.
 """
@@ -49,6 +55,9 @@ N = 35  # G1 nv
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 HBM_SETS = 6  # distinct timing batches, 6 x 20 MB > the H100's 50 MB L2
+NEFC = 1699  # G1's constraint rows
+J_SETS = 3  # distinct Newton inputs, 3 x 0.97 GB
+KERNELS = ("chol_factor", "chol_solve", "chol_factor_solve", "newton_direction")
 OUT = Path("chiprun_out")
 
 
@@ -109,6 +118,14 @@ class KernelCheck:
       raise AssertionError(f"{name} on {what}: {err:.3e} > tol {tol:.3e}")
     self.max_abs_err[name] = max(self.max_abs_err.get(name, 0.0), err)
 
+  def newton(self, what: str, qM, J, w, grad) -> None:
+    from mjlab_tpu_torch.kernels import chol
+
+    x64 = chol.newton_direction_plain(qM.double(), J.double(), w.double(), grad.double())
+    self.check("newton_direction", what, chol.newton_direction(qM, J, w, grad),
+               chol.newton_direction_plain(qM, J, w, grad), x64)
+    torch.cuda.synchronize()
+
   def all_three(self, what: str, A, b) -> None:
     from mjlab_tpu_torch.kernels import chol
 
@@ -124,17 +141,25 @@ class KernelCheck:
     torch.cuda.synchronize()
 
 
-def bounds(batch: int, n: int, elem: int = 4) -> dict[str, tuple[float, str]]:
+def bounds(batch: int, n: int, rows: float, elem: int = 4) -> dict[str, tuple[float, str]]:
   """Least time (ms) per kernel at these shapes: the larger of bytes moved
   (each input read once, each output written once) over HBM rate and FLOP
   over the float32 rate. A factor or a solve needs only the lower triangle
-  of A or L (n(n+1)/2 elements); L is written whole, zeros included."""
+  of A or L (n(n+1)/2 elements); L is written whole, zeros included. The
+  Newton direction needs w (NEFC per world), qM's lower triangle, grad, x
+  and the `rows` rows of J (in all worlds) whose weight is not 0: all
+  4096 × NEFC of them for dense weights. It does 2 FLOP per row and lower
+  entry of H, then the factor and solves."""
   tri, full, vec = (batch * k * elem for k in (n * (n + 1) // 2, n * n, n))
   fac_flop, sol_flop = batch * n**3 / 3, batch * 2 * n * n
   work = {
     "chol_factor": (tri + full, fac_flop),
     "chol_solve": (tri + 2 * vec, sol_flop),
     "chol_factor_solve": (tri + 2 * vec, fac_flop + sol_flop),
+    "newton_direction": (
+      rows * n * elem + batch * NEFC * elem + tri + 2 * vec,
+      rows * n * (n + 1) + fac_flop + sol_flop,
+    ),
   }
   out = {}
   for k, (byt, flop) in work.items():
@@ -175,6 +200,39 @@ def stage_times(tp, m, d, reps: int = 3) -> dict[str, float]:
   out = {name: 0.0 for name, _ in stages}
   for name, start, end in marks:
     out[name] += start.elapsed_time(end) / reps
+  return out
+
+
+def solve_split(m, d, reps: int = 3) -> dict[str, float]:
+  """Mean ms of solver.solve's parts on one substep's data, run as
+  solver.solve runs them: the Newton directions (H and its factor and
+  solves), the linesearches (with the step's acceptance test), and the
+  rest (warm start, residuals, gradients, the final forces)."""
+  from mjlab_tpu_torch.physics import solver
+
+  marks = []
+
+  def timed(part, fn, *args):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    marks.append((part, start, end))
+    return out
+
+  for _ in range(reps):
+    a0 = d.qacc_smooth
+    x = timed("rest", solver._warm_start, d, a0)
+    for _ in range(m.opt.iterations):
+      r, grad = timed("rest", solver._gradient, d, a0, x)
+      p = timed("H + direction", solver._direction, d, r, grad)
+      x = timed("linesearch", solver._linesearch, m, d, a0, x, r, p)
+    timed("rest", solver._forces, d, x)
+  torch.cuda.synchronize()
+  out = {"H + direction": 0.0, "linesearch": 0.0, "rest": 0.0}
+  for part, start, end in marks:
+    out[part] += start.elapsed_time(end) / reps
   return out
 
 
@@ -245,6 +303,32 @@ def main() -> int:
     print(f"  {name:18s} kernel {times[name][0]:.4f} ms ({times[name][3]:.4f})  plain "
           f"{times[name][1]:.4f} ms  library {times[name][2]:.4f} ms  [{card}]")
   del A, b, sets
+
+  def newton_set(batch: int):
+    """Random qM, J at G1's shapes and dense weights: no row is skipped."""
+    qM_ = spd_batch(gen, batch, N, torch.float32)
+    J_ = torch.randn(batch, NEFC, N, generator=gen, device="cuda") / N**0.5
+    w_ = 0.1 + torch.rand(batch, NEFC, generator=gen, device="cuda")
+    return qM_, J_, w_, torch.randn(batch, N, generator=gen, device="cuda")
+
+  def replaced(qM_, J_, w_, g_):
+    """The torch path newton_direction replaces (timed, never used)."""
+    H = chol.newton_matrix(qM_, J_, w_)
+    return torch.cholesky_solve(g_[..., None], torch.linalg.cholesky_ex(H)[0])
+
+  nsets = [newton_set(NUM_WORLDS) for _ in range(J_SETS)]
+  print(f"  newton_direction, f32 ({NUM_WORLDS}, {NEFC}, {N}), dense weights:")
+  checks.newton("random dense", *nsets[0])
+  times["newton_direction"] = (
+    time_ms(chol.newton_direction, nsets, iters=4 * J_SETS),
+    time_ms(chol.newton_direction_plain, nsets, iters=J_SETS),
+    time_ms(replaced, nsets, iters=4 * J_SETS),
+    None,  # no L2-resident input: J alone is 0.97 GB
+  )
+  t = times["newton_direction"]
+  print(f"  {'newton_direction':18s} kernel {t[0]:.4f} ms  plain {t[1]:.4f} ms  replaced "
+        f"torch path {t[2]:.4f} ms  ({J_SETS} distinct J sets) [{card}]")
+  del nsets
   torch.cuda.empty_cache()
 
   # -- 3. the main path ---------------------------------------------------------
@@ -308,13 +392,25 @@ def main() -> int:
         f"min {active.min().item():.0f}")
   if not active.sum() > 0:
     raise AssertionError("no active contacts")
-  if nfact != 12 * substeps or launches["chol_solve"] != substeps:
-    raise AssertionError(f"expected 12 factorizations and 1 solve per substep, got {launches}")
+  if (nfact != 12 * substeps or launches["chol_solve"] != substeps
+      or launches["newton_direction"] != 10 * substeps):
+    raise AssertionError("expected 12 factorizations (10 Newton directions) and 1 "
+                         f"solve per substep, got {launches}")
 
   print("phase 3b kernels vs plain on the run's matrices, f32:")
   grad = torch.randn(NUM_WORLDS, N, generator=gen, device=dev)
   checks.all_three("qM", d.qM.contiguous(), d.qfrc_smooth.contiguous())
   checks.all_three("Newton H", solver.hessian(d, d.qacc).contiguous(), grad)
+  w_run = solver.newton_weights(d, d.qacc)
+  run_args = [(d.qM, d.efc_J, w_run, grad)]
+  checks.newton("run's qM,J,w", *run_args[0])
+  active_rows = int((w_run != 0).sum().item())
+  share = active_rows / w_run.numel()
+  run_ms = time_ms(chol.newton_direction, run_args)
+  run_replaced_ms = time_ms(replaced, run_args)
+  print(f"  newton_direction on the run's (qM, J, w): {run_ms:.4f} ms, replaced torch "
+        f"path {run_replaced_ms:.4f} ms; active rows {active_rows} of {w_run.numel()} "
+        f"(share {share:.4f}) [{card}]")
 
   # -- 4. the card's kernel path against the CPU's plain path (float64) -------
   cfg64 = g1_velocity_sim_cfg()
@@ -350,11 +446,16 @@ def main() -> int:
   for name, ms in per_stage.items():
     print(f"  {name:18s} {ms:9.3f} ms  {100 * ms / total:5.1f}%")
   print(f"  {'sum':18s} {total:9.3f} ms")
+  split = solve_split(sim.model, d)
+  print(f"  solve, run again part by part (CUDA events, mean of 3) [{card}]:")
+  for part, ms in split.items():
+    print(f"    {part:16s} {ms:9.3f} ms  {100 * ms / sum(split.values()):5.1f}% of solve")
 
   # -- 6. where one env step's device time goes, by kernel ------------------------
   from torch.profiler import ProfilerActivity, profile
 
-  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+               record_shapes=True) as prof:
     for _ in range(DECIMATION):
       d = step(sim.model, d)
     torch.cuda.synchronize()
@@ -375,9 +476,19 @@ def main() -> int:
         f"table in {OUT}/chip_smoke_profile.txt")
   for e in sorted(events, key=lambda e: -getattr(e, attr))[:8]:
     print(f"  {getattr(e, attr) / 1e3:8.3f} ms  x{e.count:5d}  {e.key[:90]}")
+  # The batched product Jᵀ diag(w) J, (B, nv, nefc) @ (B, nefc, nv), must
+  # be gone from the main path: newton_direction builds H in shared memory.
+  jtwj = [e for e in prof.events()
+          if e.name in ("aten::bmm", "aten::matmul") and len(e.input_shapes) >= 2
+          and list(e.input_shapes[0]) == [NUM_WORLDS, N, NEFC]
+          and list(e.input_shapes[1]) == [NUM_WORLDS, NEFC, N]]
+  print(f"  batched JᵀWJ products (B, {N}, {NEFC}) @ (B, {NEFC}, {N}) on the main "
+        f"path: {len(jtwj)}")
+  if jtwj:
+    raise AssertionError("the JᵀWJ product still runs on the main path")
   # Each kernel's device time per launch on the main path, from the profile.
   path_ms = {}
-  for name in ("chol_factor", "chol_solve", "chol_factor_solve"):
+  for name in KERNELS:
     hits = [e for e in events if f"{name}_kernel<" in e.key]
     count = sum(e.count for e in hits)
     if not count:
@@ -387,17 +498,23 @@ def main() -> int:
           f"(x{count}) [{card}]")
 
   # -- result lines ---------------------------------------------------------------
-  bnd = bounds(NUM_WORLDS, N)
+  bnd = bounds(NUM_WORLDS, N, rows=NUM_WORLDS * NEFC)
+  bnd_run = bounds(NUM_WORLDS, N, rows=active_rows)["newton_direction"]
+  print(f"bounds [{card}]: " + ", ".join(f"{k} {v[0]:.5f} ms ({v[1]})" for k, v in bnd.items())
+        + f"; newton_direction on the run's w {bnd_run[0]:.5f} ms ({bnd_run[1]}, "
+        f"active-row share {share:.4f})")
   replaces = {
     "chol_factor": "mjlab_tpu/physics/smooth.py:233",
     "chol_solve": "mjlab_tpu/physics/smooth.py:238",
-    "chol_factor_solve": "mjlab_tpu/physics/solver.py:227 (and forward.py:116)",
+    "chol_factor_solve": "mjlab_tpu/physics/forward.py:116",
+    "newton_direction": "mjlab_tpu/physics/solver.py:222 (H) and :227-229 (factor, solves)",
   }
   kernels = [
     {
       "name": name,
       "route": "cuda",
-      "source": "mjlab_tpu_torch/csrc/chol.cu",
+      "source": "mjlab_tpu_torch/csrc/"
+                + ("newton_dir.cu" if name == "newton_direction" else "chol.cu"),
       "replaces": replaces[name],
       "launches": launches[name],
       "max_abs_err": checks.max_abs_err[name],
@@ -409,8 +526,13 @@ def main() -> int:
       "bound_by": bnd[name][1],
       "library_ms": times[name][2],
     }
-    for name in ("chol_factor", "chol_solve", "chol_factor_solve")
+    for name in KERNELS
   ]
+  kernels[-1].update({
+    "ms_run_matrices": run_ms, "library_ms_run_matrices": run_replaced_ms,
+    "bound_ms_run_matrices": bnd_run[0], "bound_by_run_matrices": bnd_run[1],
+    "active_row_share": share,
+  })
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({
     "ok": True,

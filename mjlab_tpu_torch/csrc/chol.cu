@@ -1,21 +1,33 @@
 // Batched dense Cholesky factor and triangular solves for small SPD
-// matrices (n <= 64), one thread block per matrix.
+// matrices (n <= 64): one warp per matrix, several matrices per block.
 //
 // Replaces the XLA-fused jnp.linalg.cholesky + solve_triangular pairs of the
 // JAX package: smooth.factor_m / solve_m (mjlab_tpu/physics/smooth.py:233,
-// 238-239), the Newton step (solver.py:227-229) and the implicit integrator
-// (forward.py:116-118). Every physics substep runs 12 factorizations.
+// 238-239) and the implicit integrator (forward.py:116-118). The Newton
+// step's factor-and-solve (solver.py:227-229) now runs inside
+// newton_dir.cu, which shares this file's device code (chol_core.cuh).
 //
 // Bound on the H100: at B=4096, n=35, f32 the factor needs A's lower
 // triangle (630 of 1225 elements, 10.3 MB) and writes all of L (20.1 MB),
 // ~9.1 us at 3.35 TB/s; a solve needs L's lower triangle and b and writes x
-// (11.5 MB, ~3.4 us). Against ~59 MFLOP (~0.9 us at 67 TFLOP/s) the kernel
-// is memory and, above all, latency bound. The design keeps the
-// whole matrix in shared memory (n*(n|1) elements, odd row stride so that
-// column reads are free of bank conflicts), gives thread i row i, and runs a
-// left-looking factorization with one __syncthreads per column. Each thread
-// computes the pivot of column j itself, so no second barrier is needed. The
-// solves keep the running right-hand side of a row in that row's register.
+// (11.5 MB, ~3.4 us). Against ~59 MFLOP (~0.9 us at 67 TFLOP/s) the work is
+// memory bound, and a 35-column factor is a chain of 35 dependent steps, so
+// the design is about latency:
+//   - one warp per matrix, kWarpsPerBlock matrices per block, so a column
+//     step costs one shuffle and one __syncwarp, never a block barrier
+//     (chol_core.cuh has the factor and the solves);
+//   - one reciprocal per pivot, by which a column (and each solve step) is
+//     scaled, and, at n = 35, the forward solve done inside the factor as
+//     one more row (chol_core.cuh, "Forward solve for free");
+//   - each warp copies its matrix's contiguous bytes with coalesced loads
+//     into shared memory (odd leading dimension) and stores L the same way;
+//     the (row, column) of an element advances by a fixed step, with no
+//     division per element;
+//   - an instance fully unrolled for n = 35 (G1's nv), and two padded ones
+//     (N = 32, 64) for every other n <= 64.
+// The whole batch is resident at once on the card at B=4096 (one matrix per
+// warp), so there is no next matrix whose load could overlap a factor:
+// the loads are plain, not cp.async.
 //
 // Semantics follow JAX: a non-positive (or NaN) pivot makes the whole lower
 // triangle of L NaN (and the whole solution NaN) instead of raising; the
@@ -24,165 +36,139 @@
 // C interface (ctypes): every entry point returns cudaGetLastError() of its
 // launch and runs on the given stream.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "chol_core.cuh"
 
 namespace {
 
-constexpr int kMaxN = 64;
+using chol::lead;
+using chol::rows_per_lane;
 
-template <typename T>
-__device__ __forceinline__ T nan_value();
-template <>
-__device__ __forceinline__ float nan_value<float>() { return CUDART_NAN_F; }
-template <>
-__device__ __forceinline__ double nan_value<double>() { return CUDART_NAN; }
+constexpr int kWarpsPerBlock = 4;
+constexpr size_t kStaticSmem = 48 * 1024;
 
-__host__ __device__ __forceinline__ int row_stride(int n) { return n | 1; }
+enum class Op { kFactor, kSolve, kFactorSolve };
 
-// Loads the whole matrix, though only its lower triangle is used: loading
-// the lower triangle alone was measured slower on an H100 (PERF.md).
-template <typename T>
-__device__ void load_matrix(const T* __restrict__ A, T* a, int n, int lda) {
-  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-    a[(idx / n) * lda + idx % n] = A[idx];
-  }
-}
-
-// Left-looking Cholesky in shared memory. On return the strict lower part of
-// `a` holds L's off-diagonal entries and `dg` its diagonal. Returns whether
-// every pivot was positive (the same value in every thread).
-template <typename T>
-__device__ bool factor_smem(T* a, T* dg, int n, int lda) {
-  const int i = threadIdx.x;
-  bool ok = true;
-  for (int j = 0; j < n; ++j) {
-    const T* rj = a + j * lda;
-    T s = rj[j];
-    for (int k = 0; k < j; ++k) s -= rj[k] * rj[k];
-    ok = ok && (s > T(0));
-    const T djj = sqrt(s);
-    if (i == j) {
-      dg[j] = djj;
-    } else if (i > j && i < n) {
-      T* ri = a + i * lda;
-      T t = ri[j];
-      for (int k = 0; k < j; ++k) t -= ri[k] * rj[k];
-      ri[j] = t / djj;
+// One warp per matrix: `in` is A (factor, factor-solve) or L (solve), `b`
+// the right-hand side, `out` L or x. Instances with kPad take any n <= N.
+template <typename T, int N, bool kPad, Op kOp>
+__device__ __forceinline__ void chol_body(const T* __restrict__ in,
+                                          const T* __restrict__ b,
+                                          T* __restrict__ out, int batch,
+                                          int n_arg) {
+  constexpr int ld = lead(N);
+  constexpr int R = rows_per_lane(N);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int mat = blockIdx.x * (blockDim.x / 32) + warp;
+  if (mat >= batch) return;
+  const int n = kPad ? n_arg : N;
+  T* buf = reinterpret_cast<T*>(smem_raw) + warp * (N * ld + 2 * N);
+  T* inv = buf + N * ld;  // 1 / L[j][j]
+  T* scratch = inv + N;
+  const size_t off = static_cast<size_t>(mat) * n * n;
+  chol::load_rows(in + off, buf, n * n, n, ld, lane, 32);
+  T r[R];
+  if constexpr (kOp != Op::kFactor) {
+#pragma unroll
+    for (int h = 0; h < R; ++h) {
+      const int i = lane + 32 * h;
+      r[h] = i < n ? b[static_cast<size_t>(mat) * n + i] : T(0);
     }
-    __syncthreads();
   }
-  return ok;
+  __syncwarp();
+  T x[R];
+  if constexpr (kOp == Op::kSolve) {
+#pragma unroll
+    for (int h = 0; h < R; ++h) {
+      const int i = lane + 32 * h;
+      if (i < n) inv[i] = T(1) / buf[i * ld + i];
+    }
+    __syncwarp();
+    T y[R];
+    chol::warp_forward<T, N>(buf, ld, 1, inv, n, lane, r, y);
+    chol::warp_backward<T, N>(buf, ld, 1, inv, n, lane, y, x);
+  } else {
+    T a[R][N];
+    chol::read_lower<T, N>(buf, n, lane, a);
+    if constexpr (kOp == Op::kFactorSolve && chol::has_spare_row(N)) {
+      chol::set_spare_row<T, N>(b + static_cast<size_t>(mat) * n, lane, a);
+    }
+    __syncwarp();
+    const bool ok = chol::warp_factor<T, N>(a, buf, inv, lane);
+    __syncwarp();
+    if constexpr (kOp == Op::kFactorSolve) {
+      chol::solve_factored<T, N>(a, buf, inv, scratch, n, lane, r, x);
+#pragma unroll
+      for (int h = 0; h < R; ++h) {
+        if (!ok) x[h] = chol::nan_value<T>();
+      }
+    } else {
+      // L's rows back into buf (row-major), then one coalesced store.
+#pragma unroll
+      for (int h = 0; h < R; ++h) {
+        const int i = lane + 32 * h;
+        if (i < n) {
+#pragma unroll
+          for (int k = 0; k < N; ++k) {
+            if (k < n) {
+              buf[i * ld + k] = ok ? a[h][k] : (k <= i ? chol::nan_value<T>() : T(0));
+            }
+          }
+        }
+      }
+      __syncwarp();
+      chol::store_rows(buf, out + off, n * n, n, ld, lane, 32);
+      return;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < R; ++h) {
+    const int i = lane + 32 * h;
+    if (i < n) out[static_cast<size_t>(mat) * n + i] = x[h];
+  }
 }
 
-// Solves L Lᵀ x = b for thread i's row; `r` enters as b[i] and the result is
-// left in xs[i]. ys/xs are shared scratch of length n.
-template <typename T>
-__device__ void solve_smem(const T* a, const T* dg, T r, T* ys, T* xs, int n,
-                           int lda) {
-  const int i = threadIdx.x;
-  for (int j = 0; j < n; ++j) {  // forward: L y = b
-    if (i == j) ys[j] = r / dg[j];
-    __syncthreads();
-    if (i > j && i < n) r -= a[i * lda + j] * ys[j];
-  }
-  r = i < n ? ys[i] : T(0);
-  for (int j = n - 1; j >= 0; --j) {  // backward: Lᵀ x = y
-    if (i == j) xs[j] = r / dg[j];
-    __syncthreads();
-    if (i < j) r -= a[j * lda + i] * xs[j];
-  }
+// One kernel name per entry point, so that a profile tells them apart.
+template <typename T, int N, bool kPad>
+__global__ void chol_factor_kernel(const T* __restrict__ A, const T* __restrict__ unused,
+                                   T* __restrict__ L, int batch, int n) {
+  chol_body<T, N, kPad, Op::kFactor>(A, unused, L, batch, n);
 }
-
-template <typename T>
-__global__ void chol_factor_kernel(const T* __restrict__ A, T* __restrict__ L,
-                                   int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* a = reinterpret_cast<T*>(smem_raw);
-  const int lda = row_stride(n);
-  T* dg = a + n * lda;
-  const size_t off = static_cast<size_t>(blockIdx.x) * n * n;
-  load_matrix(A + off, a, n, lda);
-  __syncthreads();
-  const bool ok = factor_smem(a, dg, n, lda);
-  const T nan = nan_value<T>();
-  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-    const int r = idx / n, c = idx % n;
-    T v = c < r ? a[r * lda + c] : (c == r ? dg[r] : T(0));
-    if (!ok && c <= r) v = nan;
-    L[off + idx] = v;
-  }
+template <typename T, int N, bool kPad>
+__global__ void chol_solve_kernel(const T* __restrict__ L, const T* __restrict__ b,
+                                  T* __restrict__ x, int batch, int n) {
+  chol_body<T, N, kPad, Op::kSolve>(L, b, x, batch, n);
 }
-
-template <typename T>
-__global__ void chol_solve_kernel(const T* __restrict__ L,
-                                  const T* __restrict__ b, T* __restrict__ x,
-                                  int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* a = reinterpret_cast<T*>(smem_raw);
-  const int lda = row_stride(n);
-  T* dg = a + n * lda;
-  T* ys = dg + n;
-  T* xs = ys + n;
-  const size_t off = static_cast<size_t>(blockIdx.x) * n * n;
-  load_matrix(L + off, a, n, lda);
-  __syncthreads();
-  const int i = threadIdx.x;
-  if (i < n) dg[i] = a[i * lda + i];
-  const T r = i < n ? b[static_cast<size_t>(blockIdx.x) * n + i] : T(0);
-  __syncthreads();
-  solve_smem(a, dg, r, ys, xs, n, lda);
-  if (i < n) x[static_cast<size_t>(blockIdx.x) * n + i] = xs[i];
-}
-
-template <typename T>
+template <typename T, int N, bool kPad>
 __global__ void chol_factor_solve_kernel(const T* __restrict__ A,
                                          const T* __restrict__ b,
-                                         T* __restrict__ x, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* a = reinterpret_cast<T*>(smem_raw);
-  const int lda = row_stride(n);
-  T* dg = a + n * lda;
-  T* ys = dg + n;
-  T* xs = ys + n;
-  const size_t off = static_cast<size_t>(blockIdx.x) * n * n;
-  load_matrix(A + off, a, n, lda);
-  const int i = threadIdx.x;
-  const T r = i < n ? b[static_cast<size_t>(blockIdx.x) * n + i] : T(0);
-  __syncthreads();
-  const bool ok = factor_smem(a, dg, n, lda);
-  solve_smem(a, dg, r, ys, xs, n, lda);
-  if (i < n) x[static_cast<size_t>(blockIdx.x) * n + i] = ok ? xs[i] : nan_value<T>();
+                                         T* __restrict__ x, int batch, int n) {
+  chol_body<T, N, kPad, Op::kFactorSolve>(A, b, x, batch, n);
 }
 
-inline int threads_for(int n) { return n <= 32 ? 32 : kMaxN; }
-
-template <typename T>
-size_t smem_bytes(int n) {
-  return (static_cast<size_t>(n) * row_stride(n) + 3 * n) * sizeof(T);
-}
-
-template <typename T>
-int factor(const T* A, T* L, int batch, int n, cudaStream_t stream) {
-  if (n < 1 || n > kMaxN || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
-  chol_factor_kernel<T><<<batch, threads_for(n), smem_bytes<T>(n), stream>>>(A, L, n);
+template <typename T, int N, bool kPad, Op kOp>
+int launch_instance(const T* in, const T* b, T* out, int batch, int n,
+                    cudaStream_t stream) {
+  const size_t per_warp = static_cast<size_t>(N * lead(N) + 2 * N) * sizeof(T);
+  int warps = static_cast<int>(kStaticSmem / per_warp);
+  warps = warps < 1 ? 1 : (warps > kWarpsPerBlock ? kWarpsPerBlock : warps);
+  const int blocks = (batch + warps - 1) / warps;
+  auto kernel = kOp == Op::kFactor  ? chol_factor_kernel<T, N, kPad>
+                : kOp == Op::kSolve ? chol_solve_kernel<T, N, kPad>
+                                    : chol_factor_solve_kernel<T, N, kPad>;
+  kernel<<<blocks, 32 * warps, warps * per_warp, stream>>>(in, b, out, batch, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int solve(const T* L, const T* b, T* x, int batch, int n, cudaStream_t stream) {
-  if (n < 1 || n > kMaxN || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
-  chol_solve_kernel<T><<<batch, threads_for(n), smem_bytes<T>(n), stream>>>(L, b, x, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int factor_solve(const T* A, const T* b, T* x, int batch, int n,
-                 cudaStream_t stream) {
-  if (n < 1 || n > kMaxN || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
-  chol_factor_solve_kernel<T><<<batch, threads_for(n), smem_bytes<T>(n), stream>>>(
-      A, b, x, n);
-  return static_cast<int>(cudaGetLastError());
+template <typename T, Op kOp>
+int launch(const T* in, const T* b, T* out, int batch, int n,
+           cudaStream_t stream) {
+  if (n < 1 || n > chol::kMaxN || batch < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 35) return launch_instance<T, 35, false, kOp>(in, b, out, batch, n, stream);
+  if (n <= 32) return launch_instance<T, 32, true, kOp>(in, b, out, batch, n, stream);
+  return launch_instance<T, 64, true, kOp>(in, b, out, batch, n, stream);
 }
 
 }  // namespace
@@ -190,26 +176,32 @@ int factor_solve(const T* A, const T* b, T* x, int batch, int n,
 extern "C" {
 
 int chol_factor_f32(const float* A, float* L, int batch, int n, void* stream) {
-  return factor(A, L, batch, n, static_cast<cudaStream_t>(stream));
+  return launch<float, Op::kFactor>(A, nullptr, L, batch, n,
+                                    static_cast<cudaStream_t>(stream));
 }
 int chol_factor_f64(const double* A, double* L, int batch, int n, void* stream) {
-  return factor(A, L, batch, n, static_cast<cudaStream_t>(stream));
+  return launch<double, Op::kFactor>(A, nullptr, L, batch, n,
+                                     static_cast<cudaStream_t>(stream));
 }
 int chol_solve_f32(const float* L, const float* b, float* x, int batch, int n,
                    void* stream) {
-  return solve(L, b, x, batch, n, static_cast<cudaStream_t>(stream));
+  return launch<float, Op::kSolve>(L, b, x, batch, n,
+                                   static_cast<cudaStream_t>(stream));
 }
 int chol_solve_f64(const double* L, const double* b, double* x, int batch,
                    int n, void* stream) {
-  return solve(L, b, x, batch, n, static_cast<cudaStream_t>(stream));
+  return launch<double, Op::kSolve>(L, b, x, batch, n,
+                                    static_cast<cudaStream_t>(stream));
 }
 int chol_factor_solve_f32(const float* A, const float* b, float* x, int batch,
                           int n, void* stream) {
-  return factor_solve(A, b, x, batch, n, static_cast<cudaStream_t>(stream));
+  return launch<float, Op::kFactorSolve>(A, b, x, batch, n,
+                                         static_cast<cudaStream_t>(stream));
 }
 int chol_factor_solve_f64(const double* A, const double* b, double* x,
                           int batch, int n, void* stream) {
-  return factor_solve(A, b, x, batch, n, static_cast<cudaStream_t>(stream));
+  return launch<double, Op::kFactorSolve>(A, b, x, batch, n,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

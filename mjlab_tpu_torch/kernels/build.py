@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("chol",)
+SOURCES = ("chol", "newton_dir")
 NVCC_FLAGS = (
   "-gencode=arch=compute_90a,code=sm_90a",
   "-std=c++17",

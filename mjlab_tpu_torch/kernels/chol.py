@@ -1,25 +1,31 @@
-"""Batched dense Cholesky factor and solves: the CUDA kernel's wrappers and
-their plain PyTorch versions.
+"""Batched dense Cholesky factor and solves, and the Newton step's fused
+direction: the CUDA kernels' wrappers and their plain PyTorch versions.
 
 Replaces the XLA-fused `jnp.linalg.cholesky` + `jax.scipy.linalg.
 solve_triangular` pairs of the JAX package at mjlab_tpu/physics/smooth.py:233
-(factor_m), :238-239 (solve_m), solver.py:227-229 (Newton step) and
-forward.py:116-118 (implicit integrator); one physics substep runs 12
-factorizations (factor_m, 10 Newton iterations, integrate).
+(factor_m), :238-239 (solve_m) and forward.py:116-118 (implicit integrator),
+and the Newton step's H = qM + Jᵀ diag(w) J with its factor and solves at
+solver.py:222, 227-229. One physics substep runs 12 factorizations:
+factor_m, 10 Newton directions, integrate.
 
-Kernel: csrc/chol.cu, one thread block per matrix, the matrix in shared
-memory, one barrier per column. Its bound on the H100 at
-B=4096, n=35 in f32: the factor needs A's lower triangle (10.3 MB) and
-writes L (20.1 MB), ~9.1 µs at 3.35 TB/s; a solve needs L's lower triangle
-and b and writes x (11.5 MB), ~3.4 µs. Against only ~59 MFLOP it is memory-
-and latency-bound, not compute-bound.
+Kernels (csrc/):
+- chol.cu: one warp per matrix, several matrices per block, rows in
+  registers, one shuffle and one __syncwarp per column. Bound on the H100
+  at B=4096, n=35, f32: the factor needs A's lower triangle (10.3 MB) and
+  writes L (20.1 MB), ~9.1 µs at 3.35 TB/s; a solve needs L's lower
+  triangle and b and writes x (11.5 MB), ~3.4 µs.
+- newton_dir.cu: one block per world streams the rows of J whose weight
+  is not 0 through shared memory, builds H there and factors and solves it
+  with chol.cu's warp code; H never reaches device memory. Bound at G1's
+  shapes: reading the dense J (0.97 GB) once, 0.29 ms, or only its active
+  rows.
 
 Semantics (JAX's): a non-positive pivot gives NaN in the whole lower
 triangle of L, and NaN in the solution, instead of raising.
 
 Each wrapper takes the plain version for a CPU tensor and launches the kernel
 for a CUDA tensor, with no fallback between them. Launches are counted in
-`LAUNCHES` (a factor-and-solve counts once); `factorizations()` sums the two
+`LAUNCHES` (a fused call counts once); `factorizations()` sums the
 factorizing entry points.
 """
 
@@ -31,7 +37,9 @@ import torch
 
 MAX_N = 64
 
-LAUNCHES = {"chol_factor": 0, "chol_solve": 0, "chol_factor_solve": 0}
+LAUNCHES = {
+  "chol_factor": 0, "chol_solve": 0, "chol_factor_solve": 0, "newton_direction": 0,
+}
 
 
 def reset_counts() -> None:
@@ -40,11 +48,12 @@ def reset_counts() -> None:
 
 
 def factorizations() -> int:
-  return LAUNCHES["chol_factor"] + LAUNCHES["chol_factor_solve"]
+  return (LAUNCHES["chol_factor"] + LAUNCHES["chol_factor_solve"]
+          + LAUNCHES["newton_direction"])
 
 
 # ---------------------------------------------------------------------------
-# Plain versions (CPU path and the kernel's check).
+# Plain versions (CPU path and the kernels' check).
 # ---------------------------------------------------------------------------
 
 
@@ -81,25 +90,47 @@ def chol_factor_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   return chol_solve_plain(chol_factor_plain(A), b)
 
 
+def newton_matrix(qM: torch.Tensor, J: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+  """The Newton step's H = qM + Jᵀ diag(w) J + 1e-10·I, for qM (B, n, n),
+  J (B, m, n), w (B, m). The regularization guards rank-deficient active
+  sets in f32."""
+  H = qM + (J.mT * w[:, None, :]) @ J
+  return H + 1e-10 * torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+
+
+def newton_direction_plain(qM, J, w, grad) -> torch.Tensor:
+  return chol_factor_solve_plain(newton_matrix(qM, J, w), grad)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_LIBRARY = {"newton_direction": "newton_dir"}  # else csrc/chol.cu
 _bound: dict[str, ctypes._CFuncPtr] = {}
 
 
-def _fn(name: str, dtype: torch.dtype, nptr: int):
+def _fn(name: str, dtype: torch.dtype, nptr: int, nint: int):
   key = f"{name}_{_SUFFIX[dtype]}"
   if key not in _bound:
     from mjlab_tpu_torch.kernels import build
 
-    f = getattr(build.library("chol"), key)
-    f.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int, ctypes.c_int,
-                                             ctypes.c_void_p]
+    f = getattr(build.library(_LIBRARY.get(name, "chol")), key)
+    f.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * nint
+                  + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     _bound[key] = f
   return _bound[key]
+
+
+def _check(t: torch.Tensor, ref: torch.Tensor, shape: tuple, what: str) -> None:
+  if t.device != ref.device or t.dtype != ref.dtype:
+    raise ValueError(f"{what}: every tensor must match the matrix's device and dtype")
+  if tuple(t.shape) != shape:
+    raise ValueError(f"{what}: shape {tuple(t.shape)} != {shape}")
+  if not t.is_contiguous():
+    raise ValueError(f"{what}: tensors must be contiguous")
 
 
 def _check_matrix(A: torch.Tensor, what: str) -> None:
@@ -115,21 +146,12 @@ def _check_matrix(A: torch.Tensor, what: str) -> None:
     raise ValueError(f"{what}: tensor must be contiguous")
 
 
-def _check_rhs(A: torch.Tensor, b: torch.Tensor, what: str) -> None:
-  if b.device != A.device or b.dtype != A.dtype:
-    raise ValueError(f"{what}: rhs must match the matrix's device and dtype")
-  if b.shape != A.shape[:2]:
-    raise ValueError(f"{what}: rhs shape {tuple(b.shape)} != {tuple(A.shape[:2])}")
-  if not b.is_contiguous():
-    raise ValueError(f"{what}: rhs must be contiguous")
-
-
-def _launch(name: str, *tensors: torch.Tensor) -> None:
+def _launch(name: str, tensors: tuple, ints: tuple) -> None:
   ref = tensors[0]
-  f = _fn(name, ref.dtype, len(tensors))
+  f = _fn(name, ref.dtype, len(tensors), len(ints))
   stream = torch.cuda.current_stream(ref.device).cuda_stream
   with torch.cuda.device(ref.device):
-    rc = f(*[t.data_ptr() for t in tensors], ref.shape[0], ref.shape[1], stream)
+    rc = f(*[t.data_ptr() for t in tensors], *ints, stream)
   if rc != 0:
     raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
   LAUNCHES[name] += 1
@@ -141,7 +163,7 @@ def chol_factor(A: torch.Tensor) -> torch.Tensor:
     return chol_factor_plain(A)
   _check_matrix(A, "chol_factor")
   L = torch.empty_like(A)
-  _launch("chol_factor", A, L)
+  _launch("chol_factor", (A, L), A.shape[:2])
   return L
 
 
@@ -150,9 +172,9 @@ def chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   if L.device.type == "cpu":
     return chol_solve_plain(L, b)
   _check_matrix(L, "chol_solve")
-  _check_rhs(L, b, "chol_solve")
+  _check(b, L, L.shape[:2], "chol_solve")
   x = torch.empty_like(b)
-  _launch("chol_solve", L, b, x)
+  _launch("chol_solve", (L, b, x), L.shape[:2])
   return x
 
 
@@ -161,7 +183,27 @@ def chol_factor_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   if A.device.type == "cpu":
     return chol_factor_solve_plain(A, b)
   _check_matrix(A, "chol_factor_solve")
-  _check_rhs(A, b, "chol_factor_solve")
+  _check(b, A, A.shape[:2], "chol_factor_solve")
   x = torch.empty_like(b)
-  _launch("chol_factor_solve", A, b, x)
+  _launch("chol_factor_solve", (A, b, x), A.shape[:2])
+  return x
+
+
+def newton_direction(qM: torch.Tensor, J: torch.Tensor, w: torch.Tensor,
+                     grad: torch.Tensor) -> torch.Tensor:
+  """x with (qM + Jᵀ diag(w) J + 1e-10·I) x = grad, for qM (B, n, n),
+  J (B, m, n), w (B, m) and grad (B, n); H is neither kept nor formed in
+  device memory."""
+  if qM.device.type == "cpu":
+    return newton_direction_plain(qM, J, w, grad)
+  _check_matrix(qM, "newton_direction")
+  B, n = qM.shape[:2]
+  if J.dim() != 3:
+    raise ValueError(f"newton_direction: expected J (B, m, n), got {tuple(J.shape)}")
+  m = J.shape[1]
+  _check(J, qM, (B, m, n), "newton_direction")
+  _check(w, qM, (B, m), "newton_direction")
+  _check(grad, qM, (B, n), "newton_direction")
+  x = torch.empty_like(grad)
+  _launch("newton_direction", (qM, J, w, grad, x), (B, n, m))
   return x

@@ -6,9 +6,10 @@ Minimizes over qacc x, per env:
 with a0 = qacc_smooth. Every row of this slice (joint limits, pyramidal
 contact facets) is one-sided quadratic. A fixed number of iterations runs in
 lockstep over the batch; the JAX package's `fori_loop`s are Python loops
-here. Each iteration factors H = M + Jᵀ diag(w) J through the Cholesky
-kernel's fused factor-and-solve; a NaN factor (non-positive pivot) gives a
-NaN step that the cost comparison rejects, as in the JAX package.
+here. Each iteration takes its direction from `chol.newton_direction`,
+which solves with H = M + Jᵀ diag(w) J + 1e-10·I without forming H in
+device memory; a non-positive pivot gives a NaN step that the cost
+comparison rejects, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -47,27 +48,33 @@ def total_cost(d: Data, a0: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
   return _cost(d, x - a0, _mv(d.efc_J, x) - d.efc_aref)
 
 
-def _hessian(d: Data, r: torch.Tensor) -> torch.Tensor:
-  J = d.efc_J
-  w = _row_hess(d.efc_D, r)
-  H = d.qM + (J.transpose(-1, -2) * w[:, None, :]) @ J
-  # Small regularization guards rank-deficient active sets in f32.
-  return H + 1e-10 * torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+def newton_weights(d: Data, x: torch.Tensor) -> torch.Tensor:
+  """The row weights w of the Newton matrix at x, (B, nefc)."""
+  return _row_hess(d.efc_D, _mv(d.efc_J, x) - d.efc_aref)
 
 
 def hessian(d: Data, x: torch.Tensor) -> torch.Tensor:
-  """The Newton step's regularized matrix M + Jᵀ diag(w) J + 1e-10·I at x."""
-  return _hessian(d, _mv(d.efc_J, x) - d.efc_aref)
+  """The Newton step's regularized matrix M + Jᵀ diag(w) J + 1e-10·I at x,
+  formed as the plain version does (the main path never forms it)."""
+  return chol.newton_matrix(d.qM, d.efc_J, newton_weights(d, x))
 
 
-def _newton_iter(m: Model, d: Data, a0: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-  J, D, aref, M = d.efc_J, d.efc_D, d.efc_aref, d.qM
-  r = _mv(J, x) - aref
-  force = _row_force(D, r)
-  grad = _mv(M, x - a0) - _mv(J.transpose(-1, -2), force)
-  p = -chol.chol_factor_solve(_hessian(d, r), grad)
+def _gradient(d: Data, a0: torch.Tensor, x: torch.Tensor):
+  """Residual r = J x − aref and ∇Φ(x)."""
+  r = _mv(d.efc_J, x) - d.efc_aref
+  grad = _mv(d.qM, x - a0) - _mv(d.efc_J.transpose(-1, -2), _row_force(d.efc_D, r))
+  return r, grad
 
-  # Exact linesearch along p: 1-D Newton on φ'(α).
+
+def _direction(d: Data, r: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+  return -chol.newton_direction(d.qM, d.efc_J, _row_hess(d.efc_D, r), grad)
+
+
+def _linesearch(m: Model, d: Data, a0: torch.Tensor, x: torch.Tensor,
+                r: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+  """Exact linesearch along p (1-D Newton on φ'(α)), then the step if it
+  lowers the cost."""
+  J, D, M = d.efc_J, d.efc_D, d.qM
   jv = _mv(J, p)
   p_m_dx = _bdot(p, _mv(M, x - a0))
   p_m_p = _bdot(p, _mv(M, p))
@@ -83,6 +90,24 @@ def _newton_iter(m: Model, d: Data, a0: torch.Tensor, x: torch.Tensor) -> torch.
   return torch.where(better[:, None], x_new, x)
 
 
+def _newton_iter(m: Model, d: Data, a0: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+  r, grad = _gradient(d, a0, x)
+  return _linesearch(m, d, a0, x, r, _direction(d, r, grad))
+
+
+def _warm_start(d: Data, a0: torch.Tensor) -> torch.Tensor:
+  """MuJoCo's choice between the warm start and a0, by cost."""
+  ws = d.qacc_warmstart
+  use_ws = total_cost(d, a0, ws) < total_cost(d, a0, a0)
+  return torch.where(use_ws[:, None], ws, a0)
+
+
+def _forces(d: Data, x: torch.Tensor):
+  """efc_force and qfrc_constraint at x."""
+  efc_force = _row_force(d.efc_D, _mv(d.efc_J, x) - d.efc_aref)
+  return efc_force, _mv(d.efc_J.transpose(-1, -2), efc_force)
+
+
 def solve(tp: Topology, m: Model, d: Data) -> Data:
   """Compute qacc, efc_force, qfrc_constraint."""
   a0 = d.qacc_smooth
@@ -90,14 +115,10 @@ def solve(tp: Topology, m: Model, d: Data) -> Data:
     return d.replace(
       qacc=a0, qfrc_constraint=torch.zeros_like(a0), qacc_warmstart=a0
     )
-  # Warmstart selection (MuJoCo compares smooth vs warmstart cost).
-  ws = d.qacc_warmstart
-  use_ws = total_cost(d, a0, ws) < total_cost(d, a0, a0)
-  x = torch.where(use_ws[:, None], ws, a0)
+  x = _warm_start(d, a0)
   for _ in range(m.opt.iterations):
     x = _newton_iter(m, d, a0, x)
-  efc_force = _row_force(d.efc_D, _mv(d.efc_J, x) - d.efc_aref)
-  qfrc_constraint = _mv(d.efc_J.transpose(-1, -2), efc_force)
+  efc_force, qfrc_constraint = _forces(d, x)
   return d.replace(
     qacc=x, efc_force=efc_force, qfrc_constraint=qfrc_constraint,
     qacc_warmstart=x,

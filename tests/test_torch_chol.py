@@ -4,8 +4,10 @@ The plain version (kernels/chol.py) must match `jnp.linalg.cholesky` and
 `jax.scipy.linalg.solve_triangular` in float64 to 1e-12 relative on SPD
 batches, and reproduce JAX's NaN semantics on non-positive-definite input.
 On a CPU tensor the wrappers take the plain path and count no launch. The
-`gpu` case compares kernel and plain version where a card exists (float32
-within 1e-4 of the plain version's scale; float64 within 1e-12).
+`gpu` cases compare kernel and plain version where a card exists (float32
+within 1e-4 of the plain version's scale; float64 within 1e-12), for every
+instance of the kernel (n = 35 unrolled, n <= 32 and n <= 64 padded) and for
+batches that do not fill the last block.
 """
 
 from __future__ import annotations
@@ -82,7 +84,9 @@ def test_cpu_wrappers_take_plain_path_and_count_nothing():
   assert torch.equal(L, chol.chol_factor_plain(A))
   assert torch.equal(chol.chol_solve(L, b), chol.chol_solve_plain(L, b))
   assert torch.equal(chol.chol_factor_solve(A, b), chol.chol_factor_solve_plain(A, b))
-  assert chol.LAUNCHES == {"chol_factor": 0, "chol_solve": 0, "chol_factor_solve": 0}
+  assert chol.LAUNCHES == {
+    "chol_factor": 0, "chol_solve": 0, "chol_factor_solve": 0, "newton_direction": 0,
+  }
   assert chol.factorizations() == 0
 
 
@@ -99,7 +103,9 @@ def test_kernel_matches_plain_on_card(dtype, tol):
   x = chol.chol_solve(L, b)
   xf = chol.chol_factor_solve(A, b)
   torch.cuda.synchronize()
-  assert chol.LAUNCHES == {"chol_factor": 1, "chol_solve": 1, "chol_factor_solve": 1}
+  assert chol.LAUNCHES == {
+    "chol_factor": 1, "chol_solve": 1, "chol_factor_solve": 1, "newton_direction": 0,
+  }
   Lp = chol.chol_factor_plain(A)
   xp = chol.chol_solve_plain(Lp, b)
   assert _rel(L.cpu().numpy(), Lp.cpu().numpy()) < tol
@@ -109,3 +115,32 @@ def test_kernel_matches_plain_on_card(dtype, tol):
   bad[0, 3, 3] = -1.0
   Lb = chol.chol_factor(bad)
   assert torch.isnan(Lb[0]).sum() == 35 * 36 // 2 and torch.isfinite(Lb[1:]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 7, 31, 32, 33, 35, 64])
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.float64, 1e-12)])
+def test_kernel_matches_plain_on_card_for_every_order(n, dtype, tol):
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+  rng = np.random.default_rng(n)
+  batch = 4 * 37 + 3  # not a multiple of the matrices per block
+  A = torch.tensor(_spd(rng, batch, n, cond=1e2), dtype=dtype, device="cuda")
+  b = torch.tensor(rng.normal(size=(batch, n)), dtype=dtype, device="cuda")
+  L = chol.chol_factor(A)
+  x = chol.chol_solve(L, b)
+  xf = chol.chol_factor_solve(A, b)
+  torch.cuda.synchronize()
+  Lp = chol.chol_factor_plain(A)
+  xp = chol.chol_solve_plain(Lp, b)
+  assert _rel(L.cpu().numpy(), Lp.cpu().numpy()) < tol
+  assert torch.all(torch.triu(L, 1) == 0)
+  assert _rel(x.cpu().numpy(), xp.cpu().numpy()) < tol
+  assert _rel(xf.cpu().numpy(), xp.cpu().numpy()) < tol
+  bad = A.clone()
+  bad[-1, n // 2, n // 2] = -1.0  # a non-positive pivot in the last matrix
+  Lb, xb = chol.chol_factor(bad), chol.chol_factor_solve(bad, b)
+  lower = torch.ones(n, n, dtype=torch.bool, device="cuda").tril()
+  assert torch.equal(torch.isnan(Lb[-1]), lower) and torch.all(Lb[-1][~lower] == 0)
+  assert torch.isfinite(Lb[:-1]).all()
+  assert torch.isnan(xb[-1]).all() and torch.isfinite(xb[:-1]).all()

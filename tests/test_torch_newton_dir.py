@@ -1,0 +1,141 @@
+"""The Newton step's fused direction (kernels/chol.py `newton_direction`):
+its plain version against the JAX package's formula, and its wrapper.
+
+JAX's Newton step (mjlab_tpu/physics/solver.py:222, 227-229) builds
+H = qM + (J.T * w) @ J, factors H + 1e-10·I and solves twice. The plain
+version must match that to 1e-10 relative in float64 at G1's nv = 35 with a
+small row count; rows whose weight is 0 must change nothing, bitwise; a
+non-positive pivot must give a NaN direction. On a CPU tensor the wrapper
+takes the plain path and counts no launch. The `gpu` cases hold the kernel
+against the plain version on the card (float64 within 1e-10 relative;
+float32 within max(1e-5 × scale, 4 × the plain float32 version's own error
+against float64)), for dense, sparse and all-zero weights and row counts
+that leave each world's J unaligned. On the card:
+  python -m pytest --noconftest -m gpu tests/test_torch_newton_dir.py
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from mjlab_tpu_torch.kernels import chol
+
+NV = 35  # G1
+
+
+def _problem(seed, batch, n, m, pattern):
+  rng = np.random.default_rng(seed)
+  X = rng.normal(size=(batch, n, n))
+  qM = X @ np.swapaxes(X, -1, -2) / n + 0.1 * np.eye(n)
+  J = rng.normal(size=(batch, m, n))
+  w = rng.uniform(0.5, 2.0, size=(batch, m))
+  if pattern == "sparse":
+    w = np.where(rng.uniform(size=(batch, m)) < 0.2, w, 0.0)
+  elif pattern == "zero":
+    w = np.zeros((batch, m))
+  grad = rng.normal(size=(batch, n))
+  return qM, J, w, grad
+
+
+def _jax_direction(qM, J, w, grad):
+  import jax
+  import jax.numpy as jnp
+  from jax.scipy.linalg import solve_triangular
+
+  def one(qM, J, w, g):
+    H = qM + (J.T * w[None, :]) @ J
+    L = jnp.linalg.cholesky(H + 1e-10 * jnp.eye(qM.shape[0], dtype=qM.dtype))
+    y = solve_triangular(L, g, lower=True)
+    return solve_triangular(L.T, y, lower=False)
+
+  return np.asarray(jax.vmap(one)(qM, J, w, grad))
+
+
+def _rel(a, b):
+  return np.max(np.abs(a - b)) / max(1.0, np.max(np.abs(b)))
+
+
+def _torch(*arrays, dtype=torch.float64, device="cpu"):
+  return [torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+          for a in arrays]
+
+
+@pytest.mark.parametrize("pattern", ["dense", "sparse", "zero"])
+def test_plain_matches_jax(pattern):
+  qM, J, w, grad = _problem(0, 8, NV, 64, pattern)
+  x_ref = _jax_direction(qM, J, w, grad)
+  x = chol.newton_direction_plain(*_torch(qM, J, w, grad)).numpy()
+  assert _rel(x, x_ref) < 1e-10
+
+
+def test_zero_weight_rows_change_nothing():
+  qM, J, w, grad = _problem(1, 4, NV, 64, "dense")
+  w[:, 5:45] = 0.0  # the same rows in every world, so they can be removed
+  J[:, 5:45] *= 1e3  # large, to show they are not added in
+  keep = np.r_[0:5, 45:64]
+  full = chol.newton_direction_plain(*_torch(qM, J, w, grad))
+  cut = chol.newton_direction_plain(*_torch(qM, J[:, keep], w[:, keep], grad))
+  assert torch.equal(full, cut)
+
+
+def test_nonpositive_pivot_gives_nan_direction():
+  qM, J, w, grad = _problem(2, 3, NV, 64, "sparse")
+  qM[1] = -np.eye(NV)  # negative definite: the first pivot fails
+  w[1] = 0.0
+  x_ref = _jax_direction(qM, J, w, grad)
+  x = chol.newton_direction_plain(*_torch(qM, J, w, grad)).numpy()
+  assert np.array_equal(np.isnan(x), np.isnan(x_ref))
+  assert np.isnan(x[1]).all() and np.isfinite(x[[0, 2]]).all()
+
+
+def test_cpu_wrapper_takes_plain_path_and_counts_nothing():
+  args = _torch(*_problem(3, 3, 7, 11, "sparse"))
+  chol.reset_counts()
+  assert torch.equal(chol.newton_direction(*args), chol.newton_direction_plain(*args))
+  assert all(v == 0 for v in chol.LAUNCHES.values())
+  assert chol.factorizations() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, m", [(35, 1699), (35, 67), (20, 33), (50, 129), (7, 0)])
+@pytest.mark.parametrize("pattern", ["dense", "sparse", "zero"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_matches_plain_on_card(n, m, pattern, dtype):
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+  problem = _problem(4, 37, n, m, pattern)
+  args = _torch(*problem, dtype=dtype, device="cuda")
+  chol.reset_counts()
+  x = chol.newton_direction(*args)
+  torch.cuda.synchronize()
+  assert chol.LAUNCHES["newton_direction"] == 1
+  x64 = chol.newton_direction_plain(*_torch(*problem, device="cuda"))
+  err = (x.double() - x64).abs().max().item()
+  scale = max(1.0, x64.abs().max().item())
+  if dtype == torch.float64:
+    assert err <= 1e-10 * scale
+  else:
+    ref_err = (chol.newton_direction_plain(*args).double() - x64).abs().max().item()
+    assert err <= max(1e-5 * scale, 4 * ref_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_zero_weight_rows_and_bad_pivot_on_card(dtype):
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+  qM, J, w, grad = _problem(5, 9, NV, 129, "dense")
+  w[:, 3:100] = 0.0
+  keep = np.r_[0:3, 100:129]
+  full = chol.newton_direction(*_torch(qM, J, w, grad, dtype=dtype, device="cuda"))
+  cut = chol.newton_direction(
+    *_torch(qM, J[:, keep], w[:, keep], grad, dtype=dtype, device="cuda")
+  )
+  assert torch.equal(full, cut)
+  qM[4] = -np.eye(NV)
+  w[4] = 0.0
+  x = chol.newton_direction(*_torch(qM, J, w, grad, dtype=dtype, device="cuda"))
+  assert torch.isnan(x[4]).all()
+  assert torch.isfinite(x[:4]).all() and torch.isfinite(x[5:]).all()
