@@ -31,9 +31,24 @@ Phases, each printing its own lines:
      into its Newton directions, its linesearches and the rest;
   6. profile one more env step (device time by kernel, each kernel's time
      per launch on the main path, the device's busy share of phase 3's
-     steady wall time) and fail if the batched JᵀWJ product still runs.
+     steady wall time) and fail if the batched JᵀWJ product still runs;
+  7. the env path — `tasks.make_env("Mjlab-Velocity-Flat-Unitree-G1")` at
+     4096 envs (float32, from the committed scene), `reset(seed=0)`, then 60
+     `env.step`s of N(0, 1) actions with 0.4 s episodes (20 env steps, so
+     that every env resets in-step at least twice), all under
+     `torch.cuda.set_sync_debug_mode("error")`; the kernels' counters set
+     to 0 just before the steps and read just after: 59 factorizations and
+     5 `chol_solve` per env step (4 substeps and the post-reset forward).
+     Checks observation shapes, finite values, resets, the per-env foot
+     friction; times the steady env step; prints the env state's weighted
+     Newton rows and contacts and phase 5's stage times on it; splits one
+     env step by part with CUDA events, profiles one; then holds the card's
+     float64 env (kernels)
+     against the CPU's (plain versions) on a variant whose draws are all
+     certain, 4 envs x 8 env steps.
 Any failed check raises. The line before the last is the kernel table as
-JSON; the last line is {"ok": true, "device": {...}}.
+JSON (`launches` from the env path of phase 7); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -59,6 +74,12 @@ NEFC = 1699  # G1's constraint rows
 J_SETS = 3  # distinct Newton inputs, 3 x 0.97 GB
 KERNELS = ("chol_factor", "chol_solve", "chol_factor_solve", "newton_direction")
 OUT = Path("chiprun_out")
+TASK = "Mjlab-Velocity-Flat-Unitree-G1"
+RL_EPISODE_S = 0.4  # cut from 20 s: 20 env steps, every env resets in-step
+RL_STEPS = 60
+RL_STEADY_FROM = 10
+RL_FACT_PER_STEP = 4 * 12 + 11  # 4 substeps + the post-reset forward
+RL_SOLVES_PER_STEP = 5
 
 
 def card_line() -> str:
@@ -233,6 +254,75 @@ def solve_split(m, d, reps: int = 3) -> dict[str, float]:
   out = {"H + direction": 0.0, "linesearch": 0.0, "rest": 0.0}
   for part, start, end in marks:
     out[part] += start.elapsed_time(end) / reps
+  return out
+
+
+def certain_variant(cfg) -> None:
+  """The G1 task with every draw certain (zero-width command, reset, push,
+  friction and clock ranges; no standing envs; all heading envs; no
+  observation noise; 0.3 s episodes), so that two generators give the same
+  rollout. tests/test_torch_env_certain.py holds it against the JAX env."""
+  twist = cfg.commands["twist"]
+  twist.ranges.lin_vel_x = (0.5, 0.5)
+  twist.ranges.lin_vel_y = (0.1, 0.1)
+  twist.ranges.ang_vel_z = (0.2, 0.2)
+  twist.ranges.heading = (0.3, 0.3)
+  twist.rel_standing_envs = 0.0
+  twist.rel_heading_envs = 1.0
+  twist.resampling_time_range = (0.5, 0.5)
+  cfg.curriculum["command_vel"].params["velocity_stages"] = [
+    {"step": 0, "lin_vel_x": (0.5, 0.5), "ang_vel_z": (0.2, 0.2)},
+  ]
+  cfg.events["reset_base"].params["pose_range"] = {"x": (0.1, 0.1), "yaw": (0.5, 0.5)}
+  push = cfg.events["push_robot"]
+  push.interval_range_s = (0.4, 0.4)
+  push.params["velocity_range"] = {"x": (0.3, 0.3), "y": (-0.2, -0.2)}
+  cfg.events["foot_friction"].params["ranges"] = (0.7, 0.7)
+  cfg.observations["policy"].enable_corruption = False
+  cfg.episode_length_s = 0.3
+
+
+def split_env_step(env, action, reps: int = 2) -> dict[str, float]:
+  """Mean ms of each part of ManagerBasedRlEnv.step, run in its order with
+  the env's own methods, CUDA events between the parts."""
+  from mjlab_tpu_torch.envs.manager_based_rl_env import select_data
+
+  marks = []
+
+  def mark(part):
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    marks.append((part, e))
+
+  for _ in range(reps):
+    mark("start")
+    env.step_log = {}
+    env.action_manager.process_action(action)
+    for _ in range(env.cfg.decimation):
+      env.action_manager.apply_action()
+      env.scene.write_data_to_sim()
+      env.data = env.step_physics(env.data)
+      env.scene.update(dt=env.physics_dt)
+    mark("physics substeps")
+    env._episode_length = env._episode_length + 1
+    env._common_step_counter = env._common_step_counter + 1
+    reset_buf = env.termination_manager.compute()
+    env.reward_manager.compute(dt=env.step_dt)
+    mark("terminations + rewards")
+    env._reset_masked(reset_buf)
+    mark("reset")
+    env.data = select_data(torch.any(reset_buf), env.forward_physics(env.data), env.data)
+    mark("post-reset forward")
+    env.command_manager.compute(dt=env.step_dt)
+    env.event_manager.apply(mode="interval", dt=env.step_dt)
+    mark("commands + events")
+    env.observation_manager.compute()
+    mark("observations")
+  torch.cuda.synchronize()
+  out: dict[str, float] = {}
+  for (_, a), (part, b) in zip(marks, marks[1:]):
+    if part != "start":
+      out[part] = out.get(part, 0.0) + a.elapsed_time(b) / reps
   return out
 
 
@@ -497,6 +587,153 @@ def main() -> int:
     print(f"  {name:18s} on the main path {path_ms[name]:.4f} ms/launch "
           f"(x{count}) [{card}]")
 
+  # -- 7. the env path: ManagerBasedRlEnv.step at 4096 envs ----------------------
+  from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+  from mjlab_tpu_torch.tasks import load_env_cfg, make_env
+
+  del d, sim, step, run_args, w_run, grad
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  env = make_env(TASK, num_envs=NUM_WORLDS, episode_length_s=RL_EPISODE_S)
+  torch.cuda.synchronize()
+  t_build = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  obs, _ = env.reset(seed=0)
+  torch.cuda.synchronize()
+  t_reset = time.perf_counter() - t0
+  print(f"phase 7 env path: {TASK}, {NUM_WORLDS} envs, float32, episodes "
+        f"{RL_EPISODE_S} s ({env.max_episode_length} env steps); build {t_build:.2f} s, "
+        f"reset(seed=0) {t_reset:.3f} s [{card}]")
+  robot = env.scene["robot"]
+  foot = robot.indexing.geom_ids[robot.find_geoms(r".*_foot[1-7]_collision")[0]]
+  fric = env.model.geom_friction.cpu()
+  nominal = env.sim.unbatched_model.geom_friction.cpu()
+  others = [g for g in range(fric.shape[1]) if g not in set(foot.tolist())]
+  spread = (fric[:, foot, 0].amax(0) - fric[:, foot, 0].amin(0)).min().item()
+  print(f"  per-env foot friction: {len(foot)} geoms, mu in [{fric[:, foot, 0].min():.3f}, "
+        f"{fric[:, foot, 0].max():.3f}], least spread across envs {spread:.3f}")
+  if not (len(foot) == 14 and spread > 0.5
+          and torch.equal(fric[:, others], nominal[others].expand_as(fric[:, others]))
+          and torch.equal(fric[:, foot, 1:], nominal[foot, 1:].expand_as(fric[:, foot, 1:]))):
+    raise AssertionError("per-env geom_friction is not randomized on the 14 foot geoms "
+                         "only")
+  agen = torch.Generator(device="cuda").manual_seed(0)
+  reset_total = torch.zeros((), dtype=torch.int64, device="cuda")
+  finite = torch.ones((), dtype=torch.bool, device="cuda")
+  ev_start = torch.cuda.Event(enable_timing=True)
+  ev_end = torch.cuda.Event(enable_timing=True)
+  chol.reset_counts()
+  torch.cuda.set_sync_debug_mode("error")
+  t0 = time.perf_counter()
+  for i in range(RL_STEPS):
+    if i == RL_STEADY_FROM:
+      ev_start.record()
+    action = torch.randn(NUM_WORLDS, env.total_action_dim, generator=agen, device="cuda")
+    obs, rew, terminated, time_outs, extras = env.step(action)
+    reset_total += extras["log"]["reset_count"]
+    finite &= torch.isfinite(rew).all() & torch.isfinite(obs["policy"]).all()
+    finite &= torch.isfinite(obs["critic"]).all()
+  ev_end.record()
+  torch.cuda.set_sync_debug_mode("default")
+  torch.cuda.synchronize()
+  t_loop = time.perf_counter() - t0
+  env_launches = dict(chol.LAUNCHES)
+  env_fact = chol.factorizations()
+  env_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  steady_ms = ev_start.elapsed_time(ev_end) / (RL_STEPS - RL_STEADY_FROM)
+  substep_ms = dt_steady / ((ENV_STEPS - 10) * DECIMATION) * 1e3
+  print(f"  {RL_STEPS} env steps under set_sync_debug_mode('error'): no host-device "
+        f"synchronization; wall {t_loop:.3f} s")
+  print(f"  steady (env steps {RL_STEADY_FROM}-{RL_STEPS - 1}, CUDA events) "
+        f"{steady_ms:.2f} ms/env step, {NUM_WORLDS / steady_ms * 1e3:.1f} env-steps/s; "
+        f"env layer over 4 x phase 3's {substep_ms:.2f} ms substep: "
+        f"{steady_ms - 4 * substep_ms:.2f} ms [{card}]")
+  print(f"  peak memory {env_peak_gb:.2f} GB (torch.cuda.max_memory_allocated) [{card}]")
+  resets = int(reset_total.item())
+  print(f"  resets {resets} ({resets / NUM_WORLDS:.2f} per env); launches {env_launches}; "
+        f"factorizations {env_fact} = {env_fact / RL_STEPS:.2f}/env step, chol_solve "
+        f"{env_launches['chol_solve'] / RL_STEPS:.2f}/env step")
+  if obs["policy"].shape != (NUM_WORLDS, 99) or obs["critic"].shape != (NUM_WORLDS, 111):
+    raise AssertionError(f"observation shapes {obs['policy'].shape}, {obs['critic'].shape}")
+  if not finite.item():
+    raise AssertionError("non-finite observation or reward on the env path")
+  if resets < 2 * NUM_WORLDS:
+    raise AssertionError(f"{resets} resets < 2 per env")
+  if (env_fact != RL_FACT_PER_STEP * RL_STEPS
+      or env_launches["chol_solve"] != RL_SOLVES_PER_STEP * RL_STEPS
+      or any(env_launches[k] == 0 for k in KERNELS)):
+    raise AssertionError(f"expected {RL_FACT_PER_STEP} factorizations and "
+                         f"{RL_SOLVES_PER_STEP} solves per env step, got {env_launches}")
+
+  # The env's state against phase 3's: the Newton rows with a weight, the
+  # active contacts, and one substep's stages on it.
+  w_env = solver.newton_weights(env.data, env.data.qacc)
+  env_active = (env.data.contact.dist < env.data.contact.includemargin).sum(1).float()
+  print(f"  env state: active Newton rows share {(w_env != 0).float().mean().item():.4f} "
+        f"(phase 3: {share:.4f}); active contacts per env mean "
+        f"{env_active.mean().item():.2f}; root height mean "
+        f"{env.data.qpos[:, 2].mean().item():.3f} m")
+  del w_env
+  env_stages = stage_times(env.tp, env.model, env.data)
+  print(f"  one substep's stages on the env's state (CUDA events, mean of 3) [{card}]: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in env_stages.items() if v > 0.5)
+        + f"; sum {sum(env_stages.values()):.3f} ms (phase 5: {total:.3f} ms)")
+  action = torch.randn(NUM_WORLDS, env.total_action_dim, generator=agen, device="cuda")
+  parts = split_env_step(env, action)
+  print(f"  one env step by part (CUDA events, mean of 2) [{card}]:")
+  for part, ms in parts.items():
+    print(f"    {part:24s} {ms:9.3f} ms  {100 * ms / sum(parts.values()):5.1f}%")
+  print(f"    {'sum':24s} {sum(parts.values()):9.3f} ms; post-reset forward "
+        f"{parts['post-reset forward']:.3f} ms = "
+        f"{parts['post-reset forward'] / substep_ms:.2f} x phase 3's substep")
+
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    env.step(action)
+    torch.cuda.synchronize()
+  averages = prof.key_averages()
+  (OUT / "chip_smoke_env_profile.txt").write_text(averages.table(sort_by=attr, row_limit=40))
+  events = [e for e in averages if str(e.device_type).endswith("CUDA")]
+  env_dev_ms = sum(getattr(e, attr) for e in events) / 1e3
+  env_kernel_launches = sum(e.count for e in events)
+  print(f"  profile of 1 env step: device time {env_dev_ms:.2f} ms in "
+        f"{env_kernel_launches} kernel launches; busy share "
+        f"{env_dev_ms / steady_ms:.3f} of the steady {steady_ms:.2f} ms/env step [{card}]; "
+        f"table in {OUT}/chip_smoke_env_profile.txt")
+  for e in sorted(events, key=lambda e: -getattr(e, attr))[:6]:
+    print(f"    {getattr(e, attr) / 1e3:8.3f} ms  x{e.count:5d}  {e.key[:90]}")
+  del env, obs, rew, terminated, time_outs, extras
+  torch.cuda.empty_cache()
+
+  # The card's float64 env (kernels) against the CPU's (plain versions). A
+  # 4-env CPU step is thousands of tiny ops: one thread runs it fastest.
+  torch.set_num_threads(1)
+  envs = {}
+  for dv in ("cuda", "cpu"):
+    cfg = load_env_cfg(TASK)
+    cfg.scene.num_envs = 4
+    cfg.sim.dtype = "float64"
+    certain_variant(cfg)
+    envs[dv] = ManagerBasedRlEnv(cfg, device=dv)
+  outs = {dv: [e.reset(seed=0)[0]] for dv, e in envs.items()}
+  rng = torch.Generator().manual_seed(2)
+  for _ in range(8):
+    a = torch.randn(4, 29, generator=rng, dtype=torch.float64)
+    for dv, e in envs.items():
+      o, r, *_ = e.step(a.to(dv))
+      outs[dv].append({**o, "reward": r, "qpos": e.data.qpos})
+  print("  card (kernels, f64) vs CPU (plain, f64), certain-draw variant, 4 envs x 8 "
+        "env steps:")
+  for key in ("policy", "critic", "reward", "qpos"):
+    got = torch.stack([o[key].cpu() for o in outs["cuda"][1:]])
+    want = torch.stack([o[key] for o in outs["cpu"][1:]])
+    err = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    print(f"    {key:8s} max_abs_err {err:.3e} (tol 1e-8 x {scale:.3e})")
+    if not err <= 1e-8 * scale:
+      raise AssertionError(f"card vs CPU env mismatch on {key}")
+  del envs, outs
+
   # -- result lines ---------------------------------------------------------------
   bnd = bounds(NUM_WORLDS, N, rows=NUM_WORLDS * NEFC)
   bnd_run = bounds(NUM_WORLDS, N, rows=active_rows)["newton_direction"]
@@ -516,7 +753,8 @@ def main() -> int:
       "source": "mjlab_tpu_torch/csrc/"
                 + ("newton_dir.cu" if name == "newton_direction" else "chol.cu"),
       "replaces": replaces[name],
-      "launches": launches[name],
+      "launches": env_launches[name],
+      "launches_physics_path": launches[name],
       "max_abs_err": checks.max_abs_err[name],
       "ms": times[name][0],
       "ms_l2_resident": times[name][3],

@@ -1,8 +1,11 @@
-"""Quaternion and frame helpers the physics step uses (port of the matching
-part of mjlab_tpu/core/math.py). Quaternions are wxyz; every function
-broadcasts over leading axes and works on the trailing one."""
+"""Quaternion, frame and sampling helpers the physics step and the MDP
+terms use (port of the matching part of mjlab_tpu/core/math.py).
+Quaternions are wxyz; every function broadcasts over leading axes and works
+on the trailing one. Random draws take an explicit torch.Generator."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -82,3 +85,78 @@ def quat_exp(v: torch.Tensor) -> torch.Tensor:
 def quat_integrate(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
   """q ⊗ exp(omega * dt), omega in the body frame (mju_quatIntegrate)."""
   return normalize(quat_mul(q, quat_exp(omega * dt)))
+
+
+# ---------------------------------------------------------------------------
+# Helpers the MDP terms use (port of the matching part of
+# mjlab_tpu/core/math.py).
+# ---------------------------------------------------------------------------
+
+
+def wrap_to_pi(angle: torch.Tensor) -> torch.Tensor:
+  """Wrap angles to [-pi, pi) (floor modulo, as jnp.mod)."""
+  return torch.remainder(angle + torch.pi, 2 * torch.pi) - torch.pi
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+  return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_apply_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """Rotate v by q⁻¹ (world → local for a frame rotation q)."""
+  return quat_apply(quat_conjugate(q), v)
+
+
+def quat_unique(q: torch.Tensor) -> torch.Tensor:
+  """Canonical sign: non-negative scalar part."""
+  return torch.where(q[..., 0:1] < 0, -q, q)
+
+
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+  """Unit quaternion from rotation matrix, branch-free (Shepperd's method)."""
+  m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+  m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+  m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+  tr = m00 + m11 + m22
+  qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+  qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+  qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+  qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+  scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], dim=-1)
+  best = torch.argmax(scores, dim=-1)
+  cands = torch.stack([qw, qx, qy, qz], dim=-2)
+  q = torch.take_along_dim(cands, best[..., None, None], dim=-2)[..., 0, :]
+  return quat_unique(normalize(q))
+
+
+def quat_from_euler_xyz(
+  roll: torch.Tensor, pitch: torch.Tensor, yaw: torch.Tensor
+) -> torch.Tensor:
+  """Quaternion from intrinsic XYZ Euler angles: qz ⊗ qy ⊗ qx."""
+  roll, pitch, yaw = torch.broadcast_tensors(roll, pitch, yaw)
+  zero = torch.zeros_like(roll)
+
+  def about(angle, axis):
+    half = 0.5 * angle
+    c, s = torch.cos(half), torch.sin(half)
+    parts = [c, zero, zero, zero]
+    parts[1 + axis] = s
+    return torch.stack(parts, dim=-1)
+
+  return quat_mul(about(yaw, 2), quat_mul(about(pitch, 1), about(roll, 0)))
+
+
+def sample_uniform(lo, hi, shape, generator: torch.Generator, dtype, device) -> torch.Tensor:
+  """Uniform draws in [lo, hi) as lo + u (hi − lo); lo and hi are numbers
+  or tensors broadcasting against `shape`."""
+  u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+  return lo + u * (hi - lo)
+
+
+def sample_gaussian(mean, std, shape, generator: torch.Generator, dtype, device) -> torch.Tensor:
+  return torch.randn(shape, generator=generator, dtype=dtype, device=device) * std + mean
+
+
+def sample_log_uniform(lo, hi, shape, generator: torch.Generator, dtype, device) -> torch.Tensor:
+  u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+  return torch.exp(u * (math.log(hi) - math.log(lo)) + math.log(lo))

@@ -1,0 +1,182 @@
+"""Stock event terms (port of mjlab_tpu/envs/mdp/events.py).
+
+Every event term takes `env_mask`, a boolean (B,) tensor, instead of env
+ids. Draws are made for all envs on every call, from the env's generator,
+and merged by the mask, so that shapes never depend on data.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Literal, Tuple, Union
+
+import numpy as np
+import torch
+
+from mjlab_tpu_torch.core import math as mt
+from mjlab_tpu_torch.managers.scene_entity_config import SceneEntityCfg
+
+_DEFAULT = SceneEntityCfg("robot")
+_POSE_KEYS = ["x", "y", "z", "roll", "pitch", "yaw"]
+
+
+def _uniform6(env, ranges_dict, batch: int) -> torch.Tensor:
+  """(batch, 6) draws lo + u (hi − lo) over x, y, z, roll, pitch, yaw; a
+  missing key is (0, 0). Bounds stay Python numbers: no host-to-device
+  copy."""
+  u = torch.rand((batch, 6), generator=env.generator, dtype=env.dtype, device=env.device)
+  cols = []
+  for i, k in enumerate(_POSE_KEYS):
+    lo, hi = ranges_dict.get(k, (0.0, 0.0))
+    cols.append(lo + u[:, i] * (hi - lo))
+  return torch.stack(cols, dim=-1)
+
+
+def reset_scene_to_default(env, env_mask) -> None:
+  for entity in env.scene.entities.values():
+    if not entity.is_fixed_base:
+      root_state = entity.data.default_root_state.clone()
+      root_state[:, 0:3] += env.scene.env_origins
+      entity.write_root_state_to_sim(root_state, env_mask=env_mask)
+    if entity.is_articulated:
+      entity.write_joint_state_to_sim(
+        entity.data.default_joint_pos, entity.data.default_joint_vel, env_mask=env_mask,
+      )
+
+
+def reset_root_state_uniform(
+  env,
+  env_mask,
+  pose_range: dict[str, tuple[float, float]],
+  velocity_range: dict[str, tuple[float, float]] | None = None,
+  asset_cfg: SceneEntityCfg = _DEFAULT,
+) -> None:
+  asset = env.scene[asset_cfg.name]
+  if asset.is_fixed_base:
+    raise NotImplementedError(
+      "reset_root_state_uniform of a fixed-base (mocap) entity is not supported by "
+      "mjlab_tpu_torch"
+    )
+  B = env.num_envs
+  pose_samples = _uniform6(env, pose_range, B)
+  root_states = asset.data.default_root_state
+  positions = root_states[:, 0:3] + pose_samples[:, 0:3] + env.scene.env_origins
+  delta = mt.quat_from_euler_xyz(
+    pose_samples[:, 3], pose_samples[:, 4], pose_samples[:, 5]
+  )
+  orientations = mt.quat_mul(root_states[:, 3:7], delta)
+  vel_samples = _uniform6(env, velocity_range or {}, B)
+  velocities = root_states[:, 7:13] + vel_samples
+  asset.write_root_link_pose_to_sim(
+    torch.cat([positions, orientations], dim=-1), env_mask=env_mask
+  )
+  asset.write_root_link_velocity_to_sim(velocities, env_mask=env_mask)
+
+
+def reset_joints_by_offset(
+  env,
+  env_mask,
+  position_range: tuple[float, float],
+  velocity_range: tuple[float, float],
+  asset_cfg: SceneEntityCfg = _DEFAULT,
+) -> None:
+  asset = env.scene[asset_cfg.name]
+  jp = asset.data.default_joint_pos[:, asset_cfg.joint_ids]
+  jv = asset.data.default_joint_vel[:, asset_cfg.joint_ids]
+  kw = dict(generator=env.generator, dtype=env.dtype, device=env.device)
+  jp = jp + mt.sample_uniform(*position_range, jp.shape, **kw)
+  limits = asset.data.soft_joint_pos_limits[:, asset_cfg.joint_ids]
+  jp = torch.clamp(jp, limits[..., 0], limits[..., 1])
+  jv = jv + mt.sample_uniform(*velocity_range, jv.shape, **kw)
+  ids = asset_cfg.joint_ids
+  asset.write_joint_state_to_sim(
+    jp, jv, joint_ids=None if isinstance(ids, slice) else ids, env_mask=env_mask,
+  )
+
+
+def push_by_setting_velocity(
+  env,
+  env_mask,
+  velocity_range: dict[str, tuple[float, float]],
+  asset_cfg: SceneEntityCfg = _DEFAULT,
+) -> None:
+  asset = env.scene[asset_cfg.name]
+  vel_w = asset.data.root_link_vel_w + _uniform6(env, velocity_range, env.num_envs)
+  asset.write_root_link_velocity_to_sim(vel_w, env_mask=env_mask)
+
+
+# ---------------------------------------------------------------------------
+# Domain randomization of a Model field. The field must carry an env axis:
+# the env expands the fields of events marked domain_randomization=True, and
+# `sim.Simulation.expand_model_fields` refuses every field the port's physics
+# cannot read per env (all but geom_friction).
+# ---------------------------------------------------------------------------
+
+# Geom fields the port randomizes, with the axes randomized by default.
+_GEOM_FIELD_AXES = {"geom_friction": [0]}
+
+
+def randomize_field(
+  env,
+  env_mask,
+  field: str,
+  ranges: Union[Tuple[float, float], Dict[int, Tuple[float, float]]],
+  distribution: Literal["uniform", "log_uniform", "gaussian"] = "uniform",
+  operation: Literal["add", "scale", "abs"] = "abs",
+  asset_cfg: SceneEntityCfg | None = None,
+  axes: list[int] | None = None,
+) -> None:
+  """Randomize a Model field per env. Its element indices are read on the
+  host, so this term is for startup events (the G1 task's use)."""
+  asset_cfg = asset_cfg or _DEFAULT
+  asset = env.scene[asset_cfg.name]
+  model_field = getattr(env.model, field)
+  if field not in env.sim.batched_fields:
+    raise RuntimeError(
+      f"Model field '{field}' is not env-batched; mark the event with "
+      f"domain_randomization=True so the env expands it."
+    )
+  ids = asset_cfg.geom_ids
+  ent_idx = torch.as_tensor(
+    asset.indexing.geom_ids[ids if isinstance(ids, slice) else np.asarray(ids.cpu())],
+    device=env.device,
+  )
+  sub = model_field[:, ent_idx]  # (B, n) or (B, n, k)
+
+  if sub.dim() == 2:
+    target_axes = [None]
+  elif axes is not None:
+    target_axes = list(axes)
+  elif isinstance(ranges, dict):
+    target_axes = sorted(ranges.keys())
+  else:
+    target_axes = list(_GEOM_FIELD_AXES[field])
+
+  samplers = {"uniform": mt.sample_uniform, "log_uniform": mt.sample_log_uniform,
+              "gaussian": mt.sample_gaussian}
+  if distribution not in samplers:
+    raise ValueError(distribution)
+
+  def combine(old, rand):
+    if operation == "add":
+      return old + rand
+    if operation == "scale":
+      return old * rand
+    if operation == "abs":
+      return rand
+    raise ValueError(operation)
+
+  new_sub = sub.clone()
+  for ax in target_axes:
+    lo, hi = ranges[ax if ax is not None else 0] if isinstance(ranges, dict) else ranges
+    rand = samplers[distribution](lo, hi, sub.shape[:2], generator=env.generator,
+                                  dtype=env.dtype, device=env.device)
+    if ax is None:
+      new_sub = combine(new_sub, rand)
+    else:
+      new_sub[..., ax] = combine(new_sub[..., ax], rand)
+
+  mask = env_mask.reshape((-1,) + (1,) * (sub.dim() - 1))
+  updated = model_field.clone()
+  updated[:, ent_idx] = torch.where(mask, new_sub, sub)
+  env.model = dataclasses.replace(env.model, **{field: updated})

@@ -172,25 +172,33 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
 
 
 def _combine_params_vec(m: Model, g):
-  """Vectorized mj_contactParam over a pair group (static priorities)."""
+  """Vectorized mj_contactParam over a pair group (static priorities). A
+  per-env `geom_friction` (B, ngeom, 3) gives a per-env friction (B, n, 5);
+  every other result is shared by the batch."""
   g1, g2, hi, differ = g.g1, g.g2, g.hi, g.differ
+  fr = m.geom_friction
+  if fr.dim() == 3:
+    fr = fr.transpose(0, 1)  # (ngeom, B, 3): index geoms first
+    differ = differ[..., None]
   s1 = torch.clamp_min(m.geom_solmix[g1], 1e-12)
   s2 = torch.clamp_min(m.geom_solmix[g2], 1e-12)
   w1 = (s1 / (s1 + s2))[:, None]
   w2 = (s2 / (s1 + s2))[:, None]
-  fri_mix = torch.maximum(m.geom_friction[g1], m.geom_friction[g2])
+  fri_mix = torch.maximum(fr[g1], fr[g2])
   ref1, ref2 = m.geom_solref[g1], m.geom_solref[g2]
   ref_mix = w1 * ref1 + w2 * ref2
   direct = ((ref1[:, 0] <= 0) | (ref2[:, 0] <= 0))[:, None]
   ref_mix = torch.where(direct, torch.minimum(ref1, ref2), ref_mix)
   imp_mix = w1 * m.geom_solimp[g1] + w2 * m.geom_solimp[g2]
-  fri3 = torch.where(differ, m.geom_friction[hi], fri_mix)
-  solref = torch.where(differ, m.geom_solref[hi], ref_mix)
-  solimp = torch.where(differ, m.geom_solimp[hi], imp_mix)
+  fri3 = torch.where(differ, fr[hi], fri_mix)
+  solref = torch.where(g.differ, m.geom_solref[hi], ref_mix)
+  solimp = torch.where(g.differ, m.geom_solimp[hi], imp_mix)
   margin = torch.maximum(m.geom_margin[g1], m.geom_margin[g2])
   friction = torch.stack(
-    [fri3[:, 0], fri3[:, 0], fri3[:, 1], fri3[:, 2], fri3[:, 2]], dim=-1
+    [fri3[..., 0], fri3[..., 0], fri3[..., 1], fri3[..., 2], fri3[..., 2]], dim=-1
   )
+  if friction.dim() == 3:
+    friction = friction.transpose(0, 1)  # (B, n, 5)
   # includemargin = margin (MuJoCo >= 3.10 ignores gap).
   return friction, solref, solimp, margin, torch.zeros_like(solref)
 
@@ -216,6 +224,9 @@ def collision(tp: Topology, m: Model, d: Data) -> Data:
     friction, solref, solimp, margin, sreff = _combine_params_vec(m, g)
     for f, v in (("friction", friction), ("solref", solref), ("solimp", solimp),
                  ("includemargin", margin), ("solreffriction", sreff)):
+      if f == "friction" and v.dim() == 3:  # per-env friction (B, n, 5)
+        parts[f].append(torch.repeat_interleave(v, g.k, dim=1))
+        continue
       v = torch.repeat_interleave(v, g.k, dim=0)
       parts[f].append(v.expand((B,) + v.shape))
   contact = Contact(**{f: torch.cat(v, dim=1) for f, v in parts.items()})

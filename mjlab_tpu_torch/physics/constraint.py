@@ -134,6 +134,14 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
            - tp.body_dof_mask[st.b1].astype(np.float64))
   groups = [(cd, ix(np.nonzero(st.condim == cd)[0]))
             for cd in sorted(set(st.condim.tolist()))]
+  # contact_forces: each condim group's slots and their efc rows.
+  ne, nf, nl, _ = efc_row_types(tp)
+  force_groups = []
+  for cd in sorted(set(st.condim.tolist())):
+    idx = np.nonzero(st.condim == cd)[0]
+    nrows = 1 if cd == 1 else 2 * (cd - 1)
+    rows = ne + nf + nl + st.slot_row_adr[idx][:, None] + np.arange(nrows)[None]
+    force_groups.append((cd, ix(idx), ix(rows)))
   return SimpleNamespace(
     lim_jnt=ix(lj),
     lim_q=ix(tp.jnt_qposadr[lj]),
@@ -144,7 +152,32 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
     b1=ix(st.b1),
     b2=ix(st.b2),
     condim_groups=groups,
+    force_groups=force_groups,
+    ncon=len(st.condim),
   )
+
+
+def contact_forces(tp: Topology, m: Model, d: Data) -> torch.Tensor:
+  """Per-slot contact wrench in the contact frame, (B, C, 6): force
+  [normal, t1, t2] then torque [torsion, roll1, roll2], zero beyond the
+  contact's condim (port of the JAX package's constraint.contact_forces).
+  Pyramidal decoding: normal = Σ λ_k, component_i = μ_i (λ_{i+} − λ_{i−})."""
+  del m
+  t = tp.dev.con
+  B = d.efc_force.shape[0]
+  out = d.efc_force.new_zeros((B, t.ncon, 6))
+  for cd, idx, rows in t.force_groups:
+    lam = d.efc_force[:, rows]  # (B, n, rows per slot)
+    if cd == 1:
+      comps = [lam[..., 0]]
+    else:
+      comps = [torch.sum(lam, dim=-1)]
+      for f in range(1, cd):
+        mu = d.contact.friction[:, idx, f - 1]
+        comps.append(mu * (lam[..., 2 * (f - 1)] - lam[..., 2 * (f - 1) + 1]))
+    comps += [torch.zeros_like(comps[0])] * (6 - len(comps))
+    out[:, idx] = torch.stack(comps, dim=-1)
+  return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,283 @@
+"""Contact sensor over the static contact-slot table (port of
+mjlab_tpu/sensors/contact_sensor.py).
+
+At initialize the (primary × secondary) matches resolve, from the compiled
+model's names table, to static contact-slot index sets of the engine's
+pair table: one row of slot indices, validity and sign per primary item.
+Every step reduces over them with fixed shapes. The port has the `found`
+and `force` fields, the `netforce` and `none` reduces, the contact-frame
+output and the air-time state machine; any other field, reduce or option
+raises `NotImplementedError` naming itself.
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass
+from typing import Literal
+
+import numpy as np
+import torch
+
+from mjlab_tpu_torch.entity.entity import element_name
+from mjlab_tpu_torch.sensors.sensor import Sensor, SensorCfg
+
+_FIELDS = ("found", "force")
+_REDUCES = ("none", "netforce")
+
+
+@dataclass
+class ContactMatch:
+  """One side of a contact match."""
+
+  mode: Literal["geom", "body", "subtree"]
+  pattern: str | tuple[str, ...]
+  entity: str | None = None
+  exclude: tuple[str, ...] = ()
+
+
+@dataclass
+class ContactSensorCfg(SensorCfg):
+  primary: ContactMatch = None  # type: ignore[assignment]
+  secondary: ContactMatch | None = None
+  fields: tuple[str, ...] = ("found", "force")
+  reduce: Literal["none", "mindist", "maxforce", "netforce"] = "maxforce"
+  track_air_time: bool = False
+  global_frame: bool = False
+
+  def build(self) -> "ContactSensor":
+    return ContactSensor(self)
+
+
+@dataclass
+class ContactData:
+  found: torch.Tensor | None = None  # [B, N]
+  force: torch.Tensor | None = None  # [B, N, 3]
+  current_air_time: torch.Tensor | None = None
+  last_air_time: torch.Tensor | None = None
+  current_contact_time: torch.Tensor | None = None
+  last_contact_time: torch.Tensor | None = None
+
+
+def _match_names(patterns, names, exclude):
+  if isinstance(patterns, str):
+    patterns = (patterns,)
+  pats = [re.compile(p) for p in patterns]
+  exc = [re.compile(p) for p in exclude]
+  return [
+    n for n in names
+    if any(p.fullmatch(n) for p in pats) and not any(e.fullmatch(n) for e in exc)
+  ]
+
+
+def _is_in_subtree(body_parentid, body: int, root: int) -> bool:
+  b = body
+  while True:
+    if b == root:
+      return True
+    if b == 0:
+      return False
+    b = int(body_parentid[b])
+
+
+class ContactSensor(Sensor[ContactData]):
+  def __init__(self, cfg: ContactSensorCfg) -> None:
+    for f in cfg.fields:
+      if f not in _FIELDS:
+        raise NotImplementedError(
+          f"contact sensor field '{f}' is not supported by mjlab_tpu_torch"
+        )
+    if cfg.reduce not in _REDUCES:
+      raise NotImplementedError(
+        f"contact sensor reduce '{cfg.reduce}' is not supported by mjlab_tpu_torch"
+      )
+    if cfg.global_frame:
+      raise NotImplementedError(
+        "contact sensor global_frame is not supported by mjlab_tpu_torch"
+      )
+    self.cfg = cfg
+
+  # -- resolution ---------------------------------------------------------------
+
+  def _resolve_items(self, model, match: ContactMatch) -> list[tuple[str, set]]:
+    """Match → list of (name, geom-id set)."""
+
+    def scope_one(p: str) -> str:
+      # Keep a leading anchor in front of the entity prefix: "^foot$" must
+      # become "^robot/foot$", not "robot/^foot$".
+      if p.startswith("^"):
+        return f"^{re.escape(match.entity)}/{p[1:]}"
+      return f"{re.escape(match.entity)}/{p}"
+
+    def scoped(patterns):
+      if match.entity is None:
+        return patterns
+      pats = patterns if isinstance(patterns, tuple) else (patterns,)
+      return tuple(scope_one(p) for p in pats)
+
+    exclude = tuple(scope_one(p) if match.entity else p for p in match.exclude)
+
+    if match.mode == "geom":
+      geom_names = [element_name(model, model.name_geomadr, i) for i in range(model.ngeom)]
+      names = _match_names(scoped(match.pattern), geom_names, exclude)
+      return [(n, {geom_names.index(n)}) for n in names]
+
+    body_names = [element_name(model, model.name_bodyadr, i) for i in range(model.nbody)]
+    items = []
+    for n in _match_names(scoped(match.pattern), body_names, exclude):
+      bid = body_names.index(n)
+      if match.mode == "body":
+        bids = [bid]
+      else:  # subtree
+        bids = [b for b in range(model.nbody)
+                if _is_in_subtree(model.body_parentid, b, bid)]
+      geoms = set()
+      for b in bids:
+        adr, num = int(model.body_geomadr[b]), int(model.body_geomnum[b])
+        geoms.update(range(adr, adr + num))
+      items.append((n, geoms))
+    return items
+
+  def initialize(self, model, ctx) -> None:
+    super().initialize(model, ctx)
+    tp = ctx.tp
+    primaries = self._resolve_items(model, self.cfg.primary)
+    if not primaries:
+      raise ValueError(f"Contact sensor '{self.cfg.name}': no primary matches.")
+    if self.cfg.secondary is not None:
+      secondary_sets = self._resolve_items(model, self.cfg.secondary)
+      secondary: set | None = set().union(*(s for _, s in secondary_sets))
+    else:
+      secondary = None
+
+    slot_g1, slot_g2 = [], []
+    for p in tp.pairs:
+      slot_g1 += [p.geom1] * p.ncon
+      slot_g2 += [p.geom2] * p.ncon
+
+    self.item_names = [n for n, _ in primaries]
+    per_item_slots, per_item_sign = [], []
+    for _, pset in primaries:
+      slots, signs = [], []
+      for k, (g1, g2) in enumerate(zip(slot_g1, slot_g2)):
+        p1, p2 = g1 in pset, g2 in pset
+        s1 = secondary is None or g1 in secondary
+        s2 = secondary is None or g2 in secondary
+        # The contact normal points geom1 → geom2: the force ON the primary
+        # is +f when the primary is geom2 and −f when it is geom1. A slot is
+        # listed once even when both geoms match (self-matching sensors).
+        if p1 and s2:
+          slots.append(k)
+          signs.append(-1.0)
+        elif p2 and s1:
+          slots.append(k)
+          signs.append(1.0)
+      per_item_slots.append(slots)
+      per_item_sign.append(signs)
+
+    smax = max(1, max(len(s) for s in per_item_slots))
+    N = len(per_item_slots)
+    self._slot_idx = np.zeros((N, smax), dtype=np.int64)
+    self._slot_valid = np.zeros((N, smax), dtype=bool)
+    self._slot_sign = np.zeros((N, smax))
+    for i, (slots, signs) in enumerate(zip(per_item_slots, per_item_sign)):
+      self._slot_idx[i, : len(slots)] = slots
+      self._slot_valid[i, : len(slots)] = True
+      self._slot_sign[i, : len(slots)] = signs
+    self.num_items = N
+    dev = ctx.device
+    self._idx = torch.as_tensor(self._slot_idx, device=dev)
+    self._valid = torch.as_tensor(self._slot_valid, device=dev)
+    self._sign = torch.as_tensor(self._slot_sign, dtype=ctx.dtype, device=dev)
+
+  # -- state ----------------------------------------------------------------------
+
+  def init_state(self) -> dict:
+    if not self.cfg.track_air_time:
+      return {}
+    B, N = self._ctx.num_envs, self.num_items
+    z = torch.zeros((B, N), dtype=self._ctx.dtype, device=self._ctx.device)
+    return {
+      "current_air_time": z,
+      "last_air_time": z,
+      "current_contact_time": z,
+      "last_contact_time": z,
+    }
+
+  @property
+  def state(self) -> dict:
+    return self._ctx.ns("scene")["sensors"][self.cfg.name]
+
+  # -- compute ----------------------------------------------------------------------
+
+  def _active(self) -> torch.Tensor:
+    """(B, N, S): the item's slots whose contact is active."""
+    c = self._ctx.data.contact
+    return (c.dist[:, self._idx] < c.includemargin[:, self._idx]) & self._valid
+
+  @property
+  def data(self) -> ContactData:
+    cfg = self.cfg
+    active = self._active()
+    out = ContactData()
+    if "found" in cfg.fields:
+      out.found = torch.sum(active, dim=-1).to(self._ctx.dtype)
+    if "force" in cfg.fields:
+      w_all = self._ctx.contact_forces()  # (B, C, 6) wrench, contact frame
+      f_local = w_all[:, self._idx, :3] * active[..., None]  # (B, N, S, 3)
+      if cfg.reduce == "netforce":
+        # World-frame net force on the primary.
+        frames = self._ctx.data.contact.frame[:, self._idx]  # (B, N, S, 3, 3)
+        f_world = torch.einsum("bnsi,bnsij->bnsj", f_local, frames)
+        out.force = torch.sum(f_world * self._sign[..., None], dim=2)
+      else:  # "none": the first active slot, in the contact frame
+        sel = torch.argmax(active.to(torch.int8), dim=-1)
+        out.force = torch.take_along_dim(f_local, sel[..., None, None], dim=2)[:, :, 0]
+    if cfg.track_air_time:
+      st = self.state
+      out.current_air_time = st["current_air_time"]
+      out.last_air_time = st["last_air_time"]
+      out.current_contact_time = st["current_contact_time"]
+      out.last_contact_time = st["last_contact_time"]
+    return out
+
+  # -- air time state machine -----------------------------------------------------
+
+  def update(self, dt: float) -> None:
+    if not self.cfg.track_air_time:
+      return
+    in_contact = torch.any(self._active(), dim=-1)  # (B, N)
+    st = self.state
+    cat = st["current_air_time"]
+    cct = st["current_contact_time"]
+    first_contact = in_contact & (cat > 0)
+    first_air = (~in_contact) & (cct > 0)
+    st["last_air_time"] = torch.where(first_contact, cat + dt, st["last_air_time"])
+    st["current_air_time"] = torch.where(in_contact, 0.0, cat + dt)
+    st["last_contact_time"] = torch.where(first_air, cct + dt, st["last_contact_time"])
+    st["current_contact_time"] = torch.where(in_contact, cct + dt, 0.0)
+
+  def compute_first_contact(self, dt: float) -> torch.Tensor:
+    """Envs whose item touched down within the last dt window."""
+    st = self.state
+    in_contact = torch.any(self._active(), dim=-1)
+    return in_contact & (st["last_air_time"] > 0) & (
+      st["current_contact_time"] <= dt + 1e-9
+    )
+
+  def compute_first_air(self, dt: float) -> torch.Tensor:
+    st = self.state
+    in_contact = torch.any(self._active(), dim=-1)
+    return (~in_contact) & (st["last_contact_time"] > 0) & (
+      st["current_air_time"] <= dt + 1e-9
+    )
+
+  def reset(self, env_mask=None) -> None:
+    if not self.cfg.track_air_time:
+      return
+    st = self.state
+    for k in list(st):
+      if env_mask is None:
+        st[k] = torch.zeros_like(st[k])
+      else:
+        st[k] = torch.where(env_mask[:, None], 0.0, st[k])

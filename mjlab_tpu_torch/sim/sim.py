@@ -6,16 +6,25 @@ The model may be a live `mujoco.MjModel` or the namespace that
 (the GPU host has none). `step_fn()` / `forward_fn()` return batched
 (model, data) → data callables, the counterparts of the JAX package's
 vmapped closures.
+
+Model leaves are shared by all envs, except those `expand_model_fields`
+gives a leading env axis for domain randomization. The physics step reads
+a per-env leaf only where it supports one (`PER_ENV_FIELDS`); any other
+field raises `NotImplementedError` naming itself.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import torch
 
 from mjlab_tpu_torch import physics
 from mjlab_tpu_torch.physics.types import mjtCone, mjtIntegrator, mjtSolver
+
+# Model leaves the physics step can read with a per-env axis.
+PER_ENV_FIELDS = ("geom_friction",)
 
 
 @dataclass
@@ -81,14 +90,49 @@ class Simulation:
     self.tp, self.model = physics.put_model(
       self._mj_model, dtype=dtype, device=self.device
     )
+    self._batched_fields: set[str] = set()
 
   @property
   def mj_model(self):
     return self._mj_model
 
+  @property
+  def batched_fields(self) -> set[str]:
+    """Model leaves carrying a per-env axis (domain randomization)."""
+    return set(self._batched_fields)
+
+  def expand_model_fields(self, fields: tuple[str, ...]) -> None:
+    """Give the named Model leaves a leading env axis (a copy per env).
+    Idempotent per field."""
+    updates = {}
+    for f in fields:
+      if not hasattr(self.model, f):
+        raise ValueError(f"Field not found in model: {f}")
+      if f not in PER_ENV_FIELDS:
+        raise NotImplementedError(
+          f"per-env model field {f} is not supported by mjlab_tpu_torch "
+          f"(supported: {', '.join(PER_ENV_FIELDS)})"
+        )
+      if f in self._batched_fields:
+        continue
+      leaf = getattr(self.model, f)
+      updates[f] = leaf.expand((self.num_envs,) + leaf.shape).clone()
+    if updates:
+      self.model = dataclasses.replace(self.model, **updates)
+      self._batched_fields |= set(updates)
+
+  @property
+  def unbatched_model(self) -> physics.Model:
+    """Model with the per-env axes stripped (env 0)."""
+    if not self._batched_fields:
+      return self.model
+    return dataclasses.replace(
+      self.model, **{f: getattr(self.model, f)[0] for f in self._batched_fields}
+    )
+
   def make_data(self) -> physics.Data:
     """Fresh batched Data at qpos0 (leading axis num_envs)."""
-    return physics.make_data(self.tp, self.model, self.num_envs)
+    return physics.make_data(self.tp, self.unbatched_model, self.num_envs)
 
   def step_fn(self):
     """Batched (model, data) → data physics substep."""

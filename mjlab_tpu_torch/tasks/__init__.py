@@ -1,0 +1,45 @@
+"""Task registry (the port's counterpart of mjlab_tpu/tasks/__init__.py,
+without gymnasium): a task id maps to its env cfg factory, whose scene
+names its compiled model. `make_env` builds the env from that.
+
+    env = make_env("Mjlab-Velocity-Flat-Unitree-G1", num_envs=4096)
+    obs, extras = env.reset(seed=0)
+    obs, rew, terminated, time_outs, extras = env.step(action)
+"""
+
+from __future__ import annotations
+
+import importlib
+
+_REGISTRY = {
+  "Mjlab-Velocity-Flat-Unitree-G1":
+    "mjlab_tpu_torch.tasks.velocity.config.g1.env_cfgs:unitree_g1_flat_env_cfg",
+}
+
+
+def list_tasks() -> list[str]:
+  return sorted(_REGISTRY)
+
+
+def load_env_cfg(task_id: str):
+  """A fresh env cfg for the task."""
+  if task_id not in _REGISTRY:
+    raise KeyError(f"Unknown task '{task_id}'. Available: {list_tasks()}")
+  module, attr = _REGISTRY[task_id].split(":")
+  return getattr(importlib.import_module(module), attr)()
+
+
+def make_env(task_id: str, num_envs: int | None = None, device=None, **cfg_overrides):
+  """Build the task's ManagerBasedRlEnv on `device` (CUDA unless the caller
+  asks for another) from its compiled scene. `cfg_overrides` set top-level
+  cfg fields (e.g. seed, episode_length_s)."""
+  from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+
+  cfg = load_env_cfg(task_id)
+  if num_envs is not None:
+    cfg.scene.num_envs = num_envs
+  for k, v in cfg_overrides.items():
+    if not hasattr(cfg, k):
+      raise AttributeError(f"env cfg has no field '{k}'")
+    setattr(cfg, k, v)
+  return ManagerBasedRlEnv(cfg, device=device)

@@ -1,0 +1,329 @@
+"""Velocity-tracking task configuration factory (port of
+mjlab_tpu/tasks/velocity/velocity_env_cfg.py): the locomotion MDP (7 policy
+and 11 critic observation terms, 4 events, 14 rewards, 2 terminations, the
+command curriculum) around a robot EntityCfg. Only the plane terrain is
+supported: the default generator terrain raises at scene build."""
+
+from __future__ import annotations
+
+import math
+from copy import deepcopy
+
+from mjlab_tpu_torch.entity import EntityCfg
+from mjlab_tpu_torch.envs import ManagerBasedRlEnvCfg
+from mjlab_tpu_torch.envs.mdp.actions import JointPositionActionCfg
+from mjlab_tpu_torch.managers.manager_term_config import (
+  ActionTermCfg,
+  CommandTermCfg,
+  CurriculumTermCfg,
+  EventTermCfg,
+  ObservationGroupCfg,
+  ObservationTermCfg,
+  RewardTermCfg,
+  TerminationTermCfg,
+)
+from mjlab_tpu_torch.managers.scene_entity_config import SceneEntityCfg
+from mjlab_tpu_torch.scene import SceneCfg, TerrainImporterCfg
+from mjlab_tpu_torch.sensors import ContactSensorCfg
+from mjlab_tpu_torch.sim import MujocoCfg, SimulationCfg
+from mjlab_tpu_torch.tasks.velocity import mdp
+from mjlab_tpu_torch.tasks.velocity.mdp import UniformVelocityCommandCfg
+from mjlab_tpu_torch.utils.noise import UniformNoiseCfg as Unoise
+
+
+def sim_cfg() -> SimulationCfg:
+  """5 ms steps, Newton with 10 iterations and 20 linesearch iterations."""
+  return SimulationCfg(mujoco=MujocoCfg(timestep=0.005, iterations=10, ls_iterations=20))
+
+
+def create_velocity_env_cfg(
+  robot_cfg: EntityCfg,
+  action_scale: float | dict[str, float],
+  viewer_body_name: str,
+  site_names: tuple[str, ...],
+  feet_sensor_cfg: ContactSensorCfg,
+  self_collision_sensor_cfg: ContactSensorCfg,
+  foot_friction_geom_names: tuple[str, ...] | str,
+  posture_std_standing: dict[str, float],
+  posture_std_walking: dict[str, float],
+  posture_std_running: dict[str, float],
+  body_ang_vel_weight: float,
+  angular_momentum_weight: float,
+  self_collision_weight: float,
+  air_time_weight: float,
+  terrain: TerrainImporterCfg | None = None,
+) -> ManagerBasedRlEnvCfg:
+  """Assemble the velocity locomotion MDP for a robot."""
+  terrain = (deepcopy(terrain) if terrain is not None
+             else TerrainImporterCfg(terrain_type="generator"))
+
+  scene = SceneCfg(
+    terrain=terrain,
+    num_envs=1,
+    entities={"robot": robot_cfg},
+    sensors=(feet_sensor_cfg, self_collision_sensor_cfg),
+  )
+
+  actions: dict[str, ActionTermCfg] = {
+    "joint_pos": JointPositionActionCfg(
+      asset_name="robot",
+      actuator_names=(".*",),
+      scale=action_scale,
+      use_default_offset=True,
+    )
+  }
+
+  commands: dict[str, CommandTermCfg] = {
+    "twist": UniformVelocityCommandCfg(
+      asset_name="robot",
+      resampling_time_range=(3.0, 8.0),
+      rel_standing_envs=0.1,
+      rel_heading_envs=0.3,
+      heading_command=True,
+      heading_control_stiffness=0.5,
+      ranges=UniformVelocityCommandCfg.Ranges(
+        lin_vel_x=(-1.0, 1.0),
+        lin_vel_y=(-1.0, 1.0),
+        ang_vel_z=(-0.5, 0.5),
+        heading=(-math.pi, math.pi),
+      ),
+    )
+  }
+
+  policy_terms = {
+    "base_lin_vel": ObservationTermCfg(
+      func=mdp.builtin_sensor,
+      params={"sensor_name": "robot/imu_lin_vel"},
+      noise=Unoise(n_min=-0.5, n_max=0.5),
+    ),
+    "base_ang_vel": ObservationTermCfg(
+      func=mdp.builtin_sensor,
+      params={"sensor_name": "robot/imu_ang_vel"},
+      noise=Unoise(n_min=-0.2, n_max=0.2),
+      scale=0.25,
+    ),
+    "projected_gravity": ObservationTermCfg(
+      func=mdp.projected_gravity,
+      noise=Unoise(n_min=-0.05, n_max=0.05),
+      scale=1.0,
+    ),
+    "joint_pos": ObservationTermCfg(
+      func=mdp.joint_pos_rel,
+      noise=Unoise(n_min=-0.01, n_max=0.01),
+      scale=1.0,
+    ),
+    "joint_vel": ObservationTermCfg(
+      func=mdp.joint_vel_rel,
+      noise=Unoise(n_min=-1.5, n_max=1.5),
+      scale=0.05,
+    ),
+    "actions": ObservationTermCfg(func=mdp.last_action),
+    "command": ObservationTermCfg(
+      func=mdp.generated_commands, params={"command_name": "twist"}
+    ),
+  }
+
+  critic_terms = {
+    **policy_terms,
+    "foot_height": ObservationTermCfg(
+      func=mdp.foot_height,
+      params={"asset_cfg": SceneEntityCfg("robot", site_names=site_names)},
+    ),
+    "foot_air_time": ObservationTermCfg(
+      func=mdp.foot_air_time, params={"sensor_name": "feet_ground_contact"}
+    ),
+    "foot_contact": ObservationTermCfg(
+      func=mdp.foot_contact, params={"sensor_name": "feet_ground_contact"}
+    ),
+    "foot_contact_forces": ObservationTermCfg(
+      func=mdp.foot_contact_forces,
+      params={"sensor_name": "feet_ground_contact"},
+    ),
+  }
+
+  observations = {
+    "policy": ObservationGroupCfg(
+      terms=policy_terms, concatenate_terms=True, enable_corruption=True
+    ),
+    "critic": ObservationGroupCfg(
+      terms=critic_terms, concatenate_terms=True, enable_corruption=False
+    ),
+  }
+
+  events = {
+    "reset_base": EventTermCfg(
+      func=mdp.reset_root_state_uniform,
+      mode="reset",
+      params={
+        "pose_range": {"x": (-0.5, 0.5), "y": (-0.5, 0.5), "yaw": (-3.14, 3.14)},
+        "velocity_range": {},
+      },
+    ),
+    "reset_robot_joints": EventTermCfg(
+      func=mdp.reset_joints_by_offset,
+      mode="reset",
+      params={
+        "position_range": (0.0, 0.0),
+        "velocity_range": (0.0, 0.0),
+        "asset_cfg": SceneEntityCfg("robot", joint_names=(".*",)),
+      },
+    ),
+    "push_robot": EventTermCfg(
+      func=mdp.push_by_setting_velocity,
+      mode="interval",
+      interval_range_s=(1.0, 3.0),
+      params={"velocity_range": {"x": (-0.5, 0.5), "y": (-0.5, 0.5)}},
+    ),
+    "foot_friction": EventTermCfg(
+      mode="startup",
+      func=mdp.randomize_field,
+      domain_randomization=True,
+      params={
+        "asset_cfg": SceneEntityCfg("robot", geom_names=foot_friction_geom_names),
+        "operation": "abs",
+        "field": "geom_friction",
+        "ranges": (0.3, 1.2),
+      },
+    ),
+  }
+
+  rewards = {
+    "track_linear_velocity": RewardTermCfg(
+      func=mdp.track_linear_velocity,
+      weight=2.0,
+      params={"command_name": "twist", "std": math.sqrt(0.25)},
+    ),
+    "track_angular_velocity": RewardTermCfg(
+      func=mdp.track_angular_velocity,
+      weight=2.0,
+      params={"command_name": "twist", "std": math.sqrt(0.5)},
+    ),
+    "upright": RewardTermCfg(
+      func=mdp.flat_orientation,
+      weight=1.0,
+      params={
+        "std": math.sqrt(0.2),
+        "asset_cfg": SceneEntityCfg("robot", body_names=(viewer_body_name,)),
+      },
+    ),
+    "pose": RewardTermCfg(
+      func=mdp.variable_posture,
+      weight=1.0,
+      params={
+        "asset_cfg": SceneEntityCfg("robot", joint_names=(".*",)),
+        "command_name": "twist",
+        "std_standing": posture_std_standing,
+        "std_walking": posture_std_walking,
+        "std_running": posture_std_running,
+        "walking_threshold": 0.05,
+        "running_threshold": 1.5,
+      },
+    ),
+    "body_ang_vel": RewardTermCfg(
+      func=mdp.body_angular_velocity_penalty,
+      weight=body_ang_vel_weight,
+      params={"asset_cfg": SceneEntityCfg("robot", body_names=(viewer_body_name,))},
+    ),
+    "angular_momentum": RewardTermCfg(
+      func=mdp.angular_momentum_penalty,
+      weight=angular_momentum_weight,
+      params={"sensor_name": "robot/root_angmom"},
+    ),
+    "dof_pos_limits": RewardTermCfg(func=mdp.joint_pos_limits, weight=-1.0),
+    "action_rate_l2": RewardTermCfg(func=mdp.action_rate_l2, weight=-0.01),
+    "self_collisions": RewardTermCfg(
+      func=mdp.self_collision_cost,
+      weight=self_collision_weight,
+      params={"sensor_name": "self_collision"},
+    ),
+    "air_time": RewardTermCfg(
+      func=mdp.feet_air_time,
+      weight=air_time_weight,
+      params={
+        "sensor_name": "feet_ground_contact",
+        "threshold_min": 0.05,
+        "threshold_max": 0.5,
+        "command_name": "twist",
+        "command_threshold": 0.5,
+      },
+    ),
+    "foot_clearance": RewardTermCfg(
+      func=mdp.feet_clearance,
+      weight=-0.5,
+      params={
+        "target_height": 0.1,
+        "command_name": "twist",
+        "command_threshold": 0.05,
+        "asset_cfg": SceneEntityCfg("robot", site_names=site_names),
+      },
+    ),
+    "foot_swing_height": RewardTermCfg(
+      func=mdp.feet_swing_height,
+      weight=-0.1,
+      params={
+        "sensor_name": "feet_ground_contact",
+        "target_height": 0.1,
+        "command_name": "twist",
+        "command_threshold": 0.05,
+        "asset_cfg": SceneEntityCfg("robot", site_names=site_names),
+      },
+    ),
+    "foot_slip": RewardTermCfg(
+      func=mdp.feet_slip,
+      weight=-0.1,
+      params={
+        "sensor_name": "feet_ground_contact",
+        "command_name": "twist",
+        "command_threshold": 0.05,
+        "asset_cfg": SceneEntityCfg("robot", site_names=site_names),
+      },
+    ),
+    "soft_landing": RewardTermCfg(
+      func=mdp.soft_landing,
+      weight=-1e-5,
+      params={
+        "sensor_name": "feet_ground_contact",
+        "command_name": "twist",
+        "command_threshold": 0.05,
+      },
+    ),
+  }
+
+  terminations = {
+    "time_out": TerminationTermCfg(func=mdp.time_out, time_out=True),
+    "fell_over": TerminationTermCfg(
+      func=mdp.bad_orientation, params={"limit_angle": math.radians(70.0)}
+    ),
+  }
+
+  curriculum: dict[str, CurriculumTermCfg] = {
+    "command_vel": CurriculumTermCfg(
+      func=mdp.commands_vel,
+      params={
+        "command_name": "twist",
+        "velocity_stages": [
+          {"step": 0, "lin_vel_x": (-1.0, 1.0), "ang_vel_z": (-0.5, 0.5)},
+          {"step": 5000 * 24, "lin_vel_x": (-1.5, 2.0), "ang_vel_z": (-0.7, 0.7)},
+          {"step": 10000 * 24, "lin_vel_x": (-2.0, 3.0)},
+        ],
+      },
+    ),
+  }
+  if terrain.terrain_type == "generator":
+    curriculum["terrain_levels"] = CurriculumTermCfg(
+      func=mdp.terrain_levels_vel, params={"command_name": "twist"}
+    )
+
+  return ManagerBasedRlEnvCfg(
+    scene=scene,
+    observations=observations,
+    actions=actions,
+    commands=commands,
+    rewards=rewards,
+    terminations=terminations,
+    events=events,
+    curriculum=curriculum,
+    sim=sim_cfg(),
+    decimation=4,
+    episode_length_s=20.0,
+  )

@@ -1,5 +1,6 @@
-"""The port stands alone: importing it pulls in neither jax, mjlab_tpu nor
-mujoco, and its own MuJoCo enum constants agree with mujoco's."""
+"""The port stands alone: importing it, and building and stepping its env
+from the committed scene, pulls in none of jax, mjlab_tpu, mujoco,
+gymnasium or flax; and its own MuJoCo enum constants agree with mujoco's."""
 
 from __future__ import annotations
 
@@ -22,9 +23,19 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
     "import mjlab_tpu_torch, mjlab_tpu_torch.sim, mjlab_tpu_torch.physics\n"
     "import mjlab_tpu_torch.kernels.chol, mjlab_tpu_torch.kernels.build\n"
     "import mjlab_tpu_torch.assets\n"
+    "import mjlab_tpu_torch.entity, mjlab_tpu_torch.scene, mjlab_tpu_torch.sensors\n"
+    "import mjlab_tpu_torch.managers, mjlab_tpu_torch.envs, mjlab_tpu_torch.envs.mdp\n"
+    "import mjlab_tpu_torch.tasks, mjlab_tpu_torch.tasks.velocity.mdp\n"
+    "import mjlab_tpu_torch.utils.noise, mjlab_tpu_torch.asset_zoo.robots\n"
+    "import mjlab_tpu_torch.asset_zoo.robots.unitree_g1.g1_constants\n"
     "m = mjlab_tpu_torch.assets.load_model_npz()\n"
-    "print(json.dumps(sorted(k for k in sys.modules\n"
-    "  if k.split('.')[0] in ('jax', 'jaxlib', 'mjlab_tpu', 'mujoco'))))\n"
+    "import torch\n"
+    "env = mjlab_tpu_torch.tasks.make_env('Mjlab-Velocity-Flat-Unitree-G1',\n"
+    "                                     num_envs=2, device='cpu')\n"
+    "env.reset(seed=0)\n"
+    "env.step(torch.zeros(2, env.total_action_dim))\n"
+    "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in\n"
+    "  ('jax', 'jaxlib', 'mjlab_tpu', 'mujoco', 'gymnasium', 'flax'))))\n"
   )
   env = dict(os.environ, PYTHONPATH=str(ROOT))
   out = subprocess.run(

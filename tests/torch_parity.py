@@ -8,8 +8,11 @@ keyframe with seeded controls, so that contacts and joint limits are active.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -216,4 +219,104 @@ def assert_close(got, want, tol: float, what: str = "") -> float:
   err = float(np.max(np.abs(got[ok] - want[ok]), initial=0.0))
   scale = max(1.0, float(np.max(np.abs(want[ok]), initial=0.0)))
   assert err <= tol * scale, f"{what}: max abs err {err:.3e} > {tol:.0e} x {scale:.3e}"
+  log = os.environ.get("TORCH_PARITY_LOG")
+  if log:  # one line per comparison: test, quantity, relative error, tolerance
+    test = os.environ.get("PYTEST_CURRENT_TEST", "").split(" ")[0]
+    with open(log, "a") as f:
+      f.write(json.dumps([test, what, err / scale, tol]) + "\n")
   return err
+
+
+# ---------------------------------------------------------------------------
+# Env-level parity: the G1 velocity-flat task in both packages.
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+  """A few-env CPU env step is thousands of tiny ops, which extra threads
+  only slow down (one thread measured 7x faster than eight on an 8-core
+  host); the env tests run with one."""
+  old = torch.get_num_threads()
+  torch.set_num_threads(n)
+  try:
+    yield
+  finally:
+    torch.set_num_threads(old)
+
+
+def g1_flat_cfgs(num_envs: int, edit=None):
+  """(JAX cfg, port cfg) of the G1 flat task at `num_envs`, float64; `edit`
+  is applied to both (their field names agree)."""
+  from mjlab_tpu.tasks.velocity.config.g1.env_cfgs import unitree_g1_flat_env_cfg
+  from mjlab_tpu_torch.tasks import load_env_cfg
+
+  cfgs = (unitree_g1_flat_env_cfg(), load_env_cfg("Mjlab-Velocity-Flat-Unitree-G1"))
+  for cfg in cfgs:
+    cfg.scene.num_envs = num_envs
+    cfg.sim.dtype = "float64"
+    if edit is not None:
+      edit(cfg)
+  return cfgs
+
+
+def g1_flat_envs(num_envs: int, edit=None):
+  """(JAX env, port env on the CPU), the port bound to the JAX env's
+  compiled model."""
+  from mjlab_tpu.envs import ManagerBasedRlEnv as JaxEnv
+  from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+
+  jcfg, tcfg = g1_flat_cfgs(num_envs, edit)
+  jenv = JaxEnv(jcfg)
+  return jenv, ManagerBasedRlEnv(tcfg, device="cpu", model=jenv.sim.mj_model)
+
+
+def _flatten(prefix: str, tree: dict, out: dict) -> None:
+  for k, v in tree.items():
+    if isinstance(v, dict):
+      _flatten(f"{prefix}/{k}", v, out)
+    else:
+      out[f"{prefix}/{k}"] = np.asarray(v)
+
+
+def jax_env_arrays(jenv) -> dict[str, np.ndarray]:
+  """The JAX env's current state by the names env_state_to_arrays writes;
+  Data fields the (slim) state leaves None are left out."""
+  out = {f"data.{k}": v for k, v in jax_data_arrays(jenv.data).items()
+         if v.dtype != object}
+  for f in jenv._dyn_model_fields:
+    out[f"model.{f}"] = np.asarray(getattr(jenv.model, f))
+  out["episode_length"] = np.asarray(jenv._episode_length)
+  out["common_step_counter"] = np.asarray(jenv._common_step_counter)
+  _flatten("ms", jenv._ms, out)
+  return out
+
+
+def carry(jenv, env, full: bool = False) -> dict[str, np.ndarray]:
+  """Set the port env's state from the JAX env's; with `full`, first give
+  the JAX env its derived Data fields (one forward), so both hold the same
+  complete Data. Returns the arrays carried."""
+  from mjlab_tpu_torch.envs import env_state_from_arrays
+
+  if full:
+    jenv._begin(jenv.state)
+    jenv.ensure_derived()
+  arrays = jax_env_arrays(jenv)
+  env_state_from_arrays(env, arrays)
+  return arrays
+
+
+def actions(seed: int, n_steps: int, num_envs: int, dim: int, scale: float = 0.5):
+  rng = np.random.default_rng(seed)
+  return [rng.normal(0.0, scale, (num_envs, dim)) for _ in range(n_steps)]
+
+
+def numpy_tree(x):
+  """Step outputs of either package as numpy (dicts kept)."""
+  if isinstance(x, dict):
+    return {k: numpy_tree(v) for k, v in x.items()}
+  if isinstance(x, (tuple, list)):
+    return type(x)(numpy_tree(v) for v in x)
+  if isinstance(x, torch.Tensor):
+    return x.detach().cpu().numpy()
+  return np.asarray(x)
