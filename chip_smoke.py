@@ -45,14 +45,39 @@ Phases, each printing its own lines:
      env step by part with CUDA events, profiles one; then holds the card's
      float64 env (kernels)
      against the CPU's (plain versions) on a variant whose draws are all
-     certain, 4 envs x 8 env steps.
+     certain, 4 envs x 8 env steps;
+  8. the training path — `scripts.train.build_runner(TASK,
+     {"env.scene.num_envs": "4096"})`, the real G1 PPO cfg (MLPs 512/256/128,
+     empirical normalization, 24 steps per env, 5 epochs x 4 minibatches of
+     24576, adaptive-KL lr) and the task's real 20 s episodes; 3
+     `train_iteration`s under `set_sync_debug_mode("error")` with the
+     kernels' counters set to 0 just before and read just after: 1416
+     factorizations and 120 `chol_solve` per iteration. Checks the rollout
+     buffers' shapes, finite losses, the lr inside [1e-5, 1e-2] and that the
+     params moved; times each iteration with CUDA events (training
+     env-steps/s) and one iteration's three calls (draws, rollout, update);
+     profiles one rollout step and one update (an iteration's launches and
+     busy share are 24 of the one and one of the other), and splits each
+     by the runner's profiler spans (policy act and env step; GAE and prep,
+     and the minibatch steps); reads the peak memory; saves, reloads into a
+     fresh 4-env runner and checks equal state; exports the TorchScript
+     policy and holds it against `get_inference_policy`; then holds the
+     card's float64 iteration (kernels) against the CPU's (plain versions)
+     on the certain-draw variant, 4 envs, T = 4, 1 epoch x 2 minibatches,
+     from one warm learner (Adam's moments and the normalizers' statistics
+     drawn from the seed) and the same draws on both, for each of the
+     seeds 3, 4 and 5 (another list with `--f64-seeds 3,4,...`).
 Any failed check raises. The line before the last is the kernel table as
-JSON (`launches` from the env path of phase 7); the last line is
+JSON (`launches` from the env path of phase 7, `launches_training_path`
+from phase 8's 3 iterations); the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import argparse
+import bisect
+import gc
 import json
 import subprocess
 import sys
@@ -80,6 +105,12 @@ RL_STEPS = 60
 RL_STEADY_FROM = 10
 RL_FACT_PER_STEP = 4 * 12 + 11  # 4 substeps + the post-reset forward
 RL_SOLVES_PER_STEP = 5
+TRAIN_ITERS = 3
+TRAIN_STEPS = 24  # the G1 PPO cfg's num_steps_per_env
+# The runner's torch.profiler spans: a rollout step's two, then the update's.
+TRAIN_SPANS = ("rollout_step/act", "rollout_step/env_step",
+               "ppo_update/prepare", "ppo_update/minibatch_steps")
+F64_SEEDS = (3, 4, 5)  # draws of the card-vs-CPU float64 training iteration
 
 
 def card_line() -> str:
@@ -326,7 +357,324 @@ def split_env_step(env, action, reps: int = 2) -> dict[str, float]:
   return out
 
 
+def time_iteration(runner) -> tuple[dict[str, float], dict[str, float]]:
+  """ms of each of OnPolicyRunner.train_iteration's three calls, with CUDA
+  events between them: the draws, the rollout (24 policy acts and env
+  steps) and the update (bootstrap value, GAE and prep, the minibatch
+  steps, the normalizers). Also the device memory allocated (GB) at the
+  start, and its peak in the rollout and in the update."""
+  marks = []
+
+  def mark(part):
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    marks.append((part, e))
+
+  mem = {"at the start": torch.cuda.memory_allocated() / 1e9}
+  torch.cuda.reset_peak_memory_stats()
+  mark("start")
+  noise, perms = runner.draw()
+  mark("draws")
+  batch, logs = runner.rollout(noise)
+  mark("rollout (policy acts + env steps)")
+  mem["rollout peak"] = torch.cuda.max_memory_allocated() / 1e9
+  torch.cuda.reset_peak_memory_stats()
+  runner.update(batch, logs, perms)
+  mark("update")
+  mem["update peak"] = torch.cuda.max_memory_allocated() / 1e9
+  torch.cuda.synchronize()
+  return {part: a.elapsed_time(b) for (_, a), (part, b) in zip(marks, marks[1:])}, mem
+
+
+def span_busy_ms(prof) -> dict[str, tuple[float, float]]:
+  """(busy ms, range ms) of each TRAIN_SPANS span on the device timeline:
+  the range is the span's GPU-side annotation, busy the time of the
+  kernels that start inside it. Kernels are placed by time, not by the op
+  that launched them, so that the backward pass, which autograd runs on its
+  own device thread outside the span, counts in the minibatch steps."""
+  events = prof.events()
+  kernels = sorted(
+    (e.time_range.start, e.time_range.elapsed_us()) for e in events
+    if str(e.device_type).endswith("CUDA") and e.name not in TRAIN_SPANS
+    and not getattr(e, "is_user_annotation", False)
+  )
+  starts = [k[0] for k in kernels]
+  out: dict[str, tuple[float, float]] = {}
+  for e in events:
+    if e.name in TRAIN_SPANS and str(e.device_type).endswith("CUDA"):
+      a, b = e.time_range.start, e.time_range.end
+      busy = sum(d for _, d in kernels[bisect.bisect_left(starts, a):bisect.bisect_left(starts, b)])
+      prev = out.get(e.name, (0.0, 0.0))
+      out[e.name] = (prev[0] + busy / 1e3, prev[1] + (b - a) / 1e3)
+  return out
+
+
+def training_path(card: str, attr: str, f64_seeds=F64_SEEDS) -> dict[str, int]:
+  """Phase 8: PPO training iterations through `build_runner` at NUM_WORLDS
+  envs, then the card's float64 iteration against the CPU's. Returns the
+  kernels' launches in the TRAIN_ITERS iterations. `attr` names the
+  profiler's device-time field."""
+  import numpy as np
+  from torch.profiler import ProfilerActivity, profile
+
+  from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.rl.exporter import export_policy_as_torchscript
+  from mjlab_tpu_torch.rl.runner import (
+    OnPolicyRunner, runner_state_from_arrays, runner_state_to_arrays,
+  )
+  from mjlab_tpu_torch.scripts.train import build_runner
+  from mjlab_tpu_torch.tasks import load_env_cfg, load_rl_cfg
+
+  # Phase 7's env sits in reference cycles (env <-> managers): collect it,
+  # so that this phase's memory is its own.
+  gc.collect()
+  torch.cuda.empty_cache()
+  print(f"phase 8: device memory allocated before build_runner "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+  t0 = time.perf_counter()
+  runner = build_runner(TASK, {"env.scene.num_envs": str(NUM_WORLDS)})
+  torch.cuda.synchronize()
+  alg = runner.cfg.algorithm
+  n_mb = alg.num_learning_epochs * alg.num_mini_batches
+  print(f"phase 8 training path: {TASK}, {NUM_WORLDS} envs, episodes "
+        f"{runner.env.cfg.episode_length_s} s, T {runner.cfg.num_steps_per_env}, "
+        f"{alg.num_learning_epochs} epochs x {alg.num_mini_batches} minibatches of "
+        f"{NUM_WORLDS * TRAIN_STEPS // alg.num_mini_batches}, hidden "
+        f"{runner.cfg.policy.actor_hidden_dims}, lr {alg.schedule}; build_runner "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+  if runner.cfg.num_steps_per_env != TRAIN_STEPS:
+    raise AssertionError("the G1 PPO cfg no longer has 24 steps per env")
+  before = runner_state_to_arrays(runner)
+  iter_events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_ITERS + 1)]
+  metrics = []
+  torch.cuda.reset_peak_memory_stats()
+  chol.reset_counts()
+  torch.cuda.set_sync_debug_mode("error")
+  t0 = time.perf_counter()
+  iter_events[0].record()
+  for i in range(TRAIN_ITERS):
+    metrics.append(runner.train_iteration())
+    iter_events[i + 1].record()
+  torch.cuda.set_sync_debug_mode("default")
+  torch.cuda.synchronize()
+  t_train = time.perf_counter() - t0
+  train_launches = dict(chol.LAUNCHES)
+  train_fact = chol.factorizations()
+  train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  iter_ms = [a.elapsed_time(b) for a, b in zip(iter_events, iter_events[1:])]
+  steady_iter_ms = sum(iter_ms[1:]) / (TRAIN_ITERS - 1)
+  host = [{k: float(v) for k, v in m.items()} for m in metrics]
+  print(f"  {TRAIN_ITERS} iterations under set_sync_debug_mode('error'): no host-device "
+        f"synchronization; wall {t_train:.3f} s")
+  print(f"  ms per iteration (CUDA events) {', '.join(f'{x:.2f}' for x in iter_ms)}; "
+        f"steady (iterations 2-{TRAIN_ITERS}) {steady_iter_ms:.2f} ms, "
+        f"{NUM_WORLDS * TRAIN_STEPS / steady_iter_ms * 1e3:.1f} training env-steps/s [{card}]")
+  print(f"  peak memory {train_peak_gb:.2f} GB (torch.cuda.max_memory_allocated) [{card}]")
+  print(f"  launches {train_launches}; factorizations {train_fact} = "
+        f"{train_fact / TRAIN_ITERS:.1f}/iteration, chol_solve "
+        f"{train_launches['chol_solve'] / TRAIN_ITERS:.1f}/iteration")
+  for i, m in enumerate(host):
+    print(f"  it {i}: loss {m['Loss/loss']:.5f} surrogate {m['Loss/surrogate']:.5f} value "
+          f"{m['Loss/value_loss']:.5f} kl {m['Loss/kl']:.5f} entropy {m['Loss/entropy']:.3f} "
+          f"lr {m['Loss/lr']:.3e} reward {m['Train/mean_step_reward']:.5f} resets "
+          f"{m['Train/resets']:.0f} noise_std {m['Policy/noise_std']:.4f}")
+  if (train_fact != TRAIN_STEPS * RL_FACT_PER_STEP * TRAIN_ITERS
+      or train_launches["chol_solve"] != TRAIN_STEPS * RL_SOLVES_PER_STEP * TRAIN_ITERS
+      or any(train_launches[k] == 0 for k in KERNELS)):
+    raise AssertionError(f"expected {TRAIN_STEPS * RL_FACT_PER_STEP} factorizations and "
+                         f"{TRAIN_STEPS * RL_SOLVES_PER_STEP} solves per iteration, got "
+                         f"{train_launches}")
+  for m in host:
+    if not all(np.isfinite(m[k]) for k in ("Loss/loss", "Loss/kl", "Loss/value_loss")):
+      raise AssertionError(f"non-finite loss, KL or value loss: {m}")
+    if not 1e-5 <= m["Loss/lr"] <= 1e-2:
+      raise AssertionError(f"lr {m['Loss/lr']} outside [1e-5, 1e-2]")
+  shapes = {f: tuple(getattr(runner.batch, f).shape)
+            for f in ("actor_obs", "critic_obs", "action")}
+  print(f"  rollout buffers {shapes}")
+  if shapes != {"actor_obs": (TRAIN_STEPS, NUM_WORLDS, 99),
+                "critic_obs": (TRAIN_STEPS, NUM_WORLDS, 111),
+                "action": (TRAIN_STEPS, NUM_WORLDS, 29)}:
+    raise AssertionError("rollout buffer shapes")
+  after = runner_state_to_arrays(runner)
+  moved = {k: float(np.abs(after[k] - before[k]).max()) for k in after if k.startswith("params/")}
+  print(f"  params moved: least max |change| over the {len(moved)} tensors "
+        f"{min(moved.values()):.3e}")
+  if not min(moved.values()) > 0:
+    raise AssertionError("a parameter tensor did not change")
+
+  parts, mem = time_iteration(runner)
+  print(f"  one iteration by call (CUDA events) [{card}]:")
+  for part, ms in parts.items():
+    print(f"    {part:34s} {ms:10.3f} ms  {100 * ms / sum(parts.values()):5.1f}%")
+  print(f"    {'sum':34s} {sum(parts.values()):10.3f} ms")
+  print("  device memory allocated in that iteration (GB): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in mem.items()) + f" [{card}]")
+  # A profile of a whole iteration (~0.94M kernel launches and more host
+  # ops) would take the profiler minutes to parse, so one rollout step and
+  # one update are profiled; an iteration is T of the one and one of the
+  # other. The runner's spans split each (`span_busy_ms`).
+  noise, perms = runner.draw()
+  batch, logs = runner.rollout(noise)
+  profiled, spans = {}, {}
+  for part, fn in (("rollout step", lambda: runner.rollout_step(noise[0])),
+                   ("update", lambda: runner.update(batch, logs, perms))):
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+      fn()
+      torch.cuda.synchronize()
+    averages = prof.key_averages()
+    name = part.replace(" ", "_")
+    (OUT / f"chip_smoke_train_{name}_profile.txt").write_text(
+      averages.table(sort_by=attr, row_limit=40))
+    events = [e for e in averages if str(e.device_type).endswith("CUDA")
+              and e.key not in TRAIN_SPANS and not getattr(e, "is_user_annotation", False)]
+    profiled[part] = (sum(getattr(e, attr) for e in events) / 1e3, sum(e.count for e in events))
+    spans.update(span_busy_ms(prof))
+    print(f"  profile of one {part}: device time {profiled[part][0]:.2f} ms in "
+          f"{profiled[part][1]} kernel launches ({time.perf_counter() - t0:.1f} s with the "
+          f"profiler) [{card}]; table in {OUT}/chip_smoke_train_{name}_profile.txt")
+    for e in sorted(events, key=lambda e: -getattr(e, attr))[:5]:
+      print(f"    {getattr(e, attr) / 1e3:8.3f} ms  x{e.count:6d}  {e.key[:90]}")
+  if sorted(spans) != sorted(TRAIN_SPANS):
+    raise AssertionError(f"the profiles lack spans: got {sorted(spans)}")
+  for part, names in (("rollout step", TRAIN_SPANS[:2]), ("update", TRAIN_SPANS[2:])):
+    rest = profiled[part][0] - sum(spans[k][0] for k in names)
+    print(f"  the {part} by span, kernel ms on the device (the span's range on the device "
+          "timeline, stretched by the profiler): "
+          + ", ".join(f"{k} {spans[k][0]:.3f} ({spans[k][1]:.3f})" for k in names)
+          + f", outside the spans {rest:.3f} [{card}]")
+    if rest < -1e-3 * profiled[part][0]:
+      raise AssertionError(f"the {part}'s spans hold more kernel time than the {part}")
+  act_ms, mb_ms = spans["rollout_step/act"][0], spans["ppo_update/minibatch_steps"][0]
+  print(f"  kernel time of {TRAIN_STEPS} policy acts {TRAIN_STEPS * act_ms:.3f} ms; of one "
+        f"minibatch step {mb_ms / n_mb:.3f} ms; the update's wall time is "
+        f"{parts['update'] / profiled['update'][0]:.2f} x its kernel time [{card}]")
+  train_dev_ms = TRAIN_STEPS * profiled["rollout step"][0] + profiled["update"][0]
+  train_kernel_launches = TRAIN_STEPS * profiled["rollout step"][1] + profiled["update"][1]
+  print(f"  one iteration = {TRAIN_STEPS} rollout steps + one update: device time "
+        f"{train_dev_ms:.2f} ms in {train_kernel_launches} kernel launches; busy share "
+        f"{train_dev_ms / steady_iter_ms:.3f} of the steady {steady_iter_ms:.2f} ms/iteration "
+        f"[{card}]")
+  del batch, logs
+
+  # Save, reload into a fresh runner; export the TorchScript policy.
+  ckpt_dir = Path("build") / "chip_smoke"
+  ckpt = ckpt_dir / "model.pt"
+  runner.save(str(ckpt))
+  saved = runner_state_to_arrays(runner)
+  # The learner's shapes do not depend on the number of envs.
+  fresh = build_runner(TASK, {"env.scene.num_envs": "4"})
+  fresh.load(str(ckpt))
+  loaded = runner_state_to_arrays(fresh)
+  same = sorted(saved) == sorted(loaded) and all(np.array_equal(saved[k], loaded[k])
+                                                 for k in saved)
+  print(f"  save/load: {len(saved)} arrays, fresh runner equal: {same}, iteration "
+        f"{fresh.iteration}")
+  if not same or fresh.iteration != runner.iteration:
+    raise AssertionError("the reloaded runner differs from the saved one")
+  del fresh
+  policy_path = export_policy_as_torchscript(runner, runner.env,
+                                             str(ckpt_dir / "policy.pt"))
+  scripted = torch.jit.load(policy_path)
+  want = runner.get_inference_policy()(runner.obs).cpu()
+  with torch.no_grad():
+    got = scripted(runner.obs["policy"].to(torch.float32).cpu())
+  err = (got - want).abs().max().item()
+  scale = max(1.0, want.abs().max().item())
+  # The export runs on the CPU, the inference policy on the card, both float32.
+  print(f"  TorchScript policy (CPU) vs get_inference_policy (card), {tuple(got.shape)}: "
+        f"max_abs_err {err:.3e} (tol 1e-5 x {scale:.3e})")
+  if not err <= 1e-5 * scale:
+    raise AssertionError("the TorchScript policy disagrees with the inference policy")
+  del runner, metrics, scripted
+  torch.cuda.empty_cache()
+
+  # The card's float64 iteration (kernels) against the CPU's (plain versions),
+  # on a few sets of draws, from a learner as it is after some training:
+  # Adam's moments and step count and the normalizers' statistics drawn
+  # from the seed, as tests/test_torch_runner.py draws the normalizers. From
+  # a fresh learner the comparison measures two amplifiers rather than the
+  # card: Adam's first steps scale a gradient near 0 by lr / eps = 1e5, and
+  # a normalizer of count 0 takes a batch's mean whole, so an observation
+  # that the float32 cast rounds one ulp apart on the two paths (the float64
+  # physics differ in the last bits) moved the result by up to 1.3e-6 (my
+  # chip run over 20 seeds, PERF.md).
+  worst_by_seed = {}
+  for seed in f64_seeds:
+    runners = {}
+    for dv in ("cuda", "cpu"):
+      cfg = load_env_cfg(TASK)
+      cfg.scene.num_envs = 4
+      cfg.sim.dtype = "float64"
+      certain_variant(cfg)
+      rl = load_rl_cfg(TASK)
+      rl.num_steps_per_env = 4
+      rl.algorithm.num_learning_epochs = 1
+      rl.algorithm.num_mini_batches = 2
+      runners[dv] = OnPolicyRunner(ManagerBasedRlEnv(cfg, device=dv), rl)
+    draw = np.random.default_rng(seed)
+    warm = {}
+    for k, v in runner_state_to_arrays(runners["cpu"]).items():
+      if k.startswith("opt/mu/"):
+        v = draw.normal(0.0, 1e-3, v.shape)
+      elif k.startswith("opt/nu/"):
+        v = draw.uniform(1e-6, 1e-4, v.shape)
+      elif k == "opt/count":
+        v = np.asarray(100, v.dtype)
+      elif k.endswith("_norm/mean"):
+        v = draw.normal(0.0, 0.5, v.shape)
+      elif k.endswith("_norm/var"):
+        v = draw.uniform(0.5, 2.0, v.shape)
+      elif k.endswith("_norm/count"):
+        v = np.asarray(200.0)
+      warm[k] = v.astype(np.float64) if v.dtype.kind == "f" else v
+    for r in runners.values():
+      runner_state_from_arrays(r, warm)
+    rng = torch.Generator().manual_seed(seed)
+    noise = torch.randn(4, 4, 29, generator=rng, dtype=torch.float64)
+    perms = torch.randperm(16, generator=rng)[None]
+    f64_metrics = {dv: r.train_iteration(noise.to(r.device), perms.to(r.device))
+                   for dv, r in runners.items()}
+    states = {dv: runner_state_to_arrays(r) for dv, r in runners.items()}
+    worst = {}
+    for name, got_, want_ in (
+      *((k, states["cuda"][k], states["cpu"][k]) for k in states["cpu"]),
+      *((k, f64_metrics["cuda"][k].cpu().numpy(), f64_metrics["cpu"][k].numpy())
+        for k in f64_metrics["cpu"]),
+    ):
+      got_, want_ = np.asarray(got_, np.float64), np.asarray(want_, np.float64)
+      worst[name] = np.abs(got_ - want_).max() / max(1.0, np.abs(want_).max())
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    # The stored (float32-cast, then normalized) observations: a rounding
+    # flip shows as an element apart by far more than float64 rounding.
+    obs_gap = torch.cat([
+      (getattr(runners["cuda"].batch, f).cpu() - getattr(runners["cpu"].batch, f)).abs().flatten()
+      for f in ("actor_obs", "critic_obs")
+    ])
+    print(f"  card (kernels, f64) vs CPU (plain, f64), one iteration from a warm learner, "
+          f"certain-draw variant, 4 envs, T 4, 1 epoch x 2 minibatches, the same draws and "
+          f"state (seed {seed}): largest "
+          "relative errors " + ", ".join(f"{k} {v:.3e}" for k, v in top)
+          + f" over {len(worst)} arrays (tol 1e-8); stored observations apart by at most "
+          f"{obs_gap.max().item():.3e}, {int((obs_gap > 1e-10).sum())} of {obs_gap.numel()} "
+          "by more than 1e-10")
+    worst_by_seed[seed] = max(worst.values())
+    del runners
+  print(f"  card vs CPU float64 iteration: largest relative error over seeds "
+        f"{list(worst_by_seed)}: {max(worst_by_seed.values()):.3e} (tol 1e-8)")
+  if not max(worst_by_seed.values()) <= 1e-8:
+    raise AssertionError(f"card vs CPU training iteration mismatch: {worst_by_seed}")
+  return train_launches
+
+
 def main() -> int:
+  parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
+  parser.add_argument("--f64-seeds", default=",".join(map(str, F64_SEEDS)),
+                      help="seeds of the draws for phase 8's card-vs-CPU float64 "
+                           "iteration, comma-separated (default %(default)s)")
+  f64_seeds = [int(x) for x in parser.parse_args().f64_seeds.split(",")]
   if not torch.cuda.is_available():
     print("chip_smoke: torch.cuda.is_available() is false; nothing run",
           file=sys.stderr)
@@ -702,7 +1050,7 @@ def main() -> int:
         f"table in {OUT}/chip_smoke_env_profile.txt")
   for e in sorted(events, key=lambda e: -getattr(e, attr))[:6]:
     print(f"    {getattr(e, attr) / 1e3:8.3f} ms  x{e.count:5d}  {e.key[:90]}")
-  del env, obs, rew, terminated, time_outs, extras
+  del env, robot, obs, rew, terminated, time_outs, extras
   torch.cuda.empty_cache()
 
   # The card's float64 env (kernels) against the CPU's (plain versions). A
@@ -734,6 +1082,9 @@ def main() -> int:
       raise AssertionError(f"card vs CPU env mismatch on {key}")
   del envs, outs
 
+  # -- 8. the training path: PPO iterations through OnPolicyRunner ---------------
+  train_launches = training_path(card, attr, f64_seeds)
+
   # -- result lines ---------------------------------------------------------------
   bnd = bounds(NUM_WORLDS, N, rows=NUM_WORLDS * NEFC)
   bnd_run = bounds(NUM_WORLDS, N, rows=active_rows)["newton_direction"]
@@ -755,6 +1106,7 @@ def main() -> int:
       "replaces": replaces[name],
       "launches": env_launches[name],
       "launches_physics_path": launches[name],
+      "launches_training_path": train_launches[name],
       "max_abs_err": checks.max_abs_err[name],
       "ms": times[name][0],
       "ms_l2_resident": times[name][3],

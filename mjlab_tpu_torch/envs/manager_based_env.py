@@ -176,6 +176,9 @@ class ManagerBasedEnv:
     self.action_manager = ActionManager(self.cfg.actions, self)
     self.observation_manager = ObservationManager(self.cfg.observations, self)
 
+  def close(self) -> None:
+    pass
+
   # -- state -------------------------------------------------------------------
 
   @property

@@ -46,6 +46,7 @@ class ManagerBasedRlEnvCfg(ManagerBasedEnvCfg):
   terminations: dict[str, TerminationTermCfg] = dc_field(default_factory=dict)
   commands: dict[str, CommandTermCfg] | None = None
   curriculum: dict[str, CurriculumTermCfg] | None = None
+  is_finite_horizon: bool = False
 
 
 def select_data(cond: torch.Tensor, a: physics.Data, b: physics.Data) -> physics.Data:

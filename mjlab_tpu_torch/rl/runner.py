@@ -1,0 +1,321 @@
+"""On-policy runner (port of mjlab_tpu/rl/runner.py): PPO over a
+ManagerBasedRlEnv as a host loop of device work.
+
+One training iteration is num_steps_per_env policy-act + env-step pairs
+(`rollout`), then GAE and the PPO epochs (`update`), in the JAX package's
+order and with its float32 casts: observations are cast to float32 before
+the normalizers, rewards when stored. The env is stepped through
+`RlVecEnvWrapper`, which clips the actions and hands on the time-outs that
+GAE bootstraps on. The env itself puts those in its extras, as the JAX
+package's does (mjlab_tpu/envs/manager_based_rl_env.py:255), so the
+wrapper's finite-horizon switch cannot take them out: every time-out is
+bootstrapped, as the JAX package's runner does (ROADMAP Queue C). The spans `rollout_step/act`, `rollout_step/env_step`,
+`ppo_update/prepare` and `ppo_update/minibatch_steps` name the parts of an
+iteration in a torch.profiler trace. The iteration never synchronizes
+with the host; `learn` keeps every metric on the device and pulls them
+once at the end, as the JAX package's deferred-logging path does, and
+writes them to <log_dir>/metrics.jsonl (the port has no TensorBoard or
+wandb sink).
+
+The draws of an iteration (the rollout's Gaussian noise (T, B, A) and one
+permutation of the T·B samples per epoch) come from the runner's
+`torch.Generator` on the device unless the caller hands them in, as the
+tests do with the JAX package's draws.
+
+`runner_state_to_arrays` / `runner_state_from_arrays` carry the learner's
+state by the JAX RunnerState's names: `params/actor/Dense_<i>/kernel`
+(flax's (in, out), a Linear weight transposed) and `/bias`, `params/std`
+(or `params/log_std`), `actor_norm/mean|var|count`, `critic_norm/...`,
+`opt/mu/<param>`, `opt/nu/<param>`, `opt/count` and `lr`. Checkpoints are
+these arrays and the iteration, written with `torch.save`.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+import time
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from mjlab_tpu_torch.rl.config import RlOnPolicyRunnerCfg
+from mjlab_tpu_torch.rl.networks import ActorCritic, RunningNorm, gaussian_log_prob
+from mjlab_tpu_torch.rl.ppo import AdamState, Transition, adam_init, ppo_update
+from mjlab_tpu_torch.rl.vecenv_wrapper import RlVecEnvWrapper
+
+_LOGGED_PREFIXES = ("Episode_Reward/", "Episode_Termination/", "Metrics/", "Curriculum/")
+
+
+class OnPolicyRunner:
+  """PPO runner over a ManagerBasedRlEnv, on the env's device."""
+
+  def __init__(self, env, cfg: RlOnPolicyRunnerCfg, log_dir: str | None = None):
+    self.env = env
+    self.cfg = cfg
+    self.log_dir = log_dir
+    self.device = env.device
+    self.iteration = 0
+    self.last_metrics: dict[str, float] | None = None
+
+    obs_dims = env.group_obs_dim
+    self.num_actor_obs = int(obs_dims["policy"][-1])
+    self.critic_group = "critic" if "critic" in obs_dims else "policy"
+    self.num_critic_obs = int(obs_dims[self.critic_group][-1])
+    self.num_actions = env.total_action_dim
+
+    p = cfg.policy
+    self.ac = ActorCritic(
+      self.num_actor_obs,
+      self.num_critic_obs,
+      self.num_actions,
+      actor_hidden_dims=tuple(p.actor_hidden_dims),
+      critic_hidden_dims=tuple(p.critic_hidden_dims),
+      activation=p.activation,
+      init_noise_std=p.init_noise_std,
+      noise_std_type=p.noise_std_type,
+      seed=cfg.seed,
+    ).to(self.device)
+    self.opt_state = adam_init(self.ac)
+    self.lr = torch.tensor(cfg.algorithm.learning_rate, dtype=torch.float32, device=self.device)
+    self.actor_norm = RunningNorm.create(self.num_actor_obs, self.device)
+    self.critic_norm = RunningNorm.create(self.num_critic_obs, self.device)
+    self.generator = torch.Generator(device=self.device)
+    self.generator.manual_seed(cfg.seed)
+    self.vec_env = RlVecEnvWrapper(env, clip_actions=cfg.clip_actions, seed=cfg.seed)
+    self.obs = self.vec_env.get_observations()
+    self.batch: Transition | None = None  # the last rollout's (T, B, ...) buffers
+
+  @property
+  def dtype(self) -> torch.dtype:
+    """The learner's float type (float32; the f64 tests carry float64)."""
+    return self.ac.actor.layers[0].weight.dtype
+
+  # -- one training iteration ---------------------------------------------------
+
+  def rollout_step(self, noise_t: torch.Tensor) -> tuple[Transition, dict]:
+    """One policy act + env step with the frozen normalizers; `noise_t`
+    (B, A) is the action noise. Returns the step's transition and logs."""
+    with torch.no_grad(), record_function("rollout_step/act"):
+      a_obs = self.actor_norm(self.obs["policy"].to(torch.float32))
+      c_obs = self.critic_norm(self.obs[self.critic_group].to(torch.float32))
+      mean, std, value = self.ac(a_obs, c_obs)
+      std = std.expand_as(mean)
+      action = mean + std * noise_t
+      log_prob = gaussian_log_prob(mean, std, action)
+    with torch.no_grad(), record_function("rollout_step/env_step"):
+      self.obs, rew, done, extras = self.vec_env.step(action.to(self.env.dtype))
+    tr = Transition(
+      actor_obs=a_obs,
+      critic_obs=c_obs,
+      action=action,
+      reward=rew.to(torch.float32),
+      done=done,
+      time_out=extras["time_outs"].to(torch.float32),
+      value=value,
+      log_prob=log_prob,
+      mean=mean,
+      std=std,
+    )
+    return tr, {"reward_mean": torch.mean(rew), **extras["log"]}
+
+  def rollout(self, noise: torch.Tensor) -> tuple[Transition, list[dict]]:
+    """num_steps_per_env `rollout_step`s with `noise` (T, B, A). Returns the
+    transitions as (T, B, ...) buffers and each step's logs."""
+    steps, logs = zip(*(self.rollout_step(noise[t])
+                        for t in range(self.cfg.num_steps_per_env)))
+    self.batch = Transition.stack(list(steps))
+    return self.batch, list(logs)
+
+  def update(self, batch: Transition, logs: list[dict], perms: torch.Tensor) -> dict:
+    """Bootstrap value, the PPO update with the epochs' permutations
+    `perms` (epochs, T·B), then the normalizers' statistics. Returns the
+    iteration's metrics as 0-d device tensors."""
+    cfg = self.cfg
+    with torch.no_grad():
+      last_value = self.ac.value(
+        self.critic_norm(self.obs[self.critic_group].to(torch.float32))
+      )
+    self.opt_state, self.lr, ppo_metrics = ppo_update(
+      cfg.algorithm, self.ac, self.opt_state, self.lr, batch, last_value, perms
+    )
+    # The statistics are updated once per iteration (frozen during the
+    # rollout), with the stored observations. Those are already normalized:
+    # the JAX package does so (rsl_rl updates with raw observations), and
+    # the port mirrors it (ROADMAP Queue C).
+    if cfg.policy.actor_obs_normalization:
+      self.actor_norm = self.actor_norm.update(batch.actor_obs)
+    if cfg.policy.critic_obs_normalization:
+      self.critic_norm = self.critic_norm.update(batch.critic_obs)
+
+    def over_steps(key):
+      return torch.stack([log[key] for log in logs])
+
+    resets = torch.sum(over_steps("reset_count"))
+    metrics = {
+      **{f"Loss/{k}": v for k, v in ppo_metrics.items()},
+      "Train/mean_step_reward": torch.mean(over_steps("reward_mean")),
+      "Train/resets": resets,
+      "Train/mean_episode_length": torch.sum(over_steps("Episode_Length"))
+      / torch.clamp(resets.to(torch.float32), min=1.0),
+      "Policy/noise_std": self.ac.mean_noise_std().detach(),
+    }
+    for k in logs[0]:
+      if k.startswith(_LOGGED_PREFIXES):
+        v = over_steps(k)
+        metrics[k] = torch.mean(v if v.is_floating_point() else v.to(torch.float64))
+    return metrics
+
+  def draw(self) -> tuple[torch.Tensor, torch.Tensor]:
+    """One iteration's draws from the runner's generator: the action noise
+    (T, B, A) and one permutation of the T·B samples per epoch."""
+    T, B = self.cfg.num_steps_per_env, self.env.num_envs
+    noise = torch.randn((T, B, self.num_actions), generator=self.generator,
+                        device=self.device, dtype=self.dtype)
+    perms = torch.stack([
+      torch.randperm(T * B, generator=self.generator, device=self.device)
+      for _ in range(self.cfg.algorithm.num_learning_epochs)
+    ])
+    return noise, perms
+
+  def train_iteration(self, noise: torch.Tensor | None = None,
+                      perms: torch.Tensor | None = None) -> dict:
+    """Rollout + update with the given draws (both or neither); without
+    them, with `draw()`'s."""
+    if (noise is None) != (perms is None):
+      raise ValueError("pass both noise and perms, or neither")
+    if noise is None:
+      noise, perms = self.draw()
+    batch, logs = self.rollout(noise)
+    return self.update(batch, logs, perms)
+
+  # -- host API -------------------------------------------------------------------
+
+  def learn(self, num_iterations: int, log_interval: int = 10) -> None:
+    """Run PPO iterations. Metrics stay on the device during the loop and
+    are pulled to the host in one copy at the end, then appended to
+    <log_dir>/metrics.jsonl, one line per iteration."""
+    start = self.iteration
+    keys: list[str] = []
+    device_metrics = []
+    t0 = time.perf_counter()
+    for _ in range(num_iterations):
+      metrics = self.train_iteration()
+      keys = list(metrics)
+      device_metrics.append(torch.stack([v.to(torch.float64) for v in metrics.values()]))
+      self.iteration += 1
+    if not device_metrics:
+      return
+    rows = torch.stack(device_metrics).cpu().tolist()
+    dt = time.perf_counter() - t0
+    steps = self.cfg.num_steps_per_env * self.env.num_envs * num_iterations
+    print(f"[runner] {num_iterations} iterations in {dt:.2f} s: "
+          f"{steps / dt:.0f} env-steps/s", flush=True)
+    lines = []
+    for i, row in enumerate(rows):
+      host = dict(zip(keys, row))
+      if i % log_interval == 0 or i == len(rows) - 1:
+        print(
+          f"it {start + i:6d} | rew {host['Train/mean_step_reward']:.4f} | "
+          f"len {host['Train/mean_episode_length']:.1f} | "
+          f"kl {host['Loss/kl']:.4f} | lr {host['Loss/lr']:.2e}",
+          flush=True,
+        )
+      lines.append(json.dumps({"iteration": start + i, **host}) + "\n")
+    if self.log_dir is not None:
+      os.makedirs(self.log_dir, exist_ok=True)
+      with open(os.path.join(self.log_dir, "metrics.jsonl"), "a") as f:
+        f.writelines(lines)
+    self.last_metrics = dict(zip(keys, rows[-1]))
+
+  # -- inference / persistence ------------------------------------------------------
+
+  def get_inference_policy(self):
+    """obs dict → the actor's mean action, with this moment's actor and
+    normalizer."""
+    actor = copy.deepcopy(self.ac.actor).eval()
+    norm = self.actor_norm
+
+    def policy(obs):
+      with torch.no_grad():
+        return actor(norm(obs["policy"].to(torch.float32)))
+
+    return policy
+
+  def save(self, path: str) -> None:
+    """Checkpoint the learner's state (params, Adam state, normalizers, lr,
+    iteration) to `path` with torch.save, and the TorchScript policy with
+    the robot's metadata beside it as `<path without extension>_policy.pt`."""
+    from mjlab_tpu_torch.rl.exporter import export_policy_as_torchscript
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    state = {k: torch.from_numpy(v) for k, v in runner_state_to_arrays(self).items()}
+    torch.save({"state": state, "iteration": self.iteration}, path)
+    export_policy_as_torchscript(self, self.env, os.path.splitext(path)[0] + "_policy.pt")
+
+  def load(self, path: str) -> None:
+    ckpt = torch.load(path, map_location="cpu")
+    runner_state_from_arrays(self, ckpt["state"])
+    self.iteration = int(ckpt["iteration"])
+
+
+# ---------------------------------------------------------------------------
+# The learner's state by the JAX RunnerState's names.
+# ---------------------------------------------------------------------------
+
+
+def flax_path(name: str) -> str:
+  """'actor.layers.0.weight' → 'actor/Dense_0/kernel'; 'std' → 'std'."""
+  parts = name.split(".")
+  if len(parts) == 1:
+    return name
+  net, _, i, kind = parts
+  return f"{net}/Dense_{i}/{'kernel' if kind == 'weight' else 'bias'}"
+
+
+def flax_layout(name: str, x: torch.Tensor) -> torch.Tensor:
+  """A Linear weight (out, in) ⇄ a flax kernel (in, out); else as is."""
+  return x.T if name.endswith(".weight") else x
+
+
+def runner_state_to_arrays(runner: OnPolicyRunner) -> dict[str, np.ndarray]:
+  """The learner's state as numpy arrays by the JAX RunnerState's names."""
+  out: dict[str, torch.Tensor] = {}
+  for name, p in runner.ac.named_parameters():
+    path = flax_path(name)
+    out[f"params/{path}"] = flax_layout(name, p)
+    out[f"opt/mu/{path}"] = flax_layout(name, runner.opt_state.mu[name])
+    out[f"opt/nu/{path}"] = flax_layout(name, runner.opt_state.nu[name])
+  out["opt/count"] = runner.opt_state.count
+  for which in ("actor_norm", "critic_norm"):
+    norm = getattr(runner, which)
+    for f in ("mean", "var", "count"):
+      out[f"{which}/{f}"] = getattr(norm, f)
+  out["lr"] = runner.lr
+  return {k: v.detach().cpu().numpy().copy() for k, v in out.items()}
+
+
+def runner_state_from_arrays(runner: OnPolicyRunner, arrays: dict) -> None:
+  """Set the learner's state from arrays (numpy or CPU tensors) named as
+  `runner_state_to_arrays` names them, each taking the array's dtype."""
+
+  def get(key: str, name: str = "") -> torch.Tensor:
+    return flax_layout(name, torch.tensor(np.array(arrays[key]))).contiguous().to(
+      runner.device
+    )
+
+  mu, nu = {}, {}
+  with torch.no_grad():
+    for name, p in runner.ac.named_parameters():
+      path = flax_path(name)
+      p.data = get(f"params/{path}", name)
+      mu[name] = get(f"opt/mu/{path}", name)
+      nu[name] = get(f"opt/nu/{path}", name)
+  runner.opt_state = AdamState(count=get("opt/count"), mu=mu, nu=nu)
+  for which in ("actor_norm", "critic_norm"):
+    setattr(runner, which, RunningNorm(
+      **{f: get(f"{which}/{f}") for f in ("mean", "var", "count")}
+    ))
+  runner.lr = get("lr")

@@ -1,6 +1,7 @@
 """Task registry (the port's counterpart of mjlab_tpu/tasks/__init__.py,
 without gymnasium): a task id maps to its env cfg factory, whose scene
-names its compiled model. `make_env` builds the env from that.
+names its compiled model, and to its PPO runner cfg. `make_env` builds the
+env from the env cfg; `load_rl_cfg` gives the runner cfg.
 
     env = make_env("Mjlab-Velocity-Flat-Unitree-G1", num_envs=4096)
     obs, extras = env.reset(seed=0)
@@ -12,8 +13,10 @@ from __future__ import annotations
 import importlib
 
 _REGISTRY = {
-  "Mjlab-Velocity-Flat-Unitree-G1":
-    "mjlab_tpu_torch.tasks.velocity.config.g1.env_cfgs:unitree_g1_flat_env_cfg",
+  "Mjlab-Velocity-Flat-Unitree-G1": {
+    "env": "mjlab_tpu_torch.tasks.velocity.config.g1.env_cfgs:unitree_g1_flat_env_cfg",
+    "rl": "mjlab_tpu_torch.tasks.velocity.config.g1.rl_cfg:UnitreeG1PPORunnerCfg",
+  },
 }
 
 
@@ -21,12 +24,21 @@ def list_tasks() -> list[str]:
   return sorted(_REGISTRY)
 
 
-def load_env_cfg(task_id: str):
-  """A fresh env cfg for the task."""
+def _load(task_id: str, kind: str):
   if task_id not in _REGISTRY:
     raise KeyError(f"Unknown task '{task_id}'. Available: {list_tasks()}")
-  module, attr = _REGISTRY[task_id].split(":")
+  module, attr = _REGISTRY[task_id][kind].split(":")
   return getattr(importlib.import_module(module), attr)()
+
+
+def load_env_cfg(task_id: str):
+  """A fresh env cfg for the task."""
+  return _load(task_id, "env")
+
+
+def load_rl_cfg(task_id: str):
+  """A fresh PPO runner cfg for the task."""
+  return _load(task_id, "rl")
 
 
 def make_env(task_id: str, num_envs: int | None = None, device=None, **cfg_overrides):

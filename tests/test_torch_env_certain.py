@@ -19,27 +19,6 @@ NUM_ENVS = 4
 STEPS = 50
 
 
-def certain(cfg):
-  twist = cfg.commands["twist"]
-  twist.ranges.lin_vel_x = (0.5, 0.5)
-  twist.ranges.lin_vel_y = (0.1, 0.1)
-  twist.ranges.ang_vel_z = (0.2, 0.2)
-  twist.ranges.heading = (0.3, 0.3)
-  twist.rel_standing_envs = 0.0
-  twist.rel_heading_envs = 1.0
-  twist.resampling_time_range = (0.5, 0.5)
-  cfg.curriculum["command_vel"].params["velocity_stages"] = [
-    {"step": 0, "lin_vel_x": (0.5, 0.5), "ang_vel_z": (0.2, 0.2)},
-  ]
-  cfg.events["reset_base"].params["pose_range"] = {"x": (0.1, 0.1), "yaw": (0.5, 0.5)}
-  push = cfg.events["push_robot"]
-  push.interval_range_s = (0.4, 0.4)
-  push.params["velocity_range"] = {"x": (0.3, 0.3), "y": (-0.2, -0.2)}
-  cfg.events["foot_friction"].params["ranges"] = (0.7, 0.7)
-  cfg.observations["policy"].enable_corruption = False
-  cfg.episode_length_s = 0.3
-
-
 @pytest.fixture(scope="module", autouse=True)
 def _one_thread():
   with tp.torch_threads(1):
@@ -48,7 +27,7 @@ def _one_thread():
 
 @pytest.fixture(scope="module")
 def envs():
-  return tp.g1_flat_envs(NUM_ENVS, certain)
+  return tp.g1_flat_envs(NUM_ENVS, tp.certain_variant)
 
 
 def test_certain_rollout_through_resets_and_pushes(envs):

@@ -1,6 +1,7 @@
-"""The port stands alone: importing it, and building and stepping its env
-from the committed scene, pulls in none of jax, mjlab_tpu, mujoco,
-gymnasium or flax; and its own MuJoCo enum constants agree with mujoco's."""
+"""The port stands alone: importing it, building and stepping its env from
+the committed scene, and one tiny PPO training iteration pull in none of
+jax, jaxlib, mjlab_tpu, mujoco, gymnasium, flax, optax or orbax; and its
+own MuJoCo enum constants agree with mujoco's."""
 
 from __future__ import annotations
 
@@ -28,14 +29,24 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
     "import mjlab_tpu_torch.tasks, mjlab_tpu_torch.tasks.velocity.mdp\n"
     "import mjlab_tpu_torch.utils.noise, mjlab_tpu_torch.asset_zoo.robots\n"
     "import mjlab_tpu_torch.asset_zoo.robots.unitree_g1.g1_constants\n"
+    "import mjlab_tpu_torch.rl, mjlab_tpu_torch.rl.runner, mjlab_tpu_torch.rl.exporter\n"
+    "import mjlab_tpu_torch.rl.vecenv_wrapper, mjlab_tpu_torch.scripts.train\n"
     "m = mjlab_tpu_torch.assets.load_model_npz()\n"
     "import torch\n"
     "env = mjlab_tpu_torch.tasks.make_env('Mjlab-Velocity-Flat-Unitree-G1',\n"
     "                                     num_envs=2, device='cpu')\n"
     "env.reset(seed=0)\n"
     "env.step(torch.zeros(2, env.total_action_dim))\n"
+    "runner = mjlab_tpu_torch.scripts.train.build_runner(\n"
+    "  'Mjlab-Velocity-Flat-Unitree-G1', {'env.scene.num_envs': '2',\n"
+    "  'agent.num_steps_per_env': '2', 'agent.algorithm.num_mini_batches': '2',\n"
+    "  'agent.algorithm.num_learning_epochs': '1',\n"
+    "  'agent.policy.actor_hidden_dims': '(16,)',\n"
+    "  'agent.policy.critic_hidden_dims': '(16,)'}, device='cpu')\n"
+    "runner.train_iteration()\n"
     "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in\n"
-    "  ('jax', 'jaxlib', 'mjlab_tpu', 'mujoco', 'gymnasium', 'flax'))))\n"
+    "  ('jax', 'jaxlib', 'mjlab_tpu', 'mujoco', 'gymnasium', 'flax', 'optax',\n"
+    "   'orbax'))))\n"
   )
   env = dict(os.environ, PYTHONPATH=str(ROOT))
   out = subprocess.run(

@@ -1,0 +1,140 @@
+"""The port's training entry point, `python -m mjlab_tpu_torch.scripts.train`,
+on the CPU at a tiny size (2 envs, T = 2, 1 iteration, hidden 32/32): it
+writes the checkpoint, the TorchScript policy, metrics.jsonl and
+final_metrics.json; the checkpoint loads back into a runner built as the
+script builds it. The JAX script's unported flags raise
+NotImplementedError, and without a device the runner asks for CUDA."""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+TASK = "Mjlab-Velocity-Flat-Unitree-G1"
+TINY = {
+  "env.scene.num_envs": "2",
+  "agent.num_steps_per_env": "2",
+  "agent.max_iterations": "1",
+  "agent.policy.actor_hidden_dims": "(32, 32)",
+  "agent.policy.critic_hidden_dims": "(32, 32)",
+  "agent.algorithm.num_learning_epochs": "1",
+  "agent.algorithm.num_mini_batches": "2",
+  "agent.device": "cpu",
+}
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+  log_dir = tmp_path_factory.mktemp("train")
+  args = [a for k, v in TINY.items() for a in (f"--{k}", v)]
+  env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+  out = subprocess.run(
+    [sys.executable, "-m", "mjlab_tpu_torch.scripts.train", TASK, *args,
+     "--log_dir", str(log_dir)],
+    cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+  )
+  assert out.returncode == 0, out.stderr[-3000:]
+  return log_dir, out.stdout
+
+
+def test_train_writes_checkpoint_policy_and_metrics(trained):
+  log_dir, stdout = trained
+  assert "[runner] 1 iterations" in stdout
+  final = json.loads((log_dir / "final_metrics.json").read_text())
+  assert final["iteration"] == 1
+  for k in ("Loss/loss", "Loss/kl", "Loss/value_loss", "Loss/lr", "Train/mean_step_reward"):
+    assert math.isfinite(final[k]), k
+  assert 1e-5 <= final["Loss/lr"] <= 1e-2
+  lines = (log_dir / "metrics.jsonl").read_text().splitlines()
+  assert [json.loads(line)["iteration"] for line in lines] == [0]
+  policy = torch.jit.load(str(log_dir / "model_1_policy.pt"))
+  act = policy(torch.zeros(3, 99))
+  assert act.shape == (3, 29) and torch.isfinite(act).all()
+
+
+def test_checkpoint_loads_into_a_fresh_runner(trained):
+  from mjlab_tpu_torch.rl.runner import runner_state_to_arrays
+  from mjlab_tpu_torch.scripts.train import build_runner
+
+  log_dir, _ = trained
+  saved = torch.load(log_dir / "model_1.pt")
+  runner = build_runner(TASK, TINY)
+  before = runner_state_to_arrays(runner)
+  runner.load(str(log_dir / "model_1.pt"))
+  after = runner_state_to_arrays(runner)
+  assert runner.iteration == 1 and sorted(after) == sorted(saved["state"])
+  for k, v in saved["state"].items():
+    np.testing.assert_array_equal(after[k], v.numpy(), err_msg=k)
+  assert not np.array_equal(after["params/actor/Dense_0/kernel"],
+                            before["params/actor/Dense_0/kernel"])
+
+
+@pytest.mark.parametrize(
+  "flag", ["mesh", "video", "registry-name", "motion-file", "enable_nan_guard", "profile"]
+)
+def test_unported_flags_raise(flag):
+  from mjlab_tpu_torch.scripts.train import run_train
+
+  with pytest.raises(NotImplementedError, match=f"--{flag}"):
+    run_train(TASK, {**TINY, flag: "1"})
+
+
+def test_resume_and_unknown_flags_raise():
+  from mjlab_tpu_torch.scripts.train import build_runner
+
+  with pytest.raises(NotImplementedError, match="resume"):
+    build_runner(TASK, {**TINY, "agent.resume": "true"})
+  with pytest.raises(ValueError, match="--num_envs"):
+    build_runner(TASK, {**TINY, "num_envs": "4"})
+
+
+def test_runner_asks_for_cuda_by_default():
+  """Without a device the runner cfg's default, CUDA, is used; where there
+  is none it raises and never falls back to the CPU."""
+  from mjlab_tpu_torch.scripts.train import build_runner
+
+  overrides = {k: v for k, v in TINY.items() if k != "agent.device"}
+  if torch.cuda.is_available():
+    assert build_runner(TASK, overrides).device.type == "cuda"
+    return
+  with pytest.raises((RuntimeError, AssertionError)):
+    build_runner(TASK, overrides)
+
+
+def test_g1_rl_cfg_matches_jax():
+  """The G1 PPO cfg is the JAX package's, but for the device, the TPU
+  relay's rollout modes and the fields that nothing in the port reads,
+  which the port does not have."""
+  from mjlab_tpu.tasks.velocity.config.g1.rl_cfg import UnitreeG1PPORunnerCfg
+  from mjlab_tpu_torch.tasks import load_rl_cfg
+
+  want = dataclasses.asdict(UnitreeG1PPORunnerCfg())
+  got = dataclasses.asdict(load_rl_cfg(TASK))
+  assert got.pop("device") == "cuda" and want.pop("device") == "tpu"
+  for k in ("fused_rollout", "rollout_chunk", "epoch_chunk", "packed_hostloop",
+            "empirical_normalization", "save_interval", "run_name", "logger",
+            "wandb_project", "load_run", "load_checkpoint"):
+    want.pop(k)
+  for group in ("policy", "algorithm"):
+    want[group].pop("class_name")
+  assert got == want
+
+
+@pytest.mark.parametrize("field", ["save_interval", "logger", "empirical_normalization"])
+def test_unread_cfg_fields_are_rejected(field):
+  """Fields that nothing in the port reads are not in its cfg, so setting
+  one fails instead of doing nothing."""
+  from mjlab_tpu_torch.scripts.train import build_runner
+
+  with pytest.raises(AttributeError, match=field):
+    build_runner(TASK, {**TINY, f"agent.{field}": "1"})

@@ -306,6 +306,31 @@ def carry(jenv, env, full: bool = False) -> dict[str, np.ndarray]:
   return arrays
 
 
+def certain_variant(cfg):
+  """The G1 task with every draw certain (zero-width command, reset, push,
+  friction and clock ranges; no standing envs; all heading envs; no
+  observation noise; 0.3 s episodes), so that two generators give the same
+  rollout."""
+  twist = cfg.commands["twist"]
+  twist.ranges.lin_vel_x = (0.5, 0.5)
+  twist.ranges.lin_vel_y = (0.1, 0.1)
+  twist.ranges.ang_vel_z = (0.2, 0.2)
+  twist.ranges.heading = (0.3, 0.3)
+  twist.rel_standing_envs = 0.0
+  twist.rel_heading_envs = 1.0
+  twist.resampling_time_range = (0.5, 0.5)
+  cfg.curriculum["command_vel"].params["velocity_stages"] = [
+    {"step": 0, "lin_vel_x": (0.5, 0.5), "ang_vel_z": (0.2, 0.2)},
+  ]
+  cfg.events["reset_base"].params["pose_range"] = {"x": (0.1, 0.1), "yaw": (0.5, 0.5)}
+  push = cfg.events["push_robot"]
+  push.interval_range_s = (0.4, 0.4)
+  push.params["velocity_range"] = {"x": (0.3, 0.3), "y": (-0.2, -0.2)}
+  cfg.events["foot_friction"].params["ranges"] = (0.7, 0.7)
+  cfg.observations["policy"].enable_corruption = False
+  cfg.episode_length_s = 0.3
+
+
 def actions(seed: int, n_steps: int, num_envs: int, dim: int, scale: float = 0.5):
   rng = np.random.default_rng(seed)
   return [rng.normal(0.0, scale, (num_envs, dim)) for _ in range(n_steps)]
@@ -320,3 +345,57 @@ def numpy_tree(x):
   if isinstance(x, torch.Tensor):
     return x.detach().cpu().numpy()
   return np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# Learner state: the JAX RunnerState's leaves by name.
+# ---------------------------------------------------------------------------
+
+
+def jax_adam_state(opt_state):
+  """The ScaleByAdamState inside mjlab_tpu.rl.ppo.make_optimizer's chain
+  (clip_by_global_norm, inject_hyperparams(adam))."""
+  return opt_state[1].inner_state[0]
+
+
+def jax_learner_arrays(params, opt_state) -> dict[str, np.ndarray]:
+  """flax params and the optimizer's Adam state by the names
+  mjlab_tpu_torch.rl.runner.runner_state_to_arrays writes."""
+  out: dict[str, np.ndarray] = {}
+  _flatten("params", params["params"], out)
+  adam = jax_adam_state(opt_state)
+  _flatten("opt/mu", adam.mu["params"], out)
+  _flatten("opt/nu", adam.nu["params"], out)
+  out["opt/count"] = np.asarray(adam.count)
+  return out
+
+
+def jax_runner_arrays(state) -> dict[str, np.ndarray]:
+  """A JAX RunnerState's learner leaves by the names
+  mjlab_tpu_torch.rl.runner.runner_state_to_arrays writes."""
+  out = jax_learner_arrays(state.train.params, state.train.opt_state)
+  for which in ("actor_norm", "critic_norm"):
+    norm = getattr(state, which)
+    for f in ("mean", "var", "count"):
+      out[f"{which}/{f}"] = np.asarray(getattr(norm, f))
+  out["lr"] = np.asarray(state.train.lr)
+  return out
+
+
+def f64_tree(tree):
+  """Every floating leaf of a JAX pytree in float64."""
+  return jax.tree_util.tree_map(
+    lambda x: x.astype(jnp.float64) if jnp.issubdtype(x.dtype, jnp.floating) else x, tree
+  )
+
+
+def jax_learner_f64(state):
+  """The RunnerState with its params, optimizer state, normalizers and lr
+  in float64 (the JAX package keeps them float32 even under x64)."""
+  train = state.train
+  return state.replace(
+    train=train.replace(params=f64_tree(train.params), opt_state=f64_tree(train.opt_state),
+                        lr=f64_tree(train.lr)),
+    actor_norm=f64_tree(state.actor_norm),
+    critic_norm=f64_tree(state.critic_norm),
+  )
