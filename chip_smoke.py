@@ -66,11 +66,23 @@ Phases, each printing its own lines:
      on the certain-draw variant, 4 envs, T = 4, 1 epoch x 2 minibatches,
      from one warm learner (Adam's moments and the normalizers' statistics
      drawn from the seed) and the same draws on both, for each of the
-     seeds 3, 4 and 5 (another list with `--f64-seeds 3,4,...`).
+     seeds 3, 4 and 5 (another list with `--f64-seeds 3,4,...`);
+  9. the tracking path — a seeded synthetic motion CSV (10 s at 30 fps)
+     converted on the card by `scripts.csv_to_npz` (500 frames at 50 fps,
+     11 adaptive bins), then `build_runner("Mjlab-Tracking-Flat-Unitree-G1",
+     {"env.scene.num_envs": "4096", "motion_file": ...})` with the G1
+     tracking PPO cfg; checks the observation widths (160, 286) and the
+     per-env body_ipos, qpos0 and foot friction (each different across envs,
+     inside its range, on its elements only); then phase 8's 3 iterations,
+     checks, split and profiles on it, plus the motion frames inside
+     [0, 500) and a failure counted in the adaptive bins; holds the kernels
+     against their plain versions on the tracking run's matrices; and the
+     card's float64 iteration against the CPU's on the tracking task's
+     certain-draw variant, as phase 8 does.
 Any failed check raises. The line before the last is the kernel table as
 JSON (`launches` from the env path of phase 7, `launches_training_path`
-from phase 8's 3 iterations); the last line is
-{"ok": true, "device": {...}}.
+from phase 8's 3 iterations, `launches_tracking_path` from phase 9's); the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -111,6 +123,10 @@ TRAIN_STEPS = 24  # the G1 PPO cfg's num_steps_per_env
 TRAIN_SPANS = ("rollout_step/act", "rollout_step/env_step",
                "ppo_update/prepare", "ppo_update/minibatch_steps")
 F64_SEEDS = (3, 4, 5)  # draws of the card-vs-CPU float64 training iteration
+TRACK_TASK = "Mjlab-Tracking-Flat-Unitree-G1"
+TRACK_CSV_ROWS = 301  # 10 s of motion at 30 fps
+TRACK_FRAMES = 500  # the same 10 s at 50 fps
+TRACK_BINS = 11  # adaptive-sampling bins: 500 frames // 50 steps per s + 1
 
 
 def card_line() -> str:
@@ -386,12 +402,17 @@ def time_iteration(runner) -> tuple[dict[str, float], dict[str, float]]:
   return {part: a.elapsed_time(b) for (_, a), (part, b) in zip(marks, marks[1:])}, mem
 
 
-def span_busy_ms(prof) -> dict[str, tuple[float, float]]:
+def span_busy_ms(prof) -> tuple[dict[str, tuple[float, float]], set[str]]:
   """(busy ms, range ms) of each TRAIN_SPANS span on the device timeline:
   the range is the span's GPU-side annotation, busy the time of the
   kernels that start inside it. Kernels are placed by time, not by the op
   that launched them, so that the backward pass, which autograd runs on its
-  own device thread outside the span, counts in the minibatch steps."""
+  own device thread outside the span, counts in the minibatch steps.
+
+  The profiler does not always record a span's GPU-side annotation (the
+  tracking path's `rollout_step/act` lacked it on the card, and its CPU
+  row carried no kernels); such a span is left out. Returns the measured
+  spans and the names of every span the CPU side recorded."""
   events = prof.events()
   kernels = sorted(
     (e.time_range.start, e.time_range.elapsed_us()) for e in events
@@ -406,45 +427,24 @@ def span_busy_ms(prof) -> dict[str, tuple[float, float]]:
       busy = sum(d for _, d in kernels[bisect.bisect_left(starts, a):bisect.bisect_left(starts, b)])
       prev = out.get(e.name, (0.0, 0.0))
       out[e.name] = (prev[0] + busy / 1e3, prev[1] + (b - a) / 1e3)
-  return out
+  return out, {e.name for e in events if e.name in TRAIN_SPANS
+               and str(e.device_type).endswith("CPU")}
 
 
-def training_path(card: str, attr: str, f64_seeds=F64_SEEDS) -> dict[str, int]:
-  """Phase 8: PPO training iterations through `build_runner` at NUM_WORLDS
-  envs, then the card's float64 iteration against the CPU's. Returns the
-  kernels' launches in the TRAIN_ITERS iterations. `attr` names the
-  profiler's device-time field."""
+def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int]):
+  """TRAIN_ITERS `train_iteration`s under set_sync_debug_mode("error") with
+  the kernels' counters set to 0 just before and read just after. Checks
+  1416 factorizations and 120 `chol_solve` per iteration, finite losses,
+  the lr inside [1e-5, 1e-2], the rollout buffers' shapes and that every
+  parameter moved. Returns the launches, the steady ms per iteration
+  (CUDA events) and each iteration's metrics."""
   import numpy as np
-  from torch.profiler import ProfilerActivity, profile
 
-  from mjlab_tpu_torch.envs import ManagerBasedRlEnv
   from mjlab_tpu_torch.kernels import chol
-  from mjlab_tpu_torch.rl.exporter import export_policy_as_torchscript
-  from mjlab_tpu_torch.rl.runner import (
-    OnPolicyRunner, runner_state_from_arrays, runner_state_to_arrays,
-  )
-  from mjlab_tpu_torch.scripts.train import build_runner
-  from mjlab_tpu_torch.tasks import load_env_cfg, load_rl_cfg
+  from mjlab_tpu_torch.rl.runner import runner_state_to_arrays
 
-  # Phase 7's env sits in reference cycles (env <-> managers): collect it,
-  # so that this phase's memory is its own.
-  gc.collect()
-  torch.cuda.empty_cache()
-  print(f"phase 8: device memory allocated before build_runner "
-        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
-  t0 = time.perf_counter()
-  runner = build_runner(TASK, {"env.scene.num_envs": str(NUM_WORLDS)})
-  torch.cuda.synchronize()
-  alg = runner.cfg.algorithm
-  n_mb = alg.num_learning_epochs * alg.num_mini_batches
-  print(f"phase 8 training path: {TASK}, {NUM_WORLDS} envs, episodes "
-        f"{runner.env.cfg.episode_length_s} s, T {runner.cfg.num_steps_per_env}, "
-        f"{alg.num_learning_epochs} epochs x {alg.num_mini_batches} minibatches of "
-        f"{NUM_WORLDS * TRAIN_STEPS // alg.num_mini_batches}, hidden "
-        f"{runner.cfg.policy.actor_hidden_dims}, lr {alg.schedule}; build_runner "
-        f"{time.perf_counter() - t0:.2f} s [{card}]")
   if runner.cfg.num_steps_per_env != TRAIN_STEPS:
-    raise AssertionError("the G1 PPO cfg no longer has 24 steps per env")
+    raise AssertionError(f"the PPO cfg no longer has {TRAIN_STEPS} steps per env")
   before = runner_state_to_arrays(runner)
   iter_events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_ITERS + 1)]
   metrics = []
@@ -459,9 +459,9 @@ def training_path(card: str, attr: str, f64_seeds=F64_SEEDS) -> dict[str, int]:
   torch.cuda.set_sync_debug_mode("default")
   torch.cuda.synchronize()
   t_train = time.perf_counter() - t0
-  train_launches = dict(chol.LAUNCHES)
-  train_fact = chol.factorizations()
-  train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  launches = dict(chol.LAUNCHES)
+  fact = chol.factorizations()
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
   iter_ms = [a.elapsed_time(b) for a, b in zip(iter_events, iter_events[1:])]
   steady_iter_ms = sum(iter_ms[1:]) / (TRAIN_ITERS - 1)
   host = [{k: float(v) for k, v in m.items()} for m in metrics]
@@ -470,40 +470,50 @@ def training_path(card: str, attr: str, f64_seeds=F64_SEEDS) -> dict[str, int]:
   print(f"  ms per iteration (CUDA events) {', '.join(f'{x:.2f}' for x in iter_ms)}; "
         f"steady (iterations 2-{TRAIN_ITERS}) {steady_iter_ms:.2f} ms, "
         f"{NUM_WORLDS * TRAIN_STEPS / steady_iter_ms * 1e3:.1f} training env-steps/s [{card}]")
-  print(f"  peak memory {train_peak_gb:.2f} GB (torch.cuda.max_memory_allocated) [{card}]")
-  print(f"  launches {train_launches}; factorizations {train_fact} = "
-        f"{train_fact / TRAIN_ITERS:.1f}/iteration, chol_solve "
-        f"{train_launches['chol_solve'] / TRAIN_ITERS:.1f}/iteration")
+  print(f"  peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated) [{card}]")
+  print(f"  launches {launches}; factorizations {fact} = {fact / TRAIN_ITERS:.1f}/iteration, "
+        f"chol_solve {launches['chol_solve'] / TRAIN_ITERS:.1f}/iteration")
   for i, m in enumerate(host):
     print(f"  it {i}: loss {m['Loss/loss']:.5f} surrogate {m['Loss/surrogate']:.5f} value "
           f"{m['Loss/value_loss']:.5f} kl {m['Loss/kl']:.5f} entropy {m['Loss/entropy']:.3f} "
           f"lr {m['Loss/lr']:.3e} reward {m['Train/mean_step_reward']:.5f} resets "
           f"{m['Train/resets']:.0f} noise_std {m['Policy/noise_std']:.4f}")
-  if (train_fact != TRAIN_STEPS * RL_FACT_PER_STEP * TRAIN_ITERS
-      or train_launches["chol_solve"] != TRAIN_STEPS * RL_SOLVES_PER_STEP * TRAIN_ITERS
-      or any(train_launches[k] == 0 for k in KERNELS)):
-    raise AssertionError(f"expected {TRAIN_STEPS * RL_FACT_PER_STEP} factorizations and "
-                         f"{TRAIN_STEPS * RL_SOLVES_PER_STEP} solves per iteration, got "
-                         f"{train_launches}")
+  if (fact != TRAIN_STEPS * RL_FACT_PER_STEP * TRAIN_ITERS
+      or launches["chol_solve"] != TRAIN_STEPS * RL_SOLVES_PER_STEP * TRAIN_ITERS
+      or any(launches[k] == 0 for k in KERNELS)):
+    raise AssertionError(f"{phase}: expected {TRAIN_STEPS * RL_FACT_PER_STEP} factorizations "
+                         f"and {TRAIN_STEPS * RL_SOLVES_PER_STEP} solves per iteration, got "
+                         f"{launches}")
   for m in host:
     if not all(np.isfinite(m[k]) for k in ("Loss/loss", "Loss/kl", "Loss/value_loss")):
-      raise AssertionError(f"non-finite loss, KL or value loss: {m}")
+      raise AssertionError(f"{phase}: non-finite loss, KL or value loss: {m}")
     if not 1e-5 <= m["Loss/lr"] <= 1e-2:
-      raise AssertionError(f"lr {m['Loss/lr']} outside [1e-5, 1e-2]")
-  shapes = {f: tuple(getattr(runner.batch, f).shape)
-            for f in ("actor_obs", "critic_obs", "action")}
+      raise AssertionError(f"{phase}: lr {m['Loss/lr']} outside [1e-5, 1e-2]")
+  shapes = {f: tuple(getattr(runner.batch, f).shape) for f in ("actor_obs", "critic_obs", "action")}
   print(f"  rollout buffers {shapes}")
-  if shapes != {"actor_obs": (TRAIN_STEPS, NUM_WORLDS, 99),
-                "critic_obs": (TRAIN_STEPS, NUM_WORLDS, 111),
+  if shapes != {"actor_obs": (TRAIN_STEPS, NUM_WORLDS, obs_dims[0]),
+                "critic_obs": (TRAIN_STEPS, NUM_WORLDS, obs_dims[1]),
                 "action": (TRAIN_STEPS, NUM_WORLDS, 29)}:
-    raise AssertionError("rollout buffer shapes")
+    raise AssertionError(f"{phase}: rollout buffer shapes")
   after = runner_state_to_arrays(runner)
   moved = {k: float(np.abs(after[k] - before[k]).max()) for k in after if k.startswith("params/")}
   print(f"  params moved: least max |change| over the {len(moved)} tensors "
         f"{min(moved.values()):.3e}")
   if not min(moved.values()) > 0:
-    raise AssertionError("a parameter tensor did not change")
+    raise AssertionError(f"{phase}: a parameter tensor did not change")
+  return launches, steady_iter_ms, host
 
+
+def profile_iteration(runner, card: str, attr: str, tag: str, steady_iter_ms: float) -> None:
+  """One more iteration timed by the runner's three calls (CUDA events),
+  then profiles of one rollout step and one update split by the runner's
+  spans; an iteration is T of the one and one of the other, which gives
+  its launches and the device's busy share. Tables go to
+  OUT/chip_smoke_<tag>_<part>_profile.txt."""
+  from torch.profiler import ProfilerActivity, profile
+
+  alg = runner.cfg.algorithm
+  n_mb = alg.num_learning_epochs * alg.num_mini_batches
   parts, mem = time_iteration(runner)
   print(f"  one iteration by call (CUDA events) [{card}]:")
   for part, ms in parts.items():
@@ -517,7 +527,7 @@ def training_path(card: str, attr: str, f64_seeds=F64_SEEDS) -> dict[str, int]:
   # other. The runner's spans split each (`span_busy_ms`).
   noise, perms = runner.draw()
   batch, logs = runner.rollout(noise)
-  profiled, spans = {}, {}
+  profiled, spans, recorded = {}, {}, set()
   for part, fn in (("rollout step", lambda: runner.rollout_step(noise[0])),
                    ("update", lambda: runner.update(batch, logs, perms))):
     t0 = time.perf_counter()
@@ -526,90 +536,79 @@ def training_path(card: str, attr: str, f64_seeds=F64_SEEDS) -> dict[str, int]:
       torch.cuda.synchronize()
     averages = prof.key_averages()
     name = part.replace(" ", "_")
-    (OUT / f"chip_smoke_train_{name}_profile.txt").write_text(
-      averages.table(sort_by=attr, row_limit=40))
+    table = OUT / f"chip_smoke_{tag}_{name}_profile.txt"
+    table.write_text(averages.table(sort_by=attr, row_limit=40))
     events = [e for e in averages if str(e.device_type).endswith("CUDA")
               and e.key not in TRAIN_SPANS and not getattr(e, "is_user_annotation", False)]
     profiled[part] = (sum(getattr(e, attr) for e in events) / 1e3, sum(e.count for e in events))
-    spans.update(span_busy_ms(prof))
+    got, seen = span_busy_ms(prof)
+    spans.update(got)
+    recorded |= seen
     print(f"  profile of one {part}: device time {profiled[part][0]:.2f} ms in "
           f"{profiled[part][1]} kernel launches ({time.perf_counter() - t0:.1f} s with the "
-          f"profiler) [{card}]; table in {OUT}/chip_smoke_train_{name}_profile.txt")
+          f"profiler) [{card}]; table in {table}")
     for e in sorted(events, key=lambda e: -getattr(e, attr))[:5]:
       print(f"    {getattr(e, attr) / 1e3:8.3f} ms  x{e.count:6d}  {e.key[:90]}")
-  if sorted(spans) != sorted(TRAIN_SPANS):
-    raise AssertionError(f"the profiles lack spans: got {sorted(spans)}")
+  if sorted(recorded) != sorted(TRAIN_SPANS):
+    raise AssertionError(f"the profiles lack spans: got {sorted(recorded)}")
+
+  def span_ms(k, n=1):
+    return (f"{n * spans[k][0]:.3f}" if k in spans
+            else "not measured (the profiler recorded no GPU-side annotation)")
+
   for part, names in (("rollout step", TRAIN_SPANS[:2]), ("update", TRAIN_SPANS[2:])):
-    rest = profiled[part][0] - sum(spans[k][0] for k in names)
+    rest = profiled[part][0] - sum(spans[k][0] for k in names if k in spans)
     print(f"  the {part} by span, kernel ms on the device (the span's range on the device "
           "timeline, stretched by the profiler): "
-          + ", ".join(f"{k} {spans[k][0]:.3f} ({spans[k][1]:.3f})" for k in names)
-          + f", outside the spans {rest:.3f} [{card}]")
+          + ", ".join(f"{k} {span_ms(k)}" + (f" ({spans[k][1]:.3f})" if k in spans else "")
+                      for k in names)
+          + f", outside the measured spans {rest:.3f} [{card}]")
     if rest < -1e-3 * profiled[part][0]:
       raise AssertionError(f"the {part}'s spans hold more kernel time than the {part}")
-  act_ms, mb_ms = spans["rollout_step/act"][0], spans["ppo_update/minibatch_steps"][0]
-  print(f"  kernel time of {TRAIN_STEPS} policy acts {TRAIN_STEPS * act_ms:.3f} ms; of one "
-        f"minibatch step {mb_ms / n_mb:.3f} ms; the update's wall time is "
-        f"{parts['update'] / profiled['update'][0]:.2f} x its kernel time [{card}]")
-  train_dev_ms = TRAIN_STEPS * profiled["rollout step"][0] + profiled["update"][0]
-  train_kernel_launches = TRAIN_STEPS * profiled["rollout step"][1] + profiled["update"][1]
+  print(f"  kernel time of {TRAIN_STEPS} policy acts {span_ms('rollout_step/act', TRAIN_STEPS)} "
+        f"ms; of one minibatch step {span_ms('ppo_update/minibatch_steps', 1 / n_mb)} ms; "
+        f"the update's wall time is {parts['update'] / profiled['update'][0]:.2f} x its "
+        f"kernel time [{card}]")
+  dev_ms = TRAIN_STEPS * profiled["rollout step"][0] + profiled["update"][0]
+  kernel_launches = TRAIN_STEPS * profiled["rollout step"][1] + profiled["update"][1]
   print(f"  one iteration = {TRAIN_STEPS} rollout steps + one update: device time "
-        f"{train_dev_ms:.2f} ms in {train_kernel_launches} kernel launches; busy share "
-        f"{train_dev_ms / steady_iter_ms:.3f} of the steady {steady_iter_ms:.2f} ms/iteration "
+        f"{dev_ms:.2f} ms in {kernel_launches} kernel launches; busy share "
+        f"{dev_ms / steady_iter_ms:.3f} of the steady {steady_iter_ms:.2f} ms/iteration "
         f"[{card}]")
-  del batch, logs
 
-  # Save, reload into a fresh runner; export the TorchScript policy.
-  ckpt_dir = Path("build") / "chip_smoke"
-  ckpt = ckpt_dir / "model.pt"
-  runner.save(str(ckpt))
-  saved = runner_state_to_arrays(runner)
-  # The learner's shapes do not depend on the number of envs.
-  fresh = build_runner(TASK, {"env.scene.num_envs": "4"})
-  fresh.load(str(ckpt))
-  loaded = runner_state_to_arrays(fresh)
-  same = sorted(saved) == sorted(loaded) and all(np.array_equal(saved[k], loaded[k])
-                                                 for k in saved)
-  print(f"  save/load: {len(saved)} arrays, fresh runner equal: {same}, iteration "
-        f"{fresh.iteration}")
-  if not same or fresh.iteration != runner.iteration:
-    raise AssertionError("the reloaded runner differs from the saved one")
-  del fresh
-  policy_path = export_policy_as_torchscript(runner, runner.env,
-                                             str(ckpt_dir / "policy.pt"))
-  scripted = torch.jit.load(policy_path)
-  want = runner.get_inference_policy()(runner.obs).cpu()
-  with torch.no_grad():
-    got = scripted(runner.obs["policy"].to(torch.float32).cpu())
-  err = (got - want).abs().max().item()
-  scale = max(1.0, want.abs().max().item())
-  # The export runs on the CPU, the inference policy on the card, both float32.
-  print(f"  TorchScript policy (CPU) vs get_inference_policy (card), {tuple(got.shape)}: "
-        f"max_abs_err {err:.3e} (tol 1e-5 x {scale:.3e})")
-  if not err <= 1e-5 * scale:
-    raise AssertionError("the TorchScript policy disagrees with the inference policy")
-  del runner, metrics, scripted
-  torch.cuda.empty_cache()
 
-  # The card's float64 iteration (kernels) against the CPU's (plain versions),
-  # on a few sets of draws, from a learner as it is after some training:
-  # Adam's moments and step count and the normalizers' statistics drawn
-  # from the seed, as tests/test_torch_runner.py draws the normalizers. From
-  # a fresh learner the comparison measures two amplifiers rather than the
-  # card: Adam's first steps scale a gradient near 0 by lr / eps = 1e5, and
-  # a normalizer of count 0 takes a batch's mean whole, so an observation
-  # that the float32 cast rounds one ulp apart on the two paths (the float64
-  # physics differ in the last bits) moved the result by up to 1.3e-6 (my
-  # chip run over 20 seeds, PERF.md).
+def f64_iteration_check(task: str, variant, f64_seeds, overrides=None) -> None:
+  """The card's float64 training iteration (kernels) against the CPU's
+  (plain versions) on a variant of `task` whose draws are all certain, 4
+  envs, T = 4, 1 epoch x 2 minibatches, for each seed: one warm learner
+  (Adam's moments and step count and the normalizers' statistics drawn
+  from the seed, as tests/test_torch_runner.py draws the normalizers) and
+  the same action noise and permutations on both. From a fresh learner the
+  comparison measures two amplifiers rather than the card: Adam's first
+  steps scale a gradient near 0 by lr / eps = 1e5, and a normalizer of count
+  0 takes a batch's mean whole, so an observation that the float32 cast
+  rounds one ulp apart on the two paths (the float64 physics differ in the
+  last bits) moved the result by up to 1.3e-6 (PERF.md). Fails above 1e-8
+  relative to max(1, max |CPU|)."""
+  import numpy as np
+
+  from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+  from mjlab_tpu_torch.rl.runner import (
+    OnPolicyRunner, runner_state_from_arrays, runner_state_to_arrays,
+  )
+  from mjlab_tpu_torch.scripts.cli import apply_overrides
+  from mjlab_tpu_torch.tasks import load_env_cfg, load_rl_cfg
+
   worst_by_seed = {}
   for seed in f64_seeds:
     runners = {}
     for dv in ("cuda", "cpu"):
-      cfg = load_env_cfg(TASK)
+      cfg = load_env_cfg(task)
+      apply_overrides(cfg, overrides or {})
       cfg.scene.num_envs = 4
       cfg.sim.dtype = "float64"
-      certain_variant(cfg)
-      rl = load_rl_cfg(TASK)
+      variant(cfg)
+      rl = load_rl_cfg(task)
       rl.num_steps_per_env = 4
       rl.algorithm.num_learning_epochs = 1
       rl.algorithm.num_mini_batches = 2
@@ -666,7 +665,241 @@ def training_path(card: str, attr: str, f64_seeds=F64_SEEDS) -> dict[str, int]:
         f"{list(worst_by_seed)}: {max(worst_by_seed.values()):.3e} (tol 1e-8)")
   if not max(worst_by_seed.values()) <= 1e-8:
     raise AssertionError(f"card vs CPU training iteration mismatch: {worst_by_seed}")
+
+
+def training_path(card: str, attr: str, f64_seeds=F64_SEEDS) -> dict[str, int]:
+  """Phase 8: PPO training iterations through `build_runner` at NUM_WORLDS
+  envs, then the card's float64 iteration against the CPU's. Returns the
+  kernels' launches in the TRAIN_ITERS iterations. `attr` names the
+  profiler's device-time field."""
+  import numpy as np
+
+  from mjlab_tpu_torch.rl.exporter import export_policy_as_torchscript
+  from mjlab_tpu_torch.rl.runner import runner_state_to_arrays
+  from mjlab_tpu_torch.scripts.train import build_runner
+
+  # Phase 7's env sits in reference cycles (env <-> managers): collect it,
+  # so that this phase's memory is its own.
+  gc.collect()
+  torch.cuda.empty_cache()
+  print(f"phase 8: device memory allocated before build_runner "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+  t0 = time.perf_counter()
+  runner = build_runner(TASK, {"env.scene.num_envs": str(NUM_WORLDS)})
+  torch.cuda.synchronize()
+  alg = runner.cfg.algorithm
+  print(f"phase 8 training path: {TASK}, {NUM_WORLDS} envs, episodes "
+        f"{runner.env.cfg.episode_length_s} s, T {runner.cfg.num_steps_per_env}, "
+        f"{alg.num_learning_epochs} epochs x {alg.num_mini_batches} minibatches of "
+        f"{NUM_WORLDS * TRAIN_STEPS // alg.num_mini_batches}, hidden "
+        f"{runner.cfg.policy.actor_hidden_dims}, lr {alg.schedule}; build_runner "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+  train_launches, steady_iter_ms, _ = train_iterations(runner, card, "phase 8", (99, 111))
+  profile_iteration(runner, card, attr, "train", steady_iter_ms)
+
+  # Save, reload into a fresh runner; export the TorchScript policy.
+  ckpt_dir = Path("build") / "chip_smoke"
+  ckpt = ckpt_dir / "model.pt"
+  runner.save(str(ckpt))
+  saved = runner_state_to_arrays(runner)
+  # The learner's shapes do not depend on the number of envs.
+  fresh = build_runner(TASK, {"env.scene.num_envs": "4"})
+  fresh.load(str(ckpt))
+  loaded = runner_state_to_arrays(fresh)
+  same = sorted(saved) == sorted(loaded) and all(np.array_equal(saved[k], loaded[k])
+                                                 for k in saved)
+  print(f"  save/load: {len(saved)} arrays, fresh runner equal: {same}, iteration "
+        f"{fresh.iteration}")
+  if not same or fresh.iteration != runner.iteration:
+    raise AssertionError("the reloaded runner differs from the saved one")
+  del fresh
+  policy_path = export_policy_as_torchscript(runner, runner.env,
+                                             str(ckpt_dir / "policy.pt"))
+  scripted = torch.jit.load(policy_path)
+  want = runner.get_inference_policy()(runner.obs).cpu()
+  with torch.no_grad():
+    got = scripted(runner.obs["policy"].to(torch.float32).cpu())
+  err = (got - want).abs().max().item()
+  scale = max(1.0, want.abs().max().item())
+  # The export runs on the CPU, the inference policy on the card, both float32.
+  print(f"  TorchScript policy (CPU) vs get_inference_policy (card), {tuple(got.shape)}: "
+        f"max_abs_err {err:.3e} (tol 1e-5 x {scale:.3e})")
+  if not err <= 1e-5 * scale:
+    raise AssertionError("the TorchScript policy disagrees with the inference policy")
+  del runner, scripted
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  f64_iteration_check(TASK, certain_variant, f64_seeds)
   return train_launches
+
+
+def tracking_motion_csv(path: Path, seed: int = 0) -> None:
+  """A seeded synthetic motion CSV, 10 s at 30 fps (301 rows of root
+  position, root quaternion wxyz and the 29 joint positions): the root at
+  the keyframe height, drifting forward at 0.3 m/s and yawing at 0.2 rad/s;
+  the joints at the keyframe plus sinusoids of seeded amplitude (at most
+  0.3 rad), frequency and phase."""
+  import numpy as np
+
+  from mjlab_tpu_torch.assets import load_model_npz
+
+  key = load_model_npz().key_qpos[0]
+  rng = np.random.default_rng(seed)
+  t = np.arange(TRACK_CSV_ROWS)[:, None] / 30.0
+  yaw = 0.2 * t
+  root = np.concatenate([key[0] + 0.3 * t, key[1] + 0.0 * t, key[2] + 0.0 * t], axis=-1)
+  quat = np.concatenate([np.cos(yaw / 2), 0.0 * t, 0.0 * t, np.sin(yaw / 2)], axis=-1)
+  amp, freq, phase = (rng.uniform(lo, hi, 29) for lo, hi in ((0.05, 0.3), (0.2, 1.0),
+                                                              (0.0, 2 * np.pi)))
+  joints = key[7:] + amp * np.sin(2 * np.pi * freq * t + phase)
+  np.savetxt(path, np.concatenate([root, quat, joints], axis=-1), delimiter=",")
+
+
+def tracking_certain_variant(cfg) -> None:
+  """The G1 tracking task with every draw certain (motions start at frame
+  0; zero-width RSI offsets, push velocities and push clock; fixed
+  base-COM, default-joint and foot-friction offsets; no observation noise),
+  so that two generators give the same rollout.
+  tests/test_torch_tracking_env.py holds it against the JAX env."""
+  motion = cfg.commands["motion"]
+  motion.sampling_mode = "start"
+  motion.pose_range = {"x": (0.02, 0.02), "y": (-0.01, -0.01), "yaw": (0.1, 0.1)}
+  motion.velocity_range = {"x": (0.1, 0.1), "roll": (0.05, 0.05)}
+  motion.joint_position_range = (0.03, 0.03)
+  push = cfg.events["push_robot"]
+  push.interval_range_s = (0.1, 0.1)
+  push.params["velocity_range"] = {"x": (0.2, 0.2), "y": (-0.1, -0.1)}
+  cfg.events["base_com"].params["ranges"] = {0: (0.01, 0.01), 1: (-0.02, -0.02),
+                                             2: (0.03, 0.03)}
+  cfg.events["add_joint_default_pos"].params["ranges"] = (0.005, 0.005)
+  cfg.events["foot_friction"].params["ranges"] = (0.7, 0.7)
+  cfg.observations["policy"].enable_corruption = False
+
+
+def tracking_path(card: str, attr: str, checks: KernelCheck, f64_seeds=F64_SEEDS) -> dict[str, int]:
+  """Phase 9: the motion-tracking task. A seeded synthetic motion CSV
+  converted on the card by the port's csv_to_npz; `build_runner` of
+  TRACK_TASK at NUM_WORLDS envs with that motion; the per-env body_ipos,
+  qpos0 and foot friction; TRAIN_ITERS training iterations with the
+  tracking checks; the iteration's split and profile; the kernels against
+  their plain versions on the run's matrices; then the card's float64
+  iteration against the CPU's. Returns the kernels' launches in the
+  TRAIN_ITERS iterations."""
+  import numpy as np
+
+  from mjlab_tpu_torch.physics import solver
+  from mjlab_tpu_torch.scripts import csv_to_npz
+  from mjlab_tpu_torch.scripts.train import build_runner
+
+  motion_dir = Path("build") / "chip_smoke"
+  motion_dir.mkdir(parents=True, exist_ok=True)
+  csv, npz = motion_dir / "motion.csv", motion_dir / "motion.npz"
+  tracking_motion_csv(csv)
+  t0 = time.perf_counter()
+  arrays = csv_to_npz.process(str(csv), input_fps=30.0, output_fps=50.0, device="cuda")
+  torch.cuda.synchronize()
+  t_convert = time.perf_counter() - t0
+  np.savez(npz, **arrays)
+  frames = arrays["joint_pos"].shape[0]
+  finite = all(np.isfinite(v).all() for v in arrays.values())
+  root_gap = np.abs(arrays["body_pos_w"][:, 0, 2] - np.loadtxt(csv, delimiter=",")[0, 2]).max()
+  print(f"phase 9 motion: {TRACK_CSV_ROWS} CSV rows at 30 fps -> {frames} frames at 50 fps "
+        f"by csv_to_npz on the card in {t_convert:.2f} s; body arrays "
+        f"{arrays['body_pos_w'].shape}, finite {finite}; pelvis height off the CSV's by at "
+        f"most {root_gap:.2e} m [{card}]")
+  if frames != TRACK_FRAMES or not finite or arrays["body_pos_w"].shape[1] != 30 or root_gap > 1e-5:
+    raise AssertionError("the converted motion")
+
+  gc.collect()
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  runner = build_runner(TRACK_TASK, {"env.scene.num_envs": str(NUM_WORLDS),
+                                     "motion_file": str(npz)})
+  torch.cuda.synchronize()
+  env, alg = runner.env, runner.cfg.algorithm
+  cmd = env.command_manager.get_term("motion")
+  print(f"phase 9 tracking path: {TRACK_TASK}, {NUM_WORLDS} envs, episodes "
+        f"{env.cfg.episode_length_s} s, motion {cmd.motion.time_step_total} frames in "
+        f"{cmd.bin_count} bins, obs {env.group_obs_dim}, T {runner.cfg.num_steps_per_env}, "
+        f"{alg.num_learning_epochs} epochs x {alg.num_mini_batches} minibatches, hidden "
+        f"{runner.cfg.policy.actor_hidden_dims}, entropy {alg.entropy_coef}; build_runner "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+  if env.group_obs_dim != {"policy": (160,), "critic": (286,)}:
+    raise AssertionError(f"observation widths {env.group_obs_dim}")
+  if cmd.motion.time_step_total != TRACK_FRAMES or cmd.bin_count != TRACK_BINS:
+    raise AssertionError("motion frames or adaptive bins")
+
+  # The startup randomization: per env, inside its range, on its elements only.
+  mj, robot = env.sim.mj_model, env.scene["robot"]
+  torso = int(robot.indexing.body_ids[robot.body_names.index("torso_link")])
+  d_ipos = env.model.body_ipos.double().cpu() - torch.as_tensor(np.asarray(mj.body_ipos))
+  d_q = env.model.qpos0.double().cpu() - torch.as_tensor(np.asarray(mj.qpos0))
+  qa = torch.as_tensor(robot.indexing.joint_q_adr)
+  fric = env.model.geom_friction.cpu()
+  foot = robot.indexing.geom_ids[robot.find_geoms(r"^(left|right)_foot[1-7]_collision$")[0]]
+  others = [g for g in range(fric.shape[1]) if g not in set(foot.tolist())]
+  nominal = torch.as_tensor(np.asarray(mj.geom_friction), dtype=fric.dtype)
+  lim = torch.tensor([0.025, 0.05, 0.05], dtype=torch.float64) + 1e-6
+  print(f"  per-env body_ipos of torso_link: offset std over envs "
+        f"{d_ipos[:, torso].std(0).numpy().round(4).tolist()}, max |offset| "
+        f"{d_ipos[:, torso].abs().amax(0).numpy().round(4).tolist()}; qpos0 offsets on "
+        f"{len(qa)} joints: std {d_q[:, qa].std().item():.4f}, max |offset| "
+        f"{d_q[:, qa].abs().max().item():.4f}; foot friction mu in "
+        f"[{fric[:, foot, 0].min():.3f}, {fric[:, foot, 0].max():.3f}]")
+  rest = torch.ones(d_ipos.shape[1], dtype=torch.bool)
+  rest[torso] = False
+  free = torch.ones(d_q.shape[1], dtype=torch.bool)
+  free[qa] = False
+  failed = [what for what, ok in (
+    ("torso body_ipos offsets inside their ranges", (d_ipos[:, torso].abs() <= lim).all()),
+    ("torso body_ipos offsets differ across envs", (d_ipos[:, torso].std(0) > 0.005).all()),
+    ("other bodies' body_ipos unchanged", (d_ipos[:, rest].abs() < 1e-6).all()),
+    ("joint qpos0 offsets inside +-0.01", (d_q[:, qa].abs() <= 0.01 + 1e-6).all()),
+    ("joint qpos0 offsets differ across envs", d_q[:, qa].std() > 0.004),
+    ("free-joint qpos0 unchanged", (d_q[:, free].abs() < 1e-6).all()),
+    ("14 foot geoms, mu inside [0.3, 1.2]", len(foot) == 14 and fric[:, foot, 0].min()
+     >= 0.3 - 1e-6 and fric[:, foot, 0].max() <= 1.2 + 1e-6),
+    ("foot mu spread across envs > 0.5",
+     (fric[:, foot, 0].amax(0) - fric[:, foot, 0].amin(0)).min() > 0.5),
+    ("other geoms' friction unchanged",
+     torch.equal(fric[:, others], nominal[others].expand_as(fric[:, others]))),
+  ) if not ok]
+  if failed:
+    raise AssertionError(f"per-env randomization: {failed}")
+
+  launches, steady_iter_ms, host = train_iterations(runner, card, "phase 9", (160, 286))
+  ts = cmd.time_steps
+  failed = cmd.state["bin_failed_count"]
+  print(f"  motion frames now in [{ts.min().item()}, {ts.max().item()}]; adaptive bins' "
+        f"failure averages {failed.double().cpu().numpy().round(5).tolist()}; last iteration: "
+        f"resets {host[-1]['Train/resets']:.0f}, sampling entropy "
+        f"{host[-1]['Metrics/motion/sampling_entropy']:.4f}, anchor position error "
+        f"{host[-1]['Metrics/motion/error_anchor_pos']:.4f} (sums over resetting envs)")
+  if not (ts.min() >= 0 and ts.max() < TRACK_FRAMES):
+    raise AssertionError("motion frames outside [0, TRACK_FRAMES)")
+  if sum(m["Train/resets"] for m in host) > 0 and not failed.sum() > 0:
+    raise AssertionError("envs terminated, but no adaptive bin counts a failure")
+  if not sum(m["Train/resets"] for m in host) > 0:
+    raise AssertionError("no env terminated in the tracking iterations")
+  profile_iteration(runner, card, attr, "tracking", steady_iter_ms)
+
+  print("  kernels vs plain on the tracking run's matrices, f32:")
+  d = env.data
+  grad = torch.randn(NUM_WORLDS, N, generator=torch.Generator(device="cuda").manual_seed(9),
+                     device="cuda")
+  checks.all_three("tracking qM", d.qM.contiguous(), d.qfrc_smooth.contiguous())
+  checks.all_three("tracking H", solver.hessian(d, d.qacc).contiguous(), grad)
+  w = solver.newton_weights(d, d.qacc)
+  checks.newton("tracking qM,J,w", d.qM, d.efc_J, w, grad)
+  print(f"  active Newton rows share on the tracking state {(w != 0).float().mean().item():.4f}")
+  del runner, env, cmd, d, w, grad, robot
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  f64_iteration_check(TRACK_TASK, tracking_certain_variant, f64_seeds,
+                      {"commands.motion.motion_file": str(npz)})
+  return launches
 
 
 def main() -> int:
@@ -1085,6 +1318,9 @@ def main() -> int:
   # -- 8. the training path: PPO iterations through OnPolicyRunner ---------------
   train_launches = training_path(card, attr, f64_seeds)
 
+  # -- 9. the tracking path: G1 motion tracking through OnPolicyRunner -----------
+  track_launches = tracking_path(card, attr, checks, f64_seeds)
+
   # -- result lines ---------------------------------------------------------------
   bnd = bounds(NUM_WORLDS, N, rows=NUM_WORLDS * NEFC)
   bnd_run = bounds(NUM_WORLDS, N, rows=active_rows)["newton_direction"]
@@ -1107,6 +1343,7 @@ def main() -> int:
       "launches": env_launches[name],
       "launches_physics_path": launches[name],
       "launches_training_path": train_launches[name],
+      "launches_tracking_path": track_launches[name],
       "max_abs_err": checks.max_abs_err[name],
       "ms": times[name][0],
       "ms_l2_resident": times[name][3],

@@ -102,6 +102,11 @@ def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
   return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
+def quat_inv(q: torch.Tensor) -> torch.Tensor:
+  """Inverse of a unit quaternion (= conjugate)."""
+  return quat_conjugate(q)
+
+
 def quat_apply_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
   """Rotate v by q⁻¹ (world → local for a frame rotation q)."""
   return quat_apply(quat_conjugate(q), v)
@@ -110,6 +115,31 @@ def quat_apply_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def quat_unique(q: torch.Tensor) -> torch.Tensor:
   """Canonical sign: non-negative scalar part."""
   return torch.where(q[..., 0:1] < 0, -q, q)
+
+
+def quat_error_magnitude(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+  """Geodesic angle between two orientations."""
+  dq = quat_mul(quat_conjugate(q1), q2)
+  sin_half = torch.linalg.vector_norm(dq[..., 1:4], dim=-1)
+  cos_half = torch.abs(dq[..., 0])
+  return 2.0 * torch.atan2(sin_half, cos_half)
+
+
+def yaw_quat(q: torch.Tensor) -> torch.Tensor:
+  """The yaw-only rotation of q (rotation about world z)."""
+  w, x, y, z = q.unbind(-1)
+  yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+  half = 0.5 * yaw
+  zeros = torch.zeros_like(half)
+  return torch.stack([torch.cos(half), zeros, zeros, torch.sin(half)], dim=-1)
+
+
+def subtract_frame_transforms(
+  t01: torch.Tensor, q01: torch.Tensor, t02: torch.Tensor, q02: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+  """Relative transform: frame 2 expressed in frame 1."""
+  qinv = quat_conjugate(q01)
+  return quat_apply(qinv, t02 - t01), quat_mul(qinv, q02)
 
 
 def mat_to_quat(m: torch.Tensor) -> torch.Tensor:

@@ -263,8 +263,16 @@ class EntityData:
     return self.root_link_vel_w[:, 3:6]
 
   @property
+  def body_link_pos_w(self):
+    return self.body_link_pose_w[..., 0:3]
+
+  @property
   def body_link_quat_w(self):
     return self.body_link_pose_w[..., 3:7]
+
+  @property
+  def body_link_lin_vel_w(self):
+    return self.body_link_vel_w[..., 0:3]
 
   @property
   def body_link_ang_vel_w(self):

@@ -200,6 +200,9 @@ class Entity:
                                          env_mask=None):
     self._data.write_ctrl(position_target, joint_ids, env_mask)
 
+  def clear_state(self, env_mask=None) -> None:
+    self._data.clear_state(env_mask)
+
   # -- indexing ---------------------------------------------------------------
 
   def _compute_indexing(self, model, bodies, geoms, sites, joints, actuators):

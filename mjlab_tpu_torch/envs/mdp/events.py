@@ -109,11 +109,41 @@ def push_by_setting_velocity(
 # Domain randomization of a Model field. The field must carry an env axis:
 # the env expands the fields of events marked domain_randomization=True, and
 # `sim.Simulation.expand_model_fields` refuses every field the port's physics
-# cannot read per env (all but geom_friction).
+# cannot read per env (all but sim.PER_ENV_FIELDS).
 # ---------------------------------------------------------------------------
 
-# Geom fields the port randomizes, with the axes randomized by default.
-_GEOM_FIELD_AXES = {"geom_friction": [0]}
+
+@dataclasses.dataclass(frozen=True)
+class FieldSpec:
+  """How a Model field's elements map to an entity's (the JAX package's
+  FieldSpec): the entity element type, whether the field is indexed by the
+  element's address (qpos0 by the joint's qpos address) and the axes
+  randomized by default."""
+
+  entity_type: Literal["joint", "body", "geom"]
+  use_address: bool = False
+  default_axes: tuple[int, ...] | None = None
+
+
+# The rows of the JAX package's FIELD_SPECS for the fields the port's
+# physics reads per env.
+FIELD_SPECS = {
+  "body_ipos": FieldSpec("body", default_axes=(0, 1, 2)),
+  "geom_friction": FieldSpec("geom", default_axes=(0,)),
+  "qpos0": FieldSpec("joint", use_address=True),
+}
+
+
+def _entity_indices(indexing, asset_cfg: SceneEntityCfg, spec: FieldSpec) -> np.ndarray:
+  """The field's element indices for the entity's selected elements."""
+  if spec.entity_type == "joint":
+    ids = asset_cfg.joint_ids
+    base = indexing.joint_q_adr if spec.use_address else indexing.joint_ids
+  elif spec.entity_type == "body":
+    ids, base = asset_cfg.body_ids, indexing.body_ids
+  else:
+    ids, base = asset_cfg.geom_ids, indexing.geom_ids
+  return base if isinstance(ids, slice) else base[np.asarray(ids.cpu())]
 
 
 def randomize_field(
@@ -127,7 +157,10 @@ def randomize_field(
   axes: list[int] | None = None,
 ) -> None:
   """Randomize a Model field per env. Its element indices are read on the
-  host, so this term is for startup events (the G1 task's use)."""
+  host, so this term is for startup events (the G1 tasks' use)."""
+  if field not in FIELD_SPECS:
+    raise ValueError(f"Unknown field '{field}'. Supported: {list(FIELD_SPECS)}")
+  spec = FIELD_SPECS[field]
   asset_cfg = asset_cfg or _DEFAULT
   asset = env.scene[asset_cfg.name]
   model_field = getattr(env.model, field)
@@ -136,11 +169,8 @@ def randomize_field(
       f"Model field '{field}' is not env-batched; mark the event with "
       f"domain_randomization=True so the env expands it."
     )
-  ids = asset_cfg.geom_ids
-  ent_idx = torch.as_tensor(
-    asset.indexing.geom_ids[ids if isinstance(ids, slice) else np.asarray(ids.cpu())],
-    device=env.device,
-  )
+  ent_idx = torch.as_tensor(_entity_indices(asset.indexing, asset_cfg, spec),
+                            device=env.device)
   sub = model_field[:, ent_idx]  # (B, n) or (B, n, k)
 
   if sub.dim() == 2:
@@ -150,7 +180,7 @@ def randomize_field(
   elif isinstance(ranges, dict):
     target_axes = sorted(ranges.keys())
   else:
-    target_axes = list(_GEOM_FIELD_AXES[field])
+    target_axes = list(spec.default_axes)
 
   samplers = {"uniform": mt.sample_uniform, "log_uniform": mt.sample_log_uniform,
               "gaussian": mt.sample_gaussian}

@@ -413,7 +413,8 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
 
 
 def make_data(tp: Topology, model: Model, num_envs: int) -> Data:
-  """Fresh batched Data at qpos0. Call forward() to populate derived state."""
+  """Fresh batched Data at qpos0 ((nq,) or per env (B, nq)). Call forward()
+  to populate derived state."""
   dtype, device = model.qpos0.dtype, model.qpos0.device
   B, C = num_envs, tp.ncon_max
 

@@ -5,6 +5,10 @@ Tree passes go level by level: the bodies at one tree depth are grouped by
 joint signature and each group is one batched gather/compute/scatter over
 (env, body). The port supports bodies with no joint, one free, one hinge or
 one slide joint (io.put_model refuses the rest).
+
+`qpos0` and `body_ipos` may carry a leading env axis, (B, nq) and
+(B, nbody, 3), for domain randomization (sim.PER_ENV_FIELDS); the JAX
+package reads them the same way under its vmap.
 """
 
 from __future__ import annotations
@@ -86,6 +90,7 @@ def kinematics(tp: Topology, m: Model, d: Data) -> Data:
   xanchor = torch.zeros((B, tp.njnt, 3), dtype=dtype, device=device)
   xaxis = torch.zeros((B, tp.njnt, 3), dtype=dtype, device=device)
   xaxis[..., 2] = 1.0
+  qpos0 = m.qpos0 if m.qpos0.dim() == 2 else m.qpos0[None]  # (B or 1, nq)
 
   for g in t.groups:
     ppos, pquat = xpos[:, g.pid], xquat[:, g.pid]
@@ -102,7 +107,7 @@ def kinematics(tp: Topology, m: Model, d: Data) -> Data:
       axis = mt.quat_apply(quat, jaxis)
       xanchor[:, g.jnt] = anchor
       xaxis[:, g.jnt] = axis
-      dq = d.qpos[:, g.qadr] - m.qpos0[g.qadr]
+      dq = d.qpos[:, g.qadr] - qpos0[:, g.qadr]
       if g.sig == (_SLIDE,):
         pos = pos + axis * dq[..., None]
       else:
@@ -113,7 +118,7 @@ def kinematics(tp: Topology, m: Model, d: Data) -> Data:
 
   xmat = mt.quat_to_mat(xquat)
   bid, sid = t.geom_bodyid, t.site_bodyid
-  xipos = xpos + mt.quat_apply(xquat, m.body_ipos)
+  xipos = xpos + mt.quat_apply(xquat, m.body_ipos)  # (nbody, 3) or (B, nbody, 3)
   ximat = mt.quat_to_mat(mt.quat_mul(xquat, m.body_iquat))
   geom_xpos = xpos[:, bid] + mt.quat_apply(xquat[:, bid], m.geom_pos)
   geom_xmat = mt.quat_to_mat(mt.quat_mul(xquat[:, bid], m.geom_quat))

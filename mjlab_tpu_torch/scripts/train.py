@@ -6,12 +6,16 @@ Usage:
 
 Trains on CUDA unless `--agent.device cpu`. `--env.<field>` and
 `--agent.<field>` override any field of the task's env cfg and PPO runner
-cfg. At the end it saves `model_<iteration>.pt` (the learner's state), the
+cfg. A tracking task takes its motion as `--motion-file m.npz` (or
+`--motion_file`; make one with `mjlab_tpu_torch.scripts.csv_to_npz`), which
+sets `commands.motion.motion_file`. At the end it saves
+`model_<iteration>.pt` (the learner's state), the
 TorchScript policy `model_<iteration>_policy.pt` and `final_metrics.json`
 under the log dir (default logs/<experiment_name>).
 
-The JAX script's multi-device, video, motion-source, NaN-guard and
-profiler flags are not ported; each raises NotImplementedError.
+The JAX script's multi-device, video, artifact-registry (`--registry-name`),
+NaN-guard and profiler flags are not ported; each raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,8 +25,7 @@ import os
 import sys
 
 _UNPORTED = (
-  "mesh", "video", "video_interval", "registry_name", "motion_file",
-  "enable_nan_guard", "profile",
+  "mesh", "video", "video_interval", "registry_name", "enable_nan_guard", "profile",
 )
 
 
@@ -31,16 +34,20 @@ def _split(overrides: dict[str, str]) -> tuple[dict[str, str], dict[str, str]]:
     name = key.replace("-", "_")
     if name in _UNPORTED:
       raise NotImplementedError(f"--{key} is not supported by mjlab_tpu_torch's train")
-    if not key.startswith(("env.", "agent.")) and key != "log_dir":
+    if not key.startswith(("env.", "agent.")) and name not in ("log_dir", "motion_file"):
       raise ValueError(f"unknown flag --{key}")
   env_over = {k[4:]: v for k, v in overrides.items() if k.startswith("env.")}
   agent_over = {k[6:]: v for k, v in overrides.items() if k.startswith("agent.")}
+  motion = overrides.get("motion_file") or overrides.get("motion-file")
+  if motion:
+    env_over["commands.motion.motion_file"] = motion
   return env_over, agent_over
 
 
 def build_runner(task: str, overrides: dict[str, str], device=None):
   """The task's env and PPO runner, with the CLI's overrides
-  ({"env.scene.num_envs": "4096", "agent.seed": "1", "log_dir": ...}), on
+  ({"env.scene.num_envs": "4096", "agent.seed": "1", "log_dir": ...,
+  "motion_file": ...}), on
   `device` (else the runner cfg's device, CUDA by default)."""
   from mjlab_tpu_torch import tasks
   from mjlab_tpu_torch.envs import ManagerBasedRlEnv
@@ -49,6 +56,8 @@ def build_runner(task: str, overrides: dict[str, str], device=None):
 
   env_over, agent_over = _split(overrides)
   env_cfg = tasks.load_env_cfg(task)
+  if "commands.motion.motion_file" in env_over and "motion" not in (env_cfg.commands or {}):
+    raise ValueError(f"--motion-file: task {task} has no motion command")
   agent_cfg = tasks.load_rl_cfg(task)
   apply_overrides(env_cfg, env_over)
   apply_overrides(agent_cfg, agent_over)

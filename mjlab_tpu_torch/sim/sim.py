@@ -23,8 +23,11 @@ import torch
 from mjlab_tpu_torch import physics
 from mjlab_tpu_torch.physics.types import mjtCone, mjtIntegrator, mjtSolver
 
-# Model leaves the physics step can read with a per-env axis.
-PER_ENV_FIELDS = ("geom_friction",)
+# Model leaves the physics step can read with a per-env axis: collision reads
+# geom_friction, kinematics qpos0 and body_ipos. As in the JAX package, the
+# constants MuJoCo derives at qpos0 (dof_invweight0, actuator_length0, ...)
+# are not recomputed for a randomized leaf.
+PER_ENV_FIELDS = ("geom_friction", "qpos0", "body_ipos")
 
 
 @dataclass

@@ -6,6 +6,10 @@ env from the env cfg; `load_rl_cfg` gives the runner cfg.
     env = make_env("Mjlab-Velocity-Flat-Unitree-G1", num_envs=4096)
     obs, extras = env.reset(seed=0)
     obs, rew, terminated, time_outs, extras = env.step(action)
+
+The tracking tasks need a motion file (`cfg.commands["motion"].motion_file`;
+`make_env` takes none, so build their env from `load_env_cfg`, or train
+with `scripts.train ... --motion-file m.npz`).
 """
 
 from __future__ import annotations
@@ -16,6 +20,15 @@ _REGISTRY = {
   "Mjlab-Velocity-Flat-Unitree-G1": {
     "env": "mjlab_tpu_torch.tasks.velocity.config.g1.env_cfgs:unitree_g1_flat_env_cfg",
     "rl": "mjlab_tpu_torch.tasks.velocity.config.g1.rl_cfg:UnitreeG1PPORunnerCfg",
+  },
+  "Mjlab-Tracking-Flat-Unitree-G1": {
+    "env": "mjlab_tpu_torch.tasks.tracking.config.g1.env_cfgs:g1_flat_tracking_env_cfg",
+    "rl": "mjlab_tpu_torch.tasks.tracking.config.g1.rl_cfg:G1FlatPPORunnerCfg",
+  },
+  "Mjlab-Tracking-Flat-Unitree-G1-No-State-Estimation": {
+    "env": ("mjlab_tpu_torch.tasks.tracking.config.g1.env_cfgs:"
+            "g1_flat_tracking_no_state_estimation_env_cfg"),
+    "rl": "mjlab_tpu_torch.tasks.tracking.config.g1.rl_cfg:G1FlatPPORunnerCfg",
   },
 }
 

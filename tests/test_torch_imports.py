@@ -1,10 +1,13 @@
 """The port stands alone: importing it, building and stepping its env from
-the committed scene, and one tiny PPO training iteration pull in none of
-jax, jaxlib, mjlab_tpu, mujoco, gymnasium, flax, optax or orbax; and its
-own MuJoCo enum constants agree with mujoco's."""
+the committed scene, one tiny PPO training iteration, and converting a
+motion CSV and training the tracking task on it pull in none of jax,
+jaxlib, mjlab_tpu, mujoco, gymnasium, flax, optax or orbax; no module of
+the port and not chip_smoke.py names one of them in an import; and its own
+MuJoCo enum constants agree with mujoco's."""
 
 from __future__ import annotations
 
+import ast
 import json
 import os
 import subprocess
@@ -31,6 +34,9 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
     "import mjlab_tpu_torch.asset_zoo.robots.unitree_g1.g1_constants\n"
     "import mjlab_tpu_torch.rl, mjlab_tpu_torch.rl.runner, mjlab_tpu_torch.rl.exporter\n"
     "import mjlab_tpu_torch.rl.vecenv_wrapper, mjlab_tpu_torch.scripts.train\n"
+    "import mjlab_tpu_torch.tasks.tracking.mdp, mjlab_tpu_torch.tasks.tracking.motions\n"
+    "import mjlab_tpu_torch.tasks.tracking.config.g1.env_cfgs\n"
+    "import mjlab_tpu_torch.scripts.csv_to_npz as c2n\n"
     "m = mjlab_tpu_torch.assets.load_model_npz()\n"
     "import torch\n"
     "env = mjlab_tpu_torch.tasks.make_env('Mjlab-Velocity-Flat-Unitree-G1',\n"
@@ -44,6 +50,21 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
     "  'agent.policy.actor_hidden_dims': '(16,)',\n"
     "  'agent.policy.critic_hidden_dims': '(16,)'}, device='cpu')\n"
     "runner.train_iteration()\n"
+    "import numpy as np, tempfile, os\n"
+    "d = tempfile.mkdtemp()\n"
+    "t = np.arange(16) / 30.0\n"
+    "rows = np.concatenate([np.stack([0.1 * t, 0 * t, 0.78 + 0 * t], -1),\n"
+    "  np.tile([1.0, 0, 0, 0], (16, 1)), 0.1 * np.sin(t[:, None] + np.zeros(29))], -1)\n"
+    "np.savetxt(os.path.join(d, 'm.csv'), rows, delimiter=',')\n"
+    "np.savez(os.path.join(d, 'm.npz'), **c2n.process(os.path.join(d, 'm.csv'), device='cpu'))\n"
+    "runner = mjlab_tpu_torch.scripts.train.build_runner(\n"
+    "  'Mjlab-Tracking-Flat-Unitree-G1', {'env.scene.num_envs': '2',\n"
+    "  'agent.num_steps_per_env': '2', 'agent.algorithm.num_mini_batches': '2',\n"
+    "  'agent.algorithm.num_learning_epochs': '1',\n"
+    "  'agent.policy.actor_hidden_dims': '(16,)',\n"
+    "  'agent.policy.critic_hidden_dims': '(16,)',\n"
+    "  'motion_file': os.path.join(d, 'm.npz')}, device='cpu')\n"
+    "runner.train_iteration()\n"
     "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in\n"
     "  ('jax', 'jaxlib', 'mjlab_tpu', 'mujoco', 'gymnasium', 'flax', 'optax',\n"
     "   'orbax'))))\n"
@@ -51,9 +72,29 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
   env = dict(os.environ, PYTHONPATH=str(ROOT))
   out = subprocess.run(
     [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
-    text=True, timeout=120, check=True,
+    text=True, timeout=300, check=True,
   )
   assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_no_module_of_the_port_names_jax_mjlab_tpu_or_mujoco():
+  """A static check of every import statement, so that a module the first
+  test does not load, and chip_smoke.py, are held to the rule too."""
+  banned = {"jax", "jaxlib", "mjlab_tpu", "mujoco"}
+  files = sorted((ROOT / "mjlab_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+  assert len(files) > 60
+  found = []
+  for path in files:
+    for node in ast.walk(ast.parse(path.read_text())):
+      if isinstance(node, ast.Import):
+        names = [a.name for a in node.names]
+      elif isinstance(node, ast.ImportFrom):
+        names = [node.module or ""]
+      else:
+        continue
+      found += [(str(path.relative_to(ROOT)), n) for n in names
+                if n.split(".")[0] in banned]
+  assert found == []
 
 
 @pytest.mark.parametrize(

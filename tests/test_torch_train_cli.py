@@ -3,7 +3,10 @@ on the CPU at a tiny size (2 envs, T = 2, 1 iteration, hidden 32/32): it
 writes the checkpoint, the TorchScript policy, metrics.jsonl and
 final_metrics.json; the checkpoint loads back into a runner built as the
 script builds it. The JAX script's unported flags raise
-NotImplementedError, and without a device the runner asks for CUDA."""
+NotImplementedError (`--motion-file` is ported, and raises ValueError on a
+task without a motion command), and without a device the runner asks for
+CUDA. tests/test_torch_tracking_train.py trains a tracking task through
+`--motion-file`."""
 
 from __future__ import annotations
 
@@ -85,7 +88,8 @@ def test_checkpoint_loads_into_a_fresh_runner(trained):
 def test_unported_flags_raise(flag):
   from mjlab_tpu_torch.scripts.train import run_train
 
-  with pytest.raises(NotImplementedError, match=f"--{flag}"):
+  error = ValueError if flag == "motion-file" else NotImplementedError
+  with pytest.raises(error, match=f"--{flag}"):
     run_train(TASK, {**TINY, flag: "1"})
 
 

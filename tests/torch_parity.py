@@ -399,3 +399,129 @@ def jax_learner_f64(state):
     actor_norm=f64_tree(state.actor_norm),
     critic_norm=f64_tree(state.critic_norm),
   )
+
+
+# ---------------------------------------------------------------------------
+# The G1 motion-tracking task in both packages.
+# ---------------------------------------------------------------------------
+
+
+def synthetic_motion_csv(path, n_frames: int = 61, input_fps: float = 30.0, nj: int = 29,
+                         pitch: float = 0.0) -> str:
+  """A smooth synthetic G1 trajectory as mocap CSV rows [base_pos, base_quat
+  wxyz, joint_pos] (the JAX package's tests/test_csv_to_npz.py one): walk
+  forward, yaw slowly, swing the joints; `pitch` adds a base pitch
+  oscillation of that amplitude (rad)."""
+  t = np.arange(n_frames) / input_fps
+  base_pos = np.stack([0.4 * t, 0.05 * np.sin(t), 0.78 + 0.02 * np.cos(t)], -1)
+  half_yaw, half_pitch = 0.15 * t, 0.5 * pitch * np.sin(1.5 * t)
+  z = np.zeros_like(t)
+  yaw_q = np.stack([np.cos(half_yaw), z, z, np.sin(half_yaw)], -1)
+  pitch_q = np.stack([np.cos(half_pitch), z, np.sin(half_pitch), z], -1)
+  w1, x1, y1, z1 = yaw_q.T
+  w2, x2, y2, z2 = pitch_q.T
+  base_quat = np.stack([
+    w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+    w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+    w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+    w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+  ], -1)
+  joint_pos = 0.3 * np.sin(2.0 * t[:, None] + np.linspace(0, np.pi, nj)[None, :])
+  np.savetxt(path, np.concatenate([base_pos, base_quat, joint_pos], axis=-1), delimiter=",")
+  return str(path)
+
+
+def g1_motion_npz(directory, n_frames: int = 61) -> str:
+  """A synthetic motion converted by the port's csv_to_npz (CPU)."""
+  from mjlab_tpu_torch.scripts.csv_to_npz import process
+
+  csv = synthetic_motion_csv(os.path.join(directory, f"motion{n_frames}.csv"), n_frames)
+  path = os.path.join(directory, f"motion{n_frames}.npz")
+  np.savez(path, **process(csv, device="cpu"))
+  return path
+
+
+def g1_tracking_cfgs(num_envs: int, motion_file: str, edit=None):
+  """(JAX cfg, port cfg) of the G1 flat tracking task at `num_envs`,
+  float64, on `motion_file`; `edit` is applied to both."""
+  import copy
+
+  from mjlab_tpu.tasks.tracking.config.g1.env_cfgs import G1_FLAT_TRACKING_ENV_CFG
+  from mjlab_tpu_torch.tasks import load_env_cfg
+
+  cfgs = (copy.deepcopy(G1_FLAT_TRACKING_ENV_CFG),
+          load_env_cfg("Mjlab-Tracking-Flat-Unitree-G1"))
+  for cfg in cfgs:
+    cfg.scene.num_envs = num_envs
+    cfg.sim.dtype = "float64"
+    cfg.commands["motion"].motion_file = motion_file
+    if edit is not None:
+      edit(cfg)
+  return cfgs
+
+
+def g1_tracking_envs(num_envs: int, motion_file: str, edit=None):
+  """(JAX env, port env on the CPU) of the G1 tracking task, the port bound
+  to the JAX env's compiled model."""
+  from mjlab_tpu.envs import ManagerBasedRlEnv as JaxEnv
+  from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+
+  jcfg, tcfg = g1_tracking_cfgs(num_envs, motion_file, edit)
+  jenv = JaxEnv(jcfg)
+  return jenv, ManagerBasedRlEnv(tcfg, device="cpu", model=jenv.sim.mj_model)
+
+
+def tracking_certain_variant(cfg):
+  """The G1 tracking task with every draw certain: motions start at frame
+  0, zero-width RSI offsets, push velocities and push clock (every 0.1 s),
+  fixed base-COM, default-joint and foot-friction offsets, no observation
+  noise; so that two generators give the same rollout."""
+  motion = cfg.commands["motion"]
+  motion.sampling_mode = "start"
+  motion.pose_range = {"x": (0.02, 0.02), "y": (-0.01, -0.01), "yaw": (0.1, 0.1)}
+  motion.velocity_range = {"x": (0.1, 0.1), "roll": (0.05, 0.05)}
+  motion.joint_position_range = (0.03, 0.03)
+  push = cfg.events["push_robot"]
+  push.interval_range_s = (0.1, 0.1)
+  push.params["velocity_range"] = {"x": (0.2, 0.2), "y": (-0.1, -0.1)}
+  cfg.events["base_com"].params["ranges"] = {0: (0.01, 0.01), 1: (-0.02, -0.02),
+                                             2: (0.03, 0.03)}
+  cfg.events["add_joint_default_pos"].params["ranges"] = (0.005, 0.005)
+  cfg.events["foot_friction"].params["ranges"] = (0.7, 0.7)
+  cfg.observations["policy"].enable_corruption = False
+
+
+def carry_to_jax(env, jenv) -> None:
+  """Set the JAX env's state from the port env's (the reverse of `carry`):
+  Data, the per-env Model leaves, the counters and every manager leaf."""
+  from mjlab_tpu_torch.envs import env_state_to_arrays
+
+  arrays = env_state_to_arrays(env)
+
+  def like(ref, x):
+    return jnp.asarray(x, dtype=jnp.asarray(ref).dtype)
+
+  d = jenv._data
+  contact = d.contact.replace(**{
+    f.name: like(getattr(d.contact, f.name), arrays[f"data.contact.{f.name}"])
+    for f in dataclasses.fields(d.contact)
+  })
+  jenv._data = d.replace(contact=contact, **{
+    f.name: like(getattr(d, f.name), arrays[f"data.{f.name}"])
+    for f in dataclasses.fields(d)
+    if f.name != "contact" and f"data.{f.name}" in arrays and getattr(d, f.name) is not None
+  })
+  jenv._model = jenv._model.replace(**{
+    f: like(getattr(jenv._model, f), arrays[f"model.{f}"]) for f in jenv._dyn_model_fields
+  })
+  jenv._episode_length = like(jenv._episode_length, arrays["episode_length"])
+  jenv._common_step_counter = like(jenv._common_step_counter, arrays["common_step_counter"])
+
+  def fill(prefix, tree):
+    for k, v in tree.items():
+      if isinstance(v, dict):
+        fill(f"{prefix}/{k}", v)
+      else:
+        tree[k] = like(v, arrays[f"{prefix}/{k}"])
+
+  fill("ms", jenv._ms)
