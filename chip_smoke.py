@@ -78,11 +78,27 @@ Phases, each printing its own lines:
      [0, 500) and a failure counted in the adaptive bins; holds the kernels
      against their plain versions on the tracking run's matrices; and the
      card's float64 iteration against the CPU's on the tracking task's
-     certain-draw variant, as phase 8 does.
+     certain-draw variant, as phase 8 does;
+ 10. a run's lifecycle on G1 velocity-flat at 4096 envs in
+     build/chip_smoke/run, through the entry points: `run_train` for 2
+     iterations with a save after each (the files, the labels, ms per save,
+     the metric pulls and `learn`'s ms per iteration against phase 8's
+     steady iteration), `run_train --agent.resume true` for 1 iteration
+     that neither logs nor saves, run under set_sync_debug_mode("error")
+     (the checkpoint loaded, the learner equal to it before its update, the
+     label it went on from), `run_play --policy trained` on the final
+     checkpoint for 24 steps (ms per step, mean reward; the card's actions
+     against the exported TorchScript policy on the CPU, 1e-5 relative; the
+     kernels against their plain versions on the play env's matrices), the
+     NaN guard on that env (ms per watch, a dump of exactly the 2 poisoned
+     envs and the model), `run_joint_deltas` for 10 steps and
+     `export_policy_as_onnx`; the kernels' counters set to 0 before the
+     phase and read after it, less the comparisons' launches.
 Any failed check raises. The line before the last is the kernel table as
 JSON (`launches` from the env path of phase 7, `launches_training_path`
-from phase 8's 3 iterations, `launches_tracking_path` from phase 9's); the
-last line is {"ok": true, "device": {...}}.
+from phase 8's 3 iterations, `launches_tracking_path` from phase 9's,
+`launches_lifecycle_path` from phase 10); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -667,11 +683,11 @@ def f64_iteration_check(task: str, variant, f64_seeds, overrides=None) -> None:
     raise AssertionError(f"card vs CPU training iteration mismatch: {worst_by_seed}")
 
 
-def training_path(card: str, attr: str, f64_seeds=F64_SEEDS) -> dict[str, int]:
+def training_path(card: str, attr: str, f64_seeds=F64_SEEDS) -> tuple[dict[str, int], float]:
   """Phase 8: PPO training iterations through `build_runner` at NUM_WORLDS
   envs, then the card's float64 iteration against the CPU's. Returns the
-  kernels' launches in the TRAIN_ITERS iterations. `attr` names the
-  profiler's device-time field."""
+  kernels' launches in the TRAIN_ITERS iterations and the steady ms per
+  iteration. `attr` names the profiler's device-time field."""
   import numpy as np
 
   from mjlab_tpu_torch.rl.exporter import export_policy_as_torchscript
@@ -731,7 +747,7 @@ def training_path(card: str, attr: str, f64_seeds=F64_SEEDS) -> dict[str, int]:
   torch.cuda.empty_cache()
 
   f64_iteration_check(TASK, certain_variant, f64_seeds)
-  return train_launches
+  return train_launches, steady_iter_ms
 
 
 def tracking_motion_csv(path: Path, seed: int = 0) -> None:
@@ -902,12 +918,204 @@ def tracking_path(card: str, attr: str, checks: KernelCheck, f64_seeds=F64_SEEDS
   return launches
 
 
+def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dict[str, int]:
+  """Phase 10: a training run's lifecycle on G1 velocity-flat at NUM_WORLDS
+  envs, f32, in build/chip_smoke/run, through the entry points a user
+  calls: `run_train` for 2 iterations with a checkpoint after each, then
+  `run_train --agent.resume true` for 1 iteration with no periodic save
+  (the iteration neither logs nor saves), `run_play --policy trained` on the
+  final checkpoint (24 steps), `run_joint_deltas` on it (10 steps), the NaN
+  guard on the play env and the ONNX export. Both `learn`s run under
+  set_sync_debug_mode("error") but for `_pull_metrics` and `save`, which are
+  timed (after a synchronize, so that the device's queued work is not in
+  their time). Checks the files and labels, the resumed learner against the
+  saved arrays, the card's play actions against the exported TorchScript
+  policy on the CPU (1e-5 relative), the kernels against their plain
+  versions on the play env's matrices, and that the guard dumps exactly the
+  poisoned envs. Returns the kernels' launches over the whole phase."""
+  import shutil
+
+  import numpy as np
+
+  from mjlab_tpu_torch import assets
+  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.physics import solver
+  from mjlab_tpu_torch.rl.exporter import export_policy_as_onnx
+  from mjlab_tpu_torch.rl.onnx_policy import TorchScriptPolicy
+  from mjlab_tpu_torch.rl.runner import OnPolicyRunner, runner_state_to_arrays
+  from mjlab_tpu_torch.scripts.joint_deltas import run_joint_deltas
+  from mjlab_tpu_torch.scripts.play import run_play
+  from mjlab_tpu_torch.scripts.train import run_train
+  from mjlab_tpu_torch.utils.nan_guard import NanGuard, NanGuardCfg
+
+  gc.collect()
+  torch.cuda.empty_cache()
+  run_dir = Path("build") / "chip_smoke" / "run"
+  shutil.rmtree(run_dir, ignore_errors=True)
+  base = {"env.scene.num_envs": str(NUM_WORLDS), "log_dir": str(run_dir)}
+  spent: dict[str, list[float]] = {"save": [], "_pull_metrics": [], "learn": []}
+  loaded: list[tuple[str, dict, int]] = []
+  originals = {k: getattr(OnPolicyRunner, k) for k in ("save", "_pull_metrics", "learn", "load")}
+
+  def lifted(name):
+    def call(self, *args, **kwargs):
+      mode = torch.cuda.get_sync_debug_mode()
+      torch.cuda.set_sync_debug_mode("default")
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      out = originals[name](self, *args, **kwargs)
+      spent[name].append(time.perf_counter() - t0)
+      torch.cuda.set_sync_debug_mode(mode)
+      return out
+    return call
+
+  def strict_learn(self, *args, **kwargs):
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+      originals["learn"](self, *args, **kwargs)
+    finally:
+      torch.cuda.set_sync_debug_mode("default")
+    spent["learn"].append(time.perf_counter() - t0)
+
+  def recording_load(self, path):
+    originals["load"](self, path)
+    loaded.append((path, runner_state_to_arrays(self), self.iteration))
+
+  chol.reset_counts()
+  t_phase = time.perf_counter()
+  OnPolicyRunner.save, OnPolicyRunner._pull_metrics = lifted("save"), lifted("_pull_metrics")
+  OnPolicyRunner.learn, OnPolicyRunner.load = strict_learn, recording_load
+  try:
+    t0 = time.perf_counter()
+    runner = run_train(TASK, {**base, "agent.max_iterations": "2", "agent.save_interval": "1"})
+    t_train = time.perf_counter() - t0
+    files = sorted(p.name for p in run_dir.iterdir())
+    lines = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    learn_ms = 1e3 * spent["learn"][0] / 2
+    saves = [1e3 * x for x in spent["save"]]  # model_0, model_1 in learn; model_2 after it
+    pull_ms = 1e3 * sum(spent["_pull_metrics"])
+    over = (f"{learn_ms / steady_iter_ms - 1:+.4f} over phase 8's steady train_iteration "
+            f"{steady_iter_ms:.2f} ms")
+    print(f"phase 10 run lifecycle: {TASK}, {NUM_WORLDS} envs, f32, in {run_dir} [{card}]")
+    alone_ms = learn_ms - (sum(saves[:2]) + pull_ms) / 2
+    print(f"  train: run_train, 2 iterations, save_interval 1, in {t_train:.2f} s; learn "
+          f"{learn_ms:.2f} ms per iteration, {over}; without its saves and pulls "
+          f"{alone_ms:.2f} ms; saves (checkpoint + TorchScript) "
+          f"{', '.join(f'{x:.2f}' for x in saves)} ms; metric pulls {len(spent['_pull_metrics'])} "
+          f"in {pull_ms:.3f} ms, {pull_ms / (2 * learn_ms):.6f} of the iterations' time")
+    print(f"  files written: {files}")
+    print(f"  metrics.jsonl iterations {[x['iteration'] for x in lines]}")
+    want = ["agent_cfg.yaml", "final_metrics.json", "metrics.jsonl"] + [
+      f"model_{k}{s}.pt" for k in range(3) for s in ("", "_policy")]
+    if files != sorted(want) or [x["iteration"] for x in lines] != [0, 1]:
+      raise AssertionError("phase 10: the training run's files or labels")
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n_saves = len(spent["save"])
+    t0 = time.perf_counter()
+    runner = run_train(TASK, {**base, "agent.max_iterations": "1", "agent.save_interval": "0",
+                              "agent.resume": "true"})
+    t_resume = time.perf_counter() - t0
+    path, state, it = loaded[-1]
+    saved = torch.load(path)["state"]
+    same = sorted(state) == sorted(saved) and all(np.array_equal(state[k], saved[k].numpy())
+                                                  for k in saved)
+    lines = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    print(f"  resume: run_train --agent.resume true, 1 iteration, save_interval 0, in "
+          f"{t_resume:.2f} s: loaded {path} (iteration {it}); learner equal to its {len(saved)} "
+          f"saved arrays before the first update: {same}; went on at label "
+          f"{lines[-1]['iteration']}, saved model_{runner.iteration}.pt; its iteration neither "
+          f"logged nor saved and ran under set_sync_debug_mode('error'): no host sync; learn "
+          f"{1e3 * spent['learn'][-1]:.2f} ms")
+    if (Path(path).name != "model_2.pt" or it != 2 or not same or lines[-1]["iteration"] != 2
+        or runner.iteration != 3 or len(spent["save"]) != n_saves + 1):
+      raise AssertionError("phase 10: the resumed run")
+    onnx = export_policy_as_onnx(runner, runner.env, str(run_dir / "policy.onnx"))
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+  finally:
+    for k, v in originals.items():
+      setattr(OnPolicyRunner, k, v)
+    torch.cuda.set_sync_debug_mode("default")
+
+  ckpt = run_dir / "model_3.pt"
+  res = run_play(TASK, {"checkpoint": str(ckpt), "num_envs": str(NUM_WORLDS), "steps": "24"})
+  env = res.env
+  got = res.policy(res.obs).cpu().numpy()
+  want = TorchScriptPolicy(str(run_dir / "model_3_policy.pt"))(
+    res.obs["policy"].to(torch.float32).cpu().numpy())
+  err = float(np.abs(got - want).max())
+  scale = max(1.0, float(np.abs(want).max()))
+  print(f"  play: run_play --policy trained, {NUM_WORLDS} envs, 24 steps: "
+        f"{1e3 * res.seconds / 24:.2f} ms per play step, mean reward per step "
+        f"{res.mean_reward:.6f}, base z in [{res.base_z.min():.3f}, {res.base_z.max():.3f}]; "
+        f"the card's actions vs TorchScriptPolicy on the CPU {got.shape}: max_abs_err "
+        f"{err:.3e} (tol 1e-5 x {scale:.3e}) [{card}]")
+  if not (err <= 1e-5 * scale and np.isfinite(res.mean_reward) and np.isfinite(res.base_z).all()):
+    raise AssertionError("phase 10: play")
+  print("  kernels vs plain on the play env's matrices, f32:")
+  before = dict(chol.LAUNCHES)  # the comparison's launches do not count as the path's
+  d = env.data
+  dev = d.qM.device
+  grad = torch.randn(NUM_WORLDS, N, generator=torch.Generator(device=dev).manual_seed(10),
+                     device=dev)
+  checks.all_three("play qM", d.qM.contiguous(), d.qfrc_smooth.contiguous())
+  checks.newton("play qM,J,w", d.qM, d.efc_J, solver.newton_weights(d, d.qacc), grad)
+  compared = {k: chol.LAUNCHES[k] - before[k] for k in before}
+
+  guard = NanGuard(NanGuardCfg(enabled=True, output_dir=str(run_dir / "nan_dumps")), env)
+  watch_ms = []
+  for _ in range(5):
+    t0 = time.perf_counter()
+    if guard.watch():
+      raise AssertionError("phase 10: the guard fired on a healthy state")
+    watch_ms.append(1e3 * (time.perf_counter() - t0))
+  poisoned = [NUM_WORLDS // 3, NUM_WORLDS - 1]
+  env.data.qpos[poisoned, 0] = float("nan")
+  fired = guard.watch()
+  dump = (run_dir / "nan_dumps" / "latest").resolve()
+  dumped = sorted(p.name for p in dump.glob("env_*.npz")) if fired else []
+  model_same = fired and all(
+    np.array_equal(a, b) for a, b in zip(
+      assets.model_arrays(assets.load_model_npz(dump / "model.npz")).values(),
+      assets.model_arrays(env.sim.mj_model).values()))
+  print(f"  NaN guard at {NUM_WORLDS} envs: {np.mean(watch_ms[1:]):.3f} ms per watch() "
+        f"(calls {', '.join(f'{x:.3f}' for x in watch_ms)}) [{card}]; NaN in envs {poisoned}: "
+        f"fired {fired}, dumped {dumped} to {dump}, model.npz equal to the env's: {model_same}")
+  if not fired or dumped != [f"env_{i}.npz" for i in poisoned] or not model_same:
+    raise AssertionError("phase 10: the NaN guard's dump")
+  del res, env, d, guard
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  t0 = time.perf_counter()
+  table = run_joint_deltas(TASK, {"checkpoint": str(ckpt), "num_envs": str(NUM_WORLDS),
+                                  "steps": "10"})
+  print(f"  joint_deltas: {NUM_WORLDS} envs, 10 steps, {time.perf_counter() - t0:.2f} s with the "
+        f"env's build")
+  if len(table.splitlines()) != 4 + 29 + 1:
+    raise AssertionError("phase 10: the joint_deltas table")
+  print(f"  ONNX: export_policy_as_onnx returned {onnx!r}")
+  gc.collect()
+  torch.cuda.empty_cache()
+  launches = {k: v - compared[k] for k, v in chol.LAUNCHES.items()}
+  print(f"  phase 10 in {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+  if any(launches[k] == 0 for k in KERNELS):
+    raise AssertionError(f"phase 10: a kernel was not launched: {launches}")
+  return launches
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
   parser.add_argument("--f64-seeds", default=",".join(map(str, F64_SEEDS)),
                       help="seeds of the draws for phase 8's card-vs-CPU float64 "
                            "iteration, comma-separated (default %(default)s)")
-  f64_seeds = [int(x) for x in parser.parse_args().f64_seeds.split(",")]
+  args = parser.parse_args()
+  f64_seeds = [int(x) for x in args.f64_seeds.split(",")]
   if not torch.cuda.is_available():
     print("chip_smoke: torch.cuda.is_available() is false; nothing run",
           file=sys.stderr)
@@ -933,7 +1141,6 @@ def main() -> int:
     for line in log.splitlines():
       if "registers" in line or "spill" in line:
         print(f"  ptxas {name}: {line.strip()}")
-
   # -- 2. kernels against plain versions, and their times ---------------------
   gen = torch.Generator(device="cuda").manual_seed(0)
   A = spd_batch(gen, NUM_WORLDS, N, torch.float32)
@@ -1316,10 +1523,13 @@ def main() -> int:
   del envs, outs
 
   # -- 8. the training path: PPO iterations through OnPolicyRunner ---------------
-  train_launches = training_path(card, attr, f64_seeds)
+  train_launches, steady_iter_ms = training_path(card, attr, f64_seeds)
 
   # -- 9. the tracking path: G1 motion tracking through OnPolicyRunner -----------
   track_launches = tracking_path(card, attr, checks, f64_seeds)
+
+  # -- 10. a run's lifecycle: train, resume, play, joint_deltas, NaN guard, ONNX --
+  lifecycle_launches = lifecycle_path(card, checks, steady_iter_ms)
 
   # -- result lines ---------------------------------------------------------------
   bnd = bounds(NUM_WORLDS, N, rows=NUM_WORLDS * NEFC)
@@ -1344,6 +1554,7 @@ def main() -> int:
       "launches_physics_path": launches[name],
       "launches_training_path": train_launches[name],
       "launches_tracking_path": track_launches[name],
+      "launches_lifecycle_path": lifecycle_launches[name],
       "max_abs_err": checks.max_abs_err[name],
       "ms": times[name][0],
       "ms_l2_resident": times[name][3],

@@ -68,6 +68,10 @@ class JointAction(ActionTerm):
   def process_actions(self, actions: torch.Tensor) -> None:
     self.state = {"raw": actions, "processed": actions * self._scale + self._offset}
 
+  @property
+  def processed_actions(self) -> torch.Tensor:
+    return self.state["processed"]
+
   def apply_actions(self) -> None:
     raise NotImplementedError
 

@@ -14,9 +14,10 @@ Kernels (csrc/):
   at B=4096, n=35, f32: the factor needs A's lower triangle (10.3 MB) and
   writes L (20.1 MB), ~9.1 µs at 3.35 TB/s; a solve needs L's lower
   triangle and b and writes x (11.5 MB), ~3.4 µs.
-- newton_dir.cu: one block per world streams the rows of J whose weight
-  is not 0 through shared memory, builds H there and factors and solves it
-  with chol.cu's warp code; H never reaches device memory. Bound at G1's
+- newton_dir.cu: one warp per world, several worlds per block, streams
+  the rows of J whose weight is not 0 through shared memory, builds H there
+  and factors and solves it with chol.cu's warp code; H never reaches
+  device memory. Bound at G1's
   shapes: reading the dense J (0.97 GB) once, 0.29 ms, or only its active
   rows.
 

@@ -6,10 +6,12 @@ execution modes (`fused_rollout`, `rollout_chunk`, `epoch_chunk`,
 `packed_hostloop`) exist only for its TPU relay and are not carried over:
 the port's runner is one host loop of device work. Nor are the fields that
 nothing in the port reads (the `class_name`s, `empirical_normalization`,
-`save_interval`, `run_name`, `logger`, `wandb_project`, `load_run`,
-`load_checkpoint`): the port has no TensorBoard or wandb sink and saves one
-checkpoint at the end of training, so setting one would do nothing. An
-unknown field is rejected by the CLI's `apply_overrides`.
+`run_name`, `logger`, `wandb_project`, `load_run`, `load_checkpoint`): the
+port has no TensorBoard or wandb sink, and `--agent.resume` takes the newest
+checkpoint of the log dir, as the JAX package's train script does, so
+setting one would do nothing. An unknown field is rejected by the CLI's
+`apply_overrides`. `save_interval` is read by `OnPolicyRunner.learn`: a
+checkpoint every `save_interval` iterations (0: none before the end).
 """
 
 from __future__ import annotations
@@ -54,8 +56,9 @@ class RlOnPolicyRunnerCfg:
   max_iterations: int = 30_000
   policy: PpoActorCriticCfg = field(default_factory=PpoActorCriticCfg)
   algorithm: PpoAlgorithmCfg = field(default_factory=PpoAlgorithmCfg)
+  save_interval: int = 50
   experiment_name: str = "experiment"
-  resume: bool = False  # not ported: build_runner raises when it is set
+  resume: bool = False
   clip_actions: float | None = None
 
 

@@ -6,8 +6,9 @@ names, stiffness and damping of the compiled model, default pose,
 observation and command names, action scale; reference
 tasks/velocity/rl/exporter.py:35-66). Here the policy is the runner's own
 actor and actor normalizer, copied to the CPU in float32 and saved as
-TorchScript with the metadata as an extra file. ONNX export is not ported
-yet.
+TorchScript with the metadata as an extra file. `export_policy_as_onnx`
+is the JAX package's: `torch.onnx.export` and the metadata as ONNX
+metadata_props, or None where the ONNX stack is not installed.
 """
 
 from __future__ import annotations
@@ -71,4 +72,31 @@ def export_policy_as_torchscript(runner, env, path: str, metadata: dict | None =
   meta = metadata or collect_robot_metadata(env)
   os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
   torch.jit.save(scripted, path, _extra_files={"metadata.json": json.dumps(meta)})
+  return path
+
+
+def export_policy_as_onnx(runner, env, path: str, metadata: dict | None = None) -> str | None:
+  """ONNX export with the metadata as metadata_props (each value JSON);
+  returns None when the ONNX stack is unavailable in the environment."""
+  policy = build_torch_actor(runner)
+  example = torch.zeros(1, runner.num_actor_obs)
+  os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+  try:
+    torch.onnx.export(policy, (example,), path, input_names=["obs"],
+                      output_names=["action"], dynamo=False)
+  except Exception as e:
+    print(f"[exporter] ONNX export unavailable ({e}); TorchScript only.")
+    return None
+  try:
+    import onnx
+
+    model = onnx.load(path)
+    meta = metadata or collect_robot_metadata(env)
+    for key, value in meta.items():
+      entry = model.metadata_props.add()
+      entry.key = key
+      entry.value = json.dumps(value)
+    onnx.save(model, path)
+  except ImportError:
+    pass
   return path

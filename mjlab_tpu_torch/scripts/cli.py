@@ -52,6 +52,25 @@ def apply_overrides(obj: Any, overrides: dict[str, str]) -> None:
       setattr(target, leaf, value)
 
 
+def get_flag(overrides: dict[str, str], name: str) -> str | None:
+  """The value of `--name`, spelled with `_` or `-`; None when absent."""
+  return overrides.get(name) or overrides.get(name.replace("_", "-"))
+
+
+def check_flags(overrides: dict[str, str], known: tuple[str, ...], script: str,
+                unported: tuple[str, ...] = ()) -> None:
+  """Refuse a flag `script` does not take: NotImplementedError for one of
+  `unported` (a flag of the JAX script that the port lacks), ValueError for
+  one that is neither `known` nor an `--env.*` / `--agent.*` field. A flag
+  is matched spelled with `_` or `-`."""
+  for key in overrides:
+    name = key.replace("-", "_")
+    if name in unported:
+      raise NotImplementedError(f"--{key} is not supported by mjlab_tpu_torch's {script}")
+    if not key.startswith(("env.", "agent.")) and name not in known:
+      raise ValueError(f"unknown flag --{key}")
+
+
 def parse_args(argv: Sequence[str]) -> tuple[list[str], dict[str, str]]:
   """Split argv into positionals and --dotted.path=value / --flag value pairs."""
   positionals: list[str] = []

@@ -36,5 +36,6 @@ class G1FlatPPORunnerCfg(RlOnPolicyRunnerCfg):
     )
   )
   experiment_name: str = "g1_tracking"
+  save_interval: int = 500
   num_steps_per_env: int = 24
   max_iterations: int = 30_000

@@ -1,9 +1,11 @@
 """The port stands alone: importing it, building and stepping its env from
-the committed scene, one tiny PPO training iteration, and converting a
-motion CSV and training the tracking task on it pull in none of jax,
-jaxlib, mjlab_tpu, mujoco, gymnasium, flax, optax or orbax; no module of
-the port and not chip_smoke.py names one of them in an import; and its own
-MuJoCo enum constants agree with mujoco's."""
+the committed scene, one tiny PPO training iteration, converting a motion
+CSV and training the tracking task on it, and a run's lifecycle (training
+with periodic saves, resuming, play, list_envs, joint_deltas, the NaN
+guard, the artifact registry and the exporters) pull in none of jax,
+jaxlib, mjlab_tpu, mujoco, gymnasium, flax, optax, orbax or wandb; no
+module of the port and not chip_smoke.py names one of them in an import;
+and its own MuJoCo enum constants agree with mujoco's."""
 
 from __future__ import annotations
 
@@ -65,11 +67,36 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
     "  'agent.policy.critic_hidden_dims': '(16,)',\n"
     "  'motion_file': os.path.join(d, 'm.npz')}, device='cpu')\n"
     "runner.train_iteration()\n"
+    "import mjlab_tpu_torch.utils.os, mjlab_tpu_torch.utils.logging\n"
+    "import mjlab_tpu_torch.utils.artifacts, mjlab_tpu_torch.utils.nan_guard\n"
+    "import mjlab_tpu_torch.rl.onnx_policy, mjlab_tpu_torch.scripts.play\n"
+    "import mjlab_tpu_torch.scripts.joint_deltas, mjlab_tpu_torch.scripts.list_envs\n"
+    "tiny = {'env.scene.num_envs': '2', 'agent.num_steps_per_env': '2',\n"
+    "  'agent.algorithm.num_mini_batches': '2', 'agent.algorithm.num_learning_epochs': '1',\n"
+    "  'agent.policy.actor_hidden_dims': '(16,)', 'agent.policy.critic_hidden_dims': '(16,)',\n"
+    "  'agent.device': 'cpu', 'agent.max_iterations': '1', 'agent.save_interval': '1',\n"
+    "  'enable_nan_guard': 'true', 'log_dir': os.path.join(d, 'run')}\n"
+    "r = mjlab_tpu_torch.scripts.train.run_train('Mjlab-Velocity-Flat-Unitree-G1', tiny)\n"
+    "r = mjlab_tpu_torch.scripts.train.run_train('Mjlab-Velocity-Flat-Unitree-G1',\n"
+    "  {**tiny, 'agent.resume': 'true'})\n"
+    "ck = os.path.join(d, 'run', 'model_2.pt')\n"
+    "play = {k: v for k, v in tiny.items() if k.startswith('agent.')}\n"
+    "mjlab_tpu_torch.scripts.play.run_play('Mjlab-Velocity-Flat-Unitree-G1',\n"
+    "  {**play, 'checkpoint': ck, 'num_envs': '2', 'steps': '2'})\n"
+    "mjlab_tpu_torch.scripts.joint_deltas.run_joint_deltas('Mjlab-Velocity-Flat-Unitree-G1',\n"
+    "  {**play, 'checkpoint': ck, 'num_envs': '2', 'steps': '2'})\n"
+    "mjlab_tpu_torch.scripts.list_envs.main()\n"
+    "mjlab_tpu_torch.rl.onnx_policy.TorchScriptPolicy(ck.replace('.pt', '_policy.pt'))\n"
+    "mjlab_tpu_torch.rl.exporter.export_policy_as_onnx(r, r.env, os.path.join(d, 'p.onnx'))\n"
+    "reg = mjlab_tpu_torch.utils.artifacts.LocalRegistry(os.path.join(d, 'reg'))\n"
+    "reg.publish(ck, 'runs/a')\n"
+    "assert reg.resolve('runs/a:v1').is_dir()\n"
     "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in\n"
     "  ('jax', 'jaxlib', 'mjlab_tpu', 'mujoco', 'gymnasium', 'flax', 'optax',\n"
-    "   'orbax'))))\n"
+    "   'orbax', 'wandb'))))\n"
   )
-  env = dict(os.environ, PYTHONPATH=str(ROOT))
+  # One thread: a few-env CPU step is thousands of tiny ops.
+  env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
   out = subprocess.run(
     [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
     text=True, timeout=300, check=True,
@@ -80,7 +107,7 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
 def test_no_module_of_the_port_names_jax_mjlab_tpu_or_mujoco():
   """A static check of every import statement, so that a module the first
   test does not load, and chip_smoke.py, are held to the rule too."""
-  banned = {"jax", "jaxlib", "mjlab_tpu", "mujoco"}
+  banned = {"jax", "jaxlib", "mjlab_tpu", "mujoco", "gymnasium", "orbax", "wandb"}
   files = sorted((ROOT / "mjlab_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
   assert len(files) > 60
   found = []

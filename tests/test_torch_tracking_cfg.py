@@ -138,14 +138,14 @@ def test_g1_tracking_rl_cfg_matches_jax():
     w = dict(want)
     assert w.pop("device") == "tpu"
     for k in ("fused_rollout", "rollout_chunk", "epoch_chunk", "packed_hostloop",
-              "empirical_normalization", "save_interval", "run_name", "logger",
+              "empirical_normalization", "run_name", "logger",
               "wandb_project", "load_run", "load_checkpoint"):
       w.pop(k)
     w = copy.deepcopy(w)
     for group in ("policy", "algorithm"):
       w[group].pop("class_name")
     assert got == w
-    assert got["algorithm"]["entropy_coef"] == 0.005
+    assert got["algorithm"]["entropy_coef"] == 0.005 and got["save_interval"] == 500
 
 
 def test_tracking_math_helpers_match_jax():

@@ -2,9 +2,11 @@
 tiny size: `python -m mjlab_tpu_torch.scripts.train
 Mjlab-Tracking-Flat-Unitree-G1 --motion-file <npz>` (2 envs, T = 2, 1
 iteration, hidden 32/32) on a motion made by the port's csv_to_npz run as a
-script; `--motion_file` works the same; `--registry-name` raises
-NotImplementedError; without a motion file the env raises the JAX
-package's ValueError; without a device the runner asks for CUDA."""
+script; `--motion_file` works the same; `--registry-name` with a name the
+local registry does not hold raises the JAX package's FileNotFoundError
+(tests/test_torch_artifacts.py resolves a published one); without a motion
+file the env raises the JAX package's ValueError; without a device the
+runner asks for CUDA."""
 
 from __future__ import annotations
 
@@ -78,10 +80,14 @@ def test_motion_file_reaches_the_command(motion):
                                 np.load(motion)["joint_pos"].astype(np.float32))
 
 
-def test_registry_name_raises():
+def test_registry_name_raises(tmp_path, monkeypatch):
+  from mjlab_tpu.utils.artifacts import resolve_motion_file
   from mjlab_tpu_torch.scripts.train import build_runner
 
-  with pytest.raises(NotImplementedError, match="--registry-name"):
+  monkeypatch.setenv("MJLAB_REGISTRY_DIR", str(tmp_path))
+  with pytest.raises(FileNotFoundError, match="'org/motions/walk' not found") as want:
+    resolve_motion_file("org/motions/walk")
+  with pytest.raises(type(want.value), match="'org/motions/walk' not found in local registry"):
     build_runner(TASK, {**TINY, "registry-name": "org/motions/walk"})
 
 

@@ -2,11 +2,13 @@
 on the CPU at a tiny size (2 envs, T = 2, 1 iteration, hidden 32/32): it
 writes the checkpoint, the TorchScript policy, metrics.jsonl and
 final_metrics.json; the checkpoint loads back into a runner built as the
-script builds it. The JAX script's unported flags raise
-NotImplementedError (`--motion-file` is ported, and raises ValueError on a
-task without a motion command), and without a device the runner asks for
-CUDA. tests/test_torch_tracking_train.py trains a tracking task through
-`--motion-file`."""
+script builds it. `--profile`, `--enable_nan_guard` and `--registry-name`
+are ported; the JAX script's multi-device and video flags raise
+NotImplementedError (`--motion-file` raises ValueError on a task without a
+motion command), and without a device the runner asks for CUDA.
+tests/test_torch_tracking_train.py trains a tracking task through
+`--motion-file`; tests/test_torch_run_lifecycle.py holds periodic saves and
+`--agent.resume`."""
 
 from __future__ import annotations
 
@@ -34,6 +36,15 @@ TINY = {
   "agent.algorithm.num_mini_batches": "2",
   "agent.device": "cpu",
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+  """A few-env CPU step is thousands of tiny ops, faster on one thread."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -82,9 +93,7 @@ def test_checkpoint_loads_into_a_fresh_runner(trained):
                             before["params/actor/Dense_0/kernel"])
 
 
-@pytest.mark.parametrize(
-  "flag", ["mesh", "video", "registry-name", "motion-file", "enable_nan_guard", "profile"]
-)
+@pytest.mark.parametrize("flag", ["mesh", "video", "video_interval", "motion-file"])
 def test_unported_flags_raise(flag):
   from mjlab_tpu_torch.scripts.train import run_train
 
@@ -93,13 +102,57 @@ def test_unported_flags_raise(flag):
     run_train(TASK, {**TINY, flag: "1"})
 
 
-def test_resume_and_unknown_flags_raise():
+def test_unknown_flags_raise():
   from mjlab_tpu_torch.scripts.train import build_runner
 
-  with pytest.raises(NotImplementedError, match="resume"):
-    build_runner(TASK, {**TINY, "agent.resume": "true"})
   with pytest.raises(ValueError, match="--num_envs"):
     build_runner(TASK, {**TINY, "num_envs": "4"})
+
+
+@pytest.mark.parametrize("flag", ["profile", "enable_nan_guard", "registry-name"])
+def test_ported_flags_train(flag, tmp_path, monkeypatch):
+  """The flags the port once refused: `--profile 1` writes a Chrome trace
+  of the first iteration under <log_dir>/profile and trains the rest;
+  `--enable_nan_guard` trains through healthy iterations without a dump;
+  `--registry-name` takes the tracking task's motion from the local
+  registry."""
+  from mjlab_tpu_torch.scripts.train import run_train
+
+  over = {**TINY, "agent.max_iterations": "2", "log_dir": str(tmp_path)}
+  task = TASK
+  if flag == "profile":
+    over.update({"agent.num_steps_per_env": "1", flag: "1"})
+  elif flag == "enable_nan_guard":
+    over[flag] = "true"
+  else:
+    from mjlab_tpu_torch.tasks.tracking.motions import make_standing_motion
+    from mjlab_tpu_torch.utils.artifacts import LocalRegistry
+
+    monkeypatch.setenv("MJLAB_REGISTRY_DIR", str(tmp_path / "registry"))
+    motion = make_standing_motion(str(tmp_path / "motion.npz"), device="cpu")
+    over[flag] = "motions/stand"
+    task = "Mjlab-Tracking-Flat-Unitree-G1"
+    dst = LocalRegistry().publish(motion, "motions/stand")
+  runner = run_train(task, over)
+  assert runner.iteration == 2 and (tmp_path / "model_2.pt").is_file()
+  lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
+  assert [json.loads(line)["iteration"] for line in lines] == [0, 1]
+  if flag == "profile":
+    traces = list((tmp_path / "profile").glob("*.json"))
+    assert len(traces) == 1 and "traceEvents" in json.loads(traces[0].read_text())
+  elif flag == "enable_nan_guard":
+    assert not (tmp_path / "nan_dumps").exists()
+  else:
+    assert runner.env.cfg.commands["motion"].motion_file == str(dst / "motion.npz")
+
+
+def test_save_interval_is_read(tmp_path):
+  from mjlab_tpu_torch.scripts.train import run_train
+
+  run_train(TASK, {**TINY, "agent.max_iterations": "3", "agent.save_interval": "2",
+                   "log_dir": str(tmp_path)})
+  assert sorted(p.name for p in tmp_path.glob("model_?.pt")) == [
+    "model_0.pt", "model_2.pt", "model_3.pt"]
 
 
 def test_runner_asks_for_cuda_by_default():
@@ -126,15 +179,17 @@ def test_g1_rl_cfg_matches_jax():
   got = dataclasses.asdict(load_rl_cfg(TASK))
   assert got.pop("device") == "cuda" and want.pop("device") == "tpu"
   for k in ("fused_rollout", "rollout_chunk", "epoch_chunk", "packed_hostloop",
-            "empirical_normalization", "save_interval", "run_name", "logger",
+            "empirical_normalization", "run_name", "logger",
             "wandb_project", "load_run", "load_checkpoint"):
     want.pop(k)
   for group in ("policy", "algorithm"):
     want[group].pop("class_name")
   assert got == want
+  assert got["save_interval"] == 50
 
 
-@pytest.mark.parametrize("field", ["save_interval", "logger", "empirical_normalization"])
+@pytest.mark.parametrize("field", ["logger", "empirical_normalization", "run_name",
+                                   "wandb_project", "load_run", "load_checkpoint"])
 def test_unread_cfg_fields_are_rejected(field):
   """Fields that nothing in the port reads are not in its cfg, so setting
   one fails instead of doing nothing."""
