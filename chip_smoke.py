@@ -49,8 +49,8 @@ Phases, each printing its own lines:
   8. the training path — `scripts.train.build_runner(TASK,
      {"env.scene.num_envs": "4096"})`, the real G1 PPO cfg (MLPs 512/256/128,
      empirical normalization, 24 steps per env, 5 epochs x 4 minibatches of
-     24576, adaptive-KL lr) and the task's real 20 s episodes; 3
-     `train_iteration`s under `set_sync_debug_mode("error")` with the
+     24576, adaptive-KL lr) and the task's real 20 s episodes; 2
+     `train_iteration`s (3 until PR 7) under `set_sync_debug_mode("error")` with the
      kernels' counters set to 0 just before and read just after: 1416
      factorizations and 120 `chol_solve` per iteration. Checks the rollout
      buffers' shapes, finite losses, the lr inside [1e-5, 1e-2] and that the
@@ -73,7 +73,7 @@ Phases, each printing its own lines:
      {"env.scene.num_envs": "4096", "motion_file": ...})` with the G1
      tracking PPO cfg; checks the observation widths (160, 286) and the
      per-env body_ipos, qpos0 and foot friction (each different across envs,
-     inside its range, on its elements only); then phase 8's 3 iterations,
+     inside its range, on its elements only); then phase 8's 2 iterations,
      checks, split and profiles on it, plus the motion frames inside
      [0, 500) and a failure counted in the adaptive bins; holds the kernels
      against their plain versions on the tracking run's matrices; and the
@@ -94,10 +94,26 @@ Phases, each printing its own lines:
      envs and the model), `run_joint_deltas` for 10 steps and
      `export_policy_as_onnx`; the kernels' counters set to 0 before the
      phase and read after it, less the comparisons' launches.
+ 11. the Asimov family on flat ground: for Mjlab-Velocity-Flat-Asimov (foot
+     meshes as convex hulls, frame sensors; nv 18, 44 Newton rows) and
+     Mjlab-Velocity-Flat-Asimov-Toe (fixed tendons driven by the
+     parallel-ankle action; nv 20, 174 rows), `build_runner` at 4096 envs
+     with the task's PPO cfg; the observation widths; the feet's hulls built
+     on this host against the CPU host's digest; phase 8's 2 iterations
+     under set_sync_debug_mode("error") with their counts, checks and split,
+     and a device-only profile of a rollout step and an update (launches,
+     busy share); the four kernels against their plain versions on each
+     run's matrices, and their times there; the card's float64 env against
+     the CPU's, 4 envs x 3 env steps, each from the CPU env's state and
+     held to 1e-8 or twice the CPU's own spread under 6 qpos nudges of 1e-13,
+     for Asimov-Toe with the ankle targets checked in ctrl on the 4 tendon
+     actuators only.
 Any failed check raises. The line before the last is the kernel table as
 JSON (`launches` from the env path of phase 7, `launches_training_path`
-from phase 8's 3 iterations, `launches_tracking_path` from phase 9's,
-`launches_lifecycle_path` from phase 10); the last line is
+from phase 8's 2 iterations, `launches_tracking_path` from phase 9's,
+`launches_lifecycle_path` from phase 10, `launches_asimov_path` from phase
+11's 2 iterations of each task, `ms_asimov_run_matrices_by_nv` each
+kernel's time on phase 11's matrices by nv); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -131,9 +147,18 @@ TASK = "Mjlab-Velocity-Flat-Unitree-G1"
 RL_EPISODE_S = 0.4  # cut from 20 s: 20 env steps, every env resets in-step
 RL_STEPS = 60
 RL_STEADY_FROM = 10
-RL_FACT_PER_STEP = 4 * 12 + 11  # 4 substeps + the post-reset forward
 RL_SOLVES_PER_STEP = 5
-TRAIN_ITERS = 3
+
+
+def fact_per_env_step(newton_iters: int = 10) -> int:
+  """Factorizations per env step: 4 substeps of factor_m, the Newton
+  directions and the integrator's factor-solve, and the post-reset
+  forward's factor_m and Newton directions (59 at 10 Newton iterations)."""
+  return DECIMATION * (newton_iters + 2) + newton_iters + 1
+
+
+RL_FACT_PER_STEP = fact_per_env_step()
+TRAIN_ITERS = 2  # 3 until PR 7; 2 keeps the script with phase 11 inside its limit
 TRAIN_STEPS = 24  # the G1 PPO cfg's num_steps_per_env
 # The runner's torch.profiler spans: a rollout step's two, then the update's.
 TRAIN_SPANS = ("rollout_step/act", "rollout_step/env_step",
@@ -143,6 +168,34 @@ TRACK_TASK = "Mjlab-Tracking-Flat-Unitree-G1"
 TRACK_CSV_ROWS = 301  # 10 s of motion at 30 fps
 TRACK_FRAMES = 500  # the same 10 s at 50 fps
 TRACK_BINS = 11  # adaptive-sampling bins: 500 frames // 50 steps per s + 1
+
+
+# The Asimov feet's convex hulls as put_model builds them from the committed
+# scene with scipy's qhull, hashed (`hull_digest`) on the CPU host where the
+# JAX package's hulls are held equal to them (tests/test_torch_asimov_model.py).
+# Phase 11 rebuilds them on the card's host and fails on another digest.
+ASIMOV_HULL_DIGEST = "a3c43b16dedf640866f11394fa382334e00c95c986122268f60baa66830a7b87"
+
+
+# Phase 11's tasks and their (policy, critic) observation widths, the JAX
+# package's (tests/test_torch_asimov_env.py).
+ASIMOV_OBS_DIMS = {"Mjlab-Velocity-Flat-Asimov": (48, 60),
+                   "Mjlab-Velocity-Flat-Asimov-Toe": (45, 57)}
+
+
+def hull_digest(tp) -> str:
+  """sha256 of every hull of a Topology (geom order; verts, faces, face
+  normals, edge directions)."""
+  import dataclasses
+  import hashlib
+
+  import numpy as np
+
+  h = hashlib.sha256()
+  for g in sorted(tp.geom_hulls):
+    for f in dataclasses.fields(tp.geom_hulls[g]):
+      h.update(np.ascontiguousarray(getattr(tp.geom_hulls[g], f.name)).tobytes())
+  return h.hexdigest()
 
 
 def card_line() -> str:
@@ -225,14 +278,15 @@ class KernelCheck:
     torch.cuda.synchronize()
 
 
-def bounds(batch: int, n: int, rows: float, elem: int = 4) -> dict[str, tuple[float, str]]:
+def bounds(batch: int, n: int, rows: float, elem: int = 4,
+           nefc: int = NEFC) -> dict[str, tuple[float, str]]:
   """Least time (ms) per kernel at these shapes: the larger of bytes moved
   (each input read once, each output written once) over HBM rate and FLOP
   over the float32 rate. A factor or a solve needs only the lower triangle
   of A or L (n(n+1)/2 elements); L is written whole, zeros included. The
-  Newton direction needs w (NEFC per world), qM's lower triangle, grad, x
-  and the `rows` rows of J (in all worlds) whose weight is not 0: all
-  4096 × NEFC of them for dense weights. It does 2 FLOP per row and lower
+  Newton direction needs w (`nefc` per world, G1's NEFC by default), qM's
+  lower triangle, grad, x and the `rows` rows of J (in all worlds) whose
+  weight is not 0: all 4096 × nefc of them for dense weights. It does 2 FLOP per row and lower
   entry of H, then the factor and solves."""
   tri, full, vec = (batch * k * elem for k in (n * (n + 1) // 2, n * n, n))
   fac_flop, sol_flop = batch * n**3 / 3, batch * 2 * n * n
@@ -241,7 +295,7 @@ def bounds(batch: int, n: int, rows: float, elem: int = 4) -> dict[str, tuple[fl
     "chol_solve": (tri + 2 * vec, sol_flop),
     "chol_factor_solve": (tri + 2 * vec, fac_flop + sol_flop),
     "newton_direction": (
-      rows * n * elem + batch * NEFC * elem + tri + 2 * vec,
+      rows * n * elem + batch * nefc * elem + tri + 2 * vec,
       rows * n * (n + 1) + fac_flop + sol_flop,
     ),
   }
@@ -389,12 +443,15 @@ def split_env_step(env, action, reps: int = 2) -> dict[str, float]:
   return out
 
 
-def time_iteration(runner) -> tuple[dict[str, float], dict[str, float]]:
-  """ms of each of OnPolicyRunner.train_iteration's three calls, with CUDA
-  events between them: the draws, the rollout (24 policy acts and env
-  steps) and the update (bootstrap value, GAE and prep, the minibatch
-  steps, the normalizers). Also the device memory allocated (GB) at the
-  start, and its peak in the rollout and in the update."""
+def timed_iteration(runner):
+  """One `train_iteration` as its three calls, with CUDA events between
+  them: the draws, the rollout (24 policy acts and env steps) and the
+  update (bootstrap value, GAE and prep, the minibatch steps, the
+  normalizers). No host sync: read the events with `parts_ms` after a
+  synchronize. Returns the update's metrics, the events, the device memory
+  allocated (GB) at the start and its peak in the rollout and in the
+  update, and the iteration's (batch, logs, perms), for a profile of
+  another update."""
   marks = []
 
   def mark(part):
@@ -411,11 +468,14 @@ def time_iteration(runner) -> tuple[dict[str, float], dict[str, float]]:
   mark("rollout (policy acts + env steps)")
   mem["rollout peak"] = torch.cuda.max_memory_allocated() / 1e9
   torch.cuda.reset_peak_memory_stats()
-  runner.update(batch, logs, perms)
+  metrics = runner.update(batch, logs, perms)
   mark("update")
   mem["update peak"] = torch.cuda.max_memory_allocated() / 1e9
-  torch.cuda.synchronize()
-  return {part: a.elapsed_time(b) for (_, a), (part, b) in zip(marks, marks[1:])}, mem
+  return metrics, marks, mem, (batch, logs, perms)
+
+
+def parts_ms(marks) -> dict[str, float]:
+  return {part: a.elapsed_time(b) for (_, a), (part, b) in zip(marks, marks[1:])}
 
 
 def span_busy_ms(prof) -> tuple[dict[str, tuple[float, float]], set[str]]:
@@ -450,10 +510,12 @@ def span_busy_ms(prof) -> tuple[dict[str, tuple[float, float]], set[str]]:
 def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int]):
   """TRAIN_ITERS `train_iteration`s under set_sync_debug_mode("error") with
   the kernels' counters set to 0 just before and read just after. Checks
-  1416 factorizations and 120 `chol_solve` per iteration, finite losses,
-  the lr inside [1e-5, 1e-2], the rollout buffers' shapes and that every
-  parameter moved. Returns the launches, the steady ms per iteration
-  (CUDA events) and each iteration's metrics."""
+  1416 factorizations and 120 `chol_solve` per iteration (at 10 Newton
+  iterations), finite losses, the lr inside [1e-5, 1e-2], the rollout
+  buffers' shapes and that every parameter moved. Each iteration runs as
+  `timed_iteration`. Returns the launches, the steady ms per iteration
+  (CUDA events), each iteration's metrics and the last iteration's split
+  (its parts' ms, memory, and (batch, logs, perms))."""
   import numpy as np
 
   from mjlab_tpu_torch.kernels import chol
@@ -462,23 +524,22 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int]):
   if runner.cfg.num_steps_per_env != TRAIN_STEPS:
     raise AssertionError(f"the PPO cfg no longer has {TRAIN_STEPS} steps per env")
   before = runner_state_to_arrays(runner)
-  iter_events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_ITERS + 1)]
-  metrics = []
-  torch.cuda.reset_peak_memory_stats()
+  metrics, marks, mems = [], [], []
   chol.reset_counts()
   torch.cuda.set_sync_debug_mode("error")
   t0 = time.perf_counter()
-  iter_events[0].record()
-  for i in range(TRAIN_ITERS):
-    metrics.append(runner.train_iteration())
-    iter_events[i + 1].record()
+  for _ in range(TRAIN_ITERS):
+    m, mk, mem, last = timed_iteration(runner)
+    metrics.append(m)
+    marks.append(mk)
+    mems.append(mem)
   torch.cuda.set_sync_debug_mode("default")
   torch.cuda.synchronize()
   t_train = time.perf_counter() - t0
   launches = dict(chol.LAUNCHES)
   fact = chol.factorizations()
-  peak_gb = torch.cuda.max_memory_allocated() / 1e9
-  iter_ms = [a.elapsed_time(b) for a, b in zip(iter_events, iter_events[1:])]
+  peak_gb = max(max(mem.values()) for mem in mems)
+  iter_ms = [mk[0][1].elapsed_time(mk[-1][1]) for mk in marks]
   steady_iter_ms = sum(iter_ms[1:]) / (TRAIN_ITERS - 1)
   host = [{k: float(v) for k, v in m.items()} for m in metrics]
   print(f"  {TRAIN_ITERS} iterations under set_sync_debug_mode('error'): no host-device "
@@ -494,10 +555,11 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int]):
           f"{m['Loss/value_loss']:.5f} kl {m['Loss/kl']:.5f} entropy {m['Loss/entropy']:.3f} "
           f"lr {m['Loss/lr']:.3e} reward {m['Train/mean_step_reward']:.5f} resets "
           f"{m['Train/resets']:.0f} noise_std {m['Policy/noise_std']:.4f}")
-  if (fact != TRAIN_STEPS * RL_FACT_PER_STEP * TRAIN_ITERS
+  per_step = fact_per_env_step(runner.env.sim.model.opt.iterations)
+  if (fact != TRAIN_STEPS * per_step * TRAIN_ITERS
       or launches["chol_solve"] != TRAIN_STEPS * RL_SOLVES_PER_STEP * TRAIN_ITERS
       or any(launches[k] == 0 for k in KERNELS)):
-    raise AssertionError(f"{phase}: expected {TRAIN_STEPS * RL_FACT_PER_STEP} factorizations "
+    raise AssertionError(f"{phase}: expected {TRAIN_STEPS * per_step} factorizations "
                          f"and {TRAIN_STEPS * RL_SOLVES_PER_STEP} solves per iteration, got "
                          f"{launches}")
   for m in host:
@@ -509,7 +571,7 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int]):
   print(f"  rollout buffers {shapes}")
   if shapes != {"actor_obs": (TRAIN_STEPS, NUM_WORLDS, obs_dims[0]),
                 "critic_obs": (TRAIN_STEPS, NUM_WORLDS, obs_dims[1]),
-                "action": (TRAIN_STEPS, NUM_WORLDS, 29)}:
+                "action": (TRAIN_STEPS, NUM_WORLDS, runner.num_actions)}:
     raise AssertionError(f"{phase}: rollout buffer shapes")
   after = runner_state_to_arrays(runner)
   moved = {k: float(np.abs(after[k] - before[k]).max()) for k in after if k.startswith("params/")}
@@ -517,21 +579,50 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int]):
         f"{min(moved.values()):.3e}")
   if not min(moved.values()) > 0:
     raise AssertionError(f"{phase}: a parameter tensor did not change")
-  return launches, steady_iter_ms, host
+  return launches, steady_iter_ms, host, (parts_ms(marks[-1]), mems[-1], last)
 
 
-def profile_iteration(runner, card: str, attr: str, tag: str, steady_iter_ms: float) -> None:
-  """One more iteration timed by the runner's three calls (CUDA events),
-  then profiles of one rollout step and one update split by the runner's
+def span_split(by_span, recorded, profiled, parts, n_mb: int, card: str) -> None:
+  """Print (and check) the rollout step's and the update's kernel time by
+  the runner's spans (`span_busy_ms`)."""
+  if sorted(recorded) != sorted(TRAIN_SPANS):
+    raise AssertionError(f"the profiles lack spans: got {sorted(recorded)}")
+
+  def span_ms(k, n=1):
+    return (f"{n * by_span[k][0]:.3f}" if k in by_span
+            else "not measured (the profiler recorded no GPU-side annotation)")
+
+  for part, names in (("rollout step", TRAIN_SPANS[:2]), ("update", TRAIN_SPANS[2:])):
+    rest = profiled[part][0] - sum(by_span[k][0] for k in names if k in by_span)
+    print(f"  the {part} by span, kernel ms on the device (the span's range on the device "
+          "timeline, stretched by the profiler): "
+          + ", ".join(f"{k} {span_ms(k)}" + (f" ({by_span[k][1]:.3f})" if k in by_span else "")
+                      for k in names)
+          + f", outside the measured spans {rest:.3f} [{card}]")
+    if rest < -1e-3 * profiled[part][0]:
+      raise AssertionError(f"the {part}'s spans hold more kernel time than the {part}")
+  print(f"  kernel time of {TRAIN_STEPS} policy acts {span_ms('rollout_step/act', TRAIN_STEPS)} "
+        f"ms; of one minibatch step {span_ms('ppo_update/minibatch_steps', 1 / n_mb)} ms; "
+        f"the update's wall time is {parts['update'] / profiled['update'][0]:.2f} x its "
+        f"kernel time [{card}]")
+
+
+def profile_iteration(runner, card: str, attr: str, tag: str, steady_iter_ms: float,
+                      split, spans: bool = True) -> None:
+  """The last training iteration's split by the runner's three calls
+  (`split`, from `train_iterations`), then profiles of one rollout step and
+  of one more update on that iteration's batch, split by the runner's
   spans; an iteration is T of the one and one of the other, which gives
-  its launches and the device's busy share. Tables go to
+  its launches and the device's busy share. With `spans` False the
+  profiler traces the device only (no host ops, no split by span), which
+  parses several times faster. Tables go to
   OUT/chip_smoke_<tag>_<part>_profile.txt."""
   from torch.profiler import ProfilerActivity, profile
 
   alg = runner.cfg.algorithm
   n_mb = alg.num_learning_epochs * alg.num_mini_batches
-  parts, mem = time_iteration(runner)
-  print(f"  one iteration by call (CUDA events) [{card}]:")
+  parts, mem, (batch, logs, perms) = split
+  print(f"  the last iteration by call (CUDA events) [{card}]:")
   for part, ms in parts.items():
     print(f"    {part:34s} {ms:10.3f} ms  {100 * ms / sum(parts.values()):5.1f}%")
   print(f"    {'sum':34s} {sum(parts.values()):10.3f} ms")
@@ -541,13 +632,13 @@ def profile_iteration(runner, card: str, attr: str, tag: str, steady_iter_ms: fl
   # ops) would take the profiler minutes to parse, so one rollout step and
   # one update are profiled; an iteration is T of the one and one of the
   # other. The runner's spans split each (`span_busy_ms`).
-  noise, perms = runner.draw()
-  batch, logs = runner.rollout(noise)
-  profiled, spans, recorded = {}, {}, set()
+  noise = runner.draw()[0]
+  activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if spans else [])
+  profiled, by_span, recorded = {}, {}, set()
   for part, fn in (("rollout step", lambda: runner.rollout_step(noise[0])),
                    ("update", lambda: runner.update(batch, logs, perms))):
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
       fn()
       torch.cuda.synchronize()
     averages = prof.key_averages()
@@ -557,34 +648,17 @@ def profile_iteration(runner, card: str, attr: str, tag: str, steady_iter_ms: fl
     events = [e for e in averages if str(e.device_type).endswith("CUDA")
               and e.key not in TRAIN_SPANS and not getattr(e, "is_user_annotation", False)]
     profiled[part] = (sum(getattr(e, attr) for e in events) / 1e3, sum(e.count for e in events))
-    got, seen = span_busy_ms(prof)
-    spans.update(got)
-    recorded |= seen
+    if spans:
+      got, seen = span_busy_ms(prof)
+      by_span.update(got)
+      recorded |= seen
     print(f"  profile of one {part}: device time {profiled[part][0]:.2f} ms in "
           f"{profiled[part][1]} kernel launches ({time.perf_counter() - t0:.1f} s with the "
           f"profiler) [{card}]; table in {table}")
     for e in sorted(events, key=lambda e: -getattr(e, attr))[:5]:
       print(f"    {getattr(e, attr) / 1e3:8.3f} ms  x{e.count:6d}  {e.key[:90]}")
-  if sorted(recorded) != sorted(TRAIN_SPANS):
-    raise AssertionError(f"the profiles lack spans: got {sorted(recorded)}")
-
-  def span_ms(k, n=1):
-    return (f"{n * spans[k][0]:.3f}" if k in spans
-            else "not measured (the profiler recorded no GPU-side annotation)")
-
-  for part, names in (("rollout step", TRAIN_SPANS[:2]), ("update", TRAIN_SPANS[2:])):
-    rest = profiled[part][0] - sum(spans[k][0] for k in names if k in spans)
-    print(f"  the {part} by span, kernel ms on the device (the span's range on the device "
-          "timeline, stretched by the profiler): "
-          + ", ".join(f"{k} {span_ms(k)}" + (f" ({spans[k][1]:.3f})" if k in spans else "")
-                      for k in names)
-          + f", outside the measured spans {rest:.3f} [{card}]")
-    if rest < -1e-3 * profiled[part][0]:
-      raise AssertionError(f"the {part}'s spans hold more kernel time than the {part}")
-  print(f"  kernel time of {TRAIN_STEPS} policy acts {span_ms('rollout_step/act', TRAIN_STEPS)} "
-        f"ms; of one minibatch step {span_ms('ppo_update/minibatch_steps', 1 / n_mb)} ms; "
-        f"the update's wall time is {parts['update'] / profiled['update'][0]:.2f} x its "
-        f"kernel time [{card}]")
+  if spans:
+    span_split(by_span, recorded, profiled, parts, n_mb, card)
   dev_ms = TRAIN_STEPS * profiled["rollout step"][0] + profiled["update"][0]
   kernel_launches = TRAIN_STEPS * profiled["rollout step"][1] + profiled["update"][1]
   print(f"  one iteration = {TRAIN_STEPS} rollout steps + one update: device time "
@@ -648,7 +722,7 @@ def f64_iteration_check(task: str, variant, f64_seeds, overrides=None) -> None:
     for r in runners.values():
       runner_state_from_arrays(r, warm)
     rng = torch.Generator().manual_seed(seed)
-    noise = torch.randn(4, 4, 29, generator=rng, dtype=torch.float64)
+    noise = torch.randn(4, 4, runners["cpu"].num_actions, generator=rng, dtype=torch.float64)
     perms = torch.randperm(16, generator=rng)[None]
     f64_metrics = {dv: r.train_iteration(noise.to(r.device), perms.to(r.device))
                    for dv, r in runners.items()}
@@ -683,6 +757,212 @@ def f64_iteration_check(task: str, variant, f64_seeds, overrides=None) -> None:
     raise AssertionError(f"card vs CPU training iteration mismatch: {worst_by_seed}")
 
 
+def f64_env_check(task: str, n_steps: int = 8, on_step=None, nudges: int = 0) -> float:
+  """The card's float64 env (kernels) against the CPU's (plain versions) on
+  `task`'s certain-draw variant, 4 envs x `n_steps` env steps of N(0, 1)
+  actions: observations, rewards and qpos within 1e-8 relative to
+  max(1, max |CPU|). With `nudges` > 0, each step starts from the CPU env's
+  state (the card env takes it whole), and the tolerance is 1e-8 or twice
+  the CPU env's own spread, whichever is larger: the largest distance of
+  `nudges` reruns of the CPU step with qpos moved by 1e-13 (relative). The
+  Asimov tasks need it: at their 30 Newton iterations the contact solve
+  converges, its accept test takes one of two branches by rounding (about
+  half of nudged runs land ~1e-8 away on an Asimov step, PERF.md PR 7),
+  and later steps compound such differences; 6 nudges all on one branch
+  happen about once in 32. `on_step(env,
+  action)` runs after each card step; the largest value it returns is
+  returned. A 4-env CPU step is thousands of tiny ops: one thread runs it
+  fastest."""
+  from mjlab_tpu_torch.envs import (
+    ManagerBasedRlEnv, env_state_from_arrays, env_state_to_arrays,
+  )
+  from mjlab_tpu_torch.tasks import load_env_cfg
+
+  torch.set_num_threads(1)  # and so it stays for the later CPU checks
+  envs = {}
+  for dv in ("cuda", "cpu"):
+    cfg = load_env_cfg(task)
+    cfg.scene.num_envs = 4
+    cfg.sim.dtype = "float64"
+    certain_variant(cfg)
+    envs[dv] = ManagerBasedRlEnv(cfg, device=dv)
+  outs = {dv: [e.reset(seed=0)[0]] for dv, e in envs.items()}
+  rng = torch.Generator().manual_seed(2)
+  n_act = envs["cpu"].total_action_dim
+  keys = ("policy", "critic", "reward", "qpos")
+  spread = dict.fromkeys(keys, 0.0)
+  on_step_max = 0.0
+  for _ in range(n_steps):
+    a = torch.randn(4, n_act, generator=rng, dtype=torch.float64)
+    if nudges:
+      pre = env_state_to_arrays(envs["cpu"])
+      env_state_from_arrays(envs["cuda"], pre)
+    for dv, e in envs.items():
+      o, r, *_ = e.step(a.to(dv))
+      outs[dv].append({**o, "reward": r, "qpos": e.data.qpos})
+    if on_step is not None:
+      on_step_max = max(on_step_max, on_step(envs["cuda"], a))
+    if nudges:
+      post, want = env_state_to_arrays(envs["cpu"]), outs["cpu"][-1]
+      for _ in range(nudges):
+        q = pre["data.qpos"]
+        noise = torch.randn(q.shape, generator=rng, dtype=torch.float64).numpy()
+        env_state_from_arrays(envs["cpu"], {**pre, "data.qpos": q * (1 + 1e-13 * noise)})
+        o, r, *_ = envs["cpu"].step(a)
+        for key, v in {**o, "reward": r, "qpos": envs["cpu"].data.qpos}.items():
+          if key in spread:
+            spread[key] = max(spread[key], (v - want[key]).abs().max().item()
+                              / max(1.0, want[key].abs().max().item()))
+      env_state_from_arrays(envs["cpu"], post)
+  print(f"  card (kernels, f64) vs CPU (plain, f64), {task} certain-draw variant, 4 envs x "
+        f"{n_steps} env steps" + (f", each from the CPU env's state, tolerance max(1e-8, 2 x "
+                                  f"the CPU's spread over {nudges} qpos nudges of 1e-13):"
+                                  if nudges else ":"))
+  for key in keys:
+    got = torch.stack([o[key].cpu() for o in outs["cuda"][1:]])
+    want = torch.stack([o[key] for o in outs["cpu"][1:]])
+    err = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    tol = max(1e-8, 2 * spread[key])
+    print(f"    {key:8s} max_abs_err {err:.3e} relative {err / scale:.3e} (tol {tol:.3e}"
+          + (f", CPU spread {spread[key]:.3e}" if nudges else "") + ")")
+    if not err <= tol * scale:
+      raise AssertionError(f"card vs CPU env mismatch on {key} ({task})")
+  return on_step_max
+
+
+def ankle_ctrl_check(env, action) -> float:
+  """After an Asimov-Toe env step: ctrl holds the ankle term's A/B tendon
+  targets on the 4 tendon actuators, the joint term's targets on its 8 hip
+  and knee actuators, and 0 on the 2 passive toes. Returns the largest
+  error."""
+  robot = env.scene["robot"]
+  ankle = env.action_manager.get_term("ankle_ab")
+  joint = env.action_manager.get_term("joint_pos")
+  pr, L, dd = ankle.processed_actions, ankle.cfg.L, ankle.cfg.d
+  targets = torch.stack([-L * pr[:, 0] - dd * pr[:, 1], -L * pr[:, 0] + dd * pr[:, 1],
+                         L * pr[:, 2] - dd * pr[:, 3], L * pr[:, 2] + dd * pr[:, 3]], 1)
+  ctrl = env.data.ctrl[:, list(robot.indexing.ctrl_ids)]
+  names = list(robot.actuator_names)
+  tendon = [names.index(n) for n in ("left_ankle_A", "left_ankle_B", "right_ankle_A",
+                                     "right_ankle_B")]
+  joints = list(robot.find_actuators(joint.cfg.actuator_names, preserve_order=True)[0])
+  toes = [i for i in range(len(names)) if i not in tendon + joints]
+  errs = ((ctrl[:, tendon] - targets).abs().max().item(),
+          (ctrl[:, joints] - joint.processed_actions).abs().max().item(),
+          ctrl[:, toes].abs().max().item())
+  if not (max(errs) <= 1e-12 and len(joints) == 8 and len(toes) == 2
+          and targets.abs().max().item() > 0):
+    raise AssertionError(f"Asimov-Toe ctrl: tendon, joint, toe errors {errs}")
+  return max(errs)
+
+
+def asimov_path(card: str, attr: str, checks: KernelCheck):
+  """Phase 11: the Asimov family (ASIMOV_OBS_DIMS' two tasks) trains on flat
+  ground. For each task, `build_runner` at NUM_WORLDS envs with the task's
+  PPO cfg; the observation widths (the JAX package's); for Asimov, the
+  feet's hulls built on this host against the CPU host's digest; then phase
+  8's TRAIN_ITERS iterations, checks and split, and a device-only profile;
+  the four kernels against their plain versions on the run's matrices
+  (n = nv, J of nefc rows), timed there beside their plain versions, the
+  library calls and their bounds at these shapes; and the card's float64
+  env against the CPU's, 4 envs x 3 env steps each from the CPU's state
+  (`f64_env_check` with nudges; for Asimov-Toe with the ankle targets
+  checked in ctrl after every card step). Returns the kernels' launches
+  over both tasks' iterations and each kernel's ms on each run's matrices
+  (keyed by nv)."""
+  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.physics import solver
+  from mjlab_tpu_torch.scripts.train import build_runner
+
+  t_phase = time.perf_counter()
+  launches = {k: 0 for k in KERNELS}
+  path_ms: dict[str, dict[str, float]] = {k: {} for k in KERNELS}
+  for task, obs_dims in ASIMOV_OBS_DIMS.items():
+    tag = "asimov_toe" if task.endswith("Toe") else "asimov"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runner = build_runner(task, {"env.scene.num_envs": str(NUM_WORLDS)})
+    torch.cuda.synchronize()
+    env, alg, tp = runner.env, runner.cfg.algorithm, runner.env.tp
+    print(f"phase 11 {task}: {NUM_WORLDS} envs, nq {tp.nq}, nv {tp.nv}, nu {tp.nu}, tendons "
+          f"{tp.ntendon}, contact slots {tp.ncon_max} in {len(tp.pairs)} pairs, Newton rows "
+          f"{tp.nefc}, obs {env.group_obs_dim}, actions {runner.num_actions}, episodes "
+          f"{env.cfg.episode_length_s} s, T {runner.cfg.num_steps_per_env}, "
+          f"{alg.num_learning_epochs} epochs x {alg.num_mini_batches} minibatches, hidden "
+          f"{runner.cfg.policy.actor_hidden_dims}, entropy {alg.entropy_coef}, lr "
+          f"{alg.schedule} from {alg.learning_rate}; build_runner "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    if env.group_obs_dim != {"policy": (obs_dims[0],), "critic": (obs_dims[1],)}:
+      raise AssertionError(f"{task}: observation widths {env.group_obs_dim}")
+    if tag == "asimov":
+      digest = hull_digest(tp)
+      print(f"  feet hulls built here from the npz: {sorted(tp.geom_hulls)}, vertices "
+            f"{[tp.geom_hulls[g].verts.shape[0] for g in sorted(tp.geom_hulls)]}; digest "
+            f"{digest[:16]}... equals the CPU host's: {digest == ASIMOV_HULL_DIGEST}")
+      if digest != ASIMOV_HULL_DIGEST:
+        raise AssertionError("the Asimov feet's hulls differ from the CPU host's")
+    it = env.sim.model.opt.iterations
+    print(f"  expected per iteration (independent of nv): {TRAIN_STEPS} env steps x "
+          f"({DECIMATION} substeps x (factor_m + {it} Newton directions + the integrator's "
+          f"factor-solve) + {it + 1} in the post-reset forward) = "
+          f"{TRAIN_STEPS * fact_per_env_step(it)} factorizations; {TRAIN_STEPS} x "
+          f"{RL_SOLVES_PER_STEP} = {TRAIN_STEPS * RL_SOLVES_PER_STEP} chol_solve")
+    got, steady_iter_ms, _, split = train_iterations(runner, card, f"phase 11 {tag}", obs_dims)
+    for k in KERNELS:
+      launches[k] += got[k]
+    profile_iteration(runner, card, attr, tag, steady_iter_ms, split, spans=False)
+    del split
+
+    d, n = env.data, tp.nv
+    print(f"  kernels vs plain on the {tag} run's matrices, f32, n = {n}, J "
+          f"({NUM_WORLDS}, {tp.nefc}, {n}):")
+    grad = torch.randn(NUM_WORLDS, n, generator=torch.Generator(device="cuda").manual_seed(11),
+                       device="cuda")
+    qM, H = d.qM.contiguous(), solver.hessian(d, d.qacc).contiguous()
+    w = solver.newton_weights(d, d.qacc)
+    checks.all_three(f"{tag} qM", qM, d.qfrc_smooth.contiguous())
+    checks.all_three(f"{tag} H", H, grad)
+    checks.newton(f"{tag} qM,J,w", d.qM, d.efc_J, w, grad)
+    active_rows = int((w != 0).sum().item())
+    L = chol.chol_factor(qM)
+    J = d.efc_J.contiguous()
+    timing = {
+      "chol_factor": (lambda: chol.chol_factor(qM), lambda: chol.chol_factor_plain(qM),
+                      lambda: torch.linalg.cholesky_ex(qM)),
+      "chol_solve": (lambda: chol.chol_solve(L, grad), lambda: chol.chol_solve_plain(L, grad),
+                     lambda: torch.cholesky_solve(grad[..., None], L)),
+      "chol_factor_solve": (
+        lambda: chol.chol_factor_solve(H, grad), lambda: chol.chol_factor_solve_plain(H, grad),
+        lambda: torch.cholesky_solve(grad[..., None], torch.linalg.cholesky_ex(H)[0])),
+      "newton_direction": (
+        lambda: chol.newton_direction(qM, J, w, grad),
+        lambda: chol.newton_direction_plain(qM, J, w, grad),
+        lambda: torch.cholesky_solve(
+          grad[..., None], torch.linalg.cholesky_ex(chol.newton_matrix(qM, J, w))[0])),
+    }
+    bnd = bounds(NUM_WORLDS, n, rows=active_rows, nefc=tp.nefc)
+    print(f"  times on the run's matrices (mean of 20 calls; active Newton rows "
+          f"{active_rows / (NUM_WORLDS * tp.nefc):.4f} of {NUM_WORLDS * tp.nefc}) [{card}]:")
+    for k, (kern, plain, lib) in timing.items():
+      ms = [time_ms(f, [()], iters=iters) for f, iters in ((kern, 20), (plain, 5), (lib, 20))]
+      path_ms[k][str(n)] = ms[0]
+      print(f"    {k:18s} kernel {ms[0]:.4f} ms  plain {ms[1]:.4f} ms  library "
+            f"{ms[2]:.4f} ms  bound {bnd[k][0]:.6f} ms ({bnd[k][1]})")
+    del runner, env, d, qM, H, L, J, w, grad
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctrl_err = f64_env_check(task, n_steps=3, nudges=6,
+                             on_step=ankle_ctrl_check if tag == "asimov_toe" else None)
+    if tag == "asimov_toe":
+      print(f"  ankle targets in ctrl on the 4 tendon actuators only, after each card step: "
+            f"largest error {ctrl_err:.3e} (tol 1e-12)")
+  print(f"phase 11: {time.perf_counter() - t_phase:.1f} s; launches over both tasks' "
+        f"{TRAIN_ITERS} iterations {launches}")
+  return launches, path_ms
+
+
 def training_path(card: str, attr: str, f64_seeds=F64_SEEDS) -> tuple[dict[str, int], float]:
   """Phase 8: PPO training iterations through `build_runner` at NUM_WORLDS
   envs, then the card's float64 iteration against the CPU's. Returns the
@@ -710,8 +990,10 @@ def training_path(card: str, attr: str, f64_seeds=F64_SEEDS) -> tuple[dict[str, 
         f"{NUM_WORLDS * TRAIN_STEPS // alg.num_mini_batches}, hidden "
         f"{runner.cfg.policy.actor_hidden_dims}, lr {alg.schedule}; build_runner "
         f"{time.perf_counter() - t0:.2f} s [{card}]")
-  train_launches, steady_iter_ms, _ = train_iterations(runner, card, "phase 8", (99, 111))
-  profile_iteration(runner, card, attr, "train", steady_iter_ms)
+  train_launches, steady_iter_ms, _, split = train_iterations(runner, card, "phase 8",
+                                                              (99, 111))
+  profile_iteration(runner, card, attr, "train", steady_iter_ms, split)
+  del split
 
   # Save, reload into a fresh runner; export the TorchScript policy.
   ckpt_dir = Path("build") / "chip_smoke"
@@ -884,7 +1166,7 @@ def tracking_path(card: str, attr: str, checks: KernelCheck, f64_seeds=F64_SEEDS
   if failed:
     raise AssertionError(f"per-env randomization: {failed}")
 
-  launches, steady_iter_ms, host = train_iterations(runner, card, "phase 9", (160, 286))
+  launches, steady_iter_ms, host, split = train_iterations(runner, card, "phase 9", (160, 286))
   ts = cmd.time_steps
   failed = cmd.state["bin_failed_count"]
   print(f"  motion frames now in [{ts.min().item()}, {ts.max().item()}]; adaptive bins' "
@@ -898,7 +1180,8 @@ def tracking_path(card: str, attr: str, checks: KernelCheck, f64_seeds=F64_SEEDS
     raise AssertionError("envs terminated, but no adaptive bin counts a failure")
   if not sum(m["Train/resets"] for m in host) > 0:
     raise AssertionError("no env terminated in the tracking iterations")
-  profile_iteration(runner, card, attr, "tracking", steady_iter_ms)
+  profile_iteration(runner, card, attr, "tracking", steady_iter_ms, split)
+  del split
 
   print("  kernels vs plain on the tracking run's matrices, f32:")
   d = env.data
@@ -1376,8 +1659,7 @@ def main() -> int:
           f"(x{count}) [{card}]")
 
   # -- 7. the env path: ManagerBasedRlEnv.step at 4096 envs ----------------------
-  from mjlab_tpu_torch.envs import ManagerBasedRlEnv
-  from mjlab_tpu_torch.tasks import load_env_cfg, make_env
+  from mjlab_tpu_torch.tasks import make_env
 
   del d, sim, step, run_args, w_run, grad
   torch.cuda.empty_cache()
@@ -1493,34 +1775,8 @@ def main() -> int:
   del env, robot, obs, rew, terminated, time_outs, extras
   torch.cuda.empty_cache()
 
-  # The card's float64 env (kernels) against the CPU's (plain versions). A
-  # 4-env CPU step is thousands of tiny ops: one thread runs it fastest.
-  torch.set_num_threads(1)
-  envs = {}
-  for dv in ("cuda", "cpu"):
-    cfg = load_env_cfg(TASK)
-    cfg.scene.num_envs = 4
-    cfg.sim.dtype = "float64"
-    certain_variant(cfg)
-    envs[dv] = ManagerBasedRlEnv(cfg, device=dv)
-  outs = {dv: [e.reset(seed=0)[0]] for dv, e in envs.items()}
-  rng = torch.Generator().manual_seed(2)
-  for _ in range(8):
-    a = torch.randn(4, 29, generator=rng, dtype=torch.float64)
-    for dv, e in envs.items():
-      o, r, *_ = e.step(a.to(dv))
-      outs[dv].append({**o, "reward": r, "qpos": e.data.qpos})
-  print("  card (kernels, f64) vs CPU (plain, f64), certain-draw variant, 4 envs x 8 "
-        "env steps:")
-  for key in ("policy", "critic", "reward", "qpos"):
-    got = torch.stack([o[key].cpu() for o in outs["cuda"][1:]])
-    want = torch.stack([o[key] for o in outs["cpu"][1:]])
-    err = (got - want).abs().max().item()
-    scale = max(1.0, want.abs().max().item())
-    print(f"    {key:8s} max_abs_err {err:.3e} (tol 1e-8 x {scale:.3e})")
-    if not err <= 1e-8 * scale:
-      raise AssertionError(f"card vs CPU env mismatch on {key}")
-  del envs, outs
+  # The card's float64 env (kernels) against the CPU's (plain versions).
+  f64_env_check(TASK)
 
   # -- 8. the training path: PPO iterations through OnPolicyRunner ---------------
   train_launches, steady_iter_ms = training_path(card, attr, f64_seeds)
@@ -1530,6 +1786,9 @@ def main() -> int:
 
   # -- 10. a run's lifecycle: train, resume, play, joint_deltas, NaN guard, ONNX --
   lifecycle_launches = lifecycle_path(card, checks, steady_iter_ms)
+
+  # -- 11. the Asimov family: Asimov and Asimov-Toe train on flat ground ---------
+  asimov_launches, asimov_ms = asimov_path(card, attr, checks)
 
   # -- result lines ---------------------------------------------------------------
   bnd = bounds(NUM_WORLDS, N, rows=NUM_WORLDS * NEFC)
@@ -1555,10 +1814,12 @@ def main() -> int:
       "launches_training_path": train_launches[name],
       "launches_tracking_path": track_launches[name],
       "launches_lifecycle_path": lifecycle_launches[name],
+      "launches_asimov_path": asimov_launches[name],
       "max_abs_err": checks.max_abs_err[name],
       "ms": times[name][0],
       "ms_l2_resident": times[name][3],
       "ms_main_path": path_ms[name],
+      "ms_asimov_run_matrices_by_nv": asimov_ms[name],
       "plain_ms": times[name][1],
       "bound_ms": bnd[name][0],
       "bound_by": bnd[name][1],

@@ -2,14 +2,25 @@
 
 The GPU host has no `mujoco`, so the port cannot compile MJCF there. A scene
 is compiled once with MuJoCo (through the JAX package's scene layer) and its
-arrays are committed as an npz: every ndarray field of the MjModel, its
-`n*` sizes, `names`, and the numeric `opt` fields. `load_model_npz` returns a
-namespace with MjModel's attribute names, which `physics.put_model` and
-`sim.Simulation` accept like a live MjModel.
+arrays are committed as an npz: the ndarray fields of the MjModel that the
+port reads, its `n*` sizes, `names`, and the numeric `opt` fields.
+`load_model_npz` returns a namespace with MjModel's attribute names, which
+`physics.put_model` and `sim.Simulation` accept like a live MjModel.
 
-`g1_velocity_flat.npz` is the G1 velocity-flat task's scene
-(Mjlab-Velocity-Flat-Unitree-G1) with the task's solver options applied;
-tests/test_torch_model_io.py checks it is fresh and says how to regenerate it.
+The mesh arrays (`mesh_*`: vertices, faces, normals, texture coordinates,
+polygons, the qhull graph) and the bounding-volume hierarchy (`bvh_*`) are
+left out: they are most of a mesh scene's bytes and the port reads none of
+them. In their place each mesh geom of a collision pair keeps the vertices
+of its convex hull (`geom_hull_vert`, addressed per geom by
+`geom_hull_vertadr` / `geom_hull_vertnum`, -1 / 0 for other geoms), from
+which `physics.put_model` builds the hull.
+
+The scenes, each a velocity-flat task's with the task's solver options
+applied (tests/test_torch_model_io.py and tests/test_torch_asimov_model.py
+check that each is fresh, and say how to regenerate it):
+`g1_velocity_flat.npz` (Mjlab-Velocity-Flat-Unitree-G1),
+`asimov_velocity_flat.npz` (Mjlab-Velocity-Flat-Asimov) and
+`asimov_toe_velocity_flat.npz` (Mjlab-Velocity-Flat-Asimov-Toe).
 """
 
 from __future__ import annotations
@@ -20,21 +31,52 @@ from types import SimpleNamespace
 import numpy as np
 
 G1_VELOCITY_FLAT = Path(__file__).parent / "g1_velocity_flat.npz"
+ASIMOV_VELOCITY_FLAT = Path(__file__).parent / "asimov_velocity_flat.npz"
+ASIMOV_TOE_VELOCITY_FLAT = Path(__file__).parent / "asimov_toe_velocity_flat.npz"
+
+# Array families the port never reads (see the module docstring).
+_DROPPED_PREFIXES = ("mesh_", "bvh_")
 
 
 def _numeric(v) -> bool:
   return isinstance(v, (int, float, np.ndarray)) and not isinstance(v, bool)
 
 
+def _hull_arrays(m) -> dict[str, np.ndarray]:
+  """The hull vertices of each mesh geom of a collision pair, packed."""
+  from mjlab_tpu_torch.physics import io
+
+  adr = np.full(m.ngeom, -1, dtype=np.int32)
+  num = np.zeros(m.ngeom, dtype=np.int32)
+  verts = [np.zeros((0, 3))]
+  total = 0
+  for g in io.mesh_pair_geoms(m):
+    v = io._hull_vertices(m, g)
+    adr[g], num[g] = total, len(v)
+    verts.append(v)
+    total += len(v)
+  return {
+    "geom_hull_vert": np.concatenate(verts),
+    "geom_hull_vertadr": adr,
+    "geom_hull_vertnum": num,
+  }
+
+
 def model_arrays(m) -> dict[str, np.ndarray]:
-  """The npz content of a compiled model (reads attributes only)."""
+  """The npz content of a compiled model (reads attributes only): a live
+  MjModel, or a namespace `load_model_npz` read, which gives the same
+  arrays back."""
   out: dict[str, np.ndarray] = {}
   for name in dir(m):
     if name.startswith("_") or name in ("names", "opt", "stat", "vis"):
       continue
     v = getattr(m, name)
+    if isinstance(v, np.ndarray) and name.startswith(_DROPPED_PREFIXES):
+      continue
     if isinstance(v, np.ndarray) or (isinstance(v, int) and name.startswith("n")):
       out[name] = np.asarray(v)
+  if "geom_hull_vert" not in out:
+    out.update(_hull_arrays(m))
   out["names"] = np.frombuffer(bytes(m.names), dtype=np.uint8)
   for name in dir(m.opt):
     if not name.startswith("_") and _numeric(getattr(m.opt, name)):

@@ -53,6 +53,10 @@ def _compose(base, sub):
   if sub is None or (isinstance(sub, slice) and sub == slice(None)):
     return base
   if isinstance(base, slice):
+    if isinstance(sub, slice):  # a run of a run stays a slice
+      r = range(base.start, base.stop)[sub]
+      if r.step == 1:
+        return slice(r.start, r.stop)
     base = torch.arange(base.start, base.stop,
                         device=sub.device if torch.is_tensor(sub) else None)
   return base[sub]

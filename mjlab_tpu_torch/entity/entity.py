@@ -5,8 +5,10 @@ The JAX package's Entity wraps an MjSpec and takes its index maps from the
 spec's element ids. The port composes no spec: it binds an `EntityCfg`
 (init state, articulation) to the compiled model's elements whose names
 carry the entity's prefix (`robot/...`), reading only `names`,
-`name_*adr`, `jnt_*`, `body_*`, `geom_bodyid`, `site_bodyid` and
-`actuator_trnid`, which a live MjModel and the committed npz both carry.
+`name_*adr`, `jnt_*`, `body_*`, `geom_bodyid`, `site_bodyid`,
+`actuator_trntype`/`actuator_trnid` and the tendons' wrap joints, which a
+live MjModel and the committed npz both carry. A tendon, and an actuator
+that drives one, belongs to the entity whose joints the tendon spans.
 Element order is the compiled model's, which is the spec's order.
 """
 
@@ -17,7 +19,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from mjlab_tpu_torch.core.strings import resolve_matching_names
-from mjlab_tpu_torch.physics.types import mjtJoint
+from mjlab_tpu_torch.physics.types import mjtJoint, mjtTrn
 from mjlab_tpu_torch.utils.spec_config import ActuatorCfg
 
 _QPOS_WIDTH = {0: 7, 1: 4, 2: 1, 3: 1}  # free, ball, slide, hinge
@@ -97,7 +99,21 @@ class Entity:
     geoms = [g for g in range(model.ngeom) if int(model.geom_bodyid[g]) in body_set]
     sites = [s for s in range(model.nsite) if int(model.site_bodyid[s]) in body_set]
     joint_set = set(joints)
-    actuators = [u for u in range(model.nu) if int(model.actuator_trnid[u, 0]) in joint_set]
+
+    def tendon_joints(t: int) -> set[int]:
+      adr, num = int(model.tendon_adr[t]), int(model.tendon_num[t])
+      return {int(model.wrap_objid[w]) for w in range(adr, adr + num)}
+
+    tendons = [t for t in range(model.ntendon) if tendon_joints(t) & joint_set]
+    tendon_set = set(tendons)
+
+    def owns(u: int) -> bool:
+      target = int(model.actuator_trnid[u, 0])
+      if int(model.actuator_trntype[u]) == mjtTrn.mjTRN_TENDON:
+        return target in tendon_set
+      return target in joint_set
+
+    actuators = [u for u in range(model.nu) if owns(u)]
 
     self._free_joint = None
     self._non_free_joints = joints
@@ -112,6 +128,7 @@ class Entity:
     self.body_names = tuple(body_names[b].split("/")[-1] for b in bodies)
     self.geom_names = short(model.name_geomadr, geoms)
     self.site_names = short(model.name_siteadr, sites)
+    self.tendon_names = short(model.name_tendonadr, tendons)
     self.actuator_names = short(model.name_actuatoradr, actuators)
     self.is_mocap = bool(
       self.is_fixed_base and int(model.body_mocapid[bodies[0]]) >= 0
@@ -149,6 +166,10 @@ class Entity:
 
   def find_joints(self, name_keys, joint_subset=None, preserve_order=False):
     subset = self.joint_names if joint_subset is None else joint_subset
+    return resolve_matching_names(name_keys, subset, preserve_order)
+
+  def find_tendons(self, name_keys, tendon_subset=None, preserve_order=False):
+    subset = self.tendon_names if tendon_subset is None else tendon_subset
     return resolve_matching_names(name_keys, subset, preserve_order)
 
   def find_actuators(self, name_keys, actuator_subset=None, preserve_order=False):
@@ -199,6 +220,9 @@ class Entity:
   def write_joint_position_target_to_sim(self, position_target, joint_ids=None,
                                          env_mask=None):
     self._data.write_ctrl(position_target, joint_ids, env_mask)
+
+  def write_ctrl_to_sim(self, ctrl, ctrl_ids=None, env_mask=None):
+    self._data.write_ctrl(ctrl, ctrl_ids, env_mask)
 
   def clear_state(self, env_mask=None) -> None:
     self._data.clear_state(env_mask)

@@ -1,3 +1,7 @@
+from mjlab_tpu_torch.envs.mdp.actions.ankle_ab_action import (
+  AnklePrToTendonAction,
+  AnklePrToTendonActionCfg,
+)
 from mjlab_tpu_torch.envs.mdp.actions.joint_actions import (
   JointAction,
   JointActionCfg,
@@ -6,6 +10,8 @@ from mjlab_tpu_torch.envs.mdp.actions.joint_actions import (
 )
 
 __all__ = [
+  "AnklePrToTendonAction",
+  "AnklePrToTendonActionCfg",
   "JointAction",
   "JointActionCfg",
   "JointPositionAction",

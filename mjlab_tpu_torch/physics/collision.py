@@ -4,8 +4,10 @@ mjlab_tpu/physics/collision.py).
 The pair list comes from io._candidate_pairs, sorted by geometry-type
 combination. Each type group runs one batched narrowphase over (env, pair);
 a slot is active when dist < includemargin. The port implements the
-analytic pairs of the G1 flat scene: plane–sphere, plane–capsule (2
-contacts), sphere–sphere, sphere–capsule and capsule–capsule.
+analytic pairs: plane–sphere, plane–capsule (2 contacts), sphere–sphere,
+sphere–capsule and capsule–capsule; and plane–mesh (4 contacts), where the
+mesh is its convex hull (convex.py) and the 4 deepest hull vertices are the
+contacts.
 
 The narrowphase functions take (B, n, ...) tensors and mirror the JAX
 package's single-pair functions operation by operation, including their
@@ -14,6 +16,7 @@ clamping order and branch conditions, so that contact points agree.
 
 from __future__ import annotations
 
+import functools
 import itertools
 from types import SimpleNamespace
 
@@ -141,13 +144,39 @@ def _capsule_capsule(p1, m1, s1, p2, m2, s2):
   return dist[..., None], pos[..., None, :], _normal_frame(n)[..., None, :, :]
 
 
+def _plane_convex(p1, m1, s1, p2, m2, s2, verts):
+  """Plane vs convex hull: the 4 deepest hull vertices (`verts` (n, V, 3),
+  geom frame) are the contacts. Ties go to the lower vertex index, as
+  jax.lax.top_k breaks them: a level sole puts many vertices at one depth,
+  and torch.topk promises no order among equals."""
+  n = m1[..., :, 2]
+  world = p2[..., None, :] + verts @ m2.transpose(-1, -2)  # (B, n, V, 3)
+  depth = (world @ n[..., None])[..., 0] - _dot(n, p1)[..., None]
+  idx = torch.sort(depth, dim=-1, stable=True).indices[..., :4]
+  dist = torch.gather(depth, -1, idx)
+  picked = torch.gather(world, -2, idx[..., None].expand(idx.shape + (3,)))
+  pos = picked - n[..., None, :] * (0.5 * dist)[..., None]
+  frame = _normal_frame(n)[..., None, :, :].expand(dist.shape + (3, 3))
+  return dist, pos, frame
+
+
 _DISPATCH = {
   (_G.mjGEOM_PLANE, _G.mjGEOM_SPHERE): _plane_sphere,
   (_G.mjGEOM_PLANE, _G.mjGEOM_CAPSULE): _plane_capsule,
   (_G.mjGEOM_SPHERE, _G.mjGEOM_SPHERE): _sphere_sphere_pair,
   (_G.mjGEOM_SPHERE, _G.mjGEOM_CAPSULE): _sphere_capsule,
   (_G.mjGEOM_CAPSULE, _G.mjGEOM_CAPSULE): _capsule_capsule,
+  (_G.mjGEOM_PLANE, _G.mjGEOM_MESH): _plane_convex,
 }
+
+
+def _hull_verts(tp: Topology, g2: np.ndarray, dtype, device) -> torch.Tensor:
+  """The group's hull vertices (n, V, 3), each padded to the group's most
+  by repeating its first vertex (the JAX package's padding)."""
+  vs = [tp.geom_hulls[int(g)].verts for g in g2]
+  vmax = max(v.shape[0] for v in vs)
+  padded = [np.concatenate([v, np.broadcast_to(v[:1], (vmax - v.shape[0], 3))]) for v in vs]
+  return torch.as_tensor(np.stack(padded), dtype=dtype, device=device)
 
 
 def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
@@ -160,9 +189,12 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
     g1 = np.asarray([p.geom1 for p in group])
     g2 = np.asarray([p.geom2 for p in group])
     prio1, prio2 = tp.geom_priority[g1], tp.geom_priority[g2]
+    fn = _DISPATCH[key]
+    if key == (_G.mjGEOM_PLANE, _G.mjGEOM_MESH):
+      fn = functools.partial(fn, verts=_hull_verts(tp, g2, dtype, device))
     groups.append(
       SimpleNamespace(
-        fn=_DISPATCH[key], k=group[0].ncon, g1=index_tensor(g1, device),
+        fn=fn, k=group[0].ncon, g1=index_tensor(g1, device),
         g2=index_tensor(g2, device),
         hi=index_tensor(np.where(prio1 >= prio2, g1, g2), device),
         differ=torch.as_tensor(prio1 != prio2, device=device)[:, None],

@@ -18,11 +18,13 @@ from mjlab_tpu_torch.physics.types import Data, Integrator, Model, Topology
 def fwd_position(tp: Topology, m: Model, d: Data) -> Data:
   d = kinematics.kinematics(tp, m, d)
   d = smooth.com_pos(tp, m, d)
+  d = smooth.tendon(tp, m, d)
   d = smooth.crb(tp, m, d)
   d = smooth.factor_m(tp, m, d)
   d = coll.collision(tp, m, d)
   d = smooth.com_vel(tp, m, d)
-  return constraint.make_constraint(tp, m, d)
+  d = constraint.make_constraint(tp, m, d)
+  return sensors.sensor_pos(tp, m, d)
 
 
 def fwd_velocity(tp: Topology, m: Model, d: Data) -> Data:
@@ -44,14 +46,20 @@ def forward(tp: Topology, m: Model, d: Data) -> Data:
 
 def _implicit_matrix(tp: Topology, m: Model, d: Data) -> torch.Tensor:
   """M − h·∂f/∂v: dof damping plus, under implicitfast, the actuators'
-  affine velocity gain (−b2 = kd for PD actuators) on the dof diagonal."""
+  affine velocity gain (−b2 = kd for PD actuators) on the dof diagonal, and
+  the tendon dampers' JᵀcJ masked to M's tree sparsity (mjd_passive_vel)."""
   h = m.opt.timestep
   diag = h * m.dof_damping
-  if m.opt.integrator == Integrator.IMPLICITFAST and tp.nu > 0:
+  implicitfast = m.opt.integrator == Integrator.IMPLICITFAST
+  if implicitfast and tp.nu > 0:
     _, moment = smooth.transmission(tp, m, d)
     dfdv = -m.actuator_biasprm[:, 2]
     diag = diag + h * torch.sum(dfdv[:, None] * moment * moment, dim=0)
-  return d.qM + torch.diag(diag)
+  mat = d.qM + torch.diag(diag)
+  if implicitfast and tp.ntendon > 0:
+    JtcJ = (d.ten_J.transpose(-1, -2) * m.tendon_damping) @ d.ten_J
+    mat = mat + h * tp.dev.smooth.tree_sparsity * JtcJ
+  return mat
 
 
 def integrate(tp: Topology, m: Model, d: Data) -> Data:

@@ -5,9 +5,17 @@
 MjModel (the tests), or the namespace `assets.load_model_npz` returns (where
 `mujoco` is not installed). It never imports `mujoco`.
 
-The port covers the features of the G1 velocity-flat scene. Everything else
-the JAX package supports is refused here with `NotImplementedError` naming
-the feature, never simulated wrong.
+The port covers the features of the G1 and Asimov velocity-flat scenes:
+analytic plane/sphere/capsule pairs and plane–mesh (convex hull) pairs,
+fixed tendons and tendon transmission, and the IMU, frame and subtree
+sensors. Everything else the JAX package supports is refused here with
+`NotImplementedError` naming the feature, never simulated wrong.
+
+A mesh geom's hull is built from its hull vertices (`_hull_vertices`): a
+live MjModel gives them through the qhull graph MuJoCo stores; the npz
+namespace carries them as `geom_hull_vert` / `geom_hull_vertadr` /
+`geom_hull_vertnum` (what `assets.model_arrays` writes instead of the mesh
+arrays).
 """
 
 from __future__ import annotations
@@ -39,7 +47,9 @@ from mjlab_tpu_torch.physics.types import (
   mjtSensor,
   mjtSolver,
   mjtTrn,
+  mjtWrap,
 )
+from mjlab_tpu_torch.physics.convex import build_hull
 
 _G = mjtGeom
 
@@ -51,12 +61,20 @@ _PAIR_NCON: dict[tuple[int, int], int] = {
   (_G.mjGEOM_SPHERE, _G.mjGEOM_SPHERE): 1,
   (_G.mjGEOM_SPHERE, _G.mjGEOM_CAPSULE): 1,
   (_G.mjGEOM_CAPSULE, _G.mjGEOM_CAPSULE): 1,
+  (_G.mjGEOM_PLANE, _G.mjGEOM_MESH): 4,
 }
 
 _SUPPORTED_SENSORS = (
   mjtSensor.mjSENS_ACCELEROMETER,
   mjtSensor.mjSENS_VELOCIMETER,
   mjtSensor.mjSENS_GYRO,
+  mjtSensor.mjSENS_FRAMEPOS,
+  mjtSensor.mjSENS_FRAMEQUAT,
+  mjtSensor.mjSENS_FRAMEXAXIS,
+  mjtSensor.mjSENS_FRAMEYAXIS,
+  mjtSensor.mjSENS_FRAMEZAXIS,
+  mjtSensor.mjSENS_FRAMELINVEL,
+  mjtSensor.mjSENS_FRAMEANGVEL,
   mjtSensor.mjSENS_SUBTREEANGMOM,
 )
 
@@ -87,8 +105,11 @@ def _reject_unsupported(m) -> None:
     no("noslip post-solver")
   if float(opt.viscosity) or float(opt.density) or np.any(opt.wind):
     no("fluid forces (density/viscosity/wind)")
-  if m.ntendon:
-    no("tendons")
+  for t in range(m.ntendon):
+    if _is_spatial_tendon(m, t):
+      no(f"spatial tendon {_name(m, m.name_tendonadr, t)}")
+  if np.any(m.tendon_limited == 1):
+    no("tendon range limits (limited tendons)")
   if m.neq:
     no("equality constraints")
   if m.nmocap:
@@ -105,8 +126,8 @@ def _reject_unsupported(m) -> None:
     ~np.isin(m.actuator_biastype, [mjtBias.mjBIAS_NONE, mjtBias.mjBIAS_AFFINE])
   ):
     no("actuator bias types other than none/affine (muscle)")
-  if np.any(m.actuator_trntype != mjtTrn.mjTRN_JOINT):
-    no("actuator transmissions other than joint (tendon)")
+  if np.any(~np.isin(m.actuator_trntype, [mjtTrn.mjTRN_JOINT, mjtTrn.mjTRN_TENDON])):
+    no("actuator transmissions other than joint and tendon")
   if np.any(m.dof_frictionloss > 0):
     no("dof friction loss rows")
   if np.any(m.jnt_type == mjtJoint.mjJNT_BALL):
@@ -118,9 +139,47 @@ def _reject_unsupported(m) -> None:
   for s in m.sensor_type:
     if int(s) not in _SUPPORTED_SENSORS:
       no(f"sensor type {int(s)}")
-  # Colliding mesh, height-field, box (incl. terrain pools), cylinder and
-  # ellipsoid geoms are refused by _candidate_pairs, which has no
-  # narrowphase for their pairs.
+  if np.any(m.sensor_reftype != 0):
+    no("sensors with a reference frame (reftype)")
+  # Mesh pairs other than plane–mesh, and height-field, box (incl. terrain
+  # pools), cylinder and ellipsoid geoms are refused by _candidate_pairs,
+  # which has no narrowphase for their pairs.
+
+
+def _is_spatial_tendon(m, t: int) -> bool:
+  adr, num = int(m.tendon_adr[t]), int(m.tendon_num[t])
+  return any(int(m.wrap_type[w]) != mjtWrap.mjWRAP_JOINT for w in range(adr, adr + num))
+
+
+def _hull_vertices(m, geom_id: int) -> np.ndarray:
+  """Convex-hull vertices of a mesh geom, in the geom frame. A live MjModel
+  gives them through its qhull graph (mesh_graph: [numvert, numface,
+  vert_edgeadr, vert_globalid, ...]), or as all mesh vertices where no
+  graph is stored; the npz namespace carries them per geom."""
+  if hasattr(m, "geom_hull_vertadr"):
+    adr, num = int(m.geom_hull_vertadr[geom_id]), int(m.geom_hull_vertnum[geom_id])
+    if adr < 0:
+      raise ValueError(f"geom {geom_id} has no hull vertices in the npz")
+    return np.asarray(m.geom_hull_vert[adr : adr + num], dtype=np.float64)
+  mesh_id = int(m.geom_dataid[geom_id])
+  vadr, vnum = int(m.mesh_vertadr[mesh_id]), int(m.mesh_vertnum[mesh_id])
+  verts = m.mesh_vert[vadr : vadr + vnum]
+  gadr = int(m.mesh_graphadr[mesh_id])
+  if gadr >= 0:
+    graph = m.mesh_graph[gadr:]
+    numvert = int(graph[0])
+    verts = verts[graph[2 + numvert : 2 + 2 * numvert]]
+  return np.asarray(verts, dtype=np.float64)
+
+
+def mesh_pair_geoms(m, pairs=None) -> list[int]:
+  """The mesh geoms of the collision pairs (`pairs`, default the model's
+  candidate pairs), ascending."""
+  pairs = _candidate_pairs(m) if pairs is None else pairs
+  return sorted(
+    {p.geom1 for p in pairs if p.type1 == _G.mjGEOM_MESH}
+    | {p.geom2 for p in pairs if p.type2 == _G.mjGEOM_MESH}
+  )
 
 
 def _pair_key(m, ga: int, gb: int):
@@ -187,16 +246,44 @@ def _candidate_pairs(m) -> list[GeomPair]:
 
 
 def _transmission_matrices(m) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-  """Static (nu, nq) / (nu, nv) one-hot joint transmission matrices."""
+  """Static (nu, nq) / (nu, nv) transmission matrices: one-hot rows for a
+  joint, the tendon's joint coefficients for a fixed tendon (its length is
+  linear in qpos, so its moment is constant). No actuator rides a spatial
+  tendon (refused), so the dynamic map is all -1."""
   qmat = np.zeros((m.nu, m.nq))
   vmat = np.zeros((m.nu, m.nv))
   for u in range(m.nu):
-    j = int(m.actuator_trnid[u, 0])
-    if int(m.jnt_type[j]) not in (mjtJoint.mjJNT_HINGE, mjtJoint.mjJNT_SLIDE):
-      raise NotImplementedError("free/ball joint actuators")
-    qmat[u, m.jnt_qposadr[j]] = 1.0
-    vmat[u, m.jnt_dofadr[j]] = 1.0
+    if int(m.actuator_trntype[u]) == mjtTrn.mjTRN_JOINT:
+      j = int(m.actuator_trnid[u, 0])
+      if int(m.jnt_type[j]) not in (mjtJoint.mjJNT_HINGE, mjtJoint.mjJNT_SLIDE):
+        raise NotImplementedError("free/ball joint actuators")
+      qmat[u, m.jnt_qposadr[j]] = 1.0
+      vmat[u, m.jnt_dofadr[j]] = 1.0
+    else:
+      t = int(m.actuator_trnid[u, 0])
+      qmat[u], vmat[u] = _fixed_tendon_rows(m, t)
   return qmat, vmat, np.full(m.nu, -1, dtype=np.int32)
+
+
+def _fixed_tendon_rows(m, t: int) -> tuple[np.ndarray, np.ndarray]:
+  """A fixed tendon's (nq,) and (nv,) joint-coefficient rows."""
+  qrow, vrow = np.zeros(m.nq), np.zeros(m.nv)
+  adr, num = int(m.tendon_adr[t]), int(m.tendon_num[t])
+  for w in range(adr, adr + num):
+    j = int(m.wrap_objid[w])
+    coef = float(m.wrap_prm[w])
+    qrow[m.jnt_qposadr[j]] += coef
+    vrow[m.jnt_dofadr[j]] += coef
+  return qrow, vrow
+
+
+def _tendon_matrices(m) -> tuple[np.ndarray, np.ndarray]:
+  """Per-tendon (ntendon, nq) / (ntendon, nv) linear maps (every tendon is
+  fixed: spatial ones are refused)."""
+  rows = [_fixed_tendon_rows(m, t) for t in range(m.ntendon)]
+  qmat = np.asarray([q for q, _ in rows]).reshape(m.ntendon, m.nq)
+  vmat = np.asarray([v for _, v in rows]).reshape(m.ntendon, m.nv)
+  return qmat, vmat
 
 
 def _dof_ancestor_mask(m) -> np.ndarray:
@@ -273,7 +360,16 @@ def put_model(
     p.ncon * contact_rows(p.condim, cone) for p in pairs
   )
   trn_qmat, trn_vmat, actuator_dyn_tendon = _transmission_matrices(m)
+  tendon_qmat, tendon_vmat = _tendon_matrices(m)
   subtree, body_dof = _body_masks(m)
+  # Hulls by mesh id: geoms that share a mesh share its hull.
+  hulls_by_mesh: dict[int, object] = {}
+  geom_hulls = {}
+  for g in mesh_pair_geoms(m, pairs):
+    mesh = int(m.geom_dataid[g])
+    if mesh not in hulls_by_mesh:
+      hulls_by_mesh[mesh] = build_hull(_hull_vertices(m, g))
+    geom_hulls[g] = hulls_by_mesh[mesh]
 
   tp = Topology(
     nq=m.nq, nv=m.nv, nu=m.nu, nbody=m.nbody, njnt=m.njnt, ngeom=m.ngeom,
@@ -303,7 +399,7 @@ def put_model(
     geom_condim=m.geom_condim.copy(),
     geom_priority=m.geom_priority.copy(),
     geom_dataid=m.geom_dataid.copy(),
-    geom_hulls={},
+    geom_hulls=geom_hulls,
     body_gravcomp_host=m.body_gravcomp.copy(),
     has_fluid=False,
     site_bodyid=m.site_bodyid.copy(),
@@ -313,16 +409,16 @@ def put_model(
     actuator_trnid=m.actuator_trnid.copy(),
     trn_qmat=trn_qmat,
     trn_vmat=trn_vmat,
-    ntendon=0,
-    tendon_qmat=np.zeros((0, m.nq)),
-    tendon_vmat=np.zeros((0, m.nv)),
+    ntendon=m.ntendon,
+    tendon_qmat=tendon_qmat,
+    tendon_vmat=tendon_vmat,
     tendon_length0=m.tendon_length0.copy(),
     tendon_invweight0=m.tendon_invweight0.copy(),
-    tendon_kind=np.zeros(0, dtype=np.int32),
-    tendon_seg_sites=np.full((0, 1, 2), -1, dtype=np.int32),
-    tendon_seg_scale=np.zeros((0, 1)),
-    tendon_seg_geom=np.full((0, 1), -1, dtype=np.int32),
-    tendon_seg_side=np.full((0, 1), -1, dtype=np.int32),
+    tendon_kind=np.zeros(m.ntendon, dtype=np.int32),
+    tendon_seg_sites=np.full((m.ntendon, 1, 2), -1, dtype=np.int32),
+    tendon_seg_scale=np.zeros((m.ntendon, 1)),
+    tendon_seg_geom=np.full((m.ntendon, 1), -1, dtype=np.int32),
+    tendon_seg_side=np.full((m.ntendon, 1), -1, dtype=np.int32),
     limited_tendon_ids=empty,
     actuator_dyn_tendon=actuator_dyn_tendon,
     actuator_gaintype=m.actuator_gaintype.copy(),

@@ -1,7 +1,9 @@
-"""Builtin sensors of the G1 velocity task (port of the matching part of
-mjlab_tpu/physics/sensors.py): gyro, velocimeter, accelerometer and
-subtree angular momentum. io.put_model refuses every other sensor type.
-The tree tables come from smooth's (`tp.dev.smooth`).
+"""Builtin sensors of the velocity tasks (port of the matching part of
+mjlab_tpu/physics/sensors.py): gyro, velocimeter, accelerometer, the frame
+sensors (position, orientation, axes, linear and angular velocity, in the
+world frame) and subtree angular momentum. io.put_model refuses every other
+sensor type and any reference frame. The tree tables come from smooth's
+(`tp.dev.smooth`).
 """
 
 from __future__ import annotations
@@ -14,7 +16,15 @@ from mjlab_tpu_torch.physics.types import Data, Model, Topology, mjtObj, mjtSens
 _S = mjtSensor
 _OBJ = mjtObj
 
-_VEL_STAGE = {_S.mjSENS_GYRO, _S.mjSENS_VELOCIMETER, _S.mjSENS_SUBTREEANGMOM}
+_POS_STAGE = {
+  _S.mjSENS_FRAMEPOS, _S.mjSENS_FRAMEQUAT, _S.mjSENS_FRAMEXAXIS,
+  _S.mjSENS_FRAMEYAXIS, _S.mjSENS_FRAMEZAXIS,
+}
+_VEL_STAGE = {
+  _S.mjSENS_GYRO, _S.mjSENS_VELOCIMETER, _S.mjSENS_FRAMELINVEL,
+  _S.mjSENS_FRAMEANGVEL, _S.mjSENS_SUBTREEANGMOM,
+}
+_AXIS_COL = {_S.mjSENS_FRAMEXAXIS: 0, _S.mjSENS_FRAMEYAXIS: 1, _S.mjSENS_FRAMEZAXIS: 2}
 _ACC_STAGE = {_S.mjSENS_ACCELEROMETER}
 
 
@@ -73,6 +83,10 @@ def _rne_postconstraint_cacc(tp: Topology, m: Model, d: Data) -> torch.Tensor:
   return cacc
 
 
+def sensor_pos(tp: Topology, m: Model, d: Data) -> Data:
+  return _eval_stage(tp, m, d, _POS_STAGE)
+
+
 def sensor_vel(tp: Topology, m: Model, d: Data) -> Data:
   if any(int(t) == _S.mjSENS_SUBTREEANGMOM for t in tp.sensor_type):
     d = _subtree_dynamics(tp, m, d)
@@ -111,6 +125,20 @@ def _eval_stage(tp: Topology, m: Model, d: Data, stage: set) -> Data:
         + mt.cross(w, _point_vel(tp, d, body, pos))
       )
       val = _mT_v(mat, a_lin)
+    elif stype == _S.mjSENS_FRAMEPOS:
+      val, _, _ = _obj_frame(tp, d, objtype, objid)
+    elif stype == _S.mjSENS_FRAMEQUAT:
+      _, mat, _ = _obj_frame(tp, d, objtype, objid)
+      val = mt.mat_to_quat(mat)
+    elif stype in _AXIS_COL:
+      _, mat, _ = _obj_frame(tp, d, objtype, objid)
+      val = mat[..., _AXIS_COL[stype]]
+    elif stype == _S.mjSENS_FRAMELINVEL:
+      pos, _, body = _obj_frame(tp, d, objtype, objid)
+      val = _point_vel(tp, d, body, pos)
+    elif stype == _S.mjSENS_FRAMEANGVEL:
+      _, _, body = _obj_frame(tp, d, objtype, objid)
+      val = d.cvel[:, body, :3]
     elif stype == _S.mjSENS_SUBTREEANGMOM:
       val = d.subtree_angmom[:, objid]
     else:

@@ -127,6 +127,7 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
     subtree=f(tp.body_subtree_mask),
     body_dof=f(tp.body_dof_mask),
     ancestor=f(tp.dof_ancestor_mask),
+    tree_sparsity=f(tp.dof_ancestor_mask | tp.dof_ancestor_mask.T),
     direct=f(t["direct_mask"]),
     prec=f(t["prec_mask"]),
     is_free_trans=b(t["is_free_trans"])[:, None],
@@ -145,6 +146,8 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
     spring_v=ix(tp.jnt_dofadr[spring]),
     trn_qmat=f(tp.trn_qmat),
     trn_vmat=f(tp.trn_vmat),
+    tendon_qmat=f(tp.tendon_qmat),
+    tendon_vmat=f(tp.tendon_vmat),
     ctrllimited=b(tp.actuator_ctrllimited),
     forcelimited=b(tp.actuator_forcelimited),
   )
@@ -272,9 +275,14 @@ def xfrc_projection(tp: Topology, m: Model, d: Data) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _Jt_mul(J: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+  """Jᵀ x, batched: (B, n, nv), (B, n) → (B, nv)."""
+  return (J.transpose(-1, -2) @ x[..., None])[..., 0]
+
+
 def passive(tp: Topology, m: Model, d: Data) -> Data:
-  """Joint springs and dof dampers (no tendons, gravcomp or fluid: refused
-  at put_model)."""
+  """Joint springs, dof dampers, and tendon springs (with their deadband)
+  and dampers through ten_J (no gravcomp or fluid: refused at put_model)."""
   t = tp.dev.smooth
   qfrc_spring = torch.zeros_like(d.qvel)
   frc = -m.jnt_stiffness[t.spring_jnt] * (
@@ -282,6 +290,12 @@ def passive(tp: Topology, m: Model, d: Data) -> Data:
   )
   qfrc_spring[:, t.spring_v] = frc
   qfrc_damper = -m.dof_damping * d.qvel
+  if tp.ntendon:
+    L = d.ten_length
+    lo, up = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]
+    disp = torch.where(L > up, up - L, torch.where(L < lo, lo - L, torch.zeros_like(L)))
+    qfrc_spring = qfrc_spring + _Jt_mul(d.ten_J, m.tendon_stiffness * disp)
+    qfrc_damper = qfrc_damper - _Jt_mul(d.ten_J, m.tendon_damping * d.ten_velocity)
   return d.replace(
     qfrc_spring=qfrc_spring,
     qfrc_damper=qfrc_damper,
@@ -289,8 +303,25 @@ def passive(tp: Topology, m: Model, d: Data) -> Data:
   )
 
 
+def tendon(tp: Topology, m: Model, d: Data) -> Data:
+  """Tendon lengths, Jacobians and velocities (mj_tendon) of fixed tendons:
+  the static joint-coefficient maps (spatial tendons are refused)."""
+  if tp.ntendon == 0:
+    return d
+  t = tp.dev.smooth
+  B = d.qpos.shape[0]
+  return d.replace(
+    ten_length=d.qpos @ t.tendon_qmat.T,
+    ten_J=t.tendon_vmat.expand(B, tp.ntendon, tp.nv),
+    ten_velocity=d.qvel @ t.tendon_vmat.T,
+  )
+
+
 def transmission(tp: Topology, m: Model, d: Data) -> tuple[torch.Tensor, torch.Tensor]:
-  """actuator_length (B, nu) and the static (nu, nv) moment matrix."""
+  """actuator_length (B, nu) and the static (nu, nv) moment matrix: joint
+  and fixed-tendon transmissions share its form (io._transmission_matrices),
+  so a tendon actuator's length is gear · ten_length and its moment gear ·
+  ten_J."""
   t = tp.dev.smooth
   gear0 = m.actuator_gear[:, 0]
   length = gear0 * (d.qpos @ t.trn_qmat.T)

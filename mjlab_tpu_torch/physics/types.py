@@ -49,6 +49,13 @@ class mjtSensor:
   mjSENS_ACCELEROMETER = 1
   mjSENS_VELOCIMETER = 2
   mjSENS_GYRO = 3
+  mjSENS_FRAMEPOS = 26
+  mjSENS_FRAMEQUAT = 27
+  mjSENS_FRAMEXAXIS = 28
+  mjSENS_FRAMEYAXIS = 29
+  mjSENS_FRAMEZAXIS = 30
+  mjSENS_FRAMELINVEL = 31
+  mjSENS_FRAMEANGVEL = 32
   mjSENS_SUBTREEANGMOM = 37
 
 
@@ -74,6 +81,11 @@ class mjtDyn:
 
 class mjtTrn:
   mjTRN_JOINT = 0
+  mjTRN_TENDON = 3
+
+
+class mjtWrap:
+  mjWRAP_JOINT = 1
 
 
 class mjtIntegrator:

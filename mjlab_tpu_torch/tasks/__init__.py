@@ -21,6 +21,15 @@ _REGISTRY = {
     "env": "mjlab_tpu_torch.tasks.velocity.config.g1.env_cfgs:unitree_g1_flat_env_cfg",
     "rl": "mjlab_tpu_torch.tasks.velocity.config.g1.rl_cfg:UnitreeG1PPORunnerCfg",
   },
+  "Mjlab-Velocity-Flat-Asimov": {
+    "env": "mjlab_tpu_torch.tasks.velocity.config.asimov.env_cfgs:asimov_flat_env_cfg",
+    "rl": "mjlab_tpu_torch.tasks.velocity.config.asimov.rl_cfg:AsimovPPORunnerCfg",
+  },
+  "Mjlab-Velocity-Flat-Asimov-Toe": {
+    "env": ("mjlab_tpu_torch.tasks.velocity.config.asimov_toe.env_cfgs:"
+            "asimov_toe_flat_env_cfg"),
+    "rl": "mjlab_tpu_torch.tasks.velocity.config.asimov_toe.rl_cfg:AsimovPPORunnerCfg",
+  },
   "Mjlab-Tracking-Flat-Unitree-G1": {
     "env": "mjlab_tpu_torch.tasks.tracking.config.g1.env_cfgs:g1_flat_tracking_env_cfg",
     "rl": "mjlab_tpu_torch.tasks.tracking.config.g1.rl_cfg:G1FlatPPORunnerCfg",

@@ -1,5 +1,6 @@
-"""The port stands alone: importing it, building and stepping its env from
-the committed scene, one tiny PPO training iteration, converting a motion
+"""The port stands alone: importing it, building and stepping its envs
+(G1, Asimov and Asimov-Toe) from the committed scenes, one tiny PPO
+training iteration, converting a motion
 CSV and training the tracking task on it, and a run's lifecycle (training
 with periodic saves, resuming, play, list_envs, joint_deltas, the NaN
 guard, the artifact registry and the exporters) pull in none of jax,
@@ -38,6 +39,11 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
     "import mjlab_tpu_torch.rl.vecenv_wrapper, mjlab_tpu_torch.scripts.train\n"
     "import mjlab_tpu_torch.tasks.tracking.mdp, mjlab_tpu_torch.tasks.tracking.motions\n"
     "import mjlab_tpu_torch.tasks.tracking.config.g1.env_cfgs\n"
+    "import mjlab_tpu_torch.physics.convex, mjlab_tpu_torch.envs.mdp.actions.ankle_ab_action\n"
+    "import mjlab_tpu_torch.asset_zoo.robots.asimov.asimov_constants\n"
+    "import mjlab_tpu_torch.asset_zoo.robots.asimov.asimov_toe_constants\n"
+    "import mjlab_tpu_torch.tasks.velocity.config.asimov.env_cfgs\n"
+    "import mjlab_tpu_torch.tasks.velocity.config.asimov_toe.env_cfgs\n"
     "import mjlab_tpu_torch.scripts.csv_to_npz as c2n\n"
     "m = mjlab_tpu_torch.assets.load_model_npz()\n"
     "import torch\n"
@@ -45,6 +51,10 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
     "                                     num_envs=2, device='cpu')\n"
     "env.reset(seed=0)\n"
     "env.step(torch.zeros(2, env.total_action_dim))\n"
+    "for t in ('Mjlab-Velocity-Flat-Asimov', 'Mjlab-Velocity-Flat-Asimov-Toe'):\n"
+    "  e = mjlab_tpu_torch.tasks.make_env(t, num_envs=2, device='cpu')\n"
+    "  e.reset(seed=0)\n"
+    "  e.step(torch.zeros(2, e.total_action_dim))\n"
     "runner = mjlab_tpu_torch.scripts.train.build_runner(\n"
     "  'Mjlab-Velocity-Flat-Unitree-G1', {'env.scene.num_envs': '2',\n"
     "  'agent.num_steps_per_env': '2', 'agent.algorithm.num_mini_batches': '2',\n"
@@ -127,7 +137,7 @@ def test_no_module_of_the_port_names_jax_mjlab_tpu_or_mujoco():
 @pytest.mark.parametrize(
   "enum",
   ["mjtJoint", "mjtGeom", "mjtSensor", "mjtObj", "mjtBias", "mjtGain",
-   "mjtDyn", "mjtTrn", "mjtIntegrator", "mjtSolver", "mjtCone",
+   "mjtDyn", "mjtTrn", "mjtWrap", "mjtIntegrator", "mjtSolver", "mjtCone",
    "mjtDisableBit"],
 )
 def test_enum_constants_match_mujoco(enum):

@@ -1,5 +1,7 @@
 """Model upload parity: the port's put_model against the JAX package's, on a
-toy scene and on G1 velocity-flat, and the committed G1 npz's freshness."""
+toy scene, on G1 velocity-flat and on the Asimov and Asimov-Toe
+velocity-flat scenes (hulls and tendon maps included), and the committed
+G1 npz's freshness (the Asimov npz files': tests/test_torch_asimov_model.py)."""
 
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from mjlab_tpu_torch.physics import io as tio
 from mjlab_tpu_torch.physics.types import Model, Option
 from tests.torch_parity import g1_mj_model, jax_model_arrays, scene
 
-SCENE_NAMES = ("toy", "g1")
+SCENE_NAMES = ("toy", "g1", "asimov", "asimov_toe")
 
 
 def _equal(a, b, what):
@@ -36,6 +38,11 @@ def test_topology_equal(name):
       assert [dataclasses.astuple(p) for p in got] == [
         dataclasses.astuple(p) for p in want
       ]
+    elif f.name == "geom_hulls":
+      assert sorted(got) == sorted(want)
+      for g in want:
+        for h in dataclasses.fields(want[g]):
+          _equal(getattr(got[g], h.name), getattr(want[g], h.name), f"hull {g}.{h.name}")
     elif isinstance(want, np.ndarray):
       _equal(got, want, f.name)
     else:

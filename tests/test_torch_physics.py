@@ -39,7 +39,7 @@ from tests.torch_parity import (
 
 SMOOTH_TOL = 1e-9
 SOLVER_TOL = 1e-8
-SCENE_NAMES = ("toy", "g1")
+SCENE_NAMES = ("toy", "g1", "asimov", "asimov_toe")
 
 
 def _run_both(name, jfn, tfn, inputs=None):

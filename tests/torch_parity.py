@@ -95,16 +95,51 @@ def toy_mj_model() -> mujoco.MjModel:
 
 def g1_mj_model() -> mujoco.MjModel:
   """The G1 velocity-flat scene with the task's solver options applied."""
-  from mjlab_tpu.scene import Scene
   from mjlab_tpu.tasks.velocity.config.g1.env_cfgs import unitree_g1_flat_env_cfg
 
-  cfg = unitree_g1_flat_env_cfg()
+  return _compiled(unitree_g1_flat_env_cfg())
+
+
+def _asimov_flat_cfg(toe: bool):
+  """A fresh Asimov (or Asimov-Toe) velocity-flat cfg of the JAX package
+  (its env_cfgs bind module-level cfg objects, so each call copies one)."""
+  import copy
+
+  if toe:
+    from mjlab_tpu.tasks.velocity.config.asimov_toe.env_cfgs import (
+      ASIMOV_TOE_FLAT_ENV_CFG as cfg,
+    )
+  else:
+    from mjlab_tpu.tasks.velocity.config.asimov.env_cfgs import (
+      ASIMOV_FLAT_ENV_CFG as cfg,
+    )
+  return copy.deepcopy(cfg)
+
+
+def _compiled(cfg) -> mujoco.MjModel:
+  """The JAX package's compile of a task cfg's scene, its solver options
+  applied."""
+  from mjlab_tpu.scene import Scene
+
   m = Scene(cfg.scene).compile()
   cfg.sim.mujoco.apply(m)
   return m
 
 
-SCENES = {"toy": toy_mj_model, "g1": g1_mj_model}
+def asimov_mj_model() -> mujoco.MjModel:
+  """The Asimov velocity-flat scene with the task's solver options."""
+  return _compiled(_asimov_flat_cfg(toe=False))
+
+
+def asimov_toe_mj_model() -> mujoco.MjModel:
+  """The Asimov-Toe velocity-flat scene with the task's solver options."""
+  return _compiled(_asimov_flat_cfg(toe=True))
+
+
+SCENES = {
+  "toy": toy_mj_model, "g1": g1_mj_model, "asimov": asimov_mj_model,
+  "asimov_toe": asimov_toe_mj_model,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -170,9 +205,19 @@ class Scene:
 
 
 def _ctrl_ref(mj: mujoco.MjModel) -> np.ndarray:
+  """Each actuator's length at the keyframe: its joint's position, or its
+  fixed tendon's length."""
   key = mj.key_qpos[0]
-  return np.asarray([key[mj.jnt_qposadr[mj.actuator_trnid[u, 0]]]
-                     for u in range(mj.nu)])
+
+  def length(u: int) -> float:
+    target = int(mj.actuator_trnid[u, 0])
+    if int(mj.actuator_trntype[u]) == int(mujoco.mjtTrn.mjTRN_TENDON):
+      adr, num = mj.tendon_adr[target], mj.tendon_num[target]
+      return sum(float(mj.wrap_prm[w]) * key[mj.jnt_qposadr[mj.wrap_objid[w]]]
+                 for w in range(adr, adr + num))
+    return key[mj.jnt_qposadr[target]]
+
+  return np.asarray([length(u) for u in range(mj.nu)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -205,7 +250,7 @@ def scene(name: str) -> Scene:
   mj = SCENES[name]()
   jtp, jm = jphysics.put_model(mj, dtype=jnp.float64)
   ttp, tm = tio.put_model(mj, dtype=torch.float64, device="cpu")
-  n_steps = {"toy": 60, "g1": 30}[name]
+  n_steps = {"toy": 60, "g1": 30, "asimov": 30, "asimov_toe": 30}[name]
   states = rollout_states(mj, jtp, jm, n_worlds=8, n_steps=n_steps, seed=7)
   return Scene(mj, jtp, jm, ttp, tm, states, _ctrl_ref(mj))
 
@@ -263,12 +308,44 @@ def g1_flat_cfgs(num_envs: int, edit=None):
 def g1_flat_envs(num_envs: int, edit=None):
   """(JAX env, port env on the CPU), the port bound to the JAX env's
   compiled model."""
+  return _envs(g1_flat_cfgs(num_envs, edit))
+
+
+def _envs(cfgs):
   from mjlab_tpu.envs import ManagerBasedRlEnv as JaxEnv
   from mjlab_tpu_torch.envs import ManagerBasedRlEnv
 
-  jcfg, tcfg = g1_flat_cfgs(num_envs, edit)
+  jcfg, tcfg = cfgs
   jenv = JaxEnv(jcfg)
   return jenv, ManagerBasedRlEnv(tcfg, device="cpu", model=jenv.sim.mj_model)
+
+
+ASIMOV_TASKS = {"asimov": "Mjlab-Velocity-Flat-Asimov",
+                "asimov_toe": "Mjlab-Velocity-Flat-Asimov-Toe"}
+
+
+def asimov_flat_cfgs(name: str, num_envs: int, edit=None):
+  """(JAX cfg, port cfg) of the Asimov ("asimov") or Asimov-Toe
+  ("asimov_toe") flat task at `num_envs`, float64; `edit` is applied to
+  both. The JAX cfg takes the port's Newton iteration count (30, where the
+  JAX package's is 10: a declared divergence, see the port's
+  tasks/velocity/config/asimov/env_cfgs.py)."""
+  from mjlab_tpu_torch.tasks import load_env_cfg
+
+  cfgs = (_asimov_flat_cfg(toe=name == "asimov_toe"), load_env_cfg(ASIMOV_TASKS[name]))
+  cfgs[0].sim.mujoco.iterations = cfgs[1].sim.mujoco.iterations
+  for cfg in cfgs:
+    cfg.scene.num_envs = num_envs
+    cfg.sim.dtype = "float64"
+    if edit is not None:
+      edit(cfg)
+  return cfgs
+
+
+def asimov_flat_envs(name: str, num_envs: int, edit=None):
+  """(JAX env, port env on the CPU) of an Asimov flat task, the port bound
+  to the JAX env's compiled model."""
+  return _envs(asimov_flat_cfgs(name, num_envs, edit))
 
 
 def _flatten(prefix: str, tree: dict, out: dict) -> None:
@@ -525,3 +602,186 @@ def carry_to_jax(env, jenv) -> None:
         tree[k] = like(v, arrays[f"{prefix}/{k}"])
 
   fill("ms", jenv._ms)
+
+
+# ---------------------------------------------------------------------------
+# Env-level checks of the Asimov tasks, shared by tests/test_torch_asimov_env.py
+# (Asimov) and tests/test_torch_asimov_toe_env.py (Asimov-Toe): the port's
+# velocity-flat env against the JAX package's (float64, CPU), 2 envs. Each
+# test file builds its task's pair of envs once (`asimov_checked_envs`).
+# ---------------------------------------------------------------------------
+
+ASIMOV_NUM_ENVS = 2
+ASIMOV_STEP_TOL = 1e-8
+ASIMOV_ACTION_TOL = 1e-12
+
+
+def _asimov_no_corruption(cfg):
+  cfg.observations["policy"].enable_corruption = False
+
+
+def asimov_checked_envs(name: str):
+  """(name, JAX env, port env) of an Asimov task, the JAX env reset."""
+  jenv, env = asimov_flat_envs(name, ASIMOV_NUM_ENVS, _asimov_no_corruption)
+  jenv.reset(seed=3)
+  return name, jenv, env
+
+
+def check_asimov_entity_indexing_equal(envs):
+  """Asimov-Toe's 4 tendon actuators come first, as in the JAX entity (the
+  port used to drop them: their trnid is a tendon's id, not a joint's)."""
+  name, jenv, env = envs
+  jr, tr = jenv.scene["robot"], env.scene["robot"]
+  for f in dataclasses.fields(jr.indexing):
+    a, b = getattr(tr.indexing, f.name), getattr(jr.indexing, f.name)
+    if isinstance(b, np.ndarray):
+      np.testing.assert_array_equal(a, b, err_msg=f.name)
+    else:
+      assert a == b, f.name
+  for kind in ("joint", "body", "geom", "site", "actuator", "tendon"):
+    assert getattr(tr, f"{kind}_names") == getattr(jr, f"{kind}_names"), kind
+  if name == "asimov_toe":
+    assert tr.find_tendons(".*_A")[1] == jr.find_tendons(".*_A")[1]
+    assert tr.actuator_names[:4] == ("left_ankle_A", "left_ankle_B", "right_ankle_A",
+                                     "right_ankle_B")
+    assert len(tr.indexing.ctrl_ids) == 14
+
+
+def check_asimov_constants_and_defaults_equal(envs):
+  from mjlab_tpu.asset_zoo.robots.asimov import asimov_constants as ja
+  from mjlab_tpu.asset_zoo.robots.asimov import asimov_toe_constants as jt
+  from mjlab_tpu_torch.asset_zoo.robots.asimov import asimov_constants as ta
+  from mjlab_tpu_torch.asset_zoo.robots.asimov import asimov_toe_constants as tt
+
+  name, jenv, env = envs
+  jc, tc = (jt, tt) if name == "asimov_toe" else (ja, ta)
+  assert tc.ASIMOV_ACTION_SCALE == jc.ASIMOV_ACTION_SCALE
+  assert (dataclasses.asdict(tc.get_asimov_robot_cfg().init_state)
+          == dataclasses.asdict(jc.get_asimov_robot_cfg().init_state))
+  assert (tc.ASIMOV_ARTICULATION.soft_joint_pos_limit_factor
+          == jc.ASIMOV_ARTICULATION.soft_joint_pos_limit_factor)
+  for t, j in zip(tc.ASIMOV_ARTICULATION.actuators, jc.ASIMOV_ARTICULATION.actuators,
+                  strict=True):
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+  jd, td = jenv.scene["robot"].data, env.scene["robot"].data
+  for f in ("default_root_state", "default_joint_pos", "default_joint_vel",
+            "default_joint_stiffness", "default_joint_damping",
+            "default_joint_pos_limits", "soft_joint_pos_limits"):
+    np.testing.assert_array_equal(getattr(td, f).numpy(), np.asarray(getattr(jd, f)),
+                                  err_msg=f)
+
+
+def check_asimov_observation_and_action_layout_equal(envs):
+  """The widths chip_smoke.py checks on the card are the JAX env's; the
+  term order and action terms are the JAX cfg's."""
+  import chip_smoke
+
+  name, jenv, env = envs
+  want = {g: tuple(int(x) for x in d) for g, d in
+          jenv.observation_manager.group_obs_dim.items()}
+  assert env.group_obs_dim == want
+  assert (want["policy"][0], want["critic"][0]) == chip_smoke.ASIMOV_OBS_DIMS[
+    ASIMOV_TASKS[name]]
+  assert env.total_action_dim == jenv.action_manager.total_action_dim == 12
+  for g in ("policy", "critic"):
+    assert list(env.cfg.observations[g].terms) == list(jenv.cfg.observations[g].terms)
+  assert list(env.cfg.actions) == list(jenv.cfg.actions)
+
+
+def check_asimov_self_collision_finds_nothing(envs):
+  """The feet-only collision preset gives the robot no self pair: the
+  self_collision sensor's slot table matches nothing, and its `found` is
+  all zero after a step in both packages."""
+  _, jenv, env = envs
+  jenv.step(jnp.zeros((ASIMOV_NUM_ENVS, env.total_action_dim)))
+  env.step(torch.zeros((ASIMOV_NUM_ENVS, env.total_action_dim), dtype=env.dtype))
+  got = env.scene["self_collision"].data.found.numpy()
+  want = np.asarray(jenv.scene["self_collision"].data.found)
+  assert got.shape == want.shape == (ASIMOV_NUM_ENVS, 1)
+  assert not got.any() and not want.any()
+  assert not env.scene["self_collision"]._slot_valid.any()
+
+
+def check_asimov_ankle_action_term_matches_jax(envs):
+  """AnklePrToTendonAction against the JAX term: processed actions (scale
+  and the default offset of the 4 ankle joints) and the ctrl it writes —
+  the A/B targets on the 4 tendon actuators, nothing elsewhere — at 1e-12;
+  and a masked reset."""
+  _, jenv, env = envs
+  carry(jenv, env, full=True)
+  jterm = jenv.action_manager.get_term("ankle_ab")
+  tterm = env.action_manager.get_term("ankle_ab")
+  a = np.random.default_rng(4).normal(0.0, 1.0, (ASIMOV_NUM_ENVS, 4))
+  before = env.data.ctrl.clone()
+  jterm.process_actions(jnp.asarray(a))
+  tterm.process_actions(torch.as_tensor(a))
+  assert_close(tterm.processed_actions.numpy(), jterm.processed_actions, ASIMOV_ACTION_TOL,
+                  "processed")
+  jterm.apply_actions()
+  tterm.apply_actions()
+  ctrl = env.data.ctrl.numpy()
+  assert_close(ctrl, np.asarray(jenv.data.ctrl), ASIMOV_ACTION_TOL, "ctrl")
+  # The targets land on the 4 tendon actuators (ctrl 0-3) only.
+  np.testing.assert_array_equal(ctrl[:, 4:], before[:, 4:].numpy())
+  pr = tterm.processed_actions.numpy()
+  L, d = 0.04, 0.02
+  want = np.stack([-L * pr[:, 0] - d * pr[:, 1], -L * pr[:, 0] + d * pr[:, 1],
+                   L * pr[:, 2] - d * pr[:, 3], L * pr[:, 2] + d * pr[:, 3]], 1)
+  np.testing.assert_allclose(ctrl[:, :4], want, rtol=0, atol=1e-15)
+  mask = np.array([True, False])
+  jterm.reset(jnp.asarray(mask))
+  tterm.reset(torch.as_tensor(mask))
+  assert_close(tterm.processed_actions.numpy(), jterm.processed_actions, 0.0, "reset")
+  assert (tterm.processed_actions[0] == 0).all() and (tterm.processed_actions[1] != 0).all()
+
+
+def check_asimov_env_steps_from_a_carried_state(envs):
+  """3 consecutive env steps, each from the JAX env's state carried into
+  the port: observations, rewards and every logged term, terminations, and
+  the physics state, at 1e-8, or within twice the port's own spread where
+  that is larger. The spread is the largest distance of 8 runs of the same
+  step from the carried state with qpos moved by 1e-13 (relative, seeded).
+  At the Asimov tasks' 30 Newton iterations the contact solve converges,
+  and the solver's accept test then takes one of two branches by rounding:
+  on Asimov's second step about half of such nudged runs land 1.2e-8 (in
+  qvel, relative) from the others, which is the gap between the packages
+  there (1.17e-8, the same at 100 iterations); 8 runs all on one branch
+  would happen about once in 128."""
+  from mjlab_tpu_torch.envs import env_state_from_arrays
+
+  name, jenv, env = envs
+  rng = np.random.default_rng(100)
+  fields = ("qpos", "qvel", "sensordata", "ctrl")
+  for a in actions(0, 3, ASIMOV_NUM_ENVS, env.total_action_dim):
+    carried = carry(jenv, env)
+    jout = numpy_tree(jenv.step(jnp.asarray(a)))
+    tout = numpy_tree(env.step(torch.as_tensor(a)))
+    state = {f: getattr(env.data, f).numpy().copy() for f in fields}
+    spread = {k: 0.0 for k in ("policy", "critic", "reward", *fields)}
+    for _ in range(8):
+      nudged = dict(carried)
+      q = carried["data.qpos"]
+      nudged["data.qpos"] = q * (1 + 1e-13 * rng.standard_normal(q.shape))
+      env_state_from_arrays(env, nudged)
+      obs, rew, *_ = numpy_tree(env.step(torch.as_tensor(a)))
+      for k, v in (("policy", obs["policy"]), ("critic", obs["critic"]), ("reward", rew),
+                   *((f, getattr(env.data, f).numpy()) for f in fields)):
+        ref = {"policy": tout[0]["policy"], "critic": tout[0]["critic"],
+               "reward": tout[1]}.get(k, state.get(k))
+        spread[k] = max(spread[k], float(np.abs(v - ref).max()) / max(1.0, float(np.abs(ref).max())))
+
+    def tol(k):
+      return max(ASIMOV_STEP_TOL, 2 * spread[k])
+
+    (jobs, jrew, jterm, jto, jext), (tobs, trew, tterm, tto, text) = jout, tout
+    for g in ("policy", "critic"):
+      assert_close(tobs[g], jobs[g], tol(g), f"{name}:{g}")
+    assert_close(trew, jrew, tol("reward"), f"{name}:reward")
+    np.testing.assert_array_equal(tterm, jterm)
+    np.testing.assert_array_equal(tto, jto)
+    assert sorted(text["log"]) == sorted(jext["log"])
+    for k, v in jext["log"].items():
+      assert_close(text["log"][k], v, ASIMOV_STEP_TOL, f"{name}:{k}")
+    for f in fields:
+      assert_close(state[f], np.asarray(getattr(jenv.data, f)), tol(f),
+                      f"{name}:{f} (port spread {spread[f]:.1e})")
