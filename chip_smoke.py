@@ -108,12 +108,24 @@ Phases, each printing its own lines:
      held to 1e-8 or twice the CPU's own spread under 6 qpos nudges of 1e-13,
      for Asimov-Toe with the ankle targets checked in ctrl on the 4 tendon
      actuators only.
+ 12. G1 on rough terrain and Go1 on flat ground, each as a task of phase
+     11: Mjlab-Velocity-Rough-Unitree-G1 (3564 terrain boxes pooled behind
+     the cell-hash broadphase, 667 contact slots, nv 35, 2235 Newton rows;
+     the pool and the 10 x 20 tile grid checked after the build; the
+     iterations' dropped terrain contacts and mean terrain level) and
+     Mjlab-Velocity-Flat-Unitree-Go1 (the trunk box on the plane; nv 18,
+     240 rows); then a headless `run_play` of the rough task, 24 steps of
+     the random policy at 4096 envs, which must load the committed play
+     scene (3 x 3 tiles), with the kernels' counters set to 0 just before
+     and read just after.
 Any failed check raises. The line before the last is the kernel table as
 JSON (`launches` from the env path of phase 7, `launches_training_path`
 from phase 8's 2 iterations, `launches_tracking_path` from phase 9's,
 `launches_lifecycle_path` from phase 10, `launches_asimov_path` from phase
-11's 2 iterations of each task, `ms_asimov_run_matrices_by_nv` each
-kernel's time on phase 11's matrices by nv); the last line is
+11's 2 iterations of each task, `launches_rough_go1_path` from phase 12's
+and its play, `ms_asimov_run_matrices_by_nv` and
+`ms_rough_go1_run_matrices_by_nv` each kernel's time on phase 11's and
+phase 12's matrices by nv); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -181,6 +193,12 @@ ASIMOV_HULL_DIGEST = "a3c43b16dedf640866f11394fa382334e00c95c986122268f60baa6683
 # package's (tests/test_torch_asimov_env.py).
 ASIMOV_OBS_DIMS = {"Mjlab-Velocity-Flat-Asimov": (48, 60),
                    "Mjlab-Velocity-Flat-Asimov-Toe": (45, 57)}
+
+
+# Phase 12's tasks and their (policy, critic) observation widths, the JAX
+# package's (tests/test_torch_terrain_env.py, tests/test_torch_go1_env.py).
+ROUGH_TASK = "Mjlab-Velocity-Rough-Unitree-G1"
+ROUGH_GO1_OBS_DIMS = {ROUGH_TASK: (99, 111), "Mjlab-Velocity-Flat-Unitree-Go1": (48, 72)}
 
 
 def hull_digest(tp) -> str:
@@ -857,109 +875,205 @@ def ankle_ctrl_check(env, action) -> float:
   return max(errs)
 
 
-def asimov_path(card: str, attr: str, checks: KernelCheck):
-  """Phase 11: the Asimov family (ASIMOV_OBS_DIMS' two tasks) trains on flat
-  ground. For each task, `build_runner` at NUM_WORLDS envs with the task's
-  PPO cfg; the observation widths (the JAX package's); for Asimov, the
-  feet's hulls built on this host against the CPU host's digest; then phase
+def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: str,
+              attr: str, checks: KernelCheck, launches: dict, path_ms: dict,
+              after_build=None, on_step=None) -> dict:
+  """One task of phases 11 and 12: `build_runner` at NUM_WORLDS envs with
+  the task's PPO cfg; the observation widths; `after_build(runner)`; phase
   8's TRAIN_ITERS iterations, checks and split, and a device-only profile;
-  the four kernels against their plain versions on the run's matrices
-  (n = nv, J of nefc rows), timed there beside their plain versions, the
-  library calls and their bounds at these shapes; and the card's float64
-  env against the CPU's, 4 envs x 3 env steps each from the CPU's state
-  (`f64_env_check` with nudges; for Asimov-Toe with the ankle targets
-  checked in ctrl after every card step). Returns the kernels' launches
-  over both tasks' iterations and each kernel's ms on each run's matrices
-  (keyed by nv)."""
+  one substep's stage times on the run's last state (phase 5's split); the
+  four kernels against their plain versions on the run's matrices (n =
+  nv, J of nefc rows), timed there beside their plain versions, the library
+  calls and their bounds at these shapes; and the card's float64 env
+  against the CPU's, 4 envs x 3 env steps each from the CPU's state
+  (`f64_env_check` with nudges, `on_step` after each card step). Adds the
+  iterations' launches to `launches` and each kernel's ms on the run's
+  matrices to `path_ms` (keyed by nv); returns the iterations' metrics."""
   from mjlab_tpu_torch.kernels import chol
   from mjlab_tpu_torch.physics import solver
   from mjlab_tpu_torch.scripts.train import build_runner
 
+  gc.collect()
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  runner = build_runner(task, {"env.scene.num_envs": str(NUM_WORLDS)})
+  torch.cuda.synchronize()
+  env, alg, tp = runner.env, runner.cfg.algorithm, runner.env.tp
+  print(f"{phase} {task}: {NUM_WORLDS} envs, nq {tp.nq}, nv {tp.nv}, nu {tp.nu}, tendons "
+        f"{tp.ntendon}, contact slots {tp.ncon_max} in {len(tp.pairs)} pairs"
+        + "".join(f" + {g.slots} x {len(g.robot_geoms)} terrain slots (geom type "
+                  f"{g.robot_type})" for g in tp.terrain_groups)
+        + f", Newton rows {tp.nefc}, obs {env.group_obs_dim}, actions {runner.num_actions}, "
+        f"episodes {env.cfg.episode_length_s} s, T {runner.cfg.num_steps_per_env}, "
+        f"{alg.num_learning_epochs} epochs x {alg.num_mini_batches} minibatches, hidden "
+        f"{runner.cfg.policy.actor_hidden_dims}, entropy {alg.entropy_coef}, lr "
+        f"{alg.schedule} from {alg.learning_rate}; build_runner "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+  if env.group_obs_dim != {"policy": (obs_dims[0],), "critic": (obs_dims[1],)}:
+    raise AssertionError(f"{task}: observation widths {env.group_obs_dim}")
+  if after_build is not None:
+    after_build(runner)
+  it = env.sim.model.opt.iterations
+  print(f"  expected per iteration (independent of nv): {TRAIN_STEPS} env steps x "
+        f"({DECIMATION} substeps x (factor_m + {it} Newton directions + the integrator's "
+        f"factor-solve) + {it + 1} in the post-reset forward) = "
+        f"{TRAIN_STEPS * fact_per_env_step(it)} factorizations; {TRAIN_STEPS} x "
+        f"{RL_SOLVES_PER_STEP} = {TRAIN_STEPS * RL_SOLVES_PER_STEP} chol_solve")
+  got, steady_iter_ms, host, split = train_iterations(runner, card, f"{phase} {tag}", obs_dims)
+  for k in KERNELS:
+    launches[k] += got[k]
+  profile_iteration(runner, card, attr, tag, steady_iter_ms, split, spans=False)
+  del split
+  per_stage = stage_times(tp, env.model, env.data)
+  print(f"  one substep by stage on the run's last state (CUDA events, mean of 3): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per_stage.items(), key=lambda kv: -kv[1])[:6])
+        + f" ms; sum {sum(per_stage.values()):.3f} ms [{card}]")
+
+  d, n = env.data, tp.nv
+  print(f"  kernels vs plain on the {tag} run's matrices, f32, n = {n}, J "
+        f"({NUM_WORLDS}, {tp.nefc}, {n}):")
+  grad = torch.randn(NUM_WORLDS, n, generator=torch.Generator(device="cuda").manual_seed(11),
+                     device="cuda")
+  qM, H = d.qM.contiguous(), solver.hessian(d, d.qacc).contiguous()
+  w = solver.newton_weights(d, d.qacc)
+  checks.all_three(f"{tag} qM", qM, d.qfrc_smooth.contiguous())
+  checks.all_three(f"{tag} H", H, grad)
+  checks.newton(f"{tag} qM,J,w", d.qM, d.efc_J, w, grad)
+  active_rows = int((w != 0).sum().item())
+  L = chol.chol_factor(qM)
+  J = d.efc_J.contiguous()
+  timing = {
+    "chol_factor": (lambda: chol.chol_factor(qM), lambda: chol.chol_factor_plain(qM),
+                    lambda: torch.linalg.cholesky_ex(qM)),
+    "chol_solve": (lambda: chol.chol_solve(L, grad), lambda: chol.chol_solve_plain(L, grad),
+                   lambda: torch.cholesky_solve(grad[..., None], L)),
+    "chol_factor_solve": (
+      lambda: chol.chol_factor_solve(H, grad), lambda: chol.chol_factor_solve_plain(H, grad),
+      lambda: torch.cholesky_solve(grad[..., None], torch.linalg.cholesky_ex(H)[0])),
+    "newton_direction": (
+      lambda: chol.newton_direction(qM, J, w, grad),
+      lambda: chol.newton_direction_plain(qM, J, w, grad),
+      lambda: torch.cholesky_solve(
+        grad[..., None], torch.linalg.cholesky_ex(chol.newton_matrix(qM, J, w))[0])),
+  }
+  bnd = bounds(NUM_WORLDS, n, rows=active_rows, nefc=tp.nefc)
+  print(f"  times on the run's matrices (mean of 20 calls; active Newton rows "
+        f"{active_rows / (NUM_WORLDS * tp.nefc):.4f} of {NUM_WORLDS * tp.nefc}) [{card}]:")
+  for k, (kern, plain, lib) in timing.items():
+    ms = [time_ms(f, [()], iters=iters) for f, iters in ((kern, 20), (plain, 5), (lib, 20))]
+    path_ms[k][str(n)] = ms[0]
+    print(f"    {k:18s} kernel {ms[0]:.4f} ms  plain {ms[1]:.4f} ms  library "
+          f"{ms[2]:.4f} ms  bound {bnd[k][0]:.6f} ms ({bnd[k][1]})")
+  del runner, env, d, qM, H, L, J, w, grad
+  gc.collect()
+  torch.cuda.empty_cache()
+  on_step_max = f64_env_check(task, n_steps=3, nudges=6, on_step=on_step)
+  if on_step is not None:
+    print(f"  the per-step check after each card step: largest error {on_step_max:.3e}")
+  return host
+
+
+def asimov_path(card: str, attr: str, checks: KernelCheck):
+  """Phase 11: the Asimov family (ASIMOV_OBS_DIMS' two tasks) trains on flat
+  ground, each through `task_path`; for Asimov, the feet's hulls built on
+  this host against the CPU host's digest; for Asimov-Toe, the ankle
+  targets checked in ctrl after every card step of the float64 env check
+  (tol 1e-12). Returns the kernels' launches over both tasks' iterations
+  and each kernel's ms on each run's matrices (keyed by nv)."""
   t_phase = time.perf_counter()
   launches = {k: 0 for k in KERNELS}
   path_ms: dict[str, dict[str, float]] = {k: {} for k in KERNELS}
-  for task, obs_dims in ASIMOV_OBS_DIMS.items():
-    tag = "asimov_toe" if task.endswith("Toe") else "asimov"
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    runner = build_runner(task, {"env.scene.num_envs": str(NUM_WORLDS)})
-    torch.cuda.synchronize()
-    env, alg, tp = runner.env, runner.cfg.algorithm, runner.env.tp
-    print(f"phase 11 {task}: {NUM_WORLDS} envs, nq {tp.nq}, nv {tp.nv}, nu {tp.nu}, tendons "
-          f"{tp.ntendon}, contact slots {tp.ncon_max} in {len(tp.pairs)} pairs, Newton rows "
-          f"{tp.nefc}, obs {env.group_obs_dim}, actions {runner.num_actions}, episodes "
-          f"{env.cfg.episode_length_s} s, T {runner.cfg.num_steps_per_env}, "
-          f"{alg.num_learning_epochs} epochs x {alg.num_mini_batches} minibatches, hidden "
-          f"{runner.cfg.policy.actor_hidden_dims}, entropy {alg.entropy_coef}, lr "
-          f"{alg.schedule} from {alg.learning_rate}; build_runner "
-          f"{time.perf_counter() - t0:.2f} s [{card}]")
-    if env.group_obs_dim != {"policy": (obs_dims[0],), "critic": (obs_dims[1],)}:
-      raise AssertionError(f"{task}: observation widths {env.group_obs_dim}")
-    if tag == "asimov":
-      digest = hull_digest(tp)
-      print(f"  feet hulls built here from the npz: {sorted(tp.geom_hulls)}, vertices "
-            f"{[tp.geom_hulls[g].verts.shape[0] for g in sorted(tp.geom_hulls)]}; digest "
-            f"{digest[:16]}... equals the CPU host's: {digest == ASIMOV_HULL_DIGEST}")
-      if digest != ASIMOV_HULL_DIGEST:
-        raise AssertionError("the Asimov feet's hulls differ from the CPU host's")
-    it = env.sim.model.opt.iterations
-    print(f"  expected per iteration (independent of nv): {TRAIN_STEPS} env steps x "
-          f"({DECIMATION} substeps x (factor_m + {it} Newton directions + the integrator's "
-          f"factor-solve) + {it + 1} in the post-reset forward) = "
-          f"{TRAIN_STEPS * fact_per_env_step(it)} factorizations; {TRAIN_STEPS} x "
-          f"{RL_SOLVES_PER_STEP} = {TRAIN_STEPS * RL_SOLVES_PER_STEP} chol_solve")
-    got, steady_iter_ms, _, split = train_iterations(runner, card, f"phase 11 {tag}", obs_dims)
-    for k in KERNELS:
-      launches[k] += got[k]
-    profile_iteration(runner, card, attr, tag, steady_iter_ms, split, spans=False)
-    del split
 
-    d, n = env.data, tp.nv
-    print(f"  kernels vs plain on the {tag} run's matrices, f32, n = {n}, J "
-          f"({NUM_WORLDS}, {tp.nefc}, {n}):")
-    grad = torch.randn(NUM_WORLDS, n, generator=torch.Generator(device="cuda").manual_seed(11),
-                       device="cuda")
-    qM, H = d.qM.contiguous(), solver.hessian(d, d.qacc).contiguous()
-    w = solver.newton_weights(d, d.qacc)
-    checks.all_three(f"{tag} qM", qM, d.qfrc_smooth.contiguous())
-    checks.all_three(f"{tag} H", H, grad)
-    checks.newton(f"{tag} qM,J,w", d.qM, d.efc_J, w, grad)
-    active_rows = int((w != 0).sum().item())
-    L = chol.chol_factor(qM)
-    J = d.efc_J.contiguous()
-    timing = {
-      "chol_factor": (lambda: chol.chol_factor(qM), lambda: chol.chol_factor_plain(qM),
-                      lambda: torch.linalg.cholesky_ex(qM)),
-      "chol_solve": (lambda: chol.chol_solve(L, grad), lambda: chol.chol_solve_plain(L, grad),
-                     lambda: torch.cholesky_solve(grad[..., None], L)),
-      "chol_factor_solve": (
-        lambda: chol.chol_factor_solve(H, grad), lambda: chol.chol_factor_solve_plain(H, grad),
-        lambda: torch.cholesky_solve(grad[..., None], torch.linalg.cholesky_ex(H)[0])),
-      "newton_direction": (
-        lambda: chol.newton_direction(qM, J, w, grad),
-        lambda: chol.newton_direction_plain(qM, J, w, grad),
-        lambda: torch.cholesky_solve(
-          grad[..., None], torch.linalg.cholesky_ex(chol.newton_matrix(qM, J, w))[0])),
-    }
-    bnd = bounds(NUM_WORLDS, n, rows=active_rows, nefc=tp.nefc)
-    print(f"  times on the run's matrices (mean of 20 calls; active Newton rows "
-          f"{active_rows / (NUM_WORLDS * tp.nefc):.4f} of {NUM_WORLDS * tp.nefc}) [{card}]:")
-    for k, (kern, plain, lib) in timing.items():
-      ms = [time_ms(f, [()], iters=iters) for f, iters in ((kern, 20), (plain, 5), (lib, 20))]
-      path_ms[k][str(n)] = ms[0]
-      print(f"    {k:18s} kernel {ms[0]:.4f} ms  plain {ms[1]:.4f} ms  library "
-            f"{ms[2]:.4f} ms  bound {bnd[k][0]:.6f} ms ({bnd[k][1]})")
-    del runner, env, d, qM, H, L, J, w, grad
-    gc.collect()
-    torch.cuda.empty_cache()
-    ctrl_err = f64_env_check(task, n_steps=3, nudges=6,
-                             on_step=ankle_ctrl_check if tag == "asimov_toe" else None)
-    if tag == "asimov_toe":
-      print(f"  ankle targets in ctrl on the 4 tendon actuators only, after each card step: "
-            f"largest error {ctrl_err:.3e} (tol 1e-12)")
+  def hulls(runner):
+    tp = runner.env.tp
+    digest = hull_digest(tp)
+    print(f"  feet hulls built here from the npz: {sorted(tp.geom_hulls)}, vertices "
+          f"{[tp.geom_hulls[g].verts.shape[0] for g in sorted(tp.geom_hulls)]}; digest "
+          f"{digest[:16]}... equals the CPU host's: {digest == ASIMOV_HULL_DIGEST}")
+    if digest != ASIMOV_HULL_DIGEST:
+      raise AssertionError("the Asimov feet's hulls differ from the CPU host's")
+
+  for task, obs_dims in ASIMOV_OBS_DIMS.items():
+    toe = task.endswith("Toe")
+    task_path("phase 11", task, "asimov_toe" if toe else "asimov", obs_dims, card, attr,
+              checks, launches, path_ms, after_build=None if toe else hulls,
+              on_step=ankle_ctrl_check if toe else None)
   print(f"phase 11: {time.perf_counter() - t_phase:.1f} s; launches over both tasks' "
         f"{TRAIN_ITERS} iterations {launches}")
+  return launches, path_ms
+
+
+def rough_go1_path(card: str, attr: str, checks: KernelCheck):
+  """Phase 12: G1 trains on rough terrain and Go1 on flat ground (the
+  ROUGH_GO1_OBS_DIMS tasks), each through `task_path`. For G1 rough, the
+  box-terrain pool's groups and the generated grid are printed after the
+  build, and the iterations' mean of the dropped terrain contacts and of
+  the terrain-level curriculum; then a headless `run_play` of the rough
+  task for 24 steps on NUM_WORLDS envs, which loads the committed play
+  scene (3 x 3 tiles), with the kernels' counters set to 0 just before and
+  read just after. Returns the kernels' launches over both tasks'
+  iterations and the play, and each kernel's ms on each run's matrices
+  (keyed by nv)."""
+  import numpy as np
+
+  from mjlab_tpu_torch import assets
+  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.scripts.play import run_play
+
+  t_phase = time.perf_counter()
+  launches = {k: 0 for k in KERNELS}
+  path_ms: dict[str, dict[str, float]] = {k: {} for k in KERNELS}
+
+  def terrain(runner):
+    env = runner.env
+    origins = env.scene.terrain.terrain_origins
+    g = env.tp.terrain_groups[0]
+    levels = env.scene.terrain.terrain_levels.cpu().numpy()
+    print(f"  terrain: {len(g.pool_geoms)} boxes pooled, cell hash {g.cells.shape}, tiles "
+          f"{origins.shape[:2]} of {env.cfg.scene.terrain.terrain_generator.size} m, groups "
+          + ", ".join(f"type {t.robot_type} x {len(t.robot_geoms)}" for t in env.tp.terrain_groups)
+          + f"; initial levels {np.bincount(levels, minlength=10).tolist()}")
+    if len(g.pool_geoms) <= 64 or origins.shape[:2] != (10, 20):
+      raise AssertionError("G1 rough: the terrain pool or the tile grid")
+
+  for task, obs_dims in ROUGH_GO1_OBS_DIMS.items():
+    rough = "Rough" in task
+    t0 = time.perf_counter()
+    host = task_path("phase 12", task, "g1_rough" if rough else "go1", obs_dims, card, attr,
+                     checks, launches, path_ms, after_build=terrain if rough else None)
+    if rough:
+      dropped = [m["Metrics/physics/terrain_slots_dropped"] for m in host]
+      levels = [m["Curriculum/terrain_levels"] for m in host]
+      print(f"  terrain over the {TRAIN_ITERS} iterations (f32): dropped contacts per env step "
+            f"{', '.join(f'{x:.4f}' for x in dropped)}, mean "
+            f"{np.mean(dropped):.4f}; mean terrain level "
+            f"{', '.join(f'{x:.4f}' for x in levels)}, mean {np.mean(levels):.4f}")
+      if not all(np.isfinite(dropped + levels)) or not 0 <= min(levels) <= max(levels) <= 9:
+        raise AssertionError("G1 rough: the terrain metrics")
+    print(f"  {task} in {time.perf_counter() - t0:.1f} s")
+
+  gc.collect()
+  torch.cuda.empty_cache()
+  chol.reset_counts()
+  t0 = time.perf_counter()
+  res = run_play(ROUGH_TASK, {"num_envs": str(NUM_WORLDS), "steps": "24", "policy": "random"})
+  play_launches = dict(chol.LAUNCHES)
+  env = res.env
+  print(f"  run_play {ROUGH_TASK} --policy random: {NUM_WORLDS} envs x 24 steps in "
+        f"{res.seconds:.2f} s ({time.perf_counter() - t0:.2f} s with the build), mean reward "
+        f"per step {res.mean_reward:.5f}, scene {Path(env.cfg.scene.model_file).name}, tiles "
+        f"{env.scene.terrain.terrain_origins.shape[:2]}, {len(env.tp.terrain_groups[0].pool_geoms)} "
+        f"boxes; launches {play_launches} [{card}]")
+  if (Path(env.cfg.scene.model_file) != assets.G1_VELOCITY_ROUGH_PLAY
+      or env.scene.terrain.terrain_origins.shape[:2] != (3, 3)
+      or not np.isfinite(res.mean_reward) or not np.isfinite(res.base_z).all()
+      or any(play_launches[k] == 0 for k in KERNELS)):
+    raise AssertionError("phase 12: the rough task's play")
+  for k in KERNELS:
+    launches[k] += play_launches[k]
+  del res, env
+  print(f"phase 12: {time.perf_counter() - t_phase:.1f} s; launches over both tasks' "
+        f"{TRAIN_ITERS} iterations and the play {launches}")
   return launches, path_ms
 
 
@@ -1790,6 +1904,9 @@ def main() -> int:
   # -- 11. the Asimov family: Asimov and Asimov-Toe train on flat ground ---------
   asimov_launches, asimov_ms = asimov_path(card, attr, checks)
 
+  # -- 12. G1 on rough terrain and Go1 on flat ground ---------------------------
+  rough_launches, rough_ms = rough_go1_path(card, attr, checks)
+
   # -- result lines ---------------------------------------------------------------
   bnd = bounds(NUM_WORLDS, N, rows=NUM_WORLDS * NEFC)
   bnd_run = bounds(NUM_WORLDS, N, rows=active_rows)["newton_direction"]
@@ -1815,11 +1932,13 @@ def main() -> int:
       "launches_tracking_path": track_launches[name],
       "launches_lifecycle_path": lifecycle_launches[name],
       "launches_asimov_path": asimov_launches[name],
+      "launches_rough_go1_path": rough_launches[name],
       "max_abs_err": checks.max_abs_err[name],
       "ms": times[name][0],
       "ms_l2_resident": times[name][3],
       "ms_main_path": path_ms[name],
       "ms_asimov_run_matrices_by_nv": asimov_ms[name],
+      "ms_rough_go1_run_matrices_by_nv": rough_ms[name],
       "plain_ms": times[name][1],
       "bound_ms": bnd[name][0],
       "bound_by": bnd[name][1],

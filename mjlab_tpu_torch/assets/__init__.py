@@ -15,10 +15,19 @@ of its convex hull (`geom_hull_vert`, addressed per geom by
 `geom_hull_vertadr` / `geom_hull_vertnum`, -1 / 0 for other geoms), from
 which `physics.put_model` builds the hull.
 
-The scenes, each a velocity-flat task's with the task's solver options
-applied (tests/test_torch_model_io.py and tests/test_torch_asimov_model.py
-check that each is fresh, and say how to regenerate it):
+A scene with a generated terrain holds one more array, `terrain_origins`
+(num_rows, num_cols, 3): the tiles' spawn origins, which the JAX package's
+terrain generator records beside the MjSpec it builds
+(`save_model_npz(m, path, terrain_origins=...)`).
+
+The scenes, each a velocity task's with the task's solver options applied
+(tests/test_torch_model_io.py, tests/test_torch_asimov_model.py,
+tests/test_torch_terrain_model.py and tests/test_torch_go1_model.py check
+that each is fresh, and say how to regenerate it):
 `g1_velocity_flat.npz` (Mjlab-Velocity-Flat-Unitree-G1),
+`g1_velocity_rough.npz` (Mjlab-Velocity-Rough-Unitree-G1, 10 x 20 tiles),
+`g1_velocity_rough_play.npz` (its play scene: 3 x 3 tiles, no curriculum),
+`go1_velocity_flat.npz` (Mjlab-Velocity-Flat-Unitree-Go1),
 `asimov_velocity_flat.npz` (Mjlab-Velocity-Flat-Asimov) and
 `asimov_toe_velocity_flat.npz` (Mjlab-Velocity-Flat-Asimov-Toe).
 """
@@ -31,8 +40,15 @@ from types import SimpleNamespace
 import numpy as np
 
 G1_VELOCITY_FLAT = Path(__file__).parent / "g1_velocity_flat.npz"
+G1_VELOCITY_ROUGH = Path(__file__).parent / "g1_velocity_rough.npz"
+G1_VELOCITY_ROUGH_PLAY = Path(__file__).parent / "g1_velocity_rough_play.npz"
+GO1_VELOCITY_FLAT = Path(__file__).parent / "go1_velocity_flat.npz"
 ASIMOV_VELOCITY_FLAT = Path(__file__).parent / "asimov_velocity_flat.npz"
 ASIMOV_TOE_VELOCITY_FLAT = Path(__file__).parent / "asimov_toe_velocity_flat.npz"
+
+# A generated-terrain scene's play scene (the JAX package's play overrides
+# regenerate the terrain on a 3 x 3 grid; the port loads it compiled).
+PLAY_SCENES = {G1_VELOCITY_ROUGH: G1_VELOCITY_ROUGH_PLAY}
 
 # Array families the port never reads (see the module docstring).
 _DROPPED_PREFIXES = ("mesh_", "bvh_")
@@ -84,26 +100,42 @@ def model_arrays(m) -> dict[str, np.ndarray]:
   return out
 
 
-def save_model_npz(m, path) -> None:
-  """Write a compiled model's arrays (see model_arrays) to `path`."""
-  np.savez_compressed(path, **model_arrays(m))
+def save_model_npz(m, path, terrain_origins: np.ndarray | None = None) -> None:
+  """Write a compiled model's arrays (see model_arrays) to `path`, and a
+  generated terrain's tile origins beside them."""
+  arrays = model_arrays(m)
+  if terrain_origins is not None:
+    arrays["terrain_origins"] = np.asarray(terrain_origins, dtype=np.float64)
+  np.savez_compressed(path, **arrays)
+
+
+def model_namespace(arrays: dict[str, np.ndarray]) -> SimpleNamespace:
+  """A namespace with MjModel's attribute names from `model_arrays`-style
+  arrays."""
+  model = SimpleNamespace(opt=SimpleNamespace())
+  for key, v in arrays.items():
+    if key == "names":
+      v = v.tobytes()
+    elif v.ndim == 0:
+      v = v.item()
+    if key.startswith("opt."):
+      setattr(model.opt, key[4:], v)
+    else:
+      setattr(model, key, v)
+  return model
 
 
 def load_model_npz(path=G1_VELOCITY_FLAT) -> SimpleNamespace:
   """A namespace with MjModel's attribute names, read from `path`."""
-  model = SimpleNamespace(opt=SimpleNamespace())
   with np.load(path) as npz:
-    for key in npz.files:
-      v = npz[key]
-      if key == "names":
-        v = v.tobytes()
-      elif v.ndim == 0:
-        v = v.item()
-      if key.startswith("opt."):
-        setattr(model.opt, key[4:], v)
-      else:
-        setattr(model, key, v)
-  return model
+    return model_namespace({key: npz[key] for key in npz.files})
+
+
+def play_scene(path) -> Path:
+  """The play scene of a generated-terrain scene."""
+  if Path(path) not in PLAY_SCENES:
+    raise ValueError(f"no play scene is committed for {path}")
+  return PLAY_SCENES[Path(path)]
 
 
 def g1_velocity_sim_cfg():

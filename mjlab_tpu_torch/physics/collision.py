@@ -4,14 +4,20 @@ mjlab_tpu/physics/collision.py).
 The pair list comes from io._candidate_pairs, sorted by geometry-type
 combination. Each type group runs one batched narrowphase over (env, pair);
 a slot is active when dist < includemargin. The port implements the
-analytic pairs: plane–sphere, plane–capsule (2 contacts), sphere–sphere,
-sphere–capsule and capsule–capsule; and plane–mesh (4 contacts), where the
-mesh is its convex hull (convex.py) and the 4 deepest hull vertices are the
-contacts.
+analytic pairs: plane–sphere, plane–capsule (2 contacts), plane–box (4),
+sphere–sphere, sphere–capsule, sphere–box, capsule–capsule and capsule–box
+(2); and plane–mesh (4 contacts), where the mesh is its convex hull
+(convex.py) and the 4 deepest hull vertices are the contacts.
 
-The narrowphase functions take (B, n, ...) tensors and mirror the JAX
-package's single-pair functions operation by operation, including their
-clamping order and branch conditions, so that contact points agree.
+After the static pairs come the terrain groups' slots (`TerrainGroup`): a
+box terrain's pool against the robot's sphere and capsule geoms, through a
+cell-hash broadphase, the sphere–box and capsule–box narrowphase and a
+greedy deepest-first selection, in `_terrain_group_contacts`.
+
+The narrowphase functions take (B, n, ...) tensors (any leading shape that
+broadcasts) and mirror the JAX package's single-pair functions operation by
+operation, including their clamping order, branch conditions and the way
+they break ties, so that contact points agree.
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ from mjlab_tpu_torch.physics.types import (
   Contact,
   Data,
   Model,
+  TerrainGroup,
   Topology,
+  float_tensor,
   index_tensor,
   mjtGeom,
 )
@@ -71,6 +79,55 @@ def _closest_segment_point(a, b, p):
   ab = b - a
   t = _dot(p - a, ab) / torch.clamp_min(_dot(ab, ab), 1e-12)
   return a + torch.clamp(t, 0.0, 1.0)[..., None] * ab
+
+
+def _first_argmin3(x: torch.Tensor) -> torch.Tensor:
+  """Index of the least of 3 values, the lowest index among equals (as
+  jnp.argmin breaks ties: a centred point ties its faces)."""
+  k = torch.where(x[..., 1] < x[..., 0], 1, 0)
+  least = torch.minimum(x[..., 1], x[..., 0])
+  return torch.where(x[..., 2] < least, 2, k)
+
+
+def _first_argmin(x: torch.Tensor) -> torch.Tensor:
+  """Index of the least value along the last axis, the lowest index among
+  equals (as jnp.argmin); a row without a least value (NaN) gives the last
+  index."""
+  n = x.shape[-1]
+  idx = torch.arange(n, device=x.device)
+  least = torch.amin(x, dim=-1, keepdim=True)
+  return torch.amin(torch.where(x == least, idx, n), dim=-1).clamp_max(n - 1)
+
+
+def _lowest_k(x: torch.Tensor, k: int) -> torch.Tensor:
+  """Indices of the k least values along the last axis in ascending order,
+  the lower index first among equals (jax.lax.top_k of -x; torch.topk
+  promises no order among equals)."""
+  return torch.sort(x, dim=-1, stable=True).indices[..., :k]
+
+
+def _sphere_box_impl(p, r, box_pos, box_mat, box_size):
+  """Sphere (centre p, radius r) against a box: dist, the contact point and
+  the normal pointing box → sphere. A centre inside the box leaves through
+  its nearest face."""
+  local = (box_mat.transpose(-1, -2) @ (p - box_pos)[..., None])[..., 0]
+  clamped = torch.minimum(torch.maximum(local, -box_size), box_size)
+  delta = local - clamped
+  outside_d = _norm(delta)
+  inside = outside_d < 1e-9
+  face_d = box_size - torch.abs(local)
+  k = _first_argmin3(face_d)
+  face_k = torch.gather(face_d, -1, k[..., None])
+  n_in_local = torch.sign(local) * torch.nn.functional.one_hot(k, 3).to(p.dtype)
+  surf_in = local + n_in_local * face_k
+  n_out_local = delta / torch.clamp_min(outside_d, 1e-12)[..., None]
+  n_local = torch.where(inside[..., None], n_in_local, n_out_local)
+  surface_local = torch.where(inside[..., None], surf_in, clamped)
+  dist = torch.where(inside, -face_k[..., 0], outside_d) - r
+  n_world = (box_mat @ n_local[..., None])[..., 0]
+  surface_world = box_pos + (box_mat @ surface_local[..., None])[..., 0]
+  pos = surface_world + n_world * (0.5 * dist)[..., None]
+  return dist, pos, n_world
 
 
 def _closest_segment_segment(a0, a1, b0, b1):
@@ -122,6 +179,54 @@ def _plane_capsule(p1, m1, s1, p2, m2, s2):
   return dist, pos, torch.stack([frame, frame], dim=-3)
 
 
+def _box_corners(size: torch.Tensor) -> torch.Tensor:
+  """The 8 corners (..., 8, 3) of boxes of half-sizes `size` (..., 3), in
+  the JAX package's order (x slowest, z fastest). Built on the device: a
+  tensor literal would be a host-to-device copy on every step."""
+  i = torch.arange(8, device=size.device)
+  signs = torch.stack([(i >> 2) & 1, (i >> 1) & 1, i & 1], dim=-1) * 2 - 1
+  return signs.to(size.dtype) * size[..., None, :]
+
+
+def _plane_box(p1, m1, s1, p2, m2, s2):
+  """Plane vs box: the 4 deepest of its 8 corners, the lower corner index
+  first among equals (a level box puts 4 corners at one depth)."""
+  n = m1[..., :, 2]
+  world = p2[..., None, :] + _box_corners(s2) @ m2.transpose(-1, -2)  # (B, n, 8, 3)
+  dist8 = (world @ n[..., None])[..., 0] - _dot(n, p1)[..., None]
+  idx = _lowest_k(dist8, 4)
+  dist = torch.gather(dist8, -1, idx)
+  picked = torch.gather(world, -2, idx[..., None].expand(idx.shape + (3,)))
+  pos = picked - n[..., None, :] * (0.5 * dist)[..., None]
+  frame = _normal_frame(n)[..., None, :, :].expand(dist.shape + (3, 3))
+  return dist, pos, frame
+
+
+def _sphere_box(p1, m1, s1, p2, m2, s2):
+  dist, pos, n = _sphere_box_impl(p1, s1[..., 0], p2, m2, s2)
+  # _sphere_box_impl's normal points box → sphere = geom2 → geom1: flip.
+  return dist[..., None], pos[..., None, :], _normal_frame(-n)[..., None, :, :]
+
+
+def _capsule_box_normals(p1, m1, s1, p2, m2, s2):
+  """Capsule vs box as two spheres: at the segment point nearest the box
+  centre and at the segment end on that side. Returns dist (..., 2), pos
+  (..., 2, 3) and the normals (..., 2, 3) pointing box → capsule."""
+  axis, r, hl = m1[..., :, 2], s1[..., 0], s1[..., 1, None]
+  near = _closest_segment_point(p1 - axis * hl, p1 + axis * hl, p2)
+  t_end = torch.where(_dot(near - p1, axis) >= 0, 1.0, -1.0).to(p1.dtype)
+  end = p1 + axis * (t_end[..., None] * hl)
+  d0, q0, n0 = _sphere_box_impl(near, r, p2, m2, s2)
+  d1, q1, n1 = _sphere_box_impl(end, r, p2, m2, s2)
+  return (torch.stack([d0, d1], dim=-1), torch.stack([q0, q1], dim=-2),
+          torch.stack([n0, n1], dim=-2))
+
+
+def _capsule_box(p1, m1, s1, p2, m2, s2):
+  dist, pos, n = _capsule_box_normals(p1, m1, s1, p2, m2, s2)
+  return dist, pos, _normal_frame(-n)  # the normal points capsule → box
+
+
 def _sphere_sphere_pair(p1, m1, s1, p2, m2, s2):
   dist, pos, n = _sphere_sphere(p1, s1[:, 0], p2, s2[:, 0])
   return dist[..., None], pos[..., None, :], _normal_frame(n)[..., None, :, :]
@@ -167,6 +272,9 @@ _DISPATCH = {
   (_G.mjGEOM_SPHERE, _G.mjGEOM_CAPSULE): _sphere_capsule,
   (_G.mjGEOM_CAPSULE, _G.mjGEOM_CAPSULE): _capsule_capsule,
   (_G.mjGEOM_PLANE, _G.mjGEOM_MESH): _plane_convex,
+  (_G.mjGEOM_PLANE, _G.mjGEOM_BOX): _plane_box,
+  (_G.mjGEOM_SPHERE, _G.mjGEOM_BOX): _sphere_box,
+  (_G.mjGEOM_CAPSULE, _G.mjGEOM_BOX): _capsule_box,
 }
 
 
@@ -179,9 +287,25 @@ def _hull_verts(tp: Topology, g2: np.ndarray, dtype, device) -> torch.Tensor:
   return torch.as_tensor(np.stack(padded), dtype=dtype, device=device)
 
 
+def _terrain_tables(tp: Topology, tg: TerrainGroup, dtype, device) -> SimpleNamespace:
+  """A terrain group's device tensors: its cell hash, grid corner, robot
+  geoms and their radii, and the static priority picks of mj_contactParam
+  (the pool's priority is uniform)."""
+  prio = tp.geom_priority[tg.robot_geoms]
+  return SimpleNamespace(
+    tg=tg,
+    cells=index_tensor(tg.cells, device),
+    grid_lo=float_tensor(tg.grid_lo, dtype, device),
+    robot_geoms=index_tensor(tg.robot_geoms, device),
+    robot_rad=float_tensor(tg.robot_rad, dtype, device),
+    r_higher=torch.as_tensor(prio > tg.pool_priority, device=device),
+    t_higher=torch.as_tensor(prio < tg.pool_priority, device=device),
+  )
+
+
 def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
   """Per type group: geom index tensors, contacts per pair, and the static
-  priority selection of mj_contactParam."""
+  priority selection of mj_contactParam; per terrain group its tables."""
 
   groups = []
   for key, group in itertools.groupby(tp.pairs, key=lambda p: (p.type1, p.type2)):
@@ -200,7 +324,10 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
         differ=torch.as_tensor(prio1 != prio2, device=device)[:, None],
       )
     )
-  return SimpleNamespace(groups=groups)
+  return SimpleNamespace(
+    groups=groups,
+    terrain=[_terrain_tables(tp, tg, dtype, device) for tg in tp.terrain_groups],
+  )
 
 
 def _combine_params_vec(m: Model, g):
@@ -235,8 +362,142 @@ def _combine_params_vec(m: Model, g):
   return friction, solref, solimp, margin, torch.zeros_like(solref)
 
 
+def _gather_envs(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+  """x (B, ngeom, ...) at per-env geom ids (B, ...) → (B, ..., ...)."""
+  B = x.shape[0]
+  b = torch.arange(B, device=x.device).view((B,) + (1,) * (ids.dim() - 1))
+  return x[b, ids]
+
+
+def _combine_params_terrain(m: Model, t: SimpleNamespace, ids: torch.Tensor):
+  """mj_contactParam for (robot geom, selected terrain geom) with the
+  terrain side gathered at the broadphase's ids (B, R, K). The priority
+  comparison is static (the pool's priority is uniform). Returns friction
+  (B, R, K, 5), solref (B, R, K, 2), solimp (B, R, K, 5) and the margin
+  (B, R, K)."""
+  g = t.robot_geoms
+  fr = m.geom_friction
+  if fr.dim() == 3:  # per-env friction (B, ngeom, 3)
+    fri_r, fri_t = fr[:, g][:, :, None], _gather_envs(fr, ids)
+  else:
+    fri_r, fri_t = fr[g][:, None], fr[ids]
+  ref_r, imp_r = m.geom_solref[g][:, None], m.geom_solimp[g][:, None]
+  ref_t, imp_t = m.geom_solref[ids], m.geom_solimp[ids]
+  s_r = torch.clamp_min(m.geom_solmix[g], 1e-12)[:, None]
+  s_t = torch.clamp_min(m.geom_solmix[ids], 1e-12)
+  w_r = (s_r / (s_r + s_t))[..., None]
+  w_t = 1.0 - w_r
+  fri_mix = torch.maximum(fri_r, fri_t)
+  ref_mix = w_r * ref_r + w_t * ref_t
+  direct = ((ref_r[..., 0] <= 0) | (ref_t[..., 0] <= 0))[..., None]
+  ref_mix = torch.where(direct, torch.minimum(ref_r, ref_t), ref_mix)
+  imp_mix = w_r * imp_r + w_t * imp_t
+  r_hi, t_hi = t.r_higher[:, None, None], t.t_higher[:, None, None]
+
+  def pick(a_r, a_t, a_mix):
+    return torch.where(r_hi, a_r.expand(a_t.shape), torch.where(t_hi, a_t, a_mix))
+
+  fri3 = pick(fri_r, fri_t, fri_mix)
+  solref = pick(ref_r, ref_t, ref_mix)
+  solimp = pick(imp_r, imp_t, imp_mix)
+  margin = torch.maximum(m.geom_margin[g][:, None], m.geom_margin[ids])
+  friction = torch.stack(
+    [fri3[..., 0], fri3[..., 0], fri3[..., 1], fri3[..., 2], fri3[..., 2]], dim=-1
+  )
+  return friction, solref, solimp, margin
+
+
+def _terrain_group_contacts(m: Model, d: Data, t: SimpleNamespace):
+  """Broadphase (cell hash, then the K nearest by bounding sphere),
+  narrowphase and slot selection of one terrain group (port of the JAX
+  package's `_terrain_group_contacts`, sphere and capsule groups).
+
+  Returns (B, R·slots) slots in robot-geom order — dist, pos, frame,
+  friction, solref, solimp, includemargin — and each env's count of
+  dropped contacts: active candidates neither selected nor within the
+  dedupe radius of a selected one, i.e. contact points lost to the slot
+  capacity."""
+  tg = t.tg
+  rg = t.robot_geoms
+  B = d.qpos.shape[0]
+  R, K, S = len(tg.robot_geoms), tg.ncand, tg.slots
+  ncx, ncy, _ = tg.cells.shape
+  p = d.geom_xpos[:, rg]  # (B, R, 3)
+  ix = torch.floor((p[..., 0] - t.grid_lo[0]) / tg.cell_size).long().clamp(0, ncx - 1)
+  iy = torch.floor((p[..., 1] - t.grid_lo[1]) / tg.cell_size).long().clamp(0, ncy - 1)
+  cand = t.cells[ix, iy]  # (B, R, L) geom ids, -1 padded
+  valid = cand >= 0
+  cid = torch.clamp_min(cand, 0)
+  bpos = _gather_envs(d.geom_xpos, cid)  # (B, R, L, 3)
+  brad = _norm(m.geom_size[cid])
+  key = torch.sum((p[:, :, None] - bpos) ** 2, dim=-1) - (brad + t.robot_rad[:, None]) ** 2
+  key = torch.where(valid, key, torch.inf)
+  topi = _lowest_k(key, K)
+  ids = torch.gather(cid, -1, topi)  # (B, R, K)
+  ok = torch.gather(valid, -1, topi)
+
+  bp = _gather_envs(d.geom_xpos, ids)  # (B, R, K, 3)
+  bm = _gather_envs(d.geom_xmat, ids)
+  bs = m.geom_size[ids]
+  rp, rm, rs = p[:, :, None], d.geom_xmat[:, rg][:, :, None], m.geom_size[rg][:, None]
+
+  # Slot convention: the terrain geom is geom1 (welded to the world), the
+  # robot geom geom2; the frame normals point terrain → robot.
+  if tg.robot_type == _G.mjGEOM_SPHERE:
+    dist, pos, n = _sphere_box_impl(rp, rs[..., 0], bp, bm, bs)
+    dist, pos, n = dist[..., None], pos[..., None, :], n[..., None, :]
+  elif tg.robot_type == _G.mjGEOM_CAPSULE:
+    dist, pos, n = _capsule_box_normals(rp, rm, rs, bp, bm, bs)
+  else:
+    raise NotImplementedError(f"terrain narrowphase for geom type {tg.robot_type}")
+  frame = _normal_frame(n)
+
+  # (B, R, K, k) candidates → keep S per robot geom, deepest first, each
+  # pick suppressing the candidates within rho of it laterally: on a tile
+  # seam plain depth top-k fills every slot with near-coincident corners of
+  # adjacent tiles, the support polygon collapses and the body rocks.
+  k = dist.shape[-1]
+  nc = K * k
+  dist = torch.where(ok[..., None], dist, 1e10).reshape(B, R, nc)
+  pos = pos.reshape(B, R, nc, 3)
+  frame = frame.reshape(B, R, nc, 3, 3)
+  xy = pos[..., :2]
+  rho2 = (0.3 * t.robot_rad[:, None]) ** 2  # (R, 1)
+  arange = torch.arange(nc, device=dist.device)
+  taken = torch.zeros_like(dist, dtype=torch.bool)
+  sels = []
+  for _ in range(S):
+    j = _first_argmin(torch.where(taken, torch.inf, dist))  # (B, R)
+    sels.append(j)
+    xy_j = torch.gather(xy, 2, j[..., None, None].expand(B, R, 1, 2))
+    close = torch.sum((xy - xy_j) ** 2, dim=-1) < rho2
+    taken = taken | close | (arange == j[..., None])
+  sel = torch.stack(sels, dim=-1)  # (B, R, S)
+
+  friction, solref, solimp, inclm = _combine_params_terrain(m, t, ids)
+
+  def expand(a):  # (B, R, K, ...) → (B, R, K·k, ...)
+    return torch.repeat_interleave(a, k, dim=2)
+
+  # The dropped-contact count (the JAX package's saturation telemetry).
+  active = dist < expand(inclm)
+  sel_xy = torch.gather(xy, 2, sel[..., None].expand(B, R, S, 2))
+  d2 = torch.sum((xy[:, :, :, None] - sel_xy[:, :, None]) ** 2, dim=-1)  # (B, R, nc, S)
+  near_sel = torch.any(d2 < rho2[..., None], dim=-1)
+  is_sel = torch.any(arange[:, None] == sel[:, :, None], dim=-1)
+  dropped = torch.sum(active & ~near_sel & ~is_sel, dim=(1, 2), dtype=torch.int32)
+
+  def take(a):  # (B, R, nc, ...) at the selected slots → (B, R·S, ...)
+    idx = sel.view(B, R, S, *([1] * (a.dim() - 3))).expand(B, R, S, *a.shape[3:])
+    return torch.gather(a, 2, idx).reshape(B, R * S, *a.shape[3:])
+
+  return (take(dist), take(pos), take(frame), take(expand(friction)),
+          take(expand(solref)), take(expand(solimp)), take(expand(inclm)), dropped)
+
+
 def collision(tp: Topology, m: Model, d: Data) -> Data:
-  """One batched narrowphase call per type group, concatenated in slot order."""
+  """One batched narrowphase call per type group, then the terrain groups'
+  slots, concatenated in slot order (constraint.slot_tables' order)."""
   B = d.qpos.shape[0]
   if tp.ncon_max == 0:
     return d.replace(ncon_dropped=torch.zeros_like(d.ncon_dropped))
@@ -261,5 +522,13 @@ def collision(tp: Topology, m: Model, d: Data) -> Data:
         continue
       v = torch.repeat_interleave(v, g.k, dim=0)
       parts[f].append(v.expand((B,) + v.shape))
+  ncon_dropped = torch.zeros_like(d.ncon_dropped)
+  for t in tp.dev.coll.terrain:
+    *slots, dropped = _terrain_group_contacts(m, d, t)
+    ncon_dropped = ncon_dropped + dropped
+    for f, v in zip(("dist", "pos", "frame", "friction", "solref", "solimp",
+                     "includemargin"), slots):
+      parts[f].append(v)
+    parts["solreffriction"].append(torch.zeros_like(slots[4]))  # no <pair> into pools
   contact = Contact(**{f: torch.cat(v, dim=1) for f, v in parts.items()})
-  return d.replace(contact=contact, ncon_dropped=torch.zeros_like(d.ncon_dropped))
+  return d.replace(contact=contact, ncon_dropped=ncon_dropped)

@@ -97,6 +97,17 @@ def slot_tables(tp: Topology, cone: int) -> SlotTables:
       b1.append(int(tp.geom_bodyid[p.geom1]))
       b2.append(int(tp.geom_bodyid[p.geom2]))
       condim.append(p.condim)
+  # The terrain groups' slots follow. Their terrain geom is picked at run
+  # time but always welded to the world (b1 = 0); the pool's first geom
+  # stands in for g1, and each robot geom keeps its own condim.
+  for tg in tp.terrain_groups:
+    for i, g in enumerate(tg.robot_geoms):
+      for _ in range(tg.slots):
+        g1.append(int(tg.pool_geoms[0]))
+        g2.append(int(g))
+        b1.append(0)
+        b2.append(int(tp.geom_bodyid[g]))
+        condim.append(int(tg.condim[i]))
   condim = np.asarray(condim, dtype=np.int32)
   adr = np.zeros(len(condim), dtype=np.int32)
   num = np.zeros(len(condim), dtype=np.int32)

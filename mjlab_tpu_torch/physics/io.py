@@ -5,11 +5,13 @@
 MjModel (the tests), or the namespace `assets.load_model_npz` returns (where
 `mujoco` is not installed). It never imports `mujoco`.
 
-The port covers the features of the G1 and Asimov velocity-flat scenes:
-analytic plane/sphere/capsule pairs and plane–mesh (convex hull) pairs,
-fixed tendons and tendon transmission, and the IMU, frame and subtree
-sensors. Everything else the JAX package supports is refused here with
-`NotImplementedError` naming the feature, never simulated wrong.
+The port covers the features of the G1, Go1 and Asimov velocity scenes:
+analytic plane/sphere/capsule/box pairs (no box–box), plane–mesh (convex
+hull) pairs, the box-terrain pool for sphere and capsule geoms (a runtime
+broadphase, `TerrainGroup`), fixed tendons and tendon transmission, and the
+IMU, frame and subtree sensors. Everything else the JAX package supports is
+refused here with `NotImplementedError` naming the feature, never
+simulated wrong.
 
 A mesh geom's hull is built from its hull vertices (`_hull_vertices`): a
 live MjModel gives them through the qhull graph MuJoCo stores; the npz
@@ -35,6 +37,7 @@ from mjlab_tpu_torch.physics.types import (
   Integrator,
   Model,
   Option,
+  TerrainGroup,
   Topology,
   mjtBias,
   mjtCone,
@@ -62,7 +65,25 @@ _PAIR_NCON: dict[tuple[int, int], int] = {
   (_G.mjGEOM_SPHERE, _G.mjGEOM_CAPSULE): 1,
   (_G.mjGEOM_CAPSULE, _G.mjGEOM_CAPSULE): 1,
   (_G.mjGEOM_PLANE, _G.mjGEOM_MESH): 4,
+  (_G.mjGEOM_PLANE, _G.mjGEOM_BOX): 4,
+  (_G.mjGEOM_SPHERE, _G.mjGEOM_BOX): 1,
+  (_G.mjGEOM_CAPSULE, _G.mjGEOM_BOX): 2,
 }
+
+# Static world boxes are pooled into a runtime broadphase (TerrainGroup)
+# when there are more than TERRAIN_POOL_MIN of them: a static pair table of
+# a generated terrain's thousands of boxes times every robot geom would
+# explode. The JAX package's constants, and its reasons for them.
+TERRAIN_POOL_MIN = 64
+TERRAIN_CANDIDATES = 4  # candidate terrain geoms kept per robot geom
+TERRAIN_SLOTS = 6  # contact slots per robot geom: a geom on a tile seam has
+# up to ~9 equal-depth corners across the adjacent tiles; 4 slots let the
+# selected set flicker with micro-tilt, 6 cover the tie set
+_TERRAIN_CELL_SIZE = 1.0  # broadphase hash cell (m)
+_TERRAIN_CELL_MARGIN = 0.6  # AABB growth when binning (> the largest robot geom radius)
+# Mobile geom types with a narrowphase against the box pool. Box and mesh
+# geoms need the hull–hull SAT, which the port does not have yet.
+_TERRAIN_ROBOT_TYPES = (_G.mjGEOM_SPHERE, _G.mjGEOM_CAPSULE)
 
 _SUPPORTED_SENSORS = (
   mjtSensor.mjSENS_ACCELEROMETER,
@@ -141,9 +162,9 @@ def _reject_unsupported(m) -> None:
       no(f"sensor type {int(s)}")
   if np.any(m.sensor_reftype != 0):
     no("sensors with a reference frame (reftype)")
-  # Mesh pairs other than plane–mesh, and height-field, box (incl. terrain
-  # pools), cylinder and ellipsoid geoms are refused by _candidate_pairs,
-  # which has no narrowphase for their pairs.
+  # Mesh pairs other than plane–mesh, box–box, box and mesh geoms against
+  # a terrain pool, and height-field, cylinder and ellipsoid geoms are
+  # refused by _candidate_pairs, which has no narrowphase for their pairs.
 
 
 def _is_spatial_tendon(m, t: int) -> bool:
@@ -175,7 +196,7 @@ def _hull_vertices(m, geom_id: int) -> np.ndarray:
 def mesh_pair_geoms(m, pairs=None) -> list[int]:
   """The mesh geoms of the collision pairs (`pairs`, default the model's
   candidate pairs), ascending."""
-  pairs = _candidate_pairs(m) if pairs is None else pairs
+  pairs = _candidate_pairs(m)[0] if pairs is None else pairs
   return sorted(
     {p.geom1 for p in pairs if p.type1 == _G.mjGEOM_MESH}
     | {p.geom2 for p in pairs if p.type2 == _G.mjGEOM_MESH}
@@ -197,10 +218,112 @@ def _combined_condim(m, ga: int, gb: int) -> int:
   return max(int(m.geom_condim[ga]), int(m.geom_condim[gb]))
 
 
-def _candidate_pairs(m) -> list[GeomPair]:
+def _quat2mat(q: np.ndarray) -> np.ndarray:
+  """mju_quat2Mat: (3, 3) rotation of a unit quaternion (w, x, y, z), the
+  identity exactly for the identity quaternion."""
+  w, x, y, z = (float(v) for v in q)
+  if w == 1 and x == 0 and y == 0 and z == 0:
+    return np.eye(3)
+  q00, q01, q02, q03 = w * w, w * x, w * y, w * z
+  q11, q12, q13 = x * x, x * y, x * z
+  q22, q23, q33 = y * y, y * z, z * z
+  return np.asarray([
+    [q00 + q11 - q22 - q33, 2 * (q12 - q03), 2 * (q13 + q02)],
+    [2 * (q12 + q03), q00 - q11 + q22 - q33, 2 * (q23 - q01)],
+    [2 * (q13 - q02), 2 * (q23 + q01), q00 - q11 - q22 + q33],
+  ])
+
+
+def _geom_bounding_radius(m, g: int) -> float:
+  """Bounding-sphere radius of a geom about its frame origin."""
+  t = int(m.geom_type[g])
+  s = m.geom_size[g]
+  if t == _G.mjGEOM_SPHERE:
+    return float(s[0])
+  if t == _G.mjGEOM_CAPSULE:
+    return float(s[0] + s[1])
+  if t == _G.mjGEOM_CYLINDER:
+    return float(np.hypot(s[0], s[1]))
+  if t == _G.mjGEOM_MESH:
+    return float(np.max(np.linalg.norm(_hull_vertices(m, g), axis=-1)))
+  return float(np.linalg.norm(s))  # box, ellipsoid and the rest
+
+
+def _geom_world_aabb(m, g: int) -> tuple[np.ndarray, np.ndarray]:
+  """World AABB of a static (world-welded) geom from its model pose."""
+  pos = m.geom_pos[g]
+  if int(m.geom_type[g]) == _G.mjGEOM_BOX:
+    ext = np.abs(_quat2mat(m.geom_quat[g])) @ m.geom_size[g]
+  else:
+    ext = np.full(3, _geom_bounding_radius(m, g))
+  return pos - ext, pos + ext
+
+
+def _build_terrain_groups(
+  m, pool: list[int], mobile_by_type: dict[int, list[int]]
+) -> list[TerrainGroup]:
+  """A spatial hash of 1 m cells over the pool (each cell lists the pool
+  geoms whose AABB, grown by the margin, reaches it) and one group per
+  mobile geom type."""
+  lo = np.full(2, np.inf)
+  hi = np.full(2, -np.inf)
+  aabbs = []
+  for g in pool:
+    a, b = _geom_world_aabb(m, g)
+    aabbs.append((a, b))
+    lo = np.minimum(lo, a[:2])
+    hi = np.maximum(hi, b[:2])
+  cs, mg = _TERRAIN_CELL_SIZE, _TERRAIN_CELL_MARGIN
+  ncx = max(1, int(np.ceil((hi[0] - lo[0]) / cs)))
+  ncy = max(1, int(np.ceil((hi[1] - lo[1]) / cs)))
+
+  def cell(v: float, lo_: float, n: int) -> int:
+    return int(np.clip(np.floor((v - lo_) / cs), 0, n - 1))
+
+  buckets: list[list[list[int]]] = [[[] for _ in range(ncy)] for _ in range(ncx)]
+  for g, (a, b) in zip(pool, aabbs):
+    for ix in range(cell(a[0] - mg, lo[0], ncx), cell(b[0] + mg, lo[0], ncx) + 1):
+      for iy in range(cell(a[1] - mg, lo[1], ncy), cell(b[1] + mg, lo[1], ncy) + 1):
+        buckets[ix][iy].append(g)
+  L = max(1, max(len(c) for col in buckets for c in col))
+  cells = np.full((ncx, ncy, L), -1, dtype=np.int32)
+  for ix in range(ncx):
+    for iy in range(ncy):
+      ids = buckets[ix][iy]
+      cells[ix, iy, : len(ids)] = ids
+
+  if len({int(m.geom_priority[g]) for g in pool}) != 1:
+    raise NotImplementedError("terrain pool geoms must share one priority")
+  groups = []
+  for rtype in sorted(mobile_by_type):
+    geoms = sorted(mobile_by_type[rtype])
+    groups.append(
+      TerrainGroup(
+        robot_type=rtype,
+        robot_geoms=np.asarray(geoms, dtype=np.int32),
+        robot_rad=np.asarray([_geom_bounding_radius(m, g) for g in geoms]),
+        pool_type=_G.mjGEOM_BOX,
+        pool_geoms=np.asarray(pool, dtype=np.int32),
+        pool_priority=int(m.geom_priority[pool[0]]),
+        cells=cells,
+        grid_lo=lo,
+        cell_size=cs,
+        ncand=TERRAIN_CANDIDATES,
+        slots=TERRAIN_SLOTS,
+        condim=np.asarray(
+          [_combined_condim(m, g, pool[0]) for g in geoms], dtype=np.int32
+        ),
+      )
+    )
+  return groups
+
+
+def _candidate_pairs(m) -> tuple[list[GeomPair], list[TerrainGroup]]:
   """Collision pairs with MuJoCo's body-level filtering (same-body/weld,
   parent-child unless disabled, <exclude>, contype/conaffinity), sorted by
-  type pair so each narrowphase group is contiguous."""
+  type pair so each narrowphase group is contiguous; and the terrain groups
+  of a box pool (more than TERRAIN_POOL_MIN static world boxes), whose
+  pairs leave the static table."""
   excluded = set()
   for i in range(m.nexclude):
     sig = int(m.exclude_signature[i])
@@ -222,9 +345,41 @@ def _candidate_pairs(m) -> list[GeomPair]:
     a1, a2 = int(m.geom_conaffinity[g1]), int(m.geom_conaffinity[g2])
     return bool((t1 & a2) or (t2 & a1))
 
+  def world(g: int) -> bool:
+    return int(m.body_weldid[m.geom_bodyid[g]]) == 0
+
+  world_boxes = [
+    g for g in range(m.ngeom) if world(g) and int(m.geom_type[g]) == _G.mjGEOM_BOX
+  ]
+  pool: set[int] = set()
+  mobile_by_type: dict[int, list[int]] = {}
+  if len(world_boxes) > TERRAIN_POOL_MIN:
+    pool = set(world_boxes)
+    # A mobile geom joins a group iff it is compatible with the whole pool
+    # (probed at its first and last box; mixed compatibility raises).
+    for g in range(m.ngeom):
+      if world(g):
+        continue
+      compat = [compatible(g, p) for p in (world_boxes[0], world_boxes[-1])]
+      if not any(compat):
+        continue
+      if not all(compat):
+        raise NotImplementedError(
+          "geom has mixed collision compatibility with the terrain pool"
+        )
+      t = int(m.geom_type[g])
+      if t not in _TERRAIN_ROBOT_TYPES:
+        raise NotImplementedError(
+          f"terrain collision of geom {_name(m, m.name_geomadr, g)} (geom type {t}) "
+          "against the box pool (box and mesh need the hull SAT) is not "
+          "supported by mjlab_tpu_torch"
+        )
+      mobile_by_type.setdefault(t, []).append(g)
+
+  rest = [g for g in range(m.ngeom) if g not in pool]
   pairs: list[GeomPair] = []
-  for g1 in range(m.ngeom):
-    for g2 in range(g1 + 1, m.ngeom):
+  for i, g1 in enumerate(rest):
+    for g2 in rest[i + 1 :]:
       if not compatible(g1, g2):
         continue
       key, ga, gb = _pair_key(m, g1, g2)
@@ -242,7 +397,8 @@ def _candidate_pairs(m) -> list[GeomPair]:
         )
       )
   pairs.sort(key=lambda p: (p.type1, p.type2))
-  return pairs
+  groups = _build_terrain_groups(m, sorted(pool), mobile_by_type) if pool else []
+  return pairs, groups
 
 
 def _transmission_matrices(m) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -348,16 +504,23 @@ def put_model(
   device = torch.device(device) if device is not None else default_device()
   _reject_unsupported(m)
 
-  pairs = tuple(_candidate_pairs(m))
-  ncon_max = sum(p.ncon for p in pairs)
+  pairs, groups = (tuple(x) for x in _candidate_pairs(m))
+  ncon_max = sum(p.ncon for p in pairs) + sum(
+    tg.slots * len(tg.robot_geoms) for tg in groups
+  )
   cone = int(m.opt.cone)
   limited_joints = np.nonzero(
     (m.jnt_limited == 1)
     & np.isin(m.jnt_type, [mjtJoint.mjJNT_HINGE, mjtJoint.mjJNT_SLIDE])
   )[0]
   empty = np.zeros(0, dtype=np.int64)
-  nefc = len(limited_joints) + sum(
-    p.ncon * contact_rows(p.condim, cone) for p in pairs
+  nefc = (
+    len(limited_joints)
+    + sum(p.ncon * contact_rows(p.condim, cone) for p in pairs)
+    + sum(
+      tg.slots * sum(contact_rows(int(c), cone) for c in tg.condim)
+      for tg in groups
+    )
   )
   trn_qmat, trn_vmat, actuator_dyn_tendon = _transmission_matrices(m)
   tendon_qmat, tendon_vmat = _tendon_matrices(m)
@@ -453,7 +616,7 @@ def put_model(
     eq_active0=m.eq_active0.copy().astype(bool),
     neq_rows=0,
     pairs=pairs,
-    terrain_groups=(),
+    terrain_groups=groups,
     ncon_max=ncon_max,
     nefc=nefc,
     nhfield=0,

@@ -129,6 +129,30 @@ class ConeType:
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class TerrainGroup:
+  """Runtime-broadphase collision group: the mobile geoms of one type
+  against a pool of static world geoms (a box terrain). A static pair table
+  would hold thousands of boxes times every robot geom; instead a hash of
+  1 m cells over the terrain's xy extent gives each robot geom its
+  candidates each step, which are cut to `ncand` by distance and to `slots`
+  deepest contacts. Host arrays, as in the JAX package; compared by
+  identity."""
+
+  robot_type: int  # mjtGeom of the mobile geoms
+  robot_geoms: np.ndarray  # (R,) geom ids
+  robot_rad: np.ndarray  # (R,) bounding radii
+  pool_type: int  # mjtGeom of the pool geoms (BOX)
+  pool_geoms: np.ndarray  # (P,) geom ids
+  pool_priority: int  # the pool's one geom_priority
+  cells: np.ndarray  # (ncx, ncy, L) geom ids, -1 padded
+  grid_lo: np.ndarray  # (2,) world xy of the grid's corner
+  cell_size: float
+  ncand: int  # candidate pool geoms kept per robot geom
+  slots: int  # contact slots per robot geom
+  condim: np.ndarray  # (R,) combined condim per robot geom
+
+
 @dataclasses.dataclass(frozen=True)
 class GeomPair:
   """One candidate collision pair with static contact-slot allocation."""
@@ -243,7 +267,7 @@ class Topology:
   neq_rows: int
 
   pairs: tuple[GeomPair, ...]
-  terrain_groups: tuple
+  terrain_groups: tuple[TerrainGroup, ...]
   ncon_max: int
   nefc: int
 

@@ -7,16 +7,18 @@ compiled — a live `mujoco.MjModel`, or on a host without `mujoco` the
 namespace `assets.load_model_npz` reads from a committed npz
 (`SceneCfg.model_file`). The Scene binds each configured entity to the
 model's elements under its name prefix, builds the configured sensors,
-wraps every sensor of the compiled model as a BuiltinSensor, keeps the grid
-env origins, and fans out initialize/reset/update to its elements. Only the
-plane terrain is supported.
+wraps every sensor of the compiled model as a BuiltinSensor, takes the env
+origins from its terrain importer, and fans out initialize/reset/update to
+its elements. A generator terrain arrives generated in the npz, with its
+tiles' origins (`terrain_origins`); its levels and types are the scene's
+"terrain" state.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Literal
+from typing import Any
 
 import numpy as np
 import torch
@@ -24,14 +26,7 @@ import torch
 from mjlab_tpu_torch.entity import Entity, EntityCfg
 from mjlab_tpu_torch.entity.entity import element_name
 from mjlab_tpu_torch.sensors import BuiltinSensor, Sensor, SensorCfg
-
-
-@dataclass
-class TerrainImporterCfg:
-  """Terrain (the JAX package's terrains/terrain_importer.py); the port has
-  the plane only, which the compiled model already holds."""
-
-  terrain_type: Literal["plane", "generator"] = "plane"
+from mjlab_tpu_torch.terrains import TerrainImporter, TerrainImporterCfg
 
 
 @dataclass(kw_only=True)
@@ -54,15 +49,39 @@ def load_compiled_model(cfg: SceneCfg):
   return load_model_npz(cfg.model_file)
 
 
+def _terrain_origins(cfg: TerrainImporterCfg, model):
+  """The tiles' origins of a generator terrain, from the compiled scene,
+  checked against the generator's grid; None for the plane."""
+  if cfg.terrain_type == "plane":
+    return None
+  if cfg.terrain_type != "generator":
+    raise ValueError(f"Unknown terrain type {cfg.terrain_type}")
+  # The port cannot generate a terrain: the compiled scene must hold it,
+  # generated on the configured grid.
+  origins = getattr(model, "terrain_origins", None)
+  if origins is None:
+    raise NotImplementedError(
+      "terrain generation (terrain_type 'generator') is not supported by "
+      "mjlab_tpu_torch: the compiled scene holds no generated terrain "
+      "(terrain_origins; see assets.save_model_npz)"
+    )
+  gen = cfg.terrain_generator
+  grid = (gen.num_rows, gen.num_cols) if gen is not None else None
+  if grid != tuple(origins.shape[:2]):
+    raise NotImplementedError(
+      f"terrain generation is not supported by mjlab_tpu_torch: the generator's "
+      f"grid {grid} is not the compiled scene's {tuple(origins.shape[:2])}"
+    )
+  return np.asarray(origins, dtype=np.float64)
+
+
 class Scene:
   def __init__(self, scene_cfg: SceneCfg, model) -> None:
-    terrain = scene_cfg.terrain
-    if terrain is not None and terrain.terrain_type != "plane":
-      raise NotImplementedError(
-        f"terrain_type '{terrain.terrain_type}' is not supported by mjlab_tpu_torch "
-        "(plane only)"
-      )
     self._cfg = scene_cfg
+    terrain = scene_cfg.terrain or TerrainImporterCfg()
+    self._terrain = TerrainImporter(
+      terrain, scene_cfg.num_envs, scene_cfg.env_spacing, _terrain_origins(terrain, model)
+    )
     self._model = model
     self._entities: dict[str, Entity] = {
       name: Entity(cfg, name, model) for name, cfg in scene_cfg.entities.items()
@@ -74,15 +93,19 @@ class Scene:
       name = element_name(model, model.name_sensoradr, i)
       if name not in self._sensors:
         self._sensors[name] = BuiltinSensor.from_existing(name)
-    self._env_origins: torch.Tensor | None = None
     self.device: torch.device | None = None
 
   # -- attributes -----------------------------------------------------------
 
   @property
   def env_origins(self) -> torch.Tensor:
-    assert self._env_origins is not None, "Scene not initialized."
-    return self._env_origins
+    """Each env's origin, static (the JAX package's; ROADMAP Queue C)."""
+    assert self._terrain.env_origins is not None, "Scene not initialized."
+    return self._terrain.env_origins
+
+  @property
+  def terrain(self) -> TerrainImporter:
+    return self._terrain
 
   @property
   def entities(self) -> dict[str, Entity]:
@@ -103,15 +126,7 @@ class Scene:
   # -- lifecycle -------------------------------------------------------------
 
   def initialize(self, ctx) -> None:
-    # Grid origins from spacing (the JAX package's terrain importer for a
-    # plane, terrain_importer.py:80-86).
-    n = self._cfg.num_envs
-    side = int(np.ceil(np.sqrt(n)))
-    ii, jj = np.unravel_index(np.arange(n), (side, side))
-    origins = np.zeros((n, 3))
-    origins[:, 0] = (ii - (side - 1) / 2) * self._cfg.env_spacing
-    origins[:, 1] = (jj - (side - 1) / 2) * self._cfg.env_spacing
-    self._env_origins = torch.as_tensor(origins, dtype=ctx.dtype, device=ctx.device)
+    self._terrain.initialize(ctx)
     self.device = ctx.device
     for ent in self._entities.values():
       ent.initialize(ctx)
@@ -121,7 +136,7 @@ class Scene:
   def init_state(self) -> dict:
     return {
       "sensors": {name: s.init_state() for name, s in self._sensors.items()},
-      "terrain": {},
+      "terrain": self._terrain.init_state(),
     }
 
   def reset(self, env_mask=None) -> None:

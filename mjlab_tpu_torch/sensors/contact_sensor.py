@@ -150,19 +150,28 @@ class ContactSensor(Sensor[ContactData]):
     else:
       secondary = None
 
-    slot_g1, slot_g2 = [], []
+    # Each slot's geom sets, in slot order: the static pairs', then the
+    # terrain groups' slots, whose geom1 is picked at run time from the
+    # pool and so matches against the whole pool.
+    slot_g1: list[frozenset] = []
+    slot_g2: list[frozenset] = []
     for p in tp.pairs:
-      slot_g1 += [p.geom1] * p.ncon
-      slot_g2 += [p.geom2] * p.ncon
+      slot_g1 += [frozenset((p.geom1,))] * p.ncon
+      slot_g2 += [frozenset((p.geom2,))] * p.ncon
+    for tg in tp.terrain_groups:
+      pool = frozenset(int(g) for g in tg.pool_geoms)
+      for g in tg.robot_geoms:
+        slot_g1 += [pool] * tg.slots
+        slot_g2 += [frozenset((int(g),))] * tg.slots
 
     self.item_names = [n for n, _ in primaries]
     per_item_slots, per_item_sign = [], []
     for _, pset in primaries:
       slots, signs = [], []
       for k, (g1, g2) in enumerate(zip(slot_g1, slot_g2)):
-        p1, p2 = g1 in pset, g2 in pset
-        s1 = secondary is None or g1 in secondary
-        s2 = secondary is None or g2 in secondary
+        p1, p2 = not g1.isdisjoint(pset), not g2.isdisjoint(pset)
+        s1 = secondary is None or not g1.isdisjoint(secondary)
+        s2 = secondary is None or not g2.isdisjoint(secondary)
         # The contact normal points geom1 → geom2: the force ON the primary
         # is +f when the primary is geom2 and −f when it is geom1. A slot is
         # listed once even when both geoms match (self-matching sensors).

@@ -21,6 +21,14 @@ _REGISTRY = {
     "env": "mjlab_tpu_torch.tasks.velocity.config.g1.env_cfgs:unitree_g1_flat_env_cfg",
     "rl": "mjlab_tpu_torch.tasks.velocity.config.g1.rl_cfg:UnitreeG1PPORunnerCfg",
   },
+  "Mjlab-Velocity-Rough-Unitree-G1": {
+    "env": "mjlab_tpu_torch.tasks.velocity.config.g1.env_cfgs:unitree_g1_rough_env_cfg",
+    "rl": "mjlab_tpu_torch.tasks.velocity.config.g1.rl_cfg:UnitreeG1PPORunnerCfg",
+  },
+  "Mjlab-Velocity-Flat-Unitree-Go1": {
+    "env": "mjlab_tpu_torch.tasks.velocity.config.go1.env_cfgs:unitree_go1_flat_env_cfg",
+    "rl": "mjlab_tpu_torch.tasks.velocity.config.go1.rl_cfg:UnitreeGo1PPORunnerCfg",
+  },
   "Mjlab-Velocity-Flat-Asimov": {
     "env": "mjlab_tpu_torch.tasks.velocity.config.asimov.env_cfgs:asimov_flat_env_cfg",
     "rl": "mjlab_tpu_torch.tasks.velocity.config.asimov.rl_cfg:AsimovPPORunnerCfg",

@@ -1,12 +1,13 @@
-"""Unitree G1 velocity-tracking configuration, flat terrain (port of
-mjlab_tpu/tasks/velocity/config/g1/env_cfgs.py). The compiled scene is
-assets/g1_velocity_flat.npz, which the JAX package's scene layer compiles
-from the same configuration (tests/test_torch_model_io.py keeps it
-fresh)."""
+"""Unitree G1 velocity-tracking configurations, flat and rough terrain (port
+of mjlab_tpu/tasks/velocity/config/g1/env_cfgs.py). The compiled scenes are
+assets/g1_velocity_flat.npz and g1_velocity_rough.npz, which the JAX
+package's scene layer compiles from the same configurations
+(tests/test_torch_model_io.py and tests/test_torch_terrain_model.py keep
+them fresh)."""
 
 from __future__ import annotations
 
-from mjlab_tpu_torch.assets import G1_VELOCITY_FLAT
+from mjlab_tpu_torch.assets import G1_VELOCITY_FLAT, G1_VELOCITY_ROUGH
 from mjlab_tpu_torch.asset_zoo.robots.unitree_g1.g1_constants import (
   G1_ACTION_SCALE,
   get_g1_robot_cfg,
@@ -51,8 +52,7 @@ _POSTURE_STD_RUNNING = {
 }
 
 
-def unitree_g1_flat_env_cfg() -> ManagerBasedRlEnvCfg:
-  """Fresh G1 flat-terrain cfg, bound to its compiled scene."""
+def _make_cfg(terrain: TerrainImporterCfg | None) -> ManagerBasedRlEnvCfg:
   feet_ground_cfg = ContactSensorCfg(
     name="feet_ground_contact",
     primary=ContactMatch(
@@ -90,7 +90,21 @@ def unitree_g1_flat_env_cfg() -> ManagerBasedRlEnvCfg:
     angular_momentum_weight=-0.02,
     self_collision_weight=-1.0,
     air_time_weight=0.0,
-    terrain=TerrainImporterCfg(terrain_type="plane"),
+    terrain=terrain,
   )
+  return cfg
+
+
+def unitree_g1_rough_env_cfg() -> ManagerBasedRlEnvCfg:
+  """Fresh G1 cfg on the default rough generator terrain, bound to its
+  compiled scene."""
+  cfg = _make_cfg(terrain=None)
+  cfg.scene.model_file = G1_VELOCITY_ROUGH
+  return cfg
+
+
+def unitree_g1_flat_env_cfg() -> ManagerBasedRlEnvCfg:
+  """Fresh G1 flat-terrain cfg, bound to its compiled scene."""
+  cfg = _make_cfg(terrain=TerrainImporterCfg(terrain_type="plane"))
   cfg.scene.model_file = G1_VELOCITY_FLAT
   return cfg

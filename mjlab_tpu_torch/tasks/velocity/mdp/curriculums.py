@@ -1,6 +1,7 @@
 """Velocity-task curriculum terms (port of
 mjlab_tpu/tasks/velocity/mdp/curriculums.py). Stage selection compares the
-device-side common step counter, so no step synchronizes with the host."""
+device-side common step counter and the terrain levels move by masks, so no
+step synchronizes with the host."""
 
 from __future__ import annotations
 
@@ -9,6 +10,9 @@ from typing import TypedDict
 import torch
 
 from mjlab_tpu_torch.managers.manager_base import ManagerTermBase
+from mjlab_tpu_torch.managers.scene_entity_config import SceneEntityCfg
+
+_DEFAULT_SCENE_CFG = SceneEntityCfg("robot")
 
 
 class VelocityStage(TypedDict, total=False):
@@ -18,10 +22,27 @@ class VelocityStage(TypedDict, total=False):
   ang_vel_z: tuple[float, float] | None
 
 
-def terrain_levels_vel(env, env_mask, command_name: str, asset_cfg=None):
-  raise NotImplementedError(
-    "terrain_levels_vel (generator terrain) is not supported by mjlab_tpu_torch"
+def terrain_levels_vel(
+  env, env_mask, command_name: str, asset_cfg: SceneEntityCfg = _DEFAULT_SCENE_CFG
+) -> torch.Tensor:
+  """Promote the masked envs whose robot walked more than half a tile from
+  its origin; demote those that walked less than half the commanded
+  distance (reference curriculums.py:30-64). Returns the mean level."""
+  asset = env.scene[asset_cfg.name]
+  terrain = env.scene.terrain
+  if terrain.terrain_origins is None:
+    raise ValueError("terrain_levels_vel needs a generator terrain")
+  command = env.command_manager.get_command(command_name)
+  distance = torch.linalg.vector_norm(
+    asset.data.root_link_pos_w[:, :2] - env.scene.env_origins[:, :2], dim=1
   )
+  move_up = distance > terrain.cfg.terrain_generator.size[0] / 2
+  move_down = distance < (
+    torch.linalg.vector_norm(command[:, :2], dim=1) * env.max_episode_length_s * 0.5
+  )
+  move_down = move_down & ~move_up
+  terrain.update_env_origins(env_mask, move_up, move_down)
+  return torch.mean(terrain.terrain_levels.to(env.dtype))
 
 
 class commands_vel(ManagerTermBase):

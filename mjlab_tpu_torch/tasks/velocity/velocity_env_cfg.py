@@ -1,8 +1,9 @@
 """Velocity-tracking task configuration factory (port of
 mjlab_tpu/tasks/velocity/velocity_env_cfg.py): the locomotion MDP (7 policy
 and 11 critic observation terms, 4 events, 14 rewards, 2 terminations, the
-command curriculum) around a robot EntityCfg. Only the plane terrain is
-supported: the default generator terrain raises at scene build."""
+command curriculum, and the terrain-level curriculum on a generator terrain)
+around a robot EntityCfg. The default terrain is the JAX package's rough
+generator grid, which the task's scene npz must hold generated."""
 
 from __future__ import annotations
 
@@ -28,12 +29,23 @@ from mjlab_tpu_torch.sensors import ContactSensorCfg
 from mjlab_tpu_torch.sim import MujocoCfg, SimulationCfg
 from mjlab_tpu_torch.tasks.velocity import mdp
 from mjlab_tpu_torch.tasks.velocity.mdp import UniformVelocityCommandCfg
+from mjlab_tpu_torch.terrains import rough_terrains_cfg
 from mjlab_tpu_torch.utils.noise import UniformNoiseCfg as Unoise
 
 
 def sim_cfg() -> SimulationCfg:
   """5 ms steps, Newton with 10 iterations and 20 linesearch iterations."""
   return SimulationCfg(mujoco=MujocoCfg(timestep=0.005, iterations=10, ls_iterations=20))
+
+
+def _default_terrain_cfg() -> TerrainImporterCfg:
+  """The JAX package's default: the rough generator grid (10 x 20 tiles of
+  8 m), envs starting at levels below 6."""
+  return TerrainImporterCfg(
+    terrain_type="generator",
+    terrain_generator=rough_terrains_cfg(),
+    max_init_terrain_level=5,
+  )
 
 
 def create_velocity_env_cfg(
@@ -54,8 +66,9 @@ def create_velocity_env_cfg(
   terrain: TerrainImporterCfg | None = None,
 ) -> ManagerBasedRlEnvCfg:
   """Assemble the velocity locomotion MDP for a robot."""
-  terrain = (deepcopy(terrain) if terrain is not None
-             else TerrainImporterCfg(terrain_type="generator"))
+  terrain = deepcopy(terrain) if terrain is not None else _default_terrain_cfg()
+  if terrain.terrain_generator is not None:
+    terrain.terrain_generator.curriculum = True
 
   scene = SceneCfg(
     terrain=terrain,

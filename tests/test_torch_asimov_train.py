@@ -4,26 +4,19 @@ tiny size: `python -m mjlab_tpu_torch.scripts.train <task> --env.scene.num_envs 
 for Mjlab-Velocity-Flat-Asimov and -Asimov-Toe (the task's own PPO cfg,
 hidden 512/256/128); `play` and `joint_deltas` on the checkpoint; the PPO
 cfgs equal the JAX package's; without a device the runner asks for CUDA;
-and `list_envs` lists the 5 tasks."""
+and `list_envs` lists the port's 7 tasks."""
 
 from __future__ import annotations
 
 import dataclasses
-import json
-import math
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import pytest
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
+import torch_parity as tp
+
 TASKS = {"Mjlab-Velocity-Flat-Asimov": (48, "asimov"),
          "Mjlab-Velocity-Flat-Asimov-Toe": (45, "asimov_toe")}
-CLI = {"env.scene.num_envs": "2", "agent.num_steps_per_env": "2",
-       "agent.max_iterations": "1", "agent.device": "cpu"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -38,27 +31,12 @@ def _one_thread():
 def trained(request, tmp_path_factory):
   task = request.param
   log_dir = tmp_path_factory.mktemp("train")
-  args = [a for k, v in CLI.items() for a in (f"--{k}", v)]
-  env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
-  out = subprocess.run(
-    [sys.executable, "-m", "mjlab_tpu_torch.scripts.train", task, *args,
-     "--log_dir", str(log_dir)],
-    cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
-  )
-  assert out.returncode == 0, out.stderr[-3000:]
-  return task, log_dir, out.stdout
+  return task, log_dir, tp.train_cli(task, log_dir)
 
 
 def test_train_cli_runs_one_iteration(trained):
   task, log_dir, stdout = trained
-  assert "[runner] 1 iterations" in stdout
-  final = json.loads((log_dir / "final_metrics.json").read_text())
-  assert final["iteration"] == 1
-  for k in ("Loss/loss", "Loss/kl", "Loss/value_loss", "Loss/lr", "Train/mean_step_reward"):
-    assert math.isfinite(final[k]), k
-  policy = torch.jit.load(str(log_dir / "model_1_policy.pt"))
-  act = policy(torch.zeros(3, TASKS[task][0]))
-  assert act.shape == (3, 12) and torch.isfinite(act).all()
+  tp.check_trained(log_dir, stdout, TASKS[task][0], 12)
 
 
 def test_play_and_joint_deltas_take_the_checkpoint(trained):
@@ -102,7 +80,7 @@ def test_rl_cfg_matches_jax(task):
 def test_runner_asks_for_cuda_by_default(task):
   from mjlab_tpu_torch.scripts.train import build_runner
 
-  overrides = {k: v for k, v in CLI.items() if k != "agent.device"}
+  overrides = {k: v for k, v in tp.TINY_CLI.items() if k != "agent.device"}
   if torch.cuda.is_available():
     assert build_runner(task, overrides).device.type == "cuda"
     return
@@ -115,4 +93,4 @@ def test_list_envs_lists_five_tasks(capsys):
 
   list_envs.main()
   rows = [line.split()[0] for line in capsys.readouterr().out.splitlines()[2:]]
-  assert len(rows) == 5 and set(TASKS) <= set(rows)
+  assert len(rows) == 7 and set(TASKS) <= set(rows)

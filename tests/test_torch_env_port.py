@@ -119,7 +119,7 @@ def test_make_env_from_the_registry():
   env = make_env(TASK, num_envs=2, device="cpu", seed=3, episode_length_s=1.0)
   assert env.num_envs == 2 and env.max_episode_length == 50
   with pytest.raises(KeyError, match="Unknown task"):
-    load_env_cfg("Mjlab-Velocity-Rough-Unitree-G1")
+    load_env_cfg("Mjlab-Velocity-Rough-Unitree-Go1")
 
 
 def test_default_device_is_cuda():
@@ -135,9 +135,14 @@ def test_default_device_is_cuda():
 
 
 def _edit_generator(cfg):
+  """A generator terrain over the flat scene npz, which holds no generated
+  terrain (no terrain_origins)."""
   from mjlab_tpu_torch.scene import TerrainImporterCfg
+  from mjlab_tpu_torch.terrains import rough_terrains_cfg
 
-  cfg.scene.terrain = TerrainImporterCfg(terrain_type="generator")
+  cfg.scene.terrain = TerrainImporterCfg(
+    terrain_type="generator", terrain_generator=rough_terrains_cfg()
+  )
 
 
 def _edit_history(cfg):
@@ -198,10 +203,15 @@ def test_features_outside_the_port_raise(edit, name):
 
 
 def test_terrain_curriculum_raises():
+  """The terrain-level curriculum needs a generator terrain: on the plane
+  it raises (its parity with the JAX package on a generator terrain:
+  tests/test_torch_terrain_curriculum.py)."""
   from mjlab_tpu_torch.tasks.velocity.mdp import terrain_levels_vel
 
-  with pytest.raises(NotImplementedError, match="terrain_levels_vel"):
-    terrain_levels_vel(None, None, "twist")
+  env = _env(0)
+  mask = torch.ones(NUM_ENVS, dtype=torch.bool)
+  with pytest.raises(ValueError, match="terrain_levels_vel"):
+    terrain_levels_vel(env, mask, "twist")
 
 
 @pytest.mark.parametrize("kind", ["constant", "uniform", "gaussian"])

@@ -1,5 +1,5 @@
 """The port stands alone: importing it, building and stepping its envs
-(G1, Asimov and Asimov-Toe) from the committed scenes, one tiny PPO
+(G1 flat and rough, Go1, Asimov and Asimov-Toe) from the committed scenes, one tiny PPO
 training iteration, converting a motion
 CSV and training the tracking task on it, and a run's lifecycle (training
 with periodic saves, resuming, play, list_envs, joint_deltas, the NaN
@@ -44,6 +44,10 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
     "import mjlab_tpu_torch.asset_zoo.robots.asimov.asimov_toe_constants\n"
     "import mjlab_tpu_torch.tasks.velocity.config.asimov.env_cfgs\n"
     "import mjlab_tpu_torch.tasks.velocity.config.asimov_toe.env_cfgs\n"
+    "import mjlab_tpu_torch.terrains, mjlab_tpu_torch.terrains.terrain_importer\n"
+    "import mjlab_tpu_torch.asset_zoo.robots.unitree_go1.go1_constants\n"
+    "import mjlab_tpu_torch.tasks.velocity.config.go1.env_cfgs\n"
+    "import mjlab_tpu_torch.tasks.velocity.config.go1.rl_cfg\n"
     "import mjlab_tpu_torch.scripts.csv_to_npz as c2n\n"
     "m = mjlab_tpu_torch.assets.load_model_npz()\n"
     "import torch\n"
@@ -51,7 +55,8 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
     "                                     num_envs=2, device='cpu')\n"
     "env.reset(seed=0)\n"
     "env.step(torch.zeros(2, env.total_action_dim))\n"
-    "for t in ('Mjlab-Velocity-Flat-Asimov', 'Mjlab-Velocity-Flat-Asimov-Toe'):\n"
+    "for t in ('Mjlab-Velocity-Flat-Asimov', 'Mjlab-Velocity-Flat-Asimov-Toe',\n"
+    "          'Mjlab-Velocity-Rough-Unitree-G1', 'Mjlab-Velocity-Flat-Unitree-Go1'):\n"
     "  e = mjlab_tpu_torch.tasks.make_env(t, num_envs=2, device='cpu')\n"
     "  e.reset(seed=0)\n"
     "  e.step(torch.zeros(2, e.total_action_dim))\n"

@@ -193,7 +193,7 @@ def test_list_envs_lists_the_ports_tasks(capsys):
   lines = capsys.readouterr().out.splitlines()
   assert lines[0].split() == ["Task", "ID", "Entry", "point"]
   rows = [line.split() for line in lines[2:]]
-  assert [r[0] for r in rows] == tasks.list_tasks() and len(rows) == 5
+  assert [r[0] for r in rows] == tasks.list_tasks() and len(rows) == 7
   assert set(r[0] for r in rows) <= set(jax_tasks.list_tasks())
   for task_id, entry in rows:
     module, attr = entry.split(":")

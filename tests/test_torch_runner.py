@@ -22,25 +22,15 @@ from __future__ import annotations
 import dataclasses
 import json
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import torch_parity as tp
-from mjlab_tpu.rl import ppo as jppo
-from mjlab_tpu.rl.networks import ActorCritic as JaxActorCritic
-from mjlab_tpu.rl.networks import RunningNorm as JaxRunningNorm
-from mjlab_tpu.rl.runner import OnPolicyRunner as JaxRunner
 from mjlab_tpu.tasks.velocity.config.g1.rl_cfg import UnitreeG1PPORunnerCfg
 from mjlab_tpu_torch.rl import ppo as tppo
 from mjlab_tpu_torch.rl.networks import RunningNorm
-from mjlab_tpu_torch.rl.runner import (
-  OnPolicyRunner,
-  runner_state_from_arrays,
-  runner_state_to_arrays,
-)
+from mjlab_tpu_torch.rl.runner import runner_state_to_arrays
 from mjlab_tpu_torch.tasks import load_rl_cfg
 
 NUM_ENVS = 4
@@ -67,54 +57,10 @@ def run():
   """Both runners after one iteration from one state, with their rollouts,
   advantages and metrics."""
   jenv, env = tp.g1_flat_envs(NUM_ENVS, tp.certain_variant)
-  jr = JaxRunner(jenv, _rl_cfg(UnitreeG1PPORunnerCfg()))
-  tr = OnPolicyRunner(env, _rl_cfg(load_rl_cfg("Mjlab-Velocity-Flat-Unitree-G1")))
-
-  # The JAX runner's state, learner in float64, normalizers with history.
-  rng = np.random.default_rng(0)
-
-  def norm(dim):
-    return JaxRunningNorm(mean=jnp.asarray(rng.normal(0, 0.5, dim)),
-                          var=jnp.asarray(rng.uniform(0.5, 2.0, dim)),
-                          count=jnp.asarray(200.0))
-
-  state = tp.jax_learner_f64(jr.state).replace(
-    actor_norm=norm(tr.num_actor_obs), critic_norm=norm(tr.num_critic_obs)
+  return tp.iteration_pair(
+    jenv, env, _rl_cfg(UnitreeG1PPORunnerCfg()),
+    _rl_cfg(load_rl_cfg("Mjlab-Velocity-Flat-Unitree-G1")), T,
   )
-  tp.carry(jenv, env)
-  runner_state_from_arrays(tr, tp.jax_runner_arrays(state))
-  tr.obs = {k: torch.as_tensor(np.asarray(v)) for k, v in state.obs.items()}
-  old = {"actor": state.actor_norm, "critic": state.critic_norm}
-
-  # JAX's draws.
-  rng_next, scan_key = jax.random.split(state.rng)
-  keys = jax.random.split(scan_key, T)
-  noise = np.stack([np.asarray(jax.random.normal(k, (NUM_ENVS, tr.num_actions), jnp.float64))
-                    for k in keys])
-  perms = []
-  train_rng = state.train.rng
-  for _ in range(2):
-    train_rng, key = jax.random.split(train_rng)
-    perms.append(np.asarray(jax.random.permutation(key, T * NUM_ENVS)))
-
-  # The JAX iteration as _train_iteration runs it, keeping its rollout.
-  carry = (state.env_state, state.obs, state.train.params, state.actor_norm, state.critic_norm)
-  carry, (jbatch, extras) = jax.jit(lambda c, k: jax.lax.scan(jr._rollout_step, c, k))(
-    carry, keys
-  )
-  jstate, jmet = jax.jit(jr._post_rollout)(state, carry, jbatch, extras, rng_next)
-  last_c_obs = state.critic_norm(carry[1]["critic"].astype(jnp.float32))
-  jlast = jr.ac.apply(state.train.params, last_c_obs, method=JaxActorCritic.value)
-  _, jadv, jret = jppo.prepare_update(jr.cfg.algorithm, jbatch, jlast)
-
-  # The port's, in its two halves so that its advantages can be read.
-  tbatch, logs = tr.rollout(torch.as_tensor(noise))
-  with torch.no_grad():
-    tlast = tr.ac.value(tr.critic_norm(tr.obs["critic"].to(torch.float32)))
-  _, tadv, tret = tppo.prepare_update(tr.cfg.algorithm, tbatch, tlast)
-  tmet = tr.update(tbatch, logs, torch.as_tensor(np.stack(perms)))
-  return dict(jenv=jenv, jr=jr, tr=tr, jstate=jstate, jmet=jmet, jbatch=jbatch,
-              tbatch=tbatch, tmet=tmet, adv=(jadv, tadv), ret=(jret, tret), old=old)
 
 
 def test_rollout_matches_jax(run):

@@ -785,3 +785,199 @@ def check_asimov_env_steps_from_a_carried_state(envs):
     for f in fields:
       assert_close(state[f], np.asarray(getattr(jenv.data, f)), tol(f),
                       f"{name}:{f} (port spread {spread[f]:.1e})")
+
+
+# ---------------------------------------------------------------------------
+# G1 on rough terrain and Go1 on flat ground: the scenes and the env pairs.
+# The port takes a generated terrain's tile origins from its scene npz; an
+# env bound to a live JAX model gets them beside its arrays
+# (`with_terrain_origins`).
+# ---------------------------------------------------------------------------
+
+
+def g1_rough_jax_cfg(play: bool = False):
+  """A fresh JAX G1 rough cfg (with the play overrides when `play`)."""
+  import copy
+
+  from mjlab_tpu.tasks.velocity.config.g1.env_cfgs import UNITREE_G1_ROUGH_ENV_CFG
+
+  cfg = copy.deepcopy(UNITREE_G1_ROUGH_ENV_CFG)
+  if play:
+    from mjlab_tpu.scripts.play import apply_play_overrides
+
+    apply_play_overrides(cfg)
+  return cfg
+
+
+@functools.lru_cache(maxsize=None)
+def g1_rough_scene(play: bool = False):
+  """(compiled G1 rough scene with the task's solver options, its tiles'
+  origins (rows, cols, 3)) as the JAX package's scene layer builds them."""
+  from mjlab_tpu.scene import Scene
+
+  cfg = g1_rough_jax_cfg(play)
+  sc = Scene(cfg.scene)
+  m = sc.compile()
+  cfg.sim.mujoco.apply(m)
+  return m, np.asarray(sc.terrain.terrain_origins)
+
+
+def go1_flat_jax_cfg():
+  import copy
+
+  from mjlab_tpu.tasks.velocity.config.go1.env_cfgs import UNITREE_GO1_FLAT_ENV_CFG
+
+  return copy.deepcopy(UNITREE_GO1_FLAT_ENV_CFG)
+
+
+def go1_mj_model() -> mujoco.MjModel:
+  """The Go1 velocity-flat scene with the task's solver options."""
+  return _compiled(go1_flat_jax_cfg())
+
+
+def with_terrain_origins(mj, origins):
+  """The port's namespace of a live model's arrays, with a generated
+  terrain's tile origins."""
+  from mjlab_tpu_torch.assets import model_arrays, model_namespace
+
+  return model_namespace({**model_arrays(mj), "terrain_origins": np.asarray(origins)})
+
+
+def _task_cfgs(jcfg, task: str, num_envs: int, edit=None):
+  from mjlab_tpu_torch.tasks import load_env_cfg
+
+  cfgs = (jcfg, load_env_cfg(task))
+  for cfg in cfgs:
+    cfg.scene.num_envs = num_envs
+    cfg.sim.dtype = "float64"
+    if edit is not None:
+      edit(cfg)
+  return cfgs
+
+
+def g1_rough_envs(num_envs: int, edit=None):
+  """(JAX env, port env on the CPU) of the G1 rough task, float64; the port
+  bound to the JAX env's compiled model and terrain origins."""
+  from mjlab_tpu.envs import ManagerBasedRlEnv as JaxEnv
+  from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+
+  jcfg, tcfg = _task_cfgs(g1_rough_jax_cfg(), "Mjlab-Velocity-Rough-Unitree-G1", num_envs,
+                          edit)
+  jenv = JaxEnv(jcfg)
+  model = with_terrain_origins(jenv.sim.mj_model, jenv.scene.terrain.terrain_origins)
+  return jenv, ManagerBasedRlEnv(tcfg, device="cpu", model=model)
+
+
+def go1_flat_envs(num_envs: int, edit=None):
+  """(JAX env, port env on the CPU) of the Go1 flat task, float64."""
+  return _envs(_task_cfgs(go1_flat_jax_cfg(), "Mjlab-Velocity-Flat-Unitree-Go1",
+                          num_envs, edit))
+
+
+def iteration_pair(jenv, env, jax_rl_cfg, rl_cfg, T: int, epochs: int = 2) -> dict:
+  """One PPO iteration of the JAX package's runner and of the port's from
+  one state: the JAX runner's env state, observations and learner (in
+  float64, with normalizers of nonzero count), carried into the port, and
+  JAX's draws (its rollout noise and epoch permutations, rebuilt from its
+  keys as runner.py:192-193,161 and ppo.py:208-209 draw them). Returns both
+  runners, their rollouts, advantages, returns and metrics."""
+  from mjlab_tpu.rl import ppo as jppo
+  from mjlab_tpu.rl.networks import ActorCritic as JaxActorCritic
+  from mjlab_tpu.rl.networks import RunningNorm as JaxRunningNorm
+  from mjlab_tpu.rl.runner import OnPolicyRunner as JaxRunner
+  from mjlab_tpu_torch.rl import ppo as tppo
+  from mjlab_tpu_torch.rl.runner import OnPolicyRunner, runner_state_from_arrays
+
+  num_envs = env.num_envs
+  jr = JaxRunner(jenv, jax_rl_cfg)
+  tr = OnPolicyRunner(env, rl_cfg)
+
+  # The JAX runner's state, learner in float64, normalizers with history.
+  rng = np.random.default_rng(0)
+
+  def norm(dim):
+    return JaxRunningNorm(mean=jnp.asarray(rng.normal(0, 0.5, dim)),
+                          var=jnp.asarray(rng.uniform(0.5, 2.0, dim)),
+                          count=jnp.asarray(200.0))
+
+  state = jax_learner_f64(jr.state).replace(
+    actor_norm=norm(tr.num_actor_obs), critic_norm=norm(tr.num_critic_obs)
+  )
+  carry(jenv, env)
+  runner_state_from_arrays(tr, jax_runner_arrays(state))
+  tr.obs = {k: torch.as_tensor(np.asarray(v)) for k, v in state.obs.items()}
+  old = {"actor": state.actor_norm, "critic": state.critic_norm}
+
+  # JAX's draws.
+  rng_next, scan_key = jax.random.split(state.rng)
+  keys = jax.random.split(scan_key, T)
+  noise = np.stack([np.asarray(jax.random.normal(k, (num_envs, tr.num_actions), jnp.float64))
+                    for k in keys])
+  perms = []
+  train_rng = state.train.rng
+  for _ in range(epochs):
+    train_rng, key = jax.random.split(train_rng)
+    perms.append(np.asarray(jax.random.permutation(key, T * num_envs)))
+
+  # The JAX iteration as _train_iteration runs it, keeping its rollout.
+  c = (state.env_state, state.obs, state.train.params, state.actor_norm, state.critic_norm)
+  c, (jbatch, extras) = jax.jit(lambda c, k: jax.lax.scan(jr._rollout_step, c, k))(c, keys)
+  jstate, jmet = jax.jit(jr._post_rollout)(state, c, jbatch, extras, rng_next)
+  last_c_obs = state.critic_norm(c[1]["critic"].astype(jnp.float32))
+  jlast = jr.ac.apply(state.train.params, last_c_obs, method=JaxActorCritic.value)
+  _, jadv, jret = jppo.prepare_update(jr.cfg.algorithm, jbatch, jlast)
+
+  # The port's, in its two halves so that its advantages can be read.
+  tbatch, logs = tr.rollout(torch.as_tensor(noise))
+  with torch.no_grad():
+    tlast = tr.ac.value(tr.critic_norm(tr.obs["critic"].to(torch.float32)))
+  _, tadv, tret = tppo.prepare_update(tr.cfg.algorithm, tbatch, tlast)
+  tmet = tr.update(tbatch, logs, torch.as_tensor(np.stack(perms)))
+  return dict(jenv=jenv, jr=jr, tr=tr, jstate=jstate, jmet=jmet, jbatch=jbatch,
+              tbatch=tbatch, tmet=tmet, adv=(jadv, tadv), ret=(jret, tret), old=old)
+
+
+# ---------------------------------------------------------------------------
+# The train entry point at a tiny size on the CPU, in a subprocess (the
+# train-CLI tests of the Asimov, Go1 and G1 rough tasks).
+# ---------------------------------------------------------------------------
+
+TINY_CLI = {"env.scene.num_envs": "2", "agent.num_steps_per_env": "2",
+            "agent.max_iterations": "1", "agent.device": "cpu"}
+
+
+def train_cli(task: str, log_dir) -> str:
+  """`python -m mjlab_tpu_torch.scripts.train <task>` with TINY_CLI into
+  `log_dir`; returns its standard output."""
+  import subprocess
+  import sys
+  from pathlib import Path
+
+  root = Path(__file__).resolve().parents[1]
+  args = [a for k, v in TINY_CLI.items() for a in (f"--{k}", v)]
+  env = dict(os.environ, PYTHONPATH=str(root), OMP_NUM_THREADS="1")
+  out = subprocess.run(
+    [sys.executable, "-m", "mjlab_tpu_torch.scripts.train", task, *args,
+     "--log_dir", str(log_dir)],
+    cwd=root, env=env, capture_output=True, text=True, timeout=300,
+  )
+  assert out.returncode == 0, out.stderr[-3000:]
+  return out.stdout
+
+
+def check_trained(log_dir, stdout: str, obs_dim: int, num_actions: int) -> dict:
+  """One iteration ran: finite final metrics and a TorchScript policy of
+  the task's widths. Returns the final metrics."""
+  import math
+  from pathlib import Path
+
+  log_dir = Path(log_dir)
+  assert "[runner] 1 iterations" in stdout
+  final = json.loads((log_dir / "final_metrics.json").read_text())
+  assert final["iteration"] == 1
+  for k in ("Loss/loss", "Loss/kl", "Loss/value_loss", "Loss/lr", "Train/mean_step_reward"):
+    assert math.isfinite(final[k]), k
+  policy = torch.jit.load(str(log_dir / "model_1_policy.pt"))
+  act = policy(torch.zeros(3, obs_dim))
+  assert act.shape == (3, num_actions) and torch.isfinite(act).all()
+  return final
