@@ -17,7 +17,7 @@ Phases, each printing its own lines:
      L2-resident batch (the Cholesky entry points only: one Newton input,
      J alone, is 0.97 GB, 20 times the L2);
   3. drive the main path — `Simulation.step_fn()` on the G1 velocity-flat
-     scene at 4096 worlds, 50 env steps of 4 substeps, ctrl = keyframe
+     scene at 4096 worlds, 30 env steps (cut from 50) of 4 substeps, ctrl = keyframe
      targets + a seeded small action — with the kernels' launch counters
      set to 0 just before and read just after; check the state is finite,
      plausible and in contact and that every substep made 12
@@ -33,8 +33,8 @@ Phases, each printing its own lines:
      per launch on the main path, the device's busy share of phase 3's
      steady wall time) and fail if the batched JᵀWJ product still runs;
   7. the env path — `tasks.make_env("Mjlab-Velocity-Flat-Unitree-G1")` at
-     4096 envs (float32, from the committed scene), `reset(seed=0)`, then 60
-     `env.step`s of N(0, 1) actions with 0.4 s episodes (20 env steps, so
+     4096 envs (float32, from the committed scene), `reset(seed=0)`, then 40
+     (cut from 60) `env.step`s of N(0, 1) actions with 0.4 s episodes (20 env steps, so
      that every env resets in-step at least twice), all under
      `torch.cuda.set_sync_debug_mode("error")`; the kernels' counters set
      to 0 just before the steps and read just after: 59 factorizations and
@@ -66,7 +66,7 @@ Phases, each printing its own lines:
      on the certain-draw variant, 4 envs, T = 4, 1 epoch x 2 minibatches,
      from one warm learner (Adam's moments and the normalizers' statistics
      drawn from the seed) and the same draws on both, for each of the
-     seeds 3, 4 and 5 (another list with `--f64-seeds 3,4,...`);
+     seed 3 (cut from 3, 4 and 5; another list with `--f64-seeds 3,4,...`);
   9. the tracking path — a seeded synthetic motion CSV (10 s at 30 fps)
      converted on the card by `scripts.csv_to_npz` (500 frames at 50 fps,
      11 adaptive bins), then `build_runner("Mjlab-Tracking-Flat-Unitree-G1",
@@ -87,11 +87,11 @@ Phases, each printing its own lines:
      that neither logs nor saves, run under set_sync_debug_mode("error")
      (the checkpoint loaded, the learner equal to it before its update, the
      label it went on from), `run_play --policy trained` on the final
-     checkpoint for 24 steps (ms per step, mean reward; the card's actions
+     checkpoint for 12 steps (cut from 24; ms per step, mean reward; the card's actions
      against the exported TorchScript policy on the CPU, 1e-5 relative; the
      kernels against their plain versions on the play env's matrices), the
      NaN guard on that env (ms per watch, a dump of exactly the 2 poisoned
-     envs and the model), `run_joint_deltas` for 10 steps and
+     envs and the model), `run_joint_deltas` for 5 steps (cut from 10) and
      `export_policy_as_onnx`; the kernels' counters set to 0 before the
      phase and read after it, less the comparisons' launches.
  11. the Asimov family on flat ground: for Mjlab-Velocity-Flat-Asimov (foot
@@ -99,33 +99,47 @@ Phases, each printing its own lines:
      Mjlab-Velocity-Flat-Asimov-Toe (fixed tendons driven by the
      parallel-ankle action; nv 20, 174 rows), `build_runner` at 4096 envs
      with the task's PPO cfg; the observation widths; the feet's hulls built
-     on this host against the CPU host's digest; phase 8's 2 iterations
-     under set_sync_debug_mode("error") with their counts, checks and split,
-     and a device-only profile of a rollout step and an update (launches,
-     busy share); the four kernels against their plain versions on each
-     run's matrices, and their times there; the card's float64 env against
-     the CPU's, 4 envs x 3 env steps, each from the CPU env's state and
-     held to 1e-8 or twice the CPU's own spread under 6 qpos nudges of 1e-13,
-     for Asimov-Toe with the ankle targets checked in ctrl on the 4 tendon
-     actuators only.
- 12. G1 on rough terrain and Go1 on flat ground, each as a task of phase
-     11: Mjlab-Velocity-Rough-Unitree-G1 (3564 terrain boxes pooled behind
-     the cell-hash broadphase, 667 contact slots, nv 35, 2235 Newton rows;
-     the pool and the 10 x 20 tile grid checked after the build; the
+     on this host against the CPU host's digest; 1 iteration (2, with a
+     device-only profile and the stage times, before the cut: the robots train
+     on rough terrain in phase 13) under set_sync_debug_mode("error") with
+     its counts, checks and split; the four kernels against their plain
+     versions on each run's matrices, and their times there; the card's
+     float64 env against the CPU's, 4 envs x 3 env steps, each from the CPU
+     env's state and held to 1e-8 or twice the CPU's own spread under 6
+     qpos nudges of 1e-13, for Asimov-Toe with the ankle targets checked in
+     ctrl on the 4 tendon actuators only.
+ 12. G1 on rough terrain (2 iterations, a device-only profile of a rollout
+     step and an update, the stage times) and Go1 on flat ground (cut as
+     phase 11's), each as a task of phase 11:
+     Mjlab-Velocity-Rough-Unitree-G1 (3564 terrain boxes pooled behind the
+     cell-hash broadphase, 667 contact slots, nv 35, 2235 Newton rows; the
+     pool and the 10 x 20 tile grid checked after the build; the
      iterations' dropped terrain contacts and mean terrain level) and
      Mjlab-Velocity-Flat-Unitree-Go1 (the trunk box on the plane; nv 18,
-     240 rows); then a headless `run_play` of the rough task, 24 steps of
+     240 rows); then a headless `run_play` of the rough task, 12 steps (cut from 24) of
      the random policy at 4096 envs, which must load the committed play
      scene (3 x 3 tiles), with the kernels' counters set to 0 just before
      and read just after.
+ 13. Go1, Asimov and Asimov-Toe on rough terrain, each as G1 rough in phase
+     12: Mjlab-Velocity-Rough-Unitree-Go1 (the trunk box against the 3564
+     pooled boxes through the plain hull SAT; 180 slots, nv 18, 732 rows),
+     -Rough-Asimov (the feet's hulls through the SAT, checked against the
+     CPU host's digest; 12 slots, 60 rows) and -Rough-Asimov-Toe (capsules
+     only, their terrain contacts taken from above; nv 20, 494 rows); each
+     iteration's dropped terrain contacts and mean level; the SAT's
+     launches and device time per `collision` call on each run's last
+     state, for the box and the mesh group; then a headless `run_play` of
+     Go1 rough, 24 steps of the random policy at 4096 envs on its committed
+     play scene.
 Any failed check raises. The line before the last is the kernel table as
 JSON (`launches` from the env path of phase 7, `launches_training_path`
 from phase 8's 2 iterations, `launches_tracking_path` from phase 9's,
 `launches_lifecycle_path` from phase 10, `launches_asimov_path` from phase
-11's 2 iterations of each task, `launches_rough_go1_path` from phase 12's
-and its play, `ms_asimov_run_matrices_by_nv` and
-`ms_rough_go1_run_matrices_by_nv` each kernel's time on phase 11's and
-phase 12's matrices by nv); the last line is
+11's iteration of each task, `launches_rough_go1_path` from phase 12's
+and its play, `launches_rough_path` from phase 13's and its play,
+`ms_asimov_run_matrices_by_nv`, `ms_rough_go1_run_matrices_by_nv` and
+`ms_rough_run_matrices_by_nv` each kernel's time on phase 11's, 12's and
+13's matrices by nv (phase 13's by task and nv)); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -143,7 +157,7 @@ from pathlib import Path
 import torch
 
 NUM_WORLDS = 4096
-ENV_STEPS = 50
+ENV_STEPS = 30  # cut from 50 to keep the script inside its limit
 DECIMATION = 4
 N = 35  # G1 nv
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
@@ -157,7 +171,7 @@ KERNELS = ("chol_factor", "chol_solve", "chol_factor_solve", "newton_direction")
 OUT = Path("chiprun_out")
 TASK = "Mjlab-Velocity-Flat-Unitree-G1"
 RL_EPISODE_S = 0.4  # cut from 20 s: 20 env steps, every env resets in-step
-RL_STEPS = 60
+RL_STEPS = 40  # cut from 60: still 2 episodes of 20 env steps per env
 RL_STEADY_FROM = 10
 RL_SOLVES_PER_STEP = 5
 
@@ -171,15 +185,24 @@ def fact_per_env_step(newton_iters: int = 10) -> int:
 
 RL_FACT_PER_STEP = fact_per_env_step()
 TRAIN_ITERS = 2  # 3 until PR 7; 2 keeps the script with phase 11 inside its limit
+# Phase 11's flat Asimov tasks and phase 12's Go1 flat run one iteration:
+# their robots train 2 on rough terrain in phase 13, and the script stays
+# inside its limit.
+CUT_ITERS = 1
 TRAIN_STEPS = 24  # the G1 PPO cfg's num_steps_per_env
 # The runner's torch.profiler spans: a rollout step's two, then the update's.
 TRAIN_SPANS = ("rollout_step/act", "rollout_step/env_step",
                "ppo_update/prepare", "ppo_update/minibatch_steps")
-F64_SEEDS = (3, 4, 5)  # draws of the card-vs-CPU float64 training iteration
+F64_SEEDS = (3,)  # draws of the card-vs-CPU float64 training iteration (cut from 3, 4, 5)
 TRACK_TASK = "Mjlab-Tracking-Flat-Unitree-G1"
 TRACK_CSV_ROWS = 301  # 10 s of motion at 30 fps
 TRACK_FRAMES = 500  # the same 10 s at 50 fps
 TRACK_BINS = 11  # adaptive-sampling bins: 500 frames // 50 steps per s + 1
+# Steps of the earlier paths' play (phases 10, 12) and of joint_deltas
+# (phase 10), cut from 24 and 10; Go1 rough's play (phase 13) keeps
+# 24.
+EARLY_PLAY_STEPS = 12
+JOINT_DELTA_STEPS = 5
 
 
 # The Asimov feet's convex hulls as put_model builds them from the committed
@@ -201,6 +224,14 @@ ROUGH_TASK = "Mjlab-Velocity-Rough-Unitree-G1"
 ROUGH_GO1_OBS_DIMS = {ROUGH_TASK: (99, 111), "Mjlab-Velocity-Flat-Unitree-Go1": (48, 72)}
 
 
+# Phase 13's tasks and their (policy, critic) observation widths, the JAX
+# package's (tests/test_torch_rough_env.py; Asimov-Toe's are its flat
+# variant's, tests/test_torch_asimov_toe_env.py).
+ROUGH13_OBS_DIMS = {"Mjlab-Velocity-Rough-Unitree-Go1": (48, 72),
+                    "Mjlab-Velocity-Rough-Asimov": (48, 60),
+                    "Mjlab-Velocity-Rough-Asimov-Toe": (45, 57)}
+
+
 def hull_digest(tp) -> str:
   """sha256 of every hull of a Topology (geom order; verts, faces, face
   normals, edge directions)."""
@@ -214,6 +245,19 @@ def hull_digest(tp) -> str:
     for f in dataclasses.fields(tp.geom_hulls[g]):
       h.update(np.ascontiguousarray(getattr(tp.geom_hulls[g], f.name)).tobytes())
   return h.hexdigest()
+
+
+class PhaseClock:
+  """Prints each phase's wall time and the time since the script began."""
+
+  def __init__(self):
+    self.start = self.last = time.perf_counter()
+
+  def done(self, phase: int) -> None:
+    now = time.perf_counter()
+    print(f"phase {phase} done in {now - self.last:.1f} s, {now - self.start:.1f} s since the "
+          "start")
+    self.last = now
 
 
 def card_line() -> str:
@@ -525,15 +569,17 @@ def span_busy_ms(prof) -> tuple[dict[str, tuple[float, float]], set[str]]:
                and str(e.device_type).endswith("CPU")}
 
 
-def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int]):
-  """TRAIN_ITERS `train_iteration`s under set_sync_debug_mode("error") with
+def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
+                     iters: int = TRAIN_ITERS):
+  """`iters` `train_iteration`s under set_sync_debug_mode("error") with
   the kernels' counters set to 0 just before and read just after. Checks
   1416 factorizations and 120 `chol_solve` per iteration (at 10 Newton
   iterations), finite losses, the lr inside [1e-5, 1e-2], the rollout
   buffers' shapes and that every parameter moved. Each iteration runs as
   `timed_iteration`. Returns the launches, the steady ms per iteration
-  (CUDA events), each iteration's metrics and the last iteration's split
-  (its parts' ms, memory, and (batch, logs, perms))."""
+  (CUDA events; with one iteration, that iteration's, its warm-up
+  included), each iteration's metrics and the last iteration's split (its
+  parts' ms, memory, and (batch, logs, perms))."""
   import numpy as np
 
   from mjlab_tpu_torch.kernels import chol
@@ -546,7 +592,7 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int]):
   chol.reset_counts()
   torch.cuda.set_sync_debug_mode("error")
   t0 = time.perf_counter()
-  for _ in range(TRAIN_ITERS):
+  for _ in range(iters):
     m, mk, mem, last = timed_iteration(runner)
     metrics.append(m)
     marks.append(mk)
@@ -558,24 +604,25 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int]):
   fact = chol.factorizations()
   peak_gb = max(max(mem.values()) for mem in mems)
   iter_ms = [mk[0][1].elapsed_time(mk[-1][1]) for mk in marks]
-  steady_iter_ms = sum(iter_ms[1:]) / (TRAIN_ITERS - 1)
+  steady_iter_ms = sum(iter_ms[1:]) / (iters - 1) if iters > 1 else iter_ms[0]
   host = [{k: float(v) for k, v in m.items()} for m in metrics]
-  print(f"  {TRAIN_ITERS} iterations under set_sync_debug_mode('error'): no host-device "
+  print(f"  {iters} iterations under set_sync_debug_mode('error'): no host-device "
         f"synchronization; wall {t_train:.3f} s")
   print(f"  ms per iteration (CUDA events) {', '.join(f'{x:.2f}' for x in iter_ms)}; "
-        f"steady (iterations 2-{TRAIN_ITERS}) {steady_iter_ms:.2f} ms, "
+        + (f"steady (iterations 2-{iters})" if iters > 1 else "one iteration, its warm-up in")
+        + f" {steady_iter_ms:.2f} ms, "
         f"{NUM_WORLDS * TRAIN_STEPS / steady_iter_ms * 1e3:.1f} training env-steps/s [{card}]")
   print(f"  peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated) [{card}]")
-  print(f"  launches {launches}; factorizations {fact} = {fact / TRAIN_ITERS:.1f}/iteration, "
-        f"chol_solve {launches['chol_solve'] / TRAIN_ITERS:.1f}/iteration")
+  print(f"  launches {launches}; factorizations {fact} = {fact / iters:.1f}/iteration, "
+        f"chol_solve {launches['chol_solve'] / iters:.1f}/iteration")
   for i, m in enumerate(host):
     print(f"  it {i}: loss {m['Loss/loss']:.5f} surrogate {m['Loss/surrogate']:.5f} value "
           f"{m['Loss/value_loss']:.5f} kl {m['Loss/kl']:.5f} entropy {m['Loss/entropy']:.3f} "
           f"lr {m['Loss/lr']:.3e} reward {m['Train/mean_step_reward']:.5f} resets "
           f"{m['Train/resets']:.0f} noise_std {m['Policy/noise_std']:.4f}")
   per_step = fact_per_env_step(runner.env.sim.model.opt.iterations)
-  if (fact != TRAIN_STEPS * per_step * TRAIN_ITERS
-      or launches["chol_solve"] != TRAIN_STEPS * RL_SOLVES_PER_STEP * TRAIN_ITERS
+  if (fact != TRAIN_STEPS * per_step * iters
+      or launches["chol_solve"] != TRAIN_STEPS * RL_SOLVES_PER_STEP * iters
       or any(launches[k] == 0 for k in KERNELS)):
     raise AssertionError(f"{phase}: expected {TRAIN_STEPS * per_step} factorizations "
                          f"and {TRAIN_STEPS * RL_SOLVES_PER_STEP} solves per iteration, got "
@@ -877,18 +924,21 @@ def ankle_ctrl_check(env, action) -> float:
 
 def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: str,
               attr: str, checks: KernelCheck, launches: dict, path_ms: dict,
-              after_build=None, on_step=None) -> dict:
-  """One task of phases 11 and 12: `build_runner` at NUM_WORLDS envs with
-  the task's PPO cfg; the observation widths; `after_build(runner)`; phase
-  8's TRAIN_ITERS iterations, checks and split, and a device-only profile;
-  one substep's stage times on the run's last state (phase 5's split); the
-  four kernels against their plain versions on the run's matrices (n =
-  nv, J of nefc rows), timed there beside their plain versions, the library
-  calls and their bounds at these shapes; and the card's float64 env
-  against the CPU's, 4 envs x 3 env steps each from the CPU's state
-  (`f64_env_check` with nudges, `on_step` after each card step). Adds the
-  iterations' launches to `launches` and each kernel's ms on the run's
-  matrices to `path_ms` (keyed by nv); returns the iterations' metrics."""
+              after_build=None, on_step=None, after_train=None, ms_key=None,
+              iters: int = TRAIN_ITERS) -> dict:
+  """One task of phases 11-13: `build_runner` at NUM_WORLDS envs with the
+  task's PPO cfg; the observation widths; `after_build(runner)`; phase 8's
+  checks and split over `iters` iterations, and (unless `iters` is cut
+  below TRAIN_ITERS) a device-only profile and one substep's stage times
+  on the run's last state (phase 5's split);
+  `after_train(runner)`; the four kernels against their plain versions on
+  the run's matrices (n = nv, J of nefc rows), timed there beside their
+  plain versions, the library calls and their bounds at these shapes; and
+  the card's float64 env against the CPU's, 4 envs x 3 env steps each from
+  the CPU's state (`f64_env_check` with nudges, `on_step` after each card
+  step). Adds the iterations' launches to `launches` and each kernel's ms
+  on the run's matrices to `path_ms` (keyed by `ms_key`, default nv);
+  returns the iterations' metrics."""
   from mjlab_tpu_torch.kernels import chol
   from mjlab_tpu_torch.physics import solver
   from mjlab_tpu_torch.scripts.train import build_runner
@@ -919,15 +969,23 @@ def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: 
         f"factor-solve) + {it + 1} in the post-reset forward) = "
         f"{TRAIN_STEPS * fact_per_env_step(it)} factorizations; {TRAIN_STEPS} x "
         f"{RL_SOLVES_PER_STEP} = {TRAIN_STEPS * RL_SOLVES_PER_STEP} chol_solve")
-  got, steady_iter_ms, host, split = train_iterations(runner, card, f"{phase} {tag}", obs_dims)
+  got, steady_iter_ms, host, split = train_iterations(runner, card, f"{phase} {tag}", obs_dims,
+                                                      iters)
   for k in KERNELS:
     launches[k] += got[k]
-  profile_iteration(runner, card, attr, tag, steady_iter_ms, split, spans=False)
+  if iters < TRAIN_ITERS:
+    print("  a cut run: no profile and no stage times (phase 13 measures the robot on "
+          "rough terrain)")
+  else:
+    profile_iteration(runner, card, attr, tag, steady_iter_ms, split, spans=False)
+    per_stage = stage_times(tp, env.model, env.data)
+    print(f"  one substep by stage on the run's last state (CUDA events, mean of 3): "
+          + ", ".join(f"{k} {v:.3f}"
+                      for k, v in sorted(per_stage.items(), key=lambda kv: -kv[1])[:6])
+          + f" ms; sum {sum(per_stage.values()):.3f} ms [{card}]")
   del split
-  per_stage = stage_times(tp, env.model, env.data)
-  print(f"  one substep by stage on the run's last state (CUDA events, mean of 3): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per_stage.items(), key=lambda kv: -kv[1])[:6])
-        + f" ms; sum {sum(per_stage.values()):.3f} ms [{card}]")
+  if after_train is not None:
+    after_train(runner)
 
   d, n = env.data, tp.nv
   print(f"  kernels vs plain on the {tag} run's matrices, f32, n = {n}, J "
@@ -961,7 +1019,7 @@ def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: 
         f"{active_rows / (NUM_WORLDS * tp.nefc):.4f} of {NUM_WORLDS * tp.nefc}) [{card}]:")
   for k, (kern, plain, lib) in timing.items():
     ms = [time_ms(f, [()], iters=iters) for f, iters in ((kern, 20), (plain, 5), (lib, 20))]
-    path_ms[k][str(n)] = ms[0]
+    path_ms[k][ms_key or str(n)] = ms[0]
     print(f"    {k:18s} kernel {ms[0]:.4f} ms  plain {ms[1]:.4f} ms  library "
           f"{ms[2]:.4f} ms  bound {bnd[k][0]:.6f} ms ({bnd[k][1]})")
   del runner, env, d, qM, H, L, J, w, grad
@@ -975,11 +1033,12 @@ def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: 
 
 def asimov_path(card: str, attr: str, checks: KernelCheck):
   """Phase 11: the Asimov family (ASIMOV_OBS_DIMS' two tasks) trains on flat
-  ground, each through `task_path`; for Asimov, the feet's hulls built on
-  this host against the CPU host's digest; for Asimov-Toe, the ankle
-  targets checked in ctrl after every card step of the float64 env check
-  (tol 1e-12). Returns the kernels' launches over both tasks' iterations
-  and each kernel's ms on each run's matrices (keyed by nv)."""
+  ground, each through `task_path` for CUT_ITERS iteration; for Asimov,
+  the feet's hulls built on this host against the CPU host's digest; for
+  Asimov-Toe, the ankle targets checked in ctrl after every card step of
+  the float64 env check (tol 1e-12). Returns the kernels' launches over
+  both tasks' iterations and each kernel's ms on each run's matrices
+  (keyed by nv)."""
   t_phase = time.perf_counter()
   launches = {k: 0 for k in KERNELS}
   path_ms: dict[str, dict[str, float]] = {k: {} for k in KERNELS}
@@ -997,19 +1056,20 @@ def asimov_path(card: str, attr: str, checks: KernelCheck):
     toe = task.endswith("Toe")
     task_path("phase 11", task, "asimov_toe" if toe else "asimov", obs_dims, card, attr,
               checks, launches, path_ms, after_build=None if toe else hulls,
-              on_step=ankle_ctrl_check if toe else None)
+              on_step=ankle_ctrl_check if toe else None, iters=CUT_ITERS)
   print(f"phase 11: {time.perf_counter() - t_phase:.1f} s; launches over both tasks' "
-        f"{TRAIN_ITERS} iterations {launches}")
+        f"{CUT_ITERS} iteration {launches}")
   return launches, path_ms
 
 
 def rough_go1_path(card: str, attr: str, checks: KernelCheck):
-  """Phase 12: G1 trains on rough terrain and Go1 on flat ground (the
-  ROUGH_GO1_OBS_DIMS tasks), each through `task_path`. For G1 rough, the
+  """Phase 12: G1 trains on rough terrain (TRAIN_ITERS iterations) and Go1
+  on flat ground (CUT_ITERS) (the ROUGH_GO1_OBS_DIMS tasks), each through
+  `task_path`. For G1 rough, the
   box-terrain pool's groups and the generated grid are printed after the
   build, and the iterations' mean of the dropped terrain contacts and of
   the terrain-level curriculum; then a headless `run_play` of the rough
-  task for 24 steps on NUM_WORLDS envs, which loads the committed play
+  task for EARLY_PLAY_STEPS steps on NUM_WORLDS envs, which loads the committed play
   scene (3 x 3 tiles), with the kernels' counters set to 0 just before and
   read just after. Returns the kernels' launches over both tasks'
   iterations and the play, and each kernel's ms on each run's matrices
@@ -1023,43 +1083,26 @@ def rough_go1_path(card: str, attr: str, checks: KernelCheck):
   t_phase = time.perf_counter()
   launches = {k: 0 for k in KERNELS}
   path_ms: dict[str, dict[str, float]] = {k: {} for k in KERNELS}
-
-  def terrain(runner):
-    env = runner.env
-    origins = env.scene.terrain.terrain_origins
-    g = env.tp.terrain_groups[0]
-    levels = env.scene.terrain.terrain_levels.cpu().numpy()
-    print(f"  terrain: {len(g.pool_geoms)} boxes pooled, cell hash {g.cells.shape}, tiles "
-          f"{origins.shape[:2]} of {env.cfg.scene.terrain.terrain_generator.size} m, groups "
-          + ", ".join(f"type {t.robot_type} x {len(t.robot_geoms)}" for t in env.tp.terrain_groups)
-          + f"; initial levels {np.bincount(levels, minlength=10).tolist()}")
-    if len(g.pool_geoms) <= 64 or origins.shape[:2] != (10, 20):
-      raise AssertionError("G1 rough: the terrain pool or the tile grid")
-
   for task, obs_dims in ROUGH_GO1_OBS_DIMS.items():
     rough = "Rough" in task
     t0 = time.perf_counter()
     host = task_path("phase 12", task, "g1_rough" if rough else "go1", obs_dims, card, attr,
-                     checks, launches, path_ms, after_build=terrain if rough else None)
+                     checks, launches, path_ms,
+                     after_build=(lambda r: print_terrain(r.env, ROUGH_TASK)) if rough else None,
+                     iters=TRAIN_ITERS if rough else CUT_ITERS)
     if rough:
-      dropped = [m["Metrics/physics/terrain_slots_dropped"] for m in host]
-      levels = [m["Curriculum/terrain_levels"] for m in host]
-      print(f"  terrain over the {TRAIN_ITERS} iterations (f32): dropped contacts per env step "
-            f"{', '.join(f'{x:.4f}' for x in dropped)}, mean "
-            f"{np.mean(dropped):.4f}; mean terrain level "
-            f"{', '.join(f'{x:.4f}' for x in levels)}, mean {np.mean(levels):.4f}")
-      if not all(np.isfinite(dropped + levels)) or not 0 <= min(levels) <= max(levels) <= 9:
-        raise AssertionError("G1 rough: the terrain metrics")
+      terrain_metrics(task, host)
     print(f"  {task} in {time.perf_counter() - t0:.1f} s")
 
   gc.collect()
   torch.cuda.empty_cache()
   chol.reset_counts()
   t0 = time.perf_counter()
-  res = run_play(ROUGH_TASK, {"num_envs": str(NUM_WORLDS), "steps": "24", "policy": "random"})
+  res = run_play(ROUGH_TASK, {"num_envs": str(NUM_WORLDS), "steps": str(EARLY_PLAY_STEPS),
+                              "policy": "random"})
   play_launches = dict(chol.LAUNCHES)
   env = res.env
-  print(f"  run_play {ROUGH_TASK} --policy random: {NUM_WORLDS} envs x 24 steps in "
+  print(f"  run_play {ROUGH_TASK} --policy random: {NUM_WORLDS} envs x {EARLY_PLAY_STEPS} steps in "
         f"{res.seconds:.2f} s ({time.perf_counter() - t0:.2f} s with the build), mean reward "
         f"per step {res.mean_reward:.5f}, scene {Path(env.cfg.scene.model_file).name}, tiles "
         f"{env.scene.terrain.terrain_origins.shape[:2]}, {len(env.tp.terrain_groups[0].pool_geoms)} "
@@ -1072,9 +1115,175 @@ def rough_go1_path(card: str, attr: str, checks: KernelCheck):
   for k in KERNELS:
     launches[k] += play_launches[k]
   del res, env
-  print(f"phase 12: {time.perf_counter() - t_phase:.1f} s; launches over both tasks' "
-        f"{TRAIN_ITERS} iterations and the play {launches}")
+  print(f"phase 12: {time.perf_counter() - t_phase:.1f} s; launches over G1 rough's "
+        f"{TRAIN_ITERS} iterations, Go1's {CUT_ITERS} and the play {launches}")
   return launches, path_ms
+
+
+def terrain_metrics(task: str, host: list) -> None:
+  """Each iteration's dropped terrain contacts (per env step) and mean
+  terrain level (the curriculum), which must be finite and in range."""
+  import numpy as np
+
+  dropped = [m["Metrics/physics/terrain_slots_dropped"] for m in host]
+  levels = [m["Curriculum/terrain_levels"] for m in host]
+  print(f"  terrain over the {len(host)} iterations (f32): dropped contacts per env step "
+        f"{', '.join(f'{x:.4f}' for x in dropped)}, mean {np.mean(dropped):.4f}; mean terrain "
+        f"level {', '.join(f'{x:.4f}' for x in levels)}, mean {np.mean(levels):.4f}")
+  if not all(np.isfinite(dropped + levels)) or not 0 <= min(levels) <= max(levels) <= 9:
+    raise AssertionError(f"{task}: the terrain metrics")
+
+
+def print_terrain(env, name: str) -> None:
+  """A generated-terrain env's pool, cell hash, tiles, groups and initial
+  levels; fails unless the pool is one and the grid 10 x 20 tiles."""
+  import numpy as np
+
+  origins = env.scene.terrain.terrain_origins
+  g = env.tp.terrain_groups[0]
+  levels = env.scene.terrain.terrain_levels.cpu().numpy()
+  print(f"  terrain: {len(g.pool_geoms)} boxes pooled, cell hash {g.cells.shape}, tiles "
+        f"{origins.shape[:2]} of {env.cfg.scene.terrain.terrain_generator.size} m, groups "
+        + ", ".join(f"type {t.robot_type} x {len(t.robot_geoms)} ({t.slots} slots)"
+                    for t in env.tp.terrain_groups)
+        + f"; initial levels {np.bincount(levels, minlength=10).tolist()}")
+  if len(g.pool_geoms) <= 64 or origins.shape[:2] != (10, 20):
+    raise AssertionError(f"{name}: the terrain pool or the tile grid")
+
+
+def sat_launches(env, card: str) -> dict:
+  """The plain SAT's cost in one `collision` call on the env's state:
+  device-only profiles of the whole call, of each box or mesh terrain
+  group's `_terrain_group_contacts`, and of its `convex.convex_convex`
+  alone on the inputs that group gave it (caught on the way). Returns
+  {group: (launches, device ms) of the SAT alone} (the input of the fused
+  SAT kernel, ROADMAP Queue B)."""
+  from torch.profiler import ProfilerActivity, profile
+
+  from mjlab_tpu_torch.physics import collision, convex
+
+  tp, m, d = env.tp, env.model, env.data
+
+  def launches_ms(fn) -> tuple[int, float]:
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      fn()
+      torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    return (sum(e.count for e in events),
+            sum(e.self_device_time_total if hasattr(e, "self_device_time_total")
+                else e.self_cuda_time_total for e in events) / 1e3)
+
+  whole = launches_ms(lambda: collision.collision(tp, m, d))
+  print(f"  one collision call on the run's state: {whole[0]} kernel launches, "
+        f"{whole[1]:.3f} ms on the device [{card}]")
+  out = {}
+  real = convex.convex_convex
+  for t in tp.dev.coll.terrain:
+    if t.tg.robot_type not in (6, 7):  # box, mesh
+      continue
+    caught = []
+
+    def spy(*args, **kwargs):
+      caught.append((args, kwargs))
+      return real(*args, **kwargs)
+
+    convex.convex_convex = spy
+    try:
+      group = launches_ms(lambda: collision._terrain_group_contacts(m, d, t))
+    finally:
+      convex.convex_convex = real
+    args, kwargs = caught[0]
+    sat = launches_ms(lambda: real(*args, **kwargs))
+    name = {6: "box", 7: "mesh"}[t.tg.robot_type]
+    out[name] = sat
+    print(f"  the {name} terrain group ({len(t.tg.robot_geoms)} geoms x {t.tg.ncand} boxes, "
+          f"{t.flags['clip_mode']} clipping, edge axes {t.flags['use_edge_axes']}): "
+          f"{group[0]} launches, {group[1]:.3f} ms; of them the plain SAT "
+          f"(convex_convex) {sat[0]} launches, {sat[1]:.3f} ms per collision call [{card}]")
+  return out
+
+
+def rough13_path(card: str, attr: str, checks: KernelCheck):
+  """Phase 13: Go1, Asimov and Asimov-Toe train on rough terrain (the
+  ROUGH13_OBS_DIMS tasks: Go1's trunk box and Asimov's feet hulls against
+  the terrain pool through the plain SAT), each through `task_path`; the
+  terrain printed after each build; for Asimov the feet's hulls built here
+  from the rough npz against the CPU host's digest; each iteration's
+  dropped terrain contacts and mean terrain level; the SAT's launches and
+  device time per `collision` call on each run's last state
+  (`sat_launches`); then a headless `run_play` of Go1 rough for 24 steps
+  of the random policy on NUM_WORLDS envs, which must load its committed
+  play scene (3 x 3 tiles), with the kernels' counters set to 0 just
+  before and read just after. Returns the kernels' launches over the
+  tasks' iterations and the play, each kernel's ms on each run's matrices
+  (keyed by nv and task) and the SAT's launches by group."""
+  import numpy as np
+
+  from mjlab_tpu_torch import assets
+  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.scripts.play import run_play
+
+  t_phase = time.perf_counter()
+  launches = {k: 0 for k in KERNELS}
+  path_ms: dict[str, dict[str, float]] = {k: {} for k in KERNELS}
+  sat: dict[str, tuple[int, float]] = {}
+  for task, obs_dims in ROUGH13_OBS_DIMS.items():
+    tag = {"Mjlab-Velocity-Rough-Unitree-Go1": "go1_rough",
+           "Mjlab-Velocity-Rough-Asimov": "asimov_rough",
+           "Mjlab-Velocity-Rough-Asimov-Toe": "asimov_toe_rough"}[task]
+
+    def after_build(runner, task=task, tag=tag):
+      print_terrain(runner.env, task)
+      if tag == "asimov_rough":
+        tp = runner.env.tp
+        digest = hull_digest(tp)
+        print(f"  feet hulls built here from the rough npz: {sorted(tp.geom_hulls)}, vertices "
+              f"{[tp.geom_hulls[g].verts.shape[0] for g in sorted(tp.geom_hulls)]}; digest "
+              f"{digest[:16]}... equals the CPU host's: {digest == ASIMOV_HULL_DIGEST}")
+        if digest != ASIMOV_HULL_DIGEST:
+          raise AssertionError("the Asimov feet's hulls from the rough npz differ")
+
+    def after_train(runner):
+      sat.update(sat_launches(runner.env, card))
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    host = task_path("phase 13", task, tag, obs_dims, card, attr, checks, launches, path_ms,
+                     after_build=after_build, after_train=after_train,
+                     ms_key=f"{tag} (n {18 if 'Toe' not in task else 20})")
+    terrain_metrics(task, host)
+    print(f"  {task} in {time.perf_counter() - t0:.1f} s; peak memory over the task "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+  if set(sat) != {"box", "mesh"}:
+    raise AssertionError(f"phase 13: the SAT ran in groups {sorted(sat)}, not box and mesh")
+
+  gc.collect()
+  torch.cuda.empty_cache()
+  go1 = "Mjlab-Velocity-Rough-Unitree-Go1"
+  chol.reset_counts()
+  t0 = time.perf_counter()
+  res = run_play(go1, {"num_envs": str(NUM_WORLDS), "steps": "24", "policy": "random"})
+  play_launches = dict(chol.LAUNCHES)
+  env = res.env
+  print(f"  run_play {go1} --policy random: {NUM_WORLDS} envs x 24 steps in "
+        f"{res.seconds:.2f} s ({time.perf_counter() - t0:.2f} s with the build), mean reward "
+        f"per step {res.mean_reward:.5f}, scene {Path(env.cfg.scene.model_file).name}, tiles "
+        f"{env.scene.terrain.terrain_origins.shape[:2]}, "
+        f"{len(env.tp.terrain_groups[0].pool_geoms)} boxes; launches {play_launches} [{card}]")
+  if (Path(env.cfg.scene.model_file) != assets.GO1_VELOCITY_ROUGH_PLAY
+      or env.scene.terrain.terrain_origins.shape[:2] != (3, 3)
+      or not np.isfinite(res.mean_reward) or not np.isfinite(res.base_z).all()
+      or any(play_launches[k] == 0 for k in KERNELS)):
+    raise AssertionError("phase 13: Go1 rough's play")
+  for k in KERNELS:
+    launches[k] += play_launches[k]
+  del res, env
+  print(f"phase 13: {time.perf_counter() - t_phase:.1f} s; launches over the three tasks' "
+        f"{TRAIN_ITERS} iterations and the play {launches}; the plain SAT per collision call "
+        + ", ".join(f"{g} group {n} launches, {ms:.3f} ms" for g, (n, ms) in sorted(sat.items())))
+  return launches, path_ms, sat
 
 
 def training_path(card: str, attr: str, f64_seeds=F64_SEEDS) -> tuple[dict[str, int], float]:
@@ -1321,7 +1530,7 @@ def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dic
   calls: `run_train` for 2 iterations with a checkpoint after each, then
   `run_train --agent.resume true` for 1 iteration with no periodic save
   (the iteration neither logs nor saves), `run_play --policy trained` on the
-  final checkpoint (24 steps), `run_joint_deltas` on it (10 steps), the NaN
+  final checkpoint (EARLY_PLAY_STEPS), `run_joint_deltas` on it (JOINT_DELTA_STEPS), the NaN
   guard on the play env and the ONNX export. Both `learn`s run under
   set_sync_debug_mode("error") but for `_pull_metrics` and `save`, which are
   timed (after a synchronize, so that the device's queued work is not in
@@ -1440,15 +1649,16 @@ def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dic
     torch.cuda.set_sync_debug_mode("default")
 
   ckpt = run_dir / "model_3.pt"
-  res = run_play(TASK, {"checkpoint": str(ckpt), "num_envs": str(NUM_WORLDS), "steps": "24"})
+  res = run_play(TASK, {"checkpoint": str(ckpt), "num_envs": str(NUM_WORLDS),
+                        "steps": str(EARLY_PLAY_STEPS)})
   env = res.env
   got = res.policy(res.obs).cpu().numpy()
   want = TorchScriptPolicy(str(run_dir / "model_3_policy.pt"))(
     res.obs["policy"].to(torch.float32).cpu().numpy())
   err = float(np.abs(got - want).max())
   scale = max(1.0, float(np.abs(want).max()))
-  print(f"  play: run_play --policy trained, {NUM_WORLDS} envs, 24 steps: "
-        f"{1e3 * res.seconds / 24:.2f} ms per play step, mean reward per step "
+  print(f"  play: run_play --policy trained, {NUM_WORLDS} envs, {EARLY_PLAY_STEPS} steps: "
+        f"{1e3 * res.seconds / EARLY_PLAY_STEPS:.2f} ms per play step, mean reward per step "
         f"{res.mean_reward:.6f}, base z in [{res.base_z.min():.3f}, {res.base_z.max():.3f}]; "
         f"the card's actions vs TorchScriptPolicy on the CPU {got.shape}: max_abs_err "
         f"{err:.3e} (tol 1e-5 x {scale:.3e}) [{card}]")
@@ -1491,8 +1701,9 @@ def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dic
 
   t0 = time.perf_counter()
   table = run_joint_deltas(TASK, {"checkpoint": str(ckpt), "num_envs": str(NUM_WORLDS),
-                                  "steps": "10"})
-  print(f"  joint_deltas: {NUM_WORLDS} envs, 10 steps, {time.perf_counter() - t0:.2f} s with the "
+                                  "steps": str(JOINT_DELTA_STEPS)})
+  print(f"  joint_deltas: {NUM_WORLDS} envs, {JOINT_DELTA_STEPS} steps, "
+        f"{time.perf_counter() - t0:.2f} s with the "
         f"env's build")
   if len(table.splitlines()) != 4 + 29 + 1:
     raise AssertionError("phase 10: the joint_deltas table")
@@ -1523,6 +1734,7 @@ def main() -> int:
   from mjlab_tpu_torch.sim import Simulation
 
   OUT.mkdir(exist_ok=True)
+  clock = PhaseClock()
   card = card_line()
   print(card)
   print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1538,6 +1750,7 @@ def main() -> int:
     for line in log.splitlines():
       if "registers" in line or "spill" in line:
         print(f"  ptxas {name}: {line.strip()}")
+  clock.done(1)
   # -- 2. kernels against plain versions, and their times ---------------------
   gen = torch.Generator(device="cuda").manual_seed(0)
   A = spd_batch(gen, NUM_WORLDS, N, torch.float32)
@@ -1606,6 +1819,7 @@ def main() -> int:
   del nsets
   torch.cuda.empty_cache()
 
+  clock.done(2)
   # -- 3. the main path ---------------------------------------------------------
   model = load_model_npz()
   sim = Simulation(NUM_WORLDS, g1_velocity_sim_cfg(), model)
@@ -1647,7 +1861,7 @@ def main() -> int:
         f"{ENV_STEPS} env steps x {DECIMATION} substeps, float32")
   print(f"  wall {dt:.3f} s: {NUM_WORLDS * substeps / dt:.1f} physics-steps/s, "
         f"{NUM_WORLDS * ENV_STEPS / dt:.1f} env-steps/s [{card}]")
-  print(f"  steady (env steps 10-49) {dt_steady:.3f} s: "
+  print(f"  steady (env steps 10-{ENV_STEPS - 1}) {dt_steady:.3f} s: "
         f"{NUM_WORLDS * (ENV_STEPS - 10) * DECIMATION / dt_steady:.1f} physics-steps/s, "
         f"{NUM_WORLDS * (ENV_STEPS - 10) / dt_steady:.1f} env-steps/s, "
         f"{dt_steady / ((ENV_STEPS - 10) * DECIMATION) * 1e3:.2f} ms/substep [{card}]")
@@ -1687,6 +1901,7 @@ def main() -> int:
         f"path {run_replaced_ms:.4f} ms; active rows {active_rows} of {w_run.numel()} "
         f"(share {share:.4f}) [{card}]")
 
+  clock.done(3)
   # -- 4. the card's kernel path against the CPU's plain path (float64) -------
   cfg64 = g1_velocity_sim_cfg()
   cfg64.dtype = "float64"
@@ -1714,6 +1929,7 @@ def main() -> int:
       raise AssertionError(f"card vs CPU mismatch on {f}")
   del sims, ref
 
+  clock.done(4)
   # -- 5. where one substep's time goes, stage by stage ---------------------------
   per_stage = stage_times(sim.tp, sim.model, d)
   total = sum(per_stage.values())
@@ -1726,6 +1942,7 @@ def main() -> int:
   for part, ms in split.items():
     print(f"    {part:16s} {ms:9.3f} ms  {100 * ms / sum(split.values()):5.1f}% of solve")
 
+  clock.done(5)
   # -- 6. where one env step's device time goes, by kernel ------------------------
   from torch.profiler import ProfilerActivity, profile
 
@@ -1772,6 +1989,7 @@ def main() -> int:
     print(f"  {name:18s} on the main path {path_ms[name]:.4f} ms/launch "
           f"(x{count}) [{card}]")
 
+  clock.done(6)
   # -- 7. the env path: ManagerBasedRlEnv.step at 4096 envs ----------------------
   from mjlab_tpu_torch.tasks import make_env
 
@@ -1892,21 +2110,31 @@ def main() -> int:
   # The card's float64 env (kernels) against the CPU's (plain versions).
   f64_env_check(TASK)
 
+  clock.done(7)
   # -- 8. the training path: PPO iterations through OnPolicyRunner ---------------
   train_launches, steady_iter_ms = training_path(card, attr, f64_seeds)
 
+  clock.done(8)
   # -- 9. the tracking path: G1 motion tracking through OnPolicyRunner -----------
   track_launches = tracking_path(card, attr, checks, f64_seeds)
 
+  clock.done(9)
   # -- 10. a run's lifecycle: train, resume, play, joint_deltas, NaN guard, ONNX --
   lifecycle_launches = lifecycle_path(card, checks, steady_iter_ms)
 
+  clock.done(10)
   # -- 11. the Asimov family: Asimov and Asimov-Toe train on flat ground ---------
   asimov_launches, asimov_ms = asimov_path(card, attr, checks)
 
+  clock.done(11)
   # -- 12. G1 on rough terrain and Go1 on flat ground ---------------------------
   rough_launches, rough_ms = rough_go1_path(card, attr, checks)
 
+  clock.done(12)
+  # -- 13. Go1, Asimov and Asimov-Toe on rough terrain (the hull SAT) ------------
+  rough13_launches, rough13_ms, sat = rough13_path(card, attr, checks)
+
+  clock.done(13)
   # -- result lines ---------------------------------------------------------------
   bnd = bounds(NUM_WORLDS, N, rows=NUM_WORLDS * NEFC)
   bnd_run = bounds(NUM_WORLDS, N, rows=active_rows)["newton_direction"]
@@ -1933,12 +2161,14 @@ def main() -> int:
       "launches_lifecycle_path": lifecycle_launches[name],
       "launches_asimov_path": asimov_launches[name],
       "launches_rough_go1_path": rough_launches[name],
+      "launches_rough_path": rough13_launches[name],
       "max_abs_err": checks.max_abs_err[name],
       "ms": times[name][0],
       "ms_l2_resident": times[name][3],
       "ms_main_path": path_ms[name],
       "ms_asimov_run_matrices_by_nv": asimov_ms[name],
       "ms_rough_go1_run_matrices_by_nv": rough_ms[name],
+      "ms_rough_run_matrices_by_nv": rough13_ms[name],
       "plain_ms": times[name][1],
       "bound_ms": bnd[name][0],
       "bound_by": bnd[name][1],

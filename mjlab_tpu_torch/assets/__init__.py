@@ -10,8 +10,8 @@ port reads, its `n*` sizes, `names`, and the numeric `opt` fields.
 The mesh arrays (`mesh_*`: vertices, faces, normals, texture coordinates,
 polygons, the qhull graph) and the bounding-volume hierarchy (`bvh_*`) are
 left out: they are most of a mesh scene's bytes and the port reads none of
-them. In their place each mesh geom of a collision pair keeps the vertices
-of its convex hull (`geom_hull_vert`, addressed per geom by
+them. In their place each mesh geom that collides (in a collision pair or
+against a terrain pool) keeps the vertices of its convex hull (`geom_hull_vert`, addressed per geom by
 `geom_hull_vertadr` / `geom_hull_vertnum`, -1 / 0 for other geoms), from
 which `physics.put_model` builds the hull.
 
@@ -22,14 +22,19 @@ terrain generator records beside the MjSpec it builds
 
 The scenes, each a velocity task's with the task's solver options applied
 (tests/test_torch_model_io.py, tests/test_torch_asimov_model.py,
-tests/test_torch_terrain_model.py and tests/test_torch_go1_model.py check
-that each is fresh, and say how to regenerate it):
+tests/test_torch_terrain_model.py, tests/test_torch_go1_model.py and
+tests/test_torch_rough_models.py check that each is fresh, and say how to
+regenerate it):
 `g1_velocity_flat.npz` (Mjlab-Velocity-Flat-Unitree-G1),
 `g1_velocity_rough.npz` (Mjlab-Velocity-Rough-Unitree-G1, 10 x 20 tiles),
-`g1_velocity_rough_play.npz` (its play scene: 3 x 3 tiles, no curriculum),
 `go1_velocity_flat.npz` (Mjlab-Velocity-Flat-Unitree-Go1),
-`asimov_velocity_flat.npz` (Mjlab-Velocity-Flat-Asimov) and
-`asimov_toe_velocity_flat.npz` (Mjlab-Velocity-Flat-Asimov-Toe).
+`go1_velocity_rough.npz` (Mjlab-Velocity-Rough-Unitree-Go1),
+`asimov_velocity_flat.npz` (Mjlab-Velocity-Flat-Asimov),
+`asimov_velocity_rough.npz` (Mjlab-Velocity-Rough-Asimov),
+`asimov_toe_velocity_flat.npz` (Mjlab-Velocity-Flat-Asimov-Toe) and
+`asimov_toe_velocity_rough.npz` (Mjlab-Velocity-Rough-Asimov-Toe); each
+rough scene has a play scene, `<name>_play.npz` (3 x 3 tiles, no
+curriculum).
 """
 
 from __future__ import annotations
@@ -43,12 +48,23 @@ G1_VELOCITY_FLAT = Path(__file__).parent / "g1_velocity_flat.npz"
 G1_VELOCITY_ROUGH = Path(__file__).parent / "g1_velocity_rough.npz"
 G1_VELOCITY_ROUGH_PLAY = Path(__file__).parent / "g1_velocity_rough_play.npz"
 GO1_VELOCITY_FLAT = Path(__file__).parent / "go1_velocity_flat.npz"
+GO1_VELOCITY_ROUGH = Path(__file__).parent / "go1_velocity_rough.npz"
+GO1_VELOCITY_ROUGH_PLAY = Path(__file__).parent / "go1_velocity_rough_play.npz"
 ASIMOV_VELOCITY_FLAT = Path(__file__).parent / "asimov_velocity_flat.npz"
+ASIMOV_VELOCITY_ROUGH = Path(__file__).parent / "asimov_velocity_rough.npz"
+ASIMOV_VELOCITY_ROUGH_PLAY = Path(__file__).parent / "asimov_velocity_rough_play.npz"
 ASIMOV_TOE_VELOCITY_FLAT = Path(__file__).parent / "asimov_toe_velocity_flat.npz"
+ASIMOV_TOE_VELOCITY_ROUGH = Path(__file__).parent / "asimov_toe_velocity_rough.npz"
+ASIMOV_TOE_VELOCITY_ROUGH_PLAY = Path(__file__).parent / "asimov_toe_velocity_rough_play.npz"
 
 # A generated-terrain scene's play scene (the JAX package's play overrides
 # regenerate the terrain on a 3 x 3 grid; the port loads it compiled).
-PLAY_SCENES = {G1_VELOCITY_ROUGH: G1_VELOCITY_ROUGH_PLAY}
+PLAY_SCENES = {
+  G1_VELOCITY_ROUGH: G1_VELOCITY_ROUGH_PLAY,
+  GO1_VELOCITY_ROUGH: GO1_VELOCITY_ROUGH_PLAY,
+  ASIMOV_VELOCITY_ROUGH: ASIMOV_VELOCITY_ROUGH_PLAY,
+  ASIMOV_TOE_VELOCITY_ROUGH: ASIMOV_TOE_VELOCITY_ROUGH_PLAY,
+}
 
 # Array families the port never reads (see the module docstring).
 _DROPPED_PREFIXES = ("mesh_", "bvh_")
@@ -59,14 +75,17 @@ def _numeric(v) -> bool:
 
 
 def _hull_arrays(m) -> dict[str, np.ndarray]:
-  """The hull vertices of each mesh geom of a collision pair, packed."""
+  """The hull vertices of each mesh geom that collides through its hull (in
+  a collision pair or a terrain group), packed."""
   from mjlab_tpu_torch.physics import io
 
   adr = np.full(m.ngeom, -1, dtype=np.int32)
   num = np.zeros(m.ngeom, dtype=np.int32)
   verts = [np.zeros((0, 3))]
   total = 0
-  for g in io.mesh_pair_geoms(m):
+  for g in io.hull_geoms(m):
+    if int(m.geom_type[g]) != io.mjtGeom.mjGEOM_MESH:
+      continue  # a tessellated cylinder or ellipsoid: built from its size
     v = io._hull_vertices(m, g)
     adr[g], num[g] = total, len(v)
     verts.append(v)

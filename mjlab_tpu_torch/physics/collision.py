@@ -6,13 +6,16 @@ combination. Each type group runs one batched narrowphase over (env, pair);
 a slot is active when dist < includemargin. The port implements the
 analytic pairs: plane–sphere, plane–capsule (2 contacts), plane–box (4),
 sphere–sphere, sphere–capsule, sphere–box, capsule–capsule and capsule–box
-(2); and plane–mesh (4 contacts), where the mesh is its convex hull
-(convex.py) and the 4 deepest hull vertices are the contacts.
+(2); plane–mesh (4 contacts), where the mesh is its convex hull
+(convex.py) and the 4 deepest hull vertices are the contacts; and the
+convex pairs (box–box, sphere–mesh, capsule–mesh, box–mesh and mesh–mesh,
+`_CONVEX_KEYS`) through the hull SAT, `convex.convex_convex`.
 
 After the static pairs come the terrain groups' slots (`TerrainGroup`): a
-box terrain's pool against the robot's sphere and capsule geoms, through a
-cell-hash broadphase, the sphere–box and capsule–box narrowphase and a
-greedy deepest-first selection, in `_terrain_group_contacts`.
+box terrain's pool against the robot's sphere, capsule, box and mesh geoms,
+through a cell-hash broadphase, the sphere–box, capsule–box or SAT
+narrowphase and a greedy deepest-first selection, in
+`_terrain_group_contacts`.
 
 The narrowphase functions take (B, n, ...) tensors (any leading shape that
 broadcasts) and mirror the JAX package's single-pair functions operation by
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from mjlab_tpu_torch.core import math as mt
+from mjlab_tpu_torch.physics import convex as cvx
 from mjlab_tpu_torch.physics.types import (
   Contact,
   Data,
@@ -52,16 +56,7 @@ def _norm(a: torch.Tensor) -> torch.Tensor:
   return torch.linalg.vector_norm(a, dim=-1)
 
 
-def _normal_frame(n: torch.Tensor) -> torch.Tensor:
-  """Right-handed frames (..., 3, 3) with rows [n, t1, t2] from unit normals."""
-  # torch.eye fills on the device; a torch.tensor literal would be a
-  # host-to-device copy, and a stream sync, on every step.
-  eye = torch.eye(3, dtype=n.dtype, device=n.device)
-  ref = torch.where((torch.abs(n[..., 0]) < 0.5)[..., None], eye[0], eye[1])
-  t1 = mt.cross(n, ref)
-  t1 = t1 / torch.clamp_min(_norm(t1), 1e-12)[..., None]
-  t2 = mt.cross(n, t1)
-  return torch.stack([n, t1, t2], dim=-2)
+_normal_frame = cvx._normal_frame_rows
 
 
 def _sphere_sphere(p1, r1, p2, r2):
@@ -89,14 +84,7 @@ def _first_argmin3(x: torch.Tensor) -> torch.Tensor:
   return torch.where(x[..., 2] < least, 2, k)
 
 
-def _first_argmin(x: torch.Tensor) -> torch.Tensor:
-  """Index of the least value along the last axis, the lowest index among
-  equals (as jnp.argmin); a row without a least value (NaN) gives the last
-  index."""
-  n = x.shape[-1]
-  idx = torch.arange(n, device=x.device)
-  least = torch.amin(x, dim=-1, keepdim=True)
-  return torch.amin(torch.where(x == least, idx, n), dim=-1).clamp_max(n - 1)
+_first_argmin = cvx._first_argmin
 
 
 def _lowest_k(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -106,19 +94,27 @@ def _lowest_k(x: torch.Tensor, k: int) -> torch.Tensor:
   return torch.sort(x, dim=-1, stable=True).indices[..., :k]
 
 
-def _sphere_box_impl(p, r, box_pos, box_mat, box_size):
+def _sphere_box_impl(p, r, box_pos, box_mat, box_size, from_above: bool = False):
   """Sphere (centre p, radius r) against a box: dist, the contact point and
   the normal pointing box → sphere. A centre inside the box leaves through
-  its nearest face."""
+  its nearest face; with `from_above` (the declared divergence of
+  SimulationCfg.capsule_terrain_from_above) through the opposite face
+  where that one faces down, so that a centre past a thin slab's mid-plane
+  leaves through the top."""
   local = (box_mat.transpose(-1, -2) @ (p - box_pos)[..., None])[..., 0]
   clamped = torch.minimum(torch.maximum(local, -box_size), box_size)
   delta = local - clamped
   outside_d = _norm(delta)
   inside = outside_d < 1e-9
+  side = torch.sign(local)
   face_d = box_size - torch.abs(local)
+  if from_above:
+    down = box_mat[..., 2, :] * side < -0.5
+    side = torch.where(down, -side, side)
+    face_d = torch.where(down, box_size + torch.abs(local), face_d)
   k = _first_argmin3(face_d)
   face_k = torch.gather(face_d, -1, k[..., None])
-  n_in_local = torch.sign(local) * torch.nn.functional.one_hot(k, 3).to(p.dtype)
+  n_in_local = side * torch.nn.functional.one_hot(k, 3).to(p.dtype)
   surf_in = local + n_in_local * face_k
   n_out_local = delta / torch.clamp_min(outside_d, 1e-12)[..., None]
   n_local = torch.where(inside[..., None], n_in_local, n_out_local)
@@ -208,16 +204,25 @@ def _sphere_box(p1, m1, s1, p2, m2, s2):
   return dist[..., None], pos[..., None, :], _normal_frame(-n)[..., None, :, :]
 
 
-def _capsule_box_normals(p1, m1, s1, p2, m2, s2):
+def _capsule_box_normals(p1, m1, s1, p2, m2, s2, from_above: bool = False):
   """Capsule vs box as two spheres: at the segment point nearest the box
-  centre and at the segment end on that side. Returns dist (..., 2), pos
+  centre and at the segment end on that side. With `from_above` (the
+  declared divergence of SimulationCfg.capsule_terrain_from_above) the
+  second sphere is the deeper of the two ends, and a sphere inside the box
+  never leaves through a face that faces down. Returns dist (..., 2), pos
   (..., 2, 3) and the normals (..., 2, 3) pointing box → capsule."""
   axis, r, hl = m1[..., :, 2], s1[..., 0], s1[..., 1, None]
   near = _closest_segment_point(p1 - axis * hl, p1 + axis * hl, p2)
-  t_end = torch.where(_dot(near - p1, axis) >= 0, 1.0, -1.0).to(p1.dtype)
-  end = p1 + axis * (t_end[..., None] * hl)
-  d0, q0, n0 = _sphere_box_impl(near, r, p2, m2, s2)
-  d1, q1, n1 = _sphere_box_impl(end, r, p2, m2, s2)
+  d0, q0, n0 = _sphere_box_impl(near, r, p2, m2, s2, from_above)
+  if from_above:
+    da, qa, na = _sphere_box_impl(p1 + axis * hl, r, p2, m2, s2, True)
+    db, qb, nb = _sphere_box_impl(p1 - axis * hl, r, p2, m2, s2, True)
+    a = da <= db
+    d1, q1, n1 = torch.where(a, da, db), torch.where(a[..., None], qa, qb), torch.where(
+      a[..., None], na, nb)
+  else:
+    t_end = torch.where(_dot(near - p1, axis) >= 0, 1.0, -1.0).to(p1.dtype)
+    d1, q1, n1 = _sphere_box_impl(p1 + axis * (t_end[..., None] * hl), r, p2, m2, s2)
   return (torch.stack([d0, d1], dim=-1), torch.stack([q0, q1], dim=-2),
           torch.stack([n0, n1], dim=-2))
 
@@ -265,6 +270,74 @@ def _plane_convex(p1, m1, s1, p2, m2, s2, verts):
   return dist, pos, frame
 
 
+# ---------------------------------------------------------------------------
+# Convex pairs (box–box and every pair with a mesh hull) through the SAT.
+# ---------------------------------------------------------------------------
+
+_CONVEX_KEYS = {
+  (_G.mjGEOM_BOX, _G.mjGEOM_BOX),
+  (_G.mjGEOM_SPHERE, _G.mjGEOM_MESH),
+  (_G.mjGEOM_CAPSULE, _G.mjGEOM_MESH),
+  (_G.mjGEOM_BOX, _G.mjGEOM_MESH),
+  (_G.mjGEOM_MESH, _G.mjGEOM_MESH),
+}
+
+
+def _convex_side_tables(tp: Topology, gids: np.ndarray, gtype: int, dtype,
+                        device) -> SimpleNamespace:
+  """One side of a convex pair group (or a terrain group's robot side), on
+  the device: a mesh side's hulls padded to the group's most (pad_hulls); a
+  box's, sphere's or capsule's unit hull, scaled by the geom size at run
+  time (`_convex_side`)."""
+  if gtype == _G.mjGEOM_MESH:
+    arrays = cvx.pad_hulls([tp.geom_hulls[int(g)] for g in gids])
+  else:
+    h = {_G.mjGEOM_BOX: cvx.BOX_HULL, _G.mjGEOM_SPHERE: cvx.SPHERE_HULL,
+         _G.mjGEOM_CAPSULE: cvx.CAPSULE_HULL}[gtype]
+    arrays = (h.verts, h.face_verts, h.face_normals, h.edge_dirs)
+  verts, fv, fn, ed = arrays
+  return SimpleNamespace(
+    type=gtype, verts=float_tensor(verts, dtype, device), fv=index_tensor(fv, device),
+    fn=float_tensor(fn, dtype, device), ed=float_tensor(ed, dtype, device),
+  )
+
+
+def _convex_side(side: SimpleNamespace, size: torch.Tensor):
+  """The side's hull data at run time from its geoms' sizes (n, 3): verts,
+  face_verts, face_normals, edge_dirs and the inflation radius (n,) or 0."""
+  if side.type == _G.mjGEOM_MESH:
+    return side.verts, side.fv, side.fn, side.ed, 0.0
+  if side.type == _G.mjGEOM_BOX:
+    return side.verts * size[:, None, :], side.fv, side.fn, side.ed, 0.0
+  if side.type == _G.mjGEOM_SPHERE:
+    return side.verts, side.fv, side.fn, side.ed, size[:, 0]
+  # A capsule: its z segment of half-length size[1], radius size[0].
+  return side.verts * size[:, 1, None, None], side.fv, side.fn, side.ed, size[:, 0]
+
+
+def _convex_flags(t1: int, t2: int, e1: int, e2: int) -> dict:
+  """convex_convex's mode per pair-type combination (e1, e2: the sides'
+  edge-direction counts)."""
+  if t1 == _G.mjGEOM_SPHERE:
+    return dict(use_edge_axes=False, vertex_axes=True, clip_mode="none")
+  if t1 == _G.mjGEOM_CAPSULE:
+    return dict(use_edge_axes=True, vertex_axes=True, clip_mode="1on2")
+  return dict(use_edge_axes=e1 * e2 <= cvx.EDGE_AXIS_BUDGET, vertex_axes=False,
+              clip_mode="both")
+
+
+def _edge_count(side: SimpleNamespace) -> int:
+  return side.ed.shape[-2]
+
+
+def _convex_group(p1, m1, s1, p2, m2, s2, *, side1, side2, ncon: int, flags: dict):
+  """A convex pair group's narrowphase: (B, n) pairs through convex_convex."""
+  v1, fv1, fn1, ed1, r1 = _convex_side(side1, s1)
+  v2, fv2, fn2, ed2, r2 = _convex_side(side2, s2)
+  return cvx.convex_convex(p1, m1, v1, fv1, fn1, ed1, p2, m2, v2, fv2, fn2, ed2,
+                           r1=r1, r2=r2, ncon=ncon, **flags)
+
+
 _DISPATCH = {
   (_G.mjGEOM_PLANE, _G.mjGEOM_SPHERE): _plane_sphere,
   (_G.mjGEOM_PLANE, _G.mjGEOM_CAPSULE): _plane_capsule,
@@ -290,9 +363,10 @@ def _hull_verts(tp: Topology, g2: np.ndarray, dtype, device) -> torch.Tensor:
 def _terrain_tables(tp: Topology, tg: TerrainGroup, dtype, device) -> SimpleNamespace:
   """A terrain group's device tensors: its cell hash, grid corner, robot
   geoms and their radii, and the static priority picks of mj_contactParam
-  (the pool's priority is uniform)."""
+  (the pool's priority is uniform); for a box or mesh group, both sides'
+  hull tables and the SAT's mode (the terrain box is geom1)."""
   prio = tp.geom_priority[tg.robot_geoms]
-  return SimpleNamespace(
+  t = SimpleNamespace(
     tg=tg,
     cells=index_tensor(tg.cells, device),
     grid_lo=float_tensor(tg.grid_lo, dtype, device),
@@ -300,7 +374,14 @@ def _terrain_tables(tp: Topology, tg: TerrainGroup, dtype, device) -> SimpleName
     robot_rad=float_tensor(tg.robot_rad, dtype, device),
     r_higher=torch.as_tensor(prio > tg.pool_priority, device=device),
     t_higher=torch.as_tensor(prio < tg.pool_priority, device=device),
+    from_above=tp.capsule_terrain_from_above,
   )
+  if tg.robot_type in (_G.mjGEOM_BOX, _G.mjGEOM_MESH):
+    t.box_side = _convex_side_tables(tp, (), _G.mjGEOM_BOX, dtype, device)
+    t.robot_side = _convex_side_tables(tp, tg.robot_geoms, tg.robot_type, dtype, device)
+    t.flags = _convex_flags(_G.mjGEOM_BOX, tg.robot_type, _edge_count(t.box_side),
+                            _edge_count(t.robot_side))
+  return t
 
 
 def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
@@ -313,7 +394,15 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
     g1 = np.asarray([p.geom1 for p in group])
     g2 = np.asarray([p.geom2 for p in group])
     prio1, prio2 = tp.geom_priority[g1], tp.geom_priority[g2]
-    fn = _DISPATCH[key]
+    if key in _CONVEX_KEYS:
+      side1 = _convex_side_tables(tp, g1, key[0], dtype, device)
+      side2 = _convex_side_tables(tp, g2, key[1], dtype, device)
+      fn = functools.partial(
+        _convex_group, side1=side1, side2=side2, ncon=group[0].ncon,
+        flags=_convex_flags(key[0], key[1], _edge_count(side1), _edge_count(side2)),
+      )
+    else:
+      fn = _DISPATCH[key]
     if key == (_G.mjGEOM_PLANE, _G.mjGEOM_MESH):
       fn = functools.partial(fn, verts=_hull_verts(tp, g2, dtype, device))
     groups.append(
@@ -410,7 +499,7 @@ def _combine_params_terrain(m: Model, t: SimpleNamespace, ids: torch.Tensor):
 def _terrain_group_contacts(m: Model, d: Data, t: SimpleNamespace):
   """Broadphase (cell hash, then the K nearest by bounding sphere),
   narrowphase and slot selection of one terrain group (port of the JAX
-  package's `_terrain_group_contacts`, sphere and capsule groups).
+  package's `_terrain_group_contacts`).
 
   Returns (B, R·slots) slots in robot-geom order — dist, pos, frame,
   friction, solref, solimp, includemargin — and each env's count of
@@ -445,12 +534,23 @@ def _terrain_group_contacts(m: Model, d: Data, t: SimpleNamespace):
   # robot geom geom2; the frame normals point terrain → robot.
   if tg.robot_type == _G.mjGEOM_SPHERE:
     dist, pos, n = _sphere_box_impl(rp, rs[..., 0], bp, bm, bs)
-    dist, pos, n = dist[..., None], pos[..., None, :], n[..., None, :]
+    dist, pos, frame = dist[..., None], pos[..., None, :], _normal_frame(n[..., None, :])
   elif tg.robot_type == _G.mjGEOM_CAPSULE:
-    dist, pos, n = _capsule_box_normals(rp, rm, rs, bp, bm, bs)
+    dist, pos, n = _capsule_box_normals(rp, rm, rs, bp, bm, bs, t.from_above)
+    frame = _normal_frame(n)
   else:
-    raise NotImplementedError(f"terrain narrowphase for geom type {tg.robot_type}")
-  frame = _normal_frame(n)
+    # A robot box or hull (geom2) against each candidate box (geom1): the
+    # SAT with 4 contacts per candidate.
+    def per_geom(x):  # (R, ...) hull data → (R, 1, ...): broadcast over K
+      return x[:, None] if x.dim() == 3 else x
+
+    robot = [per_geom(x) for x in _convex_side(t.robot_side, m.geom_size[rg])[:4]]
+    box = t.box_side
+    dist, pos, frame = cvx.convex_convex(
+      bp, bm, box.verts * bs[..., None, :], box.fv, box.fn, box.ed,
+      rp, rm, *robot,
+      ncon=4, **t.flags,
+    )
 
   # (B, R, K, k) candidates → keep S per robot geom, deepest first, each
   # pick suppressing the candidates within rho of it laterally: on a tile

@@ -5,19 +5,22 @@
 MjModel (the tests), or the namespace `assets.load_model_npz` returns (where
 `mujoco` is not installed). It never imports `mujoco`.
 
-The port covers the features of the G1, Go1 and Asimov velocity scenes:
-analytic plane/sphere/capsule/box pairs (no box–box), plane–mesh (convex
-hull) pairs, the box-terrain pool for sphere and capsule geoms (a runtime
-broadphase, `TerrainGroup`), fixed tendons and tendon transmission, and the
-IMU, frame and subtree sensors. Everything else the JAX package supports is
-refused here with `NotImplementedError` naming the feature, never
-simulated wrong.
+The port covers the features of the G1, Go1 and Asimov velocity scenes,
+flat and rough: analytic plane/sphere/capsule/box pairs, plane–mesh (convex
+hull) pairs, the convex pairs of the hull SAT (box–box, sphere–mesh,
+capsule–mesh, box–mesh, mesh–mesh; a cylinder or an ellipsoid collides as
+a tessellated mesh hull where no analytic pair exists), the box-terrain
+pool for sphere, capsule, box and mesh geoms (a runtime broadphase,
+`TerrainGroup`), fixed tendons and tendon transmission, and the IMU, frame
+and subtree sensors. Everything else the JAX package supports is refused
+here with `NotImplementedError` naming the feature, never simulated wrong.
 
 A mesh geom's hull is built from its hull vertices (`_hull_vertices`): a
 live MjModel gives them through the qhull graph MuJoCo stores; the npz
 namespace carries them as `geom_hull_vert` / `geom_hull_vertadr` /
 `geom_hull_vertnum` (what `assets.model_arrays` writes instead of the mesh
-arrays).
+arrays). A cylinder's or an ellipsoid's hull is tessellated from its size
+(`_primitive_hull_vertices`).
 """
 
 from __future__ import annotations
@@ -52,12 +55,26 @@ from mjlab_tpu_torch.physics.types import (
   mjtTrn,
   mjtWrap,
 )
-from mjlab_tpu_torch.physics.convex import build_hull
+from mjlab_tpu_torch.physics.convex import _fibonacci_directions, build_hull
 
 _G = mjtGeom
 
-# Contact slots per (type1, type2) pair, type1 <= type2: the analytic pairs
-# the port's collision.py implements.
+# Rounded primitives that collide as convex hulls through the SAT where no
+# analytic pair exists (plane pairs keep their analytic narrowphase in the
+# JAX package, which the port refuses: see _NOT_PORTED_PAIRS).
+_HULL_APPROX_TYPES = (_G.mjGEOM_CYLINDER, _G.mjGEOM_ELLIPSOID)
+_CYLINDER_SECTORS = 16
+_ELLIPSOID_DIRS = 42
+
+
+def _effective_type(t: int) -> int:
+  """Collision-dispatch type: cylinders and ellipsoids collide as mesh hulls."""
+  return int(_G.mjGEOM_MESH) if int(t) in _HULL_APPROX_TYPES else int(t)
+
+
+# Contact slots per (type1, type2) pair, type1 <= type2: the pairs the
+# port's collision.py implements, analytic and convex (the JAX package's
+# counts).
 _PAIR_NCON: dict[tuple[int, int], int] = {
   (_G.mjGEOM_PLANE, _G.mjGEOM_SPHERE): 1,
   (_G.mjGEOM_PLANE, _G.mjGEOM_CAPSULE): 2,
@@ -68,6 +85,21 @@ _PAIR_NCON: dict[tuple[int, int], int] = {
   (_G.mjGEOM_PLANE, _G.mjGEOM_BOX): 4,
   (_G.mjGEOM_SPHERE, _G.mjGEOM_BOX): 1,
   (_G.mjGEOM_CAPSULE, _G.mjGEOM_BOX): 2,
+  (_G.mjGEOM_BOX, _G.mjGEOM_BOX): 4,
+  (_G.mjGEOM_SPHERE, _G.mjGEOM_MESH): 1,
+  (_G.mjGEOM_CAPSULE, _G.mjGEOM_MESH): 2,
+  (_G.mjGEOM_BOX, _G.mjGEOM_MESH): 4,
+  (_G.mjGEOM_MESH, _G.mjGEOM_MESH): 4,
+}
+
+# The JAX package's pairs that the port lacks: the analytic plane–cylinder
+# and plane–ellipsoid, and the height fields. A pair of these raw types is
+# refused, never routed through a hull, since the JAX package would not
+# route it so.
+_NOT_PORTED_PAIRS = {
+  (_G.mjGEOM_PLANE, _G.mjGEOM_CYLINDER), (_G.mjGEOM_PLANE, _G.mjGEOM_ELLIPSOID),
+  (_G.mjGEOM_HFIELD, _G.mjGEOM_SPHERE), (_G.mjGEOM_HFIELD, _G.mjGEOM_CAPSULE),
+  (_G.mjGEOM_HFIELD, _G.mjGEOM_BOX), (_G.mjGEOM_HFIELD, _G.mjGEOM_MESH),
 }
 
 # Static world boxes are pooled into a runtime broadphase (TerrainGroup)
@@ -81,9 +113,9 @@ TERRAIN_SLOTS = 6  # contact slots per robot geom: a geom on a tile seam has
 # selected set flicker with micro-tilt, 6 cover the tie set
 _TERRAIN_CELL_SIZE = 1.0  # broadphase hash cell (m)
 _TERRAIN_CELL_MARGIN = 0.6  # AABB growth when binning (> the largest robot geom radius)
-# Mobile geom types with a narrowphase against the box pool. Box and mesh
-# geoms need the hull–hull SAT, which the port does not have yet.
-_TERRAIN_ROBOT_TYPES = (_G.mjGEOM_SPHERE, _G.mjGEOM_CAPSULE)
+# Mobile geom types (after _effective_type) with a narrowphase against the
+# box pool: sphere–box and capsule–box, and the SAT for boxes and hulls.
+_TERRAIN_ROBOT_TYPES = (_G.mjGEOM_SPHERE, _G.mjGEOM_CAPSULE, _G.mjGEOM_BOX, _G.mjGEOM_MESH)
 
 _SUPPORTED_SENSORS = (
   mjtSensor.mjSENS_ACCELEROMETER,
@@ -162,9 +194,9 @@ def _reject_unsupported(m) -> None:
       no(f"sensor type {int(s)}")
   if np.any(m.sensor_reftype != 0):
     no("sensors with a reference frame (reftype)")
-  # Mesh pairs other than plane–mesh, box–box, box and mesh geoms against
-  # a terrain pool, and height-field, cylinder and ellipsoid geoms are
-  # refused by _candidate_pairs, which has no narrowphase for their pairs.
+  # Height-field pairs, plane–cylinder and plane–ellipsoid, and geom types
+  # with no narrowphase against a terrain pool are refused by
+  # _candidate_pairs.
 
 
 def _is_spatial_tendon(m, t: int) -> bool:
@@ -193,21 +225,51 @@ def _hull_vertices(m, geom_id: int) -> np.ndarray:
   return np.asarray(verts, dtype=np.float64)
 
 
-def mesh_pair_geoms(m, pairs=None) -> list[int]:
-  """The mesh geoms of the collision pairs (`pairs`, default the model's
-  candidate pairs), ascending."""
-  pairs = _candidate_pairs(m)[0] if pairs is None else pairs
+def _primitive_hull_vertices(t: int, size: np.ndarray) -> np.ndarray:
+  """Tessellated hull vertices of a rounded primitive, in the geom frame: a
+  cylinder's two rings of _CYLINDER_SECTORS at z = ±half-length, an
+  ellipsoid's _ELLIPSOID_DIRS Fibonacci directions scaled by its semi-axes
+  (the JAX package's)."""
+  if t == _G.mjGEOM_CYLINDER:
+    r, h = float(size[0]), float(size[1])
+    th = np.linspace(0, 2 * np.pi, _CYLINDER_SECTORS, endpoint=False)
+    ring = np.stack([r * np.cos(th), r * np.sin(th)], axis=-1)
+    top = np.concatenate([ring, np.full((len(th), 1), h)], axis=-1)
+    bot = np.concatenate([ring, np.full((len(th), 1), -h)], axis=-1)
+    return np.concatenate([top, bot], axis=0)
+  if t == _G.mjGEOM_ELLIPSOID:
+    return _fibonacci_directions(_ELLIPSOID_DIRS) * np.asarray(size, dtype=np.float64)
+  raise NotImplementedError(f"no hull approximation for geom type {t}")
+
+
+def hull_geoms(m, pairs=None, groups=None) -> list[int]:
+  """The geoms that collide through a convex hull, ascending: those of
+  dispatch type mesh in the collision pairs and the terrain groups'
+  (`pairs` and `groups`, default the model's candidate pairs)."""
+  if pairs is None:
+    pairs, groups = _candidate_pairs(m)
   return sorted(
     {p.geom1 for p in pairs if p.type1 == _G.mjGEOM_MESH}
     | {p.geom2 for p in pairs if p.type2 == _G.mjGEOM_MESH}
+    | {int(g) for tg in groups if tg.robot_type == _G.mjGEOM_MESH for g in tg.robot_geoms}
   )
 
 
 def _pair_key(m, ga: int, gb: int):
+  """Dispatch key and geom order of a candidate pair: the raw types where
+  the pair exists, else the types with cylinders and ellipsoids as hulls
+  (the JAX package's fallback); None where the port has no narrowphase."""
   t1, t2 = int(m.geom_type[ga]), int(m.geom_type[gb])
   if t1 > t2:
     ga, gb, t1, t2 = gb, ga, t2, t1
-  return ((t1, t2) if (t1, t2) in _PAIR_NCON else None), ga, gb
+  if (t1, t2) in _PAIR_NCON:
+    return (t1, t2), ga, gb
+  if (t1, t2) in _NOT_PORTED_PAIRS:
+    return None, ga, gb
+  e1, e2 = _effective_type(t1), _effective_type(t2)
+  if e1 > e2:
+    ga, gb, e1, e2 = gb, ga, e2, e1
+  return ((e1, e2) if (e1, e2) in _PAIR_NCON else None), ga, gb
 
 
 def _combined_condim(m, ga: int, gb: int) -> int:
@@ -367,12 +429,11 @@ def _candidate_pairs(m) -> tuple[list[GeomPair], list[TerrainGroup]]:
         raise NotImplementedError(
           "geom has mixed collision compatibility with the terrain pool"
         )
-      t = int(m.geom_type[g])
+      t = _effective_type(int(m.geom_type[g]))
       if t not in _TERRAIN_ROBOT_TYPES:
         raise NotImplementedError(
           f"terrain collision of geom {_name(m, m.name_geomadr, g)} (geom type {t}) "
-          "against the box pool (box and mesh need the hull SAT) is not "
-          "supported by mjlab_tpu_torch"
+          "against the box pool is not supported by mjlab_tpu_torch"
         )
       mobile_by_type.setdefault(t, []).append(g)
 
@@ -497,10 +558,13 @@ def default_device() -> torch.device:
 
 
 def put_model(
-  m, dtype=torch.float32, device: torch.device | str | None = None
+  m, dtype=torch.float32, device: torch.device | str | None = None,
+  capsule_terrain_from_above: bool = False,
 ) -> tuple[Topology, Model]:
   """Convert a compiled model into (Topology, Model) on `device` (default
-  CUDA). Builds the device index tables of every stage once, here."""
+  CUDA). Builds the device index tables of every stage once, here.
+  `capsule_terrain_from_above` is SimulationCfg's (a declared divergence,
+  off by default)."""
   device = torch.device(device) if device is not None else default_device()
   _reject_unsupported(m)
 
@@ -525,14 +589,22 @@ def put_model(
   trn_qmat, trn_vmat, actuator_dyn_tendon = _transmission_matrices(m)
   tendon_qmat, tendon_vmat = _tendon_matrices(m)
   subtree, body_dof = _body_masks(m)
-  # Hulls by mesh id: geoms that share a mesh share its hull.
-  hulls_by_mesh: dict[int, object] = {}
+  # Hulls by mesh id, or by a tessellated primitive's type and size: geoms
+  # that share a mesh or a size share one hull.
+  hull_cache: dict[object, object] = {}
   geom_hulls = {}
-  for g in mesh_pair_geoms(m, pairs):
-    mesh = int(m.geom_dataid[g])
-    if mesh not in hulls_by_mesh:
-      hulls_by_mesh[mesh] = build_hull(_hull_vertices(m, g))
-    geom_hulls[g] = hulls_by_mesh[mesh]
+  for g in hull_geoms(m, pairs, groups):
+    t = int(m.geom_type[g])
+    if t == _G.mjGEOM_MESH:
+      key = int(m.geom_dataid[g])
+      if key not in hull_cache:
+        hull_cache[key] = build_hull(_hull_vertices(m, g))
+    else:
+      size = m.geom_size[g]
+      key = (t, float(size[0]), float(size[1]), float(size[2]))
+      if key not in hull_cache:
+        hull_cache[key] = build_hull(_primitive_hull_vertices(t, size))
+    geom_hulls[g] = hull_cache[key]
 
   tp = Topology(
     nq=m.nq, nv=m.nv, nu=m.nu, nbody=m.nbody, njnt=m.njnt, ngeom=m.ngeom,
@@ -623,6 +695,7 @@ def put_model(
     hfield_nrow=m.hfield_nrow.copy(),
     hfield_ncol=m.hfield_ncol.copy(),
     hfield_adr=m.hfield_adr.copy(),
+    capsule_terrain_from_above=capsule_terrain_from_above,
   )
   tp = dataclasses.replace(tp, dev=device_tables(tp, dtype, device))
 

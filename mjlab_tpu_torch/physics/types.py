@@ -276,6 +276,11 @@ class Topology:
   hfield_ncol: np.ndarray
   hfield_adr: np.ndarray
 
+  # A declared divergence (SimulationCfg.capsule_terrain_from_above): the
+  # capsule terrain groups' contacts taken from above (collision.
+  # _capsule_box_normals). Off by default, as in the JAX package.
+  capsule_terrain_from_above: bool = False
+
   # Device tables: one namespace per building module (kinematics, smooth,
   # collision, constraint), each holding the index and mask tensors its
   # stages gather/scatter with. Built by io.put_model.

@@ -61,10 +61,21 @@ class MujocoCfg:
 @dataclass(kw_only=True)
 class SimulationCfg:
   """Simulation configuration. Contact capacity needs no setting: the
-  static pair table bounds contacts exactly."""
+  static pair table bounds contacts exactly.
+
+  `capsule_terrain_from_above` is a declared divergence from the JAX
+  package, set by the Asimov-Toe rough task only: a capsule meets a
+  terrain box at the segment point nearest the box's centre and at its
+  deeper end, where the JAX package takes the end beside that point (the
+  higher one, over a large stair slab, so a small capsule sinks unseen);
+  and a sphere of it inside a box leaves through the nearest face that
+  does not face down, where the JAX package takes the nearest face (the
+  bottom, past a thin slab's mid-plane, which pulls the foot through).
+  ROADMAP Queue C."""
 
   dtype: str = "float32"
   mujoco: MujocoCfg = field(default_factory=MujocoCfg)
+  capsule_terrain_from_above: bool = False
 
 
 class Simulation:
@@ -91,7 +102,8 @@ class Simulation:
     cfg.mujoco.apply(self._mj_model)
     dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
     self.tp, self.model = physics.put_model(
-      self._mj_model, dtype=dtype, device=self.device
+      self._mj_model, dtype=dtype, device=self.device,
+      capsule_terrain_from_above=cfg.capsule_terrain_from_above,
     )
     self._batched_fields: set[str] = set()
 

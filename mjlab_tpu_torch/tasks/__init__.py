@@ -25,13 +25,26 @@ _REGISTRY = {
     "env": "mjlab_tpu_torch.tasks.velocity.config.g1.env_cfgs:unitree_g1_rough_env_cfg",
     "rl": "mjlab_tpu_torch.tasks.velocity.config.g1.rl_cfg:UnitreeG1PPORunnerCfg",
   },
+  "Mjlab-Velocity-Rough-Unitree-Go1": {
+    "env": "mjlab_tpu_torch.tasks.velocity.config.go1.env_cfgs:unitree_go1_rough_env_cfg",
+    "rl": "mjlab_tpu_torch.tasks.velocity.config.go1.rl_cfg:UnitreeGo1PPORunnerCfg",
+  },
   "Mjlab-Velocity-Flat-Unitree-Go1": {
     "env": "mjlab_tpu_torch.tasks.velocity.config.go1.env_cfgs:unitree_go1_flat_env_cfg",
     "rl": "mjlab_tpu_torch.tasks.velocity.config.go1.rl_cfg:UnitreeGo1PPORunnerCfg",
   },
+  "Mjlab-Velocity-Rough-Asimov": {
+    "env": "mjlab_tpu_torch.tasks.velocity.config.asimov.env_cfgs:asimov_rough_env_cfg",
+    "rl": "mjlab_tpu_torch.tasks.velocity.config.asimov.rl_cfg:AsimovPPORunnerCfg",
+  },
   "Mjlab-Velocity-Flat-Asimov": {
     "env": "mjlab_tpu_torch.tasks.velocity.config.asimov.env_cfgs:asimov_flat_env_cfg",
     "rl": "mjlab_tpu_torch.tasks.velocity.config.asimov.rl_cfg:AsimovPPORunnerCfg",
+  },
+  "Mjlab-Velocity-Rough-Asimov-Toe": {
+    "env": ("mjlab_tpu_torch.tasks.velocity.config.asimov_toe.env_cfgs:"
+            "asimov_toe_rough_env_cfg"),
+    "rl": "mjlab_tpu_torch.tasks.velocity.config.asimov_toe.rl_cfg:AsimovPPORunnerCfg",
   },
   "Mjlab-Velocity-Flat-Asimov-Toe": {
     "env": ("mjlab_tpu_torch.tasks.velocity.config.asimov_toe.env_cfgs:"

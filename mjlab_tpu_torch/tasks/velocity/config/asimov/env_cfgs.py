@@ -1,8 +1,10 @@
-"""Asimov biped velocity-tracking configuration, flat terrain (port of
-mjlab_tpu/tasks/velocity/config/asimov/env_cfgs.py). The compiled scene is
-assets/asimov_velocity_flat.npz, which the JAX package's scene layer
-compiles from the same configuration (tests/test_torch_asimov_model.py
-keeps it fresh). Rough terrain is not ported.
+"""Asimov biped velocity-tracking configurations, flat and rough terrain
+(port of mjlab_tpu/tasks/velocity/config/asimov/env_cfgs.py). The compiled
+scenes are assets/asimov_velocity_flat.npz and asimov_velocity_rough.npz,
+which the JAX package's scene layer compiles from the same configurations
+(tests/test_torch_asimov_model.py and tests/test_torch_rough_models.py
+keep them fresh). On rough terrain the feet's hulls collide with the
+terrain boxes through the hull SAT.
 
 One setting differs from the JAX package's, for both Asimov variants: the
 Newton solver runs NEWTON_ITERATIONS (30) iterations, not the velocity
@@ -16,7 +18,7 @@ envs runs into NaN within its first iteration.
 
 from __future__ import annotations
 
-from mjlab_tpu_torch.assets import ASIMOV_VELOCITY_FLAT
+from mjlab_tpu_torch.assets import ASIMOV_VELOCITY_FLAT, ASIMOV_VELOCITY_ROUGH
 from mjlab_tpu_torch.asset_zoo.robots.asimov.asimov_constants import (
   ASIMOV_ACTION_SCALE,
   get_asimov_robot_cfg,
@@ -74,8 +76,7 @@ def asimov_sensor_cfgs() -> tuple[ContactSensorCfg, ContactSensorCfg]:
   return feet_ground_cfg, self_collision_cfg
 
 
-def asimov_flat_env_cfg() -> ManagerBasedRlEnvCfg:
-  """Fresh Asimov flat-terrain cfg, bound to its compiled scene."""
+def _make_cfg(terrain: TerrainImporterCfg | None) -> ManagerBasedRlEnvCfg:
   feet_ground_cfg, self_collision_cfg = asimov_sensor_cfgs()
   cfg = create_velocity_env_cfg(
     robot_cfg=get_asimov_robot_cfg(),
@@ -98,7 +99,7 @@ def asimov_flat_env_cfg() -> ManagerBasedRlEnvCfg:
     angular_momentum_weight=-0.03,
     self_collision_weight=-1.0,
     air_time_weight=0.5,  # lighter robot: encourage flight phases
-    terrain=TerrainImporterCfg(terrain_type="plane"),
+    terrain=terrain,
   )
   twist = cfg.commands["twist"]
   # Conservative ranges: narrow stance, canted hips, limited ankle range.
@@ -106,5 +107,19 @@ def asimov_flat_env_cfg() -> ManagerBasedRlEnvCfg:
   twist.ranges.lin_vel_y = (-0.6, 0.6)
   twist.ranges.ang_vel_z = (-0.6, 0.6)
   cfg.sim.mujoco.iterations = NEWTON_ITERATIONS
+  return cfg
+
+
+def asimov_rough_env_cfg() -> ManagerBasedRlEnvCfg:
+  """Fresh Asimov cfg on the default rough generator terrain, bound to its
+  compiled scene."""
+  cfg = _make_cfg(terrain=None)
+  cfg.scene.model_file = ASIMOV_VELOCITY_ROUGH
+  return cfg
+
+
+def asimov_flat_env_cfg() -> ManagerBasedRlEnvCfg:
+  """Fresh Asimov flat-terrain cfg, bound to its compiled scene."""
+  cfg = _make_cfg(terrain=TerrainImporterCfg(terrain_type="plane"))
   cfg.scene.model_file = ASIMOV_VELOCITY_FLAT
   return cfg

@@ -1,14 +1,16 @@
-"""Asimov-Toe velocity-tracking configuration, flat terrain (port of
-mjlab_tpu/tasks/velocity/config/asimov_toe/env_cfgs.py): hips and knees
-through joint-position actions, the ankles through the pitch/roll → A/B
-tendon mapping, the toes passive. The compiled scene is
-assets/asimov_toe_velocity_flat.npz (tests/test_torch_asimov_model.py keeps
-it fresh). Rough terrain is not ported. As for Asimov, the Newton solver
-runs asimov.env_cfgs.NEWTON_ITERATIONS iterations (that module says why)."""
+"""Asimov-Toe velocity-tracking configurations, flat and rough terrain
+(port of mjlab_tpu/tasks/velocity/config/asimov_toe/env_cfgs.py): hips and
+knees through joint-position actions, the ankles through the pitch/roll →
+A/B tendon mapping, the toes passive. The compiled scenes are
+assets/asimov_toe_velocity_flat.npz and asimov_toe_velocity_rough.npz
+(tests/test_torch_asimov_model.py and tests/test_torch_rough_models.py keep
+them fresh); on rough terrain the foot and toe capsules meet the terrain
+boxes. As for Asimov, the Newton solver runs
+asimov.env_cfgs.NEWTON_ITERATIONS iterations (that module says why)."""
 
 from __future__ import annotations
 
-from mjlab_tpu_torch.assets import ASIMOV_TOE_VELOCITY_FLAT
+from mjlab_tpu_torch.assets import ASIMOV_TOE_VELOCITY_FLAT, ASIMOV_TOE_VELOCITY_ROUGH
 from mjlab_tpu_torch.asset_zoo.robots.asimov.asimov_toe_constants import (
   ASIMOV_ACTION_SCALE,
   get_asimov_robot_cfg,
@@ -53,8 +55,7 @@ _LEG_JOINTS = tuple(
 )
 
 
-def asimov_toe_flat_env_cfg() -> ManagerBasedRlEnvCfg:
-  """Fresh Asimov-Toe flat-terrain cfg, bound to its compiled scene."""
+def _make_cfg(terrain: TerrainImporterCfg | None) -> ManagerBasedRlEnvCfg:
   feet_ground_cfg, self_collision_cfg = asimov_sensor_cfgs()
   scale_non_ankle_toe = {
     k: v for k, v in ASIMOV_ACTION_SCALE.items()
@@ -85,7 +86,7 @@ def asimov_toe_flat_env_cfg() -> ManagerBasedRlEnvCfg:
     angular_momentum_weight=-0.03,
     self_collision_weight=-1.0,
     air_time_weight=1.0,
-    terrain=TerrainImporterCfg(terrain_type="plane"),
+    terrain=terrain,
   )
   twist = cfg.commands["twist"]
   # Forward-only starting point of the curriculum.
@@ -134,5 +135,27 @@ def asimov_toe_flat_env_cfg() -> ManagerBasedRlEnvCfg:
     reordered.setdefault(name, term)
   policy_obs.terms = reordered
   cfg.sim.mujoco.iterations = NEWTON_ITERATIONS
+  return cfg
+
+
+def asimov_toe_rough_env_cfg() -> ManagerBasedRlEnvCfg:
+  """Fresh Asimov-Toe cfg on the default rough generator terrain, bound to
+  its compiled scene. One more setting differs from the JAX package's:
+  `capsule_terrain_from_above`. With the JAX package's capsule–box contact
+  (the end beside the segment point nearest the box's centre) a toe
+  capsule tilted over a large stair slab contacts at its higher end, sinks
+  unseen through the 3.5 cm slab past its mid-plane, and the contact then
+  flips to the slab's bottom face: from a recorded state one env step
+  leaves the joints at 1910.9 rad/s in both packages (MuJoCo: 47.5), and
+  training at 4096 envs goes NaN in its first iteration (ROADMAP Queue C)."""
+  cfg = _make_cfg(terrain=None)
+  cfg.sim.capsule_terrain_from_above = True
+  cfg.scene.model_file = ASIMOV_TOE_VELOCITY_ROUGH
+  return cfg
+
+
+def asimov_toe_flat_env_cfg() -> ManagerBasedRlEnvCfg:
+  """Fresh Asimov-Toe flat-terrain cfg, bound to its compiled scene."""
+  cfg = _make_cfg(terrain=TerrainImporterCfg(terrain_type="plane"))
   cfg.scene.model_file = ASIMOV_TOE_VELOCITY_FLAT
   return cfg

@@ -1,8 +1,10 @@
-"""Unitree Go1 velocity-tracking configuration, flat terrain (port of
-mjlab_tpu/tasks/velocity/config/go1/env_cfgs.py). The compiled scene is
-assets/go1_velocity_flat.npz, which the JAX package's scene layer compiles
-from the same configuration (tests/test_torch_go1_model.py keeps it
-fresh). Rough terrain waits for the hull–hull SAT: the trunk is a box.
+"""Unitree Go1 velocity-tracking configurations, flat and rough terrain
+(port of mjlab_tpu/tasks/velocity/config/go1/env_cfgs.py). The compiled
+scenes are assets/go1_velocity_flat.npz and go1_velocity_rough.npz, which
+the JAX package's scene layer compiles from the same configurations
+(tests/test_torch_go1_model.py and tests/test_torch_rough_models.py keep
+them fresh). On rough terrain the trunk, a box, collides with the terrain
+boxes through the hull SAT.
 
 The `illegal_contact` termination reads the `nonfoot_ground_touch` sensor,
 whose secondary "terrain" never matches the compiled "/terrain" body, so it
@@ -10,7 +12,7 @@ never fires, as in the JAX package (ROADMAP Queue C)."""
 
 from __future__ import annotations
 
-from mjlab_tpu_torch.assets import GO1_VELOCITY_FLAT
+from mjlab_tpu_torch.assets import GO1_VELOCITY_FLAT, GO1_VELOCITY_ROUGH
 from mjlab_tpu_torch.asset_zoo.robots.unitree_go1.go1_constants import (
   GO1_ACTION_SCALE,
   get_go1_robot_cfg,
@@ -26,8 +28,7 @@ _FOOT_NAMES = ("FR", "FL", "RR", "RL")
 _GEOM_NAMES = tuple(f"{n}_foot_collision" for n in _FOOT_NAMES)
 
 
-def unitree_go1_flat_env_cfg() -> ManagerBasedRlEnvCfg:
-  """Fresh Go1 flat-terrain cfg, bound to its compiled scene."""
+def _make_cfg(terrain: TerrainImporterCfg | None) -> ManagerBasedRlEnvCfg:
   feet_ground_cfg = ContactSensorCfg(
     name="feet_ground_contact",
     primary=ContactMatch(mode="geom", pattern=_GEOM_NAMES, entity="robot"),
@@ -72,10 +73,24 @@ def unitree_go1_flat_env_cfg() -> ManagerBasedRlEnvCfg:
     angular_momentum_weight=0.0,
     self_collision_weight=0.0,
     air_time_weight=0.0,
-    terrain=TerrainImporterCfg(terrain_type="plane"),
+    terrain=terrain,
   )
   cfg.terminations["illegal_contact"] = TerminationTermCfg(
     func=mdp.illegal_contact, params={"sensor_name": "nonfoot_ground_touch"}
   )
+  return cfg
+
+
+def unitree_go1_rough_env_cfg() -> ManagerBasedRlEnvCfg:
+  """Fresh Go1 cfg on the default rough generator terrain, bound to its
+  compiled scene."""
+  cfg = _make_cfg(terrain=None)
+  cfg.scene.model_file = GO1_VELOCITY_ROUGH
+  return cfg
+
+
+def unitree_go1_flat_env_cfg() -> ManagerBasedRlEnvCfg:
+  """Fresh Go1 flat-terrain cfg, bound to its compiled scene."""
+  cfg = _make_cfg(terrain=TerrainImporterCfg(terrain_type="plane"))
   cfg.scene.model_file = GO1_VELOCITY_FLAT
   return cfg

@@ -187,8 +187,17 @@ def test_unsupported_tendons_and_sensors_raise(tendon, sensor, feature):
 
 def test_mesh_pairs_other_than_plane_mesh_raise():
   """With contype 1 on the left foot, the two foot meshes form a mesh–mesh
-  pair, which has no narrowphase in the port."""
+  pair. It raised until the port had the hull SAT; now both packages build
+  it (4 slots, 89 x 89 edge pairs over the budget: no edge axes), and the
+  narrowphase's parity is tests/test_torch_convex.py's."""
+  import jax.numpy as jnp
+
+  from mjlab_tpu import physics as jphysics
+
   m = asimov_mj_model()
   m.geom_contype[7] = 1
-  with pytest.raises(NotImplementedError, match=r"geom types \(7, 7\)"):
-    tio.put_model(m, dtype=torch.float64, device="cpu")
+  ttp, _ = tio.put_model(m, dtype=torch.float64, device="cpu")
+  jtp, _ = jphysics.put_model(m, dtype=jnp.float64)
+  assert [dataclasses.astuple(p) for p in ttp.pairs] == [dataclasses.astuple(p) for p in jtp.pairs]
+  assert (7, 13, 7, 7, 4) in [(p.geom1, p.geom2, p.type1, p.type2, p.ncon) for p in ttp.pairs]
+  assert (ttp.ncon_max, ttp.nefc) == (jtp.ncon_max, jtp.nefc)

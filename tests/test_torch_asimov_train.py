@@ -4,7 +4,7 @@ tiny size: `python -m mjlab_tpu_torch.scripts.train <task> --env.scene.num_envs 
 for Mjlab-Velocity-Flat-Asimov and -Asimov-Toe (the task's own PPO cfg,
 hidden 512/256/128); `play` and `joint_deltas` on the checkpoint; the PPO
 cfgs equal the JAX package's; without a device the runner asks for CUDA;
-and `list_envs` lists the port's 7 tasks."""
+and `list_envs` lists the port's 10 tasks."""
 
 from __future__ import annotations
 
@@ -93,4 +93,4 @@ def test_list_envs_lists_five_tasks(capsys):
 
   list_envs.main()
   rows = [line.split()[0] for line in capsys.readouterr().out.splitlines()[2:]]
-  assert len(rows) == 7 and set(TASKS) <= set(rows)
+  assert len(rows) == 10 and set(TASKS) <= set(rows)

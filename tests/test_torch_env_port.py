@@ -119,7 +119,7 @@ def test_make_env_from_the_registry():
   env = make_env(TASK, num_envs=2, device="cpu", seed=3, episode_length_s=1.0)
   assert env.num_envs == 2 and env.max_episode_length == 50
   with pytest.raises(KeyError, match="Unknown task"):
-    load_env_cfg("Mjlab-Velocity-Rough-Unitree-Go1")
+    load_env_cfg("Mjlab-Velocity-Rough-Unitree-H1")  # registered in neither package
 
 
 def test_default_device_is_cuda():

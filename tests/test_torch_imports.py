@@ -1,12 +1,13 @@
 """The port stands alone: importing it, building and stepping its envs
-(G1 flat and rough, Go1, Asimov and Asimov-Toe) from the committed scenes, one tiny PPO
+(G1, Go1, Asimov and Asimov-Toe, flat and rough) from the committed scenes, one tiny PPO
 training iteration, converting a motion
 CSV and training the tracking task on it, and a run's lifecycle (training
 with periodic saves, resuming, play, list_envs, joint_deltas, the NaN
 guard, the artifact registry and the exporters) pull in none of jax,
 jaxlib, mjlab_tpu, mujoco, gymnasium, flax, optax, orbax or wandb; no
 module of the port and not chip_smoke.py names one of them in an import;
-and its own MuJoCo enum constants agree with mujoco's."""
+its own MuJoCo enum constants agree with mujoco's; and it registers every
+task id the JAX package registers."""
 
 from __future__ import annotations
 
@@ -56,7 +57,9 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
     "env.reset(seed=0)\n"
     "env.step(torch.zeros(2, env.total_action_dim))\n"
     "for t in ('Mjlab-Velocity-Flat-Asimov', 'Mjlab-Velocity-Flat-Asimov-Toe',\n"
-    "          'Mjlab-Velocity-Rough-Unitree-G1', 'Mjlab-Velocity-Flat-Unitree-Go1'):\n"
+    "          'Mjlab-Velocity-Rough-Unitree-G1', 'Mjlab-Velocity-Flat-Unitree-Go1',\n"
+    "          'Mjlab-Velocity-Rough-Unitree-Go1', 'Mjlab-Velocity-Rough-Asimov',\n"
+    "          'Mjlab-Velocity-Rough-Asimov-Toe'):\n"
     "  e = mjlab_tpu_torch.tasks.make_env(t, num_envs=2, device='cpu')\n"
     "  e.reset(seed=0)\n"
     "  e.step(torch.zeros(2, e.total_action_dim))\n"
@@ -154,3 +157,16 @@ def test_enum_constants_match_mujoco(enum):
   assert names
   for n in names:
     assert getattr(ours, n) == int(getattr(theirs, n)), f"{enum}.{n}"
+
+
+def test_the_port_registers_every_task_of_the_jax_package():
+  """The 10 ids the JAX package registers with gymnasium, each with the
+  runner cfg its JAX registration names."""
+  import mjlab_tpu.tasks as jax_tasks
+  from mjlab_tpu_torch import tasks
+
+  assert tasks.list_tasks() == sorted(jax_tasks.list_tasks())
+  assert len(tasks.list_tasks()) == 10
+  for task in tasks.list_tasks():
+    jax_rl = jax_tasks.load_cfg_from_registry(task, "rl_cfg_entry_point")
+    assert type(tasks.load_rl_cfg(task)).__name__ == type(jax_rl).__name__, task

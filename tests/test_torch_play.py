@@ -193,8 +193,8 @@ def test_list_envs_lists_the_ports_tasks(capsys):
   lines = capsys.readouterr().out.splitlines()
   assert lines[0].split() == ["Task", "ID", "Entry", "point"]
   rows = [line.split() for line in lines[2:]]
-  assert [r[0] for r in rows] == tasks.list_tasks() and len(rows) == 7
-  assert set(r[0] for r in rows) <= set(jax_tasks.list_tasks())
+  assert [r[0] for r in rows] == tasks.list_tasks() and len(rows) == 10
+  assert set(r[0] for r in rows) == set(jax_tasks.list_tasks())
   for task_id, entry in rows:
     module, attr = entry.split(":")
     assert module.startswith("mjlab_tpu_torch.tasks.") and callable(

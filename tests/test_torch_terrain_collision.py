@@ -5,8 +5,9 @@ and level boxes, to 1e-12; and on a toy scene of 80 stair boxes (over
 TERRAIN_POOL_MIN, so they form a terrain pool) with a free sphere and a
 free capsule, the terrain groups, `_terrain_group_contacts` (also at fewer
 slots, so that contacts are dropped) and the whole `collision` from the
-JAX package's geom poses, to 1e-9 with the dropped counts exact. Box, mesh
-and height-field geoms against a pool still raise, naming the feature."""
+JAX package's geom poses, to 1e-9 with the dropped counts exact. A
+height field still raises, naming the feature; box and mesh geoms against
+a pool form their groups (the hull SAT, tests/test_torch_convex.py)."""
 
 from __future__ import annotations
 
@@ -239,6 +240,17 @@ def test_collision_matches_jax():
    '<body pos="9 9 1"><freejoint/><geom type="sphere" size="0.1"/></body>', r"geom types \(1, 2\)"),
 ])
 def test_box_mesh_and_hfield_against_the_pool_raise(robot, name):
+  """A height field still raises, naming its pair; a box or a mesh geom
+  against the pool now forms a terrain group of its type (the hull SAT;
+  its parity: tests/test_torch_convex.py), as in the JAX package."""
   mj = mujoco.MjModel.from_xml_string(_terrain_xml(robot))
-  with pytest.raises(NotImplementedError, match=name):
-    tio.put_model(mj, dtype=torch.float64, device="cpu")
+  if "hfield" in robot:
+    with pytest.raises(NotImplementedError, match=name):
+      tio.put_model(mj, dtype=torch.float64, device="cpu")
+    return
+  ttp, _ = tio.put_model(mj, dtype=torch.float64, device="cpu")
+  jtp, _ = jphysics.put_model(mj, dtype=jnp.float64)
+  geom_type = int(name.split()[-1])
+  assert [g.robot_type for g in ttp.terrain_groups] == [
+    g.robot_type for g in jtp.terrain_groups] == [geom_type]
+  assert (ttp.ncon_max, ttp.nefc) == (jtp.ncon_max, jtp.nefc)

@@ -36,7 +36,7 @@ class _Ctx:
 def _importers():
   from mjlab_tpu.terrains import TerrainImporter as JaxImporter
 
-  jcfg = tp.g1_rough_jax_cfg().scene.terrain
+  jcfg = tp.rough_jax_cfg("g1").scene.terrain
   jcfg.num_envs = NUM_ENVS
   jimp = JaxImporter(jcfg)
   jctx = _Ctx(jnp.float64)
@@ -53,7 +53,7 @@ def _importers():
 
 
 def test_cfg_matches_jax():
-  jcfg, tcfg = tp.g1_rough_jax_cfg().scene.terrain, load_env_cfg(TASK).scene.terrain
+  jcfg, tcfg = tp.rough_jax_cfg("g1").scene.terrain, load_env_cfg(TASK).scene.terrain
   assert (tcfg.terrain_type, tcfg.max_init_terrain_level) == ("generator", 5)
   assert (jcfg.terrain_type, jcfg.max_init_terrain_level) == ("generator", 5)
   for f in ("size", "num_rows", "num_cols", "curriculum"):

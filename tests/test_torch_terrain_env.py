@@ -31,7 +31,7 @@ def _one_thread():
 
 @pytest.fixture(scope="module")
 def envs():
-  jenv, env = tp.g1_rough_envs(NUM_ENVS, _no_corruption)
+  jenv, env = tp.rough_envs("g1", NUM_ENVS, _no_corruption)
   jenv.reset(seed=3)
   return jenv, env
 

@@ -31,7 +31,7 @@ from mjlab_tpu_torch.physics.types import ConeType
 
 @pytest.fixture(scope="module")
 def models():
-  mj, origins = tp.g1_rough_scene()
+  mj, origins = tp.rough_scene("g1")
   jtp, jm = jphysics.put_model(mj, dtype=jnp.float64)
   ttp, tm = tio.put_model(assets.load_model_npz(assets.G1_VELOCITY_ROUGH),
                           dtype=torch.float64, device="cpu")
@@ -78,10 +78,10 @@ def test_npz_is_fresh(play, tmp_path):
   tiles without the curriculum).
 
   Regenerate both with:
-  PYTHONPATH=.:tests JAX_PLATFORMS=cpu python -c "import torch_parity as tp; from mjlab_tpu_torch import assets; [assets.save_model_npz(*tp.g1_rough_scene(p), path) for p, path in ((False, assets.G1_VELOCITY_ROUGH), (True, assets.G1_VELOCITY_ROUGH_PLAY))]"
+  PYTHONPATH=.:tests JAX_PLATFORMS=cpu python -c "import torch_parity as tp; [tp.save_rough_npz('g1', p) for p in (False, True)]"
   """
   path = assets.G1_VELOCITY_ROUGH_PLAY if play else assets.G1_VELOCITY_ROUGH
-  mj, origins = tp.g1_rough_scene(play)
+  mj, origins = tp.rough_scene("g1", play)
   fresh = tmp_path / "fresh.npz"
   assets.save_model_npz(mj, fresh, terrain_origins=origins)
   with np.load(fresh) as a, np.load(path) as b:

@@ -60,7 +60,7 @@ def test_play_overrides_match_jax():
   from mjlab_tpu_torch.scripts.play import apply_play_overrides
   from mjlab_tpu_torch.tasks import load_env_cfg
 
-  jcfg, jplay = tp.g1_rough_jax_cfg(), tp.g1_rough_jax_cfg(play=True)
+  jcfg, jplay = tp.rough_jax_cfg("g1"), tp.rough_jax_cfg("g1", play=True)
   cfg = load_env_cfg(TASK)
   play = copy.deepcopy(cfg)
   apply_play_overrides(play)

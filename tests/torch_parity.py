@@ -795,13 +795,31 @@ def check_asimov_env_steps_from_a_carried_state(envs):
 # ---------------------------------------------------------------------------
 
 
-def g1_rough_jax_cfg(play: bool = False):
-  """A fresh JAX G1 rough cfg (with the play overrides when `play`)."""
+# The rough velocity tasks: the JAX package's env cfg (module, name), the
+# port's task id and its committed scene (an attribute of the port's assets).
+ROUGH = {
+  "g1": ("mjlab_tpu.tasks.velocity.config.g1.env_cfgs", "UNITREE_G1_ROUGH_ENV_CFG",
+         "Mjlab-Velocity-Rough-Unitree-G1", "G1_VELOCITY_ROUGH"),
+  "go1": ("mjlab_tpu.tasks.velocity.config.go1.env_cfgs", "UNITREE_GO1_ROUGH_ENV_CFG",
+          "Mjlab-Velocity-Rough-Unitree-Go1", "GO1_VELOCITY_ROUGH"),
+  "asimov": ("mjlab_tpu.tasks.velocity.config.asimov.env_cfgs", "ASIMOV_ROUGH_ENV_CFG",
+             "Mjlab-Velocity-Rough-Asimov", "ASIMOV_VELOCITY_ROUGH"),
+  "asimov_toe": ("mjlab_tpu.tasks.velocity.config.asimov_toe.env_cfgs",
+                 "ASIMOV_TOE_ROUGH_ENV_CFG", "Mjlab-Velocity-Rough-Asimov-Toe",
+                 "ASIMOV_TOE_VELOCITY_ROUGH"),
+}
+
+
+def rough_jax_cfg(name: str, play: bool = False):
+  """A fresh JAX rough cfg of `name` (a ROUGH key), with the play
+  overrides when `play`. The Asimov cfgs keep the JAX package's 10 Newton
+  iterations here: the npz records them, and the port's cfgs set 30 when
+  they load it."""
   import copy
+  import importlib
 
-  from mjlab_tpu.tasks.velocity.config.g1.env_cfgs import UNITREE_G1_ROUGH_ENV_CFG
-
-  cfg = copy.deepcopy(UNITREE_G1_ROUGH_ENV_CFG)
+  module, attr, *_ = ROUGH[name]
+  cfg = copy.deepcopy(getattr(importlib.import_module(module), attr))
   if play:
     from mjlab_tpu.scripts.play import apply_play_overrides
 
@@ -810,16 +828,34 @@ def g1_rough_jax_cfg(play: bool = False):
 
 
 @functools.lru_cache(maxsize=None)
-def g1_rough_scene(play: bool = False):
-  """(compiled G1 rough scene with the task's solver options, its tiles'
-  origins (rows, cols, 3)) as the JAX package's scene layer builds them."""
+def rough_scene(name: str, play: bool = False):
+  """(compiled rough scene of `name` with the task's solver options, its
+  tiles' origins (rows, cols, 3)) as the JAX package's scene layer builds
+  them."""
   from mjlab_tpu.scene import Scene
 
-  cfg = g1_rough_jax_cfg(play)
+  cfg = rough_jax_cfg(name, play)
   sc = Scene(cfg.scene)
   m = sc.compile()
   cfg.sim.mujoco.apply(m)
   return m, np.asarray(sc.terrain.terrain_origins)
+
+
+def rough_npz(name: str, play: bool = False):
+  """The committed rough (or play) scene of `name`."""
+  from mjlab_tpu_torch import assets
+
+  path = getattr(assets, ROUGH[name][3])
+  return assets.play_scene(path) if play else path
+
+
+def save_rough_npz(name: str, play: bool = False) -> None:
+  """Regenerate a committed rough (or play) scene from a fresh compile."""
+  from mjlab_tpu_torch import assets
+
+  m, origins = rough_scene(name, play)
+  assets.save_model_npz(m, rough_npz(name, play), terrain_origins=origins)
+
 
 
 def go1_flat_jax_cfg():
@@ -855,17 +891,20 @@ def _task_cfgs(jcfg, task: str, num_envs: int, edit=None):
   return cfgs
 
 
-def g1_rough_envs(num_envs: int, edit=None):
-  """(JAX env, port env on the CPU) of the G1 rough task, float64; the port
-  bound to the JAX env's compiled model and terrain origins."""
+def rough_envs(name: str, num_envs: int, edit=None):
+  """(JAX env, port env on the CPU) of a rough task (a ROUGH key), float64;
+  the port bound to the JAX env's compiled model and terrain origins. The
+  JAX cfg takes the port's Newton iteration count (the Asimov tasks' 30,
+  a declared divergence)."""
   from mjlab_tpu.envs import ManagerBasedRlEnv as JaxEnv
   from mjlab_tpu_torch.envs import ManagerBasedRlEnv
 
-  jcfg, tcfg = _task_cfgs(g1_rough_jax_cfg(), "Mjlab-Velocity-Rough-Unitree-G1", num_envs,
-                          edit)
+  jcfg, tcfg = _task_cfgs(rough_jax_cfg(name), ROUGH[name][2], num_envs, edit)
+  jcfg.sim.mujoco.iterations = tcfg.sim.mujoco.iterations
   jenv = JaxEnv(jcfg)
   model = with_terrain_origins(jenv.sim.mj_model, jenv.scene.terrain.terrain_origins)
   return jenv, ManagerBasedRlEnv(tcfg, device="cpu", model=model)
+
 
 
 def go1_flat_envs(num_envs: int, edit=None):
@@ -981,3 +1020,46 @@ def check_trained(log_dir, stdout: str, obs_dim: int, num_actions: int) -> dict:
   act = policy(torch.zeros(3, obs_dim))
   assert act.shape == (3, num_actions) and torch.isfinite(act).all()
   return final
+
+
+# ---------------------------------------------------------------------------
+# Contact slots against the JAX package's: elementwise, and the terrain
+# groups' (tests/test_torch_convex.py, tests/test_torch_rough_models.py).
+# ---------------------------------------------------------------------------
+
+
+def close_elementwise(got, want, what: str, tol: float = 1e-9) -> None:
+  """|got − want| <= tol · max(1, |want|) elementwise."""
+  got, want = np.asarray(got), np.asarray(want)
+  assert got.shape == want.shape, (what, got.shape, want.shape)
+  err = np.abs(got - want) / np.maximum(1.0, np.abs(want))
+  assert np.all(err <= tol), f"{what}: largest relative error {err.max():.3e} > {tol:.0e}"
+
+
+def contact_parts(c) -> list[np.ndarray]:
+  """(dist, pos, frame, friction, solref, solimp, includemargin) of a
+  Contact of either package, as numpy."""
+  return [np.asarray(getattr(c, f)) for f in ("dist", "pos", "frame", "friction", "solref",
+                                                 "solimp", "includemargin")]
+
+
+def check_terrain_slots(got, want, what: str) -> int:
+  """A terrain group's or the whole collision's slots against the JAX
+  package's: the active set, every field at 1e-9 on every slot but the
+  positions, which hold at 1e-9 on the active slots (the ones the
+  constraint rows weigh). An inactive slot's position may be the SAT's
+  midpoint of tied supports on a separated candidate, which each package's
+  rounding picks (tests/test_torch_convex.py), and it moves nothing: its
+  rows have D = 0. Returns the number of inactive slots whose positions
+  differ."""
+  (gd, gp, gf, *gparams), (wd, wp, wf, *wparams) = got, want
+  wm = np.asarray(wparams[3])
+  active = np.asarray(wd) < wm
+  np.testing.assert_array_equal(np.asarray(gd) < np.asarray(gparams[3]), active)
+  close_elementwise(gd, wd, f"{what} dist")
+  close_elementwise(gf, wf, f"{what} frame")
+  for name, g, w in zip(("friction", "solref", "solimp", "includemargin"), gparams, wparams):
+    close_elementwise(g, w, f"{what} {name}")
+  gp, wp = np.asarray(gp), np.asarray(wp)
+  close_elementwise(gp[active], wp[active], f"{what} active pos")
+  return int((np.abs(gp - wp) > 1e-9 * np.maximum(1.0, np.abs(wp))).any(-1).sum())
