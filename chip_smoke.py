@@ -74,7 +74,8 @@ Phases, each printing its own lines:
      tracking PPO cfg; checks the observation widths (160, 286) and the
      per-env body_ipos, qpos0 and foot friction (each different across envs,
      inside its range, on its elements only); then phase 8's 2 iterations,
-     checks, split and profiles on it, plus the motion frames inside
+     checks, split and profiles (device-only: no split by span, cut to keep
+     the script inside its limit) on it, plus the motion frames inside
      [0, 500) and a failure counted in the adaptive bins; holds the kernels
      against their plain versions on the tracking run's matrices; and the
      card's float64 iteration against the CPU's on the tracking task's
@@ -87,11 +88,11 @@ Phases, each printing its own lines:
      that neither logs nor saves, run under set_sync_debug_mode("error")
      (the checkpoint loaded, the learner equal to it before its update, the
      label it went on from), `run_play --policy trained` on the final
-     checkpoint for 12 steps (cut from 24; ms per step, mean reward; the card's actions
+     checkpoint for 6 steps (cut from 24; ms per step, mean reward; the card's actions
      against the exported TorchScript policy on the CPU, 1e-5 relative; the
      kernels against their plain versions on the play env's matrices), the
      NaN guard on that env (ms per watch, a dump of exactly the 2 poisoned
-     envs and the model), `run_joint_deltas` for 5 steps (cut from 10) and
+     envs and the model), `run_joint_deltas` for 3 steps (cut from 10) and
      `export_policy_as_onnx`; the kernels' counters set to 0 before the
      phase and read after it, less the comparisons' launches.
  11. the Asimov family on flat ground: for Mjlab-Velocity-Flat-Asimov (foot
@@ -108,19 +109,20 @@ Phases, each printing its own lines:
      env's state and held to 1e-8 or twice the CPU's own spread under 6
      qpos nudges of 1e-13, for Asimov-Toe with the ankle targets checked in
      ctrl on the 4 tendon actuators only.
- 12. G1 on rough terrain (2 iterations, a device-only profile of a rollout
-     step and an update, the stage times) and Go1 on flat ground (cut as
-     phase 11's), each as a task of phase 11:
+ 12. G1 on rough terrain and Go1 on flat ground, 1 iteration each (cut
+     from G1 rough's 2 with a device-only profile of a rollout step and an
+     update and the stage times), each as a task of phase 11:
      Mjlab-Velocity-Rough-Unitree-G1 (3564 terrain boxes pooled behind the
      cell-hash broadphase, 667 contact slots, nv 35, 2235 Newton rows; the
      pool and the 10 x 20 tile grid checked after the build; the
      iterations' dropped terrain contacts and mean terrain level) and
      Mjlab-Velocity-Flat-Unitree-Go1 (the trunk box on the plane; nv 18,
-     240 rows); then a headless `run_play` of the rough task, 12 steps (cut from 24) of
+     240 rows); then a headless `run_play` of the rough task, 6 steps (cut from 24) of
      the random policy at 4096 envs, which must load the committed play
      scene (3 x 3 tiles), with the kernels' counters set to 0 just before
      and read just after.
- 13. Go1, Asimov and Asimov-Toe on rough terrain, each as G1 rough in phase
+ 13. Go1, Asimov and Asimov-Toe on rough terrain, 1 iteration each (cut
+     from 2 with a profile and the stage times), each as G1 rough in phase
      12: Mjlab-Velocity-Rough-Unitree-Go1 (the trunk box against the 3564
      pooled boxes through the plain hull SAT; 180 slots, nv 18, 732 rows),
      -Rough-Asimov (the feet's hulls through the SAT, checked against the
@@ -129,8 +131,27 @@ Phases, each printing its own lines:
      iteration's dropped terrain contacts and mean level; the SAT's
      launches and device time per `collision` call on each run's last
      state, for the box and the mesh group; then a headless `run_play` of
-     Go1 rough, 24 steps of the random policy at 4096 envs on its committed
-     play scene.
+     Go1 rough, 6 steps (cut from 24) of the random policy at 4096 envs
+     on its committed play scene.
+ 14. the solver surface: (a) G1 velocity-flat under
+     `--env.sim.mujoco.cone elliptic` (nefc 1320: 29 limit rows, 154
+     condim-1 rows, 379 cone slots of 3 rows) through `build_runner` at
+     4096 envs, 2 iterations with phase 8's checks, a device-only profile,
+     every Newton direction through `newton_direction_cone` (1200 launches
+     per iteration, none of `newton_direction`), the kernel against its
+     plain version on the run's last matrices in f32 (KernelCheck's rule)
+     and f64 (1e-10 relative), its times beside its bound, the plain
+     version and the library path (einsum + cholesky_ex + cholesky_solve),
+     the cone slots by zone, and the card's float64 env against the CPU's
+     as phases 11-13 (2 nudges); (b) G1 under `--env.sim.mujoco.solver cg`, 10 env
+     steps at 4096 envs under set_sync_debug_mode("error"), ms per env step,
+     the Cholesky launches per env step against the code's count, and the
+     float64 env check (2 nudges); (c) each scene of
+     mjlab_tpu_torch/assets/solver_scenes.py (equality connect/weld on
+     bodies and sites, joint, tendon; friction loss; a limited tendon; CG;
+     condim 4 and 6 under both cones; the elliptic puck; Euler; RK4) for 50
+     float64 substeps at 4096 worlds, ms per substep, its first 16 worlds
+     against the CPU (1e-8, or twice the CPU's spread under 2 nudges).
 Any failed check raises. The line before the last is the kernel table as
 JSON (`launches` from the env path of phase 7, `launches_training_path`
 from phase 8's 2 iterations, `launches_tracking_path` from phase 9's,
@@ -139,7 +160,10 @@ from phase 8's 2 iterations, `launches_tracking_path` from phase 9's,
 and its play, `launches_rough_path` from phase 13's and its play,
 `ms_asimov_run_matrices_by_nv`, `ms_rough_go1_run_matrices_by_nv` and
 `ms_rough_run_matrices_by_nv` each kernel's time on phase 11's, 12's and
-13's matrices by nv (phase 13's by task and nv)); the last line is
+13's matrices by nv (phase 13's by task and nv), `launches_elliptic_path`,
+`launches_cg_path` and `launches_scenes_path` phase 14's; the fifth entry,
+`newton_direction_cone`, has phase 14's elliptic run's launches and its
+times on that run's matrices); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -153,6 +177,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -168,6 +193,10 @@ HBM_SETS = 6  # distinct timing batches, 6 x 20 MB > the H100's 50 MB L2
 NEFC = 1699  # G1's constraint rows
 J_SETS = 3  # distinct Newton inputs, 3 x 0.97 GB
 KERNELS = ("chol_factor", "chol_solve", "chol_factor_solve", "newton_direction")
+# The elliptic cone's Newton kernel (phase 14); the pyramidal paths launch
+# KERNELS only.
+CONE_KERNEL = "newton_direction_cone"
+ALL_KERNELS = KERNELS + (CONE_KERNEL,)
 OUT = Path("chiprun_out")
 TASK = "Mjlab-Velocity-Flat-Unitree-G1"
 RL_EPISODE_S = 0.4  # cut from 20 s: 20 env steps, every env resets in-step
@@ -185,9 +214,9 @@ def fact_per_env_step(newton_iters: int = 10) -> int:
 
 RL_FACT_PER_STEP = fact_per_env_step()
 TRAIN_ITERS = 2  # 3 until PR 7; 2 keeps the script with phase 11 inside its limit
-# Phase 11's flat Asimov tasks and phase 12's Go1 flat run one iteration:
-# their robots train 2 on rough terrain in phase 13, and the script stays
-# inside its limit.
+# Phases 11-13's tasks run one iteration (phases 12-13's cut from 2 with a
+# profile and the stage times), so that the script stays inside its limit
+# with phase 14.
 CUT_ITERS = 1
 TRAIN_STEPS = 24  # the G1 PPO cfg's num_steps_per_env
 # The runner's torch.profiler spans: a rollout step's two, then the update's.
@@ -198,11 +227,10 @@ TRACK_TASK = "Mjlab-Tracking-Flat-Unitree-G1"
 TRACK_CSV_ROWS = 301  # 10 s of motion at 30 fps
 TRACK_FRAMES = 500  # the same 10 s at 50 fps
 TRACK_BINS = 11  # adaptive-sampling bins: 500 frames // 50 steps per s + 1
-# Steps of the earlier paths' play (phases 10, 12) and of joint_deltas
-# (phase 10), cut from 24 and 10; Go1 rough's play (phase 13) keeps
-# 24.
-EARLY_PLAY_STEPS = 12
-JOINT_DELTA_STEPS = 5
+# Steps of the earlier paths' play (phases 10, 12, 13) and of joint_deltas
+# (phase 10), cut from 24 and 10.
+EARLY_PLAY_STEPS = 6
+JOINT_DELTA_STEPS = 3
 
 
 # The Asimov feet's convex hulls as put_model builds them from the committed
@@ -570,7 +598,7 @@ def span_busy_ms(prof) -> tuple[dict[str, tuple[float, float]], set[str]]:
 
 
 def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
-                     iters: int = TRAIN_ITERS):
+                     iters: int = TRAIN_ITERS, expect: tuple[str, ...] = KERNELS):
   """`iters` `train_iteration`s under set_sync_debug_mode("error") with
   the kernels' counters set to 0 just before and read just after. Checks
   1416 factorizations and 120 `chol_solve` per iteration (at 10 Newton
@@ -579,7 +607,8 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
   `timed_iteration`. Returns the launches, the steady ms per iteration
   (CUDA events; with one iteration, that iteration's, its warm-up
   included), each iteration's metrics and the last iteration's split (its
-  parts' ms, memory, and (batch, logs, perms))."""
+  parts' ms, memory, and (batch, logs, perms)). Each kernel of `expect` must
+  have launched."""
   import numpy as np
 
   from mjlab_tpu_torch.kernels import chol
@@ -623,7 +652,7 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
   per_step = fact_per_env_step(runner.env.sim.model.opt.iterations)
   if (fact != TRAIN_STEPS * per_step * iters
       or launches["chol_solve"] != TRAIN_STEPS * RL_SOLVES_PER_STEP * iters
-      or any(launches[k] == 0 for k in KERNELS)):
+      or any(launches[k] == 0 for k in expect)):
     raise AssertionError(f"{phase}: expected {TRAIN_STEPS * per_step} factorizations "
                          f"and {TRAIN_STEPS * RL_SOLVES_PER_STEP} solves per iteration, got "
                          f"{launches}")
@@ -822,7 +851,8 @@ def f64_iteration_check(task: str, variant, f64_seeds, overrides=None) -> None:
     raise AssertionError(f"card vs CPU training iteration mismatch: {worst_by_seed}")
 
 
-def f64_env_check(task: str, n_steps: int = 8, on_step=None, nudges: int = 0) -> float:
+def f64_env_check(task: str, n_steps: int = 8, on_step=None, nudges: int = 0,
+                  overrides: dict[str, str] | None = None) -> float:
   """The card's float64 env (kernels) against the CPU's (plain versions) on
   `task`'s certain-draw variant, 4 envs x `n_steps` env steps of N(0, 1)
   actions: observations, rewards and qpos within 1e-8 relative to
@@ -836,17 +866,19 @@ def f64_env_check(task: str, n_steps: int = 8, on_step=None, nudges: int = 0) ->
   and later steps compound such differences; 6 nudges all on one branch
   happen about once in 32. `on_step(env,
   action)` runs after each card step; the largest value it returns is
-  returned. A 4-env CPU step is thousands of tiny ops: one thread runs it
-  fastest."""
+  returned; `overrides` edit the env cfg as the CLI's `--env.*` flags do.
+  A 4-env CPU step is thousands of tiny ops: one thread runs it fastest."""
   from mjlab_tpu_torch.envs import (
     ManagerBasedRlEnv, env_state_from_arrays, env_state_to_arrays,
   )
+  from mjlab_tpu_torch.scripts.cli import apply_overrides
   from mjlab_tpu_torch.tasks import load_env_cfg
 
   torch.set_num_threads(1)  # and so it stays for the later CPU checks
   envs = {}
   for dv in ("cuda", "cpu"):
     cfg = load_env_cfg(task)
+    apply_overrides(cfg, overrides or {})
     cfg.scene.num_envs = 4
     cfg.sim.dtype = "float64"
     certain_variant(cfg)
@@ -974,8 +1006,8 @@ def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: 
   for k in KERNELS:
     launches[k] += got[k]
   if iters < TRAIN_ITERS:
-    print("  a cut run: no profile and no stage times (phase 13 measures the robot on "
-          "rough terrain)")
+    print("  a cut run: no profile and no stage times (cut to keep the script inside its "
+          "limit)")
   else:
     profile_iteration(runner, card, attr, tag, steady_iter_ms, split, spans=False)
     per_stage = stage_times(tp, env.model, env.data)
@@ -1063,8 +1095,8 @@ def asimov_path(card: str, attr: str, checks: KernelCheck):
 
 
 def rough_go1_path(card: str, attr: str, checks: KernelCheck):
-  """Phase 12: G1 trains on rough terrain (TRAIN_ITERS iterations) and Go1
-  on flat ground (CUT_ITERS) (the ROUGH_GO1_OBS_DIMS tasks), each through
+  """Phase 12: G1 trains on rough terrain and Go1 on flat ground (the
+  ROUGH_GO1_OBS_DIMS tasks), CUT_ITERS iteration each, each through
   `task_path`. For G1 rough, the
   box-terrain pool's groups and the generated grid are printed after the
   build, and the iterations' mean of the dropped terrain contacts and of
@@ -1089,7 +1121,7 @@ def rough_go1_path(card: str, attr: str, checks: KernelCheck):
     host = task_path("phase 12", task, "g1_rough" if rough else "go1", obs_dims, card, attr,
                      checks, launches, path_ms,
                      after_build=(lambda r: print_terrain(r.env, ROUGH_TASK)) if rough else None,
-                     iters=TRAIN_ITERS if rough else CUT_ITERS)
+                     iters=CUT_ITERS)
     if rough:
       terrain_metrics(task, host)
     print(f"  {task} in {time.perf_counter() - t0:.1f} s")
@@ -1115,8 +1147,8 @@ def rough_go1_path(card: str, attr: str, checks: KernelCheck):
   for k in KERNELS:
     launches[k] += play_launches[k]
   del res, env
-  print(f"phase 12: {time.perf_counter() - t_phase:.1f} s; launches over G1 rough's "
-        f"{TRAIN_ITERS} iterations, Go1's {CUT_ITERS} and the play {launches}")
+  print(f"phase 12: {time.perf_counter() - t_phase:.1f} s; launches over G1 rough's and "
+        f"Go1's {CUT_ITERS} iteration and the play {launches}")
   return launches, path_ms
 
 
@@ -1213,8 +1245,9 @@ def rough13_path(card: str, attr: str, checks: KernelCheck):
   from the rough npz against the CPU host's digest; each iteration's
   dropped terrain contacts and mean terrain level; the SAT's launches and
   device time per `collision` call on each run's last state
-  (`sat_launches`); then a headless `run_play` of Go1 rough for 24 steps
-  of the random policy on NUM_WORLDS envs, which must load its committed
+  (`sat_launches`); then a headless `run_play` of Go1 rough for
+  EARLY_PLAY_STEPS steps of the random policy on NUM_WORLDS envs, which must
+  load its committed
   play scene (3 x 3 tiles), with the kernels' counters set to 0 just
   before and read just after. Returns the kernels' launches over the
   tasks' iterations and the play, each kernel's ms on each run's matrices
@@ -1252,7 +1285,7 @@ def rough13_path(card: str, attr: str, checks: KernelCheck):
     torch.cuda.reset_peak_memory_stats()
     host = task_path("phase 13", task, tag, obs_dims, card, attr, checks, launches, path_ms,
                      after_build=after_build, after_train=after_train,
-                     ms_key=f"{tag} (n {18 if 'Toe' not in task else 20})")
+                     ms_key=f"{tag} (n {18 if 'Toe' not in task else 20})", iters=CUT_ITERS)
     terrain_metrics(task, host)
     print(f"  {task} in {time.perf_counter() - t0:.1f} s; peak memory over the task "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
@@ -1264,10 +1297,11 @@ def rough13_path(card: str, attr: str, checks: KernelCheck):
   go1 = "Mjlab-Velocity-Rough-Unitree-Go1"
   chol.reset_counts()
   t0 = time.perf_counter()
-  res = run_play(go1, {"num_envs": str(NUM_WORLDS), "steps": "24", "policy": "random"})
+  res = run_play(go1, {"num_envs": str(NUM_WORLDS), "steps": str(EARLY_PLAY_STEPS),
+                       "policy": "random"})
   play_launches = dict(chol.LAUNCHES)
   env = res.env
-  print(f"  run_play {go1} --policy random: {NUM_WORLDS} envs x 24 steps in "
+  print(f"  run_play {go1} --policy random: {NUM_WORLDS} envs x {EARLY_PLAY_STEPS} steps in "
         f"{res.seconds:.2f} s ({time.perf_counter() - t0:.2f} s with the build), mean reward "
         f"per step {res.mean_reward:.5f}, scene {Path(env.cfg.scene.model_file).name}, tiles "
         f"{env.scene.terrain.terrain_origins.shape[:2]}, "
@@ -1281,7 +1315,7 @@ def rough13_path(card: str, attr: str, checks: KernelCheck):
     launches[k] += play_launches[k]
   del res, env
   print(f"phase 13: {time.perf_counter() - t_phase:.1f} s; launches over the three tasks' "
-        f"{TRAIN_ITERS} iterations and the play {launches}; the plain SAT per collision call "
+        f"{CUT_ITERS} iteration and the play {launches}; the plain SAT per collision call "
         + ", ".join(f"{g} group {n} launches, {ms:.3f} ms" for g, (n, ms) in sorted(sat.items())))
   return launches, path_ms, sat
 
@@ -1503,7 +1537,8 @@ def tracking_path(card: str, attr: str, checks: KernelCheck, f64_seeds=F64_SEEDS
     raise AssertionError("envs terminated, but no adaptive bin counts a failure")
   if not sum(m["Train/resets"] for m in host) > 0:
     raise AssertionError("no env terminated in the tracking iterations")
-  profile_iteration(runner, card, attr, "tracking", steady_iter_ms, split)
+  # Device-only (no split by span: phase 8 splits the same runner code).
+  profile_iteration(runner, card, attr, "tracking", steady_iter_ms, split, spans=False)
   del split
 
   print("  kernels vs plain on the tracking run's matrices, f32:")
@@ -1715,6 +1750,254 @@ def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dic
   if any(launches[k] == 0 for k in KERNELS):
     raise AssertionError(f"phase 10: a kernel was not launched: {launches}")
   return launches
+
+
+# Phase 14's cells: G1 under the elliptic cone and under CG, and the solver
+# surface's scenes (mjlab_tpu_torch/assets/solver_scenes.py).
+ELLIPTIC_NEFC = 1320  # 29 limit rows + 154 condim-1 rows + 379 cone slots x 3
+CG_STEPS = 10  # env steps of G1 under CG
+SCENE_SUBSTEPS = 50
+SCENE_CPU_WORLDS = 16  # the first worlds of the card's run, rerun on the CPU
+# The scenes run a small solver budget on both sides: they are launch-bound
+# (the compiled defaults, 100 iterations x 50 linesearch steps, launch ~250x
+# more), and the card-vs-CPU check needs no converged solve.
+SCENE_ITERATIONS, SCENE_LS_ITERATIONS = 4, 5
+# Qpos nudges of phase 14's card-vs-CPU env checks (6 in phases 11-13): a
+# CPU elliptic env step takes ~2.5 s, and G1 sits far inside 1e-8 there.
+PHASE14_NUDGES = 2
+
+
+def cone_bound(batch: int, n: int, nefc: int, rows: int, cone_rows: int, nb: int,
+               elem: int = 4) -> tuple[float, str]:
+  """Least time (ms) of newton_direction_cone on these inputs: bytes of the
+  active regular rows and the active cone slots' rows of J, w and the
+  packed blocks (every world), qM's lower triangle, grad and x; operations
+  2 per row and lower entry of H (a cone row adds its virtual row, 2 cd
+  per element, cd = 3), then the factor and solves."""
+  tri, vec = batch * n * (n + 1) // 2 * elem, batch * n * elem
+  byt = (rows + cone_rows) * n * elem + batch * (nefc + nb) * elem + tri + 2 * vec
+  flop = (rows + cone_rows) * n * (n + 1) + cone_rows * 6 * n + batch * (n**3 / 3 + 2 * n * n)
+  tb, tf = byt / PEAK_BYTES * 1e3, flop / PEAK_F32 * 1e3
+  return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
+  """Phase 14, part 1: G1 velocity-flat under cone="elliptic" trains (2
+  iterations at 4096 envs through build_runner, the CLI's override), with
+  phase 8's checks, a device-only profile, nefc 1320 and every Newton
+  direction through newton_direction_cone; then the kernel against its
+  plain version on the run's last matrices (f32 and f64), its times, and
+  the card's float64 env against the CPU's. Returns the launches and the
+  kernel's numbers for the JSON line."""
+  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.physics import solver
+  from mjlab_tpu_torch.scripts.train import build_runner
+
+  gc.collect()
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  over = {"env.scene.num_envs": str(NUM_WORLDS), "env.sim.mujoco.cone": "elliptic"}
+  runner = build_runner(TASK, over)
+  torch.cuda.synchronize()
+  env, tp = runner.env, runner.env.tp
+  layout = tp.dev.con.cone_kernel_layout
+  print(f"phase 14 elliptic: {TASK} --env.sim.mujoco.cone elliptic (impratio "
+        f"{env.sim.model.opt.impratio.item()}), {NUM_WORLDS} envs, nv {tp.nv}, Newton rows "
+        f"{tp.nefc}, cone slots {layout.table.shape[0]} in groups {layout.groups}, obs "
+        f"{env.group_obs_dim}; build_runner {time.perf_counter() - t0:.2f} s [{card}]")
+  if tp.nefc != ELLIPTIC_NEFC or env.group_obs_dim != {"policy": (99,), "critic": (111,)}:
+    raise AssertionError(f"phase 14 elliptic: nefc {tp.nefc}, obs {env.group_obs_dim}")
+  got, steady_iter_ms, _, split = train_iterations(
+    runner, card, "phase 14 elliptic", (99, 111), expect=KERNELS[:3] + (CONE_KERNEL,))
+  it = env.sim.model.opt.iterations
+  per_iter = TRAIN_STEPS * (DECIMATION * it + it)
+  print(f"  {CONE_KERNEL} launches {got[CONE_KERNEL]} = {got[CONE_KERNEL] / TRAIN_ITERS:.0f} "
+        f"per iteration (expected {per_iter}: 24 env steps x (4 substeps + the post-reset "
+        f"forward) x {it}); newton_direction {got['newton_direction']}")
+  if got[CONE_KERNEL] != per_iter * TRAIN_ITERS or got["newton_direction"] != 0:
+    raise AssertionError(f"phase 14 elliptic: launches {got}")
+  profile_iteration(runner, card, attr, "g1_elliptic", steady_iter_ms, split, spans=False)
+  del split
+
+  d, n = env.data, tp.nv
+  gen = solver.GeneralCost(tp, env.sim.model, d)
+  r = gen.residual(d.qacc)
+  w, Bc = gen.row_hess(r), gen.cone_blocks(r)
+  grad = torch.randn(NUM_WORLDS, n, generator=torch.Generator(device="cuda").manual_seed(14),
+                     device="cuda")
+  args = (d.qM.contiguous(), d.efc_J.contiguous(), w.contiguous(), grad, Bc.contiguous())
+  args64 = tuple(a.double() for a in args)
+  x64 = chol.newton_direction_cone_plain(*args64, layout)
+  checks.check(CONE_KERNEL, "g1 elliptic", chol.newton_direction_cone(*args, layout),
+               chol.newton_direction_cone_plain(*args, layout), x64)
+  got64 = chol.newton_direction_cone(*args64, layout)
+  err64 = (got64 - x64).abs().max().item()
+  scale64 = max(1.0, x64.abs().max().item())
+  print(f"  {CONE_KERNEL} f64 on the run's matrices: max_abs_err {err64:.3e} "
+        f"(tol 1e-10 x {scale64:.3e})")
+  if not err64 <= 1e-10 * scale64:
+    raise AssertionError(f"{CONE_KERNEL} f64: {err64:.3e}")
+  rows = int((w != 0).sum().item())
+  active_slots = (Bc.reshape(NUM_WORLDS, -1, 9) != 0).any(-1)
+  cone_rows = 3 * int(active_slots.sum().item())
+  zones = {}
+  for g in gen.groups:
+    N, _, _, top, bottom, _ = gen.zones(g, r[:, g.rows])
+    act = g.active
+    zones = {"top": int((top & act).sum()), "middle": int((~top & ~bottom & act).sum()),
+             "bottom": int((bottom & ~top & act).sum()), "inactive": int((~act).sum())}
+  print(f"  the run's last state: active regular rows {rows} "
+        f"({rows / (NUM_WORLDS * tp.nefc):.4f} of all rows), cone slots by zone {zones}")
+  qM, J = args[0], args[1]
+  ms = time_ms(lambda: chol.newton_direction_cone(*args, layout), [()])
+  plain_ms = time_ms(lambda: chol.newton_direction_cone_plain(*args, layout), [()], iters=3)
+  lib_ms = time_ms(lambda: torch.cholesky_solve(
+    grad[..., None], torch.linalg.cholesky_ex(chol.cone_matrix(*args[:3], Bc, layout))[0]),
+    [()], iters=5)
+  bnd = cone_bound(NUM_WORLDS, n, tp.nefc, rows, cone_rows, layout.nb)
+  print(f"  {CONE_KERNEL} on the run's matrices: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"library (einsum + cholesky_ex + cholesky_solve) {lib_ms:.4f} ms  bound "
+        f"{bnd[0]:.6f} ms ({bnd[1]}) [{card}]")
+  del runner, env, d, gen, r, w, Bc, args, args64, x64, got64, qM, J
+  gc.collect()
+  torch.cuda.empty_cache()
+  f64_env_check(TASK, n_steps=3, nudges=PHASE14_NUDGES, overrides={"sim.mujoco.cone": "elliptic"})
+  return {"launches": got, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "bound": bnd, "steady_iter_ms": steady_iter_ms}
+
+
+def cg_path(card: str) -> dict[str, int]:
+  """Phase 14, part 2: G1 velocity-flat under solver="cg", 10 env steps of
+  N(0, 1) actions at 4096 envs under set_sync_debug_mode("error"): ms per
+  env step, and the Cholesky launches per env step against the code's count
+  (per forward, M's factor and CG's factor of M + 1e-12·I, M's solve for
+  qacc_smooth and CG's 1 + iterations solves; 4 substeps and the post-reset
+  forward, and the integrator's factor-solve per substep); then the card's
+  float64 env against the CPU's."""
+  from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.scripts.cli import apply_overrides
+  from mjlab_tpu_torch.tasks import load_env_cfg
+
+  gc.collect()
+  torch.cuda.empty_cache()
+  cfg = load_env_cfg(TASK)
+  apply_overrides(cfg, {"scene.num_envs": str(NUM_WORLDS), "sim.mujoco.solver": "cg"})
+  env = ManagerBasedRlEnv(cfg, device="cuda")
+  env.reset(seed=0)
+  it = env.sim.model.opt.iterations
+  forwards = DECIMATION + 1
+  want = {"chol_factor": 2 * forwards, "chol_solve": (2 + it) * forwards,
+          "chol_factor_solve": DECIMATION, "newton_direction": 0, CONE_KERNEL: 0}
+  gen = torch.Generator(device="cuda").manual_seed(3)
+  actions = [torch.randn(NUM_WORLDS, env.total_action_dim, generator=gen, device="cuda")
+             for _ in range(CG_STEPS)]
+  env.step(actions[0])
+  torch.cuda.synchronize()
+  chol.reset_counts()
+  torch.cuda.set_sync_debug_mode("error")
+  start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+  start.record()
+  for a in actions[1:]:
+    obs, rew, *_ = env.step(a)
+  end.record()
+  torch.cuda.set_sync_debug_mode("default")
+  torch.cuda.synchronize()
+  steps = CG_STEPS - 1
+  launches = dict(chol.LAUNCHES)
+  print(f"phase 14 cg: {TASK} --env.sim.mujoco.solver cg ({it} iterations), {NUM_WORLDS} "
+        f"envs, {steps} env steps after one warm-up under set_sync_debug_mode('error'): "
+        f"{start.elapsed_time(end) / steps:.2f} ms per env step [{card}]")
+  print(f"  launches per env step " + ", ".join(f"{k} {v / steps:g}" for k, v in launches.items())
+        + f"; from the code: {want}")
+  if any(launches[k] != v * steps for k, v in want.items()):
+    raise AssertionError(f"phase 14 cg: launches {launches}, expected {want} per env step")
+  for x in (obs["policy"], obs["critic"], rew, env.data.qpos):
+    if not torch.isfinite(x).all():
+      raise AssertionError("phase 14 cg: non-finite state")
+  del env, obs, rew, actions
+  gc.collect()
+  torch.cuda.empty_cache()
+  f64_env_check(TASK, n_steps=3, nudges=PHASE14_NUDGES, overrides={"sim.mujoco.solver": "cg"})
+  return launches
+
+
+def scenes_path(card: str) -> dict[str, int]:
+  """Phase 14, part 3: each scene of assets/solver_scenes.py under each of
+  its cones, float64, 50 substeps at 4096 worlds from the scene's velocity
+  plus a seeded N(0, 0.05²) per world, through physics.step (ms per
+  substep, CUDA events); then the first 16 worlds rerun on the CPU (plain
+  versions), qpos and qvel within 1e-8 relative to max(1, max |CPU|), or
+  twice the CPU's own spread under 2 qpos nudges of 1e-13 where that is
+  larger."""
+  from mjlab_tpu_torch import physics
+  from mjlab_tpu_torch.assets import solver_scenes
+  from mjlab_tpu_torch.kernels import chol
+
+  torch.set_num_threads(1)
+  total = {k: 0 for k in ALL_KERNELS}
+  print(f"phase 14 scenes: {SCENE_SUBSTEPS} substeps at {NUM_WORLDS} worlds, float64, "
+        f"{SCENE_ITERATIONS} iterations x {SCENE_LS_ITERATIONS} linesearch steps; the first "
+        f"{SCENE_CPU_WORLDS} worlds against the CPU (tol 1e-8) [{card}]")
+  def cpu_run(tp, m, qpos, qvel):
+    d = physics.make_data(tp, m, SCENE_CPU_WORLDS).replace(qpos=qpos, qvel=qvel)
+    for _ in range(SCENE_SUBSTEPS):
+      d = physics.step(tp, m, d)
+    return d
+
+  def rel(a, b):
+    return max((getattr(a, f) - getattr(b, f)).abs().max().item()
+               / max(1.0, getattr(b, f).abs().max().item()) for f in ("qpos", "qvel"))
+
+  for name, sc in solver_scenes.SCENES.items():
+    for cone in sc.cones:
+      models = {}
+      for dv in ("cuda", "cpu"):
+        mjm = solver_scenes.load(name, cone)
+        mjm.opt.iterations, mjm.opt.ls_iterations = SCENE_ITERATIONS, SCENE_LS_ITERATIONS
+        models[dv] = physics.put_model(mjm, dtype=torch.float64, device=dv)
+      tp, m = models["cuda"]
+      rng = torch.Generator().manual_seed(5)
+      qvel = torch.zeros(NUM_WORLDS, tp.nv, dtype=torch.float64)
+      qvel[:, :len(sc.qvel)] = torch.tensor(sc.qvel, dtype=torch.float64)
+      qvel += 0.05 * torch.randn(NUM_WORLDS, tp.nv, generator=rng, dtype=torch.float64)
+      d = physics.make_data(tp, m, NUM_WORLDS).replace(qvel=qvel.cuda())
+      chol.reset_counts()
+      d = physics.step(tp, m, d)
+      torch.cuda.synchronize()
+      start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+      start.record()
+      for _ in range(SCENE_SUBSTEPS - 1):
+        d = physics.step(tp, m, d)
+      end.record()
+      torch.cuda.synchronize()
+      launched = {k: v for k, v in chol.LAUNCHES.items() if v}
+      for k, v in chol.LAUNCHES.items():
+        total[k] += v
+      if not (torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()):
+        raise AssertionError(f"phase 14 scene {name} (cone {cone}): non-finite state")
+      tp_c, m_c = models["cpu"]
+      q0 = physics.make_data(tp_c, m_c, SCENE_CPU_WORLDS).qpos
+      v0 = qvel[:SCENE_CPU_WORLDS]
+      ref = cpu_run(tp_c, m_c, q0, v0)
+      card = SimpleNamespace(qpos=d.qpos[:SCENE_CPU_WORLDS].cpu(), qvel=d.qvel[:SCENE_CPU_WORLDS].cpu())
+      err, tol, spread = rel(card, ref), 1e-8, None
+      if err > tol:
+        # A scene whose motion amplifies rounding (CG's unconverged steps on
+        # a tumbling box): held to twice the CPU's own spread under 2 qpos
+        # nudges of 1e-13 instead, as phases 11-13 hold their env steps.
+        spread = max(
+          rel(cpu_run(tp_c, m_c, q0 * (1 + 1e-13 * torch.randn(q0.shape, generator=rng,
+                                                                 dtype=torch.float64)), v0), ref)
+          for _ in range(2))
+        tol = max(tol, 2 * spread)
+      print(f"  {name:22s} cone {cone} nefc {tp.nefc:3d}: "
+            f"{start.elapsed_time(end) / (SCENE_SUBSTEPS - 1):.3f} ms per substep; card vs CPU "
+            f"{err:.3e} (tol {tol:.3e}" + (f", CPU spread {spread:.3e}" if spread is not None else "")
+            + f"); launches {launched}")
+      if not err <= tol:
+        raise AssertionError(f"phase 14 scene {name} (cone {cone}): card vs CPU {err:.3e}")
+  return total
 
 
 def main() -> int:
@@ -2135,6 +2418,16 @@ def main() -> int:
   rough13_launches, rough13_ms, sat = rough13_path(card, attr, checks)
 
   clock.done(13)
+  # -- 14. the solver surface: G1 under the elliptic cone and CG, and the scenes --
+  ell = elliptic_path(card, attr, checks)
+  cg_launches = cg_path(card)
+  scene_launches = scenes_path(card)
+  print(f"phase 14 launches: G1 elliptic's 2 iterations {ell['launches']}; G1 cg's "
+        f"{CG_STEPS - 1} env steps {cg_launches}; the scenes' runs {scene_launches}")
+  if any(scene_launches[k] == 0 for k in ALL_KERNELS):
+    raise AssertionError(f"phase 14: a kernel did not run in the scenes: {scene_launches}")
+
+  clock.done(14)
   # -- result lines ---------------------------------------------------------------
   bnd = bounds(NUM_WORLDS, N, rows=NUM_WORLDS * NEFC)
   bnd_run = bounds(NUM_WORLDS, N, rows=active_rows)["newton_direction"]
@@ -2180,6 +2473,27 @@ def main() -> int:
     "ms_run_matrices": run_ms, "library_ms_run_matrices": run_replaced_ms,
     "bound_ms_run_matrices": bnd_run[0], "bound_by_run_matrices": bnd_run[1],
     "active_row_share": share,
+  })
+  for k in kernels:
+    k["launches_elliptic_path"] = ell["launches"][k["name"]]
+    k["launches_cg_path"] = cg_launches[k["name"]]
+    k["launches_scenes_path"] = scene_launches[k["name"]]
+  kernels.append({
+    "name": CONE_KERNEL,
+    "route": "cuda",
+    "source": "mjlab_tpu_torch/csrc/newton_dir.cu",
+    "replaces": "mjlab_tpu/physics/solver.py:222-225 (H with the cone blocks) and "
+                ":227-229 (factor, solves)",
+    "launches": ell["launches"][CONE_KERNEL],
+    "launches_elliptic_path": ell["launches"][CONE_KERNEL],
+    "launches_cg_path": cg_launches[CONE_KERNEL],
+    "launches_scenes_path": scene_launches[CONE_KERNEL],
+    "max_abs_err": checks.max_abs_err[CONE_KERNEL],
+    "ms": ell["ms"],
+    "plain_ms": ell["plain_ms"],
+    "bound_ms": ell["bound"][0],
+    "bound_by": ell["bound"][1],
+    "library_ms": ell["library_ms"],
   })
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({

@@ -39,6 +39,24 @@
 // at once, so that one world's dependent factor steps overlap other
 // worlds' loads.
 //
+// The elliptic cone's entry (newton_direction_cone) adds, per world,
+//   Σ_s J_sᵀ B_s J_s
+// over the cone slots s: B_s is the slot's (cd × cd) cone Hessian, J_s its
+// cd consecutive rows of J (a slot's rows are contiguous). It replaces the
+// einsum at mjlab_tpu/physics/solver.py:223-225, which the JAX package adds
+// to H before the same factor and solves. B_s is 0 in the cone's top zone
+// and for an inactive contact, so the kernel first compacts the slots
+// whose block is not all 0 (a NaN counts), reading the packed blocks once
+// (379 × 9 values per world at G1), then for each such slot loads its rows
+// U = J_s (cd × n) and B_s into shared memory, forms the "virtual rows"
+// V = B_s U there, and adds Σ_c U_c V_cᵀ to the lane-owned blocks of H's
+// lower half as it adds w_r J_r J_rᵀ for a regular row. B_s is symmetric,
+// so the lower half is exact. Per active slot that is (cd + 1) row reads
+// and (cd² + cd) · n FMAs; the regular rows (w = 0 on every cone row) go
+// through steps 1-3 unchanged. The slots are taken one at a time with plain
+// loads, no double buffering: a first, simple design. Its bound is the
+// same as the regular kernel's: J's active rows once, plus the blocks.
+//
 // C interface (ctypes): returns cudaGetLastError() of the launch (or
 // cudaErrorInvalidValue for shapes it does not take) and runs on the given
 // stream.
@@ -68,19 +86,23 @@ __host__ __device__ constexpr int tile_elems(int n) {
 }
 
 // One warp's shared memory: two tiles (H, then Lᵀ, reuse the first; qM the
-// second), their rows' weights, 1 / L[j][j], scratch, and the active rows'
-// indices (nefc of them at most).
+// second; a cone slot's U, V and B in between), their rows' weights,
+// 1 / L[j][j], scratch, the active rows' indices (nefc of them at most)
+// and the active cone slots' (ncone at most).
 template <typename T, int N>
 struct Layout {
-  size_t wt, inv, scratch, idx, per_warp;
-  __host__ __device__ explicit Layout(int m) {
+  size_t wt, inv, scratch, idx, slots, per_warp;
+  __host__ __device__ Layout(int m, int ncone) {
     wt = align16(2 * tile_elems(N) * sizeof(T));
     inv = align16(wt + 2 * kTileRows * sizeof(T));
     scratch = align16(inv + N * sizeof(T));
     idx = align16(scratch + N * sizeof(T));
-    per_warp = align16(idx + static_cast<size_t>(m) * sizeof(uint16_t));
+    slots = align16(idx + static_cast<size_t>(m) * sizeof(uint16_t));
+    per_warp = align16(slots + static_cast<size_t>(ncone) * sizeof(uint16_t));
   }
 };
+
+constexpr int kMaxConeDim = 6;
 
 template <int kBytes>
 __device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
@@ -118,13 +140,15 @@ __device__ __forceinline__ void issue_tile(const T* __restrict__ Jw,
   if (lane < rows) cp_async<sizeof(T)>(wdst + lane, ww + idx[first + lane]);
 }
 
-template <typename T, int N, bool kPad>
+template <typename T, int N, bool kPad, bool kCone>
 __global__ void newton_direction_kernel(const T* __restrict__ qM,
                                         const T* __restrict__ J,
                                         const T* __restrict__ w,
                                         const T* __restrict__ grad,
+                                        const T* __restrict__ cone_B,
+                                        const int* __restrict__ cone_tab,
                                         T* __restrict__ x, int batch, int n_arg,
-                                        int m) {
+                                        int m, int ncone, int nb) {
   constexpr int ld = lead(N);
   constexpr int R = rows_per_lane(N);
   constexpr int BS = block_cols(N);
@@ -133,7 +157,7 @@ __global__ void newton_direction_kernel(const T* __restrict__ qM,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t world = static_cast<size_t>(blockIdx.x) * (blockDim.x / 32) + warp;
   if (world >= static_cast<size_t>(batch)) return;
-  const Layout<T, N> lay(m);
+  const Layout<T, N> lay(m, kCone ? ncone : 0);
   unsigned char* mine = smem_raw + warp * lay.per_warp;
   T* tiles = reinterpret_cast<T*>(mine);
   T* wt = reinterpret_cast<T*>(mine + lay.wt);
@@ -220,6 +244,62 @@ __global__ void newton_direction_kernel(const T* __restrict__ qM,
   cp_async_wait<0>();
   __syncwarp();
 
+  if constexpr (kCone) {
+    // 3b. The cone slots whose block is not all 0, in order, then each
+    // one's Σ_c U_c V_cᵀ, V = B_s U, into the lane-owned blocks.
+    uint16_t* slots = reinterpret_cast<uint16_t*>(mine + lay.slots);
+    const T* Bw = cone_B + world * static_cast<size_t>(nb);
+    int nact = 0;
+    for (int base = 0; base < ncone; base += 32) {
+      const int s = base + lane;
+      bool act = false;
+      if (s < ncone) {
+        const int cd = cone_tab[3 * s + 1], off = cone_tab[3 * s + 2];
+        for (int e = 0; e < cd * cd; ++e) act = act || !(Bw[off + e] == T(0));
+      }
+      const unsigned ball = __ballot_sync(chol::kFullMask, act);
+      if (act) slots[nact + __popc(ball & ((1u << lane) - 1u))] = static_cast<uint16_t>(s);
+      nact += __popc(ball);
+    }
+    __syncwarp();
+    T* U = tiles;
+    T* V = tiles + kMaxConeDim * n;
+    T* Bs = tiles + 2 * kMaxConeDim * n;
+    for (int k = 0; k < nact; ++k) {
+      const int s = slots[k];
+      const int adr = cone_tab[3 * s], cd = cone_tab[3 * s + 1], off = cone_tab[3 * s + 2];
+      const T* Js = Jw + static_cast<size_t>(adr) * n;
+      for (int e = lane; e < cd * n; e += 32) U[e] = Js[e];
+      if (lane < cd * cd) Bs[lane] = Bw[off + lane];
+      if (lane + 32 < cd * cd) Bs[lane + 32] = Bw[off + lane + 32];
+      __syncwarp();
+      for (int e = lane; e < cd * n; e += 32) {
+        const int a = e / n, j = e - a * n;
+        T v = T(0);
+        for (int b = 0; b < cd; ++b) v = fma(Bs[a * cd + b], U[b * n + j], v);
+        V[e] = v;
+      }
+      __syncwarp();
+      if (owner) {
+        for (int c = 0; c < cd; ++c) {
+          T uu[BS], vv[BS];
+#pragma unroll
+          for (int a = 0; a < BS; ++a) {
+            const int ci = bi * BS + a, cj = bj * BS + a;
+            uu[a] = !kPad || ci < n ? U[c * n + ci] : T(0);
+            vv[a] = !kPad || cj < n ? V[c * n + cj] : T(0);
+          }
+#pragma unroll
+          for (int a = 0; a < BS; ++a) {
+#pragma unroll
+            for (int b = 0; b < BS; ++b) acc[a][b] = fma(uu[a], vv[b], acc[a][b]);
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+
   // 4. H = Σ_r w_r J_r J_rᵀ into the first tile, qM into the second.
   T* H = tiles;
   T* qs = tiles + kTile;
@@ -266,34 +346,48 @@ __global__ void newton_direction_kernel(const T* __restrict__ qM,
   }
 }
 
-template <typename T, int N, bool kPad>
-int launch_instance(const T* qM, const T* J, const T* w, const T* grad, T* x,
-                    int batch, int n, int m, cudaStream_t stream) {
-  const size_t per_warp = Layout<T, N>(m).per_warp;
+template <typename T, int N, bool kPad, bool kCone>
+int launch_instance(const T* qM, const T* J, const T* w, const T* grad, const T* cone_B,
+                    const int* cone_tab, T* x, int batch, int n, int m, int ncone, int nb,
+                    cudaStream_t stream) {
+  const size_t per_warp = Layout<T, N>(m, kCone ? ncone : 0).per_warp;
   if (per_warp > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   int warps = static_cast<int>(kMaxSmem / per_warp);
   warps = warps > kWarpsPerBlock ? kWarpsPerBlock : warps;
   const size_t bytes = warps * per_warp;
-  auto kernel = newton_direction_kernel<T, N, kPad>;
+  auto kernel = newton_direction_kernel<T, N, kPad, kCone>;
   if (bytes > kStaticSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int blocks = (batch + warps - 1) / warps;
-  kernel<<<blocks, 32 * warps, bytes, stream>>>(qM, J, w, grad, x, batch, n, m);
+  kernel<<<blocks, 32 * warps, bytes, stream>>>(qM, J, w, grad, cone_B, cone_tab, x, batch,
+                                                n, m, ncone, nb);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const T* qM, const T* J, const T* w, const T* grad, T* x, int batch,
-           int n, int m, cudaStream_t stream) {
-  if (n < 1 || n > chol::kMaxN || batch < 1 || m < 0 || m > kMaxRows) {
+template <typename T, bool kCone>
+int launch(const T* qM, const T* J, const T* w, const T* grad, const T* cone_B,
+           const int* cone_tab, T* x, int batch, int n, int m, int ncone, int nb,
+           cudaStream_t stream) {
+  if (n < 1 || n > chol::kMaxN || batch < 1 || m < 0 || m > kMaxRows || ncone < 0 ||
+      ncone > kMaxRows || nb < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (n == 35) return launch_instance<T, 35, false>(qM, J, w, grad, x, batch, n, m, stream);
-  if (n <= 32) return launch_instance<T, 32, true>(qM, J, w, grad, x, batch, n, m, stream);
-  return launch_instance<T, 64, true>(qM, J, w, grad, x, batch, n, m, stream);
+  // A slot's U and V (cd rows each) and its block share one tile.
+  static_assert(2 * kMaxConeDim * 64 + kMaxConeDim * kMaxConeDim <= 2 * tile_elems(64),
+                "cone scratch exceeds the tiles");
+  if (n == 35) {
+    return launch_instance<T, 35, false, kCone>(qM, J, w, grad, cone_B, cone_tab, x, batch, n,
+                                                m, ncone, nb, stream);
+  }
+  if (n <= 32) {
+    return launch_instance<T, 32, true, kCone>(qM, J, w, grad, cone_B, cone_tab, x, batch, n,
+                                               m, ncone, nb, stream);
+  }
+  return launch_instance<T, 64, true, kCone>(qM, J, w, grad, cone_B, cone_tab, x, batch, n, m,
+                                             ncone, nb, stream);
 }
 
 }  // namespace
@@ -303,12 +397,30 @@ extern "C" {
 int newton_direction_f32(const float* qM, const float* J, const float* w,
                          const float* grad, float* x, int batch, int n, int m,
                          void* stream) {
-  return launch(qM, J, w, grad, x, batch, n, m, static_cast<cudaStream_t>(stream));
+  return launch<float, false>(qM, J, w, grad, nullptr, nullptr, x, batch, n, m, 0, 0,
+                              static_cast<cudaStream_t>(stream));
 }
 int newton_direction_f64(const double* qM, const double* J, const double* w,
                          const double* grad, double* x, int batch, int n, int m,
                          void* stream) {
-  return launch(qM, J, w, grad, x, batch, n, m, static_cast<cudaStream_t>(stream));
+  return launch<double, false>(qM, J, w, grad, nullptr, nullptr, x, batch, n, m, 0, 0,
+                               static_cast<cudaStream_t>(stream));
+}
+// cone_B: (batch, nb) packed cone blocks; cone_tab: (ncone, 3) int32
+// [first row, cd <= 6, offset of the block in a world's nb].
+int newton_direction_cone_f32(const float* qM, const float* J, const float* w,
+                              const float* grad, const float* cone_B, const int* cone_tab,
+                              float* x, int batch, int n, int m, int ncone, int nb,
+                              void* stream) {
+  return launch<float, true>(qM, J, w, grad, cone_B, cone_tab, x, batch, n, m, ncone, nb,
+                             static_cast<cudaStream_t>(stream));
+}
+int newton_direction_cone_f64(const double* qM, const double* J, const double* w,
+                              const double* grad, const double* cone_B, const int* cone_tab,
+                              double* x, int batch, int n, int m, int ncone, int nb,
+                              void* stream) {
+  return launch<double, true>(qM, J, w, grad, cone_B, cone_tab, x, batch, n, m, ncone, nb,
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

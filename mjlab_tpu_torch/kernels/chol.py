@@ -19,7 +19,10 @@ Kernels (csrc/):
   and factors and solves it with chol.cu's warp code; H never reaches
   device memory. Bound at G1's
   shapes: reading the dense J (0.97 GB) once, 0.29 ms, or only its active
-  rows.
+  rows. Its elliptic entry, `newton_direction_cone`, also adds each cone
+  slot's J_sᵀ B_s J_s (solver.py:223-225) for the slots whose block is not
+  0, from a slot's rows and block in shared memory; bound at G1 elliptic
+  (4096 × 1320 × 35, f32): 0.76 GB of J, 0.23 ms, or its active rows.
 
 Semantics (JAX's): a non-positive pivot gives NaN in the whole lower
 triangle of L, and NaN in the solution, instead of raising.
@@ -33,6 +36,7 @@ factorizing entry points.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -40,6 +44,7 @@ MAX_N = 64
 
 LAUNCHES = {
   "chol_factor": 0, "chol_solve": 0, "chol_factor_solve": 0, "newton_direction": 0,
+  "newton_direction_cone": 0,
 }
 
 
@@ -50,7 +55,7 @@ def reset_counts() -> None:
 
 def factorizations() -> int:
   return (LAUNCHES["chol_factor"] + LAUNCHES["chol_factor_solve"]
-          + LAUNCHES["newton_direction"])
+          + LAUNCHES["newton_direction"] + LAUNCHES["newton_direction_cone"])
 
 
 # ---------------------------------------------------------------------------
@@ -103,12 +108,49 @@ def newton_direction_plain(qM, J, w, grad) -> torch.Tensor:
   return chol_factor_solve_plain(newton_matrix(qM, J, w), grad)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class ConeLayout:
+  """Where the elliptic cone slots' rows and Hessian blocks lie: per slot
+  (S, 3) int32 [first efc row, dim cd, offset of its cd × cd block in the
+  packed blocks (B, nb), row-major], slots grouped by dim; `groups` holds
+  (dim, first slot, slot count) of each group."""
+
+  table: torch.Tensor
+  groups: tuple[tuple[int, int, int], ...]
+  nb: int
+
+
+def cone_matrix(qM, J, w, Bc, layout: ConeLayout) -> torch.Tensor:
+  """The elliptic Newton step's H = qM + Jᵀ diag(w) J + Σ_s J_sᵀ B_s J_s +
+  1e-10·I (the JAX package's order: solver.py:222-227), for the packed cone
+  blocks Bc (B, nb)."""
+  H = qM + (J.mT * w[:, None, :]) @ J
+  for cd, s0, n in layout.groups:
+    rows = layout.table[s0 : s0 + n, 0].long()[:, None] + torch.arange(cd, device=J.device)
+    Js = J[:, rows]  # (B, n, cd, nv)
+    Bg = _group_blocks(Bc, layout, s0, n, cd)
+    H = H + torch.einsum("bsiv,bsij,bsjw->bvw", Js, Bg, Js)
+  return H + 1e-10 * torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+
+
+def _group_blocks(Bc, layout: ConeLayout, s0: int, n: int, cd: int):
+  """A group's (B, n, cd, cd) blocks of the packed cone Hessians: groups lie
+  in slot order, so the group's offset is the sum of the earlier ones'."""
+  start = sum(c * c * k for c, first, k in layout.groups if first < s0)
+  return Bc[:, start : start + n * cd * cd].reshape(Bc.shape[0], n, cd, cd)
+
+
+def newton_direction_cone_plain(qM, J, w, grad, Bc, layout: ConeLayout) -> torch.Tensor:
+  return chol_factor_solve_plain(cone_matrix(qM, J, w, Bc, layout), grad)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-_LIBRARY = {"newton_direction": "newton_dir"}  # else csrc/chol.cu
+_LIBRARY = {"newton_direction": "newton_dir",
+            "newton_direction_cone": "newton_dir"}  # else csrc/chol.cu
 _bound: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -207,4 +249,31 @@ def newton_direction(qM: torch.Tensor, J: torch.Tensor, w: torch.Tensor,
   _check(grad, qM, (B, n), "newton_direction")
   x = torch.empty_like(grad)
   _launch("newton_direction", (qM, J, w, grad, x), (B, n, m))
+  return x
+
+
+def newton_direction_cone(qM: torch.Tensor, J: torch.Tensor, w: torch.Tensor,
+                          grad: torch.Tensor, Bc: torch.Tensor,
+                          layout: ConeLayout) -> torch.Tensor:
+  """x with (qM + Jᵀ diag(w) J + Σ_s J_sᵀ B_s J_s + 1e-10·I) x = grad: the
+  elliptic Newton step, for the packed cone blocks Bc (B, nb) that `layout`
+  places (a slot's block is all 0 in the cone's top zone, and skipped); H
+  is neither kept nor formed in device memory."""
+  if qM.device.type == "cpu":
+    return newton_direction_cone_plain(qM, J, w, grad, Bc, layout)
+  _check_matrix(qM, "newton_direction_cone")
+  B, n = qM.shape[:2]
+  if J.dim() != 3:
+    raise ValueError(f"newton_direction_cone: expected J (B, m, n), got {tuple(J.shape)}")
+  m = J.shape[1]
+  S = layout.table.shape[0]
+  _check(J, qM, (B, m, n), "newton_direction_cone")
+  _check(w, qM, (B, m), "newton_direction_cone")
+  _check(grad, qM, (B, n), "newton_direction_cone")
+  _check(Bc, qM, (B, layout.nb), "newton_direction_cone")
+  tab = layout.table
+  if tab.device != qM.device or tab.dtype != torch.int32 or not tab.is_contiguous():
+    raise ValueError("newton_direction_cone: the layout must be contiguous int32 on the card")
+  x = torch.empty_like(grad)
+  _launch("newton_direction_cone", (qM, J, w, grad, Bc, tab, x), (B, n, m, S, layout.nb))
   return x

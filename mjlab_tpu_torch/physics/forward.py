@@ -1,8 +1,9 @@
-"""Forward dynamics pipeline and the implicitfast integrator (port of
-mjlab_tpu/physics/forward.py).
+"""Forward dynamics pipeline and the integrators: implicitfast, Euler (with
+implicit dof damping) and RK4 (port of mjlab_tpu/physics/forward.py).
 
-`forward` keeps mj_forward's stage order; `step` = forward + integrate.
-Each function takes and returns a batched Data (env axis first).
+`forward` keeps mj_forward's stage order; `step` = forward + integrate, or
+RK4's three more forwards. Each function takes and returns a batched Data
+(env axis first).
 """
 
 from __future__ import annotations
@@ -72,5 +73,30 @@ def integrate(tp: Topology, m: Model, d: Data) -> Data:
   return d.replace(qpos=qpos, qvel=qvel, time=d.time + h)
 
 
+def _rk4(tp: Topology, m: Model, d: Data) -> Data:
+  """Classic 4th-order Runge-Kutta over (qpos, qvel), mj_RungeKutta: stage
+  states from the Butcher tableau, one full forward per stage, positions
+  integrated from the initial qpos; qacc is used directly (no implicit
+  damping). Activation dynamics are refused at put_model (na = 0)."""
+  h = m.opt.timestep
+  A = ((0.5, 0.0, 0.0), (0.0, 0.5, 0.0), (0.0, 0.0, 1.0))
+  Bw = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+  qpos0, qvel0 = d.qpos, d.qvel
+  F = [(d.qvel, d.qacc)]
+  for i in range(3):
+    dvel = sum(A[i][j] * F[j][0] for j in range(i + 1) if A[i][j])
+    dacc = sum(A[i][j] * F[j][1] for j in range(i + 1) if A[i][j])
+    d = forward(tp, m, d.replace(
+      qpos=kinematics.integrate_pos(tp, m, qpos0, dvel, h), qvel=qvel0 + h * dacc))
+    F.append((d.qvel, d.qacc))
+  dvel = sum(Bw[j] * F[j][0] for j in range(4))
+  dacc = sum(Bw[j] * F[j][1] for j in range(4))
+  return d.replace(qpos=kinematics.integrate_pos(tp, m, qpos0, dvel, h),
+                   qvel=qvel0 + h * dacc, time=d.time + h)
+
+
 def step(tp: Topology, m: Model, d: Data) -> Data:
-  return integrate(tp, m, forward(tp, m, d))
+  d = forward(tp, m, d)
+  if m.opt.integrator == Integrator.RK4:
+    return _rk4(tp, m, d)
+  return integrate(tp, m, d)

@@ -12,8 +12,15 @@ capsule–mesh, box–mesh, mesh–mesh; a cylinder or an ellipsoid collides as
 a tessellated mesh hull where no analytic pair exists), the box-terrain
 pool for sphere, capsule, box and mesh geoms (a runtime broadphase,
 `TerrainGroup`), fixed tendons and tendon transmission, and the IMU, frame
-and subtree sensors. Everything else the JAX package supports is refused
-here with `NotImplementedError` naming the feature, never simulated wrong.
+and subtree sensors; and the solver surface: equality constraints
+(connect and weld on bodies or sites, joint, tendon), dof friction loss,
+limited tendons, contacts of condim 1/3/4/6 under the pyramidal or the
+elliptic cone, the Newton and CG solvers, and the implicitfast, Euler and
+RK4 integrators. Everything else the JAX package supports (PGS, ball
+joints, multi-joint bodies, spatial tendons, explicit pairs, muscles and
+activation dynamics, fluid, gravity compensation, mocap, noslip, height
+fields, the other sensors) is refused here with `NotImplementedError`
+naming the feature, never simulated wrong.
 
 A mesh geom's hull is built from its hull vertices (`_hull_vertices`): a
 live MjModel gives them through the qhull graph MuJoCo stores; the npz
@@ -46,10 +53,12 @@ from mjlab_tpu_torch.physics.types import (
   mjtCone,
   mjtDisableBit,
   mjtDyn,
+  mjtEq,
   mjtGain,
   mjtGeom,
   mjtIntegrator,
   mjtJoint,
+  mjtObj,
   mjtSensor,
   mjtSolver,
   mjtTrn,
@@ -139,6 +148,12 @@ def _name(m, adr: np.ndarray, i: int) -> str:
   return names[start : names.index(b"\0", start)].decode() or str(i)
 
 
+# Rows per active equality constraint, by mjtEq type (the JAX package's
+# _EQ_ROWS); connect and weld may name bodies or sites.
+_EQ_ROWS = {mjtEq.mjEQ_CONNECT: 3, mjtEq.mjEQ_WELD: 6, mjtEq.mjEQ_JOINT: 1,
+            mjtEq.mjEQ_TENDON: 1}
+
+
 def _reject_unsupported(m) -> None:
   """Refuse every feature outside the port's slice, naming it."""
   opt = m.opt
@@ -147,13 +162,14 @@ def _reject_unsupported(m) -> None:
     raise NotImplementedError(f"{feature} is not supported by mjlab_tpu_torch")
 
   if int(opt.integrator) not in (
-    mjtIntegrator.mjINT_IMPLICIT, mjtIntegrator.mjINT_IMPLICITFAST
+    mjtIntegrator.mjINT_EULER, mjtIntegrator.mjINT_RK4,
+    mjtIntegrator.mjINT_IMPLICIT, mjtIntegrator.mjINT_IMPLICITFAST,
   ):
-    no(f"integrator {int(opt.integrator)} (Euler/RK4; implicitfast only)")
-  if int(opt.solver) != mjtSolver.mjSOL_NEWTON:
-    no(f"solver {int(opt.solver)} (CG/PGS; Newton only)")
-  if int(opt.cone) != mjtCone.mjCONE_PYRAMIDAL:
-    no("elliptic friction cone")
+    no(f"integrator {int(opt.integrator)}")
+  if int(opt.solver) == mjtSolver.mjSOL_PGS:
+    if int(opt.cone) == mjtCone.mjCONE_ELLIPTIC:
+      no("PGS with elliptic cone (use solver='newton'/'cg' or cone='pyramidal')")
+    no("PGS solver (use solver='newton' or 'cg')")
   if int(opt.noslip_iterations) > 0:
     no("noslip post-solver")
   if float(opt.viscosity) or float(opt.density) or np.any(opt.wind):
@@ -161,10 +177,16 @@ def _reject_unsupported(m) -> None:
   for t in range(m.ntendon):
     if _is_spatial_tendon(m, t):
       no(f"spatial tendon {_name(m, m.name_tendonadr, t)}")
-  if np.any(m.tendon_limited == 1):
-    no("tendon range limits (limited tendons)")
-  if m.neq:
-    no("equality constraints")
+  for e in range(m.neq):
+    if not m.eq_active0[e]:
+      continue
+    et = int(m.eq_type[e])
+    if et not in _EQ_ROWS:
+      no(f"equality constraint type {et} (connect, weld, joint and tendon only)")
+    if et in (mjtEq.mjEQ_CONNECT, mjtEq.mjEQ_WELD) and int(m.eq_objtype[e]) not in (
+      mjtObj.mjOBJ_BODY, mjtObj.mjOBJ_SITE
+    ):
+      no("connect/weld equality on objects other than bodies and sites")
   if m.nmocap:
     no("mocap bodies")
   if m.npair:
@@ -181,14 +203,12 @@ def _reject_unsupported(m) -> None:
     no("actuator bias types other than none/affine (muscle)")
   if np.any(~np.isin(m.actuator_trntype, [mjtTrn.mjTRN_JOINT, mjtTrn.mjTRN_TENDON])):
     no("actuator transmissions other than joint and tendon")
-  if np.any(m.dof_frictionloss > 0):
-    no("dof friction loss rows")
   if np.any(m.jnt_type == mjtJoint.mjJNT_BALL):
-    no("ball joints")
+    no("ball joints (and their limits)")
   if np.any(m.body_jntnum > 1):
     no("bodies with more than one joint")
-  if np.any(~np.isin(m.geom_condim, [1, 3])):
-    no("contact condim other than 1 and 3")
+  if np.any(~np.isin(m.geom_condim, [1, 3, 4, 6])):
+    no("contact condim other than 1, 3, 4 and 6")
   for s in m.sensor_type:
     if int(s) not in _SUPPORTED_SENSORS:
       no(f"sensor type {int(s)}")
@@ -557,14 +577,23 @@ def default_device() -> torch.device:
   return torch.device("cuda")
 
 
+_INTEGRATORS = {
+  mjtIntegrator.mjINT_EULER: Integrator.EULER,
+  mjtIntegrator.mjINT_RK4: Integrator.RK4,
+  mjtIntegrator.mjINT_IMPLICIT: Integrator.IMPLICITFAST,
+  mjtIntegrator.mjINT_IMPLICITFAST: Integrator.IMPLICITFAST,
+}
+
+
 def put_model(
   m, dtype=torch.float32, device: torch.device | str | None = None,
-  capsule_terrain_from_above: bool = False,
+  capsule_terrain_from_above: bool = False, allocate_friction_rows: bool = False,
 ) -> tuple[Topology, Model]:
   """Convert a compiled model into (Topology, Model) on `device` (default
   CUDA). Builds the device index tables of every stage once, here.
   `capsule_terrain_from_above` is SimulationCfg's (a declared divergence,
-  off by default)."""
+  off by default); `allocate_friction_rows` gives every dof a friction-loss
+  row even where its frictionloss is 0 (the JAX package's argument)."""
   device = torch.device(device) if device is not None else default_device()
   _reject_unsupported(m)
 
@@ -577,9 +606,17 @@ def put_model(
     (m.jnt_limited == 1)
     & np.isin(m.jnt_type, [mjtJoint.mjJNT_HINGE, mjtJoint.mjJNT_SLIDE])
   )[0]
+  friction_dofs = (
+    np.arange(m.nv) if allocate_friction_rows else np.nonzero(m.dof_frictionloss > 0)[0]
+  )
+  limited_tendons = np.nonzero(m.tendon_limited == 1)[0]
+  neq_rows = sum(_EQ_ROWS[int(m.eq_type[e])] for e in range(m.neq) if m.eq_active0[e])
   empty = np.zeros(0, dtype=np.int64)
   nefc = (
-    len(limited_joints)
+    neq_rows
+    + len(friction_dofs)
+    + len(limited_joints)
+    + len(limited_tendons)
     + sum(p.ncon * contact_rows(p.condim, cone) for p in pairs)
     + sum(
       tg.slots * sum(contact_rows(int(c), cone) for c in tg.condim)
@@ -654,7 +691,7 @@ def put_model(
     tendon_seg_scale=np.zeros((m.ntendon, 1)),
     tendon_seg_geom=np.full((m.ntendon, 1), -1, dtype=np.int32),
     tendon_seg_side=np.full((m.ntendon, 1), -1, dtype=np.int32),
-    limited_tendon_ids=empty,
+    limited_tendon_ids=limited_tendons,
     actuator_dyn_tendon=actuator_dyn_tendon,
     actuator_gaintype=m.actuator_gaintype.copy(),
     actuator_biastype=m.actuator_biastype.copy(),
@@ -680,13 +717,13 @@ def put_model(
     body_dof_mask=body_dof,
     limited_joint_ids=limited_joints,
     limited_ball_joint_ids=empty,
-    friction_dof_ids=empty,
+    friction_dof_ids=friction_dofs,
     eq_type=m.eq_type.copy(),
     eq_obj1id=m.eq_obj1id.copy(),
     eq_obj2id=m.eq_obj2id.copy(),
     eq_objtype=m.eq_objtype.copy(),
     eq_active0=m.eq_active0.copy().astype(bool),
-    neq_rows=0,
+    neq_rows=neq_rows,
     pairs=pairs,
     terrain_groups=groups,
     ncon_max=ncon_max,
@@ -697,7 +734,7 @@ def put_model(
     hfield_adr=m.hfield_adr.copy(),
     capsule_terrain_from_above=capsule_terrain_from_above,
   )
-  tp = dataclasses.replace(tp, dev=device_tables(tp, dtype, device))
+  tp = dataclasses.replace(tp, dev=device_tables(tp, dtype, device, cone))
 
   def arr(x):
     return _tensor(x, dtype, device)
@@ -713,7 +750,7 @@ def put_model(
     density=arr(opt.density),
     viscosity=arr(opt.viscosity),
     wind=arr(opt.wind),
-    integrator=Integrator.IMPLICITFAST,
+    integrator=_INTEGRATORS[int(opt.integrator)],
     cone=cone,
     solver=int(opt.solver),
     iterations=int(opt.iterations),
@@ -721,18 +758,21 @@ def put_model(
   )
   leaves = {}
   for f in model_fields():
-    if f.startswith("pair_") or f.startswith("eq_") or f.startswith("hfield_"):
-      continue  # empty: rejected above
+    if f.startswith("pair_") or f.startswith("hfield_") or (
+      f.startswith("eq_") and not m.neq
+    ):
+      continue  # empty: rejected above, or no equality constraint
     leaves[f] = arr(getattr(m, f))
   width = {"pair_friction": 5, "pair_solref": 2, "pair_solreffriction": 2,
            "pair_solimp": 5, "pair_margin": None, "hfield_data": None,
            "hfield_size": 4, "eq_solref": 2, "eq_solimp": 5, "eq_data": 11}
   for f, w in width.items():
-    leaves[f] = arr(np.zeros((0,) if w is None else (0, w)))
+    if f not in leaves:
+      leaves[f] = arr(np.zeros((0,) if w is None else (0, w)))
   return tp, Model(opt=option, **leaves)
 
 
-def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
+def device_tables(tp: Topology, dtype, device, cone: int = ConeType.PYRAMIDAL) -> SimpleNamespace:
   """Upload every stage's index and mask tensors (one namespace each)."""
   from mjlab_tpu_torch.physics import collision, constraint, kinematics, smooth
 
@@ -740,7 +780,7 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
     kin=kinematics.device_tables(tp, dtype, device),
     smooth=smooth.device_tables(tp, dtype, device),
     coll=collision.device_tables(tp, dtype, device),
-    con=constraint.device_tables(tp, dtype, device),
+    con=constraint.device_tables(tp, dtype, device, cone),
   )
 
 

@@ -140,6 +140,7 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
     dof_bodyid=ix(tp.dof_bodyid),
     dof_jntid=ix(tp.dof_jntid),
     dof_parent_body=ix(tp.body_parentid[tp.dof_bodyid]),
+    dof_origin_body=ix(tp.body_rootid[tp.dof_bodyid]),
     levels=[(ix(ids), ix(tp.body_parentid[ids])) for ids in tp.body_levels],
     spring_jnt=ix(spring),
     spring_q=ix(tp.jnt_qposadr[spring]),
@@ -211,6 +212,34 @@ def com_vel(tp: Topology, m: Model, d: Data) -> Data:
   cdof_dot = cross_motion(pv, d.cdof)
   cdof_dot = torch.where(t.is_free_trans, torch.zeros_like(cdof_dot), cdof_dot)
   return d.replace(cvel=cvel, cdof_dot=cdof_dot)
+
+
+def point_jac(tp: Topology, d: Data, body: int, p: torch.Tensor) -> torch.Tensor:
+  """(B, 3, nv) translational Jacobian of the world point p (B, 3) fixed
+  on `body` (the JAX package's constraint._point_jac)."""
+  t = tp.dev.smooth
+  origins = d.subtree_com[:, t.dof_origin_body]  # (B, nv, 3)
+  ang, lin = d.cdof[..., :3], d.cdof[..., 3:]
+  jac = lin + mt.cross(ang, p[:, None] - origins)
+  return (jac * t.body_dof[body][:, None]).transpose(-1, -2)
+
+
+def body_bias(tp: Topology, d: Data, body: int) -> torch.Tensor:
+  """(B, 6) [ang, lin] Σ_i q̇_i ċdof_i over `body`'s ancestor dofs: the
+  velocity-product (bias) spatial acceleration of the body (constraint.
+  _body_bias)."""
+  mask = tp.dev.smooth.body_dof[body]
+  return torch.sum(d.cdof_dot * (d.qvel * mask)[..., None], dim=-2)
+
+
+def point_jdot_qdot(tp: Topology, d: Data, body: int, p: torch.Tensor) -> torch.Tensor:
+  """(B, 3) J̇q̇ of the translational Jacobian of p on `body`, from cvel and
+  cdof_dot (constraint._point_jdot_qdot)."""
+  off = p - d.subtree_com[:, int(tp.body_rootid[body])]
+  w = d.cvel[:, body, :3]
+  v_p = d.cvel[:, body, 3:] + mt.cross(w, off)
+  bias = body_bias(tp, d, body)
+  return bias[:, 3:] + mt.cross(bias[:, :3], off) + mt.cross(w, v_p)
 
 
 # ---------------------------------------------------------------------------

@@ -66,6 +66,13 @@ class mjtObj:
   mjOBJ_SITE = 6
 
 
+class mjtEq:
+  mjEQ_CONNECT = 0
+  mjEQ_WELD = 1
+  mjEQ_JOINT = 2
+  mjEQ_TENDON = 3
+
+
 class mjtBias:
   mjBIAS_NONE = 0
   mjBIAS_AFFINE = 1

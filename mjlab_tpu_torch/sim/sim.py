@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Literal
 
 import torch
 
@@ -30,15 +31,34 @@ from mjlab_tpu_torch.physics.types import mjtCone, mjtIntegrator, mjtSolver
 PER_ENV_FIELDS = ("geom_friction", "qpos0", "body_ipos")
 
 
+_CONE_MAP = {
+  "pyramidal": mjtCone.mjCONE_PYRAMIDAL,
+  "elliptic": mjtCone.mjCONE_ELLIPTIC,
+}
+_INTEGRATOR_MAP = {
+  "euler": mjtIntegrator.mjINT_EULER,
+  "implicitfast": mjtIntegrator.mjINT_IMPLICITFAST,
+}
+_SOLVER_MAP = {
+  "pgs": mjtSolver.mjSOL_PGS,
+  "cg": mjtSolver.mjSOL_CG,
+  "newton": mjtSolver.mjSOL_NEWTON,
+}
+
+
 @dataclass
 class MujocoCfg:
-  """MuJoCo solver options (mirrors the JAX package's). The port has one
-  integrator (implicitfast), one solver (Newton) and one cone (pyramidal);
-  `apply` selects them, and `physics.put_model` rejects a model that asks
-  for another."""
+  """MuJoCo solver and integrator options, the JAX package's fields,
+  defaults and choices. `jacobian` is kept for the config surface: the
+  engine's Jacobians are dense. `solver="pgs"` reaches `physics.put_model`,
+  which refuses it (the port has no PGS)."""
 
   timestep: float = 0.002
+  integrator: Literal["euler", "implicitfast"] = "implicitfast"
   impratio: float = 1.0
+  cone: Literal["pyramidal", "elliptic"] = "pyramidal"
+  jacobian: Literal["auto", "dense", "sparse"] = "auto"
+  solver: Literal["newton", "cg", "pgs"] = "newton"
   iterations: int = 100
   tolerance: float = 1e-8
   ls_iterations: int = 50
@@ -46,9 +66,9 @@ class MujocoCfg:
   gravity: tuple[float, float, float] = (0, 0, -9.81)
 
   def apply(self, model) -> None:
-    model.opt.cone = mjtCone.mjCONE_PYRAMIDAL
-    model.opt.integrator = mjtIntegrator.mjINT_IMPLICITFAST
-    model.opt.solver = mjtSolver.mjSOL_NEWTON
+    model.opt.cone = _CONE_MAP[self.cone]
+    model.opt.integrator = _INTEGRATOR_MAP[self.integrator]
+    model.opt.solver = _SOLVER_MAP[self.solver]
     model.opt.timestep = self.timestep
     model.opt.impratio = self.impratio
     model.opt.gravity[:] = self.gravity

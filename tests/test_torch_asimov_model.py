@@ -170,8 +170,8 @@ _TENDON_XML = """
   [
     ('<tendon><spatial name="t"><site site="s0"/><site site="s1"/></spatial></tendon>',
      "", "spatial tendon"),
-    ('<tendon><fixed name="t" limited="true" range="-1 1"><joint joint="j" coef="1"/>'
-     "</fixed></tendon>", "", "limited tendons"),
+    ('<tendon><fixed name="t"><joint joint="j" coef="1"/></fixed></tendon>',
+     '<sensor><tendonpos tendon="t"/></sensor>', "sensor type"),
     ("", '<sensor><framepos objtype="site" objname="s1" reftype="site" refname="s0"/>'
      "</sensor>", "reference frame"),
   ],

@@ -86,6 +86,7 @@ def test_cpu_wrappers_take_plain_path_and_count_nothing():
   assert torch.equal(chol.chol_factor_solve(A, b), chol.chol_factor_solve_plain(A, b))
   assert chol.LAUNCHES == {
     "chol_factor": 0, "chol_solve": 0, "chol_factor_solve": 0, "newton_direction": 0,
+    "newton_direction_cone": 0,
   }
   assert chol.factorizations() == 0
 
@@ -105,6 +106,7 @@ def test_kernel_matches_plain_on_card(dtype, tol):
   torch.cuda.synchronize()
   assert chol.LAUNCHES == {
     "chol_factor": 1, "chol_solve": 1, "chol_factor_solve": 1, "newton_direction": 0,
+    "newton_direction_cone": 0,
   }
   Lp = chol.chol_factor_plain(A)
   xp = chol.chol_solve_plain(Lp, b)

@@ -144,7 +144,7 @@ def test_no_module_of_the_port_names_jax_mjlab_tpu_or_mujoco():
 
 @pytest.mark.parametrize(
   "enum",
-  ["mjtJoint", "mjtGeom", "mjtSensor", "mjtObj", "mjtBias", "mjtGain",
+  ["mjtJoint", "mjtGeom", "mjtSensor", "mjtObj", "mjtEq", "mjtBias", "mjtGain",
    "mjtDyn", "mjtTrn", "mjtWrap", "mjtIntegrator", "mjtSolver", "mjtCone",
    "mjtDisableBit"],
 )

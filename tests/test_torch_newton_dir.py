@@ -10,7 +10,14 @@ takes the plain path and counts no launch. The `gpu` cases hold the kernel
 against the plain version on the card (float64 within 1e-10 relative;
 float32 within max(1e-5 × scale, 4 × the plain float32 version's own error
 against float64)), for dense, sparse and all-zero weights and row counts
-that leave each world's J unaligned. On the card:
+that leave each world's J unaligned.
+
+The elliptic entry `newton_direction_cone` adds Σ_s J_sᵀ B_s J_s over cone
+slots of dim 3, 4 and 6 (JAX's einsum at solver.py:223-225): its plain
+version must match the JAX formula at 1e-10 relative in float64 with blocks
+of all three zones (0, diagonal, dense), slots whose block is 0 must change
+nothing, bitwise; on the card the kernel is held to the plain version as
+above, also with every row and every slot inactive. On the card:
   python -m pytest --noconftest -m gpu tests/test_torch_newton_dir.py
 """
 
@@ -37,6 +44,58 @@ def _problem(seed, batch, n, m, pattern):
     w = np.zeros((batch, m))
   grad = rng.normal(size=(batch, n))
   return qM, J, w, grad
+
+
+def _cone_problem(seed, batch, n, m_reg, dims, pattern="zones"):
+  """Regular rows, then one slot per entry of `dims` (cd consecutive rows
+  each, grouped by dim as the solver lays them out), with packed blocks:
+  `zones` cycles the top (0), bottom (diagonal) and middle (dense PSD)
+  zones' shapes over the slots; `zero` leaves every block 0."""
+  qM, J, w, grad = _problem(seed, batch, n, m_reg + sum(dims), "sparse")
+  rng = np.random.default_rng(seed + 100)
+  w[:, m_reg:] = 0.0
+  table, blocks, row, off = [], [], m_reg, 0
+  for s, cd in enumerate(dims):
+    table.append((row, cd, off))
+    X = rng.normal(size=(batch, cd, cd))
+    dense = X @ np.swapaxes(X, -1, -2) + 0.1 * np.eye(cd)
+    diag = np.eye(cd) * rng.uniform(0.5, 2.0, size=(batch, 1, cd))
+    zone = (s + np.arange(batch)) % 3 if pattern == "zones" else np.zeros(batch, int)
+    b = np.where((zone == 1)[:, None, None], diag, np.where((zone == 2)[:, None, None], dense, 0.0))
+    blocks.append(b.reshape(batch, cd * cd))
+    row, off = row + cd, off + cd * cd
+  groups, start = [], 0
+  for i in range(1, len(dims) + 1):
+    if i == len(dims) or dims[i] != dims[start]:
+      groups.append((dims[start], start, i - start))
+      start = i
+  Bc = np.concatenate(blocks, axis=1) if blocks else np.zeros((batch, 0))
+  return (qM, J, w, grad, Bc), (np.asarray(table, dtype=np.int32).reshape(-1, 3),
+                               tuple(groups), off)
+
+
+def _layout(host, device="cpu"):
+  table, groups, nb = host
+  return chol.ConeLayout(torch.as_tensor(table, device=device), groups, nb)
+
+
+def _jax_cone_direction(qM, J, w, grad, Bc, host):
+  import jax
+  import jax.numpy as jnp
+  from jax.scipy.linalg import solve_triangular
+
+  table = host[0]
+
+  def one(qM, J, w, g, Bc):
+    H = qM + (J.T * w[None, :]) @ J
+    for adr, cd, off in table:
+      Js = J[adr : adr + cd]
+      H = H + Js.T @ Bc[off : off + cd * cd].reshape(cd, cd) @ Js
+    L = jnp.linalg.cholesky(H + 1e-10 * jnp.eye(qM.shape[0], dtype=qM.dtype))
+    y = solve_triangular(L, g, lower=True)
+    return solve_triangular(L.T, y, lower=False)
+
+  return np.asarray(jax.vmap(one)(qM, J, w, grad, Bc))
 
 
 def _jax_direction(qM, J, w, grad):
@@ -96,6 +155,68 @@ def test_cpu_wrapper_takes_plain_path_and_counts_nothing():
   assert torch.equal(chol.newton_direction(*args), chol.newton_direction_plain(*args))
   assert all(v == 0 for v in chol.LAUNCHES.values())
   assert chol.factorizations() == 0
+
+
+CONE_DIMS = {"3": [3] * 6, "3,4,6": [3, 3, 4, 4, 6, 6, 6], "6": [6] * 3}
+
+
+@pytest.mark.parametrize("dims", sorted(CONE_DIMS))
+def test_cone_plain_matches_jax(dims):
+  arrays, host = _cone_problem(6, 9, NV, 40, CONE_DIMS[dims])
+  x_ref = _jax_cone_direction(*arrays, host)
+  x = chol.newton_direction_cone_plain(*_torch(*arrays), _layout(host)).numpy()
+  assert _rel(x, x_ref) < 1e-10
+
+
+def test_cone_zero_blocks_change_nothing():
+  """A slot in the top zone (B = 0) adds nothing: the direction equals the
+  one without the slot, bitwise, as for a row of weight 0."""
+  (qM, J, w, grad, Bc), host = _cone_problem(7, 6, NV, 30, [3, 3, 3])
+  Bc[:, 9:18] = 0.0  # the middle slot
+  keep_rows = np.r_[0:33, 36:39]
+  table = np.asarray([(30, 3, 0), (33, 3, 9)], dtype=np.int32)
+  cut_host = (table, ((3, 0, 2),), 18)
+  full = chol.newton_direction_cone_plain(*_torch(qM, J, w, grad, Bc), _layout(host))
+  cut = chol.newton_direction_cone_plain(
+    *_torch(qM, J[:, keep_rows], w[:, keep_rows], grad, np.c_[Bc[:, :9], Bc[:, 18:]]),
+    _layout(cut_host))
+  assert torch.equal(full, cut)
+
+
+def test_cone_cpu_wrapper_takes_plain_path_and_counts_nothing():
+  arrays, host = _cone_problem(8, 3, 9, 5, [3, 4])
+  args = _torch(*arrays)
+  chol.reset_counts()
+  assert torch.equal(chol.newton_direction_cone(*args, _layout(host)),
+                     chol.newton_direction_cone_plain(*args, _layout(host)))
+  assert chol.factorizations() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, m, dims", [(35, 200, "3"), (35, 29, "3,4,6"), (20, 33, "6"),
+                                        (50, 9, "3,4,6"), (7, 0, "3")])
+@pytest.mark.parametrize("pattern", ["zones", "zero"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cone_kernel_matches_plain_on_card(n, m, dims, pattern, dtype):
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+  arrays, host = _cone_problem(9, 37, n, m, CONE_DIMS[dims], pattern)
+  if pattern == "zero":
+    arrays[2][:] = 0.0  # and every regular row inactive
+  layout = _layout(host, "cuda")
+  args = _torch(*arrays, dtype=dtype, device="cuda")
+  chol.reset_counts()
+  x = chol.newton_direction_cone(*args, layout)
+  torch.cuda.synchronize()
+  assert chol.LAUNCHES["newton_direction_cone"] == 1
+  x64 = chol.newton_direction_cone_plain(*_torch(*arrays, device="cuda"), layout)
+  err = (x.double() - x64).abs().max().item()
+  scale = max(1.0, x64.abs().max().item())
+  if dtype == torch.float64:
+    assert err <= 1e-10 * scale
+  else:
+    ref_err = (chol.newton_direction_cone_plain(*args, layout).double() - x64).abs().max().item()
+    assert err <= max(1e-5 * scale, 4 * ref_err)
 
 
 @pytest.mark.gpu

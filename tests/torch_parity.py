@@ -13,6 +13,7 @@ import dataclasses
 import functools
 import json
 import os
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -1063,3 +1064,79 @@ def check_terrain_slots(got, want, what: str) -> int:
   gp, wp = np.asarray(gp), np.asarray(wp)
   close_elementwise(gp[active], wp[active], f"{what} active pos")
   return int((np.abs(gp - wp) > 1e-9 * np.maximum(1.0, np.abs(wp))).any(-1).sum())
+
+
+# ---------------------------------------------------------------------------
+# The solver surface's scenes (mjlab_tpu_torch/assets/solver_scenes.py):
+# MuJoCo, the JAX package and the port on one world each.
+# ---------------------------------------------------------------------------
+
+# The budget the port and the JAX package run the scenes at: 10 Newton
+# iterations of 20 linesearch steps converge them to MuJoCo's optimum within
+# the JAX tests' tolerances (CG keeps its scene's own 50 x 25), and run ~20x
+# faster in eager torch than the compiled defaults of 100 x 50.
+SCENE_BUDGET = {"iterations": 10, "ls_iterations": 20}
+
+
+def solver_scene_model(name: str, cone=None, xml=None, budget=True):
+  """The scene's MjModel with its test's option edits (and `cone`); with
+  `budget`, SCENE_BUDGET too (not for a CG scene)."""
+  from mjlab_tpu_torch.assets.solver_scenes import SCENES
+
+  sc = SCENES[name]
+  mj = mujoco.MjModel.from_xml_string(xml or sc.xml)
+  for k, v in sc.opt.items():
+    setattr(mj.opt, k, v)
+  if cone is not None:
+    mj.opt.cone = cone
+  if budget and mj.opt.solver != mujoco.mjtSolver.mjSOL_CG:
+    for k, v in SCENE_BUDGET.items():
+      setattr(mj.opt, k, v)
+  return mj
+
+
+def solver_scene_run(name: str, steps: int, cone=None, xml=None, qvel=None,
+                     ctrl_fn=None, checks=(0,), qpos=None):
+  """`steps` substeps of a scene from its velocity in MuJoCo (its own
+  converged solver: the scene's option edits, no budget), the JAX package
+  and the port (float64, the budget), side by side. Returns the three
+  final (qpos, qvel), the port's and JAX's models, and, for each step in
+  `checks`, the JAX state before and after it (`jax_data_arrays`, one
+  world)."""
+  from mjlab_tpu_torch.assets.solver_scenes import SCENES
+
+  mj_ref = solver_scene_model(name, cone, xml, budget=False)
+  mj = solver_scene_model(name, cone, xml)
+  jtp, jm = jphysics.put_model(mj, dtype=jnp.float64)
+  ttp, tm = tio.put_model(mj, dtype=torch.float64, device="cpu")
+  mjd = mujoco.MjData(mj_ref)
+  qv = SCENES[name].qvel if qvel is None else qvel
+  mjd.qvel[: len(qv)] = qv
+  if qpos is not None:
+    mjd.qpos[:] = qpos
+  d = jphysics.make_data(jtp, jm).replace(
+    qpos=jnp.asarray(mjd.qpos.copy()), qvel=jnp.asarray(mjd.qvel.copy()))
+  td = to_torch(jax_data_arrays(jax.tree_util.tree_map(lambda x: x[None], d)))
+  step = jax.jit(lambda dd: jphysics.step(jtp, jm, dd))
+  from mjlab_tpu_torch import physics as tphysics
+
+  stages = []
+  for i in range(steps):
+    if ctrl_fn is not None:
+      c = ctrl_fn(i)
+      mjd.ctrl[:] = c
+      d = d.replace(ctrl=jnp.asarray(c))
+      td = td.replace(ctrl=torch.tensor(c[None], dtype=torch.float64))
+    pre = d
+    d = step(d)
+    if i in checks:
+      stages.append(tuple(jax_data_arrays(jax.tree_util.tree_map(lambda x: x[None], x))
+                          for x in (pre, d)))
+    mujoco.mj_step(mj_ref, mjd)
+    td = tphysics.step(ttp, tm, td)
+  return SimpleNamespace(
+    mujoco=(mjd.qpos.copy(), mjd.qvel.copy()),
+    jax=(np.asarray(d.qpos)[None], np.asarray(d.qvel)[None]),
+    port=(td.qpos.numpy(), td.qvel.numpy()),
+    ttp=ttp, tm=tm, jtp=jtp, jm=jm, stages=stages,
+  )
