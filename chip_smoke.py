@@ -100,18 +100,20 @@ Phases, each printing its own lines:
      Mjlab-Velocity-Flat-Asimov-Toe (fixed tendons driven by the
      parallel-ankle action; nv 20, 174 rows), `build_runner` at 4096 envs
      with the task's PPO cfg; the observation widths; the feet's hulls built
-     on this host against the CPU host's digest; 1 iteration (2, with a
-     device-only profile and the stage times, before the cut: the robots train
-     on rough terrain in phase 13) under set_sync_debug_mode("error") with
+     on this host against the CPU host's digest; 1 iteration of 8 env steps
+     (2 of 24, with a device-only profile and the stage times, before the
+     cuts of PRs 9 and 11: the robots train on rough terrain in phase 13)
+     under set_sync_debug_mode("error") with
      its counts, checks and split; the four kernels against their plain
      versions on each run's matrices, and their times there; the card's
-     float64 env against the CPU's, 4 envs x 3 env steps, each from the CPU
-     env's state and held to 1e-8 or twice the CPU's own spread under 6
+     float64 env against the CPU's, 4 envs x 2 env steps (cut from 3),
+     each from the CPU env's state and held to 1e-8 or twice the CPU's own spread under 6
      qpos nudges of 1e-13, for Asimov-Toe with the ankle targets checked in
      ctrl on the 4 tendon actuators only.
- 12. G1 on rough terrain and Go1 on flat ground, 1 iteration each (cut
-     from G1 rough's 2 with a device-only profile of a rollout step and an
-     update and the stage times), each as a task of phase 11:
+ 12. G1 on rough terrain and Go1 on flat ground, 1 iteration of 8 env
+     steps each (cut from G1 rough's 2 of 24 with a device-only profile of a
+     rollout step and an update and the stage times), each as a task of
+     phase 11:
      Mjlab-Velocity-Rough-Unitree-G1 (3564 terrain boxes pooled behind the
      cell-hash broadphase, 667 contact slots, nv 35, 2235 Newton rows; the
      pool and the 10 x 20 tile grid checked after the build; the
@@ -121,8 +123,9 @@ Phases, each printing its own lines:
      the random policy at 4096 envs, which must load the committed play
      scene (3 x 3 tiles), with the kernels' counters set to 0 just before
      and read just after.
- 13. Go1, Asimov and Asimov-Toe on rough terrain, 1 iteration each (cut
-     from 2 with a profile and the stage times), each as G1 rough in phase
+ 13. Go1, Asimov and Asimov-Toe on rough terrain, 1 iteration of 8 env
+     steps each (cut from 2 of 24 with a profile and the stage times), each
+     as G1 rough in phase
      12: Mjlab-Velocity-Rough-Unitree-Go1 (the trunk box against the 3564
      pooled boxes through the plain hull SAT; 180 slots, nv 18, 732 rows),
      -Rough-Asimov (the feet's hulls through the SAT, checked against the
@@ -136,22 +139,46 @@ Phases, each printing its own lines:
  14. the solver surface: (a) G1 velocity-flat under
      `--env.sim.mujoco.cone elliptic` (nefc 1320: 29 limit rows, 154
      condim-1 rows, 379 cone slots of 3 rows) through `build_runner` at
-     4096 envs, 2 iterations with phase 8's checks, a device-only profile,
-     every Newton direction through `newton_direction_cone` (1200 launches
-     per iteration, none of `newton_direction`), the kernel against its
+     4096 envs, 1 iteration (cut from 2) with phase 8's checks, a
+     device-only profile, every Newton direction through
+     `newton_direction_cone` (1200 launches per iteration, none of
+     `newton_direction`), the kernel against its
      plain version on the run's last matrices in f32 (KernelCheck's rule)
      and f64 (1e-10 relative), its times beside its bound, the plain
      version and the library path (einsum + cholesky_ex + cholesky_solve),
      the cone slots by zone, and the card's float64 env against the CPU's
-     as phases 11-13 (2 nudges); (b) G1 under `--env.sim.mujoco.solver cg`, 10 env
+     as phases 11-13 (2 env steps, cut from 3; 2 nudges); (b) G1 under
+     `--env.sim.mujoco.solver cg`, 10 env
      steps at 4096 envs under set_sync_debug_mode("error"), ms per env step,
      the Cholesky launches per env step against the code's count, and the
-     float64 env check (2 nudges); (c) each scene of
+     float64 env check (2 env steps, 2 nudges); (c) each scene of
      mjlab_tpu_torch/assets/solver_scenes.py (equality connect/weld on
      bodies and sites, joint, tendon; friction loss; a limited tendon; CG;
-     condim 4 and 6 under both cones; the elliptic puck; Euler; RK4) for 50
-     float64 substeps at 4096 worlds, ms per substep, its first 16 worlds
+     condim 4 and 6 under both cones; the elliptic puck; Euler; RK4) for 30
+     (cut from 50) float64 substeps at 4096 worlds, ms per substep, its first 16 worlds
      against the CPU (1e-8, or twice the CPU's spread under 2 nudges).
+ 15. the user surface: the G1 velocity-flat cfg as a user edits it for
+     sim-to-real training (`sim_to_real_edit`: startup randomization of the
+     torso's mass (add +-5 kg, Isaac Lab's `add_base_mass`), every body's
+     inertia, the armature (log-uniform), the passive damping and the PD
+     actuators' gains, beside the task's foot friction; pushes as an
+     external force and torque on the torso every 1-3 s; the policy group
+     with a flattened 3-step history, joint_vel delayed 0-2 steps per env,
+     joint_pos with a per-env bias of +-0.02 drawn at each reset; actions
+     clipped to (-10, 10); init_velocity_prob 0.1; the feet sensor by
+     maxforce with torque and dist, and a world-frame sensor of every
+     field), registered with `tasks.register` and trained through
+     `build_runner` at 4096 envs with the G1 PPO cfg: 2 iterations with
+     phase 8's checks (every env's push clock started so that it is pushed
+     in the second), policy obs 297 wide, each randomized leaf different
+     across envs, inside its range and on its elements only, the launches
+     equal to phase 8's, the iteration against phase 8's in this call, a
+     device-only profile; the kernels against their plain versions on the
+     run's per-env matrices (qM, the Newton matrix and direction, the
+     implicitfast matrix); and the card's float64 env against the CPU's
+     with all 19 FIELD_SPECS rows randomized (each env different, the
+     CPU's leaves handed to the card), 4 envs x 8 env steps, 1e-8 or twice
+     the CPU's spread under 2 nudges.
 Any failed check raises. The line before the last is the kernel table as
 JSON (`launches` from the env path of phase 7, `launches_training_path`
 from phase 8's 2 iterations, `launches_tracking_path` from phase 9's,
@@ -161,7 +188,8 @@ and its play, `launches_rough_path` from phase 13's and its play,
 `ms_asimov_run_matrices_by_nv`, `ms_rough_go1_run_matrices_by_nv` and
 `ms_rough_run_matrices_by_nv` each kernel's time on phase 11's, 12's and
 13's matrices by nv (phase 13's by task and nv), `launches_elliptic_path`,
-`launches_cg_path` and `launches_scenes_path` phase 14's; the fifth entry,
+`launches_cg_path` and `launches_scenes_path` phase 14's,
+`launches_surface_path` phase 15's; the fifth entry,
 `newton_direction_cone`, has phase 14's elliptic run's launches and its
 times on that run's matrices); the last line is
 {"ok": true, "device": {...}}.
@@ -219,6 +247,11 @@ TRAIN_ITERS = 2  # 3 until PR 7; 2 keeps the script with phase 11 inside its lim
 # with phase 14.
 CUT_ITERS = 1
 TRAIN_STEPS = 24  # the G1 PPO cfg's num_steps_per_env
+# Env steps per iteration of the cut tasks of phases 11-13 (cut from their
+# cfgs' 24), and the card-vs-CPU env steps of their checks and of phase
+# 14's G1 ones (cut from 3): cuts that keep the script under 1000 s.
+CUT_STEPS = 8
+CUT_F64_STEPS = 2
 # The runner's torch.profiler spans: a rollout step's two, then the update's.
 TRAIN_SPANS = ("rollout_step/act", "rollout_step/env_step",
                "ppo_update/prepare", "ppo_update/minibatch_steps")
@@ -489,6 +522,193 @@ def certain_variant(cfg) -> None:
   cfg.episode_length_s = 0.3
 
 
+SURFACE_TASK = "Chip-Smoke-Sim-To-Real-Unitree-G1"
+SURFACE_HISTORY = 3
+# Each startup event of the sim-to-real cfg: field, ranges, operation, the
+# robot's selection and extra randomize_field params.
+SURFACE_DR = {
+  # Isaac Lab's velocity env `add_base_mass`: mass_distribution_params
+  # (-5, 5), operation "add", on the torso.
+  "base_mass": ("body_mass", (-5.0, 5.0), "add", {"body_names": ("torso_link",)}, {}),
+  "body_inertia": ("body_inertia", (0.8, 1.2), "scale", {}, {}),
+  "dof_armature": ("dof_armature", (0.5, 2.0), "scale", {},
+                   {"distribution": "log_uniform"}),
+  # G1's compiled dof_damping is 0 (its damping is the actuators' kv, in
+  # actuator_biasprm), so a scale would leave it 0: add passive damping.
+  "dof_damping": ("dof_damping", (0.0, 0.3), "add", {}, {}),
+  "actuator_gain": ("actuator_gainprm", (0.8, 1.2), "scale", {}, {"axes": [0]}),
+  "actuator_bias": ("actuator_biasprm", (0.8, 1.2), "scale", {}, {"axes": [1, 2]}),
+}
+
+
+def port_cfg_modules() -> SimpleNamespace:
+  """The port's cfg classes and terms that `sim_to_real_edit` builds with."""
+  from mjlab_tpu_torch import sensors
+  from mjlab_tpu_torch.envs import mdp
+  from mjlab_tpu_torch.managers.manager_term_config import EventTermCfg
+  from mjlab_tpu_torch.managers.scene_entity_config import SceneEntityCfg
+  from mjlab_tpu_torch.utils import noise
+
+  return SimpleNamespace(mdp=mdp, EventTermCfg=EventTermCfg, SceneEntityCfg=SceneEntityCfg,
+                         noise=noise, sensors=sensors)
+
+
+def sim_to_real_edit(cfg, mods: SimpleNamespace | None = None) -> None:
+  """The env-layer surface a user sets for sim-to-real training, on a G1
+  velocity cfg: per-env startup randomization of SURFACE_DR (beside the
+  task's foot friction), pushes as an external wrench on the torso every
+  1-3 s, a flattened 3-step history of the policy group, joint_vel delayed
+  0-2 steps per env, joint_pos with an additive bias of +-0.02 drawn at
+  each reset, actions clipped to (-10, 10), init_velocity_prob 0.1, the
+  feet sensor reducing by maxforce with torque and dist, and one more
+  sensor of every field in the world frame. The critic group gets its own
+  copies of the shared term cfgs first: the managers write into them
+  (ROADMAP Queue C). `mods` holds the cfg classes and terms to build with,
+  as `port_cfg_modules` gives them (the default); the parity tests hand in
+  another package's of the same names."""
+  import dataclasses
+
+  m = mods or port_cfg_modules()
+  mdp, EventTermCfg, SceneEntityCfg = m.mdp, m.EventTermCfg, m.SceneEntityCfg
+  noise, sensors = m.noise, m.sensors
+  for name, (field, ranges, op, select, extra) in SURFACE_DR.items():
+    cfg.events[name] = EventTermCfg(
+      mode="startup", func=mdp.randomize_field, domain_randomization=True,
+      params={"field": field, "ranges": ranges, "operation": op,
+              "asset_cfg": SceneEntityCfg("robot", **select), **extra},
+    )
+  cfg.events["push_wrench"] = EventTermCfg(
+    mode="interval", func=mdp.apply_external_force_torque, interval_range_s=(1.0, 3.0),
+    params={"force_range": (-50.0, 50.0), "torque_range": (-5.0, 5.0),
+            "asset_cfg": SceneEntityCfg("robot", body_names=("torso_link",))},
+  )
+  critic = cfg.observations["critic"]
+  critic.terms = {k: dataclasses.replace(t) for k, t in critic.terms.items()}
+  policy = cfg.observations["policy"]
+  policy.history_length = SURFACE_HISTORY
+  policy.flatten_history_dim = True
+  joint_vel = policy.terms["joint_vel"]
+  joint_vel.delay_min_lag, joint_vel.delay_max_lag = 0, 2
+  joint_pos = policy.terms["joint_pos"]
+  joint_pos.noise = noise.NoiseModelWithAdditiveBiasCfg(
+    noise_cfg=joint_pos.noise,
+    bias_noise_cfg=noise.UniformNoiseCfg(n_min=-0.02, n_max=0.02),
+  )
+  cfg.actions["joint_pos"].clip = (-10.0, 10.0)
+  cfg.commands["twist"].init_velocity_prob = 0.1
+  feet = next(c for c in cfg.scene.sensors if c.name == "feet_ground_contact")
+  feet.reduce = "maxforce"
+  feet.fields = ("found", "force", "torque", "dist")
+  cfg.scene.sensors = tuple(cfg.scene.sensors) + (sensors.ContactSensorCfg(
+    name="feet_ground_world",
+    primary=dataclasses.replace(feet.primary),
+    secondary=sensors.ContactMatch(mode="body", pattern="/terrain"),
+    fields=("found", "force", "torque", "dist", "pos", "normal", "tangent"),
+    reduce="maxforce",
+    global_frame=True,
+  ),)
+
+
+def certain_surface_variant(cfg) -> None:
+  """`certain_variant` of the sim-to-real cfg, its per-step draws certain
+  too: each policy noise a zero-width uniform, the joint_pos bias drawn at
+  a reset as well, the joint_vel lags held, every resampled command
+  started at its velocity (init_velocity_prob 1), the push a fixed wrench
+  every 0.04 s. The startup draws stay random: a check carries them.
+  tests/test_torch_env_surface.py holds it against the JAX env."""
+  certain_variant(cfg)
+  policy = cfg.observations["policy"]
+  policy.enable_corruption = True
+  for i, term in enumerate(policy.terms.values()):
+    noise = getattr(term.noise, "noise_cfg", term.noise)
+    if noise is not None:
+      noise.n_min = noise.n_max = 0.01 * (1 + i)
+  bias = policy.terms["joint_pos"].noise.bias_noise_cfg
+  bias.n_min = bias.n_max = 0.015
+  policy.terms["joint_vel"].delay_hold_prob = 1.0
+  cfg.commands["twist"].init_velocity_prob = 1.0
+  push = cfg.events["push_wrench"]
+  push.interval_range_s = (0.04, 0.04)
+  push.params["force_range"] = (30.0, 30.0)
+  push.params["torque_range"] = (-2.0, -2.0)
+
+
+# Phase 15's card-vs-CPU check randomizes every row of FIELD_SPECS: the
+# events of SURFACE_DR and the task's foot friction, and one event more per
+# other field: (the robot's selection, operation, ranges).
+OTHER_FIELDS_DR = {
+  "dof_frictionloss": ({"joint_names": (".*ankle.*",)}, "abs", (0.0, 0.2)),
+  "jnt_range": ({"joint_names": (".*hip_pitch.*",)}, "scale", (0.9, 1.1)),
+  "jnt_stiffness": ({"joint_names": (".*wrist.*",)}, "add", (0.0, 2.0)),
+  "body_ipos": ({"body_names": ("pelvis",)}, "add", (-0.01, 0.01)),
+  "body_iquat": ({"body_names": ("pelvis",)}, "add", (-0.02, 0.02)),
+  "body_pos": ({"body_names": (".*elbow.*",)}, "add", (-0.005, 0.005)),
+  "body_quat": ({"body_names": (".*elbow.*",)}, "add", (-0.01, 0.01)),
+  "geom_pos": ({"geom_names": (r".*_foot[1-7]_collision",)}, "add", (-0.003, 0.003)),
+  "geom_quat": ({"geom_names": (r".*_foot[1-7]_collision",)}, "add", (-0.01, 0.01)),
+  "site_pos": ({}, "add", (-0.01, 0.01)),
+  "site_quat": ({}, "add", (-0.02, 0.02)),
+  "qpos0": ({"joint_names": (".*knee.*",)}, "add", (-0.05, 0.05)),
+}
+
+
+def all_fields_variant(cfg) -> None:
+  """The certain sim-to-real cfg with every FIELD_SPECS row randomized at
+  startup, each env different (the foot friction drawn again)."""
+  from mjlab_tpu_torch.envs import mdp
+  from mjlab_tpu_torch.managers.manager_term_config import EventTermCfg
+  from mjlab_tpu_torch.managers.scene_entity_config import SceneEntityCfg
+
+  certain_surface_variant(cfg)
+  cfg.events["foot_friction"].params["ranges"] = (0.3, 1.2)
+  for field, (select, op, ranges) in OTHER_FIELDS_DR.items():
+    cfg.events[f"dr_{field}"] = EventTermCfg(
+      mode="startup", func=mdp.randomize_field, domain_randomization=True,
+      params={"field": field, "ranges": ranges, "operation": op,
+              "asset_cfg": SceneEntityCfg("robot", **select)},
+    )
+
+
+def surface_leaf_checks(env, rel: float = 1e-5) -> dict[str, float]:
+  """The startup randomization of SURFACE_DR on a built env: each leaf is
+  changed on its event's elements (and axes) only, inside its range (of the
+  value, the change or the ratio to the compiled value, by the operation;
+  `rel` of slack for float32), and differs across envs on every selected
+  element whose compiled value it does not scale from 0. Returns each
+  field's least spread across envs. Raises on a failed check."""
+  from mjlab_tpu_torch.envs.mdp.events import FIELD_SPECS, _entity_indices
+
+  robot = env.scene["robot"]
+  spreads = {}
+  for name, (field, (lo, hi), op, _, extra) in SURFACE_DR.items():
+    spec = FIELD_SPECS[field]
+    idx = _entity_indices(robot, env.cfg.events[name].params["asset_cfg"], spec)
+    leaf, nominal = getattr(env.model, field), getattr(env.sim.model, field)[0]
+    mask = torch.zeros(leaf.shape[1:], dtype=torch.bool, device=leaf.device)
+    if leaf.dim() == 2:
+      mask[idx] = True
+    else:
+      axes = extra.get("axes") or spec.default_axes or range(leaf.shape[-1])
+      for ax in axes:
+        mask[idx, ax] = True
+    if not torch.equal(leaf[:, ~mask], nominal[~mask].expand(leaf.shape[0], -1)):
+      raise AssertionError(f"{field}: changed outside its event's elements")
+    sel, nom = leaf[:, mask], nominal[mask]
+    if op == "scale":
+      keep = nom != 0
+      sel, value = sel[:, keep], sel[:, keep] / nom[keep]
+    else:
+      value = sel - nom
+    slack = rel * max(1.0, abs(lo), abs(hi))
+    if not (value.min() >= lo - slack and value.max() <= hi + slack):
+      raise AssertionError(f"{field}: {op} outside {(lo, hi)}: [{value.min().item()}, "
+                           f"{value.max().item()}]")
+    spreads[field] = (sel.amax(0) - sel.amin(0)).min().item()
+    if not spreads[field] > 0:
+      raise AssertionError(f"{field}: an element is the same in every env")
+  return spreads
+
+
 def split_env_step(env, action, reps: int = 2) -> dict[str, float]:
   """Mean ms of each part of ManagerBasedRlEnv.step, run in its order with
   the env's own methods, CUDA events between the parts."""
@@ -598,7 +818,8 @@ def span_busy_ms(prof) -> tuple[dict[str, tuple[float, float]], set[str]]:
 
 
 def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
-                     iters: int = TRAIN_ITERS, expect: tuple[str, ...] = KERNELS):
+                     iters: int = TRAIN_ITERS, expect: tuple[str, ...] = KERNELS,
+                     steps: int = TRAIN_STEPS):
   """`iters` `train_iteration`s under set_sync_debug_mode("error") with
   the kernels' counters set to 0 just before and read just after. Checks
   1416 factorizations and 120 `chol_solve` per iteration (at 10 Newton
@@ -608,14 +829,16 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
   (CUDA events; with one iteration, that iteration's, its warm-up
   included), each iteration's metrics and the last iteration's split (its
   parts' ms, memory, and (batch, logs, perms)). Each kernel of `expect` must
-  have launched."""
+  have launched. The runner takes `steps` env steps per iteration (the PPO
+  cfgs' TRAIN_STEPS, or CUT_STEPS where a phase overrides it)."""
   import numpy as np
 
   from mjlab_tpu_torch.kernels import chol
   from mjlab_tpu_torch.rl.runner import runner_state_to_arrays
 
-  if runner.cfg.num_steps_per_env != TRAIN_STEPS:
-    raise AssertionError(f"the PPO cfg no longer has {TRAIN_STEPS} steps per env")
+  if runner.cfg.num_steps_per_env != steps:
+    raise AssertionError(f"the runner takes {runner.cfg.num_steps_per_env} steps per env, "
+                         f"not {steps}")
   before = runner_state_to_arrays(runner)
   metrics, marks, mems = [], [], []
   chol.reset_counts()
@@ -640,7 +863,7 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
   print(f"  ms per iteration (CUDA events) {', '.join(f'{x:.2f}' for x in iter_ms)}; "
         + (f"steady (iterations 2-{iters})" if iters > 1 else "one iteration, its warm-up in")
         + f" {steady_iter_ms:.2f} ms, "
-        f"{NUM_WORLDS * TRAIN_STEPS / steady_iter_ms * 1e3:.1f} training env-steps/s [{card}]")
+        f"{NUM_WORLDS * steps / steady_iter_ms * 1e3:.1f} training env-steps/s [{card}]")
   print(f"  peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated) [{card}]")
   print(f"  launches {launches}; factorizations {fact} = {fact / iters:.1f}/iteration, "
         f"chol_solve {launches['chol_solve'] / iters:.1f}/iteration")
@@ -650,11 +873,11 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
           f"lr {m['Loss/lr']:.3e} reward {m['Train/mean_step_reward']:.5f} resets "
           f"{m['Train/resets']:.0f} noise_std {m['Policy/noise_std']:.4f}")
   per_step = fact_per_env_step(runner.env.sim.model.opt.iterations)
-  if (fact != TRAIN_STEPS * per_step * iters
-      or launches["chol_solve"] != TRAIN_STEPS * RL_SOLVES_PER_STEP * iters
+  if (fact != steps * per_step * iters
+      or launches["chol_solve"] != steps * RL_SOLVES_PER_STEP * iters
       or any(launches[k] == 0 for k in expect)):
-    raise AssertionError(f"{phase}: expected {TRAIN_STEPS * per_step} factorizations "
-                         f"and {TRAIN_STEPS * RL_SOLVES_PER_STEP} solves per iteration, got "
+    raise AssertionError(f"{phase}: expected {steps * per_step} factorizations "
+                         f"and {steps * RL_SOLVES_PER_STEP} solves per iteration, got "
                          f"{launches}")
   for m in host:
     if not all(np.isfinite(m[k]) for k in ("Loss/loss", "Loss/kl", "Loss/value_loss")):
@@ -663,9 +886,9 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
       raise AssertionError(f"{phase}: lr {m['Loss/lr']} outside [1e-5, 1e-2]")
   shapes = {f: tuple(getattr(runner.batch, f).shape) for f in ("actor_obs", "critic_obs", "action")}
   print(f"  rollout buffers {shapes}")
-  if shapes != {"actor_obs": (TRAIN_STEPS, NUM_WORLDS, obs_dims[0]),
-                "critic_obs": (TRAIN_STEPS, NUM_WORLDS, obs_dims[1]),
-                "action": (TRAIN_STEPS, NUM_WORLDS, runner.num_actions)}:
+  if shapes != {"actor_obs": (steps, NUM_WORLDS, obs_dims[0]),
+                "critic_obs": (steps, NUM_WORLDS, obs_dims[1]),
+                "action": (steps, NUM_WORLDS, runner.num_actions)}:
     raise AssertionError(f"{phase}: rollout buffer shapes")
   after = runner_state_to_arrays(runner)
   moved = {k: float(np.abs(after[k] - before[k]).max()) for k in after if k.startswith("params/")}
@@ -852,7 +1075,7 @@ def f64_iteration_check(task: str, variant, f64_seeds, overrides=None) -> None:
 
 
 def f64_env_check(task: str, n_steps: int = 8, on_step=None, nudges: int = 0,
-                  overrides: dict[str, str] | None = None) -> float:
+                  overrides: dict[str, str] | None = None, variant=None) -> float:
   """The card's float64 env (kernels) against the CPU's (plain versions) on
   `task`'s certain-draw variant, 4 envs x `n_steps` env steps of N(0, 1)
   actions: observations, rewards and qpos within 1e-8 relative to
@@ -866,8 +1089,10 @@ def f64_env_check(task: str, n_steps: int = 8, on_step=None, nudges: int = 0,
   and later steps compound such differences; 6 nudges all on one branch
   happen about once in 32. `on_step(env,
   action)` runs after each card step; the largest value it returns is
-  returned; `overrides` edit the env cfg as the CLI's `--env.*` flags do.
-  A 4-env CPU step is thousands of tiny ops: one thread runs it fastest."""
+  returned; `overrides` edit the env cfg as the CLI's `--env.*` flags do;
+  `variant` replaces `certain_variant` (the card then takes the CPU env's
+  per-env model leaves with its state: pass `nudges`). A 4-env CPU step is
+  thousands of tiny ops: one thread runs it fastest."""
   from mjlab_tpu_torch.envs import (
     ManagerBasedRlEnv, env_state_from_arrays, env_state_to_arrays,
   )
@@ -881,7 +1106,7 @@ def f64_env_check(task: str, n_steps: int = 8, on_step=None, nudges: int = 0,
     apply_overrides(cfg, overrides or {})
     cfg.scene.num_envs = 4
     cfg.sim.dtype = "float64"
-    certain_variant(cfg)
+    (variant or certain_variant)(cfg)
     envs[dv] = ManagerBasedRlEnv(cfg, device=dv)
   outs = {dv: [e.reset(seed=0)[0]] for dv, e in envs.items()}
   rng = torch.Generator().manual_seed(2)
@@ -957,18 +1182,19 @@ def ankle_ctrl_check(env, action) -> float:
 def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: str,
               attr: str, checks: KernelCheck, launches: dict, path_ms: dict,
               after_build=None, on_step=None, after_train=None, ms_key=None,
-              iters: int = TRAIN_ITERS) -> dict:
+              iters: int = TRAIN_ITERS, steps: int = TRAIN_STEPS) -> dict:
   """One task of phases 11-13: `build_runner` at NUM_WORLDS envs with the
-  task's PPO cfg; the observation widths; `after_build(runner)`; phase 8's
-  checks and split over `iters` iterations, and (unless `iters` is cut
-  below TRAIN_ITERS) a device-only profile and one substep's stage times
-  on the run's last state (phase 5's split);
+  task's PPO cfg at `steps` env steps per iteration; the observation
+  widths; `after_build(runner)`; phase 8's checks and split over `iters`
+  iterations, and (unless `iters` is cut below TRAIN_ITERS) a device-only
+  profile and one substep's stage times on the run's last state (phase 5's
+  split);
   `after_train(runner)`; the four kernels against their plain versions on
   the run's matrices (n = nv, J of nefc rows), timed there beside their
   plain versions, the library calls and their bounds at these shapes; and
-  the card's float64 env against the CPU's, 4 envs x 3 env steps each from
-  the CPU's state (`f64_env_check` with nudges, `on_step` after each card
-  step). Adds the iterations' launches to `launches` and each kernel's ms
+  the card's float64 env against the CPU's, 4 envs x CUT_F64_STEPS env
+  steps each from the CPU's state (`f64_env_check` with nudges, `on_step`
+  after each card step). Adds the iterations' launches to `launches` and each kernel's ms
   on the run's matrices to `path_ms` (keyed by `ms_key`, default nv);
   returns the iterations' metrics."""
   from mjlab_tpu_torch.kernels import chol
@@ -978,7 +1204,8 @@ def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: 
   gc.collect()
   torch.cuda.empty_cache()
   t0 = time.perf_counter()
-  runner = build_runner(task, {"env.scene.num_envs": str(NUM_WORLDS)})
+  runner = build_runner(task, {"env.scene.num_envs": str(NUM_WORLDS),
+                               "agent.num_steps_per_env": str(steps)})
   torch.cuda.synchronize()
   env, alg, tp = runner.env, runner.cfg.algorithm, runner.env.tp
   print(f"{phase} {task}: {NUM_WORLDS} envs, nq {tp.nq}, nv {tp.nv}, nu {tp.nu}, tendons "
@@ -996,13 +1223,13 @@ def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: 
   if after_build is not None:
     after_build(runner)
   it = env.sim.model.opt.iterations
-  print(f"  expected per iteration (independent of nv): {TRAIN_STEPS} env steps x "
+  print(f"  expected per iteration (independent of nv): {steps} env steps x "
         f"({DECIMATION} substeps x (factor_m + {it} Newton directions + the integrator's "
         f"factor-solve) + {it + 1} in the post-reset forward) = "
-        f"{TRAIN_STEPS * fact_per_env_step(it)} factorizations; {TRAIN_STEPS} x "
-        f"{RL_SOLVES_PER_STEP} = {TRAIN_STEPS * RL_SOLVES_PER_STEP} chol_solve")
+        f"{steps * fact_per_env_step(it)} factorizations; {steps} x "
+        f"{RL_SOLVES_PER_STEP} = {steps * RL_SOLVES_PER_STEP} chol_solve")
   got, steady_iter_ms, host, split = train_iterations(runner, card, f"{phase} {tag}", obs_dims,
-                                                      iters)
+                                                      iters, steps=steps)
   for k in KERNELS:
     launches[k] += got[k]
   if iters < TRAIN_ITERS:
@@ -1057,7 +1284,7 @@ def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: 
   del runner, env, d, qM, H, L, J, w, grad
   gc.collect()
   torch.cuda.empty_cache()
-  on_step_max = f64_env_check(task, n_steps=3, nudges=6, on_step=on_step)
+  on_step_max = f64_env_check(task, n_steps=CUT_F64_STEPS, nudges=6, on_step=on_step)
   if on_step is not None:
     print(f"  the per-step check after each card step: largest error {on_step_max:.3e}")
   return host
@@ -1088,7 +1315,8 @@ def asimov_path(card: str, attr: str, checks: KernelCheck):
     toe = task.endswith("Toe")
     task_path("phase 11", task, "asimov_toe" if toe else "asimov", obs_dims, card, attr,
               checks, launches, path_ms, after_build=None if toe else hulls,
-              on_step=ankle_ctrl_check if toe else None, iters=CUT_ITERS)
+              on_step=ankle_ctrl_check if toe else None, iters=CUT_ITERS,
+              steps=CUT_STEPS)
   print(f"phase 11: {time.perf_counter() - t_phase:.1f} s; launches over both tasks' "
         f"{CUT_ITERS} iteration {launches}")
   return launches, path_ms
@@ -1121,7 +1349,7 @@ def rough_go1_path(card: str, attr: str, checks: KernelCheck):
     host = task_path("phase 12", task, "g1_rough" if rough else "go1", obs_dims, card, attr,
                      checks, launches, path_ms,
                      after_build=(lambda r: print_terrain(r.env, ROUGH_TASK)) if rough else None,
-                     iters=CUT_ITERS)
+                     iters=CUT_ITERS, steps=CUT_STEPS)
     if rough:
       terrain_metrics(task, host)
     print(f"  {task} in {time.perf_counter() - t0:.1f} s")
@@ -1285,7 +1513,8 @@ def rough13_path(card: str, attr: str, checks: KernelCheck):
     torch.cuda.reset_peak_memory_stats()
     host = task_path("phase 13", task, tag, obs_dims, card, attr, checks, launches, path_ms,
                      after_build=after_build, after_train=after_train,
-                     ms_key=f"{tag} (n {18 if 'Toe' not in task else 20})", iters=CUT_ITERS)
+                     ms_key=f"{tag} (n {18 if 'Toe' not in task else 20})", iters=CUT_ITERS,
+                     steps=CUT_STEPS)
     terrain_metrics(task, host)
     print(f"  {task} in {time.perf_counter() - t0:.1f} s; peak memory over the task "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
@@ -1756,7 +1985,7 @@ def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dic
 # surface's scenes (mjlab_tpu_torch/assets/solver_scenes.py).
 ELLIPTIC_NEFC = 1320  # 29 limit rows + 154 condim-1 rows + 379 cone slots x 3
 CG_STEPS = 10  # env steps of G1 under CG
-SCENE_SUBSTEPS = 50
+SCENE_SUBSTEPS = 30  # cut from 50 to keep the script under 1000 s
 SCENE_CPU_WORLDS = 16  # the first worlds of the card's run, rerun on the CPU
 # The scenes run a small solver budget on both sides: they are launch-bound
 # (the compiled defaults, 100 iterations x 50 linesearch steps, launch ~250x
@@ -1782,8 +2011,9 @@ def cone_bound(batch: int, n: int, nefc: int, rows: int, cone_rows: int, nb: int
 
 
 def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
-  """Phase 14, part 1: G1 velocity-flat under cone="elliptic" trains (2
-  iterations at 4096 envs through build_runner, the CLI's override), with
+  """Phase 14, part 1: G1 velocity-flat under cone="elliptic" trains
+  (CUT_ITERS iteration at 4096 envs through build_runner, the CLI's
+  override; cut from 2), with
   phase 8's checks, a device-only profile, nefc 1320 and every Newton
   direction through newton_direction_cone; then the kernel against its
   plain version on the run's last matrices (f32 and f64), its times, and
@@ -1808,13 +2038,14 @@ def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
   if tp.nefc != ELLIPTIC_NEFC or env.group_obs_dim != {"policy": (99,), "critic": (111,)}:
     raise AssertionError(f"phase 14 elliptic: nefc {tp.nefc}, obs {env.group_obs_dim}")
   got, steady_iter_ms, _, split = train_iterations(
-    runner, card, "phase 14 elliptic", (99, 111), expect=KERNELS[:3] + (CONE_KERNEL,))
+    runner, card, "phase 14 elliptic", (99, 111), iters=CUT_ITERS,
+    expect=KERNELS[:3] + (CONE_KERNEL,))
   it = env.sim.model.opt.iterations
   per_iter = TRAIN_STEPS * (DECIMATION * it + it)
-  print(f"  {CONE_KERNEL} launches {got[CONE_KERNEL]} = {got[CONE_KERNEL] / TRAIN_ITERS:.0f} "
+  print(f"  {CONE_KERNEL} launches {got[CONE_KERNEL]} = {got[CONE_KERNEL] / CUT_ITERS:.0f} "
         f"per iteration (expected {per_iter}: 24 env steps x (4 substeps + the post-reset "
         f"forward) x {it}); newton_direction {got['newton_direction']}")
-  if got[CONE_KERNEL] != per_iter * TRAIN_ITERS or got["newton_direction"] != 0:
+  if got[CONE_KERNEL] != per_iter * CUT_ITERS or got["newton_direction"] != 0:
     raise AssertionError(f"phase 14 elliptic: launches {got}")
   profile_iteration(runner, card, attr, "g1_elliptic", steady_iter_ms, split, spans=False)
   del split
@@ -1861,7 +2092,8 @@ def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
   del runner, env, d, gen, r, w, Bc, args, args64, x64, got64, qM, J
   gc.collect()
   torch.cuda.empty_cache()
-  f64_env_check(TASK, n_steps=3, nudges=PHASE14_NUDGES, overrides={"sim.mujoco.cone": "elliptic"})
+  f64_env_check(TASK, n_steps=CUT_F64_STEPS, nudges=PHASE14_NUDGES,
+                overrides={"sim.mujoco.cone": "elliptic"})
   return {"launches": got, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
           "bound": bnd, "steady_iter_ms": steady_iter_ms}
 
@@ -1918,13 +2150,14 @@ def cg_path(card: str) -> dict[str, int]:
   del env, obs, rew, actions
   gc.collect()
   torch.cuda.empty_cache()
-  f64_env_check(TASK, n_steps=3, nudges=PHASE14_NUDGES, overrides={"sim.mujoco.solver": "cg"})
+  f64_env_check(TASK, n_steps=CUT_F64_STEPS, nudges=PHASE14_NUDGES,
+                overrides={"sim.mujoco.solver": "cg"})
   return launches
 
 
 def scenes_path(card: str) -> dict[str, int]:
   """Phase 14, part 3: each scene of assets/solver_scenes.py under each of
-  its cones, float64, 50 substeps at 4096 worlds from the scene's velocity
+  its cones, float64, SCENE_SUBSTEPS at 4096 worlds from the scene's velocity
   plus a seeded N(0, 0.05²) per world, through physics.step (ms per
   substep, CUDA events); then the first 16 worlds rerun on the CPU (plain
   versions), qpos and qvel within 1e-8 relative to max(1, max |CPU|), or
@@ -1998,6 +2231,101 @@ def scenes_path(card: str) -> dict[str, int]:
       if not err <= tol:
         raise AssertionError(f"phase 14 scene {name} (cone {cone}): card vs CPU {err:.3e}")
   return total
+
+
+def surface_path(card: str, attr: str, checks: KernelCheck, train_launches: dict,
+                 steady_iter_ms: float) -> dict[str, int]:
+  """Phase 15: the env-layer surface a user sets in their own cfg. The
+  sim-to-real cfg (`sim_to_real_edit` on the G1 velocity-flat cfg) is
+  registered as a task of its own and trained through `build_runner` at
+  NUM_WORLDS envs with the G1 PPO cfg: 2 iterations with phase 8's checks,
+  the policy obs 3 x 99 wide, each randomized leaf changed per env on its
+  elements only and inside its range, the launches equal to phase 8's,
+  the iteration's time against phase 8's in this call, a device-only
+  profile; the four kernels against their plain versions on this run's
+  per-env matrices (qM, the Newton matrix and direction, the implicitfast
+  matrix); the card's float64 env against the CPU's with every FIELD_SPECS
+  row randomized (`all_fields_variant`), 4 envs x 8 env steps, the CPU's
+  leaves handed to the card. Returns the iterations' launches."""
+  from mjlab_tpu_torch import tasks
+  from mjlab_tpu_torch.envs.mdp.events import FIELD_SPECS
+  from mjlab_tpu_torch.physics import solver
+  from mjlab_tpu_torch.physics.forward import _implicit_matrix
+  from mjlab_tpu_torch.scripts.train import build_runner
+
+  def surface_cfg():
+    cfg = tasks.load_env_cfg(TASK)
+    sim_to_real_edit(cfg)
+    return cfg
+
+  tasks.register(SURFACE_TASK, surface_cfg, lambda: tasks.load_rl_cfg(TASK))
+  gc.collect()
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  runner = build_runner(SURFACE_TASK, {"env.scene.num_envs": str(NUM_WORLDS)})
+  torch.cuda.synchronize()
+  env = runner.env
+  dims = (SURFACE_HISTORY * 99, 111)
+  print(f"phase 15 the user surface: {SURFACE_TASK} (the G1 velocity-flat cfg with "
+        f"sim_to_real_edit), {NUM_WORLDS} envs, per-env fields "
+        f"{sorted(env.sim.batched_fields)}, obs {env.group_obs_dim}; build_runner "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+  if env.group_obs_dim != {"policy": (dims[0],), "critic": (dims[1],)}:
+    raise AssertionError(f"phase 15: observation widths {env.group_obs_dim}")
+  spreads = surface_leaf_checks(env)
+  print("  randomized leaves on their elements only, inside their ranges; least spread "
+        "across envs: " + ", ".join(f"{k} {v:.4g}" for k, v in spreads.items()))
+  # The cfg's first push falls after 1-3 s (50 env steps or more), past the
+  # run's 2 x TRAIN_STEPS: start every env's push clock so that it fires in
+  # the timed second iteration, at its 12th env step.
+  clock = env.ns("event")["interval_time_left"]
+  clock["push_wrench"] = torch.full_like(clock["push_wrench"],
+                                         (1.5 * TRAIN_STEPS - 0.5) * env.step_dt)
+  got, iter_ms, _, split = train_iterations(runner, card, "phase 15", dims)
+  print(f"  steady ms per iteration {iter_ms:.2f} against phase 8's {steady_iter_ms:.2f} in "
+        f"this call: {100 * (iter_ms / steady_iter_ms - 1):+.2f}% [{card}]")
+  if any(got[k] != train_launches[k] for k in KERNELS):
+    raise AssertionError(f"phase 15: launches {got} differ from phase 8's {train_launches}")
+  profile_iteration(runner, card, attr, "surface", iter_ms, split, spans=False)
+  del split
+  d, tp = env.data, env.tp
+  lags = env.ns("observation")["delay"]["policy/joint_vel"]["lags"]
+  bias = env.ns("observation")["noise"]["policy/joint_pos"]["bias"]
+  world = env.scene["feet_ground_world"].data
+  finite = all(torch.isfinite(getattr(world, f)).all() for f in
+               ("force", "torque", "dist", "pos", "normal", "tangent"))
+  pushed = (d.xfrc_applied.abs().amax((1, 2)) > 0).sum().item()
+  print(f"  joint_vel lags per env: {torch.bincount(lags.long(), minlength=3).tolist()} at 0, "
+        f"1, 2; joint_pos bias in [{bias.min().item():.4f}, {bias.max().item():.4f}]; "
+        f"envs holding a push's wrench after the run {pushed} of {NUM_WORLDS}; world-frame "
+        f"foot contacts {world.found.sum().item():.0f}, finite {finite}")
+  if not (finite and lags.max() <= 2 and bias.abs().max() <= 0.02 + 1e-6
+          and len(lags.unique()) == 3 and pushed > 0):
+    raise AssertionError("phase 15: delay lags, bias, the push or the world-frame sensor")
+  print(f"  kernels vs plain on the run's per-env matrices, f32 (n = {tp.nv}):")
+  grad = torch.randn(NUM_WORLDS, tp.nv, generator=torch.Generator(device="cuda").manual_seed(15),
+                     device="cuda")
+  checks.all_three("surface qM", d.qM.contiguous(), d.qfrc_smooth.contiguous())
+  checks.all_three("surface H", solver.hessian(d, d.qacc).contiguous(), grad)
+  checks.all_three("surface implicit",
+                   _implicit_matrix(tp, env.model, d).contiguous(), grad)
+  checks.newton("surface qM,J,w", d.qM, d.efc_J, solver.newton_weights(d, d.qacc), grad)
+  del runner, env, d, world
+  gc.collect()
+  torch.cuda.empty_cache()
+  def every_field_per_env(env_, action) -> float:
+    """After each card step: all 19 FIELD_SPECS leaves are per env and each
+    env's differs from env 0's."""
+    for f in FIELD_SPECS:
+      leaf = getattr(env_.model, f)
+      if f not in env_.sim.batched_fields or not (leaf[1:] != leaf[:1]).flatten(1).any(1).all():
+        raise AssertionError(f"phase 15 f64 check: {f} is not different in every env")
+    return 0.0
+
+  f64_env_check(SURFACE_TASK, n_steps=8, nudges=2, variant=all_fields_variant,
+                on_step=every_field_per_env)
+  print("  every FIELD_SPECS row per env in the f64 check: " + ", ".join(sorted(FIELD_SPECS)))
+  return got
 
 
 def main() -> int:
@@ -2422,12 +2750,16 @@ def main() -> int:
   ell = elliptic_path(card, attr, checks)
   cg_launches = cg_path(card)
   scene_launches = scenes_path(card)
-  print(f"phase 14 launches: G1 elliptic's 2 iterations {ell['launches']}; G1 cg's "
+  print(f"phase 14 launches: G1 elliptic's {CUT_ITERS} iteration {ell['launches']}; G1 cg's "
         f"{CG_STEPS - 1} env steps {cg_launches}; the scenes' runs {scene_launches}")
   if any(scene_launches[k] == 0 for k in ALL_KERNELS):
     raise AssertionError(f"phase 14: a kernel did not run in the scenes: {scene_launches}")
 
   clock.done(14)
+  # -- 15. the user surface: a sim-to-real cfg of the user's own -----------------
+  surface_launches = surface_path(card, attr, checks, train_launches, steady_iter_ms)
+
+  clock.done(15)
   # -- result lines ---------------------------------------------------------------
   bnd = bounds(NUM_WORLDS, N, rows=NUM_WORLDS * NEFC)
   bnd_run = bounds(NUM_WORLDS, N, rows=active_rows)["newton_direction"]
@@ -2478,6 +2810,7 @@ def main() -> int:
     k["launches_elliptic_path"] = ell["launches"][k["name"]]
     k["launches_cg_path"] = cg_launches[k["name"]]
     k["launches_scenes_path"] = scene_launches[k["name"]]
+    k["launches_surface_path"] = surface_launches[k["name"]]
   kernels.append({
     "name": CONE_KERNEL,
     "route": "cuda",
@@ -2488,6 +2821,7 @@ def main() -> int:
     "launches_elliptic_path": ell["launches"][CONE_KERNEL],
     "launches_cg_path": cg_launches[CONE_KERNEL],
     "launches_scenes_path": scene_launches[CONE_KERNEL],
+    "launches_surface_path": surface_launches[CONE_KERNEL],
     "max_abs_err": checks.max_abs_err[CONE_KERNEL],
     "ms": ell["ms"],
     "plain_ms": ell["plain_ms"],

@@ -175,6 +175,16 @@ class EntityData:
       raise ValueError("Cannot write control for non-actuated entity.")
     self._write("ctrl", _compose(self._ctrl, ctrl_ids), ctrl, env_mask)
 
+  def write_external_wrench(self, force, torque, body_ids=None, env_mask=None):
+    """Set the selected bodies' world-frame external force and torque
+    (`xfrc_applied`); a None half keeps its value."""
+    ids = _compose(self._body, body_ids)
+    xfrc = self.data.xfrc_applied.clone()
+    for part, value in ((slice(0, 3), force), (slice(3, 6), torque)):
+      if value is not None:
+        xfrc[:, ids, part] = _merge(xfrc[:, ids, part], value, env_mask)
+    self._ctx.data = self.data.replace(xfrc_applied=xfrc)
+
   def clear_state(self, env_mask=None):
     d = self.data
     if len(self.indexing.free_joint_v_adr):

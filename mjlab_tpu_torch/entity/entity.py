@@ -14,9 +14,10 @@ Element order is the compiled model's, which is the spec's order.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 
 import numpy as np
+import torch
 
 from mjlab_tpu_torch.core.strings import resolve_matching_names
 from mjlab_tpu_torch.physics.types import mjtJoint, mjtTrn
@@ -159,6 +160,10 @@ class Entity:
   def num_actuators(self) -> int:
     return len(self.actuator_names)
 
+  @property
+  def num_bodies(self) -> int:
+    return len(self.body_names)
+
   # -- regex find -------------------------------------------------------------
 
   def find_bodies(self, name_keys, preserve_order=False):
@@ -187,10 +192,17 @@ class Entity:
   # -- initialization -----------------------------------------------------------
 
   def initialize(self, ctx) -> None:
-    """Bind to the env's state context (batched Data, device, dtype)."""
+    """Bind to the env's state context (batched Data, device, dtype), and
+    copy the index arrays of `indexing` to its device once
+    (`device_indexing`, by field name)."""
     from mjlab_tpu_torch.entity.data import EntityData
 
     self._data = EntityData(self, ctx)
+    self.device_indexing = {
+      f.name: torch.as_tensor(getattr(self.indexing, f.name).astype(np.int64), device=ctx.device)
+      for f in fields(self.indexing)
+      if isinstance(getattr(self.indexing, f.name), np.ndarray)
+    }
 
   def update(self, dt: float) -> None:
     del dt
@@ -220,6 +232,9 @@ class Entity:
   def write_joint_position_target_to_sim(self, position_target, joint_ids=None,
                                          env_mask=None):
     self._data.write_ctrl(position_target, joint_ids, env_mask)
+
+  def write_external_wrench_to_sim(self, forces, torques, env_mask=None, body_ids=None):
+    self._data.write_external_wrench(forces, torques, body_ids, env_mask)
 
   def write_ctrl_to_sim(self, ctrl, ctrl_ids=None, env_mask=None):
     self._data.write_ctrl(ctrl, ctrl_ids, env_mask)

@@ -133,7 +133,7 @@ class ManagerBasedRlEnv(ManagerBasedEnv):
     if "interval" in self.event_manager.available_modes:
       self.event_manager.apply(mode="interval", dt=self.step_dt)
 
-    obs_buf = self.observation_manager.compute()
+    obs_buf = self.observation_manager.compute(update_history=True)
 
     log.update(self.step_log)
     log["reset_count"] = torch.sum(reset_buf.to(torch.int32))
@@ -176,6 +176,6 @@ class ManagerBasedRlEnv(ManagerBasedEnv):
     self._reset_masked(torch.ones(self.num_envs, dtype=torch.bool, device=self.device))
     self._data = self.forward_physics(self._data)
     self.command_manager.compute(dt=self.step_dt)
-    obs_buf = self.observation_manager.compute()
+    obs_buf = self.observation_manager.compute(update_history=True)
     self.extras = {}
     return obs_buf, self.extras

@@ -29,8 +29,6 @@ class AnklePrToTendonAction(ActionTerm):
 
   def __init__(self, cfg: "AnklePrToTendonActionCfg", env):
     super().__init__(cfg, env)
-    if cfg.clip is not None:
-      raise NotImplementedError("action clip is not supported by mjlab_tpu_torch")
     asset = self._asset
     joint_names = [
       cfg.left_pitch_joint,
@@ -75,7 +73,10 @@ class AnklePrToTendonAction(ActionTerm):
     return self.state["processed"]
 
   def process_actions(self, actions: torch.Tensor) -> None:
-    self.state = {"raw": actions, "processed": actions * self._scale + self._offset}
+    processed = actions * self._scale + self._offset
+    if self.cfg.clip is not None:
+      processed = torch.clamp(processed, *self.cfg.clip)
+    self.state = {"raw": actions, "processed": processed}
 
   def apply_actions(self) -> None:
     pr = self.state["processed"]

@@ -1,6 +1,7 @@
 """Joint-space action terms (port of mjlab_tpu/envs/mdp/actions/
 joint_actions.py). JointPositionAction: action → scale·action + offset →
-PD position targets (ctrl). The scale may be a per-actuator regex dict."""
+PD position targets (ctrl), clipped to `cfg.clip` = (lo, hi) when set. The
+scale may be a per-actuator regex dict."""
 
 from __future__ import annotations
 
@@ -53,8 +54,6 @@ class JointAction(ActionTerm):
 
     self._scale = resolve(cfg.scale)
     self._offset = resolve(cfg.offset)
-    if cfg.clip is not None:
-      raise NotImplementedError("action clip is not supported by mjlab_tpu_torch")
 
   @property
   def action_dim(self) -> int:
@@ -66,7 +65,10 @@ class JointAction(ActionTerm):
     return {"raw": z, "processed": z}
 
   def process_actions(self, actions: torch.Tensor) -> None:
-    self.state = {"raw": actions, "processed": actions * self._scale + self._offset}
+    processed = actions * self._scale + self._offset
+    if self.cfg.clip is not None:
+      processed = torch.clamp(processed, *self.cfg.clip)
+    self.state = {"raw": actions, "processed": processed}
 
   @property
   def processed_actions(self) -> torch.Tensor:

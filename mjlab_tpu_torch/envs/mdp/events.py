@@ -2,7 +2,8 @@
 
 Every event term takes `env_mask`, a boolean (B,) tensor, instead of env
 ids. Draws are made for all envs on every call, from the env's generator,
-and merged by the mask, so that shapes never depend on data.
+and merged by the mask, so that shapes never depend on data and nothing
+reads a device value on the host.
 """
 
 from __future__ import annotations
@@ -10,7 +11,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Literal, Tuple, Union
 
-import numpy as np
 import torch
 
 from mjlab_tpu_torch.core import math as mt
@@ -105,11 +105,33 @@ def push_by_setting_velocity(
   asset.write_root_link_velocity_to_sim(vel_w, env_mask=env_mask)
 
 
+def apply_external_force_torque(
+  env,
+  env_mask,
+  force_range: tuple[float, float],
+  torque_range: tuple[float, float],
+  asset_cfg: SceneEntityCfg = _DEFAULT,
+) -> None:
+  """Draw a world-frame force and torque per env and selected body and set
+  them as the bodies' `xfrc_applied` in the masked envs (the others keep
+  theirs)."""
+  asset = env.scene[asset_cfg.name]
+  ids = asset_cfg.body_ids
+  num_bodies = asset.num_bodies if isinstance(ids, slice) else len(ids)
+  size = (env.num_envs, num_bodies, 3)
+  kw = dict(generator=env.generator, dtype=env.dtype, device=env.device)
+  forces = mt.sample_uniform(*force_range, size, **kw)
+  torques = mt.sample_uniform(*torque_range, size, **kw)
+  asset.write_external_wrench_to_sim(
+    forces, torques, env_mask=env_mask, body_ids=None if isinstance(ids, slice) else ids,
+  )
+
+
 # ---------------------------------------------------------------------------
 # Domain randomization of a Model field. The field must carry an env axis:
-# the env expands the fields of events marked domain_randomization=True, and
-# `sim.Simulation.expand_model_fields` refuses every field the port's physics
-# cannot read per env (all but sim.PER_ENV_FIELDS).
+# the env expands the fields of events marked domain_randomization=True
+# (sim.Simulation.expand_model_fields), and the physics reads each of them
+# per env.
 # ---------------------------------------------------------------------------
 
 
@@ -117,33 +139,51 @@ def push_by_setting_velocity(
 class FieldSpec:
   """How a Model field's elements map to an entity's (the JAX package's
   FieldSpec): the entity element type, whether the field is indexed by the
-  element's address (qpos0 by the joint's qpos address) and the axes
-  randomized by default."""
+  element's address (dofs by their dof address, qpos0 by the joint's qpos
+  address), the axes randomized by default and the axes that may be."""
 
-  entity_type: Literal["joint", "body", "geom"]
+  entity_type: Literal["dof", "joint", "body", "geom", "site", "actuator"]
   use_address: bool = False
   default_axes: tuple[int, ...] | None = None
 
 
-# The rows of the JAX package's FIELD_SPECS for the fields the port's
-# physics reads per env.
 FIELD_SPECS = {
+  "dof_armature": FieldSpec("dof", use_address=True),
+  "dof_frictionloss": FieldSpec("dof", use_address=True),
+  "dof_damping": FieldSpec("dof", use_address=True),
+  "jnt_range": FieldSpec("joint"),
+  "jnt_stiffness": FieldSpec("joint"),
+  "body_mass": FieldSpec("body"),
   "body_ipos": FieldSpec("body", default_axes=(0, 1, 2)),
+  "body_iquat": FieldSpec("body", default_axes=(0, 1, 2, 3)),
+  "body_inertia": FieldSpec("body"),
+  "body_pos": FieldSpec("body", default_axes=(0, 1, 2)),
+  "body_quat": FieldSpec("body", default_axes=(0, 1, 2, 3)),
   "geom_friction": FieldSpec("geom", default_axes=(0,)),
+  "geom_pos": FieldSpec("geom", default_axes=(0, 1, 2)),
+  "geom_quat": FieldSpec("geom", default_axes=(0, 1, 2, 3)),
+  "site_pos": FieldSpec("site", default_axes=(0, 1, 2)),
+  "site_quat": FieldSpec("site", default_axes=(0, 1, 2, 3)),
   "qpos0": FieldSpec("joint", use_address=True),
+  "actuator_gainprm": FieldSpec("actuator", default_axes=(0,)),
+  "actuator_biasprm": FieldSpec("actuator", default_axes=(1, 2)),
 }
 
 
-def _entity_indices(indexing, asset_cfg: SceneEntityCfg, spec: FieldSpec) -> np.ndarray:
-  """The field's element indices for the entity's selected elements."""
-  if spec.entity_type == "joint":
+def _entity_indices(asset, asset_cfg: SceneEntityCfg, spec: FieldSpec) -> torch.Tensor:
+  """The field's element indices for the entity's selected elements, from
+  the entity's device index tables and the selection's device ids."""
+  kind, table = spec.entity_type, asset.device_indexing
+  if kind == "dof":
+    ids, base = asset_cfg.joint_ids, table["joint_v_adr"]
+  elif kind == "joint":
     ids = asset_cfg.joint_ids
-    base = indexing.joint_q_adr if spec.use_address else indexing.joint_ids
-  elif spec.entity_type == "body":
-    ids, base = asset_cfg.body_ids, indexing.body_ids
+    base = table["joint_q_adr" if spec.use_address else "joint_ids"]
+  elif kind == "actuator":
+    ids, base = asset_cfg.actuator_ids, table["ctrl_ids"]
   else:
-    ids, base = asset_cfg.geom_ids, indexing.geom_ids
-  return base if isinstance(ids, slice) else base[np.asarray(ids.cpu())]
+    ids, base = getattr(asset_cfg, f"{kind}_ids"), table[f"{kind}_ids"]
+  return base if isinstance(ids, slice) else base[ids]
 
 
 def randomize_field(
@@ -156,8 +196,9 @@ def randomize_field(
   asset_cfg: SceneEntityCfg | None = None,
   axes: list[int] | None = None,
 ) -> None:
-  """Randomize a Model field per env. Its element indices are read on the
-  host, so this term is for startup events (the G1 tasks' use)."""
+  """Randomize a Model field per env: draw for every env and selected
+  element (and axis), combine with the current value and keep the result in
+  the masked envs. A "gaussian" distribution reads `ranges` as (mean, std)."""
   if field not in FIELD_SPECS:
     raise ValueError(f"Unknown field '{field}'. Supported: {list(FIELD_SPECS)}")
   spec = FIELD_SPECS[field]
@@ -169,8 +210,7 @@ def randomize_field(
       f"Model field '{field}' is not env-batched; mark the event with "
       f"domain_randomization=True so the env expands it."
     )
-  ent_idx = torch.as_tensor(_entity_indices(asset.indexing, asset_cfg, spec),
-                            device=env.device)
+  ent_idx = _entity_indices(asset, asset_cfg, spec)
   sub = model_field[:, ent_idx]  # (B, n) or (B, n, k)
 
   if sub.dim() == 2:
@@ -179,8 +219,10 @@ def randomize_field(
     target_axes = list(axes)
   elif isinstance(ranges, dict):
     target_axes = sorted(ranges.keys())
-  else:
+  elif spec.default_axes is not None:
     target_axes = list(spec.default_axes)
+  else:
+    target_axes = list(range(sub.shape[-1]))
 
   samplers = {"uniform": mt.sample_uniform, "log_uniform": mt.sample_log_uniform,
               "gaussian": mt.sample_gaussian}

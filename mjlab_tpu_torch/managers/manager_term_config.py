@@ -2,8 +2,7 @@
 mjlab_tpu/managers/manager_term_config.py). Terms are functions
 `func(env, **params) -> torch.Tensor` or ManagerTermBase subclasses for
 stateful terms. The observation pipeline is compute → noise → clip →
-scale; a term or group that asks for the JAX package's delay or history
-raises `NotImplementedError` (observation_manager.py)."""
+scale → delay → history (observation_manager.py)."""
 
 from __future__ import annotations
 
@@ -36,8 +35,16 @@ class ObservationTermCfg(ManagerTermBaseCfg):
   noise: NoiseCfg | NoiseModelCfg | None = None
   clip: tuple[float, float] | None = None
   scale: float | tuple[float, ...] | None = None
-  delay_max_lag: int = 0  # > 0 raises (no delay buffers in the port)
-  history_length: int = 0  # > 0 raises (no history buffers in the port)
+  # Stochastic sensor delay (utils/buffers.DelayBuffer).
+  delay_min_lag: int = 0
+  delay_max_lag: int = 0
+  delay_per_env: bool = True
+  delay_hold_prob: float = 0.0
+  delay_update_period: int = 0
+  delay_per_env_phase: bool = True
+  # History (utils/buffers.CircularBuffer).
+  history_length: int = 0
+  flatten_history_dim: bool = True
 
 
 @dataclass
@@ -45,7 +52,9 @@ class ObservationGroupCfg:
   terms: dict[str, ObservationTermCfg] = field(default_factory=dict)
   concatenate_terms: bool = True
   enable_corruption: bool = False
-  history_length: int | None = None  # set raises (no history buffers)
+  # When set, overrides every term's history_length and flatten_history_dim.
+  history_length: int | None = None
+  flatten_history_dim: bool = True
 
 
 @dataclass

@@ -30,6 +30,7 @@ from mjlab_tpu_torch.physics.types import (
   index_tensor,
   mjtEq,
   mjtObj,
+  per_env,
 )
 
 _MINVAL = 1e-15
@@ -337,8 +338,9 @@ def _weld(tp: Topology, m: Model, d: Data, q):
   ts = m.eq_data[e, 10]
   if q.site:
     p1, p2 = d.site_xpos[:, q.o1], d.site_xpos[:, q.o2]
-    off1 = mt.normalize(m.site_quat[q.o1])
-    off2 = mt.normalize(m.site_quat[q.o2])
+    site_quat = per_env(m.site_quat, 2)
+    off1 = mt.normalize(site_quat[:, q.o1])
+    off2 = mt.normalize(site_quat[:, q.o2])
   else:
     p2 = d.xpos[:, b2] + _bmv3(d.xmat[:, b2], m.eq_data[e, 0:3])
     p1 = d.xpos[:, b1] + _bmv3(d.xmat[:, b1], m.eq_data[e, 3:6])
@@ -452,14 +454,15 @@ def make_constraint(tp: Topology, m: Model, d: Data) -> Data:
     zeros = d.qvel.new_zeros((B, fd.shape[0]))
     D, aref = _rows_from(J, zeros, zeros, m.dof_solref[fd], m.dof_solimp[fd],
                          m.dof_invweight0[fd], d.qvel, include=zeros == 0)
-    add(J, D, aref, zeros, zeros, m.dof_frictionloss[fd].expand(B, -1))
+    add(J, D, aref, zeros, zeros, per_env(m.dof_frictionloss, 1)[:, fd].expand(B, -1))
 
   # 2) Joint limit rows (hinge/slide, nearest side).
   if t.lim_jnt.numel():
     lj = t.lim_jnt
     q = d.qpos[:, t.lim_q]
-    dist_lo = q - m.jnt_range[lj, 0]
-    dist_hi = m.jnt_range[lj, 1] - q
+    jnt_range = per_env(m.jnt_range, 2)
+    dist_lo = q - jnt_range[:, lj, 0]
+    dist_hi = jnt_range[:, lj, 1] - q
     lower = dist_lo < dist_hi
     dist = torch.where(lower, dist_lo, dist_hi)
     sign = torch.where(lower, 1.0, -1.0).to(dist.dtype)

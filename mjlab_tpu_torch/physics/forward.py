@@ -54,9 +54,9 @@ def _implicit_matrix(tp: Topology, m: Model, d: Data) -> torch.Tensor:
   implicitfast = m.opt.integrator == Integrator.IMPLICITFAST
   if implicitfast and tp.nu > 0:
     _, moment = smooth.transmission(tp, m, d)
-    dfdv = -m.actuator_biasprm[:, 2]
-    diag = diag + h * torch.sum(dfdv[:, None] * moment * moment, dim=0)
-  mat = d.qM + torch.diag(diag)
+    dfdv = -m.actuator_biasprm[..., 2]  # (nu,) or, per env, (B, nu)
+    diag = diag + h * torch.sum(dfdv[..., None] * moment * moment, dim=-2)
+  mat = d.qM + torch.diag_embed(diag)
   if implicitfast and tp.ntendon > 0:
     JtcJ = (d.ten_J.transpose(-1, -2) * m.tendon_damping) @ d.ten_J
     mat = mat + h * tp.dev.smooth.tree_sparsity * JtcJ

@@ -6,9 +6,11 @@ joint signature and each group is one batched gather/compute/scatter over
 (env, body). The port supports bodies with no joint, one free, one hinge or
 one slide joint (io.put_model refuses the rest).
 
-`qpos0` and `body_ipos` may carry a leading env axis, (B, nq) and
-(B, nbody, 3), for domain randomization (sim.PER_ENV_FIELDS); the JAX
-package reads them the same way under its vmap.
+`qpos0` and the body, geom and site offsets (`body_pos`, `body_quat`,
+`body_ipos`, `body_iquat`, `geom_pos`, `geom_quat`, `site_pos`,
+`site_quat`) may carry a leading env axis for domain randomization
+(sim.PER_ENV_FIELDS); the JAX package reads them the same way under its
+vmap.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from mjlab_tpu_torch.physics.types import (
   Topology,
   index_tensor,
   mjtJoint,
+  per_env,
 )
 
 _FREE = mjtJoint.mjJNT_FREE
@@ -90,12 +93,13 @@ def kinematics(tp: Topology, m: Model, d: Data) -> Data:
   xanchor = torch.zeros((B, tp.njnt, 3), dtype=dtype, device=device)
   xaxis = torch.zeros((B, tp.njnt, 3), dtype=dtype, device=device)
   xaxis[..., 2] = 1.0
-  qpos0 = m.qpos0 if m.qpos0.dim() == 2 else m.qpos0[None]  # (B or 1, nq)
+  qpos0 = per_env(m.qpos0, 1)  # (B or 1, nq)
+  body_pos, body_quat = per_env(m.body_pos, 2), per_env(m.body_quat, 2)
 
   for g in t.groups:
     ppos, pquat = xpos[:, g.pid], xquat[:, g.pid]
-    pos = ppos + mt.quat_apply(pquat, m.body_pos[g.ids])
-    quat = mt.quat_mul(pquat, m.body_quat[g.ids])
+    pos = ppos + mt.quat_apply(pquat, body_pos[:, g.ids])
+    quat = mt.quat_mul(pquat, body_quat[:, g.ids])
     if g.sig == (_FREE,):
       qp = d.qpos[:, g.gq7]  # (B, n, 7)
       pos = qp[..., :3]
@@ -118,7 +122,8 @@ def kinematics(tp: Topology, m: Model, d: Data) -> Data:
 
   xmat = mt.quat_to_mat(xquat)
   bid, sid = t.geom_bodyid, t.site_bodyid
-  xipos = xpos + mt.quat_apply(xquat, m.body_ipos)  # (nbody, 3) or (B, nbody, 3)
+  # Each offset is (n, k) or, randomized per env, (B, n, k).
+  xipos = xpos + mt.quat_apply(xquat, m.body_ipos)
   ximat = mt.quat_to_mat(mt.quat_mul(xquat, m.body_iquat))
   geom_xpos = xpos[:, bid] + mt.quat_apply(xquat[:, bid], m.geom_pos)
   geom_xmat = mt.quat_to_mat(mt.quat_mul(xquat[:, bid], m.geom_quat))

@@ -11,7 +11,14 @@ from __future__ import annotations
 import torch
 
 from mjlab_tpu_torch.core import math as mt
-from mjlab_tpu_torch.physics.types import Data, Model, Topology, mjtObj, mjtSensor
+from mjlab_tpu_torch.physics.types import (
+  Data,
+  Model,
+  Topology,
+  mjtObj,
+  mjtSensor,
+  per_env,
+)
 
 _S = mjtSensor
 _OBJ = mjtObj
@@ -54,18 +61,18 @@ def _point_vel(tp: Topology, d: Data, body: int, point: torch.Tensor) -> torch.T
 def _subtree_dynamics(tp: Topology, m: Model, d: Data) -> Data:
   """subtree_linvel and subtree_angmom (mj_subtreeVel)."""
   t = tp.dev.smooth
-  mass = m.body_mass
+  mass = per_env(m.body_mass, 1)  # (B or 1, nbody)
   origin = d.subtree_com[:, t.body_rootid]
   w = d.cvel[..., :3]
   v_com = d.cvel[..., 3:] + mt.cross(w, d.xipos - origin)
-  iw = (d.ximat * m.body_inertia[:, None, :]) @ d.ximat.transpose(-1, -2)
+  iw = (d.ximat * per_env(m.body_inertia, 2)[..., None, :]) @ d.ximat.transpose(-1, -2)
   L_own = (iw @ w[..., None])[..., 0]
-  P = mass[:, None] * v_com
+  P = mass[..., None] * v_com
 
   sub = t.subtree
-  msum = torch.clamp_min(sub @ mass, 1e-12)
-  com_sub = (sub @ (mass[:, None] * d.xipos)) / msum[:, None]
-  linvel = (sub @ P) / msum[:, None]
+  msum = torch.clamp_min(mass @ sub.T, 1e-12)
+  com_sub = (sub @ (mass[..., None] * d.xipos)) / msum[..., None]
+  linvel = (sub @ P) / msum[..., None]
   # Angular momentum about the subtree com: Σ L_i + (c_i − C) × P_i.
   rel = d.xipos[:, None, :, :] - com_sub[:, :, None, :]  # (B, nsub, nbody, 3)
   angmom = sub[:, :, None] * (L_own[:, None] + mt.cross(rel, P[:, None]))

@@ -8,6 +8,10 @@ the Cholesky kernel wrapper (kernels/chol.py).
 
 Spatial vectors are [angular(3); linear(3)] about the per-tree origin (the
 root subtree CoM), matching MuJoCo's cdof/cvel conventions.
+
+`body_mass`, `body_inertia`, `dof_armature`, `jnt_stiffness`,
+`dof_damping` and the actuators' `gainprm`/`biasprm` may carry a leading
+env axis (domain randomization, sim.PER_ENV_FIELDS).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from mjlab_tpu_torch.physics.types import (
   float_tensor,
   index_tensor,
   mjtJoint,
+  per_env,
 )
 
 _FREE = mjtJoint.mjJNT_FREE
@@ -162,25 +167,25 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
 def com_pos(tp: Topology, m: Model, d: Data) -> Data:
   """subtree_com, cinert, cdof (mj_comPos)."""
   t = tp.dev.smooth
-  mass = m.body_mass
-  wsum = t.subtree @ (mass[:, None] * d.xipos)
-  msum = t.subtree @ mass
-  subtree_com = wsum / torch.clamp_min(msum, 1e-12)[:, None]
+  mass = per_env(m.body_mass, 1)  # (B or 1, nbody)
+  wsum = t.subtree @ (mass[..., None] * d.xipos)
+  msum = mass @ t.subtree.T
+  subtree_com = wsum / torch.clamp_min(msum, 1e-12)[..., None]
   origin = subtree_com[:, t.body_rootid]  # (B, nbody, 3)
 
   R = d.ximat
-  i_world = (R * m.body_inertia[:, None, :]) @ R.transpose(-1, -2)
+  i_world = (R * per_env(m.body_inertia, 2)[..., None, :]) @ R.transpose(-1, -2)
   r = d.xipos - origin
   rr = r[..., :, None] * r[..., None, :]
   r2 = torch.sum(r * r, dim=-1)[..., None, None]
   eye = torch.eye(3, dtype=r.dtype, device=r.device)
-  i_o = i_world + mass[:, None, None] * (r2 * eye - rr)
-  h = mass[:, None] * r
+  i_o = i_world + mass[..., None, None] * (r2 * eye - rr)
+  h = mass[..., None] * r
   cinert = torch.cat(
     [
       i_o[..., 0, 0:1], i_o[..., 1, 1:2], i_o[..., 2, 2:3],
       i_o[..., 0, 1:2], i_o[..., 0, 2:3], i_o[..., 1, 2:3],
-      h, mass[:, None].expand(h.shape[:-1] + (1,)),
+      h, mass[..., None].expand(h.shape[:-1] + (1,)),
     ],
     dim=-1,
   )
@@ -255,7 +260,7 @@ def crb(tp: Topology, m: Model, d: Data) -> Data:
   lower = (f @ d.cdof.transpose(-1, -2)) * t.ancestor
   diag = torch.diagonal(lower, dim1=-2, dim2=-1)
   qm = lower + lower.transpose(-1, -2) - torch.diag_embed(diag)
-  qm = qm + torch.diag(m.dof_armature)
+  qm = qm + torch.diag_embed(per_env(m.dof_armature, 1))
   return d.replace(qM=qm)
 
 
@@ -314,7 +319,7 @@ def passive(tp: Topology, m: Model, d: Data) -> Data:
   and dampers through ten_J (no gravcomp or fluid: refused at put_model)."""
   t = tp.dev.smooth
   qfrc_spring = torch.zeros_like(d.qvel)
-  frc = -m.jnt_stiffness[t.spring_jnt] * (
+  frc = -per_env(m.jnt_stiffness, 1)[:, t.spring_jnt] * (
     d.qpos[:, t.spring_q] - m.qpos_spring[t.spring_q]
   )
   qfrc_spring[:, t.spring_v] = frc
@@ -367,11 +372,12 @@ def fwd_actuation(tp: Topology, m: Model, d: Data) -> Data:
   velocity = d.qvel @ moment.T
   lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
   ctrl = torch.where(t.ctrllimited, torch.clamp(d.ctrl, lo, hi), d.ctrl)
-  gain = m.actuator_gainprm[:, 0]
+  # (nu, 10), or (B, nu, 10) randomized per env.
+  gain = m.actuator_gainprm[..., 0]
   bias = (
-    m.actuator_biasprm[:, 0]
-    + m.actuator_biasprm[:, 1] * length
-    + m.actuator_biasprm[:, 2] * velocity
+    m.actuator_biasprm[..., 0]
+    + m.actuator_biasprm[..., 1] * length
+    + m.actuator_biasprm[..., 2] * velocity
   )
   force = gain * ctrl + bias
   flo, fhi = m.actuator_forcerange[:, 0], m.actuator_forcerange[:, 1]

@@ -304,6 +304,13 @@ def float_tensor(x, dtype, device) -> torch.Tensor:
   return torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=dtype, device=device)
 
 
+def per_env(leaf: torch.Tensor, ndim: int) -> torch.Tensor:
+  """A Model leaf with a leading env axis: the leaf itself where domain
+  randomization gave it one, (B, ...), else a (1, ...) view that broadcasts
+  over the envs. `ndim` is the leaf's rank without the env axis."""
+  return leaf if leaf.dim() > ndim else leaf.unsqueeze(0)
+
+
 # ---------------------------------------------------------------------------
 # Options and model parameters.
 # ---------------------------------------------------------------------------

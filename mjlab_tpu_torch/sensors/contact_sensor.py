@@ -4,10 +4,13 @@ mjlab_tpu/sensors/contact_sensor.py).
 At initialize the (primary × secondary) matches resolve, from the compiled
 model's names table, to static contact-slot index sets of the engine's
 pair table: one row of slot indices, validity and sign per primary item.
-Every step reduces over them with fixed shapes. The port has the `found`
-and `force` fields, the `netforce` and `none` reduces, the contact-frame
-output and the air-time state machine; any other field, reduce or option
-raises `NotImplementedError` naming itself.
+Every step reduces over them with fixed shapes. Fields: found, force,
+torque, dist, pos, normal, tangent. Reduces: "none" (the first active
+slot), "mindist" (the nearest valid slot), "maxforce" (the active slot of
+largest normal force) and "netforce" (the world-frame net wrench on the
+primary, its torque about the active contacts' centroid). Forces are in the
+selected contact's frame unless `global_frame`. The air-time state machine
+is kept in the scene namespace.
 """
 
 from __future__ import annotations
@@ -19,12 +22,9 @@ from typing import Literal
 import numpy as np
 import torch
 
+from mjlab_tpu_torch.core import math as mt
 from mjlab_tpu_torch.entity.entity import element_name
 from mjlab_tpu_torch.sensors.sensor import Sensor, SensorCfg
-
-_FIELDS = ("found", "force")
-_REDUCES = ("none", "netforce")
-
 
 @dataclass
 class ContactMatch:
@@ -53,6 +53,11 @@ class ContactSensorCfg(SensorCfg):
 class ContactData:
   found: torch.Tensor | None = None  # [B, N]
   force: torch.Tensor | None = None  # [B, N, 3]
+  torque: torch.Tensor | None = None  # [B, N, 3] torsion/rolling (condim ≥ 4)
+  dist: torch.Tensor | None = None  # [B, N]
+  pos: torch.Tensor | None = None  # [B, N, 3]
+  normal: torch.Tensor | None = None  # [B, N, 3]
+  tangent: torch.Tensor | None = None  # [B, N, 3]
   current_air_time: torch.Tensor | None = None
   last_air_time: torch.Tensor | None = None
   current_contact_time: torch.Tensor | None = None
@@ -82,19 +87,6 @@ def _is_in_subtree(body_parentid, body: int, root: int) -> bool:
 
 class ContactSensor(Sensor[ContactData]):
   def __init__(self, cfg: ContactSensorCfg) -> None:
-    for f in cfg.fields:
-      if f not in _FIELDS:
-        raise NotImplementedError(
-          f"contact sensor field '{f}' is not supported by mjlab_tpu_torch"
-        )
-    if cfg.reduce not in _REDUCES:
-      raise NotImplementedError(
-        f"contact sensor reduce '{cfg.reduce}' is not supported by mjlab_tpu_torch"
-      )
-    if cfg.global_frame:
-      raise NotImplementedError(
-        "contact sensor global_frame is not supported by mjlab_tpu_torch"
-      )
     self.cfg = cfg
 
   # -- resolution ---------------------------------------------------------------
@@ -219,29 +211,89 @@ class ContactSensor(Sensor[ContactData]):
 
   # -- compute ----------------------------------------------------------------------
 
-  def _active(self) -> torch.Tensor:
-    """(B, N, S): the item's slots whose contact is active."""
+  def _gather(self) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, N, S) distances of the items' slots, and which are active."""
     c = self._ctx.data.contact
-    return (c.dist[:, self._idx] < c.includemargin[:, self._idx]) & self._valid
+    dist = c.dist[:, self._idx]
+    return dist, (dist < c.includemargin[:, self._idx]) & self._valid
+
+  def _active(self) -> torch.Tensor:
+    return self._gather()[1]
 
   @property
   def data(self) -> ContactData:
     cfg = self.cfg
-    active = self._active()
+    c = self._ctx.data.contact
+    idx, sign = self._idx, self._sign
+    dist, active = self._gather()
     out = ContactData()
     if "found" in cfg.fields:
       out.found = torch.sum(active, dim=-1).to(self._ctx.dtype)
-    if "force" in cfg.fields:
+    need_force = (
+      "force" in cfg.fields or "torque" in cfg.fields
+      or cfg.reduce in ("maxforce", "netforce")
+    )
+    if need_force:
       w_all = self._ctx.contact_forces()  # (B, C, 6) wrench, contact frame
-      f_local = w_all[:, self._idx, :3] * active[..., None]  # (B, N, S, 3)
-      if cfg.reduce == "netforce":
-        # World-frame net force on the primary.
-        frames = self._ctx.data.contact.frame[:, self._idx]  # (B, N, S, 3, 3)
-        f_world = torch.einsum("bnsi,bnsij->bnsj", f_local, frames)
-        out.force = torch.sum(f_world * self._sign[..., None], dim=2)
-      else:  # "none": the first active slot, in the contact frame
+      f_local = w_all[:, idx, :3] * active[..., None]  # (B, N, S, 3)
+      t_local = w_all[:, idx, 3:] * active[..., None]
+    frames = c.frame[:, idx]  # (B, N, S, 3, 3)
+    pos = c.pos[:, idx]
+
+    def pick(a, sel):  # a (B, N, S, ...) at the selected slot
+      sel = sel.reshape(sel.shape + (1,) * (a.dim() - 2))
+      return torch.take_along_dim(a, sel, dim=2)[:, :, 0]
+
+    force = torque = None
+    if cfg.reduce == "netforce":
+      # World-frame net wrench on the primary, torque about the active-weighted
+      # centroid of the contact points.
+      f_world = torch.einsum("bnsi,bnsij->bnsj", f_local, frames) * sign[..., None]
+      force = torch.sum(f_world, dim=2)
+      if "torque" in cfg.fields:
+        t_world = torch.einsum("bnsi,bnsij->bnsj", t_local, frames) * sign[..., None]
+        wsum = torch.clamp_min(torch.sum(active, dim=-1, keepdim=True), 1)
+        centroid = torch.sum(pos * active[..., None], dim=2) / wsum  # (B, N, 3)
+        arm = pos - centroid[:, :, None]
+        torque = torch.sum(t_world + mt.cross(arm, f_world), dim=2)
+      inf = torch.full_like(dist, torch.inf)
+      sel = torch.argmin(torch.where(active, dist, inf), dim=-1)
+    else:
+      if cfg.reduce == "maxforce":
+        neg = torch.full_like(dist, -torch.inf)
+        sel = torch.argmax(torch.where(active, torch.abs(f_local[..., 0]), neg), dim=-1)
+      elif cfg.reduce == "mindist":
+        inf = torch.full_like(dist, torch.inf)
+        sel = torch.argmin(torch.where(self._valid, dist, inf), dim=-1)
+      else:  # "none": the first active slot
         sel = torch.argmax(active.to(torch.int8), dim=-1)
-        out.force = torch.take_along_dim(f_local, sel[..., None, None], dim=2)[:, :, 0]
+      if need_force:
+        force = pick(f_local, sel)
+        if "torque" in cfg.fields:
+          torque = pick(t_local, sel)
+        if cfg.global_frame:
+          # The selected wrench in the world frame, as the wrench ON the
+          # primary (the sign flips where the primary is geom1).
+          frame_s = pick(frames, sel)
+          sgn_s = pick(sign.expand(dist.shape), sel)[..., None]
+          force = torch.einsum("bni,bnij->bnj", force, frame_s) * sgn_s
+          if torque is not None:
+            torque = torch.einsum("bni,bnij->bnj", torque, frame_s) * sgn_s
+
+    if "force" in cfg.fields:
+      out.force = force
+    if "torque" in cfg.fields:
+      out.torque = torque
+    if "dist" in cfg.fields:
+      out.dist = pick(dist, sel)
+    if "pos" in cfg.fields:
+      out.pos = pick(pos, sel)
+    if "normal" in cfg.fields or "tangent" in cfg.fields:
+      frame_sel = pick(frames, sel)
+      if "normal" in cfg.fields:
+        out.normal = frame_sel[:, :, 0] * pick(sign.expand(dist.shape), sel)[..., None]
+      if "tangent" in cfg.fields:
+        out.tangent = frame_sel[:, :, 1]
     if cfg.track_air_time:
       st = self.state
       out.current_air_time = st["current_air_time"]

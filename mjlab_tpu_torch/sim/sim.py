@@ -24,11 +24,21 @@ import torch
 from mjlab_tpu_torch import physics
 from mjlab_tpu_torch.physics.types import mjtCone, mjtIntegrator, mjtSolver
 
-# Model leaves the physics step can read with a per-env axis: collision reads
-# geom_friction, kinematics qpos0 and body_ipos. As in the JAX package, the
-# constants MuJoCo derives at qpos0 (dof_invweight0, actuator_length0, ...)
-# are not recomputed for a randomized leaf.
-PER_ENV_FIELDS = ("geom_friction", "qpos0", "body_ipos")
+# Model leaves the physics step can read with a per-env axis: every field of
+# the JAX package's domain-randomization table (envs/mdp/events.FIELD_SPECS).
+# Kinematics reads the body, geom and site offsets and qpos0; smooth the
+# masses, inertias, armature, stiffness, damping and actuator parameters;
+# collision geom_friction; constraint jnt_range, dof_frictionloss and the
+# weld's site_quat. As in the JAX package, nothing derived from them at
+# compile time is recomputed: the constants MuJoCo derives at qpos0
+# (dof_invweight0, actuator_length0, ...), the friction rows (one per dof
+# whose compiled frictionloss is not 0) and the terrain broadphase's boxes.
+PER_ENV_FIELDS = (
+  "dof_armature", "dof_frictionloss", "dof_damping", "jnt_range", "jnt_stiffness",
+  "body_mass", "body_ipos", "body_iquat", "body_inertia", "body_pos", "body_quat",
+  "geom_friction", "geom_pos", "geom_quat", "site_pos", "site_quat", "qpos0",
+  "actuator_gainprm", "actuator_biasprm",
+)
 
 
 _CONE_MAP = {

@@ -7,6 +7,8 @@ env from the env cfg; `load_rl_cfg` gives the runner cfg.
     obs, extras = env.reset(seed=0)
     obs, rew, terminated, time_outs, extras = env.step(action)
 
+`register(task_id, env, rl)` adds a task of the user's own (an edited cfg).
+
 The tracking tasks need a motion file (`cfg.commands["motion"].motion_file`;
 `make_env` takes none, so build their env from `load_env_cfg`, or train
 with `scripts.train ... --motion-file m.npz`).
@@ -67,10 +69,21 @@ def list_tasks() -> list[str]:
   return sorted(_REGISTRY)
 
 
+def register(task_id: str, env, rl) -> None:
+  """Register a task of the user's own: `env` and `rl` are each a
+  "module:attr" string or a callable that returns a fresh cfg (the JAX
+  package registers such tasks with gymnasium). `build_runner`, `make_env`
+  and the scripts then take the id."""
+  _REGISTRY[task_id] = {"env": env, "rl": rl}
+
+
 def _load(task_id: str, kind: str):
   if task_id not in _REGISTRY:
     raise KeyError(f"Unknown task '{task_id}'. Available: {list_tasks()}")
-  module, attr = _REGISTRY[task_id][kind].split(":")
+  entry = _REGISTRY[task_id][kind]
+  if callable(entry):
+    return entry()
+  module, attr = entry.split(":")
   return getattr(importlib.import_module(module), attr)()
 
 

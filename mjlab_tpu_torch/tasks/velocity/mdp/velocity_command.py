@@ -1,7 +1,8 @@
 """Uniform velocity command with heading control and standing envs (port of
 mjlab_tpu/tasks/velocity/mdp/velocity_command.py): per-env (vx, vy, wz)
 commands resampled on a clock; a fraction of envs track a heading target
-(wz from a P-controller on the heading error); a fraction stand still. The
+(wz from a P-controller on the heading error); a fraction stand still; with
+`init_velocity_prob`, a share of the resampled envs starts at its command. The
 sampling ranges live in the term's state so that the commands_vel
 curriculum can stage them."""
 
@@ -25,10 +26,6 @@ class UniformVelocityCommand(CommandTerm):
       raise ValueError("heading_command=True but ranges.heading is None.")
     if cfg.ranges.heading and not cfg.heading_command:
       raise ValueError("ranges.heading is set but heading_command=False.")
-    if cfg.init_velocity_prob > 0.0:
-      raise NotImplementedError(
-        "UniformVelocityCommandCfg.init_velocity_prob is not supported by mjlab_tpu_torch"
-      )
     self.robot = env.scene[cfg.asset_name]
 
   @property
@@ -79,6 +76,22 @@ class UniformVelocityCommand(CommandTerm):
       st["is_heading_env"] = torch.where(env_mask, is_heading, st["is_heading_env"])
     is_standing = self._rand() <= self.cfg.rel_standing_envs
     st["is_standing_env"] = torch.where(env_mask, is_standing, st["is_standing_env"])
+
+    if self.cfg.init_velocity_prob > 0.0:
+      # Start a share of the resampled envs at their commanded velocity. As
+      # in the JAX package (and the reference), the yaw rate is set in the
+      # body frame and written where the root state holds the world frame's.
+      inject = env_mask & (self._rand() < self.cfg.init_velocity_prob)
+      data = self.robot.data
+      lin_vel_b = data.root_link_lin_vel_b.clone()
+      lin_vel_b[:, :2] = st["vel_command_b"][:, :2]
+      ang_vel_b = data.root_link_ang_vel_b.clone()
+      ang_vel_b[:, 2] = st["vel_command_b"][:, 2]
+      quat_w = data.root_link_quat_w
+      root_state = torch.cat(
+        [data.root_link_pos_w, quat_w, mt.quat_apply(quat_w, lin_vel_b), ang_vel_b], dim=-1
+      )
+      self.robot.write_root_state_to_sim(root_state, env_mask=inject)
 
   def _update_command(self) -> None:
     st = self.state

@@ -1,7 +1,7 @@
 """The PyTorch port's G1 velocity-flat env on its own (CPU): its draws
 (seeded, per env, in range), the features outside the port that raise
-`NotImplementedError` naming themselves, and the entry points' default
-device."""
+`NotImplementedError` naming themselves, the env-layer features that run,
+and the entry points' default device."""
 
 from __future__ import annotations
 
@@ -25,9 +25,9 @@ def _one_thread():
     yield
 
 
-def _env(seed: int | None = None, edit=None) -> ManagerBasedRlEnv:
+def _env(seed: int | None = None, edit=None, num_envs: int = NUM_ENVS) -> ManagerBasedRlEnv:
   cfg = load_env_cfg(TASK)
-  cfg.scene.num_envs = NUM_ENVS
+  cfg.scene.num_envs = num_envs
   cfg.seed = seed
   if edit is not None:
     edit(cfg)
@@ -150,7 +150,10 @@ def _edit_history(cfg):
 
 
 def _edit_group_history(cfg):
-  cfg.observations["critic"].history_length = 2
+  """On the policy group: the critic shares its term cfgs, so they carry
+  the override into it (a group history on the critic alone raises in
+  both packages: tests/test_torch_observation_pipeline.py)."""
+  cfg.observations["policy"].history_length = 2
 
 
 def _edit_delay(cfg):
@@ -172,9 +175,10 @@ def _edit_field(cfg):
 
 
 def _edit_dr_field(cfg):
+  """A per-env field outside the JAX package's FIELD_SPECS, which the
+  physics does not read per env."""
   ev = cfg.events["foot_friction"]
-  ev.params["field"] = "body_mass"
-  ev.params["asset_cfg"].geom_names = None
+  ev.params["field"] = "geom_size"
 
 
 def _edit_init_velocity(cfg):
@@ -187,19 +191,69 @@ def _edit_action_clip(cfg):
 
 @pytest.mark.parametrize("edit,name", [
   (_edit_generator, "generator"),
-  (_edit_history, "history"),
-  (_edit_group_history, "history"),
-  (_edit_delay, "delay"),
-  (_edit_noise_model, "noise models"),
-  (_edit_reduce, "maxforce"),
-  (_edit_field, "pos"),
-  (_edit_dr_field, "body_mass"),
-  (_edit_init_velocity, "init_velocity_prob"),
-  (_edit_action_clip, "clip"),
+  (_edit_dr_field, "geom_size"),
 ], ids=lambda x: x if isinstance(x, str) else None)
 def test_features_outside_the_port_raise(edit, name):
   with pytest.raises(NotImplementedError, match=name):
     _env(0, edit)
+
+
+FEATURES = [
+  (_edit_history, "history"),
+  (_edit_group_history, "group history"),
+  (_edit_delay, "delay"),
+  (_edit_noise_model, "noise models"),
+  (_edit_reduce, "maxforce"),
+  (_edit_field, "pos"),
+  (_edit_init_velocity, "init_velocity_prob"),
+  (_edit_action_clip, "clip"),
+]
+
+
+@pytest.fixture(scope="module")
+def feature_envs():
+  """Two 2-env builds, each reset and stepped once at an action beyond the
+  clip: the policy group's history alone (it overrides the terms'), and
+  every other feature of FEATURES together. {group history?: (env, obs,
+  reward)}."""
+  out = {}
+  for group in (False, True):
+    edits = [e for e, n in FEATURES if (n == "group history") == group]
+    env = _env(0, lambda cfg, edits=edits: [e(cfg) for e in edits], num_envs=2)
+    env.reset(seed=0)
+    obs, rew, *_ = env.step(torch.full((2, env.total_action_dim), 20.0))
+    out[group] = (env, obs, rew)
+  return out
+
+
+@pytest.mark.parametrize("edit,name", FEATURES,
+                         ids=lambda x: x if isinstance(x, str) else None)
+def test_env_layer_features_run(feature_envs, edit, name):
+  """The env-layer features that raised until the port had them build,
+  reset and step with finite outputs, each live in its build (their parity
+  with the JAX package: tests/test_torch_observation_pipeline.py,
+  test_torch_contact_sensor.py and test_torch_env_surface.py)."""
+  env, obs, rew = feature_envs[name == "group history"]
+  # The groups share their term cfgs, and with them a term's history.
+  widths = (2 * 99, 2 * 99 + 12) if name == "group history" else (99 + 2 * 29, 111 + 2 * 29)
+  assert (obs["policy"].shape[1], obs["critic"].shape[1]) == widths
+  assert torch.isfinite(rew).all() and all(torch.isfinite(v).all() for v in obs.values())
+  state = env.ns("observation")
+  sensor = env.scene[env.cfg.scene.sensors[0].name]
+  live = {
+    "history": lambda: "policy/joint_pos" in state["history"],
+    "group history": lambda: all(f"policy/{t}" in state["history"]
+                                 for t in env.cfg.observations["policy"].terms),
+    "delay": lambda: "policy/joint_vel" in state["delay"],
+    "noise models": lambda: "policy/joint_vel" in state["noise"],
+    "maxforce": lambda: sensor.cfg.reduce == "maxforce" and torch.isfinite(sensor.data.force).all(),
+    "pos": lambda: sensor.data.pos is not None and torch.isfinite(sensor.data.pos).all(),
+    "init_velocity_prob": lambda: env.command_manager.get_term("twist").cfg.init_velocity_prob
+    == 0.5,
+    "clip": lambda: env.action_manager.get_term("joint_pos").processed_actions.abs().max()
+    == 1.0,
+  }[name]
+  assert live()
 
 
 def test_terrain_curriculum_raises():

@@ -3,7 +3,9 @@
 training iteration, converting a motion
 CSV and training the tracking task on it, and a run's lifecycle (training
 with periodic saves, resuming, play, list_envs, joint_deltas, the NaN
-guard, the artifact registry and the exporters) pull in none of jax,
+guard, the artifact registry and the exporters, and a user's task
+registered with the sim-to-real cfg of chip_smoke.py's phase 15: per-env
+randomization, history, delay, noise models, pushes and clip) pull in none of jax,
 jaxlib, mjlab_tpu, mujoco, gymnasium, flax, optax, orbax or wandb; no
 module of the port and not chip_smoke.py names one of them in an import;
 its own MuJoCo enum constants agree with mujoco's; and it registers every
@@ -106,6 +108,17 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
     "mjlab_tpu_torch.scripts.list_envs.main()\n"
     "mjlab_tpu_torch.rl.onnx_policy.TorchScriptPolicy(ck.replace('.pt', '_policy.pt'))\n"
     "mjlab_tpu_torch.rl.exporter.export_policy_as_onnx(r, r.env, os.path.join(d, 'p.onnx'))\n"
+    "import mjlab_tpu_torch.utils.buffers, chip_smoke\n"
+    "def surface():\n"
+    "  cfg = mjlab_tpu_torch.tasks.load_env_cfg('Mjlab-Velocity-Flat-Unitree-G1')\n"
+    "  chip_smoke.sim_to_real_edit(cfg)\n"
+    "  return cfg\n"
+    "mjlab_tpu_torch.tasks.register('Sim-To-Real-G1', surface,\n"
+    "  lambda: mjlab_tpu_torch.tasks.load_rl_cfg('Mjlab-Velocity-Flat-Unitree-G1'))\n"
+    "e = mjlab_tpu_torch.tasks.make_env('Sim-To-Real-G1', num_envs=2, device='cpu')\n"
+    "e.reset(seed=0)\n"
+    "e.step(torch.zeros(2, e.total_action_dim))\n"
+    "assert e.group_obs_dim['policy'] == (297,)\n"
     "reg = mjlab_tpu_torch.utils.artifacts.LocalRegistry(os.path.join(d, 'reg'))\n"
     "reg.publish(ck, 'runs/a')\n"
     "assert reg.resolve('runs/a:v1').is_dir()\n"
@@ -140,6 +153,29 @@ def test_no_module_of_the_port_names_jax_mjlab_tpu_or_mujoco():
       found += [(str(path.relative_to(ROOT)), n) for n in names
                 if n.split(".")[0] in banned]
   assert found == []
+
+
+def test_no_module_of_the_port_imports_by_a_built_name():
+  """The static check above sees import statements only. A module named
+  at run time escapes it, so only the task registry may import one: the
+  registry's own entries name the port's modules, and a user's entry is
+  the user's (`tasks.register`). chip_smoke.py builds its cfgs from the
+  port's classes, imported by name."""
+  from mjlab_tpu_torch import tasks
+
+  files = sorted((ROOT / "mjlab_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+  dynamic = []
+  for path in files:
+    for node in ast.walk(ast.parse(path.read_text())):
+      if isinstance(node, ast.Call):
+        f = node.func
+        name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+        if name in ("import_module", "__import__"):
+          dynamic.append(str(path.relative_to(ROOT)))
+  assert dynamic == ["mjlab_tpu_torch/tasks/__init__.py"]
+  entries = [e for kinds in tasks._REGISTRY.values() for e in kinds.values()]
+  assert len(entries) == 20
+  assert all(e.startswith("mjlab_tpu_torch.") for e in entries)
 
 
 @pytest.mark.parametrize(

@@ -182,6 +182,8 @@ def test_step_with_per_env_friction(g1):
 
 
 def test_per_env_fields_other_than_friction_raise(envs):
+  """A field outside the JAX package's FIELD_SPECS (every row of which the
+  port reads per env) raises."""
   _, env = envs
-  with pytest.raises(NotImplementedError, match="body_mass"):
-    env.sim.expand_model_fields(("body_mass",))
+  with pytest.raises(NotImplementedError, match="geom_size"):
+    env.sim.expand_model_fields(("geom_size",))

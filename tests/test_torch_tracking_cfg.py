@@ -213,6 +213,8 @@ def test_only_the_fields_the_physics_reads_per_env_expand():
   assert sim.model.qpos0.shape == (3, 36) and sim.model.body_ipos.shape == (3, 32, 3)
   assert sim.unbatched_model.qpos0.shape == (36,)
   assert sim.make_data().qpos.shape == (3, 36)
-  assert set(PER_ENV_FIELDS) == {"geom_friction", "qpos0", "body_ipos"}
-  with pytest.raises(NotImplementedError, match="body_mass"):
-    sim.expand_model_fields(("body_mass",))
+  from mjlab_tpu_torch.envs.mdp.events import FIELD_SPECS
+
+  assert set(PER_ENV_FIELDS) == set(FIELD_SPECS) and len(PER_ENV_FIELDS) == 19
+  with pytest.raises(NotImplementedError, match="geom_size"):
+    sim.expand_model_fields(("geom_size",))

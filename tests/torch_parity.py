@@ -306,6 +306,19 @@ def g1_flat_cfgs(num_envs: int, edit=None):
   return cfgs
 
 
+def jax_cfg_modules() -> SimpleNamespace:
+  """The JAX package's counterparts of `chip_smoke.port_cfg_modules`, so
+  that `chip_smoke.sim_to_real_edit` builds the same cfg for it."""
+  from mjlab_tpu import sensors
+  from mjlab_tpu.envs import mdp
+  from mjlab_tpu.managers.manager_term_config import EventTermCfg
+  from mjlab_tpu.managers.scene_entity_config import SceneEntityCfg
+  from mjlab_tpu.utils import noise
+
+  return SimpleNamespace(mdp=mdp, EventTermCfg=EventTermCfg, SceneEntityCfg=SceneEntityCfg,
+                         noise=noise, sensors=sensors)
+
+
 def g1_flat_envs(num_envs: int, edit=None):
   """(JAX env, port env on the CPU), the port bound to the JAX env's
   compiled model."""
