@@ -15,7 +15,9 @@ Phases, each printing its own lines:
      PyTorch call (or, for the Newton direction, the torch path it
      replaces) over distinct batches that exceed L2, and the kernel on one
      L2-resident batch (the Cholesky entry points only: one Newton input,
-     J alone, is 0.97 GB, 20 times the L2);
+     J alone, is 0.97 GB, 20 times the L2); print the Newton kernel's
+     launch (warps per block, resident worlds per SM, shared bytes per
+     warp, registers and local bytes per thread, ptxas' lines for it);
   3. drive the main path — `Simulation.step_fn()` on the G1 velocity-flat
      scene at 4096 worlds, 30 env steps (cut from 50) of 4 substeps, ctrl = keyframe
      targets + a seeded small action — with the kernels' launch counters
@@ -24,7 +26,7 @@ Phases, each printing its own lines:
      factorizations, 10 of them Newton directions; then hold the kernels
      against their plain versions on that run's mass matrices, Newton
      matrices and (qM, J, w) at its qacc, and time the Newton direction
-     there;
+     there, with its launch at these shapes (f32, and f64 for phase 4);
   4. check the card's float64 kernel path against the CPU's plain path on a
      small input (4 worlds, 4 substeps);
   5. time each stage of one substep with CUDA events, and the solve split
@@ -146,7 +148,8 @@ Phases, each printing its own lines:
      plain version on the run's last matrices in f32 (KernelCheck's rule)
      and f64 (1e-10 relative), its times beside its bound, the plain
      version and the library path (einsum + cholesky_ex + cholesky_solve),
-     the cone slots by zone, and the card's float64 env against the CPU's
+     the cone slots by zone and the active ones per world, the kernel's
+     launch (f32 and f64), and the card's float64 env against the CPU's
      as phases 11-13 (2 env steps, cut from 3; 2 nudges); (b) G1 under
      `--env.sim.mujoco.solver cg`, 10 env
      steps at 4096 envs under set_sync_debug_mode("error"), ms per env step,
@@ -1996,6 +1999,50 @@ SCENE_ITERATIONS, SCENE_LS_ITERATIONS = 4, 5
 PHASE14_NUDGES = 2
 
 
+def newton_launch(cone: bool, dtype: torch.dtype, batch: int, n: int, m: int,
+                  ncone: int = 0, nb: int = 0) -> dict:
+  """The launch csrc/newton_dir.cu makes for these shapes (its
+  `newton_direction_config`, which launches nothing): warps per block,
+  resident worlds per SM (warps per block × resident blocks), shared bytes
+  per warp, registers and local bytes per thread; beside them the ptxas
+  lines of that kernel instance from this process's build log."""
+  import ctypes
+
+  from mjlab_tpu_torch.kernels import build
+
+  f = build.library("newton_dir").newton_direction_config
+  f.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+  f.restype = ctypes.c_int
+  out = (ctypes.c_int * 8)()
+  elem = torch.empty((), dtype=dtype).element_size()
+  rc = f(int(cone), elem, batch, n, m, ncone, nb, ctypes.cast(out, ctypes.c_void_p))
+  if rc != 0:
+    raise AssertionError(f"newton_direction_config failed with CUDA error {rc}")
+  keys = ("warps_per_block", "blocks_per_sm", "sms", "grid_blocks", "smem_bytes_per_warp",
+          "registers", "local_bytes", "N")
+  cfg = dict(zip(keys, out))
+  cfg["resident_worlds_per_sm"] = cfg["warps_per_block"] * cfg["blocks_per_sm"]
+  # The instance's mangled name: newton_direction_kernel<T, N, kPad, kCone>.
+  tag = (f"newton_direction_kernelI{'f' if elem == 4 else 'd'}Li{cfg['N']}ELb"
+         f"{int(cfg['N'] != 35)}ELb{int(cone)}E")
+  fn, ptxas = None, []
+  for line in build.build_log.get("newton_dir", "").splitlines():
+    if "Compiling entry function" in line or "Function properties for" in line:
+      fn = line
+    elif fn is not None and tag in fn and ("registers" in line or "spill" in line):
+      ptxas.append(line.split(":", 1)[-1].strip())
+  cfg["ptxas"] = "; ".join(ptxas) or "not in this process's build log"
+  return cfg
+
+
+def print_launch(name: str, what: str, cfg: dict) -> None:
+  print(f"  {name} launch ({what}): {cfg['warps_per_block']} warps per block, "
+        f"{cfg['blocks_per_sm']} blocks = {cfg['resident_worlds_per_sm']} resident worlds per "
+        f"SM on {cfg['sms']} SMs, grid {cfg['grid_blocks']} blocks; "
+        f"{cfg['smem_bytes_per_warp']} B shared per warp, {cfg['registers']} registers and "
+        f"{cfg['local_bytes']} B local per thread; ptxas: {cfg['ptxas']}")
+
+
 def cone_bound(batch: int, n: int, nefc: int, rows: int, cone_rows: int, nb: int,
                elem: int = 4) -> tuple[float, str]:
   """Least time (ms) of newton_direction_cone on these inputs: bytes of the
@@ -2077,8 +2124,17 @@ def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
     act = g.active
     zones = {"top": int((top & act).sum()), "middle": int((~top & ~bottom & act).sum()),
              "bottom": int((bottom & ~top & act).sum()), "inactive": int((~act).sum())}
+  per_world = active_slots.sum(1).float()
   print(f"  the run's last state: active regular rows {rows} "
-        f"({rows / (NUM_WORLDS * tp.nefc):.4f} of all rows), cone slots by zone {zones}")
+        f"({rows / (NUM_WORLDS * tp.nefc):.4f} of all rows), cone slots by zone {zones}; "
+        f"active cone slots per world mean {per_world.mean().item():.2f}, min "
+        f"{int(per_world.min().item())}, max {int(per_world.max().item())}")
+  launch = newton_launch(True, torch.float32, NUM_WORLDS, n, tp.nefc, layout.table.shape[0],
+                         layout.nb)
+  print_launch(CONE_KERNEL, "the run's, f32", launch)
+  print_launch(CONE_KERNEL, "the run's, f64",
+               newton_launch(True, torch.float64, NUM_WORLDS, n, tp.nefc,
+                             layout.table.shape[0], layout.nb))
   qM, J = args[0], args[1]
   ms = time_ms(lambda: chol.newton_direction_cone(*args, layout), [()])
   plain_ms = time_ms(lambda: chol.newton_direction_cone_plain(*args, layout), [()], iters=3)
@@ -2095,7 +2151,7 @@ def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
   f64_env_check(TASK, n_steps=CUT_F64_STEPS, nudges=PHASE14_NUDGES,
                 overrides={"sim.mujoco.cone": "elliptic"})
   return {"launches": got, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-          "bound": bnd, "steady_iter_ms": steady_iter_ms}
+          "bound": bnd, "steady_iter_ms": steady_iter_ms, "launch": launch}
 
 
 def cg_path(card: str) -> dict[str, int]:
@@ -2427,6 +2483,8 @@ def main() -> int:
   t = times["newton_direction"]
   print(f"  {'newton_direction':18s} kernel {t[0]:.4f} ms  plain {t[1]:.4f} ms  replaced "
         f"torch path {t[2]:.4f} ms  ({J_SETS} distinct J sets) [{card}]")
+  print_launch("newton_direction", f"f32, {NUM_WORLDS} x {NEFC} x {N}",
+               newton_launch(False, torch.float32, NUM_WORLDS, N, NEFC))
   del nsets
   torch.cuda.empty_cache()
 
@@ -2511,6 +2569,10 @@ def main() -> int:
   print(f"  newton_direction on the run's (qM, J, w): {run_ms:.4f} ms, replaced torch "
         f"path {run_replaced_ms:.4f} ms; active rows {active_rows} of {w_run.numel()} "
         f"(share {share:.4f}) [{card}]")
+  newton_cfg = newton_launch(False, torch.float32, NUM_WORLDS, N, NEFC)
+  print_launch("newton_direction", "the run's, f32", newton_cfg)
+  print_launch("newton_direction", "phase 4's, f64, 4 worlds",
+               newton_launch(False, torch.float64, 4, N, NEFC))
 
   clock.done(3)
   # -- 4. the card's kernel path against the CPU's plain path (float64) -------
@@ -2804,7 +2866,7 @@ def main() -> int:
   kernels[-1].update({
     "ms_run_matrices": run_ms, "library_ms_run_matrices": run_replaced_ms,
     "bound_ms_run_matrices": bnd_run[0], "bound_by_run_matrices": bnd_run[1],
-    "active_row_share": share,
+    "active_row_share": share, "launch": newton_cfg,
   })
   for k in kernels:
     k["launches_elliptic_path"] = ell["launches"][k["name"]]
@@ -2828,6 +2890,7 @@ def main() -> int:
     "bound_ms": ell["bound"][0],
     "bound_by": ell["bound"][1],
     "library_ms": ell["library_ms"],
+    "launch": ell["launch"],
   })
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({

@@ -14,15 +14,17 @@ Kernels (csrc/):
   at B=4096, n=35, f32: the factor needs A's lower triangle (10.3 MB) and
   writes L (20.1 MB), ~9.1 µs at 3.35 TB/s; a solve needs L's lower
   triangle and b and writes x (11.5 MB), ~3.4 µs.
-- newton_dir.cu: one warp per world, several worlds per block, streams
-  the rows of J whose weight is not 0 through shared memory, builds H there
-  and factors and solves it with chol.cu's warp code; H never reaches
-  device memory. Bound at G1's
+- newton_dir.cu: one world per one-warp block, the whole batch launched
+  at once (16 resident per SM at G1's shapes in f32); qM is copied into
+  shared memory while w is scanned with 16-byte loads, the rows of J whose
+  weight is not 0 stream through a double-buffered pair of tiles, H is
+  built in registers and shared memory and factored and solved with
+  chol.cu's warp code; H never reaches device memory. Bound at G1's
   shapes: reading the dense J (0.97 GB) once, 0.29 ms, or only its active
   rows. Its elliptic entry, `newton_direction_cone`, also adds each cone
   slot's J_sᵀ B_s J_s (solver.py:223-225) for the slots whose block is not
-  0, from a slot's rows and block in shared memory; bound at G1 elliptic
-  (4096 × 1320 × 35, f32): 0.76 GB of J, 0.23 ms, or its active rows.
+  0, their rows through the same tiles; bound at G1 elliptic (4096 × 1320
+  × 35, f32): 0.76 GB of J, 0.23 ms, or its active rows.
 
 Semantics (JAX's): a non-positive pivot gives NaN in the whole lower
 triangle of L, and NaN in the solution, instead of raising.

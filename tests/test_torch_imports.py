@@ -25,6 +25,8 @@ import pytest
 from mjlab_tpu_torch.physics import types
 
 ROOT = Path(__file__).resolve().parents[1]
+# The port's scripts at the root of the repo, beside the package.
+ROOT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
 
 
 def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
@@ -137,9 +139,9 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
 
 def test_no_module_of_the_port_names_jax_mjlab_tpu_or_mujoco():
   """A static check of every import statement, so that a module the first
-  test does not load, and chip_smoke.py, are held to the rule too."""
+  test does not load, and the scripts at the root, are held to the rule too."""
   banned = {"jax", "jaxlib", "mjlab_tpu", "mujoco", "gymnasium", "orbax", "wandb"}
-  files = sorted((ROOT / "mjlab_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+  files = sorted((ROOT / "mjlab_tpu_torch").rglob("*.py")) + ROOT_SCRIPTS
   assert len(files) > 60
   found = []
   for path in files:
@@ -160,10 +162,11 @@ def test_no_module_of_the_port_imports_by_a_built_name():
   at run time escapes it, so only the task registry may import one: the
   registry's own entries name the port's modules, and a user's entry is
   the user's (`tasks.register`). chip_smoke.py builds its cfgs from the
-  port's classes, imported by name."""
+  port's classes, imported by name; kernel_ab.py imports nothing by a
+  built name either."""
   from mjlab_tpu_torch import tasks
 
-  files = sorted((ROOT / "mjlab_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+  files = sorted((ROOT / "mjlab_tpu_torch").rglob("*.py")) + ROOT_SCRIPTS
   dynamic = []
   for path in files:
     for node in ast.walk(ast.parse(path.read_text())):

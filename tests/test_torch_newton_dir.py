@@ -17,7 +17,12 @@ slots of dim 3, 4 and 6 (JAX's einsum at solver.py:223-225): its plain
 version must match the JAX formula at 1e-10 relative in float64 with blocks
 of all three zones (0, diagonal, dense), slots whose block is 0 must change
 nothing, bitwise; on the card the kernel is held to the plain version as
-above, also with every row and every slot inactive. On the card:
+above, also with every row and every slot inactive, and with every slot
+active. The kernel runs one world per one-warp block, the whole batch in
+one grid: the card tests also cover a grid of more blocks than the card
+holds at once, with an odd tail, active rows at the edges of the kernel's
+16-byte scan loads and 32-row tiles, more slots than fit one tile, and the
+bitwise property for the cone's all-zero blocks. On the card:
   python -m pytest --noconftest -m gpu tests/test_torch_newton_dir.py
 """
 
@@ -50,7 +55,8 @@ def _cone_problem(seed, batch, n, m_reg, dims, pattern="zones"):
   """Regular rows, then one slot per entry of `dims` (cd consecutive rows
   each, grouped by dim as the solver lays them out), with packed blocks:
   `zones` cycles the top (0), bottom (diagonal) and middle (dense PSD)
-  zones' shapes over the slots; `zero` leaves every block 0."""
+  zones' shapes over the slots; `active` cycles the bottom and middle ones
+  (no block is 0); `zero` leaves every block 0."""
   qM, J, w, grad = _problem(seed, batch, n, m_reg + sum(dims), "sparse")
   rng = np.random.default_rng(seed + 100)
   w[:, m_reg:] = 0.0
@@ -60,7 +66,8 @@ def _cone_problem(seed, batch, n, m_reg, dims, pattern="zones"):
     X = rng.normal(size=(batch, cd, cd))
     dense = X @ np.swapaxes(X, -1, -2) + 0.1 * np.eye(cd)
     diag = np.eye(cd) * rng.uniform(0.5, 2.0, size=(batch, 1, cd))
-    zone = (s + np.arange(batch)) % 3 if pattern == "zones" else np.zeros(batch, int)
+    zone = {"zones": (s + np.arange(batch)) % 3, "active": 1 + (s + np.arange(batch)) % 2,
+            "zero": np.zeros(batch, int)}[pattern]
     b = np.where((zone == 1)[:, None, None], diag, np.where((zone == 2)[:, None, None], dense, 0.0))
     blocks.append(b.reshape(batch, cd * cd))
     row, off = row + cd, off + cd * cd
@@ -195,7 +202,7 @@ def test_cone_cpu_wrapper_takes_plain_path_and_counts_nothing():
 @pytest.mark.gpu
 @pytest.mark.parametrize("n, m, dims", [(35, 200, "3"), (35, 29, "3,4,6"), (20, 33, "6"),
                                         (50, 9, "3,4,6"), (7, 0, "3")])
-@pytest.mark.parametrize("pattern", ["zones", "zero"])
+@pytest.mark.parametrize("pattern", ["zones", "active", "zero"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cone_kernel_matches_plain_on_card(n, m, dims, pattern, dtype):
   if not torch.cuda.is_available():
@@ -260,3 +267,102 @@ def test_kernel_zero_weight_rows_and_bad_pivot_on_card(dtype):
   x = chol.newton_direction(*_torch(qM, J, w, grad, dtype=dtype, device="cuda"))
   assert torch.isnan(x[4]).all()
   assert torch.isfinite(x[:4]).all() and torch.isfinite(x[5:]).all()
+
+
+def _assert_card_close(x, x64, x32_plain, dtype):
+  """The card's rule: float64 within 1e-10 relative; float32 within
+  max(1e-5 × scale, 4 × the plain float32 version's own error), with
+  the same NaN pattern."""
+  assert torch.equal(torch.isnan(x), torch.isnan(x64))
+  ok = ~torch.isnan(x64)
+  err = (x.double() - x64)[ok].abs().max().item()
+  scale = max(1.0, x64[ok].abs().max().item())
+  if dtype == torch.float64:
+    assert err <= 1e-10 * scale
+  else:
+    ref_err = (x32_plain.double() - x64)[ok].abs().max().item()
+    assert err <= max(1e-5 * scale, 4 * ref_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_batch_past_one_wave_on_card(dtype):
+  """4096 + 37 worlds at G1's shapes with sparse weights: one one-warp
+  block per world, so a grid of more blocks than the card holds at once
+  (16 per SM in f32, 8 in f64), with an odd tail of 37, and rows of w past
+  one scan batch (1699 rows; 1024 per batch in f32, 512 in f64)."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+  gen = torch.Generator(device="cuda").manual_seed(11)
+  B, m = 4096 + 37, 1699
+  X = torch.randn(B, NV, NV, generator=gen, device="cuda", dtype=torch.float64)
+  qM = X @ X.mT / NV + 0.1 * torch.eye(NV, device="cuda", dtype=torch.float64)
+  J = torch.randn(B, m, NV, generator=gen, device="cuda", dtype=torch.float64)
+  w = torch.rand(B, m, generator=gen, device="cuda", dtype=torch.float64) + 0.5
+  w = torch.where(torch.rand(B, m, generator=gen, device="cuda") < 0.03, w, 0.0)
+  grad = torch.randn(B, NV, generator=gen, device="cuda", dtype=torch.float64)
+  args = [a.to(dtype) for a in (qM, J, w, grad)]
+  chol.reset_counts()
+  x = chol.newton_direction(*args)
+  torch.cuda.synchronize()
+  assert chol.LAUNCHES["newton_direction"] == 1
+  x64 = chol.newton_direction_plain(*[a.double() for a in args])
+  _assert_card_close(x, x64, chol.newton_direction_plain(*args), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_active_rows_at_scan_and_tile_edges_on_card(dtype):
+  """World b has exactly COUNTS[b] active rows of 600, so that they end at
+  and straddle the kernel's 32-row tiles and its 16-byte scan loads of w
+  (4 rows in f32, 2 in f64)."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+  counts = [0, 1, 31, 32, 33, 63, 64, 65, 255, 256, 257, 600]
+  qM, J, w, grad = _problem(12, len(counts), NV, 600, "dense")
+  rng = np.random.default_rng(12)
+  for b, k in enumerate(counts):
+    keep = np.zeros(600, bool)
+    keep[rng.choice(600, k, replace=False)] = True
+    w[b] = np.where(keep, w[b], 0.0)
+  args = _torch(qM, J, w, grad, dtype=dtype, device="cuda")
+  x = chol.newton_direction(*args)
+  x64 = chol.newton_direction_plain(*_torch(qM, J, w, grad, device="cuda"))
+  _assert_card_close(x, x64, chol.newton_direction_plain(*args), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["zones", "active"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cone_kernel_many_slots_on_card(pattern, dtype):
+  """G1 elliptic's count of dim-3 slots (379, more than one tile holds)
+  behind 183 regular rows, at 300 worlds, the last slot on the last row."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+  arrays, host = _cone_problem(13, 300, NV, 183, [3] * 379, pattern)
+  layout = _layout(host, "cuda")
+  args = _torch(*arrays, dtype=dtype, device="cuda")
+  x = chol.newton_direction_cone(*args, layout)
+  x64 = chol.newton_direction_cone_plain(*_torch(*arrays, device="cuda"), layout)
+  _assert_card_close(x, x64, chol.newton_direction_cone_plain(*args, layout), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cone_kernel_zero_blocks_change_nothing_on_card(dtype):
+  """A slot whose block is all 0 changes x not at all, bitwise: the
+  direction equals the one with the slot (and its rows) removed."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+  (qM, J, w, grad, Bc), host = _cone_problem(14, 9, NV, 30, [3, 3, 3, 4, 6], "active")
+  Bc[:, 9:18] = 0.0  # the second slot
+  keep_rows = np.r_[0:33, 36:49]
+  cut_host = (np.asarray([(30, 3, 0), (33, 3, 9), (36, 4, 18), (40, 6, 34)], dtype=np.int32),
+              ((3, 0, 2), (4, 2, 1), (6, 3, 1)), 70)
+  full = chol.newton_direction_cone(*_torch(qM, J, w, grad, Bc, dtype=dtype, device="cuda"),
+                                    _layout(host, "cuda"))
+  cut = chol.newton_direction_cone(
+    *_torch(qM, J[:, keep_rows], w[:, keep_rows], grad, np.c_[Bc[:, :9], Bc[:, 18:]],
+            dtype=dtype, device="cuda"),
+    _layout(cut_host, "cuda"))
+  assert torch.equal(full, cut)
