@@ -182,6 +182,27 @@ Phases, each printing its own lines:
      with all 19 FIELD_SPECS rows randomized (each env different, the
      CPU's leaves handed to the card), 4 envs x 8 env steps, 1e-8 or twice
      the CPU's spread under 2 nudges.
+ 16. a user's own robot and task: (a) the CartPole tutorial, its guide's
+     python blocks (docs/CREATE_NEW_TASK_TORCH.md) run verbatim, which
+     register Mjlab-Cartpole: `cartpole_runner` at 4096 envs with the
+     guide's default runner cfg, 2 iterations of 8 env steps (cut from 24)
+     with phase 8's checks (35 factorizations and 3 `chol_solve` per env
+     step at decimation 2), the kernels against their plain versions on
+     the run's matrices (n = 2, f32 and f64) and their times there; a
+     learning check in the form of tests/test_doc_cartpole.py's: 30
+     iterations of 6 env steps, the mean episode length over the last 10
+     more than twice that over the first 10 and the noise std annealed
+     below 0.8 x; the card's float64 env against the CPU's on a
+     certain-draw variant, 4 envs x 8 env steps; (b) each scene of
+     mjlab_tpu_torch/assets/surface_scenes.py (a ball chain, a gimbal, a
+     humanoid with multi-hinge bodies and limited ball hips, the JAX
+     package's sensor, pair, mocap and gravity-compensation scenes) for
+     30 float64 substeps at 4096 worlds, ms per substep, every sensor
+     finite and every sensor type added in PR 13 evaluated, the first 16
+     worlds against the CPU (phase 14's rule); the humanoid in float32 at
+     10 x 20 Newton iterations, ms per substep and the kernels' launches,
+     the kernels on its matrices (n = 27, f32 and f64), and
+     `newton_direction_cone` on its matrices under the elliptic cone.
 Any failed check raises. The line before the last is the kernel table as
 JSON (`launches` from the env path of phase 7, `launches_training_path`
 from phase 8's 2 iterations, `launches_tracking_path` from phase 9's,
@@ -192,7 +213,10 @@ and its play, `launches_rough_path` from phase 13's and its play,
 `ms_rough_run_matrices_by_nv` each kernel's time on phase 11's, 12's and
 13's matrices by nv (phase 13's by task and nv), `launches_elliptic_path`,
 `launches_cg_path` and `launches_scenes_path` phase 14's,
-`launches_surface_path` phase 15's; the fifth entry,
+`launches_surface_path` phase 15's, `launches_user_robot_path` phase 16's
+(CartPole's 2 iterations, the scenes and the humanoid) and
+`ms_user_robot_matrices_by_nv` each kernel's time on CartPole's (n = 2)
+and the humanoid's (n = 27) matrices; the fifth entry,
 `newton_direction_cone`, has phase 14's elliptic run's launches and its
 times on that run's matrices); the last line is
 {"ok": true, "device": {...}}.
@@ -236,11 +260,12 @@ RL_STEADY_FROM = 10
 RL_SOLVES_PER_STEP = 5
 
 
-def fact_per_env_step(newton_iters: int = 10) -> int:
-  """Factorizations per env step: 4 substeps of factor_m, the Newton
-  directions and the integrator's factor-solve, and the post-reset
-  forward's factor_m and Newton directions (59 at 10 Newton iterations)."""
-  return DECIMATION * (newton_iters + 2) + newton_iters + 1
+def fact_per_env_step(newton_iters: int = 10, decimation: int = DECIMATION) -> int:
+  """Factorizations per env step: `decimation` substeps of factor_m, the
+  Newton directions and the integrator's factor-solve, and the post-reset
+  forward's factor_m and Newton directions (59 at 4 substeps of 10 Newton
+  iterations)."""
+  return decimation * (newton_iters + 2) + newton_iters + 1
 
 
 RL_FACT_PER_STEP = fact_per_env_step()
@@ -875,12 +900,14 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
           f"{m['Loss/value_loss']:.5f} kl {m['Loss/kl']:.5f} entropy {m['Loss/entropy']:.3f} "
           f"lr {m['Loss/lr']:.3e} reward {m['Train/mean_step_reward']:.5f} resets "
           f"{m['Train/resets']:.0f} noise_std {m['Policy/noise_std']:.4f}")
-  per_step = fact_per_env_step(runner.env.sim.model.opt.iterations)
+  decimation = runner.env.cfg.decimation
+  per_step = fact_per_env_step(runner.env.sim.model.opt.iterations, decimation)
+  solves = decimation + 1  # each substep's solve_m and the post-reset forward's
   if (fact != steps * per_step * iters
-      or launches["chol_solve"] != steps * RL_SOLVES_PER_STEP * iters
+      or launches["chol_solve"] != steps * solves * iters
       or any(launches[k] == 0 for k in expect)):
     raise AssertionError(f"{phase}: expected {steps * per_step} factorizations "
-                         f"and {steps * RL_SOLVES_PER_STEP} solves per iteration, got "
+                         f"and {steps * solves} solves per iteration, got "
                          f"{launches}")
   for m in host:
     if not all(np.isfinite(m[k]) for k in ("Loss/loss", "Loss/kl", "Loss/value_loss")):
@@ -1114,7 +1141,7 @@ def f64_env_check(task: str, n_steps: int = 8, on_step=None, nudges: int = 0,
   outs = {dv: [e.reset(seed=0)[0]] for dv, e in envs.items()}
   rng = torch.Generator().manual_seed(2)
   n_act = envs["cpu"].total_action_dim
-  keys = ("policy", "critic", "reward", "qpos")
+  keys = (*envs["cpu"].group_obs_dim, "reward", "qpos")
   spread = dict.fromkeys(keys, 0.0)
   on_step_max = 0.0
   for _ in range(n_steps):
@@ -1182,6 +1209,52 @@ def ankle_ctrl_check(env, action) -> float:
   return max(errs)
 
 
+def run_matrix_kernels(tag: str, tp, d, checks: KernelCheck, path_ms: dict, key: str,
+                       card: str) -> None:
+  """The four kernels against their plain versions on a run's matrices (n =
+  nv, J of nefc rows; f32), timed there beside their plain versions, the
+  library calls and their bounds at these shapes; each kernel's ms goes to
+  `path_ms[kernel][key]`."""
+  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.physics import solver
+
+  n = tp.nv
+  print(f"  kernels vs plain on the {tag} run's matrices, f32, n = {n}, J "
+        f"({NUM_WORLDS}, {tp.nefc}, {n}):")
+  grad = torch.randn(NUM_WORLDS, n, generator=torch.Generator(device="cuda").manual_seed(11),
+                     device="cuda")
+  qM, H = d.qM.contiguous(), solver.hessian(d, d.qacc).contiguous()
+  w = solver.newton_weights(d, d.qacc)
+  checks.all_three(f"{tag} qM", qM, d.qfrc_smooth.contiguous())
+  checks.all_three(f"{tag} H", H, grad)
+  checks.newton(f"{tag} qM,J,w", d.qM, d.efc_J, w, grad)
+  active_rows = int((w != 0).sum().item())
+  L = chol.chol_factor(qM)
+  J = d.efc_J.contiguous()
+  timing = {
+    "chol_factor": (lambda: chol.chol_factor(qM), lambda: chol.chol_factor_plain(qM),
+                    lambda: torch.linalg.cholesky_ex(qM)),
+    "chol_solve": (lambda: chol.chol_solve(L, grad), lambda: chol.chol_solve_plain(L, grad),
+                   lambda: torch.cholesky_solve(grad[..., None], L)),
+    "chol_factor_solve": (
+      lambda: chol.chol_factor_solve(H, grad), lambda: chol.chol_factor_solve_plain(H, grad),
+      lambda: torch.cholesky_solve(grad[..., None], torch.linalg.cholesky_ex(H)[0])),
+    "newton_direction": (
+      lambda: chol.newton_direction(qM, J, w, grad),
+      lambda: chol.newton_direction_plain(qM, J, w, grad),
+      lambda: torch.cholesky_solve(
+        grad[..., None], torch.linalg.cholesky_ex(chol.newton_matrix(qM, J, w))[0])),
+  }
+  bnd = bounds(NUM_WORLDS, n, rows=active_rows, nefc=tp.nefc)
+  print(f"  times on the run's matrices (mean of 20 calls; active Newton rows "
+        f"{active_rows / (NUM_WORLDS * tp.nefc):.4f} of {NUM_WORLDS * tp.nefc}) [{card}]:")
+  for k, (kern, plain, lib) in timing.items():
+    ms = [time_ms(f, [()], iters=iters) for f, iters in ((kern, 20), (plain, 5), (lib, 20))]
+    path_ms[k][key] = ms[0]
+    print(f"    {k:18s} kernel {ms[0]:.4f} ms  plain {ms[1]:.4f} ms  library "
+          f"{ms[2]:.4f} ms  bound {bnd[k][0]:.6f} ms ({bnd[k][1]})")
+
+
 def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: str,
               attr: str, checks: KernelCheck, launches: dict, path_ms: dict,
               after_build=None, on_step=None, after_train=None, ms_key=None,
@@ -1200,8 +1273,6 @@ def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: 
   after each card step). Adds the iterations' launches to `launches` and each kernel's ms
   on the run's matrices to `path_ms` (keyed by `ms_key`, default nv);
   returns the iterations' metrics."""
-  from mjlab_tpu_torch.kernels import chol
-  from mjlab_tpu_torch.physics import solver
   from mjlab_tpu_torch.scripts.train import build_runner
 
   gc.collect()
@@ -1249,42 +1320,8 @@ def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: 
   if after_train is not None:
     after_train(runner)
 
-  d, n = env.data, tp.nv
-  print(f"  kernels vs plain on the {tag} run's matrices, f32, n = {n}, J "
-        f"({NUM_WORLDS}, {tp.nefc}, {n}):")
-  grad = torch.randn(NUM_WORLDS, n, generator=torch.Generator(device="cuda").manual_seed(11),
-                     device="cuda")
-  qM, H = d.qM.contiguous(), solver.hessian(d, d.qacc).contiguous()
-  w = solver.newton_weights(d, d.qacc)
-  checks.all_three(f"{tag} qM", qM, d.qfrc_smooth.contiguous())
-  checks.all_three(f"{tag} H", H, grad)
-  checks.newton(f"{tag} qM,J,w", d.qM, d.efc_J, w, grad)
-  active_rows = int((w != 0).sum().item())
-  L = chol.chol_factor(qM)
-  J = d.efc_J.contiguous()
-  timing = {
-    "chol_factor": (lambda: chol.chol_factor(qM), lambda: chol.chol_factor_plain(qM),
-                    lambda: torch.linalg.cholesky_ex(qM)),
-    "chol_solve": (lambda: chol.chol_solve(L, grad), lambda: chol.chol_solve_plain(L, grad),
-                   lambda: torch.cholesky_solve(grad[..., None], L)),
-    "chol_factor_solve": (
-      lambda: chol.chol_factor_solve(H, grad), lambda: chol.chol_factor_solve_plain(H, grad),
-      lambda: torch.cholesky_solve(grad[..., None], torch.linalg.cholesky_ex(H)[0])),
-    "newton_direction": (
-      lambda: chol.newton_direction(qM, J, w, grad),
-      lambda: chol.newton_direction_plain(qM, J, w, grad),
-      lambda: torch.cholesky_solve(
-        grad[..., None], torch.linalg.cholesky_ex(chol.newton_matrix(qM, J, w))[0])),
-  }
-  bnd = bounds(NUM_WORLDS, n, rows=active_rows, nefc=tp.nefc)
-  print(f"  times on the run's matrices (mean of 20 calls; active Newton rows "
-        f"{active_rows / (NUM_WORLDS * tp.nefc):.4f} of {NUM_WORLDS * tp.nefc}) [{card}]:")
-  for k, (kern, plain, lib) in timing.items():
-    ms = [time_ms(f, [()], iters=iters) for f, iters in ((kern, 20), (plain, 5), (lib, 20))]
-    path_ms[k][ms_key or str(n)] = ms[0]
-    print(f"    {k:18s} kernel {ms[0]:.4f} ms  plain {ms[1]:.4f} ms  library "
-          f"{ms[2]:.4f} ms  bound {bnd[k][0]:.6f} ms ({bnd[k][1]})")
-  del runner, env, d, qM, H, L, J, w, grad
+  run_matrix_kernels(tag, tp, env.data, checks, path_ms, ms_key or str(tp.nv), card)
+  del runner, env
   gc.collect()
   torch.cuda.empty_cache()
   on_step_max = f64_env_check(task, n_steps=CUT_F64_STEPS, nudges=6, on_step=on_step)
@@ -2384,6 +2421,367 @@ def surface_path(card: str, attr: str, checks: KernelCheck, train_launches: dict
   return got
 
 
+# Phase 16: a user's own robot and task.
+CARTPOLE_DOC = Path(__file__).resolve().parent / "docs" / "CREATE_NEW_TASK_TORCH.md"
+CARTPOLE_TASK = "Mjlab-Cartpole"
+# The learning check, in the form of tests/test_doc_cartpole.py's
+# test_ppo_learns_cartpole: CARTPOLE_LEARN_ITERS iterations of
+# CARTPOLE_LEARN_STEPS env steps at 4096 envs (the guide's runner cfg
+# otherwise), the first and last CARTPOLE_WINDOW of them compared. Fixed
+# from a measured run that fit about 60 s and passed with margin (PERF.md
+# §4: 30 iterations of 6 steps in 67.3 s on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, noise std 0.998 -> 0.664; at 4 steps the std fell only to
+# 0.897 in 40 iterations).
+CARTPOLE_LEARN_ITERS = 30
+CARTPOLE_LEARN_STEPS = 6
+CARTPOLE_WINDOW = 10
+# The humanoid's f32 run: substeps, and the Newton budget of the velocity
+# tasks' cfgs (its compiled 100 x 50 is MuJoCo's default).
+HUMANOID_SUBSTEPS = 30
+HUMANOID_BUDGET = (10, 20)
+# The sensor types the port's catalog added in PR 13, each of which must be
+# evaluated on the card (mjtSensor values).
+USER_SENSOR_TYPES = (0, 4, 5, 6, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 20, 21, 22, 33, 34, 35,
+                     36, 43, 44, 45)
+
+
+def run_guide(path: Path) -> dict:
+  """Exec a guide's python blocks verbatim, in order, in one namespace,
+  leaving out its full-scale training block (`OnPolicyRunner(env`)."""
+  import re
+
+  ns: dict = {}
+  blocks = re.findall(r"```python\n(.*?)```", path.read_text(), flags=re.DOTALL)
+  for i, block in enumerate(blocks):
+    if "OnPolicyRunner(env" not in block:
+      exec(compile(block, f"{path.name}[block {i}]", "exec"), ns)
+  return ns
+
+
+def cartpole_certain_variant(cfg) -> None:
+  """The CartPole task with every draw certain (the reset offsets, the
+  push's clock and size), so that two generators give the same rollout;
+  the push fires every 0.1 s (5 env steps)."""
+  reset, push = cfg.events["reset_joints"], cfg.events["push"]
+  reset.params["position_range"] = (0.05, 0.05)
+  reset.params["velocity_range"] = (-0.02, -0.02)
+  push.interval_range_s = (0.1, 0.1)
+  push.params["velocity_range"] = (0.3, 0.3)
+
+
+def kernels_f64(tag: str, tp, d) -> None:
+  """The four kernels in float64 against their plain versions on a run's
+  matrices cast to float64 (qM, the Newton matrix at the run's qacc, its
+  weights and J): 1e-10 relative to max(1, max |plain|)."""
+  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.physics import solver
+
+  gen = torch.Generator(device="cuda").manual_seed(16)
+  qM, J = d.qM.double().contiguous(), d.efc_J.double().contiguous()
+  H = solver.hessian(d, d.qacc).double().contiguous()
+  w = solver.newton_weights(d, d.qacc).double().contiguous()
+  b = d.qfrc_smooth.double().contiguous()
+  grad = torch.randn(qM.shape[:2], generator=gen, device="cuda", dtype=torch.float64)
+  Lp = chol.chol_factor_plain(qM)
+  pairs = {
+    "chol_factor": (chol.chol_factor(qM), Lp),
+    "chol_solve": (chol.chol_solve(Lp, b), chol.chol_solve_plain(Lp, b)),
+    "chol_factor_solve": (chol.chol_factor_solve(H, grad), chol.chol_factor_solve_plain(H, grad)),
+    "newton_direction": (chol.newton_direction(qM, J, w, grad),
+                         chol.newton_direction_plain(qM, J, w, grad)),
+  }
+  errs = {}
+  for k, (got, want) in pairs.items():
+    errs[k] = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+  print(f"  kernels vs plain on the {tag} run's matrices, f64, n = {tp.nv}: relative "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " (tol 1e-10)")
+  if not max(errs.values()) <= 1e-10:
+    raise AssertionError(f"phase 16 {tag}: a float64 kernel differs from its plain version: {errs}")
+
+
+def cartpole_learning(ns: dict, card: str) -> dict:
+  """CARTPOLE_LEARN_ITERS iterations of a fresh runner of the guide's task
+  (seed 1, CARTPOLE_LEARN_STEPS env steps each): the mean episode length
+  over the last CARTPOLE_WINDOW iterations more than twice that over the
+  first, and the noise std annealed (last < 0.8 x first). A window's mean
+  length counts the episodes that ended in it and, at their length so far,
+  the episodes still running at its end: a policy that balances ends no
+  episode for 500 env steps, which would leave the first of these empty."""
+  import numpy as np
+
+  runner = ns["cartpole_runner"](NUM_WORLDS, seed=1,
+                                 num_steps_per_env=CARTPOLE_LEARN_STEPS)
+  env = runner.env
+  metrics, running = [], {}
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for i in range(CARTPOLE_LEARN_ITERS):
+    metrics.append(runner.train_iteration())
+    if i + 1 in (CARTPOLE_WINDOW, CARTPOLE_LEARN_ITERS):
+      running[i + 1] = env.episode_length_buf.double().sum().item()
+  torch.cuda.synchronize()
+  secs = time.perf_counter() - t0
+  keys = ("Train/mean_episode_length", "Train/resets", "Policy/noise_std",
+          "Train/mean_step_reward", "Loss/loss")
+  host = [{k: float(m[k]) for k in keys} for m in metrics]
+
+  def window(lo: int, hi: int) -> float:
+    ended = sum(h["Train/mean_episode_length"] * h["Train/resets"] for h in host[lo:hi])
+    count = sum(h["Train/resets"] for h in host[lo:hi])
+    return (ended + running[hi]) / (count + NUM_WORLDS)
+
+  early = window(0, CARTPOLE_WINDOW)
+  late = window(CARTPOLE_LEARN_ITERS - CARTPOLE_WINDOW, CARTPOLE_LEARN_ITERS)
+  std0, std1 = host[0]["Policy/noise_std"], host[-1]["Policy/noise_std"]
+  print(f"  learning: {CARTPOLE_LEARN_ITERS} iterations of {CARTPOLE_LEARN_STEPS} env steps at "
+        f"{NUM_WORLDS} envs in {secs:.2f} s ({secs / CARTPOLE_LEARN_ITERS * 1e3:.2f} ms per "
+        f"iteration) [{card}]")
+  print("  curve (iteration: mean episode length of the episodes that ended, resets, noise "
+        "std, mean step reward): " + "; ".join(
+          f"{i}: {h['Train/mean_episode_length']:.1f}, {h['Train/resets']:.0f}, "
+          f"{h['Policy/noise_std']:.3f}, {h['Train/mean_step_reward']:.4f}"
+          for i, h in enumerate(host)))
+  print(f"  mean episode length over iterations 0-{CARTPOLE_WINDOW - 1} {early:.2f}, over the "
+        f"last {CARTPOLE_WINDOW} {late:.2f} (x{late / early:.2f}, must exceed 2); noise std "
+        f"{std0:.4f} -> {std1:.4f} (must fall below 0.8 x)")
+  if not all(np.isfinite(h["Loss/loss"]) for h in host):
+    raise AssertionError("phase 16 learning: a non-finite loss")
+  if not (late > 2.0 * early and std1 < 0.8 * std0):
+    raise AssertionError(f"phase 16: CartPole did not learn (episode length {early:.2f} -> "
+                         f"{late:.2f}, noise std {std0:.4f} -> {std1:.4f})")
+  return {"early": early, "late": late, "std": (std0, std1), "seconds": secs}
+
+
+def cartpole_path(card: str, checks: KernelCheck, path_ms: dict) -> dict[str, int]:
+  """Phase 16, part 1: the CartPole tutorial from its guide's blocks, run
+  verbatim (they register the task): `cartpole_runner` at NUM_WORLDS envs
+  with the guide's default runner cfg at CUT_STEPS env steps per
+  iteration (cut from 24), phase 8's checks over 2 iterations (2 substeps
+  of 10 Newton directions: 35 factorizations and 3 chol_solve per env
+  step), the kernels against their plain versions on the run's
+  matrices (n = 2, f32 and f64) and their times there; the learning check;
+  the card's float64 env against the CPU's on the certain-draw variant, 4
+  envs x 8 env steps (1e-8). Returns the 2 iterations' launches."""
+  from mjlab_tpu_torch import tasks
+
+  gc.collect()
+  torch.cuda.empty_cache()
+  ns = run_guide(CARTPOLE_DOC)
+  if CARTPOLE_TASK not in tasks.list_tasks():
+    raise AssertionError(f"phase 16: the guide did not register {CARTPOLE_TASK}")
+  t0 = time.perf_counter()
+  runner = ns["cartpole_runner"](NUM_WORLDS, num_steps_per_env=CUT_STEPS)
+  torch.cuda.synchronize()
+  env, tp = runner.env, runner.env.tp
+  print(f"phase 16a the CartPole tutorial ({CARTPOLE_DOC.name}'s blocks run verbatim): "
+        f"{CARTPOLE_TASK}, {NUM_WORLDS} envs, nv {tp.nv}, Newton rows {tp.nefc}, obs "
+        f"{env.group_obs_dim}, actions {runner.num_actions}, decimation {env.cfg.decimation}, "
+        f"episodes {env.cfg.episode_length_s} s, T {runner.cfg.num_steps_per_env}, hidden "
+        f"{runner.cfg.policy.actor_hidden_dims}, Newton {env.sim.model.opt.iterations} x "
+        f"{env.sim.model.opt.ls_iterations}; cartpole_runner {time.perf_counter() - t0:.2f} s "
+        f"[{card}]")
+  if env.group_obs_dim != {"policy": (4,)} or tp.nv != 2 or runner.num_actions != 1:
+    raise AssertionError(f"phase 16: CartPole shapes {env.group_obs_dim}, nv {tp.nv}")
+  got, _, _, split = train_iterations(runner, card, "phase 16 cartpole", (4, 4),
+                                      steps=CUT_STEPS)
+  del split
+  run_matrix_kernels("cartpole", tp, env.data, checks, path_ms, "2", card)
+  kernels_f64("cartpole", tp, env.data)
+  del runner, env
+  gc.collect()
+  torch.cuda.empty_cache()
+  cartpole_learning(ns, card)
+  gc.collect()
+  torch.cuda.empty_cache()
+  f64_env_check(CARTPOLE_TASK, n_steps=8, variant=cartpole_certain_variant)
+  return got
+
+
+def scene_state(sc, tp, m, worlds: int, rng: torch.Generator, qvel_std: float = 0.05):
+  """A surface scene's state at `worlds` worlds (its JAX test's qpos, ctrl,
+  time and mocap target; its velocity plus a seeded N(0, qvel_std²) per
+  world), as CPU float64 (qpos, qvel, ctrl, time, mocap_pos)."""
+  from mjlab_tpu_torch import physics
+
+  d = physics.make_data(tp, m, worlds)
+  qpos = d.qpos.cpu() if sc.qpos is None else torch.tensor(sc.qpos).expand(worlds, -1).clone()
+  qvel = torch.zeros(worlds, tp.nv, dtype=torch.float64)
+  qvel[:, :len(sc.qvel)] = torch.tensor(sc.qvel, dtype=torch.float64)
+  qvel += qvel_std * torch.randn(worlds, tp.nv, generator=rng, dtype=torch.float64)
+  ctrl = torch.zeros(worlds, tp.nu, dtype=torch.float64)
+  ctrl[:, :len(sc.ctrl)] = torch.tensor(sc.ctrl, dtype=torch.float64)
+  mocap = d.mocap_pos.cpu().double()
+  if sc.mocap_pos is not None:
+    mocap[:] = torch.tensor(sc.mocap_pos, dtype=torch.float64)
+  return qpos.double(), qvel, ctrl, torch.full((worlds,), sc.time, dtype=torch.float64), mocap
+
+
+def user_scenes_path(card: str, checks: KernelCheck, path_ms: dict):
+  """Phase 16, part 2: each scene of assets/surface_scenes.py under each of
+  its cones, float64, SCENE_SUBSTEPS at NUM_WORLDS worlds from its state
+  (`scene_state`), through physics.step: ms per substep (CUDA events),
+  every qpos, qvel and sensor finite, the first SCENE_CPU_WORLDS worlds
+  against the CPU (1e-8, or twice the CPU's own spread under
+  PHASE14_NUDGES qpos nudges of 1e-13, phase 14's rule), every sensor type
+  of USER_SENSOR_TYPES evaluated; then the humanoid in float32 at
+  HUMANOID_BUDGET Newton iterations for HUMANOID_SUBSTEPS (ms per
+  substep, the five kernels' launches: 12 factorizations and 1 chol_solve
+  per substep), the kernels against their plain versions on its matrices
+  (n = 27, f32 and f64) and their times there, and, under the elliptic
+  cone, newton_direction_cone on its matrices (f32 and f64). Returns the
+  launches of the scenes' and the humanoid's runs."""
+  from mjlab_tpu_torch import physics
+  from mjlab_tpu_torch.assets import surface_scenes
+  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.physics import solver
+
+  torch.set_num_threads(1)
+  total = {k: 0 for k in ALL_KERNELS}
+  seen: set[int] = set()
+  print(f"phase 16b the surface scenes: {SCENE_SUBSTEPS} substeps at {NUM_WORLDS} worlds, "
+        f"float64, {SCENE_ITERATIONS} iterations x {SCENE_LS_ITERATIONS} linesearch steps; the "
+        f"first {SCENE_CPU_WORLDS} worlds against the CPU (tol 1e-8) [{card}]")
+
+  def run(tp, m, state, steps):
+    qpos, qvel, ctrl, t, mocap = state
+    dv = m.qpos0.device
+    d = physics.make_data(tp, m, qpos.shape[0]).replace(
+      qpos=qpos.to(dv), qvel=qvel.to(dv), ctrl=ctrl.to(dv), time=t.to(dv),
+      mocap_pos=mocap.to(dv))
+    for _ in range(steps):
+      d = physics.step(tp, m, d)
+    return d
+
+  def rel(a, b):
+    return max((getattr(a, f).cpu() - getattr(b, f)).abs().max().item()
+               / max(1.0, getattr(b, f).abs().max().item()) for f in ("qpos", "qvel"))
+
+  for name, sc in surface_scenes.SCENES.items():
+    for cone in sc.cones:
+      models = {}
+      for dv in ("cuda", "cpu"):
+        mjm = surface_scenes.load(name, cone)
+        mjm.opt.iterations, mjm.opt.ls_iterations = SCENE_ITERATIONS, SCENE_LS_ITERATIONS
+        models[dv] = physics.put_model(mjm, dtype=torch.float64, device=dv)
+      tp, m = models["cuda"]
+      rng = torch.Generator().manual_seed(16)
+      state = scene_state(sc, tp, m, NUM_WORLDS, rng)
+      chol.reset_counts()
+      d = run(tp, m, state, 1)
+      torch.cuda.synchronize()
+      start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+      start.record()
+      for _ in range(SCENE_SUBSTEPS - 1):
+        d = physics.step(tp, m, d)
+      end.record()
+      torch.cuda.synchronize()
+      launched = {k: v for k, v in chol.LAUNCHES.items() if v}
+      for k, v in chol.LAUNCHES.items():
+        total[k] += v
+      if not all(torch.isfinite(getattr(d, f)).all() for f in ("qpos", "qvel", "sensordata")):
+        raise AssertionError(f"phase 16 scene {name} (cone {cone}): non-finite state or sensor")
+      seen |= {int(t) for t in tp.sensor_type}
+      tp_c, m_c = models["cpu"]
+      cpu_state = tuple(x[:SCENE_CPU_WORLDS] for x in state)
+      ref = run(tp_c, m_c, cpu_state, SCENE_SUBSTEPS)
+      card_d = SimpleNamespace(qpos=d.qpos[:SCENE_CPU_WORLDS], qvel=d.qvel[:SCENE_CPU_WORLDS])
+      err, tol, spread = rel(card_d, ref), 1e-8, None
+      if err > tol:
+        q0 = cpu_state[0]
+        spread = max(
+          rel(run(tp_c, m_c, (q0 * (1 + 1e-13 * torch.randn(q0.shape, generator=rng,
+                                                             dtype=torch.float64)),
+                              *cpu_state[1:]), SCENE_SUBSTEPS), ref)
+          for _ in range(PHASE14_NUDGES))
+        tol = max(tol, 2 * spread)
+      print(f"  {name:20s} cone {cone} nv {tp.nv:2d} nefc {tp.nefc:3d} sensors {tp.nsensor:2d}: "
+            f"{start.elapsed_time(end) / (SCENE_SUBSTEPS - 1):.3f} ms per substep; card vs CPU "
+            f"{err:.3e} (tol {tol:.3e}" + (f", CPU spread {spread:.3e}" if spread is not None
+                                           else "") + f"); launches {launched}")
+      if not err <= tol:
+        raise AssertionError(f"phase 16 scene {name} (cone {cone}): card vs CPU {err:.3e}")
+  missing = sorted(set(USER_SENSOR_TYPES) - seen)
+  print(f"  sensor types evaluated on the card: {sorted(seen)}; PR 13's {len(USER_SENSOR_TYPES)} "
+        f"all among them: {not missing}")
+  if missing:
+    raise AssertionError(f"phase 16: sensor types {missing} not evaluated on the card")
+
+  # The humanoid in float32 at the velocity tasks' Newton budget.
+  sc = surface_scenes.SCENES["humanoid"]
+  mjm = surface_scenes.load("humanoid")
+  mjm.opt.iterations, mjm.opt.ls_iterations = HUMANOID_BUDGET
+  tp, m = physics.put_model(mjm, dtype=torch.float32, device="cuda")
+  rng = torch.Generator().manual_seed(27)
+  qpos, qvel, ctrl, t, mocap = scene_state(sc, tp, m, NUM_WORLDS, rng, qvel_std=0.0)
+  qvel[:, 6:] = 0.3 * torch.randn(NUM_WORLDS, tp.nv - 6, generator=rng, dtype=torch.float64)
+  ctrl = 0.1 * (2 * torch.rand(NUM_WORLDS, tp.nu, generator=rng, dtype=torch.float64) - 1)
+  d = physics.make_data(tp, m, NUM_WORLDS).replace(
+    qpos=qpos.float().cuda(), qvel=qvel.float().cuda(), ctrl=ctrl.float().cuda())
+  d = physics.step(tp, m, d)
+  torch.cuda.synchronize()
+  chol.reset_counts()
+  start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(HUMANOID_SUBSTEPS):
+    d = physics.step(tp, m, d)
+  end.record()
+  torch.cuda.synchronize()
+  hum = dict(chol.LAUNCHES)
+  for k, v in hum.items():
+    total[k] += v
+  ms = start.elapsed_time(end) / HUMANOID_SUBSTEPS
+  active = (d.contact.dist < d.contact.includemargin).sum(1).float()
+  print(f"  humanoid f32: {NUM_WORLDS} worlds, nv {tp.nv}, Newton rows {tp.nefc}, "
+        f"{HUMANOID_BUDGET[0]} x {HUMANOID_BUDGET[1]} Newton iterations, {HUMANOID_SUBSTEPS} "
+        f"substeps: {ms:.3f} ms per substep, {NUM_WORLDS / ms * 1e3:.1f} physics-steps/s; "
+        f"active contacts per world mean {active.mean().item():.2f}; root height mean "
+        f"{d.qpos[:, 2].mean().item():.3f} m; launches {hum} [{card}]")
+  if not all(torch.isfinite(getattr(d, f)).all() for f in ("qpos", "qvel", "sensordata")):
+    raise AssertionError("phase 16 humanoid f32: non-finite state or sensor")
+  it = HUMANOID_BUDGET[0]
+  if (chol.factorizations() != (it + 2) * HUMANOID_SUBSTEPS
+      or hum["chol_solve"] != HUMANOID_SUBSTEPS or hum["newton_direction"] != it * HUMANOID_SUBSTEPS
+      or not active.sum() > 0):
+    raise AssertionError(f"phase 16 humanoid: launches {hum} or no contact")
+  run_matrix_kernels("humanoid", tp, d, checks, path_ms, str(tp.nv), card)
+  kernels_f64("humanoid", tp, d)
+
+  # Under the elliptic cone: newton_direction_cone on the humanoid's matrices.
+  mjm.opt.cone = 1
+  tp_e, m_e = physics.put_model(mjm, dtype=torch.float32, device="cuda")
+  d_e = physics.make_data(tp_e, m_e, NUM_WORLDS).replace(
+    qpos=qpos.float().cuda(), qvel=qvel.float().cuda(), ctrl=ctrl.float().cuda())
+  chol.reset_counts()
+  for _ in range(3):
+    d_e = physics.step(tp_e, m_e, d_e)
+  torch.cuda.synchronize()
+  ell = dict(chol.LAUNCHES)
+  for k, v in ell.items():
+    total[k] += v
+  layout = tp_e.dev.con.cone_kernel_layout
+  gcost = solver.GeneralCost(tp_e, m_e, d_e)
+  r = gcost.residual(d_e.qacc)
+  w, Bc = gcost.row_hess(r), gcost.cone_blocks(r)
+  grad = torch.randn(NUM_WORLDS, tp_e.nv, generator=torch.Generator(device="cuda").manual_seed(6),
+                     device="cuda")
+  args = (d_e.qM.contiguous(), d_e.efc_J.contiguous(), w.contiguous(), grad, Bc.contiguous())
+  args64 = tuple(a.double() for a in args)
+  x64 = chol.newton_direction_cone_plain(*args64, layout)
+  checks.check(CONE_KERNEL, "humanoid ell.", chol.newton_direction_cone(*args, layout),
+               chol.newton_direction_cone_plain(*args, layout), x64)
+  got64 = chol.newton_direction_cone(*args64, layout)
+  err64 = (got64 - x64).abs().max().item() / max(1.0, x64.abs().max().item())
+  cone_ms = time_ms(lambda: chol.newton_direction_cone(*args, layout), [()])
+  print(f"  humanoid under the elliptic cone: {layout.table.shape[0]} cone slots, 3 substeps, "
+        f"launches {ell}; {CONE_KERNEL} on its matrices f64 relative "
+        f"{err64:.3e} (tol 1e-10), f32 {cone_ms:.4f} ms [{card}]")
+  if not err64 <= 1e-10 or ell[CONE_KERNEL] != 3 * it or ell["newton_direction"]:
+    raise AssertionError(f"phase 16 humanoid elliptic: {err64:.3e}, launches {ell}")
+  path_ms[CONE_KERNEL][str(tp_e.nv)] = cone_ms
+  return total
+
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
   parser.add_argument("--f64-seeds", default=",".join(map(str, F64_SEEDS)),
@@ -2822,6 +3220,20 @@ def main() -> int:
   surface_launches = surface_path(card, attr, checks, train_launches, steady_iter_ms)
 
   clock.done(15)
+  # -- 16. a user's own robot and task: the CartPole tutorial and the surface scenes --
+  t16 = time.perf_counter()
+  user_ms: dict[str, dict[str, float]] = {k: {} for k in ALL_KERNELS}
+  cart_launches = cartpole_path(card, checks, user_ms)
+  user_launches = user_scenes_path(card, checks, user_ms)
+  for k in KERNELS:
+    user_launches[k] += cart_launches[k]
+  print(f"phase 16: {time.perf_counter() - t16:.1f} s; launches over CartPole's 2 iterations, "
+        f"the scenes and the humanoid {user_launches}")
+  if any(user_launches[k] == 0 for k in ALL_KERNELS):
+    raise AssertionError(f"phase 16: a kernel did not run on the user-robot paths: "
+                         f"{user_launches}")
+
+  clock.done(16)
   # -- result lines ---------------------------------------------------------------
   bnd = bounds(NUM_WORLDS, N, rows=NUM_WORLDS * NEFC)
   bnd_run = bounds(NUM_WORLDS, N, rows=active_rows)["newton_direction"]
@@ -2873,6 +3285,8 @@ def main() -> int:
     k["launches_cg_path"] = cg_launches[k["name"]]
     k["launches_scenes_path"] = scene_launches[k["name"]]
     k["launches_surface_path"] = surface_launches[k["name"]]
+    k["launches_user_robot_path"] = user_launches[k["name"]]
+    k["ms_user_robot_matrices_by_nv"] = user_ms[k["name"]]
   kernels.append({
     "name": CONE_KERNEL,
     "route": "cuda",
@@ -2884,6 +3298,8 @@ def main() -> int:
     "launches_cg_path": cg_launches[CONE_KERNEL],
     "launches_scenes_path": scene_launches[CONE_KERNEL],
     "launches_surface_path": surface_launches[CONE_KERNEL],
+    "launches_user_robot_path": user_launches[CONE_KERNEL],
+    "ms_user_robot_matrices_by_nv": user_ms[CONE_KERNEL],
     "max_abs_err": checks.max_abs_err[CONE_KERNEL],
     "ms": ell["ms"],
     "plain_ms": ell["plain_ms"],

@@ -34,7 +34,10 @@ regenerate it):
 `asimov_toe_velocity_flat.npz` (Mjlab-Velocity-Flat-Asimov-Toe) and
 `asimov_toe_velocity_rough.npz` (Mjlab-Velocity-Rough-Asimov-Toe); each
 rough scene has a play scene, `<name>_play.npz` (3 x 3 tiles, no
-curriculum).
+curriculum). `cartpole.npz` is the CartPole tutorial's scene
+(docs/CREATE_NEW_TASK_TORCH.md; tests/test_torch_cartpole.py checks it).
+The small scenes of the solver surface and of a user's own robot are in
+`solver/` and `surface/` (solver_scenes.py, surface_scenes.py).
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ ASIMOV_VELOCITY_ROUGH_PLAY = Path(__file__).parent / "asimov_velocity_rough_play
 ASIMOV_TOE_VELOCITY_FLAT = Path(__file__).parent / "asimov_toe_velocity_flat.npz"
 ASIMOV_TOE_VELOCITY_ROUGH = Path(__file__).parent / "asimov_toe_velocity_rough.npz"
 ASIMOV_TOE_VELOCITY_ROUGH_PLAY = Path(__file__).parent / "asimov_toe_velocity_rough_play.npz"
+CARTPOLE = Path(__file__).parent / "cartpole.npz"
 
 # A generated-terrain scene's play scene (the JAX package's play overrides
 # regenerate the terrain on a 3 x 3 grid; the port loads it compiled).

@@ -175,6 +175,15 @@ class EntityData:
       raise ValueError("Cannot write control for non-actuated entity.")
     self._write("ctrl", _compose(self._ctrl, ctrl_ids), ctrl, env_mask)
 
+  def write_mocap_pose(self, pose, env_mask=None):
+    """Set a mocap entity's pose (B, 7) [pos, quat wxyz] in mocap_pos and
+    mocap_quat."""
+    mid = self.indexing.mocap_id
+    if mid is None:
+      raise ValueError("Cannot write mocap pose for non-mocap entity.")
+    self._write("mocap_pos", mid, pose[:, :3], env_mask)
+    self._write("mocap_quat", mid, pose[:, 3:7], env_mask)
+
   def write_external_wrench(self, force, torque, body_ids=None, env_mask=None):
     """Set the selected bodies' world-frame external force and torque
     (`xfrc_applied`); a None half keeps its value."""

@@ -7,7 +7,10 @@ spec's element ids. The port composes no spec: it binds an `EntityCfg`
 carry the entity's prefix (`robot/...`), reading only `names`,
 `name_*adr`, `jnt_*`, `body_*`, `geom_bodyid`, `site_bodyid`,
 `actuator_trntype`/`actuator_trnid` and the tendons' wrap joints, which a
-live MjModel and the committed npz both carry. A tendon, and an actuator
+live MjModel and the committed npz both carry. A joint takes its type's
+width of qpos and qvel (free 7/6, ball 4/3, hinge and slide 1/1), and a
+body may have several; a fixed-base entity whose root body is a mocap body
+is moved through `write_mocap_pose_to_sim`. A tendon, and an actuator
 that drives one, belongs to the entity whose joints the tendon spans.
 Element order is the compiled model's, which is the spec's order.
 """
@@ -232,6 +235,9 @@ class Entity:
   def write_joint_position_target_to_sim(self, position_target, joint_ids=None,
                                          env_mask=None):
     self._data.write_ctrl(position_target, joint_ids, env_mask)
+
+  def write_mocap_pose_to_sim(self, mocap_pose, env_mask=None):
+    self._data.write_mocap_pose(mocap_pose, env_mask)
 
   def write_external_wrench_to_sim(self, forces, torques, env_mask=None, body_ids=None):
     self._data.write_external_wrench(forces, torques, body_ids, env_mask)

@@ -405,12 +405,18 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
       fn = _DISPATCH[key]
     if key == (_G.mjGEOM_PLANE, _G.mjGEOM_MESH):
       fn = functools.partial(fn, verts=_hull_verts(tp, g2, dtype, device))
+    pair_id = np.asarray([p.pair_id for p in group])
+    explicit = pair_id >= 0
     groups.append(
       SimpleNamespace(
         fn=fn, k=group[0].ncon, g1=index_tensor(g1, device),
         g2=index_tensor(g2, device),
         hi=index_tensor(np.where(prio1 >= prio2, g1, g2), device),
         differ=torch.as_tensor(prio1 != prio2, device=device)[:, None],
+        # Explicit <pair>s of the group: which rows, and their pair ids.
+        pair=(torch.as_tensor(explicit, device=device)[:, None],
+              index_tensor(np.where(explicit, pair_id, 0), device))
+        if explicit.any() else None,
       )
     )
   return SimpleNamespace(
@@ -422,7 +428,9 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
 def _combine_params_vec(m: Model, g):
   """Vectorized mj_contactParam over a pair group (static priorities). A
   per-env `geom_friction` (B, ngeom, 3) gives a per-env friction (B, n, 5);
-  every other result is shared by the batch."""
+  every other result is shared by the batch. An explicit <pair> takes its
+  friction, solref, solimp, margin and solreffriction verbatim from the
+  `pair_*` leaves (mj_collision's predefined pairs)."""
   g1, g2, hi, differ = g.g1, g.g2, g.hi, g.differ
   fr = m.geom_friction
   if fr.dim() == 3:
@@ -448,7 +456,15 @@ def _combine_params_vec(m: Model, g):
   if friction.dim() == 3:
     friction = friction.transpose(0, 1)  # (B, n, 5)
   # includemargin = margin (MuJoCo >= 3.10 ignores gap).
-  return friction, solref, solimp, margin, torch.zeros_like(solref)
+  solreffriction = torch.zeros_like(solref)  # zeros: friction rows use solref
+  if g.pair is not None:
+    sel, pid = g.pair
+    friction = torch.where(sel, m.pair_friction[pid], friction)
+    solref = torch.where(sel, m.pair_solref[pid], solref)
+    solimp = torch.where(sel, m.pair_solimp[pid], solimp)
+    margin = torch.where(sel[:, 0], m.pair_margin[pid], margin)
+    solreffriction = torch.where(sel, m.pair_solreffriction[pid], solreffriction)
+  return friction, solref, solimp, margin, solreffriction
 
 
 def _gather_envs(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,8 @@ of mjlab_tpu/physics/constraint.py).
 
 Rows are allocated statically: a row whose constraint is not included
 (dist >= margin) gets D = 0 and is inert in the solver. Layout, as in the
-JAX package: [equality | dof friction | joint limits | tendon limits |
-contact groups by condim]. Equality rows are built per constraint (a few,
+JAX package: [equality | dof friction | hinge and slide limits | ball
+limits | tendon limits | contact groups by condim]. Equality rows are built per constraint (a few,
 unrolled on the host); every other block is vectorized over its rows, and a
 block a model does not have costs nothing. Contacts of condim 1/3/4/6 take
 pyramidal facets or, under the elliptic cone, [normal | friction dims] rows.
@@ -203,6 +203,8 @@ def device_tables(tp: Topology, dtype, device, cone: int = ConeType.PYRAMIDAL) -
     return index_tensor(x, device)
 
   lj, fd, lt = tp.limited_joint_ids, tp.friction_dof_ids, tp.limited_tendon_ids
+  bj = tp.limited_ball_joint_ids
+  ball_dof = tp.jnt_dofadr[bj][:, None] + np.arange(3)[None]  # (nb, 3)
   st = slot_tables(tp, cone)
   dmask = (tp.body_dof_mask[st.b2].astype(np.float64)
            - tp.body_dof_mask[st.b1].astype(np.float64))
@@ -240,6 +242,10 @@ def device_tables(tp: Topology, dtype, device, cone: int = ConeType.PYRAMIDAL) -
     lim_q=ix(tp.jnt_qposadr[lj]),
     lim_v=ix(tp.jnt_dofadr[lj]),
     lim_eye=f(np.eye(tp.nv)[tp.jnt_dofadr[lj]]),
+    lim_ball=ix(bj),
+    ball_q4=ix(tp.jnt_qposadr[bj][:, None] + np.arange(4)[None]),
+    ball_v=ix(tp.jnt_dofadr[bj]),
+    ball_eye=f(np.eye(tp.nv)[ball_dof]),  # (nb, 3, nv)
     fric_dof=ix(fd),
     fric_eye=f(np.eye(tp.nv)[fd]),
     ten_lim=ix(lt),
@@ -471,6 +477,24 @@ def make_constraint(tp: Topology, m: Model, d: Data) -> Data:
     D, aref = _rows_from(
       J, dist, margin, m.jnt_solref[lj], m.jnt_solimp[lj],
       m.dof_invweight0[t.lim_v], d.qvel, include=dist < margin,
+    )
+    add(J, D, aref, dist, margin)
+
+  # 2b) Ball-joint limit rows, after the hinge and slide ones: one cone row
+  # per limited ball, dist = range_max − ‖rotvec(q)‖ and J = −axis on the
+  # ball's 3 dofs (its local angular velocity).
+  if t.lim_ball.numel():
+    bj = t.lim_ball
+    q = d.qpos[:, t.ball_q4]  # (B, nb, 4)
+    sin_half = torch.linalg.vector_norm(q[..., 1:], dim=-1)
+    angle = 2.0 * torch.atan2(sin_half, q[..., 0])
+    axis = q[..., 1:] / torch.clamp_min(sin_half, _MINVAL)[..., None]
+    dist = per_env(m.jnt_range, 2)[:, bj, 1] - angle
+    J = -torch.sum(axis[..., None] * t.ball_eye, dim=-2)  # (B, nb, nv)
+    margin = m.jnt_margin[bj].expand(B, -1)
+    D, aref = _rows_from(
+      J, dist, margin, m.jnt_solref[bj], m.jnt_solimp[bj],
+      m.dof_invweight0[t.ball_v], d.qvel, include=dist < margin,
     )
     add(J, D, aref, dist, margin)
 

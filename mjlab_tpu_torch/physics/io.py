@@ -11,16 +11,18 @@ hull) pairs, the convex pairs of the hull SAT (box–box, sphere–mesh,
 capsule–mesh, box–mesh, mesh–mesh; a cylinder or an ellipsoid collides as
 a tessellated mesh hull where no analytic pair exists), the box-terrain
 pool for sphere, capsule, box and mesh geoms (a runtime broadphase,
-`TerrainGroup`), fixed tendons and tendon transmission, and the IMU, frame
-and subtree sensors; and the solver surface: equality constraints
-(connect and weld on bodies or sites, joint, tendon), dof friction loss,
-limited tendons, contacts of condim 1/3/4/6 under the pyramidal or the
-elliptic cone, the Newton and CG solvers, and the implicitfast, Euler and
-RK4 integrators. Everything else the JAX package supports (PGS, ball
-joints, multi-joint bodies, spatial tendons, explicit pairs, muscles and
-activation dynamics, fluid, gravity compensation, mocap, noslip, height
-fields, the other sensors) is refused here with `NotImplementedError`
-naming the feature, never simulated wrong.
+`TerrainGroup`), fixed tendons and tendon transmission; the solver
+surface: equality constraints (connect and weld on bodies or sites, joint,
+tendon), dof friction loss, limited tendons, contacts of condim 1/3/4/6
+under the pyramidal or the elliptic cone, the Newton and CG solvers, and
+the implicitfast, Euler and RK4 integrators; and a user's own robot: ball
+joints and their cone limits, bodies with several joints, every sensor
+type of the JAX package's catalog (frame sensors also in a reference
+frame), explicit `<pair>`s, mocap bodies and gravity compensation.
+Everything else the JAX package supports (PGS, spatial tendons, muscles
+and activation dynamics, fluid, noslip, height fields, the analytic
+plane–cylinder and plane–ellipsoid pairs) is refused here with
+`NotImplementedError` naming the feature, never simulated wrong.
 
 A mesh geom's hull is built from its hull vertices (`_hull_vertices`): a
 live MjModel gives them through the qhull graph MuJoCo stores; the npz
@@ -63,6 +65,7 @@ from mjlab_tpu_torch.physics.types import (
   mjtSolver,
   mjtTrn,
   mjtWrap,
+  per_env,
 )
 from mjlab_tpu_torch.physics.convex import _fibonacci_directions, build_hull
 
@@ -126,19 +129,17 @@ _TERRAIN_CELL_MARGIN = 0.6  # AABB growth when binning (> the largest robot geom
 # box pool: sphere–box and capsule–box, and the SAT for boxes and hulls.
 _TERRAIN_ROBOT_TYPES = (_G.mjGEOM_SPHERE, _G.mjGEOM_CAPSULE, _G.mjGEOM_BOX, _G.mjGEOM_MESH)
 
-_SUPPORTED_SENSORS = (
-  mjtSensor.mjSENS_ACCELEROMETER,
-  mjtSensor.mjSENS_VELOCIMETER,
-  mjtSensor.mjSENS_GYRO,
-  mjtSensor.mjSENS_FRAMEPOS,
-  mjtSensor.mjSENS_FRAMEQUAT,
-  mjtSensor.mjSENS_FRAMEXAXIS,
-  mjtSensor.mjSENS_FRAMEYAXIS,
-  mjtSensor.mjSENS_FRAMEZAXIS,
-  mjtSensor.mjSENS_FRAMELINVEL,
+# The JAX package's sensor catalog (its sensors.py stages), every type of
+# mjtSensor the port defines.
+_SUPPORTED_SENSORS = tuple(v for k, v in vars(mjtSensor).items() if k.startswith("mjSENS_"))
+# Frame sensors MuJoCo evaluates in a reference frame (sensor_reftype), and
+# the frames the port reads one from.
+_REF_SENSORS = (
+  mjtSensor.mjSENS_FRAMEPOS, mjtSensor.mjSENS_FRAMEQUAT, mjtSensor.mjSENS_FRAMEXAXIS,
+  mjtSensor.mjSENS_FRAMEYAXIS, mjtSensor.mjSENS_FRAMEZAXIS, mjtSensor.mjSENS_FRAMELINVEL,
   mjtSensor.mjSENS_FRAMEANGVEL,
-  mjtSensor.mjSENS_SUBTREEANGMOM,
 )
+_REF_OBJECTS = (mjtObj.mjOBJ_BODY, mjtObj.mjOBJ_XBODY, mjtObj.mjOBJ_GEOM, mjtObj.mjOBJ_SITE)
 
 
 def _name(m, adr: np.ndarray, i: int) -> str:
@@ -187,12 +188,6 @@ def _reject_unsupported(m) -> None:
       mjtObj.mjOBJ_BODY, mjtObj.mjOBJ_SITE
     ):
       no("connect/weld equality on objects other than bodies and sites")
-  if m.nmocap:
-    no("mocap bodies")
-  if m.npair:
-    no("explicit <pair> elements")
-  if np.any(m.body_gravcomp > 0):
-    no("gravity compensation")
   if m.na or np.any(m.actuator_dyntype != mjtDyn.mjDYN_NONE):
     no("actuator activation dynamics")
   if np.any(m.actuator_gaintype != mjtGain.mjGAIN_FIXED):
@@ -203,17 +198,21 @@ def _reject_unsupported(m) -> None:
     no("actuator bias types other than none/affine (muscle)")
   if np.any(~np.isin(m.actuator_trntype, [mjtTrn.mjTRN_JOINT, mjtTrn.mjTRN_TENDON])):
     no("actuator transmissions other than joint and tendon")
-  if np.any(m.jnt_type == mjtJoint.mjJNT_BALL):
-    no("ball joints (and their limits)")
-  if np.any(m.body_jntnum > 1):
-    no("bodies with more than one joint")
-  if np.any(~np.isin(m.geom_condim, [1, 3, 4, 6])):
+  if np.any((m.jnt_type == mjtJoint.mjJNT_BALL) & (m.jnt_stiffness != 0)):
+    # The JAX package springs hinge and slide joints only (ROADMAP Queue C).
+    no("ball joint stiffness")
+  condims = np.concatenate([m.geom_condim, m.pair_dim])
+  if np.any(~np.isin(condims, [1, 3, 4, 6])):
     no("contact condim other than 1, 3, 4 and 6")
-  for s in m.sensor_type:
-    if int(s) not in _SUPPORTED_SENSORS:
-      no(f"sensor type {int(s)}")
-  if np.any(m.sensor_reftype != 0):
-    no("sensors with a reference frame (reftype)")
+  for s in range(m.nsensor):
+    if int(m.sensor_type[s]) not in _SUPPORTED_SENSORS:
+      no(f"sensor type {int(m.sensor_type[s])}")
+    if int(m.sensor_refid[s]) >= 0 and (
+      int(m.sensor_type[s]) not in _REF_SENSORS
+      or int(m.sensor_reftype[s]) not in _REF_OBJECTS
+    ):
+      no(f"sensor reference frame of object type {int(m.sensor_reftype[s])} "
+         f"on sensor type {int(m.sensor_type[s])}")
   # Height-field pairs, plane–cylinder and plane–ellipsoid, and geom types
   # with no narrowphase against a terrain pool are refused by
   # _candidate_pairs.
@@ -457,11 +456,32 @@ def _candidate_pairs(m) -> tuple[list[GeomPair], list[TerrainGroup]]:
         )
       mobile_by_type.setdefault(t, []).append(g)
 
-  rest = [g for g in range(m.ngeom) if g not in pool]
+  # Explicit <pair>s collide unfiltered, with the pair's own condim and
+  # parameters (collision.py), and take the place of the dynamic pair of the
+  # same two geoms. A pair into the terrain pool is refused: the pool's
+  # broadphase would count its contacts again.
   pairs: list[GeomPair] = []
+  explicit: set[tuple[int, int]] = set()
+  for i in range(m.npair):
+    key, ga, gb = _pair_key(m, int(m.pair_geom1[i]), int(m.pair_geom2[i]))
+    if key is None:
+      raise NotImplementedError(
+        f"collision pair of geom types {(int(m.geom_type[ga]), int(m.geom_type[gb]))} "
+        f"in explicit <pair> {i} is not supported by mjlab_tpu_torch"
+      )
+    if ga in pool or gb in pool:
+      raise NotImplementedError(
+        f"explicit <pair> {i} references a terrain-pool geom; predefined pairs "
+        "into the terrain broadphase pool are not supported by mjlab_tpu_torch"
+      )
+    explicit |= {(ga, gb), (gb, ga)}
+    pairs.append(GeomPair(geom1=ga, geom2=gb, type1=key[0], type2=key[1],
+                          ncon=_PAIR_NCON[key], condim=int(m.pair_dim[i]), pair_id=i))
+
+  rest = [g for g in range(m.ngeom) if g not in pool]
   for i, g1 in enumerate(rest):
     for g2 in rest[i + 1 :]:
-      if not compatible(g1, g2):
+      if (g1, g2) in explicit or not compatible(g1, g2):
         continue
       key, ga, gb = _pair_key(m, g1, g2)
       if key is None:
@@ -606,16 +626,19 @@ def put_model(
     (m.jnt_limited == 1)
     & np.isin(m.jnt_type, [mjtJoint.mjJNT_HINGE, mjtJoint.mjJNT_SLIDE])
   )[0]
+  limited_ball_joints = np.nonzero(
+    (m.jnt_limited == 1) & (m.jnt_type == mjtJoint.mjJNT_BALL)
+  )[0]
   friction_dofs = (
     np.arange(m.nv) if allocate_friction_rows else np.nonzero(m.dof_frictionloss > 0)[0]
   )
   limited_tendons = np.nonzero(m.tendon_limited == 1)[0]
   neq_rows = sum(_EQ_ROWS[int(m.eq_type[e])] for e in range(m.neq) if m.eq_active0[e])
-  empty = np.zeros(0, dtype=np.int64)
   nefc = (
     neq_rows
     + len(friction_dofs)
     + len(limited_joints)
+    + len(limited_ball_joints)
     + len(limited_tendons)
     + sum(p.ncon * contact_rows(p.condim, cone) for p in pairs)
     + sum(
@@ -716,7 +739,7 @@ def put_model(
     body_subtree_mask=subtree,
     body_dof_mask=body_dof,
     limited_joint_ids=limited_joints,
-    limited_ball_joint_ids=empty,
+    limited_ball_joint_ids=limited_ball_joints,
     friction_dof_ids=friction_dofs,
     eq_type=m.eq_type.copy(),
     eq_obj1id=m.eq_obj1id.copy(),
@@ -758,10 +781,10 @@ def put_model(
   )
   leaves = {}
   for f in model_fields():
-    if f.startswith("pair_") or f.startswith("hfield_") or (
-      f.startswith("eq_") and not m.neq
+    if f.startswith("hfield_") or (f.startswith("eq_") and not m.neq) or (
+      f.startswith("pair_") and not m.npair
     ):
-      continue  # empty: rejected above, or no equality constraint
+      continue  # empty: refused above, or no equality constraint or pair
     leaves[f] = arr(getattr(m, f))
   width = {"pair_friction": 5, "pair_solref": 2, "pair_solreffriction": 2,
            "pair_solimp": 5, "pair_margin": None, "hfield_data": None,
@@ -798,6 +821,12 @@ def make_data(tp: Topology, model: Model, num_envs: int) -> Data:
     return t.expand((B,) + shape + t.shape).clone()
 
   eye3 = torch.eye(3, dtype=dtype, device=device)
+  # Mocap bodies start at their model pose (mj_resetData); the JAX package
+  # starts them at the origin (ROADMAP Queue C).
+  mocap = np.argsort(np.where(tp.body_mocapid >= 0, tp.body_mocapid, tp.nbody))[: tp.nmocap]
+  mocap = torch.as_tensor(mocap, device=device)
+  mocap_pos = per_env(model.body_pos, 2)[:, mocap].expand(B, tp.nmocap, 3).clone()
+  mocap_quat = per_env(model.body_quat, 2)[:, mocap].expand(B, tp.nmocap, 4).clone()
   contact = Contact(
     dist=torch.full((B, C), 1e10, dtype=dtype, device=device),
     pos=z(C, 3),
@@ -816,8 +845,8 @@ def make_data(tp: Topology, model: Model, num_envs: int) -> Data:
     ctrl=z(tp.nu),
     qfrc_applied=z(tp.nv),
     xfrc_applied=z(tp.nbody, 6),
-    mocap_pos=z(tp.nmocap, 3),
-    mocap_quat=tile([1.0, 0, 0, 0], tp.nmocap),
+    mocap_pos=mocap_pos,
+    mocap_quat=mocap_quat,
     qacc_warmstart=z(tp.nv),
     xanchor=z(tp.njnt, 3),
     xaxis=z(tp.njnt, 3),

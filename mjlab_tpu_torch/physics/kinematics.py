@@ -3,8 +3,10 @@ mjlab_tpu/physics/kinematics.py).
 
 Tree passes go level by level: the bodies at one tree depth are grouped by
 joint signature and each group is one batched gather/compute/scatter over
-(env, body). The port supports bodies with no joint, one free, one hinge or
-one slide joint (io.put_model refuses the rest).
+(env, body). A body with several joints (hinge, slide, ball) is walked
+joint by joint, each joint batched over the group's bodies, as MuJoCo's
+mj_kinematics walks them; a mocap body takes its frame from `mocap_pos`
+and `mocap_quat`, and its children follow it.
 
 `qpos0` and the body, geom and site offsets (`body_pos`, `body_quat`,
 `body_ipos`, `body_iquat`, `geom_pos`, `geom_quat`, `site_pos`,
@@ -31,6 +33,7 @@ from mjlab_tpu_torch.physics.types import (
 )
 
 _FREE = mjtJoint.mjJNT_FREE
+_BALL = mjtJoint.mjJNT_BALL
 _HINGE = mjtJoint.mjJNT_HINGE
 _SLIDE = mjtJoint.mjJNT_SLIDE
 
@@ -48,19 +51,30 @@ def level_groups(tp: Topology) -> tuple[tuple[tuple[tuple[int, ...], np.ndarray]
   return tuple(out)
 
 
+def _q_window(qadr: np.ndarray, width: int, offset: int = 0) -> np.ndarray:
+  """(n, width) qpos (or qvel) addresses from each joint's address."""
+  return qadr[:, None] + offset + np.arange(width)[None]
+
+
 def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
   groups = []
   for level in level_groups(tp):
     for sig, ids in level:
-      j = tp.body_jntadr[ids]
-      qadr = tp.jnt_qposadr[j] if len(sig) else np.zeros(0, dtype=np.int64)
       g = SimpleNamespace(sig=sig, ids=index_tensor(ids, device),
                           pid=index_tensor(tp.body_parentid[ids], device))
-      if sig:
-        g.jnt = index_tensor(j, device)
-        g.qadr = index_tensor(qadr, device)
-      if sig == (_FREE,):
-        g.gq7 = index_tensor(qadr[:, None] + np.arange(7)[None], device)
+      # The group's joints, k-th joint of every body at once.
+      g.joints = []
+      for k, jtype in enumerate(sig):
+        j = tp.body_jntadr[ids] + k
+        qadr = tp.jnt_qposadr[j]
+        width = {_FREE: 7, _BALL: 4}.get(jtype, 1)
+        g.joints.append(SimpleNamespace(
+          type=jtype, jnt=index_tensor(j, device), qadr=index_tensor(qadr, device),
+          q=index_tensor(_q_window(qadr, width), device),
+        ))
+      mocap = np.nonzero(tp.body_mocapid[ids] >= 0)[0]
+      g.mocap = (index_tensor(mocap, device), index_tensor(tp.body_mocapid[ids[mocap]], device)
+                 ) if len(mocap) else None
       groups.append(g)
 
   def by_type(types):
@@ -69,16 +83,19 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
 
   _, sq, sv = by_type([_HINGE, _SLIDE])
   _, fq, fv = by_type([_FREE])
+  _, bq, bv = by_type([_BALL])
   return SimpleNamespace(
     groups=groups,
     geom_bodyid=index_tensor(tp.geom_bodyid, device),
     site_bodyid=index_tensor(tp.site_bodyid, device),
     scalar_q=index_tensor(sq, device),
     scalar_v=index_tensor(sv, device),
-    free_q3=index_tensor(fq[:, None] + np.arange(3)[None], device),
-    free_q4=index_tensor(fq[:, None] + 3 + np.arange(4)[None], device),
-    free_v3=index_tensor(fv[:, None] + np.arange(3)[None], device),
-    free_v4=index_tensor(fv[:, None] + 3 + np.arange(3)[None], device),
+    free_q3=index_tensor(_q_window(fq, 3), device),
+    free_q4=index_tensor(_q_window(fq, 4, 3), device),
+    free_v3=index_tensor(_q_window(fv, 3), device),
+    free_v4=index_tensor(_q_window(fv, 3, 3), device),
+    ball_q4=index_tensor(_q_window(bq, 4), device),
+    ball_v3=index_tensor(_q_window(bv, 3), device),
   )
 
 
@@ -100,26 +117,33 @@ def kinematics(tp: Topology, m: Model, d: Data) -> Data:
     ppos, pquat = xpos[:, g.pid], xquat[:, g.pid]
     pos = ppos + mt.quat_apply(pquat, body_pos[:, g.ids])
     quat = mt.quat_mul(pquat, body_quat[:, g.ids])
-    if g.sig == (_FREE,):
-      qp = d.qpos[:, g.gq7]  # (B, n, 7)
-      pos = qp[..., :3]
-      quat = mt.normalize(qp[..., 3:7])
-      xanchor[:, g.jnt] = pos
-    elif g.sig in ((_HINGE,), (_SLIDE,)):
-      jpos, jaxis = m.jnt_pos[g.jnt], m.jnt_axis[g.jnt]
+    for jt in g.joints:
+      if jt.type == _FREE:
+        qp = d.qpos[:, jt.q]  # (B, n, 7)
+        pos = qp[..., :3]
+        quat = mt.normalize(qp[..., 3:7])
+        xanchor[:, jt.jnt] = pos
+        continue
+      jpos, jaxis = m.jnt_pos[jt.jnt], m.jnt_axis[jt.jnt]
       anchor = pos + mt.quat_apply(quat, jpos)
       axis = mt.quat_apply(quat, jaxis)
-      xanchor[:, g.jnt] = anchor
-      xaxis[:, g.jnt] = axis
-      dq = d.qpos[:, g.qadr] - qpos0[:, g.qadr]
-      if g.sig == (_SLIDE,):
-        pos = pos + axis * dq[..., None]
+      xanchor[:, jt.jnt] = anchor
+      xaxis[:, jt.jnt] = axis
+      if jt.type == _SLIDE:
+        pos = pos + axis * (d.qpos[:, jt.qadr] - qpos0[:, jt.qadr])[..., None]
+        continue
+      if jt.type == _BALL:
+        qloc = mt.normalize(d.qpos[:, jt.q])
       else:
-        quat = mt.quat_mul(quat, mt.axis_angle_to_quat(jaxis, dq))
-        pos = anchor - mt.quat_apply(quat, jpos)
+        qloc = mt.axis_angle_to_quat(jaxis, d.qpos[:, jt.qadr] - qpos0[:, jt.qadr])
+      quat = mt.quat_mul(quat, qloc)
+      pos = anchor - mt.quat_apply(quat, jpos)
+    if g.mocap is not None:
+      local, mid = g.mocap
+      pos[:, local] = d.mocap_pos[:, mid]
+      quat[:, local] = mt.normalize(d.mocap_quat[:, mid])
     xpos[:, g.ids] = pos
     xquat[:, g.ids] = quat
-
   xmat = mt.quat_to_mat(xquat)
   bid, sid = t.geom_bodyid, t.site_bodyid
   # Each offset is (n, k) or, randomized per env, (B, n, k).
@@ -149,4 +173,6 @@ def integrate_pos(
     out[:, t.free_q4] = mt.quat_integrate(
       qpos[:, t.free_q4], qvel[:, t.free_v4], dt
     )
+  if t.ball_q4.numel():
+    out[:, t.ball_q4] = mt.quat_integrate(qpos[:, t.ball_q4], qvel[:, t.ball_v3], dt)
   return out

@@ -9,9 +9,9 @@ the Cholesky kernel wrapper (kernels/chol.py).
 Spatial vectors are [angular(3); linear(3)] about the per-tree origin (the
 root subtree CoM), matching MuJoCo's cdof/cvel conventions.
 
-`body_mass`, `body_inertia`, `dof_armature`, `jnt_stiffness`,
-`dof_damping` and the actuators' `gainprm`/`biasprm` may carry a leading
-env axis (domain randomization, sim.PER_ENV_FIELDS).
+`body_mass`, `body_inertia`, `body_gravcomp`, `dof_armature`,
+`jnt_stiffness`, `dof_damping` and the actuators' `gainprm`/`biasprm` may
+carry a leading env axis (domain randomization, sim.PER_ENV_FIELDS).
 """
 
 from __future__ import annotations
@@ -85,7 +85,10 @@ def cross_force(u: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 
 
 def _dof_tables(tp: Topology) -> dict[str, np.ndarray]:
-  """Per-dof joint-type masks and the mj_comVel "preceding dof" mask."""
+  """Per-dof joint-type masks and the mj_comVel "preceding dof" mask. A
+  ball's three dofs and a free joint's rotational ones rotate about the
+  columns of the body's frame (`axis_col`), a ball's about its joint's
+  anchor, a free joint's about the body's origin."""
   nv = tp.nv
   dof_jnt = tp.dof_jntid
   jnt_type = tp.jnt_type[dof_jnt]
@@ -128,6 +131,9 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
     return torch.as_tensor(np.asarray(x, dtype=bool), device=device)
 
   spring = np.nonzero(np.isin(tp.jnt_type, [_HINGE, _SLIDE]))[0]
+  # Gravity compensation acts on the bodies whose compiled gravcomp is
+  # positive (the JAX package's static selection).
+  gravcomp = np.nonzero(np.asarray(tp.body_gravcomp_host) > 0)[0]
   return SimpleNamespace(
     subtree=f(tp.body_subtree_mask),
     body_dof=f(tp.body_dof_mask),
@@ -150,6 +156,8 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
     spring_jnt=ix(spring),
     spring_q=ix(tp.jnt_qposadr[spring]),
     spring_v=ix(tp.jnt_dofadr[spring]),
+    gravcomp=ix(gravcomp) if len(gravcomp) else None,
+    gravcomp_dof=f(tp.body_dof_mask[gravcomp]),
     trn_qmat=f(tp.trn_qmat),
     trn_vmat=f(tp.trn_vmat),
     tendon_qmat=f(tp.tendon_qmat),
@@ -315,8 +323,10 @@ def _Jt_mul(J: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def passive(tp: Topology, m: Model, d: Data) -> Data:
-  """Joint springs, dof dampers, and tendon springs (with their deadband)
-  and dampers through ten_J (no gravcomp or fluid: refused at put_model)."""
+  """Joint springs, dof dampers, tendon springs (with their deadband) and
+  dampers through ten_J, and gravity compensation (mj_gravcomp: the force
+  gravcomp·mass·(−g) at each compensated body's com). Fluid forces are
+  refused at put_model."""
   t = tp.dev.smooth
   qfrc_spring = torch.zeros_like(d.qvel)
   frc = -per_env(m.jnt_stiffness, 1)[:, t.spring_jnt] * (
@@ -330,10 +340,20 @@ def passive(tp: Topology, m: Model, d: Data) -> Data:
     disp = torch.where(L > up, up - L, torch.where(L < lo, lo - L, torch.zeros_like(L)))
     qfrc_spring = qfrc_spring + _Jt_mul(d.ten_J, m.tendon_stiffness * disp)
     qfrc_damper = qfrc_damper - _Jt_mul(d.ten_J, m.tendon_damping * d.ten_velocity)
+  qfrc_passive = qfrc_spring + qfrc_damper
+  if t.gravcomp is not None:
+    gc = t.gravcomp
+    force = -(per_env(m.body_gravcomp, 1)[:, gc] * per_env(m.body_mass, 1)[:, gc])[
+      ..., None] * m.opt.gravity  # (B or 1, G, 3)
+    origins = d.subtree_com[:, t.dof_origin_body]  # (B, nv, 3)
+    ang, lin = d.cdof[..., :3], d.cdof[..., 3:]
+    jac = lin[:, None] + mt.cross(ang[:, None], d.xipos[:, gc, None] - origins[:, None])
+    qfrc_passive = qfrc_passive + torch.einsum(
+      "bgvj,bgj->bv", jac * t.gravcomp_dof[..., None], force.expand(jac.shape[0], -1, -1))
   return d.replace(
     qfrc_spring=qfrc_spring,
     qfrc_damper=qfrc_damper,
-    qfrc_passive=qfrc_spring + qfrc_damper,
+    qfrc_passive=qfrc_passive,
   )
 
 

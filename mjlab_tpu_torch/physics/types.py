@@ -46,9 +46,26 @@ class mjtGeom:
 
 
 class mjtSensor:
+  mjSENS_TOUCH = 0
   mjSENS_ACCELEROMETER = 1
   mjSENS_VELOCIMETER = 2
   mjSENS_GYRO = 3
+  mjSENS_FORCE = 4
+  mjSENS_TORQUE = 5
+  mjSENS_MAGNETOMETER = 6
+  mjSENS_RANGEFINDER = 7
+  mjSENS_JOINTPOS = 9
+  mjSENS_JOINTVEL = 10
+  mjSENS_TENDONPOS = 11
+  mjSENS_TENDONVEL = 12
+  mjSENS_ACTUATORPOS = 13
+  mjSENS_ACTUATORVEL = 14
+  mjSENS_ACTUATORFRC = 15
+  mjSENS_JOINTACTFRC = 16
+  mjSENS_TENDONACTFRC = 17
+  mjSENS_JOINTLIMITPOS = 20
+  mjSENS_JOINTLIMITVEL = 21
+  mjSENS_JOINTLIMITFRC = 22
   mjSENS_FRAMEPOS = 26
   mjSENS_FRAMEQUAT = 27
   mjSENS_FRAMEXAXIS = 28
@@ -56,7 +73,14 @@ class mjtSensor:
   mjSENS_FRAMEZAXIS = 30
   mjSENS_FRAMELINVEL = 31
   mjSENS_FRAMEANGVEL = 32
+  mjSENS_FRAMELINACC = 33
+  mjSENS_FRAMEANGACC = 34
+  mjSENS_SUBTREECOM = 35
+  mjSENS_SUBTREELINVEL = 36
   mjSENS_SUBTREEANGMOM = 37
+  mjSENS_E_POTENTIAL = 43
+  mjSENS_E_KINETIC = 44
+  mjSENS_CLOCK = 45
 
 
 class mjtObj:

@@ -1,6 +1,7 @@
 """List the port's registered Mjlab-* tasks with their env-cfg entry points
 (port of mjlab_tpu/scripts/list_envs.py, in its column layout; the port's
-registry is a plain dict, without gymnasium).
+registry is a plain dict, without gymnasium), those of the
+`mjlab_tpu_torch.tasks` entry-point group included.
 
   python -m mjlab_tpu_torch.scripts.list_envs
 """
@@ -11,6 +12,7 @@ from mjlab_tpu_torch import tasks
 
 
 def main() -> None:
+  tasks.load_entry_points()
   ids = tasks.list_tasks()
   if not ids:
     print("No Mjlab-* tasks registered.")

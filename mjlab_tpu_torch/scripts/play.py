@@ -158,6 +158,7 @@ def main() -> None:
   from mjlab_tpu_torch import tasks
   from mjlab_tpu_torch.scripts.cli import format_help, parse_args
 
+  tasks.load_entry_points()
   positionals, overrides = parse_args(sys.argv[1:])
   if not positionals:
     print("usage: play <Task-ID> [--checkpoint ..] [--policy zero|random|trained]")

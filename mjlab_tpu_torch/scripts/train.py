@@ -153,6 +153,7 @@ def main() -> None:
   from mjlab_tpu_torch import tasks
   from mjlab_tpu_torch.scripts.cli import format_help, parse_args
 
+  tasks.load_entry_points()
   positionals, overrides = parse_args(sys.argv[1:])
   if not positionals:
     print("usage: train <Task-ID> [--env.x.y v] [--agent.x v] [--log_dir d]")

@@ -8,6 +8,13 @@ env from the env cfg; `load_rl_cfg` gives the runner cfg.
     obs, rew, terminated, time_outs, extras = env.step(action)
 
 `register(task_id, env, rl)` adds a task of the user's own (an edited cfg).
+A third-party package registers its tasks on import and names its module
+in the `mjlab_tpu_torch.tasks` entry-point group of its packaging
+metadata; `load_entry_points()` imports each such module, and the train,
+play and list_envs scripts call it when they start:
+
+    [project.entry-points."mjlab_tpu_torch.tasks"]
+    your_package = "your_package.tasks"
 
 The tracking tasks need a motion file (`cfg.commands["motion"].motion_file`;
 `make_env` takes none, so build their env from `load_env_cfg`, or train
@@ -63,6 +70,29 @@ _REGISTRY = {
     "rl": "mjlab_tpu_torch.tasks.tracking.config.g1.rl_cfg:G1FlatPPORunnerCfg",
   },
 }
+
+
+ENTRY_POINT_GROUP = "mjlab_tpu_torch.tasks"
+_entry_points_loaded = False
+
+
+def load_entry_points() -> None:
+  """Import, once, every module of the ENTRY_POINT_GROUP entry points (the
+  JAX package's `mjlab_tpu.tasks` group). A plugin's error propagates with
+  a note naming its entry point; the JAX package swallows it (ROADMAP
+  Queue C)."""
+  global _entry_points_loaded
+  if _entry_points_loaded:
+    return
+  from importlib.metadata import entry_points
+
+  for ep in entry_points(group=ENTRY_POINT_GROUP):
+    try:
+      ep.load()
+    except Exception as e:
+      e.add_note(f"while loading the {ENTRY_POINT_GROUP} entry point '{ep.name} = {ep.value}'")
+      raise
+  _entry_points_loaded = True
 
 
 def list_tasks() -> list[str]:

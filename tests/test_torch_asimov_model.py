@@ -148,6 +148,7 @@ _TENDON_XML = """
   <option integrator="implicitfast"/>
   <worldbody>
     <geom name="floor" type="plane" size="5 5 0.1"/>
+    <camera name="c" pos="0 0 2"/>
     <body name="a" pos="0 0 1">
       <freejoint/>
       <geom type="sphere" size="0.1"/>
@@ -171,8 +172,8 @@ _TENDON_XML = """
     ('<tendon><spatial name="t"><site site="s0"/><site site="s1"/></spatial></tendon>',
      "", "spatial tendon"),
     ('<tendon><fixed name="t"><joint joint="j" coef="1"/></fixed></tendon>',
-     '<sensor><tendonpos tendon="t"/></sensor>', "sensor type"),
-    ("", '<sensor><framepos objtype="site" objname="s1" reftype="site" refname="s0"/>'
+     '<sensor><user dim="1"/></sensor>', "sensor type"),
+    ("", '<sensor><framepos objtype="site" objname="s1" reftype="camera" refname="c"/>'
      "</sensor>", "reference frame"),
   ],
 )

@@ -120,7 +120,7 @@ def test_kernel_matches_plain_on_card(dtype, tol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 7, 31, 32, 33, 35, 64])
+@pytest.mark.parametrize("n", [1, 2, 7, 27, 31, 32, 33, 35, 64])
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.float64, 1e-12)])
 def test_kernel_matches_plain_on_card_for_every_order(n, dtype, tol):
   if not torch.cuda.is_available():

@@ -3,9 +3,11 @@
 training iteration, converting a motion
 CSV and training the tracking task on it, and a run's lifecycle (training
 with periodic saves, resuming, play, list_envs, joint_deltas, the NaN
-guard, the artifact registry and the exporters, and a user's task
+guard, the artifact registry and the exporters, a user's task
 registered with the sim-to-real cfg of chip_smoke.py's phase 15: per-env
-randomization, history, delay, noise models, pushes and clip) pull in none of jax,
+randomization, history, delay, noise models, pushes and clip, a substep of
+every surface scene, and the CartPole tutorial's port blocks, registered
+and stepped) pull in none of jax,
 jaxlib, mjlab_tpu, mujoco, gymnasium, flax, optax, orbax or wandb; no
 module of the port and not chip_smoke.py names one of them in an import;
 its own MuJoCo enum constants agree with mujoco's; and it registers every
@@ -124,6 +126,19 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
     "reg = mjlab_tpu_torch.utils.artifacts.LocalRegistry(os.path.join(d, 'reg'))\n"
     "reg.publish(ck, 'runs/a')\n"
     "assert reg.resolve('runs/a:v1').is_dir()\n"
+    "import re, pathlib, mjlab_tpu_torch.assets.surface_scenes as ss\n"
+    "from mjlab_tpu_torch import physics\n"
+    "for n in ss.SCENES:\n"
+    "  tp, m = physics.put_model(ss.load(n), dtype=torch.float64, device='cpu')\n"
+    "  physics.step(tp, m, physics.make_data(tp, m, 1))\n"
+    "doc = pathlib.Path('docs/CREATE_NEW_TASK_TORCH.md').read_text()\n"
+    "ns = {}\n"
+    "for b in re.findall(r'```python\\n(.*?)```', doc, flags=re.DOTALL):\n"
+    "  if 'OnPolicyRunner(env' not in b:\n"
+    "    exec(b, ns)\n"
+    "e = mjlab_tpu_torch.tasks.make_env('Mjlab-Cartpole', num_envs=2, device='cpu')\n"
+    "e.reset(seed=0)\n"
+    "e.step(torch.zeros(2, e.total_action_dim))\n"
     "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in\n"
     "  ('jax', 'jaxlib', 'mjlab_tpu', 'mujoco', 'gymnasium', 'flax', 'optax',\n"
     "   'orbax', 'wandb'))))\n"

@@ -122,15 +122,16 @@ def test_g1_npz_is_fresh(tmp_path):
   [
     ('iterations="10"', "PGS solver"),
     ('iterations="10"', "PGS with elliptic"),
-    ('<joint name="j4" type="hinge"', "ball joints"),
-    ('<body name="ball" pos="0.3 0.25 0.3">', "gravity compensation"),
+    ('<joint name="j4" type="hinge"', "ball joint stiffness"),
+    ('iterations="10"', "noslip post-solver"),
   ],
 )
 def test_unsupported_features_raise(xml_edit, feature):
   """Features the port still refuses raise NotImplementedError naming them
   (RK4, CG, the elliptic cone and friction loss are ported: see
   tests/test_torch_solvers.py, test_torch_elliptic.py and
-  test_torch_constraint_rows.py)."""
+  test_torch_constraint_rows.py; ball joints and gravity compensation:
+  tests/test_torch_ball_joints.py and test_torch_mocap_gravcomp.py)."""
   import mujoco
 
   from tests.torch_parity import TOY_XML
@@ -138,13 +139,13 @@ def test_unsupported_features_raise(xml_edit, feature):
   repl = {
     "PGS solver": 'iterations="10" solver="PGS"',
     "PGS with elliptic": 'iterations="10" solver="PGS" cone="elliptic"',
-    "ball joints": '<joint name="j4" type="ball"',
-    "gravity compensation": '<body name="ball" pos="0.3 0.25 0.3" gravcomp="1">',
+    "ball joint stiffness": '<joint name="j4" type="ball" stiffness="5"',
+    "noslip post-solver": 'iterations="10" noslip_iterations="3"',
   }[feature]
   xml = TOY_XML.replace(xml_edit, repl, 1)
-  if feature == "ball joints":  # a ball joint takes no axis, and no actuator
-    xml = xml.replace('type="ball" axis="1 0 0" range="-0.6 0.6"', 'type="ball"').replace(
-      '<position joint="j4" kp="30"/>', "")
+  if feature == "ball joint stiffness":  # a ball joint takes no axis, and no actuator
+    xml = xml.replace('type="ball" stiffness="5" axis="1 0 0" range="-0.6 0.6"',
+                      'type="ball" stiffness="5"').replace('<position joint="j4" kp="30"/>', "")
   m = mujoco.MjModel.from_xml_string(xml)
   with pytest.raises(NotImplementedError, match=feature):
     tio.put_model(m, dtype=torch.float64, device="cpu")

@@ -201,7 +201,8 @@ def test_cone_cpu_wrapper_takes_plain_path_and_counts_nothing():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n, m, dims", [(35, 200, "3"), (35, 29, "3,4,6"), (20, 33, "6"),
-                                        (50, 9, "3,4,6"), (7, 0, "3")])
+                                        (50, 9, "3,4,6"), (7, 0, "3"), (27, 24, "3"),
+                                        (2, 1, "3")])
 @pytest.mark.parametrize("pattern", ["zones", "active", "zero"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cone_kernel_matches_plain_on_card(n, m, dims, pattern, dtype):
@@ -227,7 +228,8 @@ def test_cone_kernel_matches_plain_on_card(n, m, dims, pattern, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n, m", [(35, 1699), (35, 67), (20, 33), (50, 129), (7, 0)])
+@pytest.mark.parametrize("n, m", [(35, 1699), (35, 67), (20, 33), (50, 129), (7, 0),
+                                  (27, 141), (2, 1)])
 @pytest.mark.parametrize("pattern", ["dense", "sparse", "zero"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_matches_plain_on_card(n, m, pattern, dtype):

@@ -1153,3 +1153,132 @@ def solver_scene_run(name: str, steps: int, cone=None, xml=None, qvel=None,
     port=(td.qpos.numpy(), td.qvel.numpy()),
     ttp=ttp, tm=tm, jtp=jtp, jm=jm, stages=stages,
   )
+
+
+# ---------------------------------------------------------------------------
+# The CartPole tutorial: docs/CREATE_NEW_TASK.md (the JAX package) and
+# docs/CREATE_NEW_TASK_TORCH.md (the port).
+# ---------------------------------------------------------------------------
+
+CARTPOLE_ID = "Mjlab-Cartpole"
+
+
+def doc_blocks(name: str) -> list[str]:
+  """The ```python blocks of docs/<name>, in order."""
+  import re
+  from pathlib import Path
+
+  text = (Path(__file__).resolve().parents[1] / "docs" / name).read_text()
+  return re.findall(r"```python\n(.*?)```", text, flags=re.DOTALL)
+
+
+def run_doc(name: str) -> dict:
+  """Exec the doc's python blocks in one namespace, verbatim, leaving out
+  the full-scale training block (`OnPolicyRunner(env`)."""
+  ns: dict = {}
+  for i, block in enumerate(doc_blocks(name)):
+    if "OnPolicyRunner(env" in block:
+      continue
+    exec(compile(block, f"{name}[block {i}]", "exec"), ns)
+  return ns
+
+
+def cartpole_jax_env(num_envs: int = 4, dtype: str = "float32"):
+  """The JAX tutorial's env (docs/CREATE_NEW_TASK.md run verbatim), and the
+  namespace of its blocks. The gymnasium id it registers is removed again
+  unless it was registered before."""
+  import copy
+
+  import gymnasium as gym
+  from mjlab_tpu.envs import ManagerBasedRlEnv as JaxEnv
+
+  had = CARTPOLE_ID in gym.registry
+  ns = run_doc("CREATE_NEW_TASK.md")
+  if not had:
+    gym.registry.pop(CARTPOLE_ID, None)
+  cfg = copy.deepcopy(ns["create_cartpole_env_cfg"](num_envs=num_envs))
+  cfg.sim.dtype = dtype
+  return JaxEnv(cfg), ns
+
+
+def save_cartpole_npz(path=None) -> None:
+  """Write the CartPole tutorial's compiled scene (the JAX tutorial env's
+  sim.mj_model) to `path`, default the committed assets.CARTPOLE."""
+  from mjlab_tpu_torch.assets import CARTPOLE, save_model_npz
+
+  jenv, _ = cartpole_jax_env()
+  save_model_npz(jenv.sim.mj_model, path or CARTPOLE)
+
+
+# ---------------------------------------------------------------------------
+# A user's own robot: the scenes of mjlab_tpu_torch/assets/surface_scenes.py.
+# ---------------------------------------------------------------------------
+
+
+def surface_models(name: str, cone=None, xml=None, budget=True, **opt):
+  """(MjModel, JAX (Topology, Model), port (Topology, Model)) of a surface
+  scene (or `xml`), float64, with `cone`, the option edits `opt` and, with
+  `budget`, SCENE_BUDGET's Newton iterations (the MjModel keeps it too)."""
+  from mjlab_tpu_torch.assets.surface_scenes import SCENES
+
+  mj = mujoco.MjModel.from_xml_string(xml or SCENES[name].xml)
+  if cone is not None:
+    mj.opt.cone = cone
+  for k, v in {**(SCENE_BUDGET if budget else {}), **opt}.items():
+    setattr(mj.opt, k, v)
+  return (mj, jphysics.put_model(mj, dtype=jnp.float64),
+          tio.put_model(mj, dtype=torch.float64, device="cpu"))
+
+
+def surface_data(name: str, jtp, jm, qpos=None, qvel=None):
+  """The scene's state (its JAX test's qpos, qvel, ctrl, time and mocap
+  target; `qpos`/`qvel` replace them) as (JAX Data, port Data)."""
+  from mjlab_tpu_torch.assets.surface_scenes import SCENES
+
+  sc = SCENES[name]
+  d = jphysics.make_data(jtp, jm)
+  if qpos is not None or sc.qpos is not None:
+    d = d.replace(qpos=jnp.asarray(sc.qpos if qpos is None else qpos, dtype=jnp.float64))
+  v = np.zeros(jtp.nv)
+  v[: len(sc.qvel)] = sc.qvel
+  d = d.replace(qvel=jnp.asarray(v if qvel is None else qvel),
+                time=jnp.asarray(sc.time, dtype=jnp.float64))
+  if sc.ctrl:
+    d = d.replace(ctrl=jnp.asarray(sc.ctrl, dtype=jnp.float64))
+  if sc.mocap_pos is not None:
+    d = d.replace(mocap_pos=jnp.asarray([sc.mocap_pos], dtype=jnp.float64))
+  return d, to_torch(jax_data_arrays(jax.tree_util.tree_map(lambda x: x[None], d)))
+
+
+def one_world(d) -> dict[str, np.ndarray]:
+  """A single-world JAX Data's leaves with a batch axis, by name."""
+  return jax_data_arrays(jax.tree_util.tree_map(lambda x: x[None], d))
+
+
+def surface_rollout(name: str, steps: int, cone=None, xml=None, qvel=None, qpos=None,
+                    on_step=None, **opt):
+  """`steps` substeps of a surface scene in MuJoCo (its converged solver),
+  the JAX package and the port (SCENE_BUDGET) side by side, from the
+  scene's state (MuJoCo given the same qpos, qvel, ctrl and mocap target).
+  `on_step(i, mjd, jax d, port d)` may return (jax d, port d) edited before
+  step i. Returns the three final (qpos, qvel)."""
+  from mjlab_tpu_torch import physics as tphysics
+
+  mj, (jtp, jm), (ttp, tm) = surface_models(name, cone, xml, **opt)
+  d, td = surface_data(name, jtp, jm, qpos, qvel)
+  mj = surface_models(name, cone, xml, budget=False, **opt)[0]
+  mjd = mujoco.MjData(mj)
+  mjd.qpos[:], mjd.qvel[:] = np.asarray(d.qpos), np.asarray(d.qvel)
+  mjd.ctrl[:], mjd.mocap_pos[:] = np.asarray(d.ctrl), np.asarray(d.mocap_pos)
+  step = jax.jit(lambda dd: jphysics.step(jtp, jm, dd))
+  for i in range(steps):
+    if on_step is not None:
+      d, td = on_step(i, mjd, d, td)
+    mujoco.mj_step(mj, mjd)
+    d = step(d)
+    td = tphysics.step(ttp, tm, td)
+  return SimpleNamespace(
+    mujoco=(mjd.qpos.copy(), mjd.qvel.copy()),
+    jax=(np.asarray(d.qpos)[None], np.asarray(d.qvel)[None]),
+    port=(td.qpos.numpy(), td.qvel.numpy()), ttp=ttp, jtp=jtp, mj=mj,
+  )
