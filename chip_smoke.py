@@ -76,8 +76,8 @@ Phases, each printing its own lines:
      tracking PPO cfg; checks the observation widths (160, 286) and the
      per-env body_ipos, qpos0 and foot friction (each different across envs,
      inside its range, on its elements only); then phase 8's 2 iterations,
-     checks, split and profiles (device-only: no split by span, cut to keep
-     the script inside its limit) on it, plus the motion frames inside
+     checks and split (no profile since PR 14, device-only before: cut to
+     keep the script inside its limit) on it, plus the motion frames inside
      [0, 500) and a failure counted in the adaptive bins; holds the kernels
      against their plain versions on the tracking run's matrices; and the
      card's float64 iteration against the CPU's on the tracking task's
@@ -141,8 +141,8 @@ Phases, each printing its own lines:
  14. the solver surface: (a) G1 velocity-flat under
      `--env.sim.mujoco.cone elliptic` (nefc 1320: 29 limit rows, 154
      condim-1 rows, 379 cone slots of 3 rows) through `build_runner` at
-     4096 envs, 1 iteration (cut from 2) with phase 8's checks, a
-     device-only profile, every Newton direction through
+     4096 envs, 1 iteration (cut from 2) with phase 8's checks (its
+     device-only profile cut in PR 14), every Newton direction through
      `newton_direction_cone` (1200 launches per iteration, none of
      `newton_direction`), the kernel against its
      plain version on the run's last matrices in f32 (KernelCheck's rule)
@@ -157,8 +157,8 @@ Phases, each printing its own lines:
      float64 env check (2 env steps, 2 nudges); (c) each scene of
      mjlab_tpu_torch/assets/solver_scenes.py (equality connect/weld on
      bodies and sites, joint, tendon; friction loss; a limited tendon; CG;
-     condim 4 and 6 under both cones; the elliptic puck; Euler; RK4) for 30
-     (cut from 50) float64 substeps at 4096 worlds, ms per substep, its first 16 worlds
+     condim 4 and 6 under both cones; the elliptic puck; Euler; RK4) for 20
+     (cut from 50 and 30) float64 substeps at 4096 worlds, ms per substep, its first 16 worlds
      against the CPU (1e-8, or twice the CPU's spread under 2 nudges).
  15. the user surface: the G1 velocity-flat cfg as a user edits it for
      sim-to-real training (`sim_to_real_edit`: startup randomization of the
@@ -175,8 +175,8 @@ Phases, each printing its own lines:
      phase 8's checks (every env's push clock started so that it is pushed
      in the second), policy obs 297 wide, each randomized leaf different
      across envs, inside its range and on its elements only, the launches
-     equal to phase 8's, the iteration against phase 8's in this call, a
-     device-only profile; the kernels against their plain versions on the
+     equal to phase 8's, the iteration against phase 8's in this call (its
+     profile cut in PR 14); the kernels against their plain versions on the
      run's per-env matrices (qM, the Newton matrix and direction, the
      implicitfast matrix); and the card's float64 env against the CPU's
      with all 19 FIELD_SPECS rows randomized (each env different, the
@@ -197,12 +197,34 @@ Phases, each printing its own lines:
      mjlab_tpu_torch/assets/surface_scenes.py (a ball chain, a gimbal, a
      humanoid with multi-hinge bodies and limited ball hips, the JAX
      package's sensor, pair, mocap and gravity-compensation scenes) for
-     30 float64 substeps at 4096 worlds, ms per substep, every sensor
+     20 (cut from 30) float64 substeps at 4096 worlds, ms per substep, every sensor
      finite and every sensor type added in PR 13 evaluated, the first 16
      worlds against the CPU (phase 14's rule); the humanoid in float32 at
      10 x 20 Newton iterations, ms per substep and the kernels' launches,
      the kernels on its matrices (n = 27, f32 and f64), and
      `newton_direction_cone` on its matrices under the elliptic cone.
+ 17. the actuation and tendon surface, and PGS: (a) G1 velocity-flat under
+     `--env.sim.mujoco.solver pgs` at 4096 envs, f32: 10 env steps under
+     set_sync_debug_mode("error"), ms per env step, the launches per env
+     step against the code's count (one `pgs_solve` per forward: 4
+     substeps and the post-reset forward; M's factor and solve per
+     forward, the integrator's factor-solve per substep, no Newton
+     direction), the active rows per world; `pgs_solve` (csrc/pgs.cu)
+     against `pgs_solve_plain` on the run's own rows and factor (f32 by
+     KernelCheck's rule; the same rows cast to f64 within 1e-10
+     relative), its ms beside the plain version's (which forms A, 512
+     worlds a call) and its bound; one PPO iteration of 8 env steps
+     through build_runner with phase 8's checks (9 factorizations, 5
+     `chol_solve` and 5 `pgs_solve` per env step); the card's float64
+     env against the CPU's (phase 14's rule); (b) each scene of
+     mjlab_tpu_torch/assets/muscle_scenes.py (the JAX package's
+     activation, muscle, fluid, spatial-tendon, wrap and PGS test scenes
+     and a musculoskeletal arm) under each integrator its JAX test runs,
+     30 float64 substeps at 4096 worlds, ms per substep, the first 16
+     worlds against the CPU (phase 14's rule); and the filter-actuated
+     hopper env at 4096 envs, 10 env steps under set_sync_debug_mode
+     ("error"): act moves toward its targets and is exactly 0 after the
+     time-out that resets every env.
 Any failed check raises. The line before the last is the kernel table as
 JSON (`launches` from the env path of phase 7, `launches_training_path`
 from phase 8's 2 iterations, `launches_tracking_path` from phase 9's,
@@ -218,7 +240,11 @@ and its play, `launches_rough_path` from phase 13's and its play,
 `ms_user_robot_matrices_by_nv` each kernel's time on CartPole's (n = 2)
 and the humanoid's (n = 27) matrices; the fifth entry,
 `newton_direction_cone`, has phase 14's elliptic run's launches and its
-times on that run's matrices); the last line is
+times on that run's matrices; every entry has `launches_pgs_path` and
+`launches_muscle_scenes_path`, phase 17's; the sixth, `pgs_solve`, has
+phase 17a's env steps' launches, its times on that run's rows and
+`library_ms` null: no PyTorch call computes a projected Gauss-Seidel
+sweep); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -260,11 +286,16 @@ RL_STEADY_FROM = 10
 RL_SOLVES_PER_STEP = 5
 
 
-def fact_per_env_step(newton_iters: int = 10, decimation: int = DECIMATION) -> int:
+def fact_per_env_step(newton_iters: int = 10, decimation: int = DECIMATION,
+                      pgs: bool = False) -> int:
   """Factorizations per env step: `decimation` substeps of factor_m, the
   Newton directions and the integrator's factor-solve, and the post-reset
   forward's factor_m and Newton directions (59 at 4 substeps of 10 Newton
-  iterations)."""
+  iterations); under PGS, which takes no Newton direction, factor_m per
+  forward and the integrator's factor-solve per substep (9 at 4
+  substeps)."""
+  if pgs:
+    return 2 * decimation + 1
   return decimation * (newton_iters + 2) + newton_iters + 1
 
 
@@ -858,7 +889,9 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
   included), each iteration's metrics and the last iteration's split (its
   parts' ms, memory, and (batch, logs, perms)). Each kernel of `expect` must
   have launched. The runner takes `steps` env steps per iteration (the PPO
-  cfgs' TRAIN_STEPS, or CUT_STEPS where a phase overrides it)."""
+  cfgs' TRAIN_STEPS, or CUT_STEPS where a phase overrides it); the
+  factorizations per env step follow from the env's solver, Newton
+  iterations and decimation (`fact_per_env_step`)."""
   import numpy as np
 
   from mjlab_tpu_torch.kernels import chol
@@ -900,8 +933,11 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
           f"{m['Loss/value_loss']:.5f} kl {m['Loss/kl']:.5f} entropy {m['Loss/entropy']:.3f} "
           f"lr {m['Loss/lr']:.3e} reward {m['Train/mean_step_reward']:.5f} resets "
           f"{m['Train/resets']:.0f} noise_std {m['Policy/noise_std']:.4f}")
+  from mjlab_tpu_torch.physics.types import mjtSolver
+
   decimation = runner.env.cfg.decimation
-  per_step = fact_per_env_step(runner.env.sim.model.opt.iterations, decimation)
+  opt = runner.env.sim.model.opt
+  per_step = fact_per_env_step(opt.iterations, decimation, opt.solver == mjtSolver.mjSOL_PGS)
   solves = decimation + 1  # each substep's solve_m and the post-reset forward's
   if (fact != steps * per_step * iters
       or launches["chol_solve"] != steps * solves * iters
@@ -955,15 +991,15 @@ def span_split(by_span, recorded, profiled, parts, n_mb: int, card: str) -> None
 
 
 def profile_iteration(runner, card: str, attr: str, tag: str, steady_iter_ms: float,
-                      split, spans: bool = True) -> None:
+                      split, spans: bool = True, trace: bool = True) -> None:
   """The last training iteration's split by the runner's three calls
   (`split`, from `train_iterations`), then profiles of one rollout step and
   of one more update on that iteration's batch, split by the runner's
   spans; an iteration is T of the one and one of the other, which gives
   its launches and the device's busy share. With `spans` False the
   profiler traces the device only (no host ops, no split by span), which
-  parses several times faster. Tables go to
-  OUT/chip_smoke_<tag>_<part>_profile.txt."""
+  parses several times faster; with `trace` False nothing is profiled
+  (the split alone). Tables go to OUT/chip_smoke_<tag>_<part>_profile.txt."""
   from torch.profiler import ProfilerActivity, profile
 
   alg = runner.cfg.algorithm
@@ -975,6 +1011,8 @@ def profile_iteration(runner, card: str, attr: str, tag: str, steady_iter_ms: fl
   print(f"    {'sum':34s} {sum(parts.values()):10.3f} ms")
   print("  device memory allocated in that iteration (GB): "
         + ", ".join(f"{k} {v:.2f}" for k, v in mem.items()) + f" [{card}]")
+  if not trace:
+    return
   # A profile of a whole iteration (~0.94M kernel launches and more host
   # ops) would take the profiler minutes to parse, so one rollout step and
   # one update are profiled; an iteration is T of the one and one of the
@@ -1806,8 +1844,9 @@ def tracking_path(card: str, attr: str, checks: KernelCheck, f64_seeds=F64_SEEDS
     raise AssertionError("envs terminated, but no adaptive bin counts a failure")
   if not sum(m["Train/resets"] for m in host) > 0:
     raise AssertionError("no env terminated in the tracking iterations")
-  # Device-only (no split by span: phase 8 splits the same runner code).
-  profile_iteration(runner, card, attr, "tracking", steady_iter_ms, split, spans=False)
+  # No profile (cut in PR 14 to keep the script inside its limit: phase 8
+  # profiles the same runner code).
+  profile_iteration(runner, card, attr, "tracking", steady_iter_ms, split, trace=False)
   del split
 
   print("  kernels vs plain on the tracking run's matrices, f32:")
@@ -2025,7 +2064,7 @@ def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dic
 # surface's scenes (mjlab_tpu_torch/assets/solver_scenes.py).
 ELLIPTIC_NEFC = 1320  # 29 limit rows + 154 condim-1 rows + 379 cone slots x 3
 CG_STEPS = 10  # env steps of G1 under CG
-SCENE_SUBSTEPS = 30  # cut from 50 to keep the script under 1000 s
+SCENE_SUBSTEPS = 12  # cut from 50 (PR 10), 30 and 20 (PR 14) to keep the script in its limit
 SCENE_CPU_WORLDS = 16  # the first worlds of the card's run, rerun on the CPU
 # The scenes run a small solver budget on both sides: they are launch-bound
 # (the compiled defaults, 100 iterations x 50 linesearch steps, launch ~250x
@@ -2096,9 +2135,10 @@ def cone_bound(batch: int, n: int, nefc: int, rows: int, cone_rows: int, nb: int
 
 def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
   """Phase 14, part 1: G1 velocity-flat under cone="elliptic" trains
-  (CUT_ITERS iteration at 4096 envs through build_runner, the CLI's
-  override; cut from 2), with
-  phase 8's checks, a device-only profile, nefc 1320 and every Newton
+  (CUT_ITERS iteration of CUT_STEPS env steps at 4096 envs through
+  build_runner, the CLI's override; cut from 2 of 24, the steps in PR 14),
+  with
+  phase 8's checks (no profile: cut in PR 14), nefc 1320 and every Newton
   direction through newton_direction_cone; then the kernel against its
   plain version on the run's last matrices (f32 and f64), its times, and
   the card's float64 env against the CPU's. Returns the launches and the
@@ -2110,7 +2150,8 @@ def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
   gc.collect()
   torch.cuda.empty_cache()
   t0 = time.perf_counter()
-  over = {"env.scene.num_envs": str(NUM_WORLDS), "env.sim.mujoco.cone": "elliptic"}
+  over = {"env.scene.num_envs": str(NUM_WORLDS), "env.sim.mujoco.cone": "elliptic",
+          "agent.num_steps_per_env": str(CUT_STEPS)}
   runner = build_runner(TASK, over)
   torch.cuda.synchronize()
   env, tp = runner.env, runner.env.tp
@@ -2123,15 +2164,17 @@ def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
     raise AssertionError(f"phase 14 elliptic: nefc {tp.nefc}, obs {env.group_obs_dim}")
   got, steady_iter_ms, _, split = train_iterations(
     runner, card, "phase 14 elliptic", (99, 111), iters=CUT_ITERS,
-    expect=KERNELS[:3] + (CONE_KERNEL,))
+    expect=KERNELS[:3] + (CONE_KERNEL,), steps=CUT_STEPS)
   it = env.sim.model.opt.iterations
-  per_iter = TRAIN_STEPS * (DECIMATION * it + it)
+  per_iter = CUT_STEPS * (DECIMATION * it + it)
   print(f"  {CONE_KERNEL} launches {got[CONE_KERNEL]} = {got[CONE_KERNEL] / CUT_ITERS:.0f} "
-        f"per iteration (expected {per_iter}: 24 env steps x (4 substeps + the post-reset "
-        f"forward) x {it}); newton_direction {got['newton_direction']}")
+        f"per iteration (expected {per_iter}: {CUT_STEPS} env steps x (4 substeps + the "
+        f"post-reset forward) x {it}); newton_direction {got['newton_direction']}")
   if got[CONE_KERNEL] != per_iter * CUT_ITERS or got["newton_direction"] != 0:
     raise AssertionError(f"phase 14 elliptic: launches {got}")
-  profile_iteration(runner, card, attr, "g1_elliptic", steady_iter_ms, split, spans=False)
+  # No profile (cut in PR 14: 31 s of the script; PERF.md §5 keeps PR
+  # 10-13's busy share and launches).
+  profile_iteration(runner, card, attr, "g1_elliptic", steady_iter_ms, split, trace=False)
   del split
 
   d, n = env.data, tp.nv
@@ -2331,11 +2374,12 @@ def surface_path(card: str, attr: str, checks: KernelCheck, train_launches: dict
   """Phase 15: the env-layer surface a user sets in their own cfg. The
   sim-to-real cfg (`sim_to_real_edit` on the G1 velocity-flat cfg) is
   registered as a task of its own and trained through `build_runner` at
-  NUM_WORLDS envs with the G1 PPO cfg: 2 iterations with phase 8's checks,
-  the policy obs 3 x 99 wide, each randomized leaf changed per env on its
-  elements only and inside its range, the launches equal to phase 8's,
-  the iteration's time against phase 8's in this call, a device-only
-  profile; the four kernels against their plain versions on this run's
+  NUM_WORLDS envs with the G1 PPO cfg: CUT_ITERS iteration (cut from 2 in
+  PR 14) with phase 8's checks, the policy obs 3 x 99 wide, each
+  randomized leaf changed per env on its elements only and inside its
+  range, the launches per iteration equal to phase 8's, the iteration's
+  time (its warm-up in) against phase 8's steady one in this call (no
+  profile: cut in PR 14); the four kernels against their plain versions on this run's
   per-env matrices (qM, the Newton matrix and direction, the implicitfast
   matrix); the card's float64 env against the CPU's with every FIELD_SPECS
   row randomized (`all_fields_variant`), 4 envs x 8 env steps, the CPU's
@@ -2369,17 +2413,18 @@ def surface_path(card: str, attr: str, checks: KernelCheck, train_launches: dict
   print("  randomized leaves on their elements only, inside their ranges; least spread "
         "across envs: " + ", ".join(f"{k} {v:.4g}" for k, v in spreads.items()))
   # The cfg's first push falls after 1-3 s (50 env steps or more), past the
-  # run's 2 x TRAIN_STEPS: start every env's push clock so that it fires in
-  # the timed second iteration, at its 12th env step.
+  # run's TRAIN_STEPS: start every env's push clock so that it fires in the
+  # iteration, at its 12th env step.
   clock = env.ns("event")["interval_time_left"]
   clock["push_wrench"] = torch.full_like(clock["push_wrench"],
-                                         (1.5 * TRAIN_STEPS - 0.5) * env.step_dt)
-  got, iter_ms, _, split = train_iterations(runner, card, "phase 15", dims)
-  print(f"  steady ms per iteration {iter_ms:.2f} against phase 8's {steady_iter_ms:.2f} in "
-        f"this call: {100 * (iter_ms / steady_iter_ms - 1):+.2f}% [{card}]")
-  if any(got[k] != train_launches[k] for k in KERNELS):
+                                         (0.5 * TRAIN_STEPS - 0.5) * env.step_dt)
+  got, iter_ms, _, split = train_iterations(runner, card, "phase 15", dims, iters=CUT_ITERS)
+  print(f"  ms of its iteration (warm-up in) {iter_ms:.2f} against phase 8's steady "
+        f"{steady_iter_ms:.2f} in this call: {100 * (iter_ms / steady_iter_ms - 1):+.2f}% "
+        f"[{card}]")
+  if any(got[k] * TRAIN_ITERS != train_launches[k] * CUT_ITERS for k in KERNELS):
     raise AssertionError(f"phase 15: launches {got} differ from phase 8's {train_launches}")
-  profile_iteration(runner, card, attr, "surface", iter_ms, split, spans=False)
+  profile_iteration(runner, card, attr, "surface", iter_ms, split, trace=False)  # cut, PR 14
   del split
   d, tp = env.data, env.tp
   lags = env.ns("observation")["delay"]["policy/joint_vel"]["lags"]
@@ -2431,8 +2476,10 @@ CARTPOLE_TASK = "Mjlab-Cartpole"
 # from a measured run that fit about 60 s and passed with margin (PERF.md
 # §4: 30 iterations of 6 steps in 67.3 s on an NVIDIA H100 80GB HBM3 at
 # 700.00 W, noise std 0.998 -> 0.664; at 4 steps the std fell only to
-# 0.897 in 40 iterations).
-CARTPOLE_LEARN_ITERS = 30
+# 0.897 in 40 iterations). Cut to 24 in PR 14, after 30 took 125.7 s on a
+# slower host: 78.66 s on PERF.md §4's host and card, the last 10
+# iterations 2.82x the first 10's episode length, the std 0.998 -> 0.736.
+CARTPOLE_LEARN_ITERS = 24
 CARTPOLE_LEARN_STEPS = 6
 CARTPOLE_WINDOW = 10
 # The humanoid's f32 run: substeps, and the Newton budget of the velocity
@@ -2780,6 +2827,295 @@ def user_scenes_path(card: str, checks: KernelCheck, path_ms: dict):
   path_ms[CONE_KERNEL][str(tp_e.nv)] = cone_ms
   return total
 
+
+
+PGS_KERNEL = "pgs_solve"
+PGS_ENV_STEPS = 10  # env steps of G1 under PGS, timed under set_sync_debug_mode("error")
+# Worlds per call of the plain PGS: it forms A, 512 x 1699² x 8 B = 11.8 GB in f64.
+PGS_PLAIN_CHUNK = 512
+# Phase 17b's scenes run phase 14's small Newton budget; a PGS scene keeps
+# its own sweeps (100 and 60: the kernel's rows, not its launches).
+MUSCLE_SUBSTEPS = 30
+HOPPER_ENVS = NUM_WORLDS
+_INTEGRATOR_NAMES = {0: "Euler", 1: "RK4", 3: "implicitfast"}
+
+
+def pgs_plain_chunked(args: tuple, iterations: int):
+  """pgs_solve_plain over the batch in chunks of PGS_PLAIN_CHUNK worlds (the
+  plain version forms A per world)."""
+  from mjlab_tpu_torch.kernels import pgs
+
+  out = [pgs.pgs_solve_plain(*(a[s:s + PGS_PLAIN_CHUNK] for a in args), iterations)
+         for s in range(0, args[0].shape[0], PGS_PLAIN_CHUNK)]
+  return torch.cat([f for f, _ in out]), torch.cat([u for _, u in out])
+
+
+def pgs_bound(args: tuple, iterations: int) -> tuple[float, str]:
+  """Least time (ms) of pgs_solve on these inputs: bytes of L's lower
+  triangle, D read and f written for every row, J, b, lo and hi read for
+  the active rows only, and u written once; operations 2 nv² + 2 nv per
+  active row (w_i and the diagonal) and 4 nv per active row and sweep (the
+  dot and the axpy)."""
+  L, J, D = args[:3]
+  B, n, m = L.shape[0], L.shape[1], J.shape[1]
+  elem = L.element_size()
+  active = int((D > 0).sum().item())
+  byt = (2 * B * m + 3 * active + B * n * (n + 1) // 2 + active * n + B * n) * elem
+  flop = active * (2 * n * n + 2 * n + 4 * n * iterations)
+  tb, tf = byt / PEAK_BYTES * 1e3, flop / PEAK_F32 * 1e3
+  return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def pgs_path(card: str, checks: KernelCheck) -> dict:
+  """Phase 17a: G1 velocity-flat under solver="pgs" (the CLI's override)
+  at NUM_WORLDS envs, float32: PGS_ENV_STEPS env steps under
+  set_sync_debug_mode("error") with every count set to 0 just before and
+  read just after (one pgs_solve per forward: 4 substeps and the post-reset
+  forward; M's factor and solve per forward, the integrator's factor-solve
+  per substep; no Newton direction), ms per env step, the active rows per
+  world; the kernel against its plain version on the run's own rows (f32:
+  KernelCheck's rule; f64, the same rows and factor cast: 1e-10 relative),
+  timed beside the plain version and its bound; one PPO iteration of
+  CUT_STEPS env steps through build_runner with phase 8's checks; and the
+  card's float64 env against the CPU's (phase 14's rule)."""
+  from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+  from mjlab_tpu_torch.kernels import chol, pgs
+  from mjlab_tpu_torch.physics import solver
+  from mjlab_tpu_torch.scripts.cli import apply_overrides
+  from mjlab_tpu_torch.scripts.train import build_runner
+  from mjlab_tpu_torch.tasks import load_env_cfg
+
+  gc.collect()
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  cfg = load_env_cfg(TASK)
+  apply_overrides(cfg, {"scene.num_envs": str(NUM_WORLDS), "sim.mujoco.solver": "pgs"})
+  env = ManagerBasedRlEnv(cfg, device="cuda")
+  env.reset(seed=0)
+  tp, it = env.tp, env.sim.model.opt.iterations
+  forwards = DECIMATION + 1
+  want = {"chol_factor": forwards, "chol_solve": forwards, "chol_factor_solve": DECIMATION,
+          "newton_direction": 0, CONE_KERNEL: 0, PGS_KERNEL: forwards}
+  gen = torch.Generator(device="cuda").manual_seed(17)
+  actions = [torch.randn(NUM_WORLDS, env.total_action_dim, generator=gen, device="cuda")
+             for _ in range(PGS_ENV_STEPS + 1)]
+  env.step(actions[0])
+  torch.cuda.synchronize()
+  print(f"phase 17 pgs: {TASK} --env.sim.mujoco.solver pgs ({it} sweeps), {NUM_WORLDS} envs, "
+        f"nv {tp.nv}, rows {tp.nefc}; build, reset and a warm-up step "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+  finite = torch.ones((), dtype=torch.bool, device="cuda")
+  chol.reset_counts()
+  pgs.reset_counts()
+  torch.cuda.set_sync_debug_mode("error")
+  start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+  start.record()
+  for a in actions[1:]:
+    obs, rew, *_ = env.step(a)
+    finite &= torch.isfinite(rew).all() & torch.isfinite(obs["policy"]).all()
+    finite &= torch.isfinite(env.data.qpos).all()
+  end.record()
+  torch.cuda.set_sync_debug_mode("default")
+  torch.cuda.synchronize()
+  launches = {**chol.LAUNCHES, **pgs.LAUNCHES}
+  env_step_ms = start.elapsed_time(end) / PGS_ENV_STEPS
+  print(f"  {PGS_ENV_STEPS} env steps under set_sync_debug_mode('error'): no host-device "
+        f"synchronization; {env_step_ms:.2f} ms per env step [{card}]")
+  print("  launches per env step " + ", ".join(f"{k} {v / PGS_ENV_STEPS:g}"
+                                            for k, v in launches.items())
+        + f"; from the code: {want}")
+  if any(launches[k] != v * PGS_ENV_STEPS for k, v in want.items()):
+    raise AssertionError(f"phase 17 pgs: launches {launches}, expected {want} per env step")
+  if not finite.item():
+    raise AssertionError("phase 17 pgs: non-finite observation, reward or qpos")
+  d = env.data
+  per_world = (d.efc_D > 0).sum(1).float()
+  z = d.qpos[:, 2]
+  print(f"  the run's last state: active rows per world mean {per_world.mean().item():.2f}, "
+        f"min {int(per_world.min().item())}, max {int(per_world.max().item())} of {tp.nefc} "
+        f"(share {per_world.mean().item() / tp.nefc:.4f}); root height mean "
+        f"{z.mean().item():.3f} m")
+
+  D, b, lo, hi = solver.pgs_inputs(tp, d)
+  args = (d.qLD.contiguous(), d.efc_J.contiguous(), D, b.contiguous(), lo.contiguous(),
+          hi.contiguous())
+  args64 = tuple(a.double() for a in args)
+  del env, d, obs, rew, actions
+  gc.collect()
+  torch.cuda.empty_cache()
+  f, u = pgs.pgs_solve(*args, it)
+  t0 = time.perf_counter()
+  fp, up = pgs_plain_chunked(args, it)
+  torch.cuda.synchronize()
+  plain_ms = (time.perf_counter() - t0) * 1e3
+  f64p, u64p = pgs_plain_chunked(args64, it)
+  checks.check(PGS_KERNEL, "g1 pgs f", f, fp, f64p)
+  checks.check(PGS_KERNEL, "g1 pgs u", u, up, u64p)
+  inactive = args[2] <= 0
+  if not torch.equal(f[inactive], torch.zeros_like(f[inactive])):
+    raise AssertionError("pgs_solve: an inactive row's force is not 0")
+  f64, u64 = pgs.pgs_solve(*args64, it)
+  for what, got, ref in (("f", f64, f64p), ("u", u64, u64p)):
+    err, scale = (got - ref).abs().max().item(), max(1.0, ref.abs().max().item())
+    print(f"  {PGS_KERNEL} f64 on the run's rows, {what}: max_abs_err {err:.3e} "
+          f"(tol 1e-10 x {scale:.3e})")
+    if not err <= 1e-10 * scale:
+      raise AssertionError(f"{PGS_KERNEL} f64 {what}: {err:.3e}")
+  del fp, up, f64p, u64p, f64, u64, args64
+  torch.cuda.empty_cache()
+  ms = time_ms(lambda: pgs.pgs_solve(*args, it), [()], iters=10)
+  bnd = pgs_bound(args, it)
+  print(f"  {PGS_KERNEL} on the run's rows: kernel {ms:.4f} ms  plain {plain_ms:.1f} ms (forms "
+        f"A, {PGS_PLAIN_CHUNK} worlds a call)  library none (no PyTorch call computes a "
+        f"projected Gauss-Seidel sweep)  bound {bnd[0]:.6f} ms ({bnd[1]}) [{card}]")
+  del args, f, u, D, b, lo, hi
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  t0 = time.perf_counter()
+  runner = build_runner(TASK, {"env.scene.num_envs": str(NUM_WORLDS),
+                               "env.sim.mujoco.solver": "pgs",
+                               "agent.num_steps_per_env": str(CUT_STEPS)})
+  torch.cuda.synchronize()
+  print(f"phase 17 pgs training: build_runner {time.perf_counter() - t0:.2f} s, "
+        f"{CUT_ITERS} iteration of {CUT_STEPS} env steps [{card}]")
+  pgs.reset_counts()
+  train, steady_iter_ms, _, _ = train_iterations(
+    runner, card, "phase 17 pgs", (99, 111), iters=CUT_ITERS, expect=KERNELS[:3],
+    steps=CUT_STEPS)
+  train[PGS_KERNEL] = pgs.LAUNCHES[PGS_KERNEL]
+  per_iter = CUT_STEPS * forwards
+  print(f"  {PGS_KERNEL} launches {train[PGS_KERNEL]} (expected {per_iter}: {CUT_STEPS} env "
+        f"steps x (4 substeps + the post-reset forward)); newton_direction "
+        f"{train['newton_direction']}")
+  if train[PGS_KERNEL] != per_iter * CUT_ITERS or train["newton_direction"] != 0:
+    raise AssertionError(f"phase 17 pgs training: launches {train}")
+  del runner
+  gc.collect()
+  torch.cuda.empty_cache()
+  f64_env_check(TASK, n_steps=CUT_F64_STEPS, nudges=PHASE14_NUDGES,
+                overrides={"sim.mujoco.solver": "pgs"})
+  return {"launches": launches, "train_launches": train, "ms": ms, "plain_ms": plain_ms,
+          "bound": bnd, "env_step_ms": env_step_ms}
+
+
+def muscle_scenes_path(card: str) -> dict[str, int]:
+  """Phase 17b: each scene of assets/muscle_scenes.py (activation dynamics
+  and muscles, fluid, spatial tendons with wrapping and pulleys, PGS, the
+  musculoskeletal arm) under each integrator its JAX test runs, float64,
+  MUSCLE_SUBSTEPS at NUM_WORLDS worlds from its state plus a seeded
+  N(0, 0.05²) qvel per world, under its control: ms per substep (CUDA
+  events), the first SCENE_CPU_WORLDS worlds against the CPU (phase 14's
+  rule); then the filter-actuated hopper env through ManagerBasedRlEnv at
+  HOPPER_ENVS envs, its 10 env steps to the time-out under
+  set_sync_debug_mode("error"): act moves toward the targets, and is
+  exactly 0 after the step whose time-out resets every env."""
+  from mjlab_tpu_torch import physics
+  from mjlab_tpu_torch.assets import muscle_scenes
+  from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+  from mjlab_tpu_torch.kernels import chol, pgs
+
+  torch.set_num_threads(1)
+  total = {k: 0 for k in (*ALL_KERNELS, PGS_KERNEL)}
+  print(f"phase 17 muscle scenes: {MUSCLE_SUBSTEPS} substeps at {NUM_WORLDS} worlds, float64, "
+        f"{SCENE_ITERATIONS} Newton iterations x {SCENE_LS_ITERATIONS} linesearch steps (PGS "
+        f"scenes their own sweeps); the first {SCENE_CPU_WORLDS} worlds against the CPU "
+        f"(tol 1e-8) [{card}]")
+
+  def run(tp, m, qpos, qvel, ctrls):
+    d = physics.make_data(tp, m, qpos.shape[0]).replace(qpos=qpos, qvel=qvel)
+    for c in ctrls:
+      d = physics.step(tp, m, d if c is None else d.replace(ctrl=c.expand(qpos.shape[0], -1)))
+    return d
+
+  def rel(a, b):
+    return max((getattr(a, f) - getattr(b, f)).abs().max().item()
+               / max(1.0, getattr(b, f).abs().max().item()) for f in ("qpos", "qvel", "act")
+               if getattr(b, f).numel())
+
+  rng = torch.Generator().manual_seed(17)
+  for name, sc in muscle_scenes.SCENES.items():
+    for integrator in sc.integrators:
+      models = {}
+      for dv in ("cuda", "cpu"):
+        mjm = muscle_scenes.load(name, integrator)
+        if mjm.opt.solver != 0:  # Newton: phase 14's budget
+          mjm.opt.iterations, mjm.opt.ls_iterations = SCENE_ITERATIONS, SCENE_LS_ITERATIONS
+        models[dv] = physics.put_model(mjm, dtype=torch.float64, device=dv)
+      tp, m = models["cuda"]
+      qpos0, qvel0 = sc.state(mjm)
+      qpos = torch.tensor(qpos0, dtype=torch.float64).expand(NUM_WORLDS, -1).clone()
+      qvel = torch.tensor(qvel0, dtype=torch.float64).expand(NUM_WORLDS, -1).clone()
+      qvel += 0.05 * torch.randn(NUM_WORLDS, tp.nv, generator=rng, dtype=torch.float64)
+      ctrls = [None if sc.ctrl is None else
+               torch.tensor(sc.ctrl(k, tp.nu), dtype=torch.float64)[None]
+               for k in range(MUSCLE_SUBSTEPS)]
+      cuda_ctrls = [None if c is None else c.cuda() for c in ctrls]
+      chol.reset_counts()
+      pgs.reset_counts()
+      d = run(tp, m, qpos[:, :].cuda(), qvel.cuda(), cuda_ctrls[:1])
+      torch.cuda.synchronize()
+      start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+      start.record()
+      for c in cuda_ctrls[1:]:
+        d = physics.step(tp, m, d if c is None else d.replace(ctrl=c.expand(NUM_WORLDS, -1)))
+      end.record()
+      torch.cuda.synchronize()
+      launched = {k: v for k, v in {**chol.LAUNCHES, **pgs.LAUNCHES}.items() if v}
+      for k, v in {**chol.LAUNCHES, **pgs.LAUNCHES}.items():
+        total[k] += v
+      if not all(torch.isfinite(getattr(d, f)).all() for f in ("qpos", "qvel", "act")):
+        raise AssertionError(f"phase 17 scene {name}: non-finite state")
+      tp_c, m_c = models["cpu"]
+      q0, v0 = qpos[:SCENE_CPU_WORLDS], qvel[:SCENE_CPU_WORLDS]
+      ref = run(tp_c, m_c, q0, v0, ctrls)
+      got = SimpleNamespace(**{f: getattr(d, f)[:SCENE_CPU_WORLDS].cpu()
+                               for f in ("qpos", "qvel", "act")})
+      err, tol, spread = rel(got, ref), 1e-8, None
+      if err > tol:
+        spread = max(rel(run(tp_c, m_c, q0 * (1 + 1e-13 * torch.randn(
+          q0.shape, generator=rng, dtype=torch.float64)), v0, ctrls), ref)
+          for _ in range(PHASE14_NUDGES))
+        tol = max(tol, 2 * spread)
+      print(f"  {name:22s} {_INTEGRATOR_NAMES[integrator]:12s} nv {tp.nv} na {tp.na} nefc "
+            f"{tp.nefc:2d}: {start.elapsed_time(end) / (MUSCLE_SUBSTEPS - 1):.3f} ms per "
+            f"substep; card vs CPU {err:.3e} (tol {tol:.3e}"
+            + (f", CPU spread {spread:.3e}" if spread is not None else "")
+            + f"); launches {launched}")
+      if not err <= tol:
+        raise AssertionError(f"phase 17 scene {name} ({integrator}): card vs CPU {err:.3e}")
+
+  cfg = muscle_scenes.hopper_filter_env_cfg(HOPPER_ENVS)
+  env = ManagerBasedRlEnv(cfg, device="cuda")
+  env.reset(seed=0)
+  action = torch.full((HOPPER_ENVS, env.total_action_dim), 0.4, dtype=torch.float64,
+                      device="cuda")
+  steps = round(cfg.episode_length_s / env.step_dt)  # the time-out's env step
+  resets = torch.zeros((), dtype=torch.int64, device="cuda")
+  start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+  torch.cuda.set_sync_debug_mode("error")
+  start.record()
+  for _ in range(steps // 2):
+    env.step(action)
+  end.record()
+  act, ctrl = env.data.act.clone(), env.data.ctrl.clone()
+  for _ in range(steps - steps // 2):
+    _, _, _, time_outs, extras = env.step(action)
+    resets += extras["log"]["reset_count"]
+  torch.cuda.set_sync_debug_mode("default")
+  torch.cuda.synchronize()
+  moved = bool(((act.abs() > 1e-3) & (act.sign() == ctrl.sign())).all().item())
+  zero = bool(torch.equal(env.data.act, torch.zeros_like(env.data.act)))
+  print(f"  hopper filter env: {HOPPER_ENVS} envs, float64, {steps} env steps under "
+        f"set_sync_debug_mode('error'), "
+        f"{start.elapsed_time(end) / (steps // 2) / cfg.decimation:.3f} ms per substep; act "
+        f"after {steps // 2} env steps in [{act.min().item():.4f}, {act.max().item():.4f}] "
+        f"(moved toward the targets: {moved}); the time-out at env step {steps} reset "
+        f"{int(resets.item())} envs, their act exactly 0: {zero} [{card}]")
+  if not (moved and int(resets.item()) == HOPPER_ENVS and bool(time_outs.all().item())
+          and zero):
+    raise AssertionError("phase 17 hopper env: act did not move, or was not zeroed on reset")
+  return total
 
 
 def main() -> int:
@@ -3161,7 +3497,7 @@ def main() -> int:
         f"{parts['post-reset forward']:.3f} ms = "
         f"{parts['post-reset forward'] / substep_ms:.2f} x phase 3's substep")
 
-  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device only: parses faster
     env.step(action)
     torch.cuda.synchronize()
   averages = prof.key_averages()
@@ -3234,6 +3570,16 @@ def main() -> int:
                          f"{user_launches}")
 
   clock.done(16)
+  # -- 17. the actuation and tendon surface, and G1 under PGS ---------------------
+  t17 = time.perf_counter()
+  pgs_run = pgs_path(card, checks)
+  muscle_launches = muscle_scenes_path(card)
+  print(f"phase 17: {time.perf_counter() - t17:.1f} s; launches over the scenes "
+        f"{muscle_launches}")
+  if muscle_launches[PGS_KERNEL] == 0 or any(muscle_launches[k] == 0 for k in KERNELS[:3]):
+    raise AssertionError(f"phase 17: a kernel did not run in the scenes: {muscle_launches}")
+
+  clock.done(17)
   # -- result lines ---------------------------------------------------------------
   bnd = bounds(NUM_WORLDS, N, rows=NUM_WORLDS * NEFC)
   bnd_run = bounds(NUM_WORLDS, N, rows=active_rows)["newton_direction"]
@@ -3287,6 +3633,8 @@ def main() -> int:
     k["launches_surface_path"] = surface_launches[k["name"]]
     k["launches_user_robot_path"] = user_launches[k["name"]]
     k["ms_user_robot_matrices_by_nv"] = user_ms[k["name"]]
+    k["launches_pgs_path"] = pgs_run["launches"][k["name"]]
+    k["launches_muscle_scenes_path"] = muscle_launches[k["name"]]
   kernels.append({
     "name": CONE_KERNEL,
     "route": "cuda",
@@ -3307,6 +3655,25 @@ def main() -> int:
     "bound_by": ell["bound"][1],
     "library_ms": ell["library_ms"],
     "launch": ell["launch"],
+    "launches_pgs_path": pgs_run["launches"][CONE_KERNEL],
+    "launches_muscle_scenes_path": muscle_launches[CONE_KERNEL],
+  })
+  kernels.append({
+    "name": PGS_KERNEL,
+    "route": "cuda",
+    "source": "mjlab_tpu_torch/csrc/pgs.cu",
+    "replaces": "mjlab_tpu/physics/solver.py:327-362 (pgs_solve: A, then the row sweeps)",
+    "launches": pgs_run["launches"][PGS_KERNEL],
+    "launches_pgs_path": pgs_run["launches"][PGS_KERNEL],
+    "launches_pgs_training_path": pgs_run["train_launches"][PGS_KERNEL],
+    "launches_muscle_scenes_path": muscle_launches[PGS_KERNEL],
+    "max_abs_err": checks.max_abs_err[PGS_KERNEL],
+    "ms": pgs_run["ms"],
+    "plain_ms": pgs_run["plain_ms"],
+    "bound_ms": pgs_run["bound"][0],
+    "bound_by": pgs_run["bound"][1],
+    "library_ms": None,
+    "env_step_ms": pgs_run["env_step_ms"],
   })
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from mjlab_tpu_torch.core.strings import resolve_matching_names
-from mjlab_tpu_torch.physics.types import mjtJoint, mjtTrn
+from mjlab_tpu_torch.physics.types import mjtJoint, mjtTrn, mjtWrap
 from mjlab_tpu_torch.utils.spec_config import ActuatorCfg
 
 _QPOS_WIDTH = {0: 7, 1: 4, 2: 1, 3: 1}  # free, ball, slide, hinge
@@ -104,11 +104,19 @@ class Entity:
     sites = [s for s in range(model.nsite) if int(model.site_bodyid[s]) in body_set]
     joint_set = set(joints)
 
-    def tendon_joints(t: int) -> set[int]:
+    def owns_tendon(t: int) -> bool:
+      """A fixed tendon through one of the entity's joints, or a spatial
+      one through a site on one of its bodies."""
       adr, num = int(model.tendon_adr[t]), int(model.tendon_num[t])
-      return {int(model.wrap_objid[w]) for w in range(adr, adr + num)}
+      for w in range(adr, adr + num):
+        wt, obj = int(model.wrap_type[w]), int(model.wrap_objid[w])
+        if wt == mjtWrap.mjWRAP_JOINT and obj in joint_set:
+          return True
+        if wt == mjtWrap.mjWRAP_SITE and int(model.site_bodyid[obj]) in body_set:
+          return True
+      return False
 
-    tendons = [t for t in range(model.ntendon) if tendon_joints(t) & joint_set]
+    tendons = [t for t in range(model.ntendon) if owns_tendon(t)]
     tendon_set = set(tendons)
 
     def owns(u: int) -> bool:

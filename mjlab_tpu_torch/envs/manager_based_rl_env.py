@@ -146,6 +146,10 @@ class ManagerBasedRlEnv(ManagerBasedEnv):
   def _reset_masked(self, mask: torch.Tensor) -> dict:
     """Reset the masked envs (the JAX package's _reset_masked order)."""
     self.curriculum_manager.compute(env_mask=mask)
+    if self.sim.tp.na:
+      # The activations reset with the env (mj_resetData zeros act).
+      self._data = self._data.replace(
+        act=torch.where(mask[:, None], torch.zeros_like(self._data.act), self._data.act))
     self.scene.reset(mask)
     if "reset" in self.event_manager.available_modes:
       self.event_manager.apply(

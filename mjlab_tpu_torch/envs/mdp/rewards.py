@@ -10,6 +10,10 @@ from mjlab_tpu_torch.managers.scene_entity_config import SceneEntityCfg
 _DEFAULT = SceneEntityCfg("robot")
 
 
+def is_alive(env) -> torch.Tensor:
+  return (~env.termination_manager.terminated).to(env.dtype)
+
+
 def action_rate_l2(env) -> torch.Tensor:
   am = env.action_manager
   return torch.sum(torch.square(am.action - am.prev_action), dim=1)

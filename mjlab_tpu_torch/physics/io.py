@@ -14,14 +14,18 @@ pool for sphere, capsule, box and mesh geoms (a runtime broadphase,
 `TerrainGroup`), fixed tendons and tendon transmission; the solver
 surface: equality constraints (connect and weld on bodies or sites, joint,
 tendon), dof friction loss, limited tendons, contacts of condim 1/3/4/6
-under the pyramidal or the elliptic cone, the Newton and CG solvers, and
-the implicitfast, Euler and RK4 integrators; and a user's own robot: ball
-joints and their cone limits, bodies with several joints, every sensor
-type of the JAX package's catalog (frame sensors also in a reference
-frame), explicit `<pair>`s, mocap bodies and gravity compensation.
-Everything else the JAX package supports (PGS, spatial tendons, muscles
-and activation dynamics, fluid, noslip, height fields, the analytic
-plane–cylinder and plane–ellipsoid pairs) is refused here with
+under the pyramidal or the elliptic cone, the Newton, CG and (pyramidal)
+PGS solvers, and the implicitfast, Euler and RK4 integrators; a user's own
+robot: ball joints and their cone limits, bodies with several joints, every
+sensor type of the JAX package's catalog (frame sensors also in a reference
+frame), explicit `<pair>`s, mocap bodies and gravity compensation; and the
+actuation and tendon surface: activation dynamics (integrator, filter,
+filterexact, muscle) with actearly and actrange, muscle gain and bias, the
+inertia-box fluid model, and spatial tendons (site chains, pulleys, sphere
+and cylinder wrapping with or without a sidesite). Everything else the JAX
+package supports (PGS under the elliptic cone, noslip, height fields, the
+analytic plane–cylinder and plane–ellipsoid pairs) and what it refuses
+itself (`fluidshape="ellipsoid"`, site transmissions) is refused here with
 `NotImplementedError` naming the feature, never simulated wrong.
 
 A mesh geom's hull is built from its hull vertices (`_hull_vertices`): a
@@ -167,17 +171,17 @@ def _reject_unsupported(m) -> None:
     mjtIntegrator.mjINT_IMPLICIT, mjtIntegrator.mjINT_IMPLICITFAST,
   ):
     no(f"integrator {int(opt.integrator)}")
-  if int(opt.solver) == mjtSolver.mjSOL_PGS:
-    if int(opt.cone) == mjtCone.mjCONE_ELLIPTIC:
-      no("PGS with elliptic cone (use solver='newton'/'cg' or cone='pyramidal')")
-    no("PGS solver (use solver='newton' or 'cg')")
+  if int(opt.solver) == mjtSolver.mjSOL_PGS and int(opt.cone) == mjtCone.mjCONE_ELLIPTIC:
+    no("PGS with elliptic cone (use solver='newton'/'cg' or cone='pyramidal')")
   if int(opt.noslip_iterations) > 0:
     no("noslip post-solver")
-  if float(opt.viscosity) or float(opt.density) or np.any(opt.wind):
-    no("fluid forces (density/viscosity/wind)")
+  if _has_fluid(m) and np.any(m.geom_fluid[:, 0]):
+    # Only the body-level inertia-box model (MuJoCo's default) is ported,
+    # as in the JAX package.
+    no("fluidshape='ellipsoid' geoms (the per-geom ellipsoid fluid model)")
   for t in range(m.ntendon):
     if _is_spatial_tendon(m, t):
-      no(f"spatial tendon {_name(m, m.name_tendonadr, t)}")
+      _spatial_tendon_segments(m, t)  # raises on a wrap it cannot route
   for e in range(m.neq):
     if not m.eq_active0[e]:
       continue
@@ -188,14 +192,20 @@ def _reject_unsupported(m) -> None:
       mjtObj.mjOBJ_BODY, mjtObj.mjOBJ_SITE
     ):
       no("connect/weld equality on objects other than bodies and sites")
-  if m.na or np.any(m.actuator_dyntype != mjtDyn.mjDYN_NONE):
-    no("actuator activation dynamics")
-  if np.any(m.actuator_gaintype != mjtGain.mjGAIN_FIXED):
-    no("actuator gain types other than fixed (muscle)")
-  if np.any(
-    ~np.isin(m.actuator_biastype, [mjtBias.mjBIAS_NONE, mjtBias.mjBIAS_AFFINE])
-  ):
-    no("actuator bias types other than none/affine (muscle)")
+  dyn_ok = [mjtDyn.mjDYN_NONE, mjtDyn.mjDYN_INTEGRATOR, mjtDyn.mjDYN_FILTER,
+            mjtDyn.mjDYN_FILTEREXACT, mjtDyn.mjDYN_MUSCLE]
+  for u in range(m.nu):
+    dyn = int(m.actuator_dyntype[u])
+    if dyn not in dyn_ok:
+      no(f"actuator activation dynamics of dyntype {dyn} (integrator, filter, "
+         "filterexact and muscle only)")
+    if dyn != mjtDyn.mjDYN_NONE and int(m.actuator_actnum[u]) != 1:
+      no("actuator activation dynamics with actnum != 1")
+  if np.any(~np.isin(m.actuator_gaintype, [mjtGain.mjGAIN_FIXED, mjtGain.mjGAIN_MUSCLE])):
+    no("actuator gain types other than fixed and muscle")
+  if np.any(~np.isin(m.actuator_biastype,
+                     [mjtBias.mjBIAS_NONE, mjtBias.mjBIAS_AFFINE, mjtBias.mjBIAS_MUSCLE])):
+    no("actuator bias types other than none, affine and muscle")
   if np.any(~np.isin(m.actuator_trntype, [mjtTrn.mjTRN_JOINT, mjtTrn.mjTRN_TENDON])):
     no("actuator transmissions other than joint and tendon")
   if np.any((m.jnt_type == mjtJoint.mjJNT_BALL) & (m.jnt_stiffness != 0)):
@@ -218,9 +228,67 @@ def _reject_unsupported(m) -> None:
   # _candidate_pairs.
 
 
+def _has_fluid(m) -> bool:
+  opt = m.opt
+  return bool(float(opt.viscosity) or float(opt.density) or np.any(opt.wind))
+
+
 def _is_spatial_tendon(m, t: int) -> bool:
   adr, num = int(m.tendon_adr[t]), int(m.tendon_num[t])
   return any(int(m.wrap_type[w]) != mjtWrap.mjWRAP_JOINT for w in range(adr, adr + num))
+
+
+def _spatial_tendon_segments(m, t: int) -> list[tuple[int, int, float, int, int]]:
+  """A spatial tendon's static segments (site_a, site_b, scale, wrap geom,
+  sidesite), the JAX package's table: a pulley divides the length of the
+  branches after it by its divisor and breaks the chain; a sphere or
+  cylinder between two sites routes that segment around the geom at run
+  time (smooth._wrap_circle)."""
+  adr, num = int(m.tendon_adr[t]), int(m.tendon_num[t])
+  name = _name(m, m.name_tendonadr, t)
+  segs: list[tuple[int, int, float, int, int]] = []
+  prev_site, geom, side, scale = -1, -1, -1, 1.0
+  for w in range(adr, adr + num):
+    wt = int(m.wrap_type[w])
+    if wt == mjtWrap.mjWRAP_SITE:
+      s = int(m.wrap_objid[w])
+      if prev_site >= 0:
+        segs.append((prev_site, s, scale, geom, side))
+      prev_site, geom, side = s, -1, -1
+    elif wt == mjtWrap.mjWRAP_PULLEY:
+      scale = 1.0 / max(float(m.wrap_prm[w]), 1e-15)
+      prev_site, geom, side = -1, -1, -1
+    elif wt in (mjtWrap.mjWRAP_SPHERE, mjtWrap.mjWRAP_CYLINDER):
+      if prev_site < 0 or geom >= 0:
+        raise NotImplementedError(
+          f"spatial tendon {name}: a wrap geom must sit between two sites")
+      geom, side = int(m.wrap_objid[w]), int(m.wrap_prm[w])  # sidesite id or -1
+    else:
+      raise NotImplementedError(f"spatial tendon {name}: wrap type {wt}")
+  if not segs:
+    raise NotImplementedError(f"spatial tendon {name}: needs two sites or more")
+  return segs
+
+
+def _tendon_segment_tables(m) -> tuple[np.ndarray, ...]:
+  """(tendon_kind, seg_sites, seg_scale, seg_geom, seg_side): kind 1 for a
+  spatial tendon, its segments padded to the longest list (site -1)."""
+  kind = np.zeros(m.ntendon, dtype=np.int32)
+  lists = []
+  for t in range(m.ntendon):
+    spatial = _is_spatial_tendon(m, t)
+    kind[t] = int(spatial)
+    lists.append(_spatial_tendon_segments(m, t) if spatial else [])
+  shape = (m.ntendon, max(max((len(c) for c in lists), default=0), 1))
+  sites = np.full(shape + (2,), -1, dtype=np.int32)
+  scale = np.zeros(shape)
+  geom = np.full(shape, -1, dtype=np.int32)
+  side = np.full(shape, -1, dtype=np.int32)
+  for t, segs in enumerate(lists):
+    for k, (sa, sb, sc, g, sd) in enumerate(segs):
+      sites[t, k] = (sa, sb)
+      scale[t, k], geom[t, k], side[t, k] = sc, g, sd
+  return kind, sites, scale, geom, side
 
 
 def _hull_vertices(m, geom_id: int) -> np.ndarray:
@@ -503,12 +571,15 @@ def _candidate_pairs(m) -> tuple[list[GeomPair], list[TerrainGroup]]:
 
 
 def _transmission_matrices(m) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-  """Static (nu, nq) / (nu, nv) transmission matrices: one-hot rows for a
-  joint, the tendon's joint coefficients for a fixed tendon (its length is
-  linear in qpos, so its moment is constant). No actuator rides a spatial
-  tendon (refused), so the dynamic map is all -1."""
+  """Static (nu, nq) / (nu, nv) transmission matrices and the (nu,) map of
+  actuators on spatial tendons: one-hot rows for a joint, the tendon's
+  joint coefficients for a fixed tendon (its length is linear in qpos, so
+  its moment is constant); a spatial tendon's actuator keeps zero rows and
+  its tendon id in the map, and fwd_actuation reads that tendon's
+  ten_length and ten_J of the forward."""
   qmat = np.zeros((m.nu, m.nq))
   vmat = np.zeros((m.nu, m.nv))
+  dyn_tendon = np.full(m.nu, -1, dtype=np.int32)
   for u in range(m.nu):
     if int(m.actuator_trntype[u]) == mjtTrn.mjTRN_JOINT:
       j = int(m.actuator_trnid[u, 0])
@@ -516,15 +587,19 @@ def _transmission_matrices(m) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         raise NotImplementedError("free/ball joint actuators")
       qmat[u, m.jnt_qposadr[j]] = 1.0
       vmat[u, m.jnt_dofadr[j]] = 1.0
+    elif _is_spatial_tendon(m, int(m.actuator_trnid[u, 0])):
+      dyn_tendon[u] = int(m.actuator_trnid[u, 0])
     else:
-      t = int(m.actuator_trnid[u, 0])
-      qmat[u], vmat[u] = _fixed_tendon_rows(m, t)
-  return qmat, vmat, np.full(m.nu, -1, dtype=np.int32)
+      qmat[u], vmat[u] = _fixed_tendon_rows(m, int(m.actuator_trnid[u, 0]))
+  return qmat, vmat, dyn_tendon
 
 
 def _fixed_tendon_rows(m, t: int) -> tuple[np.ndarray, np.ndarray]:
-  """A fixed tendon's (nq,) and (nv,) joint-coefficient rows."""
+  """A fixed tendon's (nq,) and (nv,) joint-coefficient rows (zero for a
+  spatial tendon)."""
   qrow, vrow = np.zeros(m.nq), np.zeros(m.nv)
+  if _is_spatial_tendon(m, t):
+    return qrow, vrow
   adr, num = int(m.tendon_adr[t]), int(m.tendon_num[t])
   for w in range(adr, adr + num):
     j = int(m.wrap_objid[w])
@@ -535,8 +610,8 @@ def _fixed_tendon_rows(m, t: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _tendon_matrices(m) -> tuple[np.ndarray, np.ndarray]:
-  """Per-tendon (ntendon, nq) / (ntendon, nv) linear maps (every tendon is
-  fixed: spatial ones are refused)."""
+  """Per-tendon (ntendon, nq) / (ntendon, nv) linear maps of the fixed
+  tendons; a spatial tendon's rows are zero (smooth.tendon fills them)."""
   rows = [_fixed_tendon_rows(m, t) for t in range(m.ntendon)]
   qmat = np.asarray([q for q, _ in rows]).reshape(m.ntendon, m.nq)
   vmat = np.asarray([v for _, v in rows]).reshape(m.ntendon, m.nv)
@@ -648,6 +723,7 @@ def put_model(
   )
   trn_qmat, trn_vmat, actuator_dyn_tendon = _transmission_matrices(m)
   tendon_qmat, tendon_vmat = _tendon_matrices(m)
+  tendon_kind, seg_sites, seg_scale, seg_geom, seg_side = _tendon_segment_tables(m)
   subtree, body_dof = _body_masks(m)
   # Hulls by mesh id, or by a tessellated primitive's type and size: geoms
   # that share a mesh or a size share one hull.
@@ -696,7 +772,7 @@ def put_model(
     geom_dataid=m.geom_dataid.copy(),
     geom_hulls=geom_hulls,
     body_gravcomp_host=m.body_gravcomp.copy(),
-    has_fluid=False,
+    has_fluid=_has_fluid(m),
     site_bodyid=m.site_bodyid.copy(),
     site_type=m.site_type.copy(),
     site_size=m.site_size.copy(),
@@ -709,23 +785,24 @@ def put_model(
     tendon_vmat=tendon_vmat,
     tendon_length0=m.tendon_length0.copy(),
     tendon_invweight0=m.tendon_invweight0.copy(),
-    tendon_kind=np.zeros(m.ntendon, dtype=np.int32),
-    tendon_seg_sites=np.full((m.ntendon, 1, 2), -1, dtype=np.int32),
-    tendon_seg_scale=np.zeros((m.ntendon, 1)),
-    tendon_seg_geom=np.full((m.ntendon, 1), -1, dtype=np.int32),
-    tendon_seg_side=np.full((m.ntendon, 1), -1, dtype=np.int32),
+    tendon_kind=tendon_kind,
+    tendon_seg_sites=seg_sites,
+    tendon_seg_scale=seg_scale,
+    tendon_seg_geom=seg_geom,
+    tendon_seg_side=seg_side,
     limited_tendon_ids=limited_tendons,
     actuator_dyn_tendon=actuator_dyn_tendon,
     actuator_gaintype=m.actuator_gaintype.copy(),
     actuator_biastype=m.actuator_biastype.copy(),
     actuator_ctrllimited=m.actuator_ctrllimited.copy(),
     actuator_forcelimited=m.actuator_forcelimited.copy(),
-    na=0,
+    na=int(m.na),
     actuator_dyntype=m.actuator_dyntype.copy(),
     actuator_actadr=m.actuator_actadr.copy(),
     actuator_actlimited=m.actuator_actlimited.copy(),
     actuator_actearly=m.actuator_actearly.copy(),
-    act_actuator=np.zeros(0, dtype=np.int32),
+    act_actuator=np.asarray(
+      [u for u in range(m.nu) if m.actuator_actadr[u] >= 0], dtype=np.int32),
     sensor_type=m.sensor_type.copy(),
     sensor_datatype=m.sensor_datatype.copy(),
     sensor_objtype=m.sensor_objtype.copy(),

@@ -370,7 +370,8 @@ def _eval_stage(tp: Topology, m: Model, d: Data, stage: set) -> Data:
       if trn is None:
         trn = smooth.transmission(tp, m, d)
       length, moment = trn
-      val = length[:, objid] if stype == _S.mjSENS_ACTUATORPOS else (d.qvel @ moment.T)[:, objid]
+      val = (length if stype == _S.mjSENS_ACTUATORPOS
+             else smooth.moment_mv(moment, d.qvel))[:, objid]
     elif stype == _S.mjSENS_ACTUATORFRC:
       val = d.actuator_force[:, objid]
     elif stype == _S.mjSENS_MAGNETOMETER:

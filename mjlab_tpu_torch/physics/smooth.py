@@ -12,6 +12,10 @@ root subtree CoM), matching MuJoCo's cdof/cvel conventions.
 `body_mass`, `body_inertia`, `body_gravcomp`, `dof_armature`,
 `jnt_stiffness`, `dof_damping` and the actuators' `gainprm`/`biasprm` may
 carry a leading env axis (domain randomization, sim.PER_ENV_FIELDS).
+
+The actuator moment matrix is static, (nu, nv), unless an actuator pulls
+through a spatial tendon: then it is this forward's, (B, nu, nv)
+(`transmission`; `moment_mv` and `moment_tmv` take either).
 """
 
 from __future__ import annotations
@@ -23,13 +27,19 @@ import torch
 
 from mjlab_tpu_torch.core import math as mt
 from mjlab_tpu_torch.kernels import chol
+from mjlab_tpu_torch.physics import muscle
 from mjlab_tpu_torch.physics.types import (
   Data,
   Model,
   Topology,
   float_tensor,
   index_tensor,
+  mjtBias,
+  mjtDyn,
+  mjtGain,
+  mjtGeom,
   mjtJoint,
+  mjtTrn,
   per_env,
 )
 
@@ -164,6 +174,40 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
     tendon_vmat=f(tp.tendon_vmat),
     ctrllimited=b(tp.actuator_ctrllimited),
     forcelimited=b(tp.actuator_forcelimited),
+    affine_bias=b(tp.actuator_biastype == mjtBias.mjBIAS_AFFINE),
+    bias_none=(b(tp.actuator_biastype == mjtBias.mjBIAS_NONE)
+               if np.any(tp.actuator_biastype == mjtBias.mjBIAS_NONE) else None),
+    tendon_actuators=(b(tp.actuator_trntype == mjtTrn.mjTRN_TENDON)
+                      if np.any(tp.actuator_trntype == mjtTrn.mjTRN_TENDON) else None),
+    dyn_tendon_u=ix(np.nonzero(tp.actuator_dyn_tendon >= 0)[0]),
+    dyn_tendon_t=ix(tp.actuator_dyn_tendon[tp.actuator_dyn_tendon >= 0]),
+    act=_act_tables(tp, b, ix) if tp.na else None,
+    muscle_gain=b(tp.actuator_gaintype == mjtGain.mjGAIN_MUSCLE),
+    muscle_bias=b(tp.actuator_biastype == mjtBias.mjBIAS_MUSCLE),
+    any_muscle=bool(np.any(tp.actuator_gaintype == mjtGain.mjGAIN_MUSCLE)
+                    | np.any(tp.actuator_biastype == mjtBias.mjBIAS_MUSCLE)),
+    not_world=b(np.arange(tp.nbody) > 0),
+  )
+
+
+def _act_tables(tp: Topology, b, ix) -> SimpleNamespace:
+  """The activation state's tables: per actuator its dynamics' masks and
+  its act slot (0 for a stateless one), and the actuator of each act slot
+  with its actrange mask."""
+  dyn = tp.actuator_dyntype
+  stateful = dyn != mjtDyn.mjDYN_NONE
+  src = tp.act_actuator
+  return SimpleNamespace(
+    stateful=b(stateful),
+    slot=ix(np.where(stateful, tp.actuator_actadr, 0)),
+    integrator=b(dyn == mjtDyn.mjDYN_INTEGRATOR),
+    exact=b(dyn == mjtDyn.mjDYN_FILTEREXACT),
+    muscle=b(dyn == mjtDyn.mjDYN_MUSCLE),
+    any_muscle=bool(np.any(dyn == mjtDyn.mjDYN_MUSCLE)),
+    early=b(tp.actuator_actearly),
+    actuator=ix(src),
+    exact_act=b(dyn[src] == mjtDyn.mjDYN_FILTEREXACT),
+    limited_act=b(tp.actuator_actlimited[src]),
   )
 
 
@@ -350,6 +394,8 @@ def passive(tp: Topology, m: Model, d: Data) -> Data:
     jac = lin[:, None] + mt.cross(ang[:, None], d.xipos[:, gc, None] - origins[:, None])
     qfrc_passive = qfrc_passive + torch.einsum(
       "bgvj,bgj->bv", jac * t.gravcomp_dof[..., None], force.expand(jac.shape[0], -1, -1))
+  if tp.has_fluid:
+    qfrc_passive = qfrc_passive + fluid_box(tp, m, d)
   return d.replace(
     qfrc_spring=qfrc_spring,
     qfrc_damper=qfrc_damper,
@@ -357,41 +403,302 @@ def passive(tp: Topology, m: Model, d: Data) -> Data:
   )
 
 
+def _box_sizes(m: Model) -> tuple[torch.Tensor, torch.Tensor]:
+  """Each body's equivalent inertia box (B or 1, nbody, 3) and its mass
+  floored at 1e-15 (mj_inertiaBoxFluidModel)."""
+  mass = torch.clamp_min(per_env(m.body_mass, 1), 1e-15)
+  inertia = per_env(m.body_inertia, 2)
+  box = torch.stack([
+    torch.sqrt(torch.clamp_min(
+      inertia[..., (j + 1) % 3] + inertia[..., (j + 2) % 3] - inertia[..., j], 1e-15)
+      / mass * 6.0)
+    for j in range(3)], dim=-1)
+  return box, mass
+
+
+def _fluid_coefficients(m: Model, box: torch.Tensor):
+  """The box model's per-body coefficients: linear (viscous) torque and
+  force gains and quadratic (density) torque and force gains, each
+  (B or 1, nbody, 3), so that torque = −(lin_t + quad_t |ω|) ω and force =
+  −(lin_f + quad_f |v|) v in the inertial frame."""
+  diam = torch.mean(box, dim=-1, keepdim=True)
+  visc, dens = m.opt.viscosity, m.opt.density
+  lin_t = (torch.pi * diam ** 3 * visc).expand_as(box)
+  lin_f = (3.0 * torch.pi * diam * visc).expand_as(box)
+  area = torch.stack([box[..., 1] * box[..., 2], box[..., 0] * box[..., 2],
+                      box[..., 0] * box[..., 1]], dim=-1)
+  b4 = box ** 4
+  tscale = torch.stack([box[..., 0] * (b4[..., 1] + b4[..., 2]),
+                        box[..., 1] * (b4[..., 0] + b4[..., 2]),
+                        box[..., 2] * (b4[..., 0] + b4[..., 1])], dim=-1)
+  return lin_t, lin_f, dens * tscale / 64.0, 0.5 * dens * area
+
+
+def _fluid_frame(tp: Topology, m: Model, d: Data):
+  """Per body: the inertial frame R (B, nbody, 3, 3), the CoM offset from
+  its tree's origin r, the wind-relative 6-D velocity at the CoM in the
+  inertial frame (lω, lv), and the mask of bodies the model pushes (not the
+  world, mass at least 1e-15)."""
+  t = tp.dev.smooth
+  r = d.xipos - d.subtree_com[:, t.body_rootid]
+  w = d.cvel[..., :3]
+  v = d.cvel[..., 3:] + mt.cross(w, r)
+  R = d.ximat
+  lw = torch.einsum("bnji,bnj->bni", R, w)
+  lv = torch.einsum("bnji,bnj->bni", R, v - m.opt.wind)
+  alive = (t.not_world & (per_env(m.body_mass, 1) >= 1e-15))[..., None]
+  return R, r, lw, lv, alive
+
+
+def fluid_box(tp: Topology, m: Model, d: Data) -> torch.Tensor:
+  """The inertia-box fluid model (mj_inertiaBoxFluidModel, the JAX
+  package's _fluid_box): per body, a box of the body's inertia gets viscous
+  drag linear in, and density drag quadratic in, its CoM velocity
+  relative to the wind, in the inertial frame, applied at xipos; (B, nv)."""
+  box, _ = _box_sizes(m)
+  lin_t, lin_f, quad_t, quad_f = _fluid_coefficients(m, box)
+  R, r, lw, lv, alive = _fluid_frame(tp, m, d)
+  zero = torch.zeros_like(lw)
+  lt = torch.where(alive, -(lin_t + quad_t * torch.abs(lw)) * lw, zero)
+  lf = torch.where(alive, -(lin_f + quad_f * torch.abs(lv)) * lv, zero)
+  torque = torch.einsum("bnij,bnj->bni", R, lt)
+  force = torch.einsum("bnij,bnj->bni", R, lf)
+  fs = torch.cat([torque + mt.cross(r, force), force], dim=-1)  # (B, nbody, 6)
+  contrib = fs @ d.cdof.transpose(-1, -2)  # (B, nbody, nv)
+  return torch.sum(contrib * tp.dev.smooth.body_dof, dim=-2)
+
+
+def fluid_box_qvel_derivative(tp: Topology, m: Model, d: Data) -> torch.Tensor:
+  """∂ fluid_box / ∂qvel (B, nv, nv), in closed form. A body's wrench
+  depends only on its own 6-D velocity at the CoM, x = T J q̇ with J its
+  masked cdof rows and T the map to the inertial frame; the drag is
+  diagonal in x with slopes −(lin + 2 quad |x|), so the derivative is
+  Σ_b (T J)ᵀ diag(slope) (T J). The JAX package takes it with jax.jacfwd
+  through com_vel ∘ _fluid_box (forward.py:79-90)."""
+  box, _ = _box_sizes(m)
+  lin_t, lin_f, quad_t, quad_f = _fluid_coefficients(m, box)
+  R, r, lw, lv, alive = _fluid_frame(tp, m, d)
+  slope = -torch.cat([lin_t + 2.0 * quad_t * torch.abs(lw),
+                      lin_f + 2.0 * quad_f * torch.abs(lv)], dim=-1)
+  slope = torch.where(alive, slope, torch.zeros_like(slope))
+  jac = d.cdof[:, None] * tp.dev.smooth.body_dof[..., None]  # (B, nbody, nv, 6)
+  ang = jac[..., :3]
+  lin = jac[..., 3:] - mt.cross(r[:, :, None], ang)
+  Rt = R.transpose(-1, -2)[:, :, None]  # (B, nbody, 1, 3, 3)
+  x = torch.cat([(Rt @ ang[..., None])[..., 0], (Rt @ lin[..., None])[..., 0]], dim=-1)
+  return torch.einsum("bnvi,bni,bnwi->bvw", x, slope, x)
+
+
+def _circle_tangent(p: torch.Tensor, r, s: torch.Tensor) -> torch.Tensor:
+  """The 2-D tangent point on the origin circle of radius r from the
+  outside point p (B, 2), on side s (+1 or −1 of the perpendicular)."""
+  sq = torch.clamp_min(torch.sum(p * p, dim=-1), r * r + 1e-15)[..., None]
+  perp = torch.stack([-p[..., 1], p[..., 0]], dim=-1)
+  return (r * r / sq) * p + s[..., None] * (r * torch.sqrt(sq - r * r) / sq) * perp
+
+
+def _cross2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  return a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
+
+
+def _wrap_circle(p0, p1, r, sidept):
+  """The 2-D circle wrap (mju_wrap's core, the JAX package's _wrap_circle)
+  of the segment p0 → p1 (B, 2) around the origin circle of radius r:
+  (wrapped, arc length, tangent points t0 and t1). `sidept` (B, 2), or
+  None, picks the side; else the side the straight segment passes. A
+  segment that misses the circle on its own side gives a negative arc and
+  stays straight; a sidesite forces the wrap; an intersecting segment
+  always wraps, its arcs past π through +2π."""
+  dseg = p1 - p0
+  tt = torch.clamp(-torch.sum(p0 * dseg, dim=-1)
+                   / torch.clamp_min(torch.sum(dseg * dseg, dim=-1), 1e-15), 0.0, 1.0)
+  closest = p0 + tt[..., None] * dseg
+  r2 = r * r
+  intersects = torch.sum(closest * closest, dim=-1) < r2
+  toward = closest if sidept is None else sidept
+  one = torch.ones_like(tt)
+  s = torch.where(_cross2(dseg, toward) >= 0, one, -one)
+  t0 = _circle_tangent(p0, r, -s)
+  t1 = _circle_tangent(p1, r, s)
+  arc_ang = -s * torch.atan2(_cross2(t0, t1), torch.sum(t0 * t1, dim=-1))
+  arc_ang = torch.where((arc_ang <= 0) & intersects, arc_ang + 2 * torch.pi, arc_ang)
+  outside = (torch.sum(p0 * p0, dim=-1) > r2) & (torch.sum(p1 * p1, dim=-1) > r2)
+  return (arc_ang > 0) & outside, r * arc_ang, t0, t1
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+  return torch.linalg.vector_norm(x, dim=-1)
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+  return x / torch.clamp_min(_norm(x), 1e-15)[..., None]
+
+
+def _proj(direction: torch.Tensor, jac: torch.Tensor) -> torch.Tensor:
+  """directionᵀ J: (B, 3), (B, 3, nv) → (B, nv)."""
+  return torch.einsum("bi,biv->bv", direction, jac)
+
+
+def _wrapped_segment(tp, m, d, pa, pb, Ja, Jb, g: int, side: int):
+  """A segment pa → pb routed around wrap geom g (a sphere or a cylinder),
+  with sidesite `side` or -1: (wrapped, length, Jacobian row)."""
+  R, gp = d.geom_xmat[:, g], d.geom_xpos[:, g]
+  r = m.geom_size[g, 0]
+
+  def local(p):
+    return torch.einsum("bji,bj->bi", R, p - gp)
+
+  la, lb = local(pa), local(pb)
+  ls = local(d.site_xpos[:, side]) if side >= 0 else None
+  if int(tp.geom_type[g]) == mjtGeom.mjGEOM_CYLINDER:
+    # The wrap in the cross-section; z runs linearly along the 2-D path.
+    wrapped, arc, t0, t1 = _wrap_circle(la[:, :2], lb[:, :2], r,
+                                        ls[:, :2] if ls is not None else None)
+    a2 = _norm(t0 - la[:, :2])
+    b2 = _norm(lb[:, :2] - t1)
+    tot = torch.clamp_min(a2 + arc + b2, 1e-15)
+    dz = lb[:, 2] - la[:, 2]
+    z0 = la[:, 2] + dz * a2 / tot
+    z1 = la[:, 2] + dz * (a2 + arc) / tot
+    w0l = torch.cat([t0, z0[:, None]], dim=-1)
+    w1l = torch.cat([t1, z1[:, None]], dim=-1)
+    wlen = torch.sqrt(arc * arc + (z1 - z0) ** 2)
+  else:  # a sphere: the wrap in the plane through both points and the centre
+    n = mt.cross(la, lb)
+    if ls is not None:  # parallel points: the sidesite's plane
+      n = torch.where((_norm(n) < 1e-9)[:, None], mt.cross(la - lb, ls), n)
+    e0 = _unit(la)
+    e1 = mt.cross(_unit(n), e0)
+
+    def flat(v):
+      return torch.stack([torch.sum(v * e0, -1), torch.sum(v * e1, -1)], dim=-1)
+
+    wrapped, arc, t0, t1 = _wrap_circle(flat(la), flat(lb), r,
+                                        flat(ls) if ls is not None else None)
+    w0l = t0[:, :1] * e0 + t0[:, 1:] * e1
+    w1l = t1[:, :1] * e0 + t1[:, 1:] * e1
+    wlen = arc
+  w0 = gp + torch.einsum("bij,bj->bi", R, w0l)
+  w1 = gp + torch.einsum("bij,bj->bi", R, w1l)
+  gb = int(tp.geom_bodyid[g])
+  length = _norm(w0 - pa) + wlen + _norm(pb - w1)
+  row = (_proj(_unit(w0 - pa), point_jac(tp, d, gb, w0) - Ja)
+         + _proj(_unit(pb - w1), Jb - point_jac(tp, d, gb, w1)))
+  return wrapped, length, row
+
+
+def _spatial_tendon(tp: Topology, m: Model, d: Data, t: int):
+  """A spatial tendon's length (B,) and Jacobian row (B, nv): its segments'
+  scaled sum, each straight or wrapped, with the Jacobian from the point
+  Jacobians along each piece's direction (a wrap's tangent points are
+  material points of the geom's body: the taut path's envelope makes that
+  exact to first order)."""
+  length, row = 0.0, 0.0
+  for k in range(tp.tendon_seg_sites.shape[1]):
+    sa, sb = (int(x) for x in tp.tendon_seg_sites[t, k])
+    if sa < 0:
+      continue
+    pa, pb = d.site_xpos[:, sa], d.site_xpos[:, sb]
+    Ja = point_jac(tp, d, int(tp.site_bodyid[sa]), pa)
+    Jb = point_jac(tp, d, int(tp.site_bodyid[sb]), pb)
+    seg_len = _norm(pb - pa)
+    seg_row = _proj(_unit(pb - pa), Jb - Ja)
+    g = int(tp.tendon_seg_geom[t, k])
+    if g >= 0:
+      wrapped, w_len, w_row = _wrapped_segment(
+        tp, m, d, pa, pb, Ja, Jb, g, int(tp.tendon_seg_side[t, k]))
+      seg_len = torch.where(wrapped, w_len, seg_len)
+      seg_row = torch.where(wrapped[:, None], w_row, seg_row)
+    scale = float(tp.tendon_seg_scale[t, k])
+    length = length + scale * seg_len
+    row = row + scale * seg_row
+  return length, row
+
+
 def tendon(tp: Topology, m: Model, d: Data) -> Data:
-  """Tendon lengths, Jacobians and velocities (mj_tendon) of fixed tendons:
-  the static joint-coefficient maps (spatial tendons are refused)."""
+  """Tendon lengths, Jacobians and velocities (mj_tendon): fixed tendons
+  ride their static joint-coefficient maps, spatial tendons sum their
+  segments (`_spatial_tendon`), batched over the worlds."""
   if tp.ntendon == 0:
     return d
   t = tp.dev.smooth
   B = d.qpos.shape[0]
-  return d.replace(
-    ten_length=d.qpos @ t.tendon_qmat.T,
-    ten_J=t.tendon_vmat.expand(B, tp.ntendon, tp.nv),
-    ten_velocity=d.qvel @ t.tendon_vmat.T,
-  )
+  length = d.qpos @ t.tendon_qmat.T
+  J = t.tendon_vmat.expand(B, tp.ntendon, tp.nv)
+  spatial = np.nonzero(tp.tendon_kind == 1)[0]
+  if len(spatial):
+    J = J.clone()
+    for k in spatial:
+      length[:, k], J[:, k] = _spatial_tendon(tp, m, d, int(k))
+    velocity = (J @ d.qvel[..., None])[..., 0]
+  else:
+    velocity = d.qvel @ t.tendon_vmat.T
+  return d.replace(ten_length=length, ten_J=J, ten_velocity=velocity)
 
 
 def transmission(tp: Topology, m: Model, d: Data) -> tuple[torch.Tensor, torch.Tensor]:
-  """actuator_length (B, nu) and the static (nu, nv) moment matrix: joint
-  and fixed-tendon transmissions share its form (io._transmission_matrices),
-  so a tendon actuator's length is gear · ten_length and its moment gear ·
-  ten_J."""
+  """actuator_length (B, nu) and the moment matrix: joint and
+  fixed-tendon transmissions share a static (nu, nv) form
+  (io._transmission_matrices), so a tendon actuator's length is gear ·
+  ten_length and its moment gear · ten_J; an actuator on a spatial tendon
+  reads this forward's ten_length and ten_J, and the moment is then
+  (B, nu, nv)."""
   t = tp.dev.smooth
   gear0 = m.actuator_gear[:, 0]
   length = gear0 * (d.qpos @ t.trn_qmat.T)
   moment = gear0[:, None] * t.trn_vmat
+  if len(t.dyn_tendon_u):
+    u, k = t.dyn_tendon_u, t.dyn_tendon_t
+    length = length.index_copy(1, u, gear0[u] * d.ten_length[:, k])
+    moment = moment.expand(d.qpos.shape[0], -1, -1).index_copy(
+      1, u, gear0[u, None] * d.ten_J[:, k])
   return length, moment
 
 
+def moment_mv(moment: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """moment · v per world, (B, nv) → (B, nu), for either moment shape."""
+  return v @ moment.T if moment.dim() == 2 else (moment @ v[..., None])[..., 0]
+
+
+def moment_tmv(moment: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+  """momentᵀ f per world, (B, nu) → (B, nv), for either moment shape."""
+  return f @ moment if moment.dim() == 2 else (f[:, None] @ moment)[:, 0]
+
+
+def _activation(tp: Topology, m: Model, d: Data, ctrl: torch.Tensor):
+  """The actuators' force input and act_dot (mj_fwdActuation): a stateful
+  actuator (integrator, filter, filterexact, muscle) drives its gain by its
+  activation, or with actearly by the next one (mj_nextActivation, not
+  clamped, as in the JAX package), and emits act_dot."""
+  a = tp.dev.smooth.act
+  act_u = d.act[:, a.slot]
+  dynprm = m.actuator_dynprm
+  tau = torch.clamp_min(dynprm[..., 0], 1e-15)
+  act_dot_u = torch.where(a.integrator, ctrl, (ctrl - act_u) / tau)
+  if a.any_muscle:
+    act_dot_u = torch.where(
+      a.muscle, muscle.muscle_dynamics(ctrl, act_u, dynprm[..., :3]), act_dot_u)
+  act_dot_u = torch.where(a.stateful, act_dot_u, torch.zeros_like(act_dot_u))
+  h = m.opt.timestep
+  nxt = torch.where(a.exact, act_u + act_dot_u * tau * -torch.expm1(-h / tau),
+                    act_u + h * act_dot_u)
+  act_in = torch.where(a.early, nxt, act_u)
+  return torch.where(a.stateful, act_in, ctrl), act_dot_u[:, a.actuator]
+
+
 def fwd_actuation(tp: Topology, m: Model, d: Data) -> Data:
-  """Actuator forces: fixed gain + affine bias (PD position actuators)."""
+  """Actuator forces: gain · input + bias, with fixed or muscle gain and
+  none (0, as in MuJoCo; the JAX package takes biasprm's affine form for
+  it), affine or muscle bias; the input is ctrl, or the activation of a
+  stateful actuator."""
   t = tp.dev.smooth
   if tp.nu == 0:
     return d.replace(qfrc_actuator=torch.zeros_like(d.qvel))
   length, moment = transmission(tp, m, d)
-  velocity = d.qvel @ moment.T
+  velocity = moment_mv(moment, d.qvel)
   lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
   ctrl = torch.where(t.ctrllimited, torch.clamp(d.ctrl, lo, hi), d.ctrl)
+  inp, act_dot = _activation(tp, m, d, ctrl) if tp.na else (ctrl, d.act_dot)
   # (nu, 10), or (B, nu, 10) randomized per env.
   gain = m.actuator_gainprm[..., 0]
   bias = (
@@ -399,15 +706,44 @@ def fwd_actuation(tp: Topology, m: Model, d: Data) -> Data:
     + m.actuator_biasprm[..., 1] * length
     + m.actuator_biasprm[..., 2] * velocity
   )
-  force = gain * ctrl + bias
+  if t.bias_none is not None:  # MuJoCo's none is 0 whatever biasprm holds (ROADMAP Queue C)
+    bias = torch.where(t.bias_none, torch.zeros_like(bias), bias)
+  if t.any_muscle:
+    lr, acc0 = m.actuator_lengthrange, m.actuator_acc0
+    gain = torch.where(t.muscle_gain, muscle.muscle_gain(
+      length, velocity, lr, acc0, m.actuator_gainprm[..., :9]), gain)
+    bias = torch.where(t.muscle_bias, muscle.muscle_bias(
+      length, lr, acc0, m.actuator_biasprm[..., :9]), bias)
+  force = gain * inp + bias
   flo, fhi = m.actuator_forcerange[:, 0], m.actuator_forcerange[:, 1]
   force = torch.where(t.forcelimited, torch.clamp(force, flo, fhi), force)
   return d.replace(
     actuator_length=length,
     actuator_velocity=velocity,
     actuator_force=force,
-    qfrc_actuator=force @ moment,
+    act_dot=act_dot,
+    qfrc_actuator=moment_tmv(moment, force),
   )
+
+
+def actuator_force_vel(tp: Topology, m: Model, d: Data) -> torch.Tensor:
+  """∂ actuator_force / ∂ actuator_velocity, (B or 1, nu), as MuJoCo's
+  mjd_actuator_vel takes it: the affine bias's biasprm[2], and a muscle
+  gain's force-velocity slope times its input; a muscle's or a
+  biastype-none actuator's biasprm[2] adds nothing. Reads this forward's
+  actuator_length and actuator_velocity."""
+  t = tp.dev.smooth
+  b2 = per_env(m.actuator_biasprm, 2)[..., 2]
+  dfdv = torch.where(t.affine_bias, b2, torch.zeros_like(b2))
+  if t.any_muscle:
+    lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
+    ctrl = torch.where(t.ctrllimited, torch.clamp(d.ctrl, lo, hi), d.ctrl)
+    inp = _activation(tp, m, d, ctrl)[0] if tp.na else ctrl
+    gain_vel = muscle.muscle_gain_vel(d.actuator_length, d.actuator_velocity,
+                                      m.actuator_lengthrange, m.actuator_acc0,
+                                      m.actuator_gainprm[..., :9])
+    dfdv = dfdv + torch.where(t.muscle_gain, gain_vel * inp, torch.zeros_like(gain_vel))
+  return dfdv
 
 
 def fwd_acceleration(tp: Topology, m: Model, d: Data) -> Data:

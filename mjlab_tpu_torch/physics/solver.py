@@ -26,6 +26,10 @@ A model whose rows are all one-sided quadratics (neither equality nor
 friction-loss rows, no cone slots) takes the original pyramidal path below
 (`_newton_iter`), whose launches are unchanged; every other model takes the
 general cost (`GeneralCost`).
+
+The PGS solver (mjSOL_PGS, pyramidal cone) works on the dual instead
+(`_pgs`, the JAX package's pgs_solve): one `pgs.pgs_solve` per forward, from
+f = 0, its sweeps over A = J M⁻¹ Jᵀ taken without forming A on the card.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from types import SimpleNamespace
 
 import torch
 
-from mjlab_tpu_torch.kernels import chol
+from mjlab_tpu_torch.kernels import chol, pgs
 from mjlab_tpu_torch.physics.types import Data, Model, Topology, mjtSolver
 
 _EPS = 1e-15
@@ -395,6 +399,39 @@ def general(tp: Topology, m: Model) -> bool:
   return bool(t.ne or t.nf or t.cone_groups or m.opt.solver == mjtSolver.mjSOL_CG)
 
 
+def pgs_inputs(tp: Topology, d: Data):
+  """The dual problem's rows (solver.py:339-350): (D, b, lo, hi), with
+  b = J a0 − aref and each row's box by the classes of _row_masks:
+  equality rows unbounded, friction-loss rows [−fl, fl], the rest [0, ∞),
+  inactive rows (D = 0) [0, 0]."""
+  t = tp.dev.con
+  D, fl = d.efc_D.contiguous(), d.efc_frictionloss
+  zero = torch.zeros_like(D)
+  inf = torch.full_like(D, float("inf"))
+  lo, hi = zero, inf
+  if t.is_fric is not None:
+    lo = torch.where(t.is_fric > 0, -fl, lo)
+    hi = torch.where(t.is_fric > 0, fl, hi)
+  if t.is_eq is not None:
+    lo = torch.where(t.is_eq > 0, -inf, lo)
+    hi = torch.where(t.is_eq > 0, inf, hi)
+  active = D > 0
+  lo = torch.where(active, lo, zero)
+  hi = torch.where(active, hi, zero)
+  return D, _mv(d.efc_J, d.qacc_smooth) - d.efc_aref, lo, hi
+
+
+def _pgs(tp: Topology, m: Model, d: Data) -> Data:
+  """Projected Gauss-Seidel on the dual (solver.py:327-372), from f = 0:
+  qacc = a0 + M⁻¹Jᵀf, its factor the forward's qLD."""
+  D, b, lo, hi = pgs_inputs(tp, d)
+  J = d.efc_J.contiguous()
+  f, u = pgs.pgs_solve(d.qLD, J, D, b, lo, hi, m.opt.iterations)
+  x = d.qacc_smooth + u
+  return d.replace(qacc=x, efc_force=f, qfrc_constraint=_mv(J.transpose(-1, -2), f),
+                   qacc_warmstart=x)
+
+
 def solve(tp: Topology, m: Model, d: Data) -> Data:
   """Compute qacc, efc_force, qfrc_constraint."""
   a0 = d.qacc_smooth
@@ -402,6 +439,8 @@ def solve(tp: Topology, m: Model, d: Data) -> Data:
     return d.replace(
       qacc=a0, qfrc_constraint=torch.zeros_like(a0), qacc_warmstart=a0
     )
+  if m.opt.solver == mjtSolver.mjSOL_PGS:
+    return _pgs(tp, m, d)
   if general(tp, m):
     return GeneralCost(tp, m, d).solve()
   x = _warm_start(d, a0)

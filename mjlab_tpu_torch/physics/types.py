@@ -100,14 +100,20 @@ class mjtEq:
 class mjtBias:
   mjBIAS_NONE = 0
   mjBIAS_AFFINE = 1
+  mjBIAS_MUSCLE = 2
 
 
 class mjtGain:
   mjGAIN_FIXED = 0
+  mjGAIN_MUSCLE = 2
 
 
 class mjtDyn:
   mjDYN_NONE = 0
+  mjDYN_INTEGRATOR = 1
+  mjDYN_FILTER = 2
+  mjDYN_FILTEREXACT = 3
+  mjDYN_MUSCLE = 4
 
 
 class mjtTrn:
@@ -117,6 +123,10 @@ class mjtTrn:
 
 class mjtWrap:
   mjWRAP_JOINT = 1
+  mjWRAP_PULLEY = 2
+  mjWRAP_SITE = 3
+  mjWRAP_SPHERE = 4
+  mjWRAP_CYLINDER = 5
 
 
 class mjtIntegrator:

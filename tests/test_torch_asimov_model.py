@@ -169,8 +169,6 @@ _TENDON_XML = """
 @pytest.mark.parametrize(
   "tendon, sensor, feature",
   [
-    ('<tendon><spatial name="t"><site site="s0"/><site site="s1"/></spatial></tendon>',
-     "", "spatial tendon"),
     ('<tendon><fixed name="t"><joint joint="j" coef="1"/></fixed></tendon>',
      '<sensor><user dim="1"/></sensor>', "sensor type"),
     ("", '<sensor><framepos objtype="site" objname="s1" reftype="camera" refname="c"/>'
@@ -202,3 +200,38 @@ def test_mesh_pairs_other_than_plane_mesh_raise():
   assert [dataclasses.astuple(p) for p in ttp.pairs] == [dataclasses.astuple(p) for p in jtp.pairs]
   assert (7, 13, 7, 7, 4) in [(p.geom1, p.geom2, p.type1, p.type2, p.ncon) for p in ttp.pairs]
   assert (ttp.ncon_max, ttp.nefc) == (jtp.ncon_max, jtp.nefc)
+
+
+def test_spatial_tendon_equals_jax():
+  """The scene of test_unsupported_tendons_and_sensors_raise with a spatial
+  tendon from s0 to s1 (refused until PR 14): its length, Jacobian and
+  velocity after one forward at a seeded state equal the JAX package's and
+  MuJoCo's within 1e-12."""
+  import jax
+  import jax.numpy as jnp
+  import mujoco
+
+  from mjlab_tpu import physics as jphysics
+  from mjlab_tpu_torch import physics as tphysics
+  from tests.torch_parity import one_world, to_torch
+
+  xml = _TENDON_XML.replace(
+    "TENDON", '<tendon><spatial name="t"><site site="s0"/><site site="s1"/></spatial></tendon>'
+  ).replace("SENSOR", "")
+  mj = mujoco.MjModel.from_xml_string(xml)
+  jtp, jm = jphysics.put_model(mj, dtype=jnp.float64)
+  tp, m = tio.put_model(mj, dtype=torch.float64, device="cpu")
+  assert tp.tendon_kind.tolist() == [1]
+  rng = np.random.default_rng(2)
+  d = jphysics.make_data(jtp, jm).replace(qpos=jnp.asarray(rng.uniform(-1, 1, mj.nq)),
+                                          qvel=jnp.asarray(rng.standard_normal(mj.nv)))
+  want = jax.jit(lambda dd: jphysics.forward(jtp, jm, dd))(d)
+  got = tphysics.forward(tp, m, to_torch(one_world(d)))
+  mjd = mujoco.MjData(mj)
+  mjd.qpos[:], mjd.qvel[:] = np.asarray(d.qpos), np.asarray(d.qvel)
+  mujoco.mj_forward(mj, mjd)
+  for f in ("ten_length", "ten_J", "ten_velocity"):
+    np.testing.assert_allclose(getattr(got, f)[0].numpy(), np.asarray(getattr(want, f)),
+                               rtol=0, atol=1e-12, err_msg=f)
+    np.testing.assert_allclose(getattr(got, f)[0].numpy().ravel(), getattr(mjd, f).ravel(),
+                               rtol=0, atol=1e-12, err_msg=f)

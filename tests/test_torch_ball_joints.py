@@ -249,15 +249,9 @@ def test_humanoid_entity_indexing_equals_jax():
 
 
 _REFUSED = {
-  "PGS solver": ("<option", '<option solver="PGS"'),
+  "PGS with elliptic cone": ("<option", '<option solver="PGS" cone="elliptic"'),
   "noslip post-solver": ("<option", '<option noslip_iterations="2"'),
-  "fluid forces": ("<option", '<option density="1.2"'),
-  "spatial tendon": ("</worldbody>", '</worldbody><tendon><spatial><site site="a"/>'
-                     '<site site="b"/></spatial></tendon>'),
-  "activation dynamics": ("</worldbody>", '</worldbody><actuator><general joint="h" '
-                          'dyntype="filter" dynprm="0.1"/></actuator>'),
-  "muscle": ("</worldbody>", '</worldbody><actuator><general joint="h" gaintype="muscle" '
-             'gainprm="0.75 1.05 -1 200 0.5 1.6 1.5 1.3 1.2"/></actuator>'),
+  "fluidshape": ("<option", '<option density="1.2"'),
   "transmissions other than joint and tendon": (
     "</worldbody>", '</worldbody><actuator><motor site="a"/></actuator>'),
   "collision pair of geom types": ('<geom name="g2" type="sphere" size="0.1"/>',
@@ -288,8 +282,49 @@ def test_still_refused_features_raise(feature):
   tio.put_model(mujoco.MjModel.from_xml_string(_BASE), dtype=torch.float64, device="cpu")
   old, new = _REFUSED[feature]
   xml = _BASE.replace(old, new, 1)
-  if feature == "muscle":
-    xml = xml.replace('type="hinge"', 'type="hinge" range="-1 1" limited="true"')
+  if feature == "fluidshape":  # the per-geom ellipsoid model on the ball
+    xml = xml.replace('type="sphere" size="0.1"/>', 'type="sphere" size="0.1" fluidshape="ellipsoid"/>')
   m = mujoco.MjModel.from_xml_string(xml)
   with pytest.raises(NotImplementedError, match=feature):
     tio.put_model(m, dtype=torch.float64, device="cpu")
+
+
+# Features the port refused before PR 14, each on the base scene; the port
+# now simulates them as the JAX package does.
+_LIFTED = {
+  "PGS solver": ("<option", '<option solver="PGS"'),
+  "fluid forces": ("<option", '<option density="1.2" viscosity="0.3" wind="0.5 0 0"'),
+  "spatial tendon": ("</worldbody>", '</worldbody><tendon><spatial stiffness="30" damping="1">'
+                     '<site site="a"/><site site="b"/></spatial></tendon>'),
+  "activation dynamics": ("</worldbody>", '</worldbody><actuator><general joint="h" '
+                          'dyntype="filter" dynprm="0.1" gainprm="2"/></actuator>'),
+  "muscle": ("</worldbody>", '</worldbody><actuator><general joint="h" gaintype="muscle" '
+             'gainprm="0.75 1.05 -1 200 0.5 1.6 1.5 1.3 1.2"/></actuator>'),
+}
+
+
+@pytest.mark.parametrize("feature", sorted(_LIFTED))
+def test_lifted_features_equal_jax(feature):
+  """Each feature the port refused until PR 14 loads and steps: 5
+  substeps of the base scene with it (the ball swinging, the sphere on the
+  plane; ctrl 0.8) equal the JAX package's within 1e-10 relative in qpos,
+  qvel and act at every step."""
+  old, new = _LIFTED[feature]
+  xml = _BASE.replace(old, new, 1)
+  if feature == "muscle":
+    xml = xml.replace('type="hinge"', 'type="hinge" range="-1 1" limited="true"')
+  mj = mujoco.MjModel.from_xml_string(xml)
+  mj.opt.integrator = mujoco.mjtIntegrator.mjINT_EULER  # the JAX package's muscle form
+  mj.opt.iterations, mj.opt.ls_iterations = 10, 20
+  jtp, jm = jphysics.put_model(mj, dtype=jnp.float64)
+  ttp, tm = tio.put_model(mj, dtype=torch.float64, device="cpu")
+  d = jphysics.make_data(jtp, jm).replace(
+    qvel=jnp.asarray(np.r_[0.5, -0.3, 0.2, 1.0][: mj.nv]), ctrl=jnp.full((mj.nu,), 0.8))
+  td = to_torch(one_world(d))
+  step = jax.jit(lambda dd: jphysics.step(jtp, jm, dd))
+  with torch_threads(1):
+    for _ in range(5):
+      d = step(d)
+      td = tphysics.step(ttp, tm, td)
+      for f in ("qpos", "qvel", "act"):
+        assert_close(getattr(td, f).numpy(), np.asarray(getattr(d, f))[None], 1e-10, f)

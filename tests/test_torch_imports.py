@@ -6,8 +6,9 @@ with periodic saves, resuming, play, list_envs, joint_deltas, the NaN
 guard, the artifact registry and the exporters, a user's task
 registered with the sim-to-real cfg of chip_smoke.py's phase 15: per-env
 randomization, history, delay, noise models, pushes and clip, a substep of
-every surface scene, and the CartPole tutorial's port blocks, registered
-and stepped) pull in none of jax,
+every surface scene and every muscle scene, the filter-actuated hopper
+env, and the CartPole tutorial's port blocks, registered and stepped) pull
+in none of jax,
 jaxlib, mjlab_tpu, mujoco, gymnasium, flax, optax, orbax or wandb; no
 module of the port and not chip_smoke.py names one of them in an import;
 its own MuJoCo enum constants agree with mujoco's; and it registers every
@@ -131,6 +132,17 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
     "for n in ss.SCENES:\n"
     "  tp, m = physics.put_model(ss.load(n), dtype=torch.float64, device='cpu')\n"
     "  physics.step(tp, m, physics.make_data(tp, m, 1))\n"
+    "import mjlab_tpu_torch.kernels.pgs, mjlab_tpu_torch.physics.muscle\n"
+    "import mjlab_tpu_torch.assets.muscle_scenes as ms\n"
+    "for n in ms.SCENES:\n"
+    "  mj = ms.load(n)\n"
+    "  mj.opt.iterations, mj.opt.ls_iterations = 2, 2\n"
+    "  tp, m = physics.put_model(mj, dtype=torch.float64, device='cpu')\n"
+    "  physics.step(tp, m, physics.make_data(tp, m, 1))\n"
+    "from mjlab_tpu_torch.envs import ManagerBasedRlEnv\n"
+    "e = ManagerBasedRlEnv(ms.hopper_filter_env_cfg(2), device='cpu')\n"
+    "e.reset(seed=0)\n"
+    "e.step(torch.zeros(2, e.total_action_dim, dtype=torch.float64))\n"
     "doc = pathlib.Path('docs/CREATE_NEW_TASK_TORCH.md').read_text()\n"
     "ns = {}\n"
     "for b in re.findall(r'```python\\n(.*?)```', doc, flags=re.DOTALL):\n"

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -120,7 +121,6 @@ def test_g1_npz_is_fresh(tmp_path):
 @pytest.mark.parametrize(
   "xml_edit, feature",
   [
-    ('iterations="10"', "PGS solver"),
     ('iterations="10"', "PGS with elliptic"),
     ('<joint name="j4" type="hinge"', "ball joint stiffness"),
     ('iterations="10"', "noslip post-solver"),
@@ -128,7 +128,8 @@ def test_g1_npz_is_fresh(tmp_path):
 )
 def test_unsupported_features_raise(xml_edit, feature):
   """Features the port still refuses raise NotImplementedError naming them
-  (RK4, CG, the elliptic cone and friction loss are ported: see
+  (PGS under the pyramidal cone: test_pgs_solver_equals_jax; RK4, CG, the
+  elliptic cone and friction loss are ported: see
   tests/test_torch_solvers.py, test_torch_elliptic.py and
   test_torch_constraint_rows.py; ball joints and gravity compensation:
   tests/test_torch_ball_joints.py and test_torch_mocap_gravcomp.py)."""
@@ -137,7 +138,6 @@ def test_unsupported_features_raise(xml_edit, feature):
   from tests.torch_parity import TOY_XML
 
   repl = {
-    "PGS solver": 'iterations="10" solver="PGS"',
     "PGS with elliptic": 'iterations="10" solver="PGS" cone="elliptic"',
     "ball joint stiffness": '<joint name="j4" type="ball" stiffness="5"',
     "noslip post-solver": 'iterations="10" noslip_iterations="3"',
@@ -149,3 +149,29 @@ def test_unsupported_features_raise(xml_edit, feature):
   m = mujoco.MjModel.from_xml_string(xml)
   with pytest.raises(NotImplementedError, match=feature):
     tio.put_model(m, dtype=torch.float64, device="cpu")
+
+
+def test_pgs_solver_equals_jax():
+  """The toy scene (contacts, joint limits, no tendon) under
+  solver="PGS" (pyramidal, 10 sweeps): put_model takes it, and one forward
+  of its 8 recorded contact-rich states equals the JAX package's qacc,
+  efc_force and qfrc_constraint within 1e-9 relative."""
+  import jax
+  import mujoco
+
+  from mjlab_tpu import physics as jphysics
+  from mjlab_tpu_torch import physics as tphysics
+  from tests.torch_parity import TOY_XML, assert_close, jax_data_from_arrays, to_torch
+
+  mj = mujoco.MjModel.from_xml_string(TOY_XML.replace('iterations="10"',
+                                                      'iterations="10" solver="PGS"', 1))
+  assert mj.opt.solver == mujoco.mjtSolver.mjSOL_PGS
+  jtp, jm = jphysics.put_model(mj, dtype=jnp.float64)
+  ttp, tm = tio.put_model(mj, dtype=torch.float64, device="cpu")
+  assert tm.opt.solver == 0 and ttp.nefc == jtp.nefc
+  states = scene("toy").states
+  want = jax.jit(jax.vmap(lambda d: jphysics.forward(jtp, jm, d)))(jax_data_from_arrays(states))
+  got = tphysics.forward(ttp, tm, to_torch(states))
+  assert (got.efc_D > 0).any()
+  for f in ("qacc", "efc_force", "qfrc_constraint"):
+    assert_close(getattr(got, f).numpy(), np.asarray(getattr(want, f)), 1e-9, f)

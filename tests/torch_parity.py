@@ -1282,3 +1282,151 @@ def surface_rollout(name: str, steps: int, cone=None, xml=None, qvel=None, qpos=
     jax=(np.asarray(d.qpos)[None], np.asarray(d.qvel)[None]),
     port=(td.qpos.numpy(), td.qvel.numpy()), ttp=ttp, jtp=jtp, mj=mj,
   )
+
+
+# ---------------------------------------------------------------------------
+# The actuation and tendon surface: mjlab_tpu_torch/assets/muscle_scenes.py.
+# ---------------------------------------------------------------------------
+
+
+# The muscle scenes hold at most a few constraint rows (a joint or tendon
+# limit, an equality), which Newton solves in one iteration and the exact
+# linesearch in two steps: 2 iterations of 4 linesearch steps reach MuJoCo's
+# optimum within their tests' tolerances, several times faster in eager
+# torch than SCENE_BUDGET.
+MUSCLE_BUDGET = {"iterations": 2, "ls_iterations": 4}
+
+
+def muscle_models(name: str, integrator=None, budget=False, with_jax=True, **opt):
+  """(MjModel, JAX (Topology, Model) or None without `with_jax`, port
+  (Topology, Model)) of a muscle scene, float64, under `integrator`, the
+  option edits `opt` and, with `budget`, MUSCLE_BUDGET's Newton iterations
+  (the MjModel keeps them)."""
+  from mjlab_tpu_torch.assets.muscle_scenes import SCENES
+
+  mj = mujoco.MjModel.from_xml_string(SCENES[name].xml)
+  if integrator is not None:
+    mj.opt.integrator = integrator
+  for k, v in {**(MUSCLE_BUDGET if budget else {}), **opt}.items():
+    setattr(mj.opt, k, v)
+  return (mj, jphysics.put_model(mj, dtype=jnp.float64) if with_jax else None,
+          tio.put_model(mj, dtype=torch.float64, device="cpu"))
+
+
+_JAX_STEPS: dict[str, object] = {}
+
+
+def _shared_jax_step(jtp):
+  """One jitted JAX step (model, data) per distinct Topology: scenes whose
+  Topology is equal (the fluid settings differ only in option values) share
+  a compile."""
+  import hashlib
+  import pickle
+
+  key = hashlib.sha256(pickle.dumps(
+    [(f.name, getattr(jtp, f.name)) for f in dataclasses.fields(jtp)])).hexdigest()
+  if key not in _JAX_STEPS:
+    _JAX_STEPS[key] = jax.jit(lambda m, d: jphysics.step(jtp, m, d))
+  return _JAX_STEPS[key]
+
+
+@functools.lru_cache(maxsize=None)
+def muscle_jax_step(name: str, integrator=None, budget=False, opt=()):
+  """(MjModel, JAX Topology, JAX Model, port Topology, port Model, the
+  jitted JAX step) of a muscle scene (`muscle_models`; `opt` as sorted
+  items), compiled once per process and Topology."""
+  mj, (jtp, jm), (ttp, tm) = muscle_models(name, integrator, budget, **dict(opt))
+  shared = _shared_jax_step(jtp)
+  return mj, jtp, jm, ttp, tm, lambda d: shared(jm, d)
+
+
+def muscle_rollout(name: str, steps: int, integrator=None, budget=False, mjc=False,
+                   record=(), with_jax=True, **opt):
+  """`steps` substeps of a muscle scene from its state and under its
+  control in the port and, with `with_jax`, the JAX package side by side
+  (one jitted step per Topology; float64, with `integrator`, `budget` and
+  `opt`), and with `mjc` in `mujoco.mj_step` too (its own solver options);
+  each step's relative gap of the port's qpos, qvel and act to JAX's
+  (`gaps`); `record` names Data fields to keep from the engines at the
+  end. Without `with_jax` nothing of the JAX package is built."""
+  from mjlab_tpu_torch import physics as tphysics
+  from mjlab_tpu_torch.assets.muscle_scenes import SCENES
+
+  sc = SCENES[name]
+  key = (name, integrator, budget, tuple(sorted(opt.items())))
+  jtp = jm = d = None
+  if with_jax:
+    mj, jtp, jm, ttp, tm, step = muscle_jax_step(*key)
+  else:
+    mj, _, (ttp, tm) = muscle_models(name, integrator, budget, with_jax=False, **opt)
+  qpos, qvel = sc.state(mj)
+  td = tphysics.make_data(ttp, tm, 1).replace(
+    qpos=torch.tensor(qpos[None]), qvel=torch.tensor(qvel[None]))
+  if with_jax:  # the same leaves (the JAX package's make_data compiles eagerly)
+    d = jax_data_from_arrays({k: v[0] for k, v in tio.data_to_arrays(td).items()})
+  if mjc:
+    mj = muscle_models(name, integrator, with_jax=False)[0]  # MuJoCo's own converged solver
+    mjd = mujoco.MjData(mj)
+    mjd.qpos[:], mjd.qvel[:] = qpos, qvel
+  fields = ("qpos", "qvel", "act", *record)
+  gaps = []
+  with torch.inference_mode():
+    for k in range(steps):
+      if sc.ctrl is not None:
+        c = sc.ctrl(k, mj.nu)
+        td = td.replace(ctrl=torch.tensor(c[None], dtype=torch.float64))
+        if with_jax:
+          d = d.replace(ctrl=jnp.asarray(c))
+        if mjc:
+          mjd.ctrl[:] = c
+      td = tphysics.step(ttp, tm, td)
+      if mjc:
+        mujoco.mj_step(mj, mjd)
+      if not with_jax:
+        continue
+      d = step(d)
+      gap = 0.0
+      for f in ("qpos", "qvel", "act"):
+        want, got = np.asarray(getattr(d, f)), getattr(td, f).numpy()[0]
+        if want.size:
+          gap = max(gap, float(np.max(np.abs(got - want))) / max(1.0, float(np.max(np.abs(want)))))
+      gaps.append(gap)
+  return SimpleNamespace(
+    jax={f: np.asarray(getattr(d, f))[None] for f in fields} if with_jax else None,
+    port={f: getattr(td, f).numpy() for f in fields},
+    mujoco=(mjd.qpos.copy(), mjd.qvel.copy(), mjd.act.copy()) if mjc else None,
+    mjd=mjd if mjc else None, gaps=np.asarray(gaps), mj=mj, jtp=jtp, jm=jm, ttp=ttp, tm=tm,
+  )
+
+
+def hopper_filter_mj_model() -> mujoco.MjModel:
+  """The compiled scene of the JAX test's filter-actuated hopper env
+  (tests/test_physics_actdyn.py `_make_filter_env`): its SceneCfg through
+  the JAX Scene and its MujocoCfg applied, as the env's Simulation holds
+  it, without building the env's jitted steps."""
+  from mjlab_tpu.entity import EntityArticulationInfoCfg, EntityCfg
+  from mjlab_tpu.scene import Scene, SceneCfg
+  from mjlab_tpu.sim import MujocoCfg
+  from mjlab_tpu.terrains import TerrainImporterCfg
+  from mjlab_tpu.utils.spec_config import CollisionCfg
+  from mjlab_tpu_torch.assets.muscle_scenes import HOPPER_FILTER_XML
+
+  robot = EntityCfg(
+    init_state=EntityCfg.InitialStateCfg(pos=(0, 0, 0.6), joint_pos={"hip": 0.2, "knee": -0.4}),
+    spec_fn=lambda: mujoco.MjSpec.from_string(HOPPER_FILTER_XML),
+    collisions=(CollisionCfg(geom_names_expr=(".*_collision",)),),
+    articulation=EntityArticulationInfoCfg(actuators=()),
+  )
+  mj = Scene(SceneCfg(num_envs=2, terrain=TerrainImporterCfg(terrain_type="plane"),
+                      entities={"robot": robot})).compile()
+  MujocoCfg(timestep=0.005, iterations=5, ls_iterations=10).apply(mj)
+  return mj
+
+
+def save_hopper_filter_npz(path=None) -> None:
+  """Write the hopper env's compiled scene to `path`, default the committed
+  muscle_scenes.HOPPER_FILTER."""
+  from mjlab_tpu_torch.assets import save_model_npz
+  from mjlab_tpu_torch.assets.muscle_scenes import HOPPER_FILTER
+
+  save_model_npz(hopper_filter_mj_model(), path or HOPPER_FILTER)
