@@ -210,10 +210,12 @@ Phases, each printing its own lines:
      substeps and the post-reset forward; M's factor and solve per
      forward, the integrator's factor-solve per substep, no Newton
      direction), the active rows per world; `pgs_solve` (csrc/pgs.cu)
-     against `pgs_solve_plain` on the run's own rows and factor (f32 by
-     KernelCheck's rule; the same rows cast to f64 within 1e-10
-     relative), its ms beside the plain version's (which forms A, 512
-     worlds a call) and its bound; one PPO iteration of 8 env steps
+     against `pgs_solve_plain` on the run's own rows and factor, f, u and
+     qfrc (f32 by KernelCheck's rule; the same rows cast to f64 within
+     1e-10 relative), its launch (worlds resident per SM, registers,
+     spills), its ms beside the plain version's (which forms A, 512
+     worlds a call) and its bound, the most active rows of a world and
+     the ns per dependent row update; one PPO iteration of 8 env steps
      through build_runner with phase 8's checks (9 factorizations, 5
      `chol_solve` and 5 `pgs_solve` per env step); the card's float64
      env against the CPU's (phase 14's rule); (b) each scene of
@@ -2847,23 +2849,51 @@ def pgs_plain_chunked(args: tuple, iterations: int):
 
   out = [pgs.pgs_solve_plain(*(a[s:s + PGS_PLAIN_CHUNK] for a in args), iterations)
          for s in range(0, args[0].shape[0], PGS_PLAIN_CHUNK)]
-  return torch.cat([f for f, _ in out]), torch.cat([u for _, u in out])
+  return tuple(torch.cat(parts) for parts in zip(*out))
+
+
+def pgs_args(tp, d) -> tuple:
+  """pgs_solve's inputs on a state: (L, J, a0, aref, D, lo, hi), as
+  solver._pgs hands them to the kernel."""
+  from mjlab_tpu_torch.physics import solver
+
+  D, lo, hi = solver.pgs_inputs(tp, d)
+  return tuple(t.contiguous() for t in (d.qLD, d.efc_J, d.qacc_smooth, d.efc_aref, D, lo, hi))
 
 
 def pgs_bound(args: tuple, iterations: int) -> tuple[float, str]:
-  """Least time (ms) of pgs_solve on these inputs: bytes of L's lower
-  triangle, D read and f written for every row, J, b, lo and hi read for
-  the active rows only, and u written once; operations 2 nv² + 2 nv per
-  active row (w_i and the diagonal) and 4 nv per active row and sweep (the
-  dot and the axpy)."""
-  L, J, D = args[:3]
+  """Least time (ms) of pgs_solve on these inputs (L, J, a0, aref, D, lo,
+  hi): bytes of L's lower triangle and a0, D read and f written for every
+  row, J, aref, lo and hi read for the active rows only, u and qfrc written
+  once; operations per active row 2 nv² (w_i), 2 nv each for b_i, the
+  diagonal and its share of qfrc, and 4 nv per sweep (a dot and an axpy
+  with u)."""
+  L, J, D = args[0], args[1], args[4]
   B, n, m = L.shape[0], L.shape[1], J.shape[1]
   elem = L.element_size()
   active = int((D > 0).sum().item())
-  byt = (2 * B * m + 3 * active + B * n * (n + 1) // 2 + active * n + B * n) * elem
-  flop = active * (2 * n * n + 2 * n + 4 * n * iterations)
+  byt = (2 * B * m + active * (n + 3) + B * n * (n + 1) // 2 + 3 * B * n) * elem
+  flop = active * (2 * n * n + 6 * n + 4 * n * iterations)
   tb, tf = byt / PEAK_BYTES * 1e3, flop / PEAK_F32 * 1e3
   return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def pgs_env():
+  """G1 velocity-flat under solver="pgs" (the CLI's override) at NUM_WORLDS
+  envs, reset with seed 0, and the seeded actions of phase 17a's warm-up
+  step and its PGS_ENV_STEPS env steps."""
+  from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+  from mjlab_tpu_torch.scripts.cli import apply_overrides
+  from mjlab_tpu_torch.tasks import load_env_cfg
+
+  cfg = load_env_cfg(TASK)
+  apply_overrides(cfg, {"scene.num_envs": str(NUM_WORLDS), "sim.mujoco.solver": "pgs"})
+  env = ManagerBasedRlEnv(cfg, device="cuda")
+  env.reset(seed=0)
+  gen = torch.Generator(device="cuda").manual_seed(17)
+  actions = [torch.randn(NUM_WORLDS, env.total_action_dim, generator=gen, device="cuda")
+             for _ in range(PGS_ENV_STEPS + 1)]
+  return env, actions
 
 
 def pgs_path(card: str, checks: KernelCheck) -> dict:
@@ -2873,32 +2903,25 @@ def pgs_path(card: str, checks: KernelCheck) -> dict:
   read just after (one pgs_solve per forward: 4 substeps and the post-reset
   forward; M's factor and solve per forward, the integrator's factor-solve
   per substep; no Newton direction), ms per env step, the active rows per
-  world; the kernel against its plain version on the run's own rows (f32:
-  KernelCheck's rule; f64, the same rows and factor cast: 1e-10 relative),
-  timed beside the plain version and its bound; one PPO iteration of
+  world; the kernel's launch (worlds resident per SM, registers, spills);
+  the kernel against its plain version on the run's own rows, for f, u and
+  qfrc (f32: KernelCheck's rule; f64, the same rows and factor cast: 1e-10
+  relative), timed beside the plain version and its bound, and its ns per
+  dependent row update (ms / (sweeps x the most active rows of a world));
+  one PPO iteration of
   CUT_STEPS env steps through build_runner with phase 8's checks; and the
   card's float64 env against the CPU's (phase 14's rule)."""
-  from mjlab_tpu_torch.envs import ManagerBasedRlEnv
   from mjlab_tpu_torch.kernels import chol, pgs
-  from mjlab_tpu_torch.physics import solver
-  from mjlab_tpu_torch.scripts.cli import apply_overrides
   from mjlab_tpu_torch.scripts.train import build_runner
-  from mjlab_tpu_torch.tasks import load_env_cfg
 
   gc.collect()
   torch.cuda.empty_cache()
   t0 = time.perf_counter()
-  cfg = load_env_cfg(TASK)
-  apply_overrides(cfg, {"scene.num_envs": str(NUM_WORLDS), "sim.mujoco.solver": "pgs"})
-  env = ManagerBasedRlEnv(cfg, device="cuda")
-  env.reset(seed=0)
+  env, actions = pgs_env()
   tp, it = env.tp, env.sim.model.opt.iterations
   forwards = DECIMATION + 1
   want = {"chol_factor": forwards, "chol_solve": forwards, "chol_factor_solve": DECIMATION,
           "newton_direction": 0, CONE_KERNEL: 0, PGS_KERNEL: forwards}
-  gen = torch.Generator(device="cuda").manual_seed(17)
-  actions = [torch.randn(NUM_WORLDS, env.total_action_dim, generator=gen, device="cuda")
-             for _ in range(PGS_ENV_STEPS + 1)]
   env.step(actions[0])
   torch.cuda.synchronize()
   print(f"phase 17 pgs: {TASK} --env.sim.mujoco.solver pgs ({it} sweeps), {NUM_WORLDS} envs, "
@@ -2936,39 +2959,47 @@ def pgs_path(card: str, checks: KernelCheck) -> dict:
         f"(share {per_world.mean().item() / tp.nefc:.4f}); root height mean "
         f"{z.mean().item():.3f} m")
 
-  D, b, lo, hi = solver.pgs_inputs(tp, d)
-  args = (d.qLD.contiguous(), d.efc_J.contiguous(), D, b.contiguous(), lo.contiguous(),
-          hi.contiguous())
+  args = pgs_args(tp, d)
   args64 = tuple(a.double() for a in args)
   del env, d, obs, rew, actions
   gc.collect()
   torch.cuda.empty_cache()
-  f, u = pgs.pgs_solve(*args, it)
+  launch = pgs.launch_config(torch.float32, tp.nv)
+  print(f"  {PGS_KERNEL} launch (f32, N {launch['N']}): {launch['worlds_per_sm']} worlds "
+        f"resident per SM x {launch['sms']} SMs, {launch['registers']} registers and "
+        f"{launch['spill_bytes']} spill bytes per thread, {launch['shared_bytes']} shared bytes "
+        f"per world")
+  out = pgs.pgs_solve(*args, it)
   t0 = time.perf_counter()
-  fp, up = pgs_plain_chunked(args, it)
+  plain = pgs_plain_chunked(args, it)
   torch.cuda.synchronize()
   plain_ms = (time.perf_counter() - t0) * 1e3
-  f64p, u64p = pgs_plain_chunked(args64, it)
-  checks.check(PGS_KERNEL, "g1 pgs f", f, fp, f64p)
-  checks.check(PGS_KERNEL, "g1 pgs u", u, up, u64p)
-  inactive = args[2] <= 0
+  plain64 = pgs_plain_chunked(args64, it)
+  for what, got, p, p64 in zip(("f", "u", "qfrc"), out, plain, plain64):
+    checks.check(PGS_KERNEL, f"g1 pgs {what}", got, p, p64)
+  f = out[0]
+  inactive = args[4] <= 0
   if not torch.equal(f[inactive], torch.zeros_like(f[inactive])):
     raise AssertionError("pgs_solve: an inactive row's force is not 0")
-  f64, u64 = pgs.pgs_solve(*args64, it)
-  for what, got, ref in (("f", f64, f64p), ("u", u64, u64p)):
+  out64 = pgs.pgs_solve(*args64, it)
+  for what, got, ref in zip(("f", "u", "qfrc"), out64, plain64):
     err, scale = (got - ref).abs().max().item(), max(1.0, ref.abs().max().item())
     print(f"  {PGS_KERNEL} f64 on the run's rows, {what}: max_abs_err {err:.3e} "
           f"(tol 1e-10 x {scale:.3e})")
     if not err <= 1e-10 * scale:
       raise AssertionError(f"{PGS_KERNEL} f64 {what}: {err:.3e}")
-  del fp, up, f64p, u64p, f64, u64, args64
+  del out, plain, plain64, out64, args64, f
   torch.cuda.empty_cache()
   ms = time_ms(lambda: pgs.pgs_solve(*args, it), [()], iters=10)
   bnd = pgs_bound(args, it)
+  max_rows = int((args[4] > 0).sum(1).max().item())
   print(f"  {PGS_KERNEL} on the run's rows: kernel {ms:.4f} ms  plain {plain_ms:.1f} ms (forms "
         f"A, {PGS_PLAIN_CHUNK} worlds a call)  library none (no PyTorch call computes a "
         f"projected Gauss-Seidel sweep)  bound {bnd[0]:.6f} ms ({bnd[1]}) [{card}]")
-  del args, f, u, D, b, lo, hi
+  print(f"  {PGS_KERNEL}: max active rows per world {max_rows}; "
+        f"{ms * 1e6 / max(1, it * max_rows):.1f} ns per dependent row update (kernel ms / "
+        f"({it} sweeps x {max_rows} rows)) [{card}]")
+  del args
   gc.collect()
   torch.cuda.empty_cache()
 
@@ -2996,7 +3027,7 @@ def pgs_path(card: str, checks: KernelCheck) -> dict:
   f64_env_check(TASK, n_steps=CUT_F64_STEPS, nudges=PHASE14_NUDGES,
                 overrides={"sim.mujoco.solver": "pgs"})
   return {"launches": launches, "train_launches": train, "ms": ms, "plain_ms": plain_ms,
-          "bound": bnd, "env_step_ms": env_step_ms}
+          "bound": bnd, "env_step_ms": env_step_ms, "launch": launch, "max_rows": max_rows}
 
 
 def muscle_scenes_path(card: str) -> dict[str, int]:
@@ -3662,7 +3693,8 @@ def main() -> int:
     "name": PGS_KERNEL,
     "route": "cuda",
     "source": "mjlab_tpu_torch/csrc/pgs.cu",
-    "replaces": "mjlab_tpu/physics/solver.py:327-362 (pgs_solve: A, then the row sweeps)",
+    "replaces": "mjlab_tpu/physics/solver.py:327-362 (pgs_solve: A, b, then the row sweeps) "
+                "and :366 (qfrc = J^T f)",
     "launches": pgs_run["launches"][PGS_KERNEL],
     "launches_pgs_path": pgs_run["launches"][PGS_KERNEL],
     "launches_pgs_training_path": pgs_run["train_launches"][PGS_KERNEL],
@@ -3674,6 +3706,8 @@ def main() -> int:
     "bound_by": pgs_run["bound"][1],
     "library_ms": None,
     "env_step_ms": pgs_run["env_step_ms"],
+    "launch": pgs_run["launch"],
+    "max_active_rows": pgs_run["max_rows"],
   })
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({

@@ -1,21 +1,23 @@
-"""Times this checkout's Newton-direction and Cholesky kernels against
-other versions of their sources, on one CUDA card.
+"""Times this checkout's Newton-direction, Cholesky and PGS kernels
+against other versions of their sources, on one CUDA card.
 
 Run from the root of a checkout:
 
-    python3 kernel_ab.py DIR [DIR ...] [--cut DIR ...]
+    python3 kernel_ab.py DIR [DIR ...] [--cut DIR ...] [--cases newton chol pgs]
 
-Each DIR holds one version's `newton_dir.cu` and `chol_core.cuh`, and
-optionally its `chol.cu`: for example a parent commit's
+Each DIR holds one version's sources, any of `newton_dir.cu` (with
+`chol_core.cuh`), `chol.cu` and `pgs.cu`: for example a parent commit's
 `mjlab_tpu_torch/csrc`, unpacked with `git archive` into a directory that
 .gitignore lists. A version is named by its DIR's last component; this
-checkout's `mjlab_tpu_torch/csrc` is `this`. Every version is built with
+checkout's `mjlab_tpu_torch/csrc` is `this`. Every source is built with
 `kernels.build.NVCC_FLAGS` into `build/kernel_ab/`, held against the plain
 versions (chip_smoke.KernelCheck's rule) and timed with CUDA events in
 turns (the others, this, this, the others in reverse; twice) on the cases
-below. A version given with `--cut` is one cut short to split the time
-(for example, without the factor): it is timed, not held to the plain
-versions. The cases:
+below, each case with the versions that have its source. A version given
+with `--cut` is one cut short to split the time (for example, without the
+factor): it is timed, not held to the plain versions. `--cases` picks the
+groups to run (all three by default): `newton` is run, m0, wzero, dense
+and ell, `chol` the Cholesky entries, `pgs` the PGS case. The cases:
 
 - `run`: G1 velocity-flat's Newton inputs (qM, J, the weights at qacc, a
   seeded grad) after 30 env steps of `Simulation.step_fn()` at 4096
@@ -27,7 +29,13 @@ versions. The cases:
   `newton_direction_cone` on that state's weights and cone blocks;
 - `chol`: the three entry points of `chol.cu` on phase 2's inputs (six
   random SPD batches, so that every call reads from HBM), for the versions
-  that have a `chol.cu`.
+  that have a `chol.cu`;
+- `pgs`: G1 velocity-flat under solver="pgs" after phase 17's warm-up step
+  and 10 env steps at 4096 worlds (f32): `pgs_solve` on that state's L,
+  J, a0, aref, D, lo and hi, f, u and qfrc held to the plain version. A
+  `pgs.cu` whose entry takes b (no `pgs_solve_config`, the form before the
+  kernel formed b and Jᵀf) is timed with b = J a0 − aref and qfrc = Jᵀf in
+  torch around it, so that every version times the same function.
 
 Each line of times names the card and its power limit as nvidia-smi
 prints them.
@@ -37,6 +45,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
+import re
 import subprocess
 import sys
 import time
@@ -52,9 +62,14 @@ OUT = ROOT / "build" / "kernel_ab"
 P, I = ctypes.c_void_p, ctypes.c_int
 
 
+SOURCES = ("newton_dir", "chol", "pgs")
+CASES = ("newton", "chol", "pgs")
+
+
 def _build(job: tuple[str, Path]) -> tuple[str, ctypes.CDLL, list[str]]:
-  """Builds one source; returns its library and, for G1's f32 Newton
-  instances (N 35, regular and cone), ptxas' register and spill lines."""
+  """Builds one source; returns its library and ptxas' register and spill
+  lines for G1's f32 instances (the Newton pair's N 35, regular and cone;
+  every f32 instance of a PGS kernel)."""
   from mjlab_tpu_torch.kernels import build
 
   tag, src = job
@@ -67,9 +82,13 @@ def _build(job: tuple[str, Path]) -> tuple[str, ctypes.CDLL, list[str]]:
   for line in (p.stdout + p.stderr).splitlines():
     if "Compiling entry function" in line or "Function properties for" in line:
       fn = line
-    elif ("registers" in line or "spill" in line) and "IfLi35ELb0ELb" in fn:
-      kind = "cone" if "IfLi35ELb0ELb1E" in fn else "regular"
-      ptxas.append(f"ptxas {tag} f32 N35 {kind}: {line.split(':', 1)[-1].strip()}")
+    elif "registers" in line or "spill" in line:
+      what = line.split(":", 1)[-1].strip()
+      if "IfLi35ELb0ELb" in fn:
+        kind = "cone" if "IfLi35ELb0ELb1E" in fn else "regular"
+        ptxas.append(f"ptxas {tag} f32 N35 {kind}: {what}")
+      elif (k := re.search(r"pgs_kernelIfLi(\d+)E", fn)) is not None:
+        ptxas.append(f"ptxas {tag} f32 {k.group(1)}: {what}")
   return tag, ctypes.CDLL(str(so)), ptxas
 
 
@@ -85,11 +104,20 @@ def _check_rc(rc: int, what: str) -> None:
     raise RuntimeError(f"kernel_ab: {what} failed with CUDA error {rc}")
 
 
+def version_sources(d: Path) -> list[str]:
+  """The sources of SOURCES that the directory holds (newton_dir.cu only
+  with its chol_core.cuh)."""
+  return [src for src in SOURCES if (d / f"{src}.cu").exists()
+          and (src != "newton_dir" or (d / "chol_core.cuh").exists())]
+
+
 class Version:
   """One version's built libraries and its entry points on CUDA tensors."""
 
-  def __init__(self, name: str, newton: ctypes.CDLL, chol: ctypes.CDLL | None):
-    self.name, self.newton_lib, self.chol_lib = name, newton, chol
+  def __init__(self, name: str, libs: dict[str, ctypes.CDLL]):
+    self.name, self.libs = name, libs
+    self.newton_lib, self.chol_lib = libs.get("newton_dir"), libs.get("chol")
+    self.pgs_lib = libs.get("pgs")
 
   def newton(self, qM, J, w, g, Bc=None, layout=None):
     cone = Bc is not None
@@ -117,6 +145,46 @@ class Version:
     _check_rc(f(*[t.data_ptr() for t in ins], out.data_ptr(), B, n, st), f"{self.name} chol_{op}")
     return out
 
+  def pgs(self, L, J, a0, aref, D, lo, hi, iterations):
+    """A call of this version's f32 pgs_solve on these inputs into buffers
+    allocated here once, so that a timing holds no allocation: it returns
+    (f, u, qfrc). An entry that takes b gets b = J a0 − aref, and
+    qfrc = Jᵀf, from torch around it."""
+    from mjlab_tpu_torch.kernels import pgs
+
+    (B, n), m = a0.shape, J.shape[1]
+    st = torch.cuda.current_stream().cuda_stream
+    f, u, qfrc = torch.empty_like(D), torch.empty_like(a0), torch.empty_like(a0)
+    idx = torch.empty((B, m), dtype=torch.int32, device="cuda")
+    S = torch.empty((B, 6, m), device="cuda")
+    if hasattr(self.pgs_lib, "pgs_solve_config"):
+      ws, ars = pgs.scratch_elems(n, m)
+      W, AR = torch.empty((B, ws), device="cuda"), torch.empty((B, ars), device="cuda")
+      fn = _entry(self.pgs_lib, "pgs_solve_f32", 14, 6)
+      ptrs = [t.data_ptr() for t in (L, J, a0, aref, D, lo, hi, f, u, qfrc, W, AR, S, idx)]
+
+      def call(keep=(W, AR, S, idx)):  # the scratch lives as long as the call
+        _check_rc(fn(*ptrs, B, n, m, iterations, ws, ars, st), f"{self.name} pgs_solve")
+        return f, u, qfrc
+
+      return call
+    W, b = torch.empty_like(J), torch.empty_like(D)
+    fn = _entry(self.pgs_lib, "pgs_solve_f32", 11, 4)
+    ptrs = [t.data_ptr() for t in (L, J, D, b, lo, hi, f, u, W, S, idx)]
+
+    def passes():  # the two passes over J that the kernel does not make
+      torch.sub(torch.matmul(J, a0[..., None])[..., 0], aref, out=b)
+      qfrc.copy_((J.transpose(-1, -2) @ f[..., None])[..., 0])
+
+    def call_b(keep=(W, S, idx)):
+      torch.sub(torch.matmul(J, a0[..., None])[..., 0], aref, out=b)
+      _check_rc(fn(*ptrs, B, n, m, iterations, st), f"{self.name} pgs_solve")
+      qfrc.copy_((J.transpose(-1, -2) @ f[..., None])[..., 0])
+      return f, u, qfrc
+
+    call_b.passes = passes
+    return call_b
+
 
 def build_versions(dirs: list[Path]) -> list[Version]:
   """The other versions and this one; the sources are built in parallel."""
@@ -124,8 +192,7 @@ def build_versions(dirs: list[Path]) -> list[Version]:
   named = [(d.name, d) for d in dirs] + [("this", ROOT / "mjlab_tpu_torch" / "csrc")]
   if len({name for name, _ in named}) != len(named):
     raise SystemExit("kernel_ab: the directories' last components must differ, and not be 'this'")
-  jobs = [(f"{name}_{src}", d / f"{src}.cu") for name, d in named
-          for src in ("newton_dir", "chol") if (d / f"{src}.cu").exists()]
+  jobs = [(f"{name}_{src}", d / f"{src}.cu") for name, d in named for src in version_sources(d)]
   t0 = time.perf_counter()
   with ThreadPoolExecutor(len(jobs)) as ex:
     built = list(ex.map(_build, jobs))
@@ -133,8 +200,8 @@ def build_versions(dirs: list[Path]) -> list[Version]:
   libs = {tag: lib for tag, lib, _ in built}
   for _, _, ptxas in built:
     print("\n".join(f"  {line}" for line in ptxas), flush=True)
-  return [Version(name, libs[f"{name}_newton_dir"], libs.get(f"{name}_chol"))
-          for name, _ in named]
+  return [Version(name, {src: libs[f"{name}_{src}"] for src in version_sources(d)})
+          for name, d in named]
 
 
 def turns(versions: list) -> list:
@@ -169,12 +236,18 @@ def g1_state(gen, cone: str, steps: int):
   return sim, d
 
 
-def main(argv: list[str] | None = None) -> int:
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
   ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   ap.add_argument("dirs", nargs="+", type=Path, help="other versions' csrc directories")
   ap.add_argument("--cut", action="append", type=Path, default=[],
                   help="a version cut short: timed, not held to the plain versions")
-  args = ap.parse_args(argv)
+  ap.add_argument("--cases", nargs="+", choices=CASES, default=list(CASES),
+                  help="the groups of cases to run (default: all)")
+  return ap.parse_args(argv)
+
+
+def main(argv: list[str] | None = None) -> int:
+  args = parse_args(argv)
   if not torch.cuda.is_available():
     print("kernel_ab: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
     return 2
@@ -194,77 +267,120 @@ def main(argv: list[str] | None = None) -> int:
     print(f"  {what} ms [{card}]: " + "; ".join(
       f"{k} " + " ".join(f"{t:.4f}" for t in ts) for k, ts in times.items()), flush=True)
 
-  def case(what, inputs, layout=None, iters=20):
-    cone = layout is not None
-    plain = ((lambda *a: chol.newton_direction_cone_plain(*a, layout)) if cone
-             else chol.newton_direction_plain)
-    x64 = plain(*[a.double() for a in inputs])
-    for v in versions:
+  if "pgs" in args.cases:
+    with_pgs = [v for v in versions if v.pgs_lib is not None]
+    env, actions = cs.pgs_env()
+    for a in actions:
+      env.step(a)
+    it = env.sim.model.opt.iterations
+    ins = cs.pgs_args(env.tp, env.data)
+    del env, actions
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = (ins[4] > 0).sum(1)
+    bnd = cs.pgs_bound(ins, it)
+    print(f"pgs: active rows per world mean {rows.float().mean().item():.2f}, max "
+          f"{int(rows.max())} of {ins[1].shape[1]}; {it} sweeps; bound {bnd[0]:.5f} ms "
+          f"({bnd[1]})", flush=True)
+    plain = cs.pgs_plain_chunked(ins, it)
+    plain64 = cs.pgs_plain_chunked(tuple(a.double() for a in ins), it)
+    calls = {v.name: v.pgs(*ins, it) for v in with_pgs}
+    for v in with_pgs:
       if v.name not in cut:
-        checks.check(v.name, what, v.newton(*inputs, layout=layout), plain(*inputs), x64)
+        for what, got, p, p64 in zip(("f", "u", "qfrc"), calls[v.name](), plain, plain64):
+          checks.check(v.name, f"pgs {what}", got, p, p64)
+    del plain, plain64
+    torch.cuda.empty_cache()
     times: dict[str, list[float]] = {}
-    for v in turns(versions):
-      times.setdefault(v.name, []).append(
-        cs.time_ms(lambda: v.newton(*inputs, layout=layout), [()], iters=iters))
-    report(what, times)
+    for v in turns(with_pgs):
+      times.setdefault(v.name, []).append(cs.time_ms(calls[v.name], [()], iters=20))
+    report("pgs (kernel; b and J^T f in torch for an entry that takes b)", times)
+    for name, call in calls.items():
+      if hasattr(call, "passes"):
+        ms = [cs.time_ms(call.passes, [()], iters=20) for _ in range(2)]
+        print(f"  {name}: its two torch passes alone (b = J a0 - aref, J^T f) "
+              + " ".join(f"{t:.4f}" for t in ms) + f" ms [{card}]", flush=True)
+    rmax = int(rows.max())
+    print("  pgs ns per dependent row update: " + "; ".join(
+      f"{k} {min(ts) * 1e6 / (it * rmax):.1f}" for k, ts in times.items()), flush=True)
+    del ins, calls
+    torch.cuda.empty_cache()
 
-  for kind in ("m0", "wzero"):
-    m = 0 if kind == "m0" else cs.NEFC
-    case(kind, [cs.spd_batch(gen, cs.NUM_WORLDS, cs.N, torch.float32),
-                torch.randn(cs.NUM_WORLDS, m, cs.N, generator=gen, device="cuda"),
-                torch.zeros(cs.NUM_WORLDS, m, device="cuda"), grad])
-  _, d = g1_state(gen, "pyramidal", 30)
-  w = solver.newton_weights(d, d.qacc)
-  rows = int((w != 0).sum())
-  bnd = cs.bounds(cs.NUM_WORLDS, cs.N, rows=rows)["newton_direction"]
-  print(f"run: active rows {rows} (share {rows / w.numel():.4f}); bound {bnd[0]:.5f} ms "
-        f"({bnd[1]})", flush=True)
-  case("run", [d.qM.contiguous(), d.efc_J.contiguous(), w.contiguous(), grad])
-  del d, w
-  case("dense", [cs.spd_batch(gen, cs.NUM_WORLDS, cs.N, torch.float32),
-                 torch.randn(cs.NUM_WORLDS, cs.NEFC, cs.N, generator=gen, device="cuda")
-                 / cs.N**0.5,
-                 0.1 + torch.rand(cs.NUM_WORLDS, cs.NEFC, generator=gen, device="cuda"),
-                 grad], iters=8)
-  torch.cuda.empty_cache()
-  sim, d = g1_state(gen, "elliptic", 8)
-  layout = sim.tp.dev.con.cone_kernel_layout
-  gc = solver.GeneralCost(sim.tp, sim.model, d)
-  r = gc.residual(d.qacc)
-  w, Bc = gc.row_hess(r), gc.cone_blocks(r)
-  slots = (Bc.reshape(cs.NUM_WORLDS, -1, 9) != 0).any(-1).sum(1).float()
-  rows = int((w != 0).sum())
-  bnd = cs.cone_bound(cs.NUM_WORLDS, cs.N, sim.tp.nefc, rows, 3 * int(slots.sum()), layout.nb)
-  print(f"ell: active regular rows {rows}, active cone slots per world "
-        f"{slots.mean().item():.2f} (max {int(slots.max())}); bound {bnd[0]:.5f} ms "
-        f"({bnd[1]})", flush=True)
-  case("ell", [d.qM.contiguous(), d.efc_J.contiguous(), w.contiguous(), grad,
-               Bc.contiguous()], layout)
-  del sim, d, gc, r, w, Bc
-  torch.cuda.empty_cache()
+  if "newton" in args.cases:
+    newton_versions = [v for v in versions if v.newton_lib is not None]
 
-  with_chol = [v for v in versions if v.chol_lib is not None and v.name not in cut]
-  sets = []
-  for _ in range(cs.HBM_SETS):
-    A = cs.spd_batch(gen, cs.NUM_WORLDS, cs.N, torch.float32)
-    b = torch.randn(cs.NUM_WORLDS, cs.N, generator=gen, device="cuda")
-    sets.append((A, b, chol.chol_factor_plain(A)))
-  A, b, L = sets[0]
-  A64, b64, L64 = A.double(), b.double(), chol.chol_factor_plain(A.double())
-  for v in with_chol:
-    checks.check(v.name, "chol_factor", v.chol("factor", A), L, L64)
-    checks.check(v.name, "chol_solve", v.chol("solve", L, b), chol.chol_solve_plain(L, b),
-                 chol.chol_solve_plain(L.double(), b64))
-    checks.check(v.name, "chol_factor_solve", v.chol("factor_solve", A, b),
-                 chol.chol_factor_solve_plain(A, b), chol.chol_solve_plain(L64, b64))
-  for op in ("factor", "solve", "factor_solve"):
-    times: dict[str, list[float]] = {}
-    for v in turns(with_chol):
-      fn = ((lambda A, b, L: v.chol(op, A)) if op == "factor" else
-            (lambda A, b, L: v.chol(op, L, b)) if op == "solve" else
-            (lambda A, b, L: v.chol(op, A, b)))
-      times.setdefault(v.name, []).append(cs.time_ms(fn, sets, iters=4 * cs.HBM_SETS))
-    report(f"chol_{op} (HBM)", times)
+    def case(what, inputs, layout=None, iters=20):
+      cone = layout is not None
+      plain = ((lambda *a: chol.newton_direction_cone_plain(*a, layout)) if cone
+               else chol.newton_direction_plain)
+      x64 = plain(*[a.double() for a in inputs])
+      for v in newton_versions:
+        if v.name not in cut:
+          checks.check(v.name, what, v.newton(*inputs, layout=layout), plain(*inputs), x64)
+      times: dict[str, list[float]] = {}
+      for v in turns(newton_versions):
+        times.setdefault(v.name, []).append(
+          cs.time_ms(lambda: v.newton(*inputs, layout=layout), [()], iters=iters))
+      report(what, times)
+
+    for kind in ("m0", "wzero"):
+      m = 0 if kind == "m0" else cs.NEFC
+      case(kind, [cs.spd_batch(gen, cs.NUM_WORLDS, cs.N, torch.float32),
+                  torch.randn(cs.NUM_WORLDS, m, cs.N, generator=gen, device="cuda"),
+                  torch.zeros(cs.NUM_WORLDS, m, device="cuda"), grad])
+    _, d = g1_state(gen, "pyramidal", 30)
+    w = solver.newton_weights(d, d.qacc)
+    rows = int((w != 0).sum())
+    bnd = cs.bounds(cs.NUM_WORLDS, cs.N, rows=rows)["newton_direction"]
+    print(f"run: active rows {rows} (share {rows / w.numel():.4f}); bound {bnd[0]:.5f} ms "
+          f"({bnd[1]})", flush=True)
+    case("run", [d.qM.contiguous(), d.efc_J.contiguous(), w.contiguous(), grad])
+    del d, w
+    case("dense", [cs.spd_batch(gen, cs.NUM_WORLDS, cs.N, torch.float32),
+                   torch.randn(cs.NUM_WORLDS, cs.NEFC, cs.N, generator=gen, device="cuda")
+                   / cs.N**0.5,
+                   0.1 + torch.rand(cs.NUM_WORLDS, cs.NEFC, generator=gen, device="cuda"),
+                   grad], iters=8)
+    torch.cuda.empty_cache()
+    sim, d = g1_state(gen, "elliptic", 8)
+    layout = sim.tp.dev.con.cone_kernel_layout
+    gcost = solver.GeneralCost(sim.tp, sim.model, d)
+    r = gcost.residual(d.qacc)
+    w, Bc = gcost.row_hess(r), gcost.cone_blocks(r)
+    slots = (Bc.reshape(cs.NUM_WORLDS, -1, 9) != 0).any(-1).sum(1).float()
+    rows = int((w != 0).sum())
+    bnd = cs.cone_bound(cs.NUM_WORLDS, cs.N, sim.tp.nefc, rows, 3 * int(slots.sum()), layout.nb)
+    print(f"ell: active regular rows {rows}, active cone slots per world "
+          f"{slots.mean().item():.2f} (max {int(slots.max())}); bound {bnd[0]:.5f} ms "
+          f"({bnd[1]})", flush=True)
+    case("ell", [d.qM.contiguous(), d.efc_J.contiguous(), w.contiguous(), grad,
+                 Bc.contiguous()], layout)
+    del sim, d, gcost, r, w, Bc
+    torch.cuda.empty_cache()
+
+  if "chol" in args.cases:
+    with_chol = [v for v in versions if v.chol_lib is not None and v.name not in cut]
+    sets = []
+    for _ in range(cs.HBM_SETS):
+      A = cs.spd_batch(gen, cs.NUM_WORLDS, cs.N, torch.float32)
+      b = torch.randn(cs.NUM_WORLDS, cs.N, generator=gen, device="cuda")
+      sets.append((A, b, chol.chol_factor_plain(A)))
+    A, b, L = sets[0]
+    A64, b64, L64 = A.double(), b.double(), chol.chol_factor_plain(A.double())
+    for v in with_chol:
+      checks.check(v.name, "chol_factor", v.chol("factor", A), L, L64)
+      checks.check(v.name, "chol_solve", v.chol("solve", L, b), chol.chol_solve_plain(L, b),
+                   chol.chol_solve_plain(L.double(), b64))
+      checks.check(v.name, "chol_factor_solve", v.chol("factor_solve", A, b),
+                   chol.chol_factor_solve_plain(A, b), chol.chol_solve_plain(L64, b64))
+    for op in ("factor", "solve", "factor_solve"):
+      times: dict[str, list[float]] = {}
+      for v in turns(with_chol):
+        fn = ((lambda A, b, L: v.chol(op, A)) if op == "factor" else
+              (lambda A, b, L: v.chol(op, L, b)) if op == "solve" else
+              (lambda A, b, L: v.chol(op, A, b)))
+        times.setdefault(v.name, []).append(cs.time_ms(fn, sets, iters=4 * cs.HBM_SETS))
+      report(f"chol_{op} (HBM)", times)
   return 0
 
 

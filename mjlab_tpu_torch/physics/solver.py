@@ -400,10 +400,10 @@ def general(tp: Topology, m: Model) -> bool:
 
 
 def pgs_inputs(tp: Topology, d: Data):
-  """The dual problem's rows (solver.py:339-350): (D, b, lo, hi), with
-  b = J a0 − aref and each row's box by the classes of _row_masks:
-  equality rows unbounded, friction-loss rows [−fl, fl], the rest [0, ∞),
-  inactive rows (D = 0) [0, 0]."""
+  """The dual problem's rows (solver.py:339-350): (D, lo, hi), each row's
+  box by the classes of _row_masks: equality rows unbounded, friction-loss
+  rows [−fl, fl], the rest [0, ∞), inactive rows (D = 0) [0, 0]; b = J a0 −
+  aref is formed by pgs.pgs_solve."""
   t = tp.dev.con
   D, fl = d.efc_D.contiguous(), d.efc_frictionloss
   zero = torch.zeros_like(D)
@@ -418,18 +418,18 @@ def pgs_inputs(tp: Topology, d: Data):
   active = D > 0
   lo = torch.where(active, lo, zero)
   hi = torch.where(active, hi, zero)
-  return D, _mv(d.efc_J, d.qacc_smooth) - d.efc_aref, lo, hi
+  return D, lo, hi
 
 
 def _pgs(tp: Topology, m: Model, d: Data) -> Data:
   """Projected Gauss-Seidel on the dual (solver.py:327-372), from f = 0:
-  qacc = a0 + M⁻¹Jᵀf, its factor the forward's qLD."""
-  D, b, lo, hi = pgs_inputs(tp, d)
-  J = d.efc_J.contiguous()
-  f, u = pgs.pgs_solve(d.qLD, J, D, b, lo, hi, m.opt.iterations)
+  qacc = a0 + M⁻¹Jᵀf and qfrc_constraint = Jᵀf, its factor the forward's
+  qLD."""
+  D, lo, hi = pgs_inputs(tp, d)
+  f, u, qfrc = pgs.pgs_solve(d.qLD, d.efc_J.contiguous(), d.qacc_smooth.contiguous(),
+                             d.efc_aref.contiguous(), D, lo, hi, m.opt.iterations)
   x = d.qacc_smooth + u
-  return d.replace(qacc=x, efc_force=f, qfrc_constraint=_mv(J.transpose(-1, -2), f),
-                   qacc_warmstart=x)
+  return d.replace(qacc=x, efc_force=f, qfrc_constraint=qfrc, qacc_warmstart=x)
 
 
 def solve(tp: Topology, m: Model, d: Data) -> Data:

@@ -59,9 +59,10 @@ def test_pgs_rig_tracks_mujoco():
 
 
 def test_pgs_solve_forms_the_jax_bounds():
-  """One forward of the rig: the solver hands pgs_solve each row's box
-  (friction-loss rows ±fl, limit and contact rows [0, ∞), inactive rows
-  [0, 0]) and qacc = qacc_smooth + u."""
+  """One forward of the rig: the solver hands pgs_solve a0 = qacc_smooth,
+  aref and each row's box (friction-loss rows ±fl, limit and contact rows
+  [0, ∞), inactive rows [0, 0]), and takes qacc = qacc_smooth + u and
+  qfrc_constraint from it."""
   from mjlab_tpu_torch import physics as tphysics
   from mjlab_tpu_torch.assets import muscle_scenes
 
@@ -69,9 +70,11 @@ def test_pgs_solve_forms_the_jax_bounds():
   calls = []
   plain = pgs.pgs_solve
 
-  def spy(L, J, D, b, lo, hi, iterations):
-    calls.append((D.clone(), lo.clone(), hi.clone(), iterations))
-    return plain(L, J, D, b, lo, hi, iterations)
+  def spy(L, J, a0, aref, D, lo, hi, iterations):
+    out = plain(L, J, a0, aref, D, lo, hi, iterations)
+    calls.append((a0.clone(), aref.clone(), D.clone(), lo.clone(), hi.clone(), iterations,
+                  [t.clone() for t in out]))
+    return out
 
   qpos, qvel = muscle_scenes.SCENES["pgs_rig"].state(mj)
   d = tphysics.make_data(ttp, tm, 1).replace(qpos=torch.tensor(qpos[None]),
@@ -82,8 +85,10 @@ def test_pgs_solve_forms_the_jax_bounds():
       d = tphysics.forward(ttp, tm, d)
   finally:
     pgs.pgs_solve = plain
-  (D, lo, hi, iterations), = calls
+  (a0, aref, D, lo, hi, iterations, (_, u, qfrc)), = calls
   assert iterations == 100
+  assert torch.equal(a0, d.qacc_smooth) and torch.equal(aref, d.efc_aref)
+  assert torch.equal(d.qacc, d.qacc_smooth + u) and torch.equal(d.qfrc_constraint, qfrc)
   fl = d.efc_frictionloss[0, 0].item()
   active = D[0] > 0
   assert lo[0, 0].item() == -fl and hi[0, 0].item() == fl and fl > 0
