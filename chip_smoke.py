@@ -19,7 +19,7 @@ Phases, each printing its own lines:
      launch (warps per block, resident worlds per SM, shared bytes per
      warp, registers and local bytes per thread, ptxas' lines for it);
   3. drive the main path — `Simulation.step_fn()` on the G1 velocity-flat
-     scene at 4096 worlds, 30 env steps (cut from 50) of 4 substeps, ctrl = keyframe
+     scene at 4096 worlds, 20 env steps (cut from 50 and 30) of 4 substeps, ctrl = keyframe
      targets + a seeded small action — with the kernels' launch counters
      set to 0 just before and read just after; check the state is finite,
      plausible and in contact and that every substep made 12
@@ -47,7 +47,7 @@ Phases, each printing its own lines:
      env step by part with CUDA events, profiles one; then holds the card's
      float64 env (kernels)
      against the CPU's (plain versions) on a variant whose draws are all
-     certain, 4 envs x 8 env steps;
+     certain, 4 envs x 4 env steps (cut from 8);
   8. the training path — `scripts.train.build_runner(TASK,
      {"env.scene.num_envs": "4096"})`, the real G1 PPO cfg (MLPs 512/256/128,
      empirical normalization, 24 steps per env, 5 epochs x 4 minibatches of
@@ -84,9 +84,10 @@ Phases, each printing its own lines:
      certain-draw variant, as phase 8 does;
  10. a run's lifecycle on G1 velocity-flat at 4096 envs in
      build/chip_smoke/run, through the entry points: `run_train` for 2
-     iterations with a save after each (the files, the labels, ms per save,
-     the metric pulls and `learn`'s ms per iteration against phase 8's
-     steady iteration), `run_train --agent.resume true` for 1 iteration
+     iterations of 8 env steps (cut from 24) with a save after each (the
+     files, the labels, ms per save, the metric pulls and `learn`'s ms per
+     iteration against phase 8's steady iteration scaled to 8 env steps),
+     `run_train --agent.resume true` for 1 iteration
      that neither logs nor saves, run under set_sync_debug_mode("error")
      (the checkpoint loaded, the learner equal to it before its update, the
      label it went on from), `run_play --policy trained` on the final
@@ -151,14 +152,14 @@ Phases, each printing its own lines:
      the cone slots by zone and the active ones per world, the kernel's
      launch (f32 and f64), and the card's float64 env against the CPU's
      as phases 11-13 (2 env steps, cut from 3; 2 nudges); (b) G1 under
-     `--env.sim.mujoco.solver cg`, 10 env
-     steps at 4096 envs under set_sync_debug_mode("error"), ms per env step,
+     `--env.sim.mujoco.solver cg`, 6 env
+     steps (cut from 10) at 4096 envs under set_sync_debug_mode("error"), ms per env step,
      the Cholesky launches per env step against the code's count, and the
      float64 env check (2 env steps, 2 nudges); (c) each scene of
      mjlab_tpu_torch/assets/solver_scenes.py (equality connect/weld on
      bodies and sites, joint, tendon; friction loss; a limited tendon; CG;
-     condim 4 and 6 under both cones; the elliptic puck; Euler; RK4) for 20
-     (cut from 50 and 30) float64 substeps at 4096 worlds, ms per substep, its first 16 worlds
+     condim 4 and 6 under both cones; the elliptic puck; Euler; RK4) for 12
+     (cut from 50, 30 and 20) float64 substeps at 4096 worlds, ms per substep, its first 16 worlds
      against the CPU (1e-8, or twice the CPU's spread under 2 nudges).
  15. the user surface: the G1 velocity-flat cfg as a user edits it for
      sim-to-real training (`sim_to_real_edit`: startup randomization of the
@@ -180,8 +181,8 @@ Phases, each printing its own lines:
      run's per-env matrices (qM, the Newton matrix and direction, the
      implicitfast matrix); and the card's float64 env against the CPU's
      with all 19 FIELD_SPECS rows randomized (each env different, the
-     CPU's leaves handed to the card), 4 envs x 8 env steps, 1e-8 or twice
-     the CPU's spread under 2 nudges.
+     CPU's leaves handed to the card), 4 envs x 4 env steps (cut from 8),
+     1e-8 or twice the CPU's spread under 2 nudges.
  16. a user's own robot and task: (a) the CartPole tutorial, its guide's
      python blocks (docs/CREATE_NEW_TASK_TORCH.md) run verbatim, which
      register Mjlab-Cartpole: `cartpole_runner` at 4096 envs with the
@@ -189,7 +190,7 @@ Phases, each printing its own lines:
      with phase 8's checks (35 factorizations and 3 `chol_solve` per env
      step at decimation 2), the kernels against their plain versions on
      the run's matrices (n = 2, f32 and f64) and their times there; a
-     learning check in the form of tests/test_doc_cartpole.py's: 30
+     learning check in the form of tests/test_doc_cartpole.py's: 24 (cut from 30)
      iterations of 6 env steps, the mean episode length over the last 10
      more than twice that over the first 10 and the noise std annealed
      below 0.8 x; the card's float64 env against the CPU's on a
@@ -197,10 +198,10 @@ Phases, each printing its own lines:
      mjlab_tpu_torch/assets/surface_scenes.py (a ball chain, a gimbal, a
      humanoid with multi-hinge bodies and limited ball hips, the JAX
      package's sensor, pair, mocap and gravity-compensation scenes) for
-     20 (cut from 30) float64 substeps at 4096 worlds, ms per substep, every sensor
+     12 (cut from 30 and 20) float64 substeps at 4096 worlds, ms per substep, every sensor
      finite and every sensor type added in PR 13 evaluated, the first 16
      worlds against the CPU (phase 14's rule); the humanoid in float32 at
-     10 x 20 Newton iterations, ms per substep and the kernels' launches,
+     10 x 20 Newton iterations for 15 substeps (cut from 30), ms per substep and the kernels' launches,
      the kernels on its matrices (n = 27, f32 and f64), and
      `newton_direction_cone` on its matrices under the elliptic cone.
  17. the actuation and tendon surface, and PGS: (a) G1 velocity-flat under
@@ -222,11 +223,40 @@ Phases, each printing its own lines:
      mjlab_tpu_torch/assets/muscle_scenes.py (the JAX package's
      activation, muscle, fluid, spatial-tendon, wrap and PGS test scenes
      and a musculoskeletal arm) under each integrator its JAX test runs,
-     30 float64 substeps at 4096 worlds, ms per substep, the first 16
-     worlds against the CPU (phase 14's rule); and the filter-actuated
-     hopper env at 4096 envs, 10 env steps under set_sync_debug_mode
-     ("error"): act moves toward its targets and is exactly 0 after the
-     time-out that resets every env.
+     12 float64 substeps (cut from 30) at 4096 worlds, ms per substep,
+     the first 16 worlds against the CPU (phase 14's rule); and the
+     filter-actuated hopper env at 4096 envs, 10 env steps under
+     set_sync_debug_mode("error"): act moves toward its targets and is
+     exactly 0 after the time-out that resets every env.
+ 18. the rest of the JAX package's surface: (a) G1 velocity-flat at 4096
+     envs with a user's cfg that names every generic MDP term
+     (`generic_mdp_edit`: the observations base_lin_vel, base_ang_vel,
+     root_pos_w, root_quat_w, joint_pos, joint_vel; the terminations
+     root_height_below_minimum and nan_detection; the rewards
+     is_terminated, joint_torques_l2, joint_acc_l2, joint_vel_l2, posture,
+     electrical_power_cost, flat_orientation_l2; the curriculum
+     reward_weight staging one of them), 8 env steps under
+     set_sync_debug_mode("error") with the kernels' counters set to 0 just
+     before and read just after: every term finite, the staged weight in
+     the reward manager's state from the step after its stage, nan_detection
+     on exactly the envs whose qvel was poisoned, the kernels against their
+     plain versions on the run's matrices; the card's float64 env against
+     the CPU's, 4 envs x 2 env steps (1e-8); a mocap entity's reset
+     (reset_root_state_uniform, assets/surface/mocap_entity.npz) at 4096
+     envs, each pose inside its range and on its own env only; (b) the
+     scenes of assets/pair_scenes.py (plane–cylinder, plane–ellipsoid, a
+     height field under a sphere, a capsule, a box and a mesh hull) for 12
+     float64 substeps at 4096 worlds, ms per substep, the first 16 worlds
+     against the CPU (phase 14's rule); (c) two ranks on the one card
+     (gloo): `python -m torch.distributed.run --nproc_per_node 2 -m
+     mjlab_tpu_torch.scripts.train` G1 velocity-flat at 4096 envs (2 x
+     2048), one iteration of 8 env steps (each rank's ms per iteration and
+     peak memory, finite losses, the learner bitwise equal on both ranks,
+     rank 0 alone saving); float64, 2 ranks x 2 envs against this process
+     with 4 envs, one iteration of 2 env steps from one warm learner
+     (parameters, Adam state, normalizers, losses and the env state within
+     1e-8 relative; `--dist-f64 DIR` runs one of its processes); and one
+     rank through NCCL, one iteration at 512 envs.
 Any failed check raises. The line before the last is the kernel table as
 JSON (`launches` from the env path of phase 7, `launches_training_path`
 from phase 8's 2 iterations, `launches_tracking_path` from phase 9's,
@@ -243,7 +273,9 @@ and its play, `launches_rough_path` from phase 13's and its play,
 and the humanoid's (n = 27) matrices; the fifth entry,
 `newton_direction_cone`, has phase 14's elliptic run's launches and its
 times on that run's matrices; every entry has `launches_pgs_path` and
-`launches_muscle_scenes_path`, phase 17's; the sixth, `pgs_solve`, has
+`launches_muscle_scenes_path`, phase 17's, and `launches_generic_mdp_path`
+and `launches_pair_scenes_path`, phase 18a's env steps and 18b's scenes
+(18c's ranks are processes of their own); the sixth, `pgs_solve`, has
 phase 17a's env steps' launches, its times on that run's rows and
 `library_ms` null: no PyTorch call computes a projected Gauss-Seidel
 sweep); the last line is
@@ -265,7 +297,7 @@ from types import SimpleNamespace
 import torch
 
 NUM_WORLDS = 4096
-ENV_STEPS = 30  # cut from 50 to keep the script inside its limit
+ENV_STEPS = 20  # cut from 50 and 30 to keep the script inside its limit
 DECIMATION = 4
 N = 35  # G1 nv
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
@@ -1054,6 +1086,32 @@ def profile_iteration(runner, card: str, attr: str, tag: str, steady_iter_ms: fl
         f"[{card}]")
 
 
+def warm_learner(arrays: dict, seed: int) -> dict:
+  """A warm float64 learner from a runner's arrays: Adam's moments and step
+  count and the normalizers' statistics drawn from `seed` (the parameters
+  kept), so that a comparison of two iterations does not measure Adam's
+  first steps or a fresh normalizer amplifying rounding (f64_iteration_check)."""
+  import numpy as np
+
+  draw = np.random.default_rng(seed)
+  warm = {}
+  for k, v in arrays.items():
+    if k.startswith("opt/mu/"):
+      v = draw.normal(0.0, 1e-3, v.shape)
+    elif k.startswith("opt/nu/"):
+      v = draw.uniform(1e-6, 1e-4, v.shape)
+    elif k == "opt/count":
+      v = np.asarray(100, v.dtype)
+    elif k.endswith("_norm/mean"):
+      v = draw.normal(0.0, 0.5, v.shape)
+    elif k.endswith("_norm/var"):
+      v = draw.uniform(0.5, 2.0, v.shape)
+    elif k.endswith("_norm/count"):
+      v = np.asarray(200.0)
+    warm[k] = v.astype(np.float64) if v.dtype.kind == "f" else v
+  return warm
+
+
 def f64_iteration_check(task: str, variant, f64_seeds, overrides=None) -> None:
   """The card's float64 training iteration (kernels) against the CPU's
   (plain versions) on a variant of `task` whose draws are all certain, 4
@@ -1090,22 +1148,7 @@ def f64_iteration_check(task: str, variant, f64_seeds, overrides=None) -> None:
       rl.algorithm.num_learning_epochs = 1
       rl.algorithm.num_mini_batches = 2
       runners[dv] = OnPolicyRunner(ManagerBasedRlEnv(cfg, device=dv), rl)
-    draw = np.random.default_rng(seed)
-    warm = {}
-    for k, v in runner_state_to_arrays(runners["cpu"]).items():
-      if k.startswith("opt/mu/"):
-        v = draw.normal(0.0, 1e-3, v.shape)
-      elif k.startswith("opt/nu/"):
-        v = draw.uniform(1e-6, 1e-4, v.shape)
-      elif k == "opt/count":
-        v = np.asarray(100, v.dtype)
-      elif k.endswith("_norm/mean"):
-        v = draw.normal(0.0, 0.5, v.shape)
-      elif k.endswith("_norm/var"):
-        v = draw.uniform(0.5, 2.0, v.shape)
-      elif k.endswith("_norm/count"):
-        v = np.asarray(200.0)
-      warm[k] = v.astype(np.float64) if v.dtype.kind == "f" else v
+    warm = warm_learner(runner_state_to_arrays(runners["cpu"]), seed)
     for r in runners.values():
       runner_state_from_arrays(r, warm)
     rng = torch.Generator().manual_seed(seed)
@@ -1152,7 +1195,10 @@ def f64_env_check(task: str, n_steps: int = 8, on_step=None, nudges: int = 0,
   max(1, max |CPU|). With `nudges` > 0, each step starts from the CPU env's
   state (the card env takes it whole), and the tolerance is 1e-8 or twice
   the CPU env's own spread, whichever is larger: the largest distance of
-  `nudges` reruns of the CPU step with qpos moved by 1e-13 (relative). The
+  `nudges` reruns of the CPU step with qpos moved by 1e-13 (relative),
+  taken only at a step where the card is more than 1e-8 from the CPU
+  (relative to that step's max(1, max |CPU|); a spread taken at no other
+  step cannot raise the tolerance, so this is the stricter rule). The
   Asimov tasks need it: at their 30 Newton iterations the contact solve
   converges, its accept test takes one of two branches by rounding (about
   half of nudged runs land ~1e-8 away on an Asimov step, PERF.md PR 7),
@@ -1180,10 +1226,11 @@ def f64_env_check(task: str, n_steps: int = 8, on_step=None, nudges: int = 0,
     envs[dv] = ManagerBasedRlEnv(cfg, device=dv)
   outs = {dv: [e.reset(seed=0)[0]] for dv, e in envs.items()}
   rng = torch.Generator().manual_seed(2)
+  nudge_rng = torch.Generator().manual_seed(3)  # the actions stay rng's whether nudged or not
   n_act = envs["cpu"].total_action_dim
   keys = (*envs["cpu"].group_obs_dim, "reward", "qpos")
   spread = dict.fromkeys(keys, 0.0)
-  on_step_max = 0.0
+  on_step_max, nudged = 0.0, 0
   for _ in range(n_steps):
     a = torch.randn(4, n_act, generator=rng, dtype=torch.float64)
     if nudges:
@@ -1194,11 +1241,14 @@ def f64_env_check(task: str, n_steps: int = 8, on_step=None, nudges: int = 0,
       outs[dv].append({**o, "reward": r, "qpos": e.data.qpos})
     if on_step is not None:
       on_step_max = max(on_step_max, on_step(envs["cuda"], a))
-    if nudges:
-      post, want = env_state_to_arrays(envs["cpu"]), outs["cpu"][-1]
+    want = outs["cpu"][-1]
+    if nudges and any((outs["cuda"][-1][k].cpu() - want[k]).abs().max().item()
+                      > 1e-8 * max(1.0, want[k].abs().max().item()) for k in keys):
+      nudged += 1
+      post = env_state_to_arrays(envs["cpu"])
       for _ in range(nudges):
         q = pre["data.qpos"]
-        noise = torch.randn(q.shape, generator=rng, dtype=torch.float64).numpy()
+        noise = torch.randn(q.shape, generator=nudge_rng, dtype=torch.float64).numpy()
         env_state_from_arrays(envs["cpu"], {**pre, "data.qpos": q * (1 + 1e-13 * noise)})
         o, r, *_ = envs["cpu"].step(a)
         for key, v in {**o, "reward": r, "qpos": envs["cpu"].data.qpos}.items():
@@ -1208,7 +1258,8 @@ def f64_env_check(task: str, n_steps: int = 8, on_step=None, nudges: int = 0,
       env_state_from_arrays(envs["cpu"], post)
   print(f"  card (kernels, f64) vs CPU (plain, f64), {task} certain-draw variant, 4 envs x "
         f"{n_steps} env steps" + (f", each from the CPU env's state, tolerance max(1e-8, 2 x "
-                                  f"the CPU's spread over {nudges} qpos nudges of 1e-13):"
+                                  f"the CPU's spread over {nudges} qpos nudges of 1e-13, "
+                                  f"taken at the {nudged} steps more than 1e-8 off):"
                                   if nudges else ":"))
   for key in keys:
     got = torch.stack([o[key].cpu() for o in outs["cuda"][1:]])
@@ -1217,7 +1268,8 @@ def f64_env_check(task: str, n_steps: int = 8, on_step=None, nudges: int = 0,
     scale = max(1.0, want.abs().max().item())
     tol = max(1e-8, 2 * spread[key])
     print(f"    {key:8s} max_abs_err {err:.3e} relative {err / scale:.3e} (tol {tol:.3e}"
-          + (f", CPU spread {spread[key]:.3e}" if nudges else "") + ")")
+          + (f", CPU spread {spread[key]:.3e}" if nudged else
+             ", CPU spread not needed" if nudges else "") + ")")
     if not err <= tol * scale:
       raise AssertionError(f"card vs CPU env mismatch on {key} ({task})")
   return on_step_max
@@ -1872,8 +1924,9 @@ def tracking_path(card: str, attr: str, checks: KernelCheck, f64_seeds=F64_SEEDS
 def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dict[str, int]:
   """Phase 10: a training run's lifecycle on G1 velocity-flat at NUM_WORLDS
   envs, f32, in build/chip_smoke/run, through the entry points a user
-  calls: `run_train` for 2 iterations with a checkpoint after each, then
-  `run_train --agent.resume true` for 1 iteration with no periodic save
+  calls: `run_train` for 2 iterations of CUT_STEPS env steps with a
+  checkpoint after each, then `run_train --agent.resume true` for 1
+  iteration with no periodic save
   (the iteration neither logs nor saves), `run_play --policy trained` on the
   final checkpoint (EARLY_PLAY_STEPS), `run_joint_deltas` on it (JOINT_DELTA_STEPS), the NaN
   guard on the play env and the ONNX export. Both `learn`s run under
@@ -1903,7 +1956,11 @@ def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dic
   torch.cuda.empty_cache()
   run_dir = Path("build") / "chip_smoke" / "run"
   shutil.rmtree(run_dir, ignore_errors=True)
-  base = {"env.scene.num_envs": str(NUM_WORLDS), "log_dir": str(run_dir)}
+  # Iterations of CUT_STEPS env steps (cut from 24): a save, a pull and a
+  # resume cost the same after fewer rollout steps.
+  base = {"env.scene.num_envs": str(NUM_WORLDS), "log_dir": str(run_dir),
+          "agent.num_steps_per_env": str(CUT_STEPS)}
+  scaled_ms = steady_iter_ms * CUT_STEPS / TRAIN_STEPS
   spent: dict[str, list[float]] = {"save": [], "_pull_metrics": [], "learn": []}
   loaded: list[tuple[str, dict, int]] = []
   originals = {k: getattr(OnPolicyRunner, k) for k in ("save", "_pull_metrics", "learn", "load")}
@@ -1946,11 +2003,12 @@ def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dic
     learn_ms = 1e3 * spent["learn"][0] / 2
     saves = [1e3 * x for x in spent["save"]]  # model_0, model_1 in learn; model_2 after it
     pull_ms = 1e3 * sum(spent["_pull_metrics"])
-    over = (f"{learn_ms / steady_iter_ms - 1:+.4f} over phase 8's steady train_iteration "
-            f"{steady_iter_ms:.2f} ms")
+    over = (f"{learn_ms / scaled_ms - 1:+.4f} over phase 8's steady train_iteration "
+            f"{steady_iter_ms:.2f} ms scaled to {CUT_STEPS} env steps, {scaled_ms:.2f} ms")
     print(f"phase 10 run lifecycle: {TASK}, {NUM_WORLDS} envs, f32, in {run_dir} [{card}]")
     alone_ms = learn_ms - (sum(saves[:2]) + pull_ms) / 2
-    print(f"  train: run_train, 2 iterations, save_interval 1, in {t_train:.2f} s; learn "
+    print(f"  train: run_train, 2 iterations of {CUT_STEPS} env steps, save_interval 1, in "
+          f"{t_train:.2f} s; learn "
           f"{learn_ms:.2f} ms per iteration, {over}; without its saves and pulls "
           f"{alone_ms:.2f} ms; saves (checkpoint + TorchScript) "
           f"{', '.join(f'{x:.2f}' for x in saves)} ms; metric pulls {len(spent['_pull_metrics'])} "
@@ -2065,7 +2123,7 @@ def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dic
 # Phase 14's cells: G1 under the elliptic cone and under CG, and the solver
 # surface's scenes (mjlab_tpu_torch/assets/solver_scenes.py).
 ELLIPTIC_NEFC = 1320  # 29 limit rows + 154 condim-1 rows + 379 cone slots x 3
-CG_STEPS = 10  # env steps of G1 under CG
+CG_STEPS = 6  # env steps of G1 under CG (cut from 10)
 SCENE_SUBSTEPS = 12  # cut from 50 (PR 10), 30 and 20 (PR 14) to keep the script in its limit
 SCENE_CPU_WORLDS = 16  # the first worlds of the card's run, rerun on the CPU
 # The scenes run a small solver budget on both sides: they are launch-bound
@@ -2462,7 +2520,7 @@ def surface_path(card: str, attr: str, checks: KernelCheck, train_launches: dict
         raise AssertionError(f"phase 15 f64 check: {f} is not different in every env")
     return 0.0
 
-  f64_env_check(SURFACE_TASK, n_steps=8, nudges=2, variant=all_fields_variant,
+  f64_env_check(SURFACE_TASK, n_steps=4, nudges=2, variant=all_fields_variant,
                 on_step=every_field_per_env)
   print("  every FIELD_SPECS row per env in the f64 check: " + ", ".join(sorted(FIELD_SPECS)))
   return got
@@ -2486,7 +2544,7 @@ CARTPOLE_LEARN_STEPS = 6
 CARTPOLE_WINDOW = 10
 # The humanoid's f32 run: substeps, and the Newton budget of the velocity
 # tasks' cfgs (its compiled 100 x 50 is MuJoCo's default).
-HUMANOID_SUBSTEPS = 30
+HUMANOID_SUBSTEPS = 15  # cut from 30
 HUMANOID_BUDGET = (10, 20)
 # The sensor types the port's catalog added in PR 13, each of which must be
 # evaluated on the card (mjtSensor values).
@@ -2837,7 +2895,7 @@ PGS_ENV_STEPS = 10  # env steps of G1 under PGS, timed under set_sync_debug_mode
 PGS_PLAIN_CHUNK = 512
 # Phase 17b's scenes run phase 14's small Newton budget; a PGS scene keeps
 # its own sweeps (100 and 60: the kernel's rows, not its launches).
-MUSCLE_SUBSTEPS = 30
+MUSCLE_SUBSTEPS = 12  # cut from 30
 HOPPER_ENVS = NUM_WORLDS
 _INTEGRATOR_NAMES = {0: "Euler", 1: "RK4", 3: "implicitfast"}
 
@@ -3148,18 +3206,484 @@ def muscle_scenes_path(card: str) -> dict[str, int]:
     raise AssertionError("phase 17 hopper env: act did not move, or was not zeroed on reset")
   return total
 
+# ---------------------------------------------------------------------------
+# Phase 18: the generic MDP terms and a mocap entity's reset (18a), the
+# plane–cylinder, plane–ellipsoid and height-field pairs (18b), and
+# env-sharded training on two ranks of the one card (18c).
+# ---------------------------------------------------------------------------
+
+GENERIC_OBS = ("base_lin_vel", "base_ang_vel", "root_pos_w", "root_quat_w", "joint_pos",
+               "joint_vel")
+# Each generic reward of envs.mdp, named generic_<term>, at its weight.
+GENERIC_REWARDS = {"is_terminated": -1.0, "joint_torques_l2": -1e-5, "joint_acc_l2": -2.5e-7,
+                   "joint_vel_l2": -1e-3, "posture": 0.2, "electrical_power_cost": -1e-4,
+                   "flat_orientation_l2": -1.0}
+GENERIC_POSTURE_STD = {"left_.*": 0.3, "right_.*": 0.3, "waist_.*": 0.2}
+GENERIC_STAGED = "generic_joint_vel_l2"
+GENERIC_STAGE = {"step": 4, "weight": -2e-3}  # reward_weight: from env step 5 on
+GENERIC_ENV_STEPS = 8
+GENERIC_POISONED = (3, 1000, 4095)
+MOCAP_RANGE = {"x": (-0.2, 0.3), "y": (-0.1, 0.1), "z": (0.0, 0.05), "yaw": (-1.0, 1.0)}
+PAIR_SUBSTEPS = 12
+DIST_STEPS = 8  # env steps of 18c's iteration at 2 x 2048 envs
+DIST_F64_ENVS, DIST_F64_STEPS = 4, 2
+DIST_NCCL_ENVS = 512
+DIST_TIMEOUT_S = 420
+
+
+def generic_mdp_edit(cfg) -> None:
+  """A user's G1 velocity cfg that names every generic MDP term of the port:
+  a "generic" observation group of the six root and joint reads; the
+  terminations root_height_below_minimum (0.2 m) and nan_detection; the
+  seven rewards of GENERIC_REWARDS (posture's std per joint group); and the
+  curriculum reward_weight staging generic_joint_vel_l2's weight after
+  GENERIC_STAGE's step."""
+  from mjlab_tpu_torch.envs import mdp
+  from mjlab_tpu_torch.managers.manager_term_config import (
+    CurriculumTermCfg, ObservationGroupCfg, ObservationTermCfg, RewardTermCfg,
+    TerminationTermCfg,
+  )
+  from mjlab_tpu_torch.managers.scene_entity_config import SceneEntityCfg
+  from mjlab_tpu_torch.tasks.velocity.mdp import reward_weight
+
+  cfg.observations["generic"] = ObservationGroupCfg(terms={
+    name: ObservationTermCfg(func=getattr(mdp, name),
+                             params={"asset_cfg": SceneEntityCfg("robot")})
+    for name in GENERIC_OBS})
+  cfg.terminations["generic_low_root"] = TerminationTermCfg(
+    func=mdp.root_height_below_minimum,
+    params={"minimum_height": 0.2, "asset_cfg": SceneEntityCfg("robot")})
+  cfg.terminations["generic_nan"] = TerminationTermCfg(func=mdp.nan_detection)
+  for name, weight in GENERIC_REWARDS.items():
+    params = {} if name == "is_terminated" else {"asset_cfg": SceneEntityCfg("robot")}
+    if name == "posture":
+      params = {"asset_cfg": SceneEntityCfg("robot", joint_names=(".*",)),
+                "std": GENERIC_POSTURE_STD}
+    cfg.rewards[f"generic_{name}"] = RewardTermCfg(func=getattr(mdp, name), weight=weight,
+                                                   params=params)
+  cfg.curriculum["generic_weight"] = CurriculumTermCfg(
+    func=reward_weight,
+    params={"reward_name": GENERIC_STAGED, "weight_stages": [GENERIC_STAGE]})
+
+
+def generic_mdp_path(card: str, checks: KernelCheck) -> dict:
+  """Phase 18a: G1 velocity-flat at NUM_WORLDS envs (f32) with
+  `generic_mdp_edit`, GENERIC_ENV_STEPS env steps of N(0, 1) actions under
+  set_sync_debug_mode("error") with the kernels' counters set to 0 just
+  before and read just after (RL_FACT_PER_STEP factorizations and
+  RL_SOLVES_PER_STEP solves per env step). Checks every generic term
+  finite, the staged weight in the reward manager's state from the step
+  after GENERIC_STAGE's on (and the term's weight before it), nan_detection
+  on exactly the envs whose qvel was poisoned, and the kernels against their
+  plain versions on the run's matrices; then the card's float64 env against
+  the CPU's, 4 envs x 2 env steps (1e-8), and a mocap entity's reset at
+  NUM_WORLDS envs (`mocap_reset_check`). Returns the launches and the ms
+  per env step."""
+  from mjlab_tpu_torch.envs import ManagerBasedRlEnv, mdp
+  from mjlab_tpu_torch.kernels import chol, pgs
+  from mjlab_tpu_torch.managers.scene_entity_config import SceneEntityCfg
+  from mjlab_tpu_torch.tasks import load_env_cfg
+
+  gc.collect()
+  torch.cuda.empty_cache()
+  cfg = load_env_cfg(TASK)
+  cfg.scene.num_envs = NUM_WORLDS
+  generic_mdp_edit(cfg)
+  env = ManagerBasedRlEnv(cfg, device="cuda")
+  obs, _ = env.reset(seed=0)
+  weights = env.ns("reward")["weights"]
+  initial = float(weights[GENERIC_STAGED])
+  agen = torch.Generator(device="cuda").manual_seed(18)
+  finite = torch.ones((), dtype=torch.bool, device="cuda")
+  staged = []
+  start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+  chol.reset_counts()
+  pgs.reset_counts()
+  torch.cuda.set_sync_debug_mode("error")
+  for i in range(GENERIC_ENV_STEPS):
+    if i == 1:
+      start.record()
+    action = torch.randn(NUM_WORLDS, env.total_action_dim, generator=agen, device="cuda")
+    obs, rew, terminated, time_outs, _ = env.step(action)
+    finite &= torch.isfinite(rew).all() & torch.isfinite(obs["generic"]).all()
+    staged.append(weights[GENERIC_STAGED].clone())
+  end.record()
+  torch.cuda.set_sync_debug_mode("default")
+  torch.cuda.synchronize()
+  launches = {**chol.LAUNCHES, **pgs.LAUNCHES}
+  step_ms = start.elapsed_time(end) / (GENERIC_ENV_STEPS - 1)
+  values = {}
+  for name in GENERIC_REWARDS:
+    term = env.reward_manager.cfg[f"generic_{name}"]
+    values[name] = term.func(env, **term.params)
+  robot = SceneEntityCfg("robot")
+  robot.resolve(env.scene)
+  for name in GENERIC_OBS:
+    values[name] = getattr(mdp, name)(env, robot)
+  values["root_height_below_minimum"] = mdp.root_height_below_minimum(env, 0.2)
+  values["nan_detection"] = mdp.nan_detection(env)
+  bad = [k for k, v in values.items() if not torch.isfinite(v.to(torch.float64)).all()]
+  staged = [float(w) for w in staged]
+  stage = float(torch.tensor(GENERIC_STAGE["weight"], dtype=env.dtype))
+  want = [initial] * GENERIC_STAGE["step"] + [stage] * (GENERIC_ENV_STEPS - GENERIC_STAGE["step"])
+  print(f"phase 18a generic MDP terms: {TASK} with generic_mdp_edit, {NUM_WORLDS} envs, "
+        f"float32, obs {env.group_obs_dim}; {GENERIC_ENV_STEPS} env steps under "
+        f"set_sync_debug_mode('error'): no host-device synchronization; "
+        f"{step_ms:.2f} ms per env step (steps 1-{GENERIC_ENV_STEPS - 1}, CUDA events) [{card}]")
+  print(f"  every generic term finite: {not bad and bool(finite.item())}; "
+        f"{GENERIC_STAGED}'s weight after each env step {staged} (staged "
+        f"{GENERIC_STAGE}); launches {launches}")
+  if bad or not finite.item():
+    raise AssertionError(f"phase 18a: non-finite generic terms {bad}")
+  if staged != want:
+    raise AssertionError(f"phase 18a: the staged weight {staged}, expected {want}")
+  if (chol.factorizations() != RL_FACT_PER_STEP * GENERIC_ENV_STEPS
+      or launches["chol_solve"] != RL_SOLVES_PER_STEP * GENERIC_ENV_STEPS
+      or any(launches[k] == 0 for k in KERNELS)):
+    raise AssertionError(f"phase 18a: launches {launches}")
+  poisoned = torch.zeros(NUM_WORLDS, dtype=torch.bool, device="cuda")
+  poisoned[list(GENERIC_POISONED)] = True
+  data = env.data
+  qvel = data.qvel.clone()
+  qvel[poisoned, 6] = float("nan")
+  env.data = data.replace(qvel=qvel)
+  flagged = mdp.nan_detection(env)
+  env.data = data
+  print(f"  nan_detection with qvel poisoned in envs {GENERIC_POISONED}: flags envs "
+        f"{torch.nonzero(flagged).flatten().tolist()}")
+  if not torch.equal(flagged, poisoned):
+    raise AssertionError("phase 18a: nan_detection flagged other envs than the poisoned ones")
+  print("  kernels vs plain on the run's matrices, f32:")
+  checks.all_three("generic qM", env.data.qM.contiguous(), env.data.qfrc_smooth.contiguous())
+  del env, obs, rew, terminated, time_outs, values, data, qvel
+  gc.collect()
+  torch.cuda.empty_cache()
+  f64_env_check(TASK, n_steps=CUT_F64_STEPS,
+                variant=lambda c: (certain_variant(c), generic_mdp_edit(c)))
+  mocap_reset_check(card)
+  return {"launches": launches, "env_step_ms": step_ms}
+
+
+def mocap_reset_check(card: str) -> None:
+  """Phase 18a, last part: reset_root_state_uniform of the mocap entity of
+  assets/surface/mocap_entity.npz (its target body an entity of its own)
+  at NUM_WORLDS envs, on a seeded half of them: each reset pose inside
+  MOCAP_RANGE about the default pose and the env's origin (yaw from the
+  quaternion), every other env's mocap pose unchanged."""
+  from mjlab_tpu_torch.assets.surface_scenes import SCENES
+  from mjlab_tpu_torch.entity.entity import EntityCfg
+  from mjlab_tpu_torch.envs import mdp
+  from mjlab_tpu_torch.envs.manager_based_env import ManagerBasedEnv, ManagerBasedEnvCfg
+  from mjlab_tpu_torch.managers.scene_entity_config import SceneEntityCfg
+  from mjlab_tpu_torch.scene import SceneCfg
+
+  target = EntityCfg(init_state=EntityCfg.InitialStateCfg(pos=(0.5, 0.0, 0.6)))
+  env = ManagerBasedEnv(ManagerBasedEnvCfg(
+    decimation=1, observations={}, actions={},
+    scene=SceneCfg(num_envs=NUM_WORLDS, entities={"target": target, "ball": EntityCfg()},
+                   model_file=SCENES["mocap_entity"].path("mocap_entity"))), device="cuda")
+  asset = env.scene["target"]
+  mid = asset.indexing.mocap_id
+  mask = torch.rand(NUM_WORLDS, generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda") < 0.5
+  pos0, quat0 = env.data.mocap_pos[:, mid].clone(), env.data.mocap_quat[:, mid].clone()
+  t0 = time.perf_counter()
+  mdp.reset_root_state_uniform(env, mask, MOCAP_RANGE, asset_cfg=SceneEntityCfg("target"))
+  torch.cuda.synchronize()
+  ms = 1e3 * (time.perf_counter() - t0)
+  pos, quat = env.data.mocap_pos[:, mid], env.data.mocap_quat[:, mid]
+  offset = (pos - asset.data.default_root_state[:, :3] - env.scene.env_origins)[mask]
+  yaw = 2 * torch.atan2(quat[mask, 3], quat[mask, 0])
+  inside = all(
+    bool(((offset[:, i] >= lo - 1e-5) & (offset[:, i] <= hi + 1e-5)).all())
+    for i, (lo, hi) in enumerate(MOCAP_RANGE[k] for k in ("x", "y", "z")))
+  inside &= bool(((yaw >= MOCAP_RANGE["yaw"][0] - 1e-5)
+                  & (yaw <= MOCAP_RANGE["yaw"][1] + 1e-5)).all())
+  inside &= bool((quat[mask, 1:3].abs() < 1e-6).all())
+  kept = torch.equal(pos[~mask], pos0[~mask]) and torch.equal(quat[~mask], quat0[~mask])
+  moved = bool((pos[mask] != pos0[mask]).any(-1).all())
+  print(f"  mocap reset: reset_root_state_uniform of entity 'target' (mocap body "
+        f"{mid}) on {int(mask.sum())} of {NUM_WORLDS} envs in {ms:.2f} ms: each pose inside "
+        f"{MOCAP_RANGE} about its env's origin: {inside}; every reset env moved: {moved}; "
+        f"the other envs unchanged: {kept}; yaw in [{yaw.min().item():.3f}, "
+        f"{yaw.max().item():.3f}] [{card}]")
+  if not (inside and kept and moved):
+    raise AssertionError("phase 18a: the mocap reset")
+
+
+def pair_scenes_path(card: str) -> dict[str, int]:
+  """Phase 18b: each scene of assets/pair_scenes.py (plane–cylinder,
+  plane–ellipsoid, a height field under a sphere, a capsule, a box and a
+  mesh hull, and a second field of another raster), float64, PAIR_SUBSTEPS
+  at NUM_WORLDS worlds from the scene's velocity plus a seeded N(0, 0.05²)
+  per world: ms per substep (CUDA events), the active contacts, then the
+  first SCENE_CPU_WORLDS worlds against the CPU within 1e-8, or twice the
+  CPU's spread under PHASE14_NUDGES qpos nudges of 1e-13 where larger."""
+  from mjlab_tpu_torch import physics
+  from mjlab_tpu_torch.assets import pair_scenes
+  from mjlab_tpu_torch.kernels import chol, pgs
+
+  torch.set_num_threads(1)
+  total = {k: 0 for k in (*ALL_KERNELS, PGS_KERNEL)}
+  print(f"phase 18b pair scenes: {PAIR_SUBSTEPS} substeps at {NUM_WORLDS} worlds, float64; the "
+        f"first {SCENE_CPU_WORLDS} worlds against the CPU (tol 1e-8) [{card}]")
+
+  def cpu_run(tp, m, qpos, qvel):
+    d = physics.make_data(tp, m, SCENE_CPU_WORLDS).replace(qpos=qpos, qvel=qvel)
+    for _ in range(PAIR_SUBSTEPS):
+      d = physics.step(tp, m, d)
+    return d
+
+  def rel(a, b):
+    return max((getattr(a, f) - getattr(b, f)).abs().max().item()
+               / max(1.0, getattr(b, f).abs().max().item()) for f in ("qpos", "qvel"))
+
+  rng = torch.Generator().manual_seed(18)
+  for name, sc in pair_scenes.SCENES.items():
+    models = {dv: physics.put_model(pair_scenes.load(name), dtype=torch.float64, device=dv)
+              for dv in ("cuda", "cpu")}
+    tp, m = models["cuda"]
+    qvel = torch.tensor(sc.qvel, dtype=torch.float64).expand(NUM_WORLDS, -1).clone()
+    qvel += 0.05 * torch.randn(NUM_WORLDS, tp.nv, generator=rng, dtype=torch.float64)
+    d = physics.make_data(tp, m, NUM_WORLDS).replace(qvel=qvel.cuda())
+    chol.reset_counts()
+    pgs.reset_counts()
+    d = physics.step(tp, m, d)
+    active0 = (d.contact.dist < d.contact.includemargin).sum(1).double().mean().item()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(PAIR_SUBSTEPS - 1):
+      d = physics.step(tp, m, d)
+    end.record()
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in {**chol.LAUNCHES, **pgs.LAUNCHES}.items() if v}
+    for k, v in {**chol.LAUNCHES, **pgs.LAUNCHES}.items():
+      total[k] += v
+    if not (torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()):
+      raise AssertionError(f"phase 18b scene {name}: non-finite state")
+    tp_c, m_c = models["cpu"]
+    q0 = physics.make_data(tp_c, m_c, SCENE_CPU_WORLDS).qpos
+    v0 = qvel[:SCENE_CPU_WORLDS]
+    ref = cpu_run(tp_c, m_c, q0, v0)
+    got = SimpleNamespace(qpos=d.qpos[:SCENE_CPU_WORLDS].cpu(),
+                          qvel=d.qvel[:SCENE_CPU_WORLDS].cpu())
+    err, tol, spread = rel(got, ref), 1e-8, None
+    if err > tol:
+      spread = max(rel(cpu_run(tp_c, m_c, q0 * (1 + 1e-13 * torch.randn(
+        q0.shape, generator=rng, dtype=torch.float64)), v0), ref)
+        for _ in range(PHASE14_NUDGES))
+      tol = max(tol, 2 * spread)
+    pairs = sorted({(p.type1, p.type2) for p in tp.pairs})
+    print(f"  {name:16s} pairs {pairs} slots {tp.ncon_max} nefc {tp.nefc:3d}: "
+          f"{start.elapsed_time(end) / (PAIR_SUBSTEPS - 1):.3f} ms per substep; active "
+          f"contacts per world {active0:.2f} at the first substep; card vs CPU {err:.3e} (tol "
+          f"{tol:.3e}" + (f", CPU spread {spread:.3e}" if spread is not None else "")
+          + f"); launches {launched} [{card}]")
+    if not active0 > 0:
+      raise AssertionError(f"phase 18b scene {name}: no active contact")
+    if not err <= tol:
+      raise AssertionError(f"phase 18b scene {name}: card vs CPU {err:.3e}")
+  return total
+
+
+def dist_f64_worker(out: Path) -> None:
+  """One process of 18c's float64 check (`chip_smoke.py --dist-f64 DIR`):
+  under torch.distributed.run a rank of a sharded run, else the unsharded
+  reference. Builds the G1 runner through build_runner at DIST_F64_ENVS envs
+  in float64 on the card, gives it `warm_learner(seed 3)`, trains one
+  iteration of DIST_F64_STEPS env steps with the runner's own draws, and
+  writes its learner, env state and the iteration's metrics (losses and the
+  logged metrics, reduced over the ranks as `learn` reduces them before it
+  writes metrics.jsonl) to DIR/<rank | single>.npz."""
+  import numpy as np
+
+  from mjlab_tpu_torch.envs import env_state_to_arrays
+  from mjlab_tpu_torch.rl.runner import runner_state_from_arrays, runner_state_to_arrays
+  from mjlab_tpu_torch.scripts.train import build_runner
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  runner = build_runner(TASK, {
+    "env.scene.num_envs": str(DIST_F64_ENVS), "env.sim.dtype": "float64",
+    "agent.num_steps_per_env": str(DIST_F64_STEPS),
+    "agent.algorithm.num_learning_epochs": "1", "agent.algorithm.num_mini_batches": "2",
+    "log_dir": str(out / "log"),
+  }, device="cuda")
+  runner_state_from_arrays(runner, warm_learner(runner_state_to_arrays(runner), 3))
+  metrics = runner.train_iteration()
+  keys = list(metrics)
+  row = torch.stack([v.to(torch.float64) for v in metrics.values()])[None]
+  if runner.shard is not None:  # as the runner reduces them before it logs them
+    row = runner._reduce_rows(keys, row)
+  name = "single" if runner.shard is None else f"rank{torch.distributed.get_rank()}"
+  np.savez(out / f"{name}.npz",
+           **{f"learner/{k}": v for k, v in runner_state_to_arrays(runner).items()},
+           **{f"env/{k}": v for k, v in env_state_to_arrays(runner.env).items()},
+           **{f"metric/{k}": v for k, v in zip(keys, row[0].cpu().numpy())})
+
+
+def _torchrun(nproc: int, args: list[str]) -> subprocess.CompletedProcess:
+  """`python -m torch.distributed.run --nproc_per_node nproc args...` on this
+  host (rendezvous on 127.0.0.1, a free port; gloo and NCCL bound to the
+  loopback interface), its output captured."""
+  import os
+  import socket
+
+  with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+  env = dict(os.environ)
+  env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+  env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+  cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+         "--master_addr", "127.0.0.1", "--master_port", str(port), *args]
+  out = subprocess.run(cmd, capture_output=True, text=True, timeout=DIST_TIMEOUT_S, env=env)
+  log = OUT / f"chip_smoke_torchrun_{nproc}_{len(list(OUT.glob('chip_smoke_torchrun_*')))}.log"
+  log.write_text(" ".join(cmd) + "\n" + out.stdout + "\n--- stderr\n" + out.stderr)
+  if out.returncode != 0:
+    print(out.stdout[-3000:])
+    print(out.stderr[-3000:], file=sys.stderr)
+    raise AssertionError(f"torch.distributed.run exited {out.returncode}: {' '.join(args)}")
+  return out
+
+
+def _rank_lines(stdout: str) -> dict[int, dict]:
+  """The `[train] rank r: ...` lines of a sharded run, by rank."""
+  import re
+
+  ranks = {}
+  for m in re.finditer(r"\[train\] rank (\d+): (\d+) iterations in ([\d.]+) s, ([\d.]+) ms per "
+                       r"iteration; peak device memory ([\d.na]+) GB; learner sha256 (\w+)",
+                       stdout):
+    ranks[int(m[1])] = {"ms": float(m[4]), "gb": float(m[5]), "sha256": m[6]}
+  return ranks
+
+
+def dist_path(card: str, steady_iter_ms: float) -> dict:
+  """Phase 18c: env-sharded training on two ranks of the one card, gloo
+  (NCCL refuses two ranks on one device). (1) `python -m
+  torch.distributed.run --nproc_per_node 2 -m mjlab_tpu_torch.scripts.train`
+  G1 velocity-flat at NUM_WORLDS envs (2 x NUM_WORLDS / 2), one PPO
+  iteration of DIST_STEPS env steps: each rank's ms per iteration (its
+  warm-up in) and peak memory against phase 8's steady iteration scaled to
+  DIST_STEPS env steps; finite losses; the learner bitwise equal on both
+  ranks (its digest); rank 0 alone saved (each rank is given a log dir of
+  its own, g1_<rank>, and rank 1's stays unmade). (2) float64: 2 ranks x
+  DIST_F64_ENVS / 2 envs (`dist_f64_worker`) against this process with
+  DIST_F64_ENVS envs, one iteration of DIST_F64_STEPS env steps from one warm
+  learner: parameters, Adam state, normalizers, every env's state, and the
+  iteration's metrics as metrics.jsonl would hold them (losses, episode
+  sums, means and ratios of sums over the envs), within 1e-8 relative.
+  (3) `--nproc_per_node 1` through NCCL, one iteration at DIST_NCCL_ENVS
+  envs: the NCCL path initialises and runs."""
+  import re
+  import shlex
+  import shutil
+
+  import numpy as np
+
+  t_phase = time.perf_counter()
+  run_dir = Path("build") / "chip_smoke" / "dist"
+  shutil.rmtree(run_dir, ignore_errors=True)
+  run_dir.mkdir(parents=True)
+  module = ["-m", "mjlab_tpu_torch.scripts.train", TASK]
+  # Through sh, so that each rank's --log_dir names its RANK.
+  train = shlex.join([sys.executable, *module, "--env.scene.num_envs", str(NUM_WORLDS),
+                      "--agent.num_steps_per_env", str(DIST_STEPS),
+                      "--agent.max_iterations", "1", "--agent.save_interval", "0",
+                      "--log_dir"])
+  t0 = time.perf_counter()
+  out = _torchrun(2, ["--no-python", "sh", "-c",
+                      f"exec {train} {shlex.quote(str(run_dir / 'g1'))}_$RANK"])
+  t_run = time.perf_counter() - t0
+  ranks = _rank_lines(out.stdout)
+  g1 = run_dir / "g1_0"
+  rows = [json.loads(x) for x in (g1 / "metrics.jsonl").read_text().splitlines()]
+  losses = {k: v for k, v in rows[-1].items() if k.startswith("Loss/")}
+  saved_by = sorted({int(x) for x in re.findall(r"\[runner\] rank (\d+): saved", out.stdout)})
+  scaled = steady_iter_ms * DIST_STEPS / TRAIN_STEPS
+  print(f"phase 18c two ranks on one card: torch.distributed.run --nproc_per_node 2 -m "
+        f"mjlab_tpu_torch.scripts.train {TASK}, {NUM_WORLDS} envs (2 x {NUM_WORLDS // 2}), "
+        f"backend gloo, 1 iteration of {DIST_STEPS} env steps, in {t_run:.1f} s of command "
+        f"[{card}]")
+  for r, x in sorted(ranks.items()):
+    print(f"  rank {r}: {x['ms']:.2f} ms per iteration (its warm-up in; "
+          f"{x['ms'] / scaled:.3f} x phase 8's steady {steady_iter_ms:.2f} ms scaled to "
+          f"{DIST_STEPS} env steps, {scaled:.2f} ms); peak memory {x['gb']:.3f} GB; learner "
+          f"sha256 {x['sha256'][:16]}... [{card}]")
+  print(f"  losses {losses}; saved by ranks {saved_by}; rank 0's files "
+        f"{sorted(p.name for p in g1.iterdir())}; rank 1's log dir made: "
+        f"{(run_dir / 'g1_1').exists()}")
+  if ("backend gloo" not in out.stdout or sorted(ranks) != [0, 1]
+      or ranks[0]["sha256"] != ranks[1]["sha256"]):
+    raise AssertionError("phase 18c: the two ranks' learners differ, or a rank is missing")
+  if not losses or not all(np.isfinite(v) for v in losses.values()):
+    raise AssertionError(f"phase 18c: losses {losses}")
+  if (saved_by != [0] or not (g1 / "model_1.pt").exists()
+      or (run_dir / "g1_1").exists()):
+    raise AssertionError(f"phase 18c: the checkpoint was saved by ranks {saved_by}")
+
+  f64_dir = run_dir / "f64"
+  f64_dir.mkdir()
+  _torchrun(2, [str(Path(__file__).resolve()), "--dist-f64", str(f64_dir)])
+  dist_f64_worker(f64_dir)
+  one = dict(np.load(f64_dir / "single.npz"))
+  two = [dict(np.load(f64_dir / f"rank{r}.npz")) for r in (0, 1)]
+  worst, same = {}, True
+  for k, want in one.items():
+    if k.startswith("env/") and want.ndim and want.shape[0] == DIST_F64_ENVS:
+      got = np.concatenate([two[0][k], two[1][k]])
+    else:
+      got = two[0][k]
+      same &= np.array_equal(two[1][k], got)
+    worst[k] = (float(not np.array_equal(got, want)) if want.dtype.kind in "biu" else
+                float(np.abs(got - want).max(initial=0.0)
+                      / max(1.0, float(np.abs(want).max(initial=0.0)))))
+  if not {"metric/Loss/loss", "metric/Metrics/landing_force_mean"} <= set(one):
+    raise AssertionError("phase 18c: the float64 iteration's metrics lack a loss or a ratio")
+  top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+  print(f"  float64 on the card: 2 ranks x {DIST_F64_ENVS // 2} envs against 1 process x "
+        f"{DIST_F64_ENVS} envs, one iteration of {DIST_F64_STEPS} env steps from one warm "
+        f"learner: largest relative errors " + ", ".join(f"{k} {v:.3e}" for k, v in top)
+        + f" over {len(worst)} arrays (tol 1e-8); of the logged metrics " + ", ".join(
+          f"{k[len('metric/'):]} {one[k]:.6g} ({v:.3e})" for k, v in worst.items()
+          if k.startswith("metric/Metrics/") and k.endswith("_mean"))
+        + f"; learner and shared state equal on both ranks: {same}")
+  if not (max(worst.values()) <= 1e-8 and same):
+    raise AssertionError("phase 18c: the sharded float64 iteration differs from the unsharded")
+
+  t0 = time.perf_counter()
+  out = _torchrun(1, [*module, "--env.scene.num_envs", str(DIST_NCCL_ENVS),
+                      "--agent.num_steps_per_env", "2", "--agent.max_iterations", "1",
+                      "--agent.save_interval", "0", "--log_dir", str(run_dir / "nccl")])
+  nccl = _rank_lines(out.stdout)
+  print(f"  torch.distributed.run --nproc_per_node 1 (backend nccl): 1 iteration at "
+        f"{DIST_NCCL_ENVS} envs in {time.perf_counter() - t0:.1f} s of command; rank 0 "
+        f"{nccl.get(0, {}).get('ms', float('nan')):.2f} ms per iteration [{card}]")
+  if "backend nccl" not in out.stdout or sorted(nccl) != [0]:
+    raise AssertionError("phase 18c: the NCCL launch did not run on backend nccl")
+  print(f"  phase 18c in {time.perf_counter() - t_phase:.1f} s")
+  return {"ms": {r: x["ms"] for r, x in ranks.items()},
+          "gb": {r: x["gb"] for r, x in ranks.items()}, "scaled_phase8_ms": scaled}
+
 
 def main() -> int:
   parser = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
   parser.add_argument("--f64-seeds", default=",".join(map(str, F64_SEEDS)),
                       help="seeds of the draws for phase 8's card-vs-CPU float64 "
                            "iteration, comma-separated (default %(default)s)")
+  parser.add_argument("--dist-f64", metavar="DIR",
+                      help="run as one process of phase 18c's float64 check (a rank under "
+                           "torch.distributed.run), writing its arrays into DIR")
   args = parser.parse_args()
   f64_seeds = [int(x) for x in args.f64_seeds.split(",")]
   if not torch.cuda.is_available():
     print("chip_smoke: torch.cuda.is_available() is false; nothing run",
           file=sys.stderr)
     return 2
+  if args.dist_f64:
+    dist_f64_worker(Path(args.dist_f64))
+    return 0
   from mjlab_tpu_torch.assets import g1_velocity_sim_cfg, load_model_npz
   from mjlab_tpu_torch.kernels import build, chol
   from mjlab_tpu_torch.physics import solver
@@ -3546,7 +4070,7 @@ def main() -> int:
   torch.cuda.empty_cache()
 
   # The card's float64 env (kernels) against the CPU's (plain versions).
-  f64_env_check(TASK)
+  f64_env_check(TASK, n_steps=4)  # cut from 8
 
   clock.done(7)
   # -- 8. the training path: PPO iterations through OnPolicyRunner ---------------
@@ -3611,6 +4135,17 @@ def main() -> int:
     raise AssertionError(f"phase 17: a kernel did not run in the scenes: {muscle_launches}")
 
   clock.done(17)
+  # -- 18. the generic MDP terms, the new collision pairs, two ranks on the card ---
+  t18 = time.perf_counter()
+  generic = generic_mdp_path(card, checks)
+  pair_launches = pair_scenes_path(card)
+  dist_path(card, steady_iter_ms)
+  print(f"phase 18: {time.perf_counter() - t18:.1f} s; launches over the generic env steps "
+        f"{generic['launches']}, the pair scenes {pair_launches}")
+  if any(pair_launches[k] == 0 for k in KERNELS[:3]):
+    raise AssertionError(f"phase 18: a kernel did not run in the pair scenes: {pair_launches}")
+
+  clock.done(18)
   # -- result lines ---------------------------------------------------------------
   bnd = bounds(NUM_WORLDS, N, rows=NUM_WORLDS * NEFC)
   bnd_run = bounds(NUM_WORLDS, N, rows=active_rows)["newton_direction"]
@@ -3666,6 +4201,8 @@ def main() -> int:
     k["ms_user_robot_matrices_by_nv"] = user_ms[k["name"]]
     k["launches_pgs_path"] = pgs_run["launches"][k["name"]]
     k["launches_muscle_scenes_path"] = muscle_launches[k["name"]]
+    k["launches_generic_mdp_path"] = generic["launches"][k["name"]]
+    k["launches_pair_scenes_path"] = pair_launches[k["name"]]
   kernels.append({
     "name": CONE_KERNEL,
     "route": "cuda",
@@ -3688,6 +4225,8 @@ def main() -> int:
     "launch": ell["launch"],
     "launches_pgs_path": pgs_run["launches"][CONE_KERNEL],
     "launches_muscle_scenes_path": muscle_launches[CONE_KERNEL],
+    "launches_generic_mdp_path": generic["launches"][CONE_KERNEL],
+    "launches_pair_scenes_path": pair_launches[CONE_KERNEL],
   })
   kernels.append({
     "name": PGS_KERNEL,
@@ -3699,6 +4238,8 @@ def main() -> int:
     "launches_pgs_path": pgs_run["launches"][PGS_KERNEL],
     "launches_pgs_training_path": pgs_run["train_launches"][PGS_KERNEL],
     "launches_muscle_scenes_path": muscle_launches[PGS_KERNEL],
+    "launches_generic_mdp_path": generic["launches"][PGS_KERNEL],
+    "launches_pair_scenes_path": pair_launches[PGS_KERNEL],
     "max_abs_err": checks.max_abs_err[PGS_KERNEL],
     "ms": pgs_run["ms"],
     "plain_ms": pgs_run["plain_ms"],

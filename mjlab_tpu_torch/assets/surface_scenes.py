@@ -323,6 +323,20 @@ SCENES: dict[str, SurfaceScene] = {
   </worldbody>
   <equality><weld body1="target" body2="ball" torquescale="0.5"/></equality>
 </mujoco>""", mocap_pos=(0.6, 0.05, 0.6)),
+  # mocap_weld with its bodies named as a scene names its entities'
+  # ("<entity>/<body>"), so that the mocap target is an entity of its own
+  # (the mocap reset of envs.mdp.reset_root_state_uniform).
+  "mocap_entity": SurfaceScene("""
+<mujoco><option timestep="0.002"/>
+  <worldbody>
+    <geom type="plane" size="5 5 0.1"/>
+    <body name="target/base" mocap="true" pos="0.5 0 0.6">
+      <geom type="box" size="0.05 0.05 0.05" contype="0" conaffinity="0"/>
+    </body>
+    <body name="ball/base" pos="0 0 0.5"><freejoint/><geom type="sphere" size="0.1"/></body>
+  </worldbody>
+  <equality><weld body1="target/base" body2="ball/base" torquescale="0.5"/></equality>
+</mujoco>""", mocap_pos=(0.6, 0.05, 0.6)),
   # tests/test_physics_gravcomp.py: a two-link arm, fully and half
   # compensated.
   "gravcomp_arm": SurfaceScene("""

@@ -9,6 +9,8 @@ import math
 
 import torch
 
+from mjlab_tpu_torch.distributed.sharding import env_rows
+
 
 def normalize(x: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
   """Normalize along the last axis, safe at zero norm."""
@@ -176,17 +178,21 @@ def quat_from_euler_xyz(
   return quat_mul(about(yaw, 2), quat_mul(about(pitch, 1), about(roll, 0)))
 
 
+# The samplers draw per-env values: `shape` leads with the env axis, which a
+# sharded run's rank draws as the global batch's rows (sharding.env_rows).
+
+
 def sample_uniform(lo, hi, shape, generator: torch.Generator, dtype, device) -> torch.Tensor:
   """Uniform draws in [lo, hi) as lo + u (hi − lo); lo and hi are numbers
   or tensors broadcasting against `shape`."""
-  u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+  u = env_rows(torch.rand, shape, generator=generator, dtype=dtype, device=device)
   return lo + u * (hi - lo)
 
 
 def sample_gaussian(mean, std, shape, generator: torch.Generator, dtype, device) -> torch.Tensor:
-  return torch.randn(shape, generator=generator, dtype=dtype, device=device) * std + mean
+  return env_rows(torch.randn, shape, generator=generator, dtype=dtype, device=device) * std + mean
 
 
 def sample_log_uniform(lo, hi, shape, generator: torch.Generator, dtype, device) -> torch.Tensor:
-  u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+  u = env_rows(torch.rand, shape, generator=generator, dtype=dtype, device=device)
   return torch.exp(u * (math.log(hi) - math.log(lo)) + math.log(lo))

@@ -267,6 +267,14 @@ class EntityData:
   def joint_vel(self):
     return self.data.qvel[:, self._v]
 
+  @property
+  def joint_acc(self):
+    return self.data.qacc[:, self._v]
+
+  @property
+  def actuator_force(self):
+    return self.data.actuator_force[:, self._ctrl]
+
   # -- component accessors (reference naming) ---------------------------------------
 
   @property

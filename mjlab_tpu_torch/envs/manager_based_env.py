@@ -9,7 +9,11 @@ terms, entities and sensors read and write that state through the env.
 `env_state_to_arrays` / `env_state_from_arrays` carry it across by name.
 
 Every random draw comes from one `torch.Generator` on the env's device,
-seeded from `cfg.seed` (42 when unset) or `reset(seed=...)`.
+seeded from `cfg.seed` (42 when unset) or `reset(seed=...)`. An env given a
+`shard` (distributed.EnvShard) is one rank's share of a sharded run: its
+per-env draws are the global batch's rows (sharding.env_rows), its env
+origins the unsharded run's, and the reductions over envs that its state
+depends on are taken over ranks.
 
 The build order is the JAX package's: scene, simulation, forward, scene
 initialize, managers, per-env model leaves for domain randomization,
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from mjlab_tpu_torch import physics
+from mjlab_tpu_torch.distributed.sharding import shard_generator
 from mjlab_tpu_torch.managers.action_manager import ActionManager
 from mjlab_tpu_torch.managers.event_manager import EventManager
 from mjlab_tpu_torch.managers.manager_term_config import (
@@ -67,25 +72,31 @@ class ManagerBasedEnvCfg:
 class ManagerBasedEnv:
   cfg: ManagerBasedEnvCfg
 
-  def __init__(self, cfg: ManagerBasedEnvCfg, device=None, model=None):
+  def __init__(self, cfg: ManagerBasedEnvCfg, device=None, model=None, shard=None):
     """Build on `device` (CUDA unless the caller asks for another) from the
     compiled `model` (a live MjModel or an npz namespace), or from the npz
-    that `cfg.scene.model_file` names."""
+    that `cfg.scene.model_file` names; with `shard`, as that rank's share of
+    a sharded run (cfg.scene.num_envs is the rank's)."""
     self.cfg = cfg
     self.device = (
       torch.device(device) if device is not None else physics_io.default_device()
     )
+    if shard is not None and shard.num_envs != cfg.scene.num_envs:
+      raise ValueError(f"shard of {shard.num_envs} envs for an env of {cfg.scene.num_envs}")
+    self.shard = shard
     self.step_log: dict = {}
     if model is None:
       model = load_compiled_model(cfg.scene)
 
-    self.scene = Scene(cfg.scene, model)
+    self.scene = Scene(cfg.scene, model, shard)
     self.sim = Simulation(cfg.scene.num_envs, cfg.sim, model, self.device)
     self.tp = self.sim.tp
     self.dtype = self.sim.model.qpos0.dtype
 
     self.generator = torch.Generator(device=self.device)
     self.generator.manual_seed(cfg.seed if cfg.seed is not None else 42)
+    if shard is not None:
+      shard_generator(self.generator, shard)
     self._model = self.sim.model
     self._data = self.sim.make_data()
     self._ms: dict[str, dict] = {}

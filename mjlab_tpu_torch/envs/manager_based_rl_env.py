@@ -23,6 +23,7 @@ from dataclasses import dataclass, field as dc_field
 import torch
 
 from mjlab_tpu_torch import physics
+from mjlab_tpu_torch.distributed.sharding import any_over_ranks
 from mjlab_tpu_torch.envs.manager_based_env import ManagerBasedEnv, ManagerBasedEnvCfg
 from mjlab_tpu_torch.managers.command_manager import CommandManager, NullCommandManager
 from mjlab_tpu_torch.managers.curriculum_manager import (
@@ -75,8 +76,8 @@ class ManagerBasedRlEnv(ManagerBasedEnv):
   is_vector_env = True
   cfg: ManagerBasedRlEnvCfg
 
-  def __init__(self, cfg: ManagerBasedRlEnvCfg, device=None, model=None):
-    super().__init__(cfg=cfg, device=device, model=model)
+  def __init__(self, cfg: ManagerBasedRlEnvCfg, device=None, model=None, shard=None):
+    super().__init__(cfg=cfg, device=device, model=model, shard=shard)
     self.group_obs_dim = self.observation_manager.group_obs_dim
     self.total_action_dim = self.action_manager.total_action_dim
     self.extras: dict = {}
@@ -124,9 +125,10 @@ class ManagerBasedRlEnv(ManagerBasedEnv):
     reward_buf = self.reward_manager.compute(dt=self.step_dt)
 
     log = self._reset_masked(reset_buf)
-    self._data = select_data(
-      torch.any(reset_buf), self.forward_physics(self._data), self._data
-    )
+    any_reset = torch.any(reset_buf)
+    if self.shard is not None:  # the forward runs in every env where any env reset
+      any_reset = any_over_ranks(any_reset)
+    self._data = select_data(any_reset, self.forward_physics(self._data), self._data)
 
     self.command_manager.compute(dt=self.step_dt)
 

@@ -14,6 +14,7 @@ from typing import Dict, Literal, Tuple, Union
 import torch
 
 from mjlab_tpu_torch.core import math as mt
+from mjlab_tpu_torch.distributed.sharding import env_rows
 from mjlab_tpu_torch.managers.scene_entity_config import SceneEntityCfg
 
 _DEFAULT = SceneEntityCfg("robot")
@@ -24,7 +25,8 @@ def _uniform6(env, ranges_dict, batch: int) -> torch.Tensor:
   """(batch, 6) draws lo + u (hi − lo) over x, y, z, roll, pitch, yaw; a
   missing key is (0, 0). Bounds stay Python numbers: no host-to-device
   copy."""
-  u = torch.rand((batch, 6), generator=env.generator, dtype=env.dtype, device=env.device)
+  u = env_rows(torch.rand, (batch, 6), generator=env.generator, dtype=env.dtype,
+               device=env.device)
   cols = []
   for i, k in enumerate(_POSE_KEYS):
     lo, hi = ranges_dict.get(k, (0.0, 0.0))
@@ -52,11 +54,6 @@ def reset_root_state_uniform(
   asset_cfg: SceneEntityCfg = _DEFAULT,
 ) -> None:
   asset = env.scene[asset_cfg.name]
-  if asset.is_fixed_base:
-    raise NotImplementedError(
-      "reset_root_state_uniform of a fixed-base (mocap) entity is not supported by "
-      "mjlab_tpu_torch"
-    )
   B = env.num_envs
   pose_samples = _uniform6(env, pose_range, B)
   root_states = asset.data.default_root_state
@@ -65,6 +62,15 @@ def reset_root_state_uniform(
     pose_samples[:, 3], pose_samples[:, 4], pose_samples[:, 5]
   )
   orientations = mt.quat_mul(root_states[:, 3:7], delta)
+  if asset.is_fixed_base:
+    if not asset.is_mocap:
+      raise ValueError(
+        f"Cannot reset root state for fixed-base non-mocap entity '{asset_cfg.name}'."
+      )
+    asset.write_mocap_pose_to_sim(
+      torch.cat([positions, orientations], dim=-1), env_mask=env_mask
+    )
+    return
   vel_samples = _uniform6(env, velocity_range or {}, B)
   velocities = root_states[:, 7:13] + vel_samples
   asset.write_root_link_pose_to_sim(

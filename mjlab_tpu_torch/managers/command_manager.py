@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from mjlab_tpu_torch.distributed.sharding import env_rows
+
 from mjlab_tpu_torch.managers.manager_base import ManagerBase, ManagerTermBase
 from mjlab_tpu_torch.managers.manager_term_config import CommandTermCfg
 
@@ -49,8 +51,8 @@ class CommandTerm(ManagerTermBase):
   def _resample_time(self, env_mask) -> None:
     lo, hi = self.cfg.resampling_time_range
     env = self._env
-    u = torch.rand(self.num_envs, generator=env.generator, dtype=env.dtype,
-                   device=env.device)
+    u = env_rows(torch.rand, (self.num_envs,), generator=env.generator, dtype=env.dtype,
+                 device=env.device)
     self.state["time_left"] = torch.where(env_mask, lo + u * (hi - lo),
                                           self.state["time_left"])
 

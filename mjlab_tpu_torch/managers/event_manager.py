@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from mjlab_tpu_torch.distributed.sharding import env_rows
+
 from mjlab_tpu_torch.managers.manager_base import ManagerBase
 from mjlab_tpu_torch.managers.manager_term_config import EventTermCfg
 
@@ -45,8 +47,8 @@ class EventManager(ManagerBase):
 
   def _uniform(self, lo: float, hi: float) -> torch.Tensor:
     env = self._env
-    u = torch.rand(self.num_envs, generator=env.generator, dtype=env.dtype,
-                   device=env.device)
+    u = env_rows(torch.rand, (self.num_envs,), generator=env.generator, dtype=env.dtype,
+                 device=env.device)
     return lo + u * (hi - lo)
 
   def init_state(self) -> dict:

@@ -5,11 +5,14 @@ The pair list comes from io._candidate_pairs, sorted by geometry-type
 combination. Each type group runs one batched narrowphase over (env, pair);
 a slot is active when dist < includemargin. The port implements the
 analytic pairs: plane–sphere, plane–capsule (2 contacts), plane–box (4),
+plane–cylinder (4 rim points), plane–ellipsoid (1 support point),
 sphere–sphere, sphere–capsule, sphere–box, capsule–capsule and capsule–box
 (2); plane–mesh (4 contacts), where the mesh is its convex hull
-(convex.py) and the 4 deepest hull vertices are the contacts; and the
-convex pairs (box–box, sphere–mesh, capsule–mesh, box–mesh and mesh–mesh,
-`_CONVEX_KEYS`) through the hull SAT, `convex.convex_convex`.
+(convex.py) and the 4 deepest hull vertices are the contacts; the convex
+pairs (box–box, sphere–mesh, capsule–mesh, box–mesh and mesh–mesh,
+`_CONVEX_KEYS`) through the hull SAT, `convex.convex_convex`; and a height
+field against a sphere, capsule, box or mesh (`_hfield_group`: contacts
+against the triangulated 2×2 cell block under the geom, 4 per pair).
 
 After the static pairs come the terrain groups' slots (`TerrainGroup`): a
 box terrain's pool against the robot's sphere, capsule, box and mesh geoms,
@@ -198,6 +201,38 @@ def _plane_box(p1, m1, s1, p2, m2, s2):
   return dist, pos, frame
 
 
+def _plane_cylinder(p1, m1, s1, p2, m2, s2):
+  """Plane vs cylinder, approximate: the 4 rim points of the end caps
+  nearest the plane."""
+  n = m1[..., :, 2]
+  r, hl = s2[:, 0, None], s2[:, 1, None]
+  axis = m2[..., :, 2]
+  proj = n - axis * _dot(n, axis)[..., None]
+  pnorm = _norm(proj)
+  radial = torch.where((pnorm > 1e-8)[..., None],
+                       -proj / torch.clamp_min(pnorm, 1e-12)[..., None], m2[..., :, 0])
+  offs = torch.stack([axis * hl + radial * r, axis * hl - radial * r,
+                      -axis * hl + radial * r, -axis * hl - radial * r], dim=-2)
+  pts = p2[..., None, :] + offs  # (B, n, 4, 3)
+  dist = (pts @ n[..., None])[..., 0] - _dot(n, p1)[..., None]
+  pos = pts - n[..., None, :] * (0.5 * dist)[..., None]
+  frame = _normal_frame(n)[..., None, :, :].expand(dist.shape + (3, 3))
+  return dist, pos, frame
+
+
+def _plane_ellipsoid(p1, m1, s1, p2, m2, s2):
+  """Plane vs ellipsoid: its support point along the plane's inward
+  normal."""
+  n = m1[..., :, 2]
+  n_local = (m2.transpose(-1, -2) @ -n[..., None])[..., 0]
+  v = s2 * s2 * n_local
+  denom = torch.sqrt(_dot(n_local, v))
+  sp = p2 + (m2 @ (v / torch.clamp_min(denom, 1e-12)[..., None])[..., None])[..., 0]
+  dist = _dot(n, sp - p1)
+  pos = sp - n * (0.5 * dist)[..., None]
+  return dist[..., None], pos[..., None, :], _normal_frame(n)[..., None, :, :]
+
+
 def _sphere_box(p1, m1, s1, p2, m2, s2):
   dist, pos, n = _sphere_box_impl(p1, s1[..., 0], p2, m2, s2)
   # _sphere_box_impl's normal points box → sphere = geom2 → geom1: flip.
@@ -271,6 +306,180 @@ def _plane_convex(p1, m1, s1, p2, m2, s2, verts):
 
 
 # ---------------------------------------------------------------------------
+# Height fields: contacts against the triangulated 2×2 cell block under a
+# point, in the height field's frame.
+# ---------------------------------------------------------------------------
+
+
+def _closest_triangle_point(a, b, c, p):
+  """Closest point on triangles abc to points p (Ericson's method, the
+  region tests applied in the JAX package's order)."""
+  ab = b - a
+  ac = c - a
+  ap = p - a
+  d1 = _dot(ab, ap)
+  d2 = _dot(ac, ap)
+  bp = p - b
+  d3 = _dot(ab, bp)
+  d4 = _dot(ac, bp)
+  cp = p - c
+  d5 = _dot(ab, cp)
+  d6 = _dot(ac, cp)
+  va = d3 * d6 - d5 * d4
+  vb = d5 * d2 - d1 * d6
+  vc = d1 * d4 - d3 * d2
+  denom = torch.clamp_min(va + vb + vc, 1e-12)
+  v = vb / denom
+  w = vc / denom
+  q = a + v[..., None] * ab + w[..., None] * ac  # interior
+  unit = lambda x: torch.clamp(x, 0, 1)[..., None]  # noqa: E731
+  q = torch.where(((vc <= 0) & (d1 >= 0) & (d3 <= 0))[..., None],
+                  a + unit(d1 / torch.clamp_min(d1 - d3, 1e-12)) * ab, q)
+  q = torch.where(((vb <= 0) & (d2 >= 0) & (d6 <= 0))[..., None],
+                  a + unit(d2 / torch.clamp_min(d2 - d6, 1e-12)) * ac, q)
+  t_bc = unit((d4 - d3) / torch.clamp_min((d4 - d3) + (d5 - d6), 1e-12))
+  q = torch.where(((va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0))[..., None],
+                  b + t_bc * (c - b), q)
+  q = torch.where(((d1 <= 0) & (d2 <= 0))[..., None], a, q)
+  q = torch.where(((d3 >= 0) & (d4 <= d3))[..., None], b, q)
+  q = torch.where(((d6 >= 0) & (d5 <= d6))[..., None], c, q)
+  return q
+
+
+def _hfield_cell_triangles(data, adr, nx: int, ny: int, size, c):
+  """The 8 triangles (..., 8, 3, 3) of the 2×2 cell block around points c
+  (..., 3) in the height field's frame. `data` is the Model's raster
+  (column-major over x), `adr` (...) each point's field's address in it and
+  `size` (..., 4) its size, both broadcasting with c[..., 0]."""
+  rx, ry, elev = size[..., 0], size[..., 1], size[..., 2]
+  dx = 2 * rx / (nx - 1)
+  dy = 2 * ry / (ny - 1)
+  ix = torch.clamp(torch.floor((c[..., 0] + rx) / dx).to(torch.int64), 0, nx - 2)
+  iy = torch.clamp(torch.floor((c[..., 1] + ry) / dy).to(torch.int64), 0, ny - 2)
+
+  def vertex(i, j):
+    i = torch.clamp(i, 0, nx - 1)
+    j = torch.clamp(j, 0, ny - 1)
+    z = data[adr + j * nx + i] * elev  # MuJoCo's raster: x along the columns
+    return torch.stack([-rx + i.to(c.dtype) * dx, -ry + j.to(c.dtype) * dy, z], dim=-1)
+
+  tris = []
+  for cx, cy in ((ix, iy), (ix - 1, iy), (ix, iy - 1), (ix - 1, iy - 1)):
+    cx = torch.clamp(cx, 0, nx - 2)
+    cy = torch.clamp(cy, 0, ny - 2)
+    v00, v10 = vertex(cx, cy), vertex(cx + 1, cy)
+    v01, v11 = vertex(cx, cy + 1), vertex(cx + 1, cy + 1)
+    tris.append(torch.stack([v00, v10, v11], dim=-2))
+    tris.append(torch.stack([v00, v11, v01], dim=-2))
+  return torch.stack(tris, dim=-3)
+
+
+def _sphere_hfield_contacts(c, r, tris):
+  """Spheres (centres c (..., 3), radii r broadcasting with c[..., 0])
+  against their 8 triangles: the deepest 4 contacts, the lower triangle
+  first among equals (jax.lax.top_k's order). Returns dist (..., 4), pos
+  (..., 4, 3) and normals (..., 4, 3) in the height field's frame."""
+  c = c[..., None, :]
+  a, b, cc = tris[..., 0, :], tris[..., 1, :], tris[..., 2, :]
+  q = _closest_triangle_point(a, b, cc, c)
+  delta = c - q
+  dn = _norm(delta)
+  n_tri = mt.cross(b - a, cc - a)
+  n_tri = n_tri / torch.clamp_min(_norm(n_tri), 1e-12)[..., None]
+  n_tri = torch.where((n_tri[..., 2] < 0)[..., None], -n_tri, n_tri)  # up-facing
+  hn = _dot(n_tri, delta)
+  # A penetration counts only where the closest point is the centre's
+  # projection into this triangle: a centre below the raster lies below the
+  # planes of its neighbours too, at a large lateral distance.
+  lateral_sq = torch.sum((delta - hn[..., None] * n_tri) ** 2, dim=-1)
+  below = (hn < 0) & (lateral_sq < 1e-12 + 1e-9 * dn * dn)
+  n = torch.where((dn > 1e-9)[..., None], delta / torch.clamp_min(dn, 1e-12)[..., None], n_tri)
+  n = torch.where(below[..., None], n_tri, n)
+  dist = torch.where(below, -dn, dn) - r[..., None]
+  pos = q + n * (0.5 * dist)[..., None]
+  idx = _lowest_k(dist, 4)
+  take = lambda x: torch.gather(x, -2, idx[..., None].expand(idx.shape + (3,)))  # noqa: E731
+  return torch.gather(dist, -1, idx), take(pos), take(n)
+
+
+def _hfield_group(m: Model, d: Data, g: SimpleNamespace):
+  """A (height field, sphere | capsule | box | mesh) group's narrowphase,
+  one sub-group per raster shape: a sphere against the cell block under its
+  centre; a capsule as spheres at both ends, the deepest 2 contacts each;
+  a box or a mesh hull's vertices as points against the surface under
+  each, the deepest 4 vertices. Heights are read from the Model."""
+  B = d.qpos.shape[0]
+  n, k = g.g1.shape[0], g.k
+  dtype = d.qpos.dtype
+  dist = torch.empty((B, n, k), dtype=dtype, device=d.qpos.device)
+  pos = torch.empty((B, n, k, 3), dtype=dtype, device=d.qpos.device)
+  frame = torch.empty((B, n, k, 3, 3), dtype=dtype, device=d.qpos.device)
+  for sub in g.hfield:
+    p1, m1 = d.geom_xpos[:, sub.g1], d.geom_xmat[:, sub.g1]
+    p2, m2 = d.geom_xpos[:, sub.g2], d.geom_xmat[:, sub.g2]
+    s2 = m.geom_size[sub.g2]
+    m1t = m1.transpose(-1, -2)
+    c = (m1t @ (p2 - p1)[..., None])[..., 0]  # geom2's centre, field frame
+    hsize = m.hfield_size[sub.hid]
+    tri = functools.partial(_hfield_cell_triangles, m.hfield_data, nx=sub.nx, ny=sub.ny)
+    if g.type2 == _G.mjGEOM_SPHERE:
+      dl, pl, nl = _sphere_hfield_contacts(
+        c, s2[:, 0], tri(adr=sub.adr, size=hsize, c=c))
+    elif g.type2 == _G.mjGEOM_CAPSULE:
+      axis = (m1t @ m2[..., :, 2, None])[..., 0]
+      r, hl = s2[:, 0], s2[:, 1, None]
+      outs = []
+      for sgn in (1.0, -1.0):
+        e = c + sgn * hl * axis
+        de, pe, ne = _sphere_hfield_contacts(e, r, tri(adr=sub.adr, size=hsize, c=e))
+        outs.append((de[..., :2], pe[..., :2, :], ne[..., :2, :]))
+      dl, pl, nl = (torch.cat(x, dim=-2 if i else -1) for i, x in enumerate(zip(*outs)))
+    else:  # box or mesh: the hull's vertices as points
+      verts = sub.verts * s2[:, None, :] if g.type2 == _G.mjGEOM_BOX else sub.verts
+      rm = m1t @ m2
+      vl = verts @ rm.transpose(-1, -2) + c[..., None, :]  # (B, n, V, 3)
+      zero = torch.zeros((), dtype=dtype, device=c.device)
+      dv, pv, nv = _sphere_hfield_contacts(
+        vl, zero, tri(adr=sub.adr[:, None], size=hsize[:, None], c=vl))
+      dv, pv, nv = dv[..., 0], pv[..., 0, :], nv[..., 0, :]  # the deepest per vertex
+      top = _lowest_k(dv, 4)
+      take = lambda x: torch.gather(x, -2, top[..., None].expand(top.shape + (3,)))  # noqa: E731
+      dl, pl, nl = torch.gather(dv, -1, top), take(pv), take(nv)
+    dist[:, sub.rows] = dl
+    pos[:, sub.rows] = p1[..., None, :] + pl @ m1t
+    frame[:, sub.rows] = _normal_frame(nl @ m1t)
+  return dist, pos, frame
+
+
+def _hfield_tables(tp: Topology, key, g1: np.ndarray, g2: np.ndarray, dtype, device):
+  """A height-field group's sub-groups, one per raster shape (ncol, nrow):
+  their rows in the group, geom ids, fields' ids and raster addresses, and a
+  box's unit hull or the mesh hulls' vertices padded to the sub-group's
+  most."""
+  by_shape: dict[tuple[int, int], list[int]] = {}
+  for i, ga in enumerate(g1):
+    hid = int(tp.geom_dataid[ga])
+    by_shape.setdefault((int(tp.hfield_ncol[hid]), int(tp.hfield_nrow[hid])), []).append(i)
+  subs = []
+  for (nx, ny), rows in by_shape.items():
+    gg1, gg2 = g1[rows], g2[rows]
+    hid = tp.geom_dataid[gg1]
+    if key[1] == _G.mjGEOM_MESH:
+      verts = float_tensor(cvx.pad_hulls([tp.geom_hulls[int(g)] for g in gg2])[0],
+                           dtype, device)
+    elif key[1] == _G.mjGEOM_BOX:
+      verts = float_tensor(cvx.BOX_HULL.verts, dtype, device)
+    else:
+      verts = None
+    subs.append(SimpleNamespace(
+      nx=nx, ny=ny, rows=index_tensor(rows, device), g1=index_tensor(gg1, device),
+      g2=index_tensor(gg2, device), hid=index_tensor(hid, device),
+      adr=index_tensor(tp.hfield_adr[hid], device), verts=verts,
+    ))
+  return subs
+
+
+# ---------------------------------------------------------------------------
 # Convex pairs (box–box and every pair with a mesh hull) through the SAT.
 # ---------------------------------------------------------------------------
 
@@ -341,6 +550,8 @@ def _convex_group(p1, m1, s1, p2, m2, s2, *, side1, side2, ncon: int, flags: dic
 _DISPATCH = {
   (_G.mjGEOM_PLANE, _G.mjGEOM_SPHERE): _plane_sphere,
   (_G.mjGEOM_PLANE, _G.mjGEOM_CAPSULE): _plane_capsule,
+  (_G.mjGEOM_PLANE, _G.mjGEOM_CYLINDER): _plane_cylinder,
+  (_G.mjGEOM_PLANE, _G.mjGEOM_ELLIPSOID): _plane_ellipsoid,
   (_G.mjGEOM_SPHERE, _G.mjGEOM_SPHERE): _sphere_sphere_pair,
   (_G.mjGEOM_SPHERE, _G.mjGEOM_CAPSULE): _sphere_capsule,
   (_G.mjGEOM_CAPSULE, _G.mjGEOM_CAPSULE): _capsule_capsule,
@@ -394,7 +605,10 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
     g1 = np.asarray([p.geom1 for p in group])
     g2 = np.asarray([p.geom2 for p in group])
     prio1, prio2 = tp.geom_priority[g1], tp.geom_priority[g2]
-    if key in _CONVEX_KEYS:
+    hfield = None
+    if key[0] == _G.mjGEOM_HFIELD:
+      fn, hfield = None, _hfield_tables(tp, key, g1, g2, dtype, device)
+    elif key in _CONVEX_KEYS:
       side1 = _convex_side_tables(tp, g1, key[0], dtype, device)
       side2 = _convex_side_tables(tp, g2, key[1], dtype, device)
       fn = functools.partial(
@@ -409,7 +623,7 @@ def device_tables(tp: Topology, dtype, device) -> SimpleNamespace:
     explicit = pair_id >= 0
     groups.append(
       SimpleNamespace(
-        fn=fn, k=group[0].ncon, g1=index_tensor(g1, device),
+        fn=fn, hfield=hfield, type2=key[1], k=group[0].ncon, g1=index_tensor(g1, device),
         g2=index_tensor(g2, device),
         hi=index_tensor(np.where(prio1 >= prio2, g1, g2), device),
         differ=torch.as_tensor(prio1 != prio2, device=device)[:, None],
@@ -622,10 +836,13 @@ def collision(tp: Topology, m: Model, d: Data) -> Data:
                     "includemargin", "solreffriction")
   }
   for g in tp.dev.coll.groups:
-    dist, pos, frame = g.fn(
-      d.geom_xpos[:, g.g1], d.geom_xmat[:, g.g1], m.geom_size[g.g1],
-      d.geom_xpos[:, g.g2], d.geom_xmat[:, g.g2], m.geom_size[g.g2],
-    )
+    if g.hfield is not None:
+      dist, pos, frame = _hfield_group(m, d, g)
+    else:
+      dist, pos, frame = g.fn(
+        d.geom_xpos[:, g.g1], d.geom_xmat[:, g.g1], m.geom_size[g.g1],
+        d.geom_xpos[:, g.g2], d.geom_xmat[:, g.g2], m.geom_size[g.g2],
+      )
     n = g.g1.shape[0]
     parts["dist"].append(dist.reshape(B, n * g.k))
     parts["pos"].append(pos.reshape(B, n * g.k, 3))

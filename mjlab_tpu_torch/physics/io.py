@@ -76,8 +76,8 @@ from mjlab_tpu_torch.physics.convex import _fibonacci_directions, build_hull
 _G = mjtGeom
 
 # Rounded primitives that collide as convex hulls through the SAT where no
-# analytic pair exists (plane pairs keep their analytic narrowphase in the
-# JAX package, which the port refuses: see _NOT_PORTED_PAIRS).
+# analytic pair exists (against a plane they keep their analytic
+# narrowphase, plane–cylinder and plane–ellipsoid).
 _HULL_APPROX_TYPES = (_G.mjGEOM_CYLINDER, _G.mjGEOM_ELLIPSOID)
 _CYLINDER_SECTORS = 16
 _ELLIPSOID_DIRS = 42
@@ -94,6 +94,8 @@ def _effective_type(t: int) -> int:
 _PAIR_NCON: dict[tuple[int, int], int] = {
   (_G.mjGEOM_PLANE, _G.mjGEOM_SPHERE): 1,
   (_G.mjGEOM_PLANE, _G.mjGEOM_CAPSULE): 2,
+  (_G.mjGEOM_PLANE, _G.mjGEOM_CYLINDER): 4,
+  (_G.mjGEOM_PLANE, _G.mjGEOM_ELLIPSOID): 1,
   (_G.mjGEOM_SPHERE, _G.mjGEOM_SPHERE): 1,
   (_G.mjGEOM_SPHERE, _G.mjGEOM_CAPSULE): 1,
   (_G.mjGEOM_CAPSULE, _G.mjGEOM_CAPSULE): 1,
@@ -106,16 +108,10 @@ _PAIR_NCON: dict[tuple[int, int], int] = {
   (_G.mjGEOM_CAPSULE, _G.mjGEOM_MESH): 2,
   (_G.mjGEOM_BOX, _G.mjGEOM_MESH): 4,
   (_G.mjGEOM_MESH, _G.mjGEOM_MESH): 4,
-}
-
-# The JAX package's pairs that the port lacks: the analytic plane–cylinder
-# and plane–ellipsoid, and the height fields. A pair of these raw types is
-# refused, never routed through a hull, since the JAX package would not
-# route it so.
-_NOT_PORTED_PAIRS = {
-  (_G.mjGEOM_PLANE, _G.mjGEOM_CYLINDER), (_G.mjGEOM_PLANE, _G.mjGEOM_ELLIPSOID),
-  (_G.mjGEOM_HFIELD, _G.mjGEOM_SPHERE), (_G.mjGEOM_HFIELD, _G.mjGEOM_CAPSULE),
-  (_G.mjGEOM_HFIELD, _G.mjGEOM_BOX), (_G.mjGEOM_HFIELD, _G.mjGEOM_MESH),
+  (_G.mjGEOM_HFIELD, _G.mjGEOM_SPHERE): 4,
+  (_G.mjGEOM_HFIELD, _G.mjGEOM_CAPSULE): 4,
+  (_G.mjGEOM_HFIELD, _G.mjGEOM_BOX): 4,
+  (_G.mjGEOM_HFIELD, _G.mjGEOM_MESH): 4,
 }
 
 # Static world boxes are pooled into a runtime broadphase (TerrainGroup)
@@ -223,9 +219,8 @@ def _reject_unsupported(m) -> None:
     ):
       no(f"sensor reference frame of object type {int(m.sensor_reftype[s])} "
          f"on sensor type {int(m.sensor_type[s])}")
-  # Height-field pairs, plane–cylinder and plane–ellipsoid, and geom types
-  # with no narrowphase against a terrain pool are refused by
-  # _candidate_pairs.
+  # Pairs of geom types with no narrowphase, and geom types with none
+  # against a terrain pool, are refused by _candidate_pairs.
 
 
 def _has_fluid(m) -> bool:
@@ -351,8 +346,6 @@ def _pair_key(m, ga: int, gb: int):
     ga, gb, t1, t2 = gb, ga, t2, t1
   if (t1, t2) in _PAIR_NCON:
     return (t1, t2), ga, gb
-  if (t1, t2) in _NOT_PORTED_PAIRS:
-    return None, ga, gb
   e1, e2 = _effective_type(t1), _effective_type(t2)
   if e1 > e2:
     ga, gb, e1, e2 = gb, ga, e2, e1
@@ -828,7 +821,7 @@ def put_model(
     terrain_groups=groups,
     ncon_max=ncon_max,
     nefc=nefc,
-    nhfield=0,
+    nhfield=int(m.nhfield),
     hfield_nrow=m.hfield_nrow.copy(),
     hfield_ncol=m.hfield_ncol.copy(),
     hfield_adr=m.hfield_adr.copy(),
@@ -858,10 +851,9 @@ def put_model(
   )
   leaves = {}
   for f in model_fields():
-    if f.startswith("hfield_") or (f.startswith("eq_") and not m.neq) or (
-      f.startswith("pair_") and not m.npair
-    ):
-      continue  # empty: refused above, or no equality constraint or pair
+    if (f.startswith("hfield_") and not m.nhfield) or (
+      f.startswith("eq_") and not m.neq) or (f.startswith("pair_") and not m.npair):
+      continue  # empty: no height field, equality constraint or pair
     leaves[f] = arr(getattr(m, f))
   width = {"pair_friction": 5, "pair_solref": 2, "pair_solreffriction": 2,
            "pair_solimp": 5, "pair_margin": None, "hfield_data": None,

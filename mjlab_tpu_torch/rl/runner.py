@@ -25,6 +25,17 @@ permutation of the T·B samples per epoch) come from the runner's
 `torch.Generator` on the device unless the caller hands them in, as the
 tests do with the JAX package's draws.
 
+Over an env that is one rank's share of a sharded run (`env.shard`, a
+`distributed.EnvShard`), the runner computes what the unsharded run
+computes: its action noise is the global batch's rows, the update gathers
+the rollout along the env axis and runs on every rank on the same batch
+with the same permutations (the learner stays equal on every rank without
+a gradient all-reduce), and the metrics are reduced over the ranks when
+they are pulled, apart from the ratios of sums over the envs, whose sums
+are reduced once per iteration (`ratio_metrics`). Only the primary rank
+prints, writes metrics.jsonl and saves; the others wait for its save at a
+barrier.
+
 `runner_state_to_arrays` / `runner_state_from_arrays` carry the learner's
 state by the JAX RunnerState's names: `params/actor/Dense_<i>/kernel`
 (flax's (in, out), a Linear weight transposed) and `/bias`, `params/std`
@@ -39,6 +50,7 @@ checkpoint whole.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import time
@@ -47,6 +59,13 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from mjlab_tpu_torch.distributed import multihost
+from mjlab_tpu_torch.distributed.sharding import (
+  env_rows,
+  gather_env_axis,
+  shard_generator,
+  sum_over_ranks,
+)
 from mjlab_tpu_torch.rl.config import RlOnPolicyRunnerCfg
 from mjlab_tpu_torch.rl.networks import ActorCritic, RunningNorm, gaussian_log_prob
 from mjlab_tpu_torch.rl.ppo import AdamState, Transition, adam_init, ppo_update
@@ -90,6 +109,10 @@ class OnPolicyRunner:
     self.critic_norm = RunningNorm.create(self.num_critic_obs, self.device)
     self.generator = torch.Generator(device=self.device)
     self.generator.manual_seed(cfg.seed)
+    self.shard = getattr(env, "shard", None)
+    self.num_envs = self.shard.total if self.shard is not None else env.num_envs
+    if self.shard is not None:
+      shard_generator(self.generator, self.shard)
     self.vec_env = RlVecEnvWrapper(env, clip_actions=cfg.clip_actions, seed=cfg.seed)
     self.obs = self.vec_env.get_observations()
     self.batch: Transition | None = None  # the last rollout's (T, B, ...) buffers
@@ -144,6 +167,13 @@ class OnPolicyRunner:
       last_value = self.ac.value(
         self.critic_norm(self.obs[self.critic_group].to(torch.float32))
       )
+    if self.shard is not None:
+      with record_function("ppo_update/gather"):
+        batch = Transition(**{
+          f.name: gather_env_axis(getattr(batch, f.name), self.shard, axis=1)
+          for f in dataclasses.fields(Transition)
+        })
+        last_value = gather_env_axis(last_value, self.shard)
     self.opt_state, self.lr, ppo_metrics = ppo_update(
       cfg.algorithm, self.ac, self.opt_state, self.lr, batch, last_value, perms
     )
@@ -172,14 +202,17 @@ class OnPolicyRunner:
       if k.startswith(_LOGGED_PREFIXES):
         v = over_steps(k)
         metrics[k] = torch.mean(v if v.is_floating_point() else v.to(torch.float64))
+    metrics.update(ratio_metrics(logs))
     return metrics
 
   def draw(self) -> tuple[torch.Tensor, torch.Tensor]:
     """One iteration's draws from the runner's generator: the action noise
-    (T, B, A) and one permutation of the T·B samples per epoch."""
-    T, B = self.cfg.num_steps_per_env, self.env.num_envs
-    noise = torch.randn((T, B, self.num_actions), generator=self.generator,
-                        device=self.device, dtype=self.dtype)
+    (T, B, A) and one permutation of the T·B samples per epoch (B: the
+    global batch's envs; a rank of a sharded run keeps its rows of the
+    noise)."""
+    T, B = self.cfg.num_steps_per_env, self.num_envs
+    noise = env_rows(torch.randn, (T, self.env.num_envs, self.num_actions), axis=1,
+                     generator=self.generator, device=self.device, dtype=self.dtype)
     perms = torch.stack([
       torch.randperm(T * B, generator=self.generator, device=self.device)
       for _ in range(self.cfg.algorithm.num_learning_epochs)
@@ -213,7 +246,8 @@ class OnPolicyRunner:
     the end."""
     keys: list[str] = []
     pending: list[tuple[int, torch.Tensor]] = []
-    steps_per_iter = self.cfg.num_steps_per_env * self.env.num_envs
+    steps_per_iter = self.cfg.num_steps_per_env * self.num_envs
+    primary = multihost.is_primary_host()
     t_start = time.perf_counter()
     for _ in range(num_iterations):
       t0 = time.perf_counter()
@@ -224,20 +258,21 @@ class OnPolicyRunner:
       if self.iteration % log_interval == 0:
         host = self._pull_metrics(keys, pending)
         pending = []
-        print(
-          f"it {self.iteration:6d} | {steps_per_iter / (time.perf_counter() - t0):9.0f} "
-          f"steps/s | rew {host['Train/mean_step_reward']:.4f} | "
-          f"len {host['Train/mean_episode_length']:.1f} | "
-          f"kl {host['Loss/kl']:.4f} | lr {host['Loss/lr']:.2e}",
-          flush=True,
-        )
+        if primary:
+          print(
+            f"it {self.iteration:6d} | {steps_per_iter / (time.perf_counter() - t0):9.0f} "
+            f"steps/s | rew {host['Train/mean_step_reward']:.4f} | "
+            f"len {host['Train/mean_episode_length']:.1f} | "
+            f"kl {host['Loss/kl']:.4f} | lr {host['Loss/lr']:.2e}",
+            flush=True,
+          )
       if (self.log_dir is not None and self.cfg.save_interval > 0
           and self.iteration % self.cfg.save_interval == 0):
         self.save(os.path.join(self.log_dir, f"model_{self.iteration}.pt"))
       self.iteration += 1
     if pending:
       self._pull_metrics(keys, pending)
-    if num_iterations > 0:
+    if num_iterations > 0 and primary:
       dt = time.perf_counter() - t_start
       print(f"[runner] {num_iterations} iterations in {dt:.2f} s: "
             f"{steps_per_iter * num_iterations / dt:.0f} env-steps/s", flush=True)
@@ -245,15 +280,41 @@ class OnPolicyRunner:
   def _pull_metrics(self, keys: list[str], pending: list[tuple[int, torch.Tensor]]) -> dict:
     """Copy the (iteration, row) pairs' rows to the host in one copy, append
     them to <log_dir>/metrics.jsonl, one line per iteration, and set
-    `last_metrics` to the last. Returns it."""
-    rows = torch.stack([row for _, row in pending]).cpu().tolist()
-    if self.log_dir is not None:
+    `last_metrics` to the last. Returns it. In a sharded run the rows are
+    first reduced over the ranks (`_reduce_rows`), and only the primary rank
+    writes."""
+    rows = torch.stack([row for _, row in pending])
+    if self.shard is not None:
+      rows = self._reduce_rows(keys, rows)
+    rows = rows.cpu().tolist()
+    if self.log_dir is not None and multihost.is_primary_host():
       os.makedirs(self.log_dir, exist_ok=True)
       with open(os.path.join(self.log_dir, "metrics.jsonl"), "a") as f:
         f.writelines(json.dumps({"iteration": it, **dict(zip(keys, row))}) + "\n"
                      for (it, _), row in zip(pending, rows))
     self.last_metrics = dict(zip(keys, rows[-1]))
     return self.last_metrics
+
+  def _reduce_rows(self, keys: list[str], rows: torch.Tensor) -> torch.Tensor:
+    """Metric rows (iterations, keys) of each rank → the global batch's, in
+    one all_reduce: sums over envs (the episode sums, terminations and
+    command metrics of the resetting envs, resets, dropped terrain slots)
+    are summed over the ranks; the mean episode length is the summed
+    lengths over the summed resets; every other metric is a mean over envs,
+    averaged over the ranks, or equal on every rank (the update's, and the
+    ratios of sums of `ratio_metrics`)."""
+    world = multihost.process_count()
+    summed = tuple(_SUMMED_PREFIXES) + tuple(
+      f"Metrics/{name}/" for name in self.env.command_manager.active_terms)
+    is_sum = torch.tensor([k.startswith(summed) or k in _SUMMED_KEYS for k in keys],
+                          device=rows.device)
+    resets = rows[:, keys.index("Train/resets")]
+    length = keys.index("Train/mean_episode_length")
+    rows = torch.where(is_sum, rows, rows / world)
+    rows[:, length] = rows[:, length] * world * torch.clamp(resets, min=1.0)
+    rows = sum_over_ranks(rows)
+    rows[:, length] = rows[:, length] / torch.clamp(rows[:, keys.index("Train/resets")], min=1.0)
+    return rows
 
   # -- inference / persistence ------------------------------------------------------
 
@@ -280,6 +341,9 @@ class OnPolicyRunner:
     stop the run."""
     from mjlab_tpu_torch.rl.exporter import export_policy_as_torchscript
 
+    if not multihost.is_primary_host():
+      _barrier()  # the primary's save, then on together
+      return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     state = {k: torch.from_numpy(v) for k, v in runner_state_to_arrays(self).items()}
     _write_atomic(path, lambda tmp: torch.save({"state": state, "iteration": self.iteration}, tmp))
@@ -294,11 +358,39 @@ class OnPolicyRunner:
         print(f"[runner] policy published: {name} -> {dst}")
       except Exception as e:
         print(f"[runner] policy publish skipped: {e}")
+    if self.shard is not None:
+      print(f"[runner] rank {multihost.process_index()}: saved {path}", flush=True)
+      _barrier()
 
   def load(self, path: str) -> None:
     ckpt = torch.load(path, map_location="cpu")
     runner_state_from_arrays(self, ckpt["state"])
     self.iteration = int(ckpt["iteration"])
+
+
+def ratio_metrics(logs: list[dict]) -> dict:
+  """The ratios of sums over the envs whose sums a sharded run's steps
+  logged (`Parts/<key>`: numerator, denominator; Metrics/*_mean of the
+  velocity rewards): each step's sums summed over the ranks, then divided,
+  and averaged over the steps as the unsharded run averages its steps'
+  ratios. One all_reduce for them all; empty where nothing logged sums."""
+  keys = [k for k in logs[0] if k.startswith("Parts/")]
+  if not keys:
+    return {}
+  parts = sum_over_ranks(torch.stack([torch.stack([log[k] for log in logs]) for k in keys]))
+  return {k[len("Parts/"):]: torch.mean(p[:, 0] / torch.clamp(p[:, 1], min=1))
+          for k, p in zip(keys, parts)}
+
+
+_SUMMED_PREFIXES = ("Episode_Reward/", "Episode_Termination/")
+_SUMMED_KEYS = ("Train/resets", "Metrics/physics/terrain_slots_dropped")
+
+
+def _barrier() -> None:
+  import torch.distributed as dist
+
+  if dist.is_available() and dist.is_initialized():
+    dist.barrier()
 
 
 def _write_atomic(path: str, write) -> None:

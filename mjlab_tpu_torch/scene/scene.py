@@ -76,11 +76,14 @@ def _terrain_origins(cfg: TerrainImporterCfg, model):
 
 
 class Scene:
-  def __init__(self, scene_cfg: SceneCfg, model) -> None:
+  def __init__(self, scene_cfg: SceneCfg, model, shard=None) -> None:
+    """`shard` (sharding.EnvShard): a rank's share of a sharded run's envs,
+    whose env origins are the unsharded run's rows."""
     self._cfg = scene_cfg
     terrain = scene_cfg.terrain or TerrainImporterCfg()
     self._terrain = TerrainImporter(
-      terrain, scene_cfg.num_envs, scene_cfg.env_spacing, _terrain_origins(terrain, model)
+      terrain, scene_cfg.num_envs, scene_cfg.env_spacing, _terrain_origins(terrain, model),
+      *((slice(shard.offset, shard.offset + shard.num_envs), shard.total) if shard else ()),
     )
     self._model = model
     self._entities: dict[str, Entity] = {

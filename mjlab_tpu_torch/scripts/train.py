@@ -4,7 +4,10 @@ Usage:
   python -m mjlab_tpu_torch.scripts.train Mjlab-Velocity-Flat-Unitree-G1 \
       --env.scene.num_envs 4096 --agent.max_iterations 1000 [--log_dir d] \
       [--agent.save_interval 50] [--agent.resume true] [--enable_nan_guard] \
-      [--profile n] [--motion-file m.npz | --registry-name name[:alias]]
+      [--profile n] [--motion-file m.npz | --registry-name name[:alias]] [--mesh auto]
+
+  python -m torch.distributed.run --nproc_per_node N -m mjlab_tpu_torch.scripts.train \
+      Mjlab-Velocity-Flat-Unitree-G1 --env.scene.num_envs 16384 ...
 
 Trains on CUDA unless `--agent.device cpu`. `--env.<field>` and
 `--agent.<field>` override any field of the task's env cfg and PPO runner
@@ -29,8 +32,18 @@ a checkpoint `model_<iteration>.pt` with its TorchScript policy
 - `--profile n` traces the first n iterations with torch.profiler (CUDA
   activity on the card) into <log_dir>/profile/, then trains the rest.
 
-The JAX script's multi-device (`--mesh`) and video (`--video`,
-`--video_interval`) flags are not ported; each raises NotImplementedError.
+- Under `torch.distributed.run` the env batch is sharded over the ranks
+  (env-sharded data parallelism, `mjlab_tpu_torch.distributed`): each rank
+  runs `num_envs / world_size` envs on cuda:LOCAL_RANK (ranks beyond the
+  cards share them, through gloo) and the learner is replicated; the run
+  computes what one process with all the envs computes. `--mesh auto` (the
+  default) shards over the world size, `--mesh off` runs unsharded (and
+  raises under more than one rank), `--mesh n` must equal the world size; a
+  `num_envs` the shards do not divide raises. Only rank 0 writes the log
+  dir.
+
+The JAX script's video flags (`--video`, `--video_interval`) are not
+ported; each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,8 +54,8 @@ import os
 import sys
 import time
 
-_UNPORTED = ("mesh", "video", "video_interval")
-_FLAGS = ("log_dir", "motion_file", "registry_name", "enable_nan_guard", "profile")
+_UNPORTED = ("video", "video_interval")
+_FLAGS = ("log_dir", "motion_file", "registry_name", "enable_nan_guard", "profile", "mesh")
 
 
 def _split(overrides: dict[str, str]) -> tuple[dict[str, str], dict[str, str]]:
@@ -63,15 +76,38 @@ def _split(overrides: dict[str, str]) -> tuple[dict[str, str], dict[str, str]]:
   return env_over, agent_over
 
 
+def mesh_shards(mesh: str | None, num_envs: int, world: int) -> int | None:
+  """The shards of the env batch that `--mesh` asks for in a process group
+  of `world` ranks: None for an unsharded run. `auto` (the default) is the
+  world size, `off` unsharded (refused under more than one rank), a number
+  must equal the world size; the shards must divide `num_envs`."""
+  mesh = (mesh or "auto").lower()
+  if mesh in ("off", "false", "0"):
+    if world > 1:
+      raise ValueError(f"--mesh off under {world} ranks: each rank would run every env")
+    return None
+  n = world if mesh in ("auto", "true") else int(mesh)
+  if n != world:
+    raise ValueError(f"--mesh {n} does not match the world size {world} "
+                     f"(launch with torch.distributed.run --nproc_per_node {n})")
+  if num_envs % n:
+    raise ValueError(f"num_envs={num_envs} not divisible by --mesh {n}; env-axis "
+                     "sharding needs equal shards per rank")
+  return n
+
+
 def build_runner(task: str, overrides: dict[str, str], device=None):
   """The task's env and PPO runner, with the CLI's overrides
   ({"env.scene.num_envs": "4096", "agent.seed": "1", "log_dir": ...,
-  "motion_file": ...}), on `device` (else the runner cfg's device, CUDA by
-  default)."""
+  "motion_file": ..., "mesh": ...}), on `device` (else the runner cfg's
+  device, CUDA by default). Under torch.distributed.run it joins the
+  process group and builds this rank's share of the envs (`--mesh`) on its
+  device (cuda:LOCAL_RANK, or the CPU where asked)."""
   from mjlab_tpu_torch import tasks
+  from mjlab_tpu_torch.distributed import EnvShard, multihost
   from mjlab_tpu_torch.envs import ManagerBasedRlEnv
   from mjlab_tpu_torch.rl.runner import OnPolicyRunner
-  from mjlab_tpu_torch.scripts.cli import apply_overrides
+  from mjlab_tpu_torch.scripts.cli import apply_overrides, get_flag
 
   env_over, agent_over = _split(overrides)
   env_cfg = tasks.load_env_cfg(task)
@@ -81,7 +117,20 @@ def build_runner(task: str, overrides: dict[str, str], device=None):
   apply_overrides(env_cfg, env_over)
   apply_overrides(agent_cfg, agent_over)
   log_dir = overrides.get("log_dir", os.path.join("logs", agent_cfg.experiment_name))
-  env = ManagerBasedRlEnv(env_cfg, device=device or agent_cfg.device)
+  device = str(device or agent_cfg.device)
+  grouped = multihost.initialize_multihost(device=device)
+  total = env_cfg.scene.num_envs
+  shards = mesh_shards(get_flag(overrides, "mesh"), total, multihost.process_count())
+  shard = None
+  if grouped and shards is not None:
+    n = total // shards
+    shard = EnvShard(multihost.global_env_offset(n), n, total)
+    env_cfg.scene.num_envs = n
+    device = multihost.local_device(device)
+    if multihost.is_primary_host():
+      print(f"[train] env-sharded data parallelism: {total} envs over {shards} ranks",
+            flush=True)
+  env = ManagerBasedRlEnv(env_cfg, device=device, shard=shard)
   return OnPolicyRunner(env, agent_cfg, log_dir=log_dir)
 
 
@@ -91,11 +140,15 @@ def run_train(task: str, overrides: dict[str, str]):
   from mjlab_tpu_torch.scripts.cli import get_flag
   from mjlab_tpu_torch.utils.os import dump_yaml, resolve_latest_checkpoint
 
+  from mjlab_tpu_torch.distributed import multihost
+
   runner = build_runner(task, overrides)
   log_dir, cfg = runner.log_dir, runner.cfg
-  os.makedirs(log_dir, exist_ok=True)
-  print(f"[train] task={task} num_envs={runner.env.num_envs} device={runner.device}",
-        flush=True)
+  primary = multihost.is_primary_host()
+  if primary:
+    os.makedirs(log_dir, exist_ok=True)
+  print(f"[train] task={task} num_envs={runner.env.num_envs} device={runner.device} "
+        f"rank={multihost.process_index()}", flush=True)
 
   if (get_flag(overrides, "enable_nan_guard") or "false").lower() in ("1", "true"):
     from mjlab_tpu_torch.utils.nan_guard import NanGuard, NanGuardCfg
@@ -112,7 +165,8 @@ def run_train(task: str, overrides: dict[str, str]):
 
     runner.train_iteration = guarded_iteration
 
-  dump_yaml(os.path.join(log_dir, "agent_cfg.yaml"), dataclasses.asdict(cfg))
+  if primary:
+    dump_yaml(os.path.join(log_dir, "agent_cfg.yaml"), dataclasses.asdict(cfg))
 
   if cfg.resume:
     ckpt = resolve_latest_checkpoint(log_dir)
@@ -122,8 +176,9 @@ def run_train(task: str, overrides: dict[str, str]):
     else:
       print(f"[train] --agent.resume: no checkpoint in {log_dir}; starting fresh", flush=True)
 
+  t_learn = time.perf_counter()
   profile_iters = int(get_flag(overrides, "profile") or "0")
-  if profile_iters > 0:
+  if profile_iters > 0 and primary:
     from torch.profiler import ProfilerActivity, profile
 
     trace_dir = os.path.join(log_dir, "profile")
@@ -139,14 +194,42 @@ def run_train(task: str, overrides: dict[str, str]):
     prof.export_chrome_trace(trace)
     print(f"[train] wrote {trace}: {os.path.getsize(trace) / 2**20:.1f} MiB in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    runner.learn(cfg.max_iterations - profile_iters)
-  else:
-    runner.learn(cfg.max_iterations)
+  elif profile_iters > 0:
+    runner.learn(profile_iters)  # the other ranks pull and save where the primary does
+  runner.learn(cfg.max_iterations - max(profile_iters, 0))
+  if runner.shard is not None:
+    _rank_summary(runner, t_learn)
   runner.save(os.path.join(log_dir, f"model_{runner.iteration}.pt"))
-  if runner.last_metrics is not None:
+  if runner.last_metrics is not None and primary:
     with open(os.path.join(log_dir, "final_metrics.json"), "w") as f:
       json.dump({"iteration": runner.iteration, **runner.last_metrics}, f)
   return runner
+
+
+def _rank_summary(runner, t_start: float) -> None:
+  """A rank's line of a sharded run: its iterations' time since `t_start`
+  (time.perf_counter), its peak device memory, and a digest of its learner
+  (equal on every rank: the learner is replicated)."""
+  import hashlib
+
+  import torch
+
+  from mjlab_tpu_torch.distributed import multihost
+  from mjlab_tpu_torch.rl.runner import runner_state_to_arrays
+
+  if runner.device.type == "cuda":
+    torch.cuda.synchronize(runner.device)
+  seconds = time.perf_counter() - t_start
+  digest = hashlib.sha256()
+  for key, value in sorted(runner_state_to_arrays(runner).items()):
+    digest.update(key.encode())
+    digest.update(value.tobytes())
+  memory = (torch.cuda.max_memory_allocated(runner.device) / 1e9
+            if runner.device.type == "cuda" else float("nan"))
+  iters = runner.cfg.max_iterations
+  print(f"[train] rank {multihost.process_index()}: {iters} iterations in {seconds:.2f} s, "
+        f"{1e3 * seconds / max(iters, 1):.2f} ms per iteration; peak device memory "
+        f"{memory:.3f} GB; learner sha256 {digest.hexdigest()}", flush=True)
 
 
 def main() -> None:
@@ -168,10 +251,15 @@ def main() -> None:
       {"env": tasks.load_env_cfg(task), "agent": tasks.load_rl_cfg(task)},
       usage=f"usage: train {task} [--env.<field> v] [--agent.<field> v] [--log_dir d] "
       "[--profile n] [--enable_nan_guard] [--motion-file p.npz] "
-      "[--registry-name artifact[:alias]]",
+      "[--registry-name artifact[:alias]] [--mesh auto|off|n]",
     ))
     sys.exit(0)
   run_train(task, overrides)
+  import torch.distributed as dist
+
+  if dist.is_available() and dist.is_initialized():
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from mjlab_tpu_torch.core import math as mt
+from mjlab_tpu_torch.distributed.sharding import env_rows, sum_over_ranks
 from mjlab_tpu_torch.managers.command_manager import CommandTerm
 from mjlab_tpu_torch.managers.manager_term_config import CommandTermCfg
 
@@ -75,6 +76,16 @@ def sampling_metrics(probs: torch.Tensor):
   entropy = -torch.sum(probs * torch.log(probs + 1e-12)) / math.log(bin_count)
   top1_bin = torch.argmax(probs).to(probs.dtype) / bin_count
   return entropy, probs.max(), top1_bin
+
+
+def failure_bin_counts(bin_idx: torch.Tensor, failed: torch.Tensor, bin_count: int, dtype,
+                       over_ranks: bool = False) -> torch.Tensor:
+  """The failed envs counted per motion bin (bin_count,); with `over_ranks`
+  summed over the ranks of a sharded run, as the JAX package's global
+  arrays count every env."""
+  counts = torch.zeros(bin_count, dtype=dtype, device=bin_idx.device).scatter_add(
+    0, bin_idx.long(), failed.to(dtype))
+  return sum_over_ranks(counts) if over_ranks else counts
 
 
 def time_steps_from_draws(bins, frac, bin_count: int, total: int) -> torch.Tensor:
@@ -267,7 +278,8 @@ class MotionCommand(CommandTerm):
 
   def _rand(self, *shape) -> torch.Tensor:
     env = self._env
-    return torch.rand(shape, generator=env.generator, dtype=env.dtype, device=env.device)
+    return env_rows(torch.rand, shape, generator=env.generator, dtype=env.dtype,
+                    device=env.device)
 
   def draw_bins(self, probs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """A bin per env from `probs` (the JAX package's categorical over
@@ -315,17 +327,17 @@ class MotionCommand(CommandTerm):
       m["sampling_entropy"] = torch.ones_like(m["sampling_entropy"])
       m["sampling_top1_prob"] = torch.full_like(m["sampling_top1_prob"], 1.0 / self.bin_count)
       m["sampling_top1_bin"] = torch.full_like(m["sampling_top1_bin"], 0.5)
-      return torch.randint(0, total, (self.num_envs,), generator=env.generator,
-                           device=env.device).to(torch.int32)
+      return env_rows(torch.randint, (self.num_envs,), 0, total, generator=env.generator,
+                      device=env.device).to(torch.int32)
 
     # Adaptive: record the failure bins, only when something failed (the
     # reference overwrites on failure).
     failed = env.termination_manager.terminated & env_mask
     bin_idx = torch.clamp((st["time_steps"] * self.bin_count) // max(total, 1),
                           0, self.bin_count - 1)
-    new_counts = torch.zeros(self.bin_count, dtype=env.dtype, device=env.device).scatter_add(
-      0, bin_idx.long(), failed.to(env.dtype))
-    st["current_bin_failed"] = torch.where(torch.any(failed), new_counts,
+    new_counts = failure_bin_counts(bin_idx, failed, self.bin_count, env.dtype,
+                                    env.shard is not None)
+    st["current_bin_failed"] = torch.where(torch.any(new_counts > 0), new_counts,
                                            st["current_bin_failed"])
 
     probs = adaptive_sampling_probs(st["bin_failed_count"], self.cfg.adaptive_uniform_ratio,

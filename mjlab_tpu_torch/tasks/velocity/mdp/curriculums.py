@@ -22,6 +22,11 @@ class VelocityStage(TypedDict, total=False):
   ang_vel_z: tuple[float, float] | None
 
 
+class RewardWeightStage(TypedDict):
+  step: int
+  weight: float
+
+
 def terrain_levels_vel(
   env, env_mask, command_name: str, asset_cfg: SceneEntityCfg = _DEFAULT_SCENE_CFG
 ) -> torch.Tensor:
@@ -80,3 +85,20 @@ class commands_vel(ManagerTermBase):
       for key in ("lin_vel_x", "lin_vel_y", "ang_vel_z")
       for i, end in ((0, "min"), (1, "max"))
     }
+
+
+class reward_weight(ManagerTermBase):
+  """Stage a reward term's weight by global step count. The weight lives in
+  the reward manager's state, where `RewardManager.compute` reads it."""
+
+  metric_keys = ("weight",)
+
+  def __call__(self, env, env_mask, reward_name: str, weight_stages) -> dict:
+    del env_mask
+    weights = env.ns("reward")["weights"]
+    step = env.common_step_counter
+    w = weights[reward_name]
+    for stage in weight_stages:
+      w = torch.where(step > stage["step"], torch.full_like(w, stage["weight"]), w)
+    weights[reward_name] = w
+    return {"weight": w}

@@ -22,6 +22,15 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
   return torch.linalg.vector_norm(x, dim=-1)
 
 
+def _log_ratio(env, key: str, num: torch.Tensor, den: torch.Tensor) -> None:
+  """env.step_log[key] = num / max(den, 1), a ratio of sums over the envs.
+  A rank of a sharded run also logs the two sums as `Parts/<key>`, which
+  the runner sums over the ranks before it divides (`rl.runner.ratio_metrics`)."""
+  env.step_log[key] = num / torch.clamp(den, min=1)
+  if env.shard is not None:
+    env.step_log[f"Parts/{key}"] = torch.stack([num, den])
+
+
 def _command_activation(env, command_name, command_threshold):
   """1.0 where |command| exceeds the threshold, else 0.0."""
   command = env.command_manager.get_command(command_name)
@@ -87,9 +96,7 @@ def feet_air_time(env, sensor_name: str, threshold_min: float = 0.05,
   in_range = (air > threshold_min) & (air < threshold_max)
   reward = torch.sum(in_range.to(env.dtype), dim=1)
   in_air = (air > 0).to(env.dtype)
-  env.step_log["Metrics/air_time_mean"] = torch.sum(air * in_air) / torch.clamp(
-    torch.sum(in_air), min=1
-  )
+  _log_ratio(env, "Metrics/air_time_mean", torch.sum(air * in_air), torch.sum(in_air))
   if command_name is not None:
     reward = reward * _command_activation(env, command_name, command_threshold)
   return reward
@@ -130,9 +137,7 @@ class feet_swing_height(ManagerTermBase):
     error = peaks / target_height - 1.0
     fc = first_contact.to(env.dtype)
     cost = torch.sum(torch.square(error) * fc, dim=1) * active
-    env.step_log["Metrics/peak_height_mean"] = torch.sum(peaks * fc) / torch.clamp(
-      torch.sum(fc), min=1
-    )
+    _log_ratio(env, "Metrics/peak_height_mean", torch.sum(peaks * fc), torch.sum(fc))
     self.state["peak_heights"] = torch.where(first_contact, 0.0, peaks)
     return cost
 
@@ -144,9 +149,8 @@ def feet_slip(env, sensor_name: str, command_name: str, command_threshold: float
   in_contact = (env.scene[sensor_name].data.found > 0).to(env.dtype)
   vel_norm = _norm(env.scene[asset_cfg.name].data.site_lin_vel_w[:, asset_cfg.site_ids, :2])
   cost = torch.sum(torch.square(vel_norm) * in_contact, dim=1) * active
-  env.step_log["Metrics/slip_velocity_mean"] = torch.sum(
-    vel_norm * in_contact
-  ) / torch.clamp(torch.sum(in_contact), min=1)
+  _log_ratio(env, "Metrics/slip_velocity_mean", torch.sum(vel_norm * in_contact),
+             torch.sum(in_contact))
   return cost
 
 
@@ -158,9 +162,7 @@ def soft_landing(env, sensor_name: str, command_name: str | None = None,
   fc = contact_sensor.compute_first_contact(dt=env.step_dt).to(env.dtype)
   landing_impact = force_mag * fc
   cost = torch.sum(landing_impact, dim=1)
-  env.step_log["Metrics/landing_force_mean"] = torch.sum(landing_impact) / torch.clamp(
-    torch.sum(fc), min=1
-  )
+  _log_ratio(env, "Metrics/landing_force_mean", torch.sum(landing_impact), torch.sum(fc))
   if command_name is not None:
     cost = cost * _command_activation(env, command_name, command_threshold)
   return cost

@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import torch
 
 from mjlab_tpu_torch.core import math as mt
+from mjlab_tpu_torch.distributed.sharding import env_rows
 from mjlab_tpu_torch.managers.command_manager import CommandTerm
 from mjlab_tpu_torch.managers.manager_term_config import CommandTermCfg
 
@@ -56,8 +57,8 @@ class UniformVelocityCommand(CommandTerm):
 
   def _rand(self) -> torch.Tensor:
     env = self._env
-    return torch.rand(self.num_envs, generator=env.generator, dtype=env.dtype,
-                      device=env.device)
+    return env_rows(torch.rand, (self.num_envs,), generator=env.generator,
+                    dtype=env.dtype, device=env.device)
 
   def _resample_command(self, env_mask: torch.Tensor) -> None:
     st = self.state

@@ -51,23 +51,28 @@ class TerrainImporter:
   initial level and type for a generator) and the terrain state."""
 
   def __init__(self, cfg: TerrainImporterCfg, num_envs: int, env_spacing: float,
-               terrain_origins: np.ndarray | None) -> None:
+               terrain_origins: np.ndarray | None, env_ids: slice | None = None,
+               total_envs: int | None = None) -> None:
+    """`env_ids` of `total_envs`: the global envs of a rank of a sharded
+    run (sharding.EnvShard), whose origins are the unsharded run's rows."""
     self.cfg = cfg
     self.num_envs = num_envs
+    self.env_ids = env_ids if env_ids is not None else slice(0, num_envs)
+    self.total_envs = total_envs if total_envs is not None else num_envs
     self.env_spacing = env_spacing
     self.terrain_origins = terrain_origins
     self.env_origins: torch.Tensor | None = None
 
   def initialize(self, ctx) -> None:
     self._ctx = ctx
-    n = self.num_envs
+    n, ids = self.total_envs, self.env_ids
     if self.terrain_origins is not None:
       rows, cols = self.terrain_origins.shape[:2]
       max_level = self.cfg.max_init_terrain_level
       max_level = rows if max_level is None else min(max_level + 1, rows)
       rng = np.random.default_rng(0)
-      self._init_levels = rng.integers(0, max_level, n)
-      self._init_types = np.arange(n) % cols
+      self._init_levels = rng.integers(0, max_level, n)[ids]
+      self._init_types = (np.arange(n) % cols)[ids]
       origins = self.terrain_origins[self._init_levels, self._init_types]
     else:
       side = int(np.ceil(np.sqrt(n)))
@@ -75,6 +80,7 @@ class TerrainImporter:
       origins = np.zeros((n, 3))
       origins[:, 0] = (ii - (side - 1) / 2) * self.env_spacing
       origins[:, 1] = (jj - (side - 1) / 2) * self.env_spacing
+      origins = origins[ids]
     self.env_origins = torch.as_tensor(origins, dtype=ctx.dtype, device=ctx.device)
 
   def init_state(self) -> dict:

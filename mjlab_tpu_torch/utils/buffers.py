@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from mjlab_tpu_torch.distributed.sharding import env_rows
+
 
 class CircularBuffer:
   """A max_len ring buffer over (B, ...) features; `buffer` is oldest first."""
@@ -89,17 +91,18 @@ class DelayBuffer:
     self.ring = CircularBuffer(max_lag + 1, batch_size)
 
   def _sample_lags(self, generator: torch.Generator, device) -> torch.Tensor:
-    n = self.batch_size if self.per_env else 1
-    lags = torch.randint(self.min_lag, self.max_lag + 1, (n,), generator=generator,
-                         device=device, dtype=torch.int32)
-    return lags.expand(self.batch_size).clone() if n == 1 else lags
+    kw = dict(generator=generator, device=device, dtype=torch.int32)
+    if self.per_env:
+      return env_rows(torch.randint, (self.batch_size,), self.min_lag, self.max_lag + 1, **kw)
+    lags = torch.randint(self.min_lag, self.max_lag + 1, (1,), **kw)
+    return lags.expand(self.batch_size).clone()
 
   def init_state(self, example: torch.Tensor, generator: torch.Generator) -> dict:
     device = example.device
     lags = self._sample_lags(generator, device)
     if self.update_period > 0 and self.per_env_phase:
-      phase = torch.randint(0, self.update_period, (self.batch_size,), generator=generator,
-                            device=device, dtype=torch.int32)
+      phase = env_rows(torch.randint, (self.batch_size,), 0, self.update_period,
+                       generator=generator, device=device, dtype=torch.int32)
     else:
       phase = torch.zeros(self.batch_size, dtype=torch.int32, device=device)
     return {
@@ -115,7 +118,7 @@ class DelayBuffer:
     lags = self._sample_lags(generator, device)
     hold = None
     if self.hold_prob > 0:
-      hold = torch.rand(self.batch_size, generator=generator, device=device)
+      hold = env_rows(torch.rand, (self.batch_size,), generator=generator, device=device)
     return lags, hold
 
   def append(self, state: dict, x: torch.Tensor, generator: torch.Generator) -> dict:

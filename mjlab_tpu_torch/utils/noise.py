@@ -12,6 +12,8 @@ from typing import Literal
 
 import torch
 
+from mjlab_tpu_torch.distributed.sharding import env_rows
+
 
 @dataclass
 class NoiseCfg:
@@ -45,7 +47,8 @@ class UniformNoiseCfg(NoiseCfg):
   n_max: float = 1.0
 
   def apply(self, generator, data):
-    u = torch.rand(data.shape, generator=generator, dtype=data.dtype, device=data.device)
+    u = env_rows(torch.rand, data.shape, generator=generator, dtype=data.dtype,
+                 device=data.device)
     return self._combine(data, self.n_min + u * (self.n_max - self.n_min))
 
 
@@ -55,7 +58,8 @@ class GaussianNoiseCfg(NoiseCfg):
   std: float = 1.0
 
   def apply(self, generator, data):
-    n = torch.randn(data.shape, generator=generator, dtype=data.dtype, device=data.device)
+    n = env_rows(torch.randn, data.shape, generator=generator, dtype=data.dtype,
+                 device=data.device)
     return self._combine(data, self.mean + self.std * n)
 
 

@@ -5,9 +5,10 @@ and level boxes, to 1e-12; and on a toy scene of 80 stair boxes (over
 TERRAIN_POOL_MIN, so they form a terrain pool) with a free sphere and a
 free capsule, the terrain groups, `_terrain_group_contacts` (also at fewer
 slots, so that contacts are dropped) and the whole `collision` from the
-JAX package's geom poses, to 1e-9 with the dropped counts exact. A
-height field still raises, naming the feature; box and mesh geoms against
-a pool form their groups (the hull SAT, tests/test_torch_convex.py)."""
+JAX package's geom poses, to 1e-9 with the dropped counts exact. Box and
+mesh geoms against a pool form their groups (the hull SAT,
+tests/test_torch_convex.py); a height field beside the pool collides
+through a static pair, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -240,17 +241,20 @@ def test_collision_matches_jax():
    '<body pos="9 9 1"><freejoint/><geom type="sphere" size="0.1"/></body>', r"geom types \(1, 2\)"),
 ])
 def test_box_mesh_and_hfield_against_the_pool_raise(robot, name):
-  """A height field still raises, naming its pair; a box or a mesh geom
-  against the pool now forms a terrain group of its type (the hull SAT;
-  its parity: tests/test_torch_convex.py), as in the JAX package."""
+  """A box or a mesh geom against the pool forms a terrain group of its
+  type (the hull SAT; its parity: tests/test_torch_convex.py), as in the
+  JAX package. A height field is no box, so it stays out of the pool: the
+  sphere over it forms a sphere group against the pool and a static
+  height-field pair, as in the JAX package (the pair's parity:
+  tests/test_torch_hfield.py)."""
   mj = mujoco.MjModel.from_xml_string(_terrain_xml(robot))
-  if "hfield" in robot:
-    with pytest.raises(NotImplementedError, match=name):
-      tio.put_model(mj, dtype=torch.float64, device="cpu")
-    return
   ttp, _ = tio.put_model(mj, dtype=torch.float64, device="cpu")
   jtp, _ = jphysics.put_model(mj, dtype=jnp.float64)
-  geom_type = int(name.split()[-1])
+  geom_type = int(name.split()[-1].strip(r"\()"))
   assert [g.robot_type for g in ttp.terrain_groups] == [
     g.robot_type for g in jtp.terrain_groups] == [geom_type]
   assert (ttp.ncon_max, ttp.nefc) == (jtp.ncon_max, jtp.nefc)
+  assert [dataclasses.astuple(p) for p in ttp.pairs] == [
+    dataclasses.astuple(p) for p in jtp.pairs]
+  if "hfield" in robot:
+    assert [(p.type1, p.type2, p.ncon) for p in ttp.pairs] == [(1, 2, 4)]

@@ -3,9 +3,11 @@ on the CPU at a tiny size (2 envs, T = 2, 1 iteration, hidden 32/32): it
 writes the checkpoint, the TorchScript policy, metrics.jsonl and
 final_metrics.json; the checkpoint loads back into a runner built as the
 script builds it. `--profile`, `--enable_nan_guard` and `--registry-name`
-are ported; the JAX script's multi-device and video flags raise
-NotImplementedError (`--motion-file` raises ValueError on a task without a
-motion command), and without a device the runner asks for CUDA.
+are ported; the JAX script's video flags raise NotImplementedError
+(`--motion-file` raises ValueError on a task without a motion command, and
+`--mesh 2` in a process of its own, where the world size is 1; the
+sharded runs: tests/test_torch_distributed.py), and without a device the
+runner asks for CUDA.
 tests/test_torch_tracking_train.py trains a tracking task through
 `--motion-file`; tests/test_torch_run_lifecycle.py holds periodic saves and
 `--agent.resume`."""
@@ -97,9 +99,9 @@ def test_checkpoint_loads_into_a_fresh_runner(trained):
 def test_unported_flags_raise(flag):
   from mjlab_tpu_torch.scripts.train import run_train
 
-  error = ValueError if flag == "motion-file" else NotImplementedError
+  error = ValueError if flag in ("motion-file", "mesh") else NotImplementedError
   with pytest.raises(error, match=f"--{flag}"):
-    run_train(TASK, {**TINY, flag: "1"})
+    run_train(TASK, {**TINY, flag: "2" if flag == "mesh" else "1"})
 
 
 def test_unknown_flags_raise():
