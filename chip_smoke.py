@@ -84,9 +84,9 @@ Phases, each printing its own lines:
      certain-draw variant, as phase 8 does;
  10. a run's lifecycle on G1 velocity-flat at 4096 envs in
      build/chip_smoke/run, through the entry points: `run_train` for 2
-     iterations of 8 env steps (cut from 24) with a save after each (the
+     iterations of 4 env steps (cut from 24 and 8) with a save after each (the
      files, the labels, ms per save, the metric pulls and `learn`'s ms per
-     iteration against phase 8's steady iteration scaled to 8 env steps),
+     iteration against phase 8's steady iteration scaled to 4 env steps),
      `run_train --agent.resume true` for 1 iteration
      that neither logs nor saves, run under set_sync_debug_mode("error")
      (the checkpoint loaded, the learner equal to it before its update, the
@@ -103,7 +103,8 @@ Phases, each printing its own lines:
      Mjlab-Velocity-Flat-Asimov-Toe (fixed tendons driven by the
      parallel-ankle action; nv 20, 174 rows), `build_runner` at 4096 envs
      with the task's PPO cfg; the observation widths; the feet's hulls built
-     on this host against the CPU host's digest; 1 iteration of 8 env steps
+     on this host against the CPU host's digest; 1 iteration of 4 env steps
+     (cut from 8)
      (2 of 24, with a device-only profile and the stage times, before the
      cuts of PRs 9 and 11: the robots train on rough terrain in phase 13)
      under set_sync_debug_mode("error") with
@@ -113,7 +114,7 @@ Phases, each printing its own lines:
      each from the CPU env's state and held to 1e-8 or twice the CPU's own spread under 6
      qpos nudges of 1e-13, for Asimov-Toe with the ankle targets checked in
      ctrl on the 4 tendon actuators only.
- 12. G1 on rough terrain and Go1 on flat ground, 1 iteration of 8 env
+ 12. G1 on rough terrain and Go1 on flat ground, 1 iteration of 4 (cut from 8) env
      steps each (cut from G1 rough's 2 of 24 with a device-only profile of a
      rollout step and an update and the stage times), each as a task of
      phase 11:
@@ -123,10 +124,12 @@ Phases, each printing its own lines:
      iterations' dropped terrain contacts and mean terrain level) and
      Mjlab-Velocity-Flat-Unitree-Go1 (the trunk box on the plane; nv 18,
      240 rows); then a headless `run_play` of the rough task, 6 steps (cut from 24) of
-     the random policy at 4096 envs, which must load the committed play
-     scene (3 x 3 tiles), with the kernels' counters set to 0 just before
-     and read just after.
- 13. Go1, Asimov and Asimov-Toe on rough terrain, 1 iteration of 8 env
+     the random policy at 4096 envs, which regenerates its terrain on 3 x 3
+     tiles, with the kernels' counters set to 0 just before and read just
+     after. The rough tasks generate their terrain and compose
+     it into the robot's flat scene (phase 19a holds that to the committed
+     compiles).
+ 13. Go1, Asimov and Asimov-Toe on rough terrain, 1 iteration of 4 (cut from 8) env
      steps each (cut from 2 of 24 with a profile and the stage times), each
      as G1 rough in phase
      12: Mjlab-Velocity-Rough-Unitree-Go1 (the trunk box against the 3564
@@ -138,7 +141,7 @@ Phases, each printing its own lines:
      launches and device time per `collision` call on each run's last
      state, for the box and the mesh group; then a headless `run_play` of
      Go1 rough, 6 steps (cut from 24) of the random policy at 4096 envs
-     on its committed play scene.
+     on its regenerated 3 x 3 tiles.
  14. the solver surface: (a) G1 velocity-flat under
      `--env.sim.mujoco.cone elliptic` (nefc 1320: 29 limit rows, 154
      condim-1 rows, 379 cone slots of 3 rows) through `build_runner` at
@@ -158,8 +161,8 @@ Phases, each printing its own lines:
      float64 env check (2 env steps, 2 nudges); (c) each scene of
      mjlab_tpu_torch/assets/solver_scenes.py (equality connect/weld on
      bodies and sites, joint, tendon; friction loss; a limited tendon; CG;
-     condim 4 and 6 under both cones; the elliptic puck; Euler; RK4) for 12
-     (cut from 50, 30 and 20) float64 substeps at 4096 worlds, ms per substep, its first 16 worlds
+     condim 4 and 6 under both cones; the elliptic puck; Euler; RK4) for 6
+     (cut from 50, 30, 20 and 12) float64 substeps at 4096 worlds, ms per substep, its first 16 worlds
      against the CPU (1e-8, or twice the CPU's spread under 2 nudges).
  15. the user surface: the G1 velocity-flat cfg as a user edits it for
      sim-to-real training (`sim_to_real_edit`: startup randomization of the
@@ -186,7 +189,7 @@ Phases, each printing its own lines:
  16. a user's own robot and task: (a) the CartPole tutorial, its guide's
      python blocks (docs/CREATE_NEW_TASK_TORCH.md) run verbatim, which
      register Mjlab-Cartpole: `cartpole_runner` at 4096 envs with the
-     guide's default runner cfg, 2 iterations of 8 env steps (cut from 24)
+     guide's default runner cfg, 2 iterations of 4 env steps (cut from 24 and 8)
      with phase 8's checks (35 factorizations and 3 `chol_solve` per env
      step at decimation 2), the kernels against their plain versions on
      the run's matrices (n = 2, f32 and f64) and their times there; a
@@ -198,7 +201,7 @@ Phases, each printing its own lines:
      mjlab_tpu_torch/assets/surface_scenes.py (a ball chain, a gimbal, a
      humanoid with multi-hinge bodies and limited ball hips, the JAX
      package's sensor, pair, mocap and gravity-compensation scenes) for
-     12 (cut from 30 and 20) float64 substeps at 4096 worlds, ms per substep, every sensor
+     6 (cut from 30, 20 and 12) float64 substeps at 4096 worlds, ms per substep, every sensor
      finite and every sensor type added in PR 13 evaluated, the first 16
      worlds against the CPU (phase 14's rule); the humanoid in float32 at
      10 x 20 Newton iterations for 15 substeps (cut from 30), ms per substep and the kernels' launches,
@@ -216,14 +219,14 @@ Phases, each printing its own lines:
      1e-10 relative), its launch (worlds resident per SM, registers,
      spills), its ms beside the plain version's (which forms A, 512
      worlds a call) and its bound, the most active rows of a world and
-     the ns per dependent row update; one PPO iteration of 8 env steps
+     the ns per dependent row update; one PPO iteration of 4 env steps (cut from 8)
      through build_runner with phase 8's checks (9 factorizations, 5
      `chol_solve` and 5 `pgs_solve` per env step); the card's float64
      env against the CPU's (phase 14's rule); (b) each scene of
      mjlab_tpu_torch/assets/muscle_scenes.py (the JAX package's
      activation, muscle, fluid, spatial-tendon, wrap and PGS test scenes
      and a musculoskeletal arm) under each integrator its JAX test runs,
-     12 float64 substeps (cut from 30) at 4096 worlds, ms per substep,
+     6 float64 substeps (cut from 30 and 12) at 4096 worlds, ms per substep,
      the first 16 worlds against the CPU (phase 14's rule); and the
      filter-actuated hopper env at 4096 envs, 10 env steps under
      set_sync_debug_mode("error"): act moves toward its targets and is
@@ -245,7 +248,7 @@ Phases, each printing its own lines:
      (reset_root_state_uniform, assets/surface/mocap_entity.npz) at 4096
      envs, each pose inside its range and on its own env only; (b) the
      scenes of assets/pair_scenes.py (plane–cylinder, plane–ellipsoid, a
-     height field under a sphere, a capsule, a box and a mesh hull) for 12
+     height field under a sphere, a capsule, a box and a mesh hull) for 6 (cut from 12)
      float64 substeps at 4096 worlds, ms per substep, the first 16 worlds
      against the CPU (phase 14's rule); (c) two ranks on the one card
      (gloo): `python -m torch.distributed.run --nproc_per_node 2 -m
@@ -257,6 +260,22 @@ Phases, each printing its own lines:
      (parameters, Adam state, normalizers, losses and the env state within
      1e-8 relative; `--dist-f64 DIR` runs one of its processes); and one
      rank through NCCL, one iteration at 512 envs.
+ 19. generated terrain: (a) each rough task's scene and play scene (the 3 x
+     3 tiles of the play overrides) generated and composed on this host
+     from the robot's flat scene and the task's cfg (no `mujoco` here), and
+     held against the committed npz, the JAX package's compile: integers
+     exactly, floats within 1e-12 of each field's largest magnitude; the ms
+     of each generation and composition; (b) Asimov velocity-rough on
+     ROUGH_TERRAINS_WITH_HF_CFG under the curriculum (80 height field tiles
+     against the 2 foot hulls, 2364 pooled boxes), registered as a user's
+     task, at 4096 envs, f32: its reckoned dense efc_J (no cut below 20 GB),
+     slots and rows; 8 steady env steps under set_sync_debug_mode("error"),
+     ms per env step (CUDA events), peak memory, one substep's stage
+     times; then as a task of phase 13:
+     one PPO iteration of 8 env steps through `build_runner` with its
+     launches, the kernels against their plain versions on its matrices,
+     and the card's float64 env against the CPU's for 2 env steps from the
+     CPU's state (1e-8 or twice the CPU's spread under 6 nudges).
 Any failed check raises. The line before the last is the kernel table as
 JSON (`launches` from the env path of phase 7, `launches_training_path`
 from phase 8's 2 iterations, `launches_tracking_path` from phase 9's,
@@ -278,7 +297,8 @@ and `launches_pair_scenes_path`, phase 18a's env steps and 18b's scenes
 (18c's ranks are processes of their own); the sixth, `pgs_solve`, has
 phase 17a's env steps' launches, its times on that run's rows and
 `library_ms` null: no PyTorch call computes a projected Gauss-Seidel
-sweep); the last line is
+sweep); every entry has `launches_hf_path`, phase 19b's iteration, and the
+four Cholesky and Newton entries `ms_hf_run_matrices`; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -343,7 +363,7 @@ TRAIN_STEPS = 24  # the G1 PPO cfg's num_steps_per_env
 # Env steps per iteration of the cut tasks of phases 11-13 (cut from their
 # cfgs' 24), and the card-vs-CPU env steps of their checks and of phase
 # 14's G1 ones (cut from 3): cuts that keep the script under 1000 s.
-CUT_STEPS = 8
+CUT_STEPS = 4  # cut from 8 to pay for phase 19
 CUT_F64_STEPS = 2
 # The runner's torch.profiler spans: a rollout step's two, then the update's.
 TRAIN_SPANS = ("rollout_step/act", "rollout_step/env_step",
@@ -914,10 +934,11 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
                      iters: int = TRAIN_ITERS, expect: tuple[str, ...] = KERNELS,
                      steps: int = TRAIN_STEPS):
   """`iters` `train_iteration`s under set_sync_debug_mode("error") with
-  the kernels' counters set to 0 just before and read just after. Checks
-  1416 factorizations and 120 `chol_solve` per iteration (at 10 Newton
-  iterations), finite losses, the lr inside [1e-5, 1e-2], the rollout
-  buffers' shapes and that every parameter moved. Each iteration runs as
+  the kernels' counters (chol's and pgs') set to 0 just before and read
+  just after. Checks 1416 factorizations and 120 `chol_solve` per
+  iteration (at 10 Newton iterations), finite losses, the lr inside
+  [1e-5, 1e-2], the rollout buffers' shapes and that every parameter
+  moved. Each iteration runs as
   `timed_iteration`. Returns the launches, the steady ms per iteration
   (CUDA events; with one iteration, that iteration's, its warm-up
   included), each iteration's metrics and the last iteration's split (its
@@ -928,7 +949,7 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
   iterations and decimation (`fact_per_env_step`)."""
   import numpy as np
 
-  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.kernels import chol, pgs
   from mjlab_tpu_torch.rl.runner import runner_state_to_arrays
 
   if runner.cfg.num_steps_per_env != steps:
@@ -937,6 +958,7 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
   before = runner_state_to_arrays(runner)
   metrics, marks, mems = [], [], []
   chol.reset_counts()
+  pgs.reset_counts()
   torch.cuda.set_sync_debug_mode("error")
   t0 = time.perf_counter()
   for _ in range(iters):
@@ -947,7 +969,7 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
   torch.cuda.set_sync_debug_mode("default")
   torch.cuda.synchronize()
   t_train = time.perf_counter() - t0
-  launches = dict(chol.LAUNCHES)
+  launches = {**chol.LAUNCHES, **pgs.LAUNCHES}
   fact = chol.factorizations()
   peak_gb = max(max(mem.values()) for mem in mems)
   iter_ms = [mk[0][1].elapsed_time(mk[-1][1]) for mk in marks]
@@ -1350,7 +1372,7 @@ def run_matrix_kernels(tag: str, tp, d, checks: KernelCheck, path_ms: dict, key:
 def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: str,
               attr: str, checks: KernelCheck, launches: dict, path_ms: dict,
               after_build=None, on_step=None, after_train=None, ms_key=None,
-              iters: int = TRAIN_ITERS, steps: int = TRAIN_STEPS) -> dict:
+              iters: int = TRAIN_ITERS, steps: int = TRAIN_STEPS, variant=None) -> dict:
   """One task of phases 11-13: `build_runner` at NUM_WORLDS envs with the
   task's PPO cfg at `steps` env steps per iteration; the observation
   widths; `after_build(runner)`; phase 8's checks and split over `iters`
@@ -1361,10 +1383,11 @@ def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: 
   the run's matrices (n = nv, J of nefc rows), timed there beside their
   plain versions, the library calls and their bounds at these shapes; and
   the card's float64 env against the CPU's, 4 envs x CUT_F64_STEPS env
-  steps each from the CPU's state (`f64_env_check` with nudges, `on_step`
-  after each card step). Adds the iterations' launches to `launches` and each kernel's ms
-  on the run's matrices to `path_ms` (keyed by `ms_key`, default nv);
-  returns the iterations' metrics."""
+  steps each from the CPU's state (`f64_env_check` with nudges and
+  `variant`, `on_step` after each card step). Adds the iterations'
+  launches to each kernel of `launches` and each kernel's ms on the run's
+  matrices to `path_ms` (keyed by `ms_key`, default nv); returns the
+  iterations' metrics."""
   from mjlab_tpu_torch.scripts.train import build_runner
 
   gc.collect()
@@ -1396,7 +1419,7 @@ def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: 
         f"{RL_SOLVES_PER_STEP} = {steps * RL_SOLVES_PER_STEP} chol_solve")
   got, steady_iter_ms, host, split = train_iterations(runner, card, f"{phase} {tag}", obs_dims,
                                                       iters, steps=steps)
-  for k in KERNELS:
+  for k in launches:
     launches[k] += got[k]
   if iters < TRAIN_ITERS:
     print("  a cut run: no profile and no stage times (cut to keep the script inside its "
@@ -1416,7 +1439,8 @@ def task_path(phase: str, task: str, tag: str, obs_dims: tuple[int, int], card: 
   del runner, env
   gc.collect()
   torch.cuda.empty_cache()
-  on_step_max = f64_env_check(task, n_steps=CUT_F64_STEPS, nudges=6, on_step=on_step)
+  on_step_max = f64_env_check(task, n_steps=CUT_F64_STEPS, nudges=6, on_step=on_step,
+                              variant=variant)
   if on_step is not None:
     print(f"  the per-step check after each card step: largest error {on_step_max:.3e}")
   return host
@@ -1461,9 +1485,10 @@ def rough_go1_path(card: str, attr: str, checks: KernelCheck):
   box-terrain pool's groups and the generated grid are printed after the
   build, and the iterations' mean of the dropped terrain contacts and of
   the terrain-level curriculum; then a headless `run_play` of the rough
-  task for EARLY_PLAY_STEPS steps on NUM_WORLDS envs, which loads the committed play
-  scene (3 x 3 tiles), with the kernels' counters set to 0 just before and
-  read just after. Returns the kernels' launches over both tasks'
+  task for EARLY_PLAY_STEPS steps on NUM_WORLDS envs, which regenerates
+  the terrain on 3 x 3 tiles into the flat scene (phase 19a holds that
+  composition to the committed play scene), with the kernels' counters set
+  to 0 just before and read just after. Returns the kernels' launches over both tasks'
   iterations and the play, and each kernel's ms on each run's matrices
   (keyed by nv)."""
   import numpy as np
@@ -1496,10 +1521,11 @@ def rough_go1_path(card: str, attr: str, checks: KernelCheck):
   env = res.env
   print(f"  run_play {ROUGH_TASK} --policy random: {NUM_WORLDS} envs x {EARLY_PLAY_STEPS} steps in "
         f"{res.seconds:.2f} s ({time.perf_counter() - t0:.2f} s with the build), mean reward "
-        f"per step {res.mean_reward:.5f}, scene {Path(env.cfg.scene.model_file).name}, tiles "
+        f"per step {res.mean_reward:.5f}, scene {Path(env.cfg.scene.model_file).name} + "
+        f"the generated terrain, tiles "
         f"{env.scene.terrain.terrain_origins.shape[:2]}, {len(env.tp.terrain_groups[0].pool_geoms)} "
         f"boxes; launches {play_launches} [{card}]")
-  if (Path(env.cfg.scene.model_file) != assets.G1_VELOCITY_ROUGH_PLAY
+  if (Path(env.cfg.scene.model_file) != assets.G1_VELOCITY_FLAT
       or env.scene.terrain.terrain_origins.shape[:2] != (3, 3)
       or not np.isfinite(res.mean_reward) or not np.isfinite(res.base_z).all()
       or any(play_launches[k] == 0 for k in KERNELS)):
@@ -1602,14 +1628,13 @@ def rough13_path(card: str, attr: str, checks: KernelCheck):
   ROUGH13_OBS_DIMS tasks: Go1's trunk box and Asimov's feet hulls against
   the terrain pool through the plain SAT), each through `task_path`; the
   terrain printed after each build; for Asimov the feet's hulls built here
-  from the rough npz against the CPU host's digest; each iteration's
+  from the composed scene against the CPU host's digest; each iteration's
   dropped terrain contacts and mean terrain level; the SAT's launches and
   device time per `collision` call on each run's last state
   (`sat_launches`); then a headless `run_play` of Go1 rough for
-  EARLY_PLAY_STEPS steps of the random policy on NUM_WORLDS envs, which must
-  load its committed
-  play scene (3 x 3 tiles), with the kernels' counters set to 0 just
-  before and read just after. Returns the kernels' launches over the
+  EARLY_PLAY_STEPS steps of the random policy on NUM_WORLDS envs, which
+  regenerates the terrain on 3 x 3 tiles, with the kernels' counters set to
+  0 just before and read just after. Returns the kernels' launches over the
   tasks' iterations and the play, each kernel's ms on each run's matrices
   (keyed by nv and task) and the SAT's launches by group."""
   import numpy as np
@@ -1632,11 +1657,11 @@ def rough13_path(card: str, attr: str, checks: KernelCheck):
       if tag == "asimov_rough":
         tp = runner.env.tp
         digest = hull_digest(tp)
-        print(f"  feet hulls built here from the rough npz: {sorted(tp.geom_hulls)}, vertices "
+        print(f"  feet hulls built here from the composed scene: {sorted(tp.geom_hulls)}, vertices "
               f"{[tp.geom_hulls[g].verts.shape[0] for g in sorted(tp.geom_hulls)]}; digest "
               f"{digest[:16]}... equals the CPU host's: {digest == ASIMOV_HULL_DIGEST}")
         if digest != ASIMOV_HULL_DIGEST:
-          raise AssertionError("the Asimov feet's hulls from the rough npz differ")
+          raise AssertionError("the Asimov feet's hulls from the composed scene differ")
 
     def after_train(runner):
       sat.update(sat_launches(runner.env, card))
@@ -1664,10 +1689,11 @@ def rough13_path(card: str, attr: str, checks: KernelCheck):
   env = res.env
   print(f"  run_play {go1} --policy random: {NUM_WORLDS} envs x {EARLY_PLAY_STEPS} steps in "
         f"{res.seconds:.2f} s ({time.perf_counter() - t0:.2f} s with the build), mean reward "
-        f"per step {res.mean_reward:.5f}, scene {Path(env.cfg.scene.model_file).name}, tiles "
+        f"per step {res.mean_reward:.5f}, scene {Path(env.cfg.scene.model_file).name} + "
+        f"the generated terrain, tiles "
         f"{env.scene.terrain.terrain_origins.shape[:2]}, "
         f"{len(env.tp.terrain_groups[0].pool_geoms)} boxes; launches {play_launches} [{card}]")
-  if (Path(env.cfg.scene.model_file) != assets.GO1_VELOCITY_ROUGH_PLAY
+  if (Path(env.cfg.scene.model_file) != assets.GO1_VELOCITY_FLAT
       or env.scene.terrain.terrain_origins.shape[:2] != (3, 3)
       or not np.isfinite(res.mean_reward) or not np.isfinite(res.base_z).all()
       or any(play_launches[k] == 0 for k in KERNELS)):
@@ -2124,7 +2150,7 @@ def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dic
 # surface's scenes (mjlab_tpu_torch/assets/solver_scenes.py).
 ELLIPTIC_NEFC = 1320  # 29 limit rows + 154 condim-1 rows + 379 cone slots x 3
 CG_STEPS = 6  # env steps of G1 under CG (cut from 10)
-SCENE_SUBSTEPS = 12  # cut from 50 (PR 10), 30 and 20 (PR 14) to keep the script in its limit
+SCENE_SUBSTEPS = 6  # cut from 50, 30, 20 and 12 to keep the script in its limit
 SCENE_CPU_WORLDS = 16  # the first worlds of the card's run, rerun on the CPU
 # The scenes run a small solver budget on both sides: they are launch-bound
 # (the compiled defaults, 100 iterations x 50 linesearch steps, launch ~250x
@@ -2895,7 +2921,7 @@ PGS_ENV_STEPS = 10  # env steps of G1 under PGS, timed under set_sync_debug_mode
 PGS_PLAIN_CHUNK = 512
 # Phase 17b's scenes run phase 14's small Newton budget; a PGS scene keeps
 # its own sweeps (100 and 60: the kernel's rows, not its launches).
-MUSCLE_SUBSTEPS = 12  # cut from 30
+MUSCLE_SUBSTEPS = 6  # cut from 30 and 12
 HOPPER_ENVS = NUM_WORLDS
 _INTEGRATOR_NAMES = {0: "Euler", 1: "RK4", 3: "implicitfast"}
 
@@ -3068,11 +3094,9 @@ def pgs_path(card: str, checks: KernelCheck) -> dict:
   torch.cuda.synchronize()
   print(f"phase 17 pgs training: build_runner {time.perf_counter() - t0:.2f} s, "
         f"{CUT_ITERS} iteration of {CUT_STEPS} env steps [{card}]")
-  pgs.reset_counts()
   train, steady_iter_ms, _, _ = train_iterations(
     runner, card, "phase 17 pgs", (99, 111), iters=CUT_ITERS, expect=KERNELS[:3],
     steps=CUT_STEPS)
-  train[PGS_KERNEL] = pgs.LAUNCHES[PGS_KERNEL]
   per_iter = CUT_STEPS * forwards
   print(f"  {PGS_KERNEL} launches {train[PGS_KERNEL]} (expected {per_iter}: {CUT_STEPS} env "
         f"steps x (4 substeps + the post-reset forward)); newton_direction "
@@ -3224,7 +3248,7 @@ GENERIC_STAGE = {"step": 4, "weight": -2e-3}  # reward_weight: from env step 5 o
 GENERIC_ENV_STEPS = 8
 GENERIC_POISONED = (3, 1000, 4095)
 MOCAP_RANGE = {"x": (-0.2, 0.3), "y": (-0.1, 0.1), "z": (0.0, 0.05), "yaw": (-1.0, 1.0)}
-PAIR_SUBSTEPS = 12
+PAIR_SUBSTEPS = 6  # cut from 12
 DIST_STEPS = 8  # env steps of 18c's iteration at 2 x 2048 envs
 DIST_F64_ENVS, DIST_F64_STEPS = 4, 2
 DIST_NCCL_ENVS = 512
@@ -3665,6 +3689,245 @@ def dist_path(card: str, steady_iter_ms: float) -> dict:
   print(f"  phase 18c in {time.perf_counter() - t_phase:.1f} s")
   return {"ms": {r: x["ms"] for r, x in ranks.items()},
           "gb": {r: x["gb"] for r, x in ranks.items()}, "scaled_phase8_ms": scaled}
+
+
+# Phase 19a's scenes: each rough task and its committed rough scene (an
+# attribute of the port's assets, `<name>_PLAY` its play scene), the JAX
+# package's compile, which the port's composition must give back.
+COMPOSED = {"Mjlab-Velocity-Rough-Unitree-G1": "G1_VELOCITY_ROUGH",
+            "Mjlab-Velocity-Rough-Unitree-Go1": "GO1_VELOCITY_ROUGH",
+            "Mjlab-Velocity-Rough-Asimov": "ASIMOV_VELOCITY_ROUGH",
+            "Mjlab-Velocity-Rough-Asimov-Toe": "ASIMOV_TOE_VELOCITY_ROUGH"}
+# Phase 19b: Asimov velocity-rough on the height-field preset, registered as
+# a user's task (phase 15's way); the dense efc_J above which it would have
+# to run at fewer envs; the steady env steps it times.
+HF_TASK = "Chip-Velocity-Rough-Asimov-HF"
+HF_BASE_TASK = "Mjlab-Velocity-Rough-Asimov"
+HF_EFC_J_CEILING = 20e9
+HF_WARM_STEPS = 2
+HF_TIMED_STEPS = 8
+HF_STEPS = 8  # env steps of its PPO iteration (the other tasks' CUT_STEPS is 4)
+
+
+def compose_path(card: str) -> None:
+  """Phase 19a: the composer on the card host (no `mujoco`). Each rough
+  task's scene and its play scene (the play overrides: 3 x 3 tiles, no
+  curriculum) generated and composed from the robot's flat scene and the
+  task's cfg, held against the committed npz (the JAX package's compile):
+  integers exactly, floats within 1e-12 of each field's largest magnitude
+  (`compose.mismatches`). Prints the ms of each generation and
+  composition (host clock)."""
+  from mjlab_tpu_torch import assets
+  from mjlab_tpu_torch.assets import load_model_arrays
+  from mjlab_tpu_torch.scene.compose import compose_arrays, mismatches
+  from mjlab_tpu_torch.scripts.play import apply_play_overrides
+  from mjlab_tpu_torch.tasks import load_env_cfg
+  from mjlab_tpu_torch.terrains import TerrainGenerator
+
+  print(f"phase 19a the composer: each rough and play scene from its robot's flat scene and "
+        f"its task's cfg, against the committed JAX compile (host clock) [{card}]:")
+  for task, name in COMPOSED.items():
+    for play in (False, True):
+      cfg = load_env_cfg(task)
+      if play:
+        apply_play_overrides(cfg)
+      flat = load_model_arrays(cfg.scene.model_file)
+      t0 = time.perf_counter()
+      generated = TerrainGenerator(cfg.scene.terrain.terrain_generator).generate()
+      t1 = time.perf_counter()
+      arrays = compose_arrays(flat, generated)
+      t2 = time.perf_counter()
+      want = load_model_arrays(getattr(assets, name + ("_PLAY" if play else "")))
+      bad = mismatches(want, arrays)
+      print(f"  {task}{' play' if play else ''}: {int(arrays['ngeom'])} geoms "
+            f"({len(generated.geoms)} generated on {generated.terrain_origins.shape[:2]} tiles), "
+            f"generation {1e3 * (t1 - t0):.2f} ms, composition {1e3 * (t2 - t1):.2f} ms; "
+            f"{len(arrays)} arrays compared, mismatches {bad}")
+      if bad:
+        raise AssertionError(f"phase 19a: the composed {task} scene differs from its compile")
+
+
+def hf_cfg():
+  """The Asimov velocity-rough cfg with ROUGH_TERRAINS_WITH_HF_CFG under the
+  curriculum, as a user sets it."""
+  from mjlab_tpu_torch.tasks import load_env_cfg
+  from mjlab_tpu_torch.terrains import config as presets
+
+  cfg = load_env_cfg(HF_BASE_TASK)
+  gen = presets.ROUGH_TERRAINS_WITH_HF_CFG
+  gen.curriculum = True
+  cfg.scene.terrain.terrain_generator = gen
+  return cfg
+
+
+def hf_first_variant(cfg) -> None:
+  """`certain_variant` of HF_TASK with the height-field sub-terrains listed
+  first, so that under the curriculum columns 0-7 are height fields and
+  the float64 check's 4 envs (columns 0-3: pyramid slopes, random bumps)
+  stand on them."""
+  certain_variant(cfg)
+  gen = cfg.scene.terrain.terrain_generator
+  first = [k for k, sub in gen.sub_terrains.items() if type(sub).__name__.startswith("Hf")]
+  gen.sub_terrains = {k: gen.sub_terrains[k]
+                      for k in first + [k for k in gen.sub_terrains if k not in first]}
+
+
+def hfield_slots(tp) -> int:
+  """The height-field pairs' contact slots, which lead the slot order; the
+  phase's scenes have no other pairs."""
+  if not tp.pairs or any(p.type1 != 1 for p in tp.pairs):  # mjGEOM_HFIELD
+    raise AssertionError("phase 19b: a pair that is not a height-field pair")
+  return sum(p.ncon for p in tp.pairs)
+
+
+class HfieldCollisionCheck:
+  """After each card step of the float64 check: the card env's collision
+  (height-field narrowphase on the card) against the CPU's on the same
+  state, a copy of the card's Data. Each active contact's dist, pos and
+  frame within 1e-8 relative to max(1, max |CPU|), and the same slots
+  active. Counts the active height-field contacts it compared."""
+
+  def __init__(self):
+    self.cpu = None
+    self.active = []
+
+  def __call__(self, env, action) -> float:
+    import dataclasses
+
+    from mjlab_tpu_torch.physics import collision, io
+    from mjlab_tpu_torch.scene.scene import load_compiled_model
+
+    if self.cpu is None:
+      tp, _ = io.put_model(load_compiled_model(env.cfg.scene), dtype=torch.float64,
+                           device="cpu")
+      m = env.model
+      opt = {f.name: getattr(m.opt, f.name) for f in dataclasses.fields(m.opt)}
+      model = type(m)(opt=type(m.opt)(**{k: v.cpu() if torch.is_tensor(v) else v
+                                         for k, v in opt.items()}),
+                      **{f: getattr(m, f).cpu() for f in io.model_fields()})
+      self.cpu = (tp, model, hfield_slots(tp))
+    tp, model, n_hf = self.cpu
+    got = collision.collision(env.tp, env.model, env.data).contact
+    state = io.data_from_arrays(io.data_to_arrays(env.data), dtype=torch.float64,
+                                device="cpu")
+    want = collision.collision(tp, model, state).contact
+    active = want.dist < want.includemargin
+    if not torch.equal((got.dist < got.includemargin).cpu(), active):
+      raise AssertionError("phase 19b: the card's active contacts differ from the CPU's")
+    self.active.append(int(active[:, :n_hf].sum()))
+    err = 0.0
+    for f in ("dist", "pos", "frame"):
+      g, w = getattr(got, f).cpu()[active], getattr(want, f)[active]
+      if w.numel():
+        err = max(err, (g - w).abs().max().item() / max(1.0, w.abs().max().item()))
+    if not err <= 1e-8:
+      raise AssertionError(f"phase 19b: card vs CPU collision, relative error {err:.3e}")
+    return err
+
+
+def hf_path(card: str, attr: str, checks: KernelCheck) -> tuple[dict, dict]:
+  """Phase 19b: Asimov velocity-rough on ROUGH_TERRAINS_WITH_HF_CFG (80
+  height field tiles, each against the 2 foot hulls in the static pair
+  table), registered as HF_TASK, at NUM_WORLDS envs, f32. The dense efc_J
+  reckoned from the Topology before the build (the phase fails above
+  HF_EFC_J_CEILING rather than run a cut it does not list); after the
+  build the slots, rows and height fields, HF_TIMED_STEPS steady env steps
+  of N(0, 1) actions (after HF_WARM_STEPS) under
+  set_sync_debug_mode("error"), ms per env step by CUDA events, the
+  peak memory, the envs whose height-field slots hold an active contact
+  (some must), and one substep's stage times on that state (phase 5's
+  split); then `task_path`: one PPO iteration of HF_STEPS env steps
+  through build_runner with phase 8's checks and the launches of every
+  kernel, the four kernels against their plain versions on this run's
+  matrices, and the card's float64 env against the CPU's for
+  CUT_F64_STEPS env steps from the CPU's state (the Asimov rule: 1e-8 or
+  twice the CPU's spread under 6 qpos nudges of 1e-13) on
+  `hf_first_variant`, its 4 envs on height-field tiles, with
+  `HfieldCollisionCheck` after each card step (it must compare an active
+  height-field contact). Returns the iteration's launches and each
+  kernel's ms on the run's matrices."""
+  from mjlab_tpu_torch import tasks
+  from mjlab_tpu_torch.physics import io
+  from mjlab_tpu_torch.scene.scene import load_compiled_model
+
+  t_phase = time.perf_counter()
+  tasks.register(HF_TASK, hf_cfg, lambda: tasks.load_rl_cfg(HF_BASE_TASK))
+  tp_cpu, _ = io.put_model(load_compiled_model(hf_cfg().scene), device="cpu")
+  efc_j = NUM_WORLDS * tp_cpu.nefc * tp_cpu.nv * 4
+  print(f"phase 19b {HF_TASK} (Asimov velocity-rough on ROUGH_TERRAINS_WITH_HF_CFG, "
+        f"curriculum): reckoned dense efc_J {NUM_WORLDS} x {tp_cpu.nefc} x {tp_cpu.nv} x 4 B = "
+        f"{efc_j / 1e9:.3f} GB (ceiling {HF_EFC_J_CEILING / 1e9:.0f} GB: no cut of the envs)")
+  if efc_j > HF_EFC_J_CEILING:
+    raise AssertionError("phase 19b: efc_J passes its ceiling; the phase must cut its envs")
+  del tp_cpu
+  launches = {k: 0 for k in (*ALL_KERNELS, PGS_KERNEL)}
+  path_ms: dict[str, dict[str, float]] = {k: {} for k in KERNELS}
+  timed: dict[str, float] = {}
+
+  def after_build(runner):
+    env, tp = runner.env, runner.env.tp
+    print_terrain(env, HF_TASK)
+    hf_pairs = hfield_slots(tp)
+    print(f"  height fields {tp.nhfield}; slots {tp.ncon_max}: {hf_pairs} in "
+          f"{len(tp.pairs)} hfield-hull pairs + "
+          + ", ".join(f"{g.slots} x {len(g.robot_geoms)} box-pool" for g in tp.terrain_groups)
+          + f"; Newton rows {tp.nefc}; efc_J {tuple(env.data.efc_J.shape)} "
+          f"{env.data.efc_J.numel() * env.data.efc_J.element_size() / 1e9:.3f} GB")
+    if tp.nhfield != 80 or not hf_pairs:
+      raise AssertionError("phase 19b: the height fields or their pairs")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    n_act = env.action_manager.total_action_dim
+    for _ in range(HF_WARM_STEPS):
+      env.step(torch.randn(NUM_WORLDS, n_act, generator=gen, device="cuda"))
+    actions = [torch.randn(NUM_WORLDS, n_act, generator=gen, device="cuda")
+               for _ in range(HF_TIMED_STEPS)]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    start.record()
+    for a in actions:
+      obs, rew, *_ = env.step(a)
+    end.record()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    timed["env_step_ms"] = start.elapsed_time(end) / HF_TIMED_STEPS
+    timed["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finite = bool(torch.isfinite(env.data.qpos).all() and torch.isfinite(rew).all()
+                  and all(torch.isfinite(v).all() for v in obs.values()))
+    print(f"  {HF_TIMED_STEPS} env steps (after {HF_WARM_STEPS}) under "
+          f"set_sync_debug_mode('error'): {timed['env_step_ms']:.2f} ms per env step (CUDA "
+          f"events), {NUM_WORLDS / timed['env_step_ms'] * 1e3:.1f} env-steps/s; peak memory "
+          f"since the build {timed['peak_gb']:.2f} GB; finite {finite} [{card}]")
+    if not finite:
+      raise AssertionError("phase 19b: a non-finite state, reward or observation")
+    c = env.data.contact
+    on_hf = (c.dist[:, :hf_pairs] < c.includemargin[:, :hf_pairs]).sum(1)
+    n_env, n_con = int((on_hf > 0).sum()), int(on_hf.sum())
+    print(f"  after the last step: {n_env} envs hold {n_con} active height-field contacts")
+    if not n_env:
+      raise AssertionError("phase 19b: no height-field contact is active")
+    per_stage = stage_times(tp, env.model, env.data)
+    print("  one substep by stage on that state (CUDA events, mean of 3): "
+          + ", ".join(f"{k} {v:.3f}"
+                      for k, v in sorted(per_stage.items(), key=lambda kv: -kv[1])[:6])
+          + f" ms; sum {sum(per_stage.values()):.3f} ms [{card}]")
+
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  hf_check = HfieldCollisionCheck()
+  host = task_path("phase 19b", HF_TASK, "asimov_hf", (48, 60), card, attr, checks, launches,
+                   path_ms, after_build=after_build, ms_key="asimov_hf (n 18)",
+                   iters=CUT_ITERS, steps=HF_STEPS, variant=hf_first_variant,
+                   on_step=hf_check)
+  print(f"  the float64 check on height-field tiles: active height-field contacts compared "
+        f"after each card step {hf_check.active}")
+  if not sum(hf_check.active):
+    raise AssertionError("phase 19b: the float64 check compared no active height-field contact")
+  terrain_metrics(HF_TASK, host)
+  print(f"phase 19b: {time.perf_counter() - t_phase:.1f} s; launches over the iteration "
+        f"{launches}; {timed['env_step_ms']:.2f} ms per env step, peak {timed['peak_gb']:.2f} GB")
+  return launches, path_ms
 
 
 def main() -> int:
@@ -4146,6 +4409,11 @@ def main() -> int:
     raise AssertionError(f"phase 18: a kernel did not run in the pair scenes: {pair_launches}")
 
   clock.done(18)
+  # -- 19. generated terrain: the composer, and Asimov on the height-field preset --
+  compose_path(card)
+  hf_launches, hf_ms = hf_path(card, attr, checks)
+
+  clock.done(19)
   # -- result lines ---------------------------------------------------------------
   bnd = bounds(NUM_WORLDS, N, rows=NUM_WORLDS * NEFC)
   bnd_run = bounds(NUM_WORLDS, N, rows=active_rows)["newton_direction"]
@@ -4180,6 +4448,8 @@ def main() -> int:
       "ms_asimov_run_matrices_by_nv": asimov_ms[name],
       "ms_rough_go1_run_matrices_by_nv": rough_ms[name],
       "ms_rough_run_matrices_by_nv": rough13_ms[name],
+      "launches_hf_path": hf_launches[name],
+      "ms_hf_run_matrices": hf_ms[name],
       "plain_ms": times[name][1],
       "bound_ms": bnd[name][0],
       "bound_by": bnd[name][1],
@@ -4227,6 +4497,7 @@ def main() -> int:
     "launches_muscle_scenes_path": muscle_launches[CONE_KERNEL],
     "launches_generic_mdp_path": generic["launches"][CONE_KERNEL],
     "launches_pair_scenes_path": pair_launches[CONE_KERNEL],
+    "launches_hf_path": hf_launches[CONE_KERNEL],
   })
   kernels.append({
     "name": PGS_KERNEL,
@@ -4240,6 +4511,7 @@ def main() -> int:
     "launches_muscle_scenes_path": muscle_launches[PGS_KERNEL],
     "launches_generic_mdp_path": generic["launches"][PGS_KERNEL],
     "launches_pair_scenes_path": pair_launches[PGS_KERNEL],
+    "launches_hf_path": hf_launches[PGS_KERNEL],
     "max_abs_err": checks.max_abs_err[PGS_KERNEL],
     "ms": pgs_run["ms"],
     "plain_ms": pgs_run["plain_ms"],

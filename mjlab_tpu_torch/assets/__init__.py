@@ -16,25 +16,24 @@ against a terrain pool) keeps the vertices of its convex hull (`geom_hull_vert`,
 which `physics.put_model` builds the hull.
 
 A scene with a generated terrain holds one more array, `terrain_origins`
-(num_rows, num_cols, 3): the tiles' spawn origins, which the JAX package's
-terrain generator records beside the MjSpec it builds
-(`save_model_npz(m, path, terrain_origins=...)`).
+(num_rows, num_cols, 3): the tiles' spawn origins, which the terrain
+generator records beside the geoms (`save_model_npz(m, path,
+terrain_origins=...)`).
 
 The scenes, each a velocity task's with the task's solver options applied
 (tests/test_torch_model_io.py, tests/test_torch_asimov_model.py,
 tests/test_torch_terrain_model.py, tests/test_torch_go1_model.py and
 tests/test_torch_rough_models.py check that each is fresh, and say how to
-regenerate it):
-`g1_velocity_flat.npz` (Mjlab-Velocity-Flat-Unitree-G1),
-`g1_velocity_rough.npz` (Mjlab-Velocity-Rough-Unitree-G1, 10 x 20 tiles),
-`go1_velocity_flat.npz` (Mjlab-Velocity-Flat-Unitree-Go1),
-`go1_velocity_rough.npz` (Mjlab-Velocity-Rough-Unitree-Go1),
-`asimov_velocity_flat.npz` (Mjlab-Velocity-Flat-Asimov),
-`asimov_velocity_rough.npz` (Mjlab-Velocity-Rough-Asimov),
-`asimov_toe_velocity_flat.npz` (Mjlab-Velocity-Flat-Asimov-Toe) and
-`asimov_toe_velocity_rough.npz` (Mjlab-Velocity-Rough-Asimov-Toe); each
-rough scene has a play scene, `<name>_play.npz` (3 x 3 tiles, no
-curriculum). `cartpole.npz` is the CartPole tutorial's scene
+regenerate it): the flat scenes `g1_velocity_flat.npz`
+(Mjlab-Velocity-Flat-Unitree-G1), `go1_velocity_flat.npz`,
+`asimov_velocity_flat.npz` and `asimov_toe_velocity_flat.npz`, which the
+rough tasks also load: the port generates their terrain and composes it
+into the flat scene (scene/compose.py). The JAX package's compiles of the
+rough scenes are kept beside them as the oracle of that composition on a
+host without `mujoco`: `<robot>_velocity_rough.npz` (the default 10 x 20
+tiles) and `<robot>_velocity_rough_play.npz` (the play overrides' 3 x 3
+tiles, no curriculum), for g1, go1, asimov and asimov_toe.
+`cartpole.npz` is the CartPole tutorial's scene
 (docs/CREATE_NEW_TASK_TORCH.md; tests/test_torch_cartpole.py checks it).
 The small scenes of the solver surface and of a user's own robot are in
 `solver/` and `surface/` (solver_scenes.py, surface_scenes.py).
@@ -60,15 +59,6 @@ ASIMOV_TOE_VELOCITY_FLAT = Path(__file__).parent / "asimov_toe_velocity_flat.npz
 ASIMOV_TOE_VELOCITY_ROUGH = Path(__file__).parent / "asimov_toe_velocity_rough.npz"
 ASIMOV_TOE_VELOCITY_ROUGH_PLAY = Path(__file__).parent / "asimov_toe_velocity_rough_play.npz"
 CARTPOLE = Path(__file__).parent / "cartpole.npz"
-
-# A generated-terrain scene's play scene (the JAX package's play overrides
-# regenerate the terrain on a 3 x 3 grid; the port loads it compiled).
-PLAY_SCENES = {
-  G1_VELOCITY_ROUGH: G1_VELOCITY_ROUGH_PLAY,
-  GO1_VELOCITY_ROUGH: GO1_VELOCITY_ROUGH_PLAY,
-  ASIMOV_VELOCITY_ROUGH: ASIMOV_VELOCITY_ROUGH_PLAY,
-  ASIMOV_TOE_VELOCITY_ROUGH: ASIMOV_TOE_VELOCITY_ROUGH_PLAY,
-}
 
 # Array families the port never reads (see the module docstring).
 _DROPPED_PREFIXES = ("mesh_", "bvh_")
@@ -148,17 +138,15 @@ def model_namespace(arrays: dict[str, np.ndarray]) -> SimpleNamespace:
   return model
 
 
+def load_model_arrays(path=G1_VELOCITY_FLAT) -> dict[str, np.ndarray]:
+  """The arrays of the npz at `path` (model_arrays' keys)."""
+  with np.load(path) as npz:
+    return {key: npz[key] for key in npz.files}
+
+
 def load_model_npz(path=G1_VELOCITY_FLAT) -> SimpleNamespace:
   """A namespace with MjModel's attribute names, read from `path`."""
-  with np.load(path) as npz:
-    return model_namespace({key: npz[key] for key in npz.files})
-
-
-def play_scene(path) -> Path:
-  """The play scene of a generated-terrain scene."""
-  if Path(path) not in PLAY_SCENES:
-    raise ValueError(f"no play scene is committed for {path}")
-  return PLAY_SCENES[Path(path)]
+  return model_namespace(load_model_arrays(path))
 
 
 def g1_velocity_sim_cfg():

@@ -1,17 +1,18 @@
-"""Scene: binds a scene configuration to an already-compiled model (port of
+"""Scene: binds a scene configuration to a compiled model (port of
 mjlab_tpu/scene/scene.py).
 
 The JAX package composes the terrain, entity and sensor MjSpecs into one
-spec and compiles it. The port composes nothing: the model arrives
+spec and compiles it. The port compiles nothing: the model arrives
 compiled — a live `mujoco.MjModel`, or on a host without `mujoco` the
 namespace `assets.load_model_npz` reads from a committed npz
-(`SceneCfg.model_file`). The Scene binds each configured entity to the
-model's elements under its name prefix, builds the configured sensors,
-wraps every sensor of the compiled model as a BuiltinSensor, takes the env
-origins from its terrain importer, and fans out initialize/reset/update to
-its elements. A generator terrain arrives generated in the npz, with its
-tiles' origins (`terrain_origins`); its levels and types are the scene's
-"terrain" state.
+(`SceneCfg.model_file`). A generator terrain is generated by the port
+(terrains/terrain_generator.py) and put into the model file's scene, which
+holds the robot on the plane terrain (`compose.compose_terrain`). The
+Scene binds each configured entity to the model's elements under its name
+prefix, builds the configured sensors, wraps every sensor of the compiled
+model as a BuiltinSensor, takes the env origins from its terrain importer,
+and fans out initialize/reset/update to its elements. A generator
+terrain's levels and types are the scene's "terrain" state.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 from mjlab_tpu_torch.entity import Entity, EntityCfg
 from mjlab_tpu_torch.entity.entity import element_name
 from mjlab_tpu_torch.sensors import BuiltinSensor, Sensor, SensorCfg
-from mjlab_tpu_torch.terrains import TerrainImporter, TerrainImporterCfg
+from mjlab_tpu_torch.terrains import TerrainGenerator, TerrainImporter, TerrainImporterCfg
 
 
 @dataclass(kw_only=True)
@@ -42,35 +43,42 @@ class SceneCfg:
 
 
 def load_compiled_model(cfg: SceneCfg):
-  from mjlab_tpu_torch.assets import load_model_npz
+  """The compiled scene of `cfg.model_file`; with a generator terrain, that
+  scene (compiled with the plane terrain) with the generated terrain in
+  place of the plane, and the tiles' origins."""
+  from mjlab_tpu_torch.assets import load_model_arrays, model_namespace
+  from mjlab_tpu_torch.scene.compose import compose_terrain
 
   if cfg.model_file is None:
     raise ValueError("SceneCfg.model_file is not set and no compiled model was given.")
-  return load_model_npz(cfg.model_file)
+  arrays = load_model_arrays(cfg.model_file)
+  terrain = cfg.terrain
+  if terrain is not None and terrain.terrain_type == "generator":
+    return compose_terrain(arrays, _generate(terrain))
+  return model_namespace(arrays)
+
+
+def _generate(cfg: TerrainImporterCfg):
+  if cfg.terrain_generator is None:
+    raise ValueError("terrain_type 'generator' needs a terrain_generator cfg")
+  return TerrainGenerator(cfg.terrain_generator).generate()
 
 
 def _terrain_origins(cfg: TerrainImporterCfg, model):
-  """The tiles' origins of a generator terrain, from the compiled scene,
-  checked against the generator's grid; None for the plane."""
+  """The tiles' origins of a generator terrain (those the compiled scene
+  carries, or else the generator's); None for the plane."""
   if cfg.terrain_type == "plane":
     return None
   if cfg.terrain_type != "generator":
     raise ValueError(f"Unknown terrain type {cfg.terrain_type}")
-  # The port cannot generate a terrain: the compiled scene must hold it,
-  # generated on the configured grid.
   origins = getattr(model, "terrain_origins", None)
   if origins is None:
-    raise NotImplementedError(
-      "terrain generation (terrain_type 'generator') is not supported by "
-      "mjlab_tpu_torch: the compiled scene holds no generated terrain "
-      "(terrain_origins; see assets.save_model_npz)"
-    )
+    origins = _generate(cfg).terrain_origins
   gen = cfg.terrain_generator
-  grid = (gen.num_rows, gen.num_cols) if gen is not None else None
-  if grid != tuple(origins.shape[:2]):
-    raise NotImplementedError(
-      f"terrain generation is not supported by mjlab_tpu_torch: the generator's "
-      f"grid {grid} is not the compiled scene's {tuple(origins.shape[:2])}"
+  if gen is not None and (gen.num_rows, gen.num_cols) != tuple(origins.shape[:2]):
+    raise ValueError(
+      f"the generator's grid {(gen.num_rows, gen.num_cols)} is not the compiled "
+      f"scene's {tuple(origins.shape[:2])}"
     )
   return np.asarray(origins, dtype=np.float64)
 

@@ -36,11 +36,8 @@ def apply_play_overrides(env_cfg) -> None:
   """Eval-friendly config surgery (reference play.py:47-91). An episode of
   1e6 s is 5e7 steps at 50 Hz, inside the int32 episode counter. A
   generator terrain shrinks to at most 3 x 3 tiles without the curriculum,
-  as in the JAX function; the port cannot regenerate it, so the scene moves
-  to the task's committed play scene (assets.PLAY_SCENES), which holds that
-  terrain generated."""
-  from mjlab_tpu_torch.assets import play_scene
-
+  as in the JAX function; the env regenerates it when it builds its
+  scene."""
   env_cfg.episode_length_s = 1.0e6
   for group in env_cfg.observations.values():
     group.enable_corruption = False
@@ -51,7 +48,6 @@ def apply_play_overrides(env_cfg) -> None:
     gen.num_rows = min(gen.num_rows, 3)
     gen.num_cols = min(gen.num_cols, 3)
     gen.curriculum = False
-    env_cfg.scene.model_file = play_scene(env_cfg.scene.model_file)
 
 
 @dataclass

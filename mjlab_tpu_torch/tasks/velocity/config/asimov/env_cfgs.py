@@ -1,10 +1,12 @@
 """Asimov biped velocity-tracking configurations, flat and rough terrain
-(port of mjlab_tpu/tasks/velocity/config/asimov/env_cfgs.py). The compiled
-scenes are assets/asimov_velocity_flat.npz and asimov_velocity_rough.npz,
-which the JAX package's scene layer compiles from the same configurations
-(tests/test_torch_asimov_model.py and tests/test_torch_rough_models.py
-keep them fresh). On rough terrain the feet's hulls collide with the
-terrain boxes through the hull SAT.
+(port of mjlab_tpu/tasks/velocity/config/asimov/env_cfgs.py). Both bind the
+compiled scene assets/asimov_velocity_flat.npz, which the JAX package's
+scene layer compiles from the flat configuration
+(tests/test_torch_asimov_model.py keeps it fresh); on rough terrain the
+port generates the terrain and composes it into that scene
+(scene/compose.py). There the feet's hulls collide with the terrain boxes
+through the hull SAT, and with height field tiles where the terrain has
+them.
 
 One setting differs from the JAX package's, for both Asimov variants: the
 Newton solver runs NEWTON_ITERATIONS (30) iterations, not the velocity
@@ -18,7 +20,7 @@ envs runs into NaN within its first iteration.
 
 from __future__ import annotations
 
-from mjlab_tpu_torch.assets import ASIMOV_VELOCITY_FLAT, ASIMOV_VELOCITY_ROUGH
+from mjlab_tpu_torch.assets import ASIMOV_VELOCITY_FLAT
 from mjlab_tpu_torch.asset_zoo.robots.asimov.asimov_constants import (
   ASIMOV_ACTION_SCALE,
   get_asimov_robot_cfg,
@@ -112,9 +114,9 @@ def _make_cfg(terrain: TerrainImporterCfg | None) -> ManagerBasedRlEnvCfg:
 
 def asimov_rough_env_cfg() -> ManagerBasedRlEnvCfg:
   """Fresh Asimov cfg on the default rough generator terrain, bound to its
-  compiled scene."""
+  flat scene, into which the port composes the generated terrain."""
   cfg = _make_cfg(terrain=None)
-  cfg.scene.model_file = ASIMOV_VELOCITY_ROUGH
+  cfg.scene.model_file = ASIMOV_VELOCITY_FLAT
   return cfg
 
 

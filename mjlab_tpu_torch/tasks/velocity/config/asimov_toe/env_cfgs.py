@@ -1,16 +1,16 @@
 """Asimov-Toe velocity-tracking configurations, flat and rough terrain
 (port of mjlab_tpu/tasks/velocity/config/asimov_toe/env_cfgs.py): hips and
 knees through joint-position actions, the ankles through the pitch/roll →
-A/B tendon mapping, the toes passive. The compiled scenes are
-assets/asimov_toe_velocity_flat.npz and asimov_toe_velocity_rough.npz
-(tests/test_torch_asimov_model.py and tests/test_torch_rough_models.py keep
-them fresh); on rough terrain the foot and toe capsules meet the terrain
-boxes. As for Asimov, the Newton solver runs
+A/B tendon mapping, the toes passive. Both bind the compiled scene
+assets/asimov_toe_velocity_flat.npz (tests/test_torch_asimov_model.py
+keeps it fresh); on rough terrain the port generates the terrain and
+composes it into that scene (scene/compose.py), and the foot and toe
+capsules meet the terrain boxes. As for Asimov, the Newton solver runs
 asimov.env_cfgs.NEWTON_ITERATIONS iterations (that module says why)."""
 
 from __future__ import annotations
 
-from mjlab_tpu_torch.assets import ASIMOV_TOE_VELOCITY_FLAT, ASIMOV_TOE_VELOCITY_ROUGH
+from mjlab_tpu_torch.assets import ASIMOV_TOE_VELOCITY_FLAT
 from mjlab_tpu_torch.asset_zoo.robots.asimov.asimov_toe_constants import (
   ASIMOV_ACTION_SCALE,
   get_asimov_robot_cfg,
@@ -140,8 +140,8 @@ def _make_cfg(terrain: TerrainImporterCfg | None) -> ManagerBasedRlEnvCfg:
 
 def asimov_toe_rough_env_cfg() -> ManagerBasedRlEnvCfg:
   """Fresh Asimov-Toe cfg on the default rough generator terrain, bound to
-  its compiled scene. One more setting differs from the JAX package's:
-  `capsule_terrain_from_above`. With the JAX package's capsule–box contact
+  its flat scene, into which the port composes the generated terrain. One
+  more setting differs from the JAX package's: `capsule_terrain_from_above`. With the JAX package's capsule–box contact
   (the end beside the segment point nearest the box's centre) a toe
   capsule tilted over a large stair slab contacts at its higher end, sinks
   unseen through the 3.5 cm slab past its mid-plane, and the contact then
@@ -150,7 +150,7 @@ def asimov_toe_rough_env_cfg() -> ManagerBasedRlEnvCfg:
   training at 4096 envs goes NaN in its first iteration (ROADMAP Queue C)."""
   cfg = _make_cfg(terrain=None)
   cfg.sim.capsule_terrain_from_above = True
-  cfg.scene.model_file = ASIMOV_TOE_VELOCITY_ROUGH
+  cfg.scene.model_file = ASIMOV_TOE_VELOCITY_FLAT
   return cfg
 
 

@@ -1,13 +1,13 @@
 """Unitree G1 velocity-tracking configurations, flat and rough terrain (port
-of mjlab_tpu/tasks/velocity/config/g1/env_cfgs.py). The compiled scenes are
-assets/g1_velocity_flat.npz and g1_velocity_rough.npz, which the JAX
-package's scene layer compiles from the same configurations
-(tests/test_torch_model_io.py and tests/test_torch_terrain_model.py keep
-them fresh)."""
+of mjlab_tpu/tasks/velocity/config/g1/env_cfgs.py). Both bind the compiled
+scene assets/g1_velocity_flat.npz, which the JAX package's scene layer
+compiles from the flat configuration (tests/test_torch_model_io.py keeps it
+fresh); on rough terrain the port generates the terrain and composes it
+into that scene (scene/compose.py)."""
 
 from __future__ import annotations
 
-from mjlab_tpu_torch.assets import G1_VELOCITY_FLAT, G1_VELOCITY_ROUGH
+from mjlab_tpu_torch.assets import G1_VELOCITY_FLAT
 from mjlab_tpu_torch.asset_zoo.robots.unitree_g1.g1_constants import (
   G1_ACTION_SCALE,
   get_g1_robot_cfg,
@@ -97,9 +97,9 @@ def _make_cfg(terrain: TerrainImporterCfg | None) -> ManagerBasedRlEnvCfg:
 
 def unitree_g1_rough_env_cfg() -> ManagerBasedRlEnvCfg:
   """Fresh G1 cfg on the default rough generator terrain, bound to its
-  compiled scene."""
+  flat scene, into which the port composes the generated terrain."""
   cfg = _make_cfg(terrain=None)
-  cfg.scene.model_file = G1_VELOCITY_ROUGH
+  cfg.scene.model_file = G1_VELOCITY_FLAT
   return cfg
 
 

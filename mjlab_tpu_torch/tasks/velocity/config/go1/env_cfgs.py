@@ -1,9 +1,9 @@
 """Unitree Go1 velocity-tracking configurations, flat and rough terrain
-(port of mjlab_tpu/tasks/velocity/config/go1/env_cfgs.py). The compiled
-scenes are assets/go1_velocity_flat.npz and go1_velocity_rough.npz, which
-the JAX package's scene layer compiles from the same configurations
-(tests/test_torch_go1_model.py and tests/test_torch_rough_models.py keep
-them fresh). On rough terrain the trunk, a box, collides with the terrain
+(port of mjlab_tpu/tasks/velocity/config/go1/env_cfgs.py). Both bind the
+compiled scene assets/go1_velocity_flat.npz, which the JAX package's scene
+layer compiles from the flat configuration (tests/test_torch_go1_model.py
+keeps it fresh); on rough terrain the port generates the terrain and
+composes it into that scene (scene/compose.py). On rough terrain the trunk, a box, collides with the terrain
 boxes through the hull SAT.
 
 The `illegal_contact` termination reads the `nonfoot_ground_touch` sensor,
@@ -12,7 +12,7 @@ never fires, as in the JAX package (ROADMAP Queue C)."""
 
 from __future__ import annotations
 
-from mjlab_tpu_torch.assets import GO1_VELOCITY_FLAT, GO1_VELOCITY_ROUGH
+from mjlab_tpu_torch.assets import GO1_VELOCITY_FLAT
 from mjlab_tpu_torch.asset_zoo.robots.unitree_go1.go1_constants import (
   GO1_ACTION_SCALE,
   get_go1_robot_cfg,
@@ -83,9 +83,9 @@ def _make_cfg(terrain: TerrainImporterCfg | None) -> ManagerBasedRlEnvCfg:
 
 def unitree_go1_rough_env_cfg() -> ManagerBasedRlEnvCfg:
   """Fresh Go1 cfg on the default rough generator terrain, bound to its
-  compiled scene."""
+  flat scene, into which the port composes the generated terrain."""
   cfg = _make_cfg(terrain=None)
-  cfg.scene.model_file = GO1_VELOCITY_ROUGH
+  cfg.scene.model_file = GO1_VELOCITY_FLAT
   return cfg
 
 

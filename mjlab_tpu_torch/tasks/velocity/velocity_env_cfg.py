@@ -2,8 +2,9 @@
 mjlab_tpu/tasks/velocity/velocity_env_cfg.py): the locomotion MDP (7 policy
 and 11 critic observation terms, 4 events, 14 rewards, 2 terminations, the
 command curriculum, and the terrain-level curriculum on a generator terrain)
-around a robot EntityCfg. The default terrain is the JAX package's rough
-generator grid, which the task's scene npz must hold generated."""
+around a robot EntityCfg. The default terrain is a copy of the rough
+generator preset (terrains/config.py ROUGH_TERRAINS_CFG), under the
+curriculum."""
 
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from mjlab_tpu_torch.sensors import ContactSensorCfg
 from mjlab_tpu_torch.sim import MujocoCfg, SimulationCfg
 from mjlab_tpu_torch.tasks.velocity import mdp
 from mjlab_tpu_torch.tasks.velocity.mdp import UniformVelocityCommandCfg
-from mjlab_tpu_torch.terrains import rough_terrains_cfg
+from mjlab_tpu_torch.terrains import config as terrain_presets
 from mjlab_tpu_torch.utils.noise import UniformNoiseCfg as Unoise
 
 
@@ -39,11 +40,11 @@ def sim_cfg() -> SimulationCfg:
 
 
 def _default_terrain_cfg() -> TerrainImporterCfg:
-  """The JAX package's default: the rough generator grid (10 x 20 tiles of
-  8 m), envs starting at levels below 6."""
+  """The JAX package's default: a copy of ROUGH_TERRAINS_CFG (10 x 20 tiles
+  of 8 m), envs starting at levels below 6."""
   return TerrainImporterCfg(
     terrain_type="generator",
-    terrain_generator=rough_terrains_cfg(),
+    terrain_generator=terrain_presets.ROUGH_TERRAINS_CFG,
     max_init_terrain_level=5,
   )
 

@@ -2,12 +2,10 @@
 mjlab_tpu/terrains/terrain_importer.py): env origins and the curriculum's
 terrain levels.
 
-The JAX package generates the terrain into the scene's MjSpec
-(terrain_generator.py and the sub-terrain modules). The port composes no
-MjSpec: the generated terrain arrives compiled in the scene npz, with the
-tiles' spawn origins beside it (`terrain_origins`, (num_rows, num_cols,
-3)). Of the generator's configuration the port keeps only the fields it
-reads; the scene checks the grid against the npz's.
+A generator terrain's tiles and their spawn origins come from the port's
+own generator (terrain_generator.py); `scene.compose.compose_terrain` puts
+the tiles into the robot's compiled scene, and the importer takes the
+origins (`terrain_origins`, (num_rows, num_cols, 3)).
 
 As in the JAX package, `env_origins` stays where `initialize` put it: the
 curriculum moves an env's level but no reset reads the level's origin
@@ -22,21 +20,7 @@ from typing import Literal
 import numpy as np
 import torch
 
-
-@dataclass(kw_only=True)
-class TerrainGeneratorCfg:
-  """The fields of the JAX package's TerrainGeneratorCfg the port reads."""
-
-  size: tuple[float, float] = (8.0, 8.0)
-  num_rows: int = 1
-  num_cols: int = 1
-  curriculum: bool = False
-
-
-def rough_terrains_cfg() -> TerrainGeneratorCfg:
-  """The grid of the JAX package's ROUGH_TERRAINS_CFG (terrains/config.py):
-  10 rows of difficulty by 20 columns of 8 m tiles."""
-  return TerrainGeneratorCfg(size=(8.0, 8.0), num_rows=10, num_cols=20)
+from mjlab_tpu_torch.terrains.terrain_generator import TerrainGeneratorCfg
 
 
 @dataclass

@@ -135,14 +135,17 @@ def test_default_device_is_cuda():
 
 
 def _edit_generator(cfg):
-  """A generator terrain over the flat scene npz, which holds no generated
-  terrain (no terrain_origins)."""
+  """A generator terrain over a scene compiled with a generated terrain:
+  the port composes a generator terrain only onto a scene compiled with
+  the plane (its terrain body one plane geom)."""
+  from mjlab_tpu_torch import assets
   from mjlab_tpu_torch.scene import TerrainImporterCfg
-  from mjlab_tpu_torch.terrains import rough_terrains_cfg
+  from mjlab_tpu_torch.terrains.config import ROUGH_TERRAINS_CFG
 
   cfg.scene.terrain = TerrainImporterCfg(
-    terrain_type="generator", terrain_generator=rough_terrains_cfg()
+    terrain_type="generator", terrain_generator=ROUGH_TERRAINS_CFG
   )
+  cfg.scene.model_file = assets.G1_VELOCITY_ROUGH
 
 
 def _edit_history(cfg):

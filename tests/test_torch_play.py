@@ -18,6 +18,7 @@ import torch
 
 TASK = "Mjlab-Velocity-Flat-Unitree-G1"
 TRACK = "Mjlab-Tracking-Flat-Unitree-G1"
+ROUGH = "Mjlab-Velocity-Rough-Unitree-G1"
 TINY = {
   "agent.num_steps_per_env": "2",
   "agent.policy.actor_hidden_dims": "(32, 32)",
@@ -61,8 +62,11 @@ def _play_changes(cfg, apply, iter_leaves):
   return changed, removed
 
 
-@pytest.mark.parametrize("task", [TASK, TRACK])
+@pytest.mark.parametrize("task", [TASK, TRACK, ROUGH])
 def test_play_overrides_match_jax(task):
+  """The same changes as the JAX function; on a generator terrain the
+  regenerated scene is the committed play npz, the JAX package's compile
+  of the 3 x 3 terrain."""
   import mjlab_tpu.tasks as jax_tasks
   from mjlab_tpu.scripts.cli import iter_leaves as jax_iter_leaves
   from mjlab_tpu.scripts.play import apply_play_overrides as jax_apply
@@ -78,6 +82,13 @@ def test_play_overrides_match_jax(task):
   assert changed["episode_length_s"] == "1000000.0"
   assert changed["observations.policy.enable_corruption"] == "False"
   assert removed == {"events.push_robot"}
+  if task == ROUGH:
+    import torch_parity as tp
+    from mjlab_tpu_torch import assets
+
+    cfg = tasks.load_env_cfg(task)
+    apply_play_overrides(cfg)
+    assert tp.scene_mismatches(cfg.scene, assets.G1_VELOCITY_ROUGH_PLAY) == []
 
 
 def test_play_trained_acts_with_the_checkpoints_policy(ckpt, capsys):

@@ -154,10 +154,29 @@ def test_promoted_env_origin_stays_on_its_first_tile():
 
 @pytest.mark.parametrize("field,value", [("num_rows", 3), ("num_cols", 21)])
 def test_a_grid_other_than_the_scenes_raises(field, value):
+  """Any grid builds: an env on a grid no committed scene holds has the
+  arrays (compose.mismatches) and the tiles' and envs' origins of the JAX
+  package's compile of the same cfg."""
+  from mjlab_tpu.scene import Scene as JaxScene
+  from mjlab_tpu_torch.assets import model_arrays
   from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+  from mjlab_tpu_torch.scene.compose import mismatches
 
   cfg = load_env_cfg(TASK)
   cfg.scene.num_envs = 2
   setattr(cfg.scene.terrain.terrain_generator, field, value)
-  with pytest.raises(NotImplementedError, match="terrain generation"):
-    ManagerBasedRlEnv(cfg, device="cpu")
+  with tp.torch_threads(1):
+    env = ManagerBasedRlEnv(cfg, device="cpu")
+  jcfg = tp.rough_jax_cfg("g1")
+  jcfg.scene.num_envs = 2
+  setattr(jcfg.scene.terrain.terrain_generator, field, value)
+  jscene = JaxScene(jcfg.scene)
+  mj = jscene.compile()
+  jcfg.sim.mujoco.apply(mj)
+  want = {**model_arrays(mj), "terrain_origins": np.asarray(jscene.terrain.terrain_origins)}
+  assert mismatches(want, model_arrays(env.scene._model)) == []
+  np.testing.assert_array_equal(env.scene.terrain.terrain_origins, want["terrain_origins"])
+  jscene.terrain.initialize(_Ctx(jnp.float64))
+  np.testing.assert_array_equal(env.scene.env_origins.numpy(), np.asarray(jscene.terrain.env_origins))
+  assert env.scene.terrain.terrain_origins.shape[:2] == (
+    (3, 20) if field == "num_rows" else (10, 21))

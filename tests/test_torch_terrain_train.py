@@ -2,8 +2,9 @@
 at a tiny size: `python -m mjlab_tpu_torch.scripts.train
 Mjlab-Velocity-Rough-Unitree-G1 --env.scene.num_envs 2 ...` (the G1 PPO
 cfg; the terrain curriculum logs its mean level); `play` on the
-checkpoint, which loads the committed play scene (3 x 3 tiles, no
-curriculum); and the play overrides against the JAX package's."""
+checkpoint, which regenerates the terrain on 3 x 3 tiles without the
+curriculum, the committed play scene; and the play overrides against the
+JAX package's."""
 
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ def test_play_loads_the_play_scene(trained):
   res = run_play(TASK, {"agent.device": "cpu", "checkpoint": str(log_dir / "model_1.pt"),
                         "num_envs": "2", "steps": "3"})
   env = res.env
-  assert env.cfg.scene.model_file == assets.G1_VELOCITY_ROUGH_PLAY
+  assert env.cfg.scene.model_file == assets.G1_VELOCITY_FLAT
+  assert tp.scene_mismatches(env.cfg.scene, assets.G1_VELOCITY_ROUGH_PLAY) == []
   assert env.scene.terrain.terrain_origins.shape == (3, 3, 3)
   assert len(env.tp.terrain_groups[0].pool_geoms) == 237
   assert math.isfinite(res.mean_reward) and (res.base_z > 0.3).all()
@@ -55,7 +57,8 @@ def test_play_loads_the_play_scene(trained):
 
 def test_play_overrides_match_jax():
   """The same terrain and episode changes as the JAX function, and the
-  scene moves to the committed play npz, which holds that terrain."""
+  regenerated scene is the committed play npz, the JAX package's compile
+  of that terrain."""
   from mjlab_tpu_torch import assets
   from mjlab_tpu_torch.scripts.play import apply_play_overrides
   from mjlab_tpu_torch.tasks import load_env_cfg
@@ -71,7 +74,8 @@ def test_play_overrides_match_jax():
   assert (grid(cfg), grid(play)) == (grid(jcfg), grid(jplay)) == ((10, 20, True), (3, 3, False))
   assert play.episode_length_s == jplay.episode_length_s == 1.0e6
   assert "push_robot" not in play.events and "push_robot" not in jplay.events
-  assert play.scene.model_file == assets.G1_VELOCITY_ROUGH_PLAY
+  assert play.scene.model_file == cfg.scene.model_file == assets.G1_VELOCITY_FLAT
+  assert tp.scene_mismatches(play.scene, assets.G1_VELOCITY_ROUGH_PLAY) == []
   flat = load_env_cfg("Mjlab-Velocity-Flat-Unitree-G1")
   apply_play_overrides(flat)
   assert flat.scene.model_file == assets.G1_VELOCITY_FLAT

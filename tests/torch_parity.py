@@ -856,11 +856,37 @@ def rough_scene(name: str, play: bool = False):
 
 
 def rough_npz(name: str, play: bool = False):
-  """The committed rough (or play) scene of `name`."""
+  """The committed rough (or play) scene of `name`: the JAX package's
+  compile, the oracle of the port's composition."""
   from mjlab_tpu_torch import assets
 
-  path = getattr(assets, ROUGH[name][3])
-  return assets.play_scene(path) if play else path
+  return getattr(assets, ROUGH[name][3] + ("_PLAY" if play else ""))
+
+
+def scene_mismatches(scene_cfg, path) -> list[str]:
+  """Where the port's scene of `scene_cfg`, composed anew, departs from the
+  committed npz at `path` (compose.mismatches)."""
+  from mjlab_tpu_torch.assets import load_model_arrays, model_arrays
+  from mjlab_tpu_torch.scene.compose import mismatches
+  from mjlab_tpu_torch.scene.scene import load_compiled_model
+
+  return mismatches(load_model_arrays(path), model_arrays(load_compiled_model(scene_cfg)))
+
+
+def composed_rough_arrays(name: str, play: bool = False, edit=None) -> dict:
+  """The arrays of the port's rough (or play) scene of `name` as its task
+  composes them, after `edit(cfg)` where given."""
+  from mjlab_tpu_torch.assets import model_arrays
+  from mjlab_tpu_torch.scene.scene import load_compiled_model
+  from mjlab_tpu_torch.scripts.play import apply_play_overrides
+  from mjlab_tpu_torch.tasks import load_env_cfg
+
+  cfg = load_env_cfg(ROUGH[name][2])
+  if play:
+    apply_play_overrides(cfg)
+  if edit is not None:
+    edit(cfg)
+  return model_arrays(load_compiled_model(cfg.scene))
 
 
 def save_rough_npz(name: str, play: bool = False) -> None:
