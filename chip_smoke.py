@@ -298,8 +298,30 @@ and `launches_pair_scenes_path`, phase 18a's env steps and 18b's scenes
 phase 17a's env steps' launches, its times on that run's rows and
 `library_ms` null: no PyTorch call computes a projected Gauss-Seidel
 sweep); every entry has `launches_hf_path`, phase 19b's iteration, and the
-four Cholesky and Newton entries `ms_hf_run_matrices`; the last line is
+four Cholesky and Newton entries `ms_hf_run_matrices`; the seventh to
+ninth, `newton_gradient`, `newton_linesearch` and `constraint_cost`,
+have every path's launches (`launches_<path>_path`; PGS's 0), `ms`
+on phase 2's 2%-active input, `ms_main_path` per launch in phase 6's
+profile, `ms_run_rows`, `ms_elliptic_rows` and `ms_cg_rows` on phases 3b's
+and 14's rows, the bounds on those inputs and `library_ms` null: no
+PyTorch call computes an exact linesearch (the torch path each replaces is
+its plain version, `plain_ms`); the last line is
 {"ok": true, "device": {...}}.
+
+The Newton iteration's kernels add: in phase 2 the three against
+their plain versions at the main path's shapes (4096 x 1699 x 35, f32) with
+~2% of the rows active, all of them and none, in f32 and f64, their times,
+plain times and bounds and their launch (resident worlds per SM, shared
+bytes, registers, spills); in phases 3, 7 and 8 (and every path through
+`train_iterations`, and phase 14's CG run) their launches per substep, env
+step and iteration: per Newton solve of K iterations 1 `constraint_cost`,
+K + 1 `newton_gradient` and K `newton_linesearch` (22 per G1 substep, 5 /
+55 / 50 per env step), per CG solve 1, K + 2 and K, none under PGS; in
+phase 3b and phase 14's elliptic and CG runs the three against their plain
+versions on the run's rows (f32 and f64) and their times there; in phase 5
+the solve split into the directions, the gradient kernel, the linesearch
+kernel and the rest; in phase 6 a failure if a product with a (B, nefc,
+nv) operand runs inside the solver.solve profiler span.
 """
 
 from __future__ import annotations
@@ -331,7 +353,11 @@ KERNELS = ("chol_factor", "chol_solve", "chol_factor_solve", "newton_direction")
 # The elliptic cone's Newton kernel (phase 14); the pyramidal paths launch
 # KERNELS only.
 CONE_KERNEL = "newton_direction_cone"
-ALL_KERNELS = KERNELS + (CONE_KERNEL,)
+# The rest of the Newton iteration (kernels/newton.py): every Newton
+# or CG solve launches these, the pyramidal paths KERNELS and these.
+NEWTON_KERNELS = ("newton_gradient", "newton_linesearch", "constraint_cost")
+PATH_KERNELS = KERNELS + NEWTON_KERNELS
+ALL_KERNELS = PATH_KERNELS + (CONE_KERNEL,)
 OUT = Path("chiprun_out")
 TASK = "Mjlab-Velocity-Flat-Unitree-G1"
 RL_EPISODE_S = 0.4  # cut from 20 s: 20 env steps, every env resets in-step
@@ -354,6 +380,42 @@ def fact_per_env_step(newton_iters: int = 10, decimation: int = DECIMATION,
 
 
 RL_FACT_PER_STEP = fact_per_env_step()
+
+
+def newton_per_solve(iterations: int = 10, cg: bool = False) -> dict[str, int]:
+  """The Newton iteration's kernels per solve: a Newton solve of K
+  iterations launches 1 constraint_cost (the warm start), K + 1
+  newton_gradient (each iteration's and the final forces') and K
+  newton_linesearch; a CG solve 1, K + 2 (its first gradient too) and K."""
+  return {"constraint_cost": 1, "newton_gradient": iterations + (2 if cg else 1),
+          "newton_linesearch": iterations}
+
+
+def newton_per_env_step(opt, decimation: int = DECIMATION) -> dict[str, int]:
+  """The Newton iteration's kernels per env step for the model's solver
+  options: one solve per substep and the post-reset forward's (5 solves at
+  4 substeps: 5, 55 and 50 for G1's 10 Newton iterations); none under PGS."""
+  from mjlab_tpu_torch.physics.types import mjtSolver
+
+  if opt.solver == mjtSolver.mjSOL_PGS:
+    return {k: 0 for k in NEWTON_KERNELS}
+  per = newton_per_solve(opt.iterations, opt.solver == mjtSolver.mjSOL_CG)
+  return {k: (decimation + 1) * v for k, v in per.items()}
+
+
+def reset_counts() -> None:
+  """Every kernel's launch counter to 0."""
+  from mjlab_tpu_torch.kernels import chol, newton, pgs
+
+  for mod in (chol, newton, pgs):
+    mod.reset_counts()
+
+
+def launch_counts() -> dict[str, int]:
+  """Every kernel's launches since `reset_counts`."""
+  from mjlab_tpu_torch.kernels import chol, newton, pgs
+
+  return {**chol.LAUNCHES, **pgs.LAUNCHES, **newton.LAUNCHES}
 TRAIN_ITERS = 2  # 3 until PR 7; 2 keeps the script with phase 11 inside its limit
 # Phases 11-13's tasks run one iteration (phases 12-13's cut from 2 with a
 # profile and the stage times), so that the script stays inside its limit
@@ -366,6 +428,9 @@ TRAIN_STEPS = 24  # the G1 PPO cfg's num_steps_per_env
 CUT_STEPS = 4  # cut from 8 to pay for phase 19
 CUT_F64_STEPS = 2
 # The runner's torch.profiler spans: a rollout step's two, then the update's.
+# The solver's profiler span (physics/solver.py); its GPU-side annotation
+# row is no kernel.
+SOLVE_SPAN = "solver.solve"
 TRAIN_SPANS = ("rollout_step/act", "rollout_step/env_step",
                "ppo_update/prepare", "ppo_update/minibatch_steps")
 F64_SEEDS = (3,)  # draws of the card-vs-CPU float64 training iteration (cut from 3, 4, 5)
@@ -542,6 +607,158 @@ def bounds(batch: int, n: int, rows: float, elem: int = 4,
   return out
 
 
+def rows_as(rows, dtype):
+  """A copy of newton.Rows in another float dtype (classes and layout
+  kept)."""
+  from mjlab_tpu_torch.kernels import newton
+
+  def cast(t):
+    return None if t is None else t.to(dtype)
+
+  return newton.Rows(*(cast(t) for t in (rows.qM, rows.J, rows.D, rows.aref, rows.a0)),
+                     fl=cast(rows.fl), is_eq=cast(rows.is_eq), is_fric=cast(rows.is_fric),
+                     reg=cast(rows.reg), kind=rows.kind, layout=rows.layout,
+                     mu0=cast(rows.mu0))
+
+
+def newton_bounds(rows, iters: int, safeguard: bool = False,
+                  k: int = 2) -> dict[str, tuple[float, str]]:
+  """Least time (ms) of each of the Newton iteration's kernels on these
+  float32 rows: the larger of the bytes it must move (D on every row; J,
+  aref and fl on the active rows, D != 0, a cone slot's rows with it; qM's
+  lower triangle; its vectors and outputs: w or efc_force on every row and
+  the cone blocks for the gradient) over HBM's rate, and its FLOP over the
+  float32 rate (per active row 2n for each product with J, a few per
+  linesearch step; 2n² per quadratic form; the linesearch's cost at x and
+  each candidate, 2 points, or 7 with the safeguard)."""
+  B, m = rows.D.shape
+  n, e = rows.qM.shape[1], rows.D.element_size()
+  active = int((rows.D != 0).sum().item())
+  per_row = (n + 1 + int(rows.fl is not None)) * e
+  common = B * m * e + active * per_row + B * n * (n + 1) // 2 * e
+  nb = rows.layout.nb if rows.layout is not None else 0
+  costs = 7 if safeguard else 2
+  work = {
+    "newton_gradient": (common + 3 * B * n * e + B * m * e + B * nb * e,
+                        4 * active * n + 2 * B * n * n),
+    "newton_linesearch": (common + 4 * B * n * e + B * (e + 1),
+                          4 * active * n + 8 * iters * active
+                          + costs * (2 * active * n + 2 * B * n * n) + 4 * B * n * n),
+    "constraint_cost": (common + B * (k + 1) * n * e + B * k * e,
+                        k * (2 * active * n + 2 * B * n * n)),
+  }
+  out = {}
+  for name, (byt, flop) in work.items():
+    tb, tf = byt / PEAK_BYTES * 1e3, flop / PEAK_F32 * 1e3
+    out[name] = (max(tb, tf), "bytes" if tb >= tf else "operations")
+  return out
+
+
+def iteration_inputs(rows):
+  """(x, p) of a first Newton iteration on these rows: x = a0 (qacc_smooth,
+  where the violated rows are active) and p its Newton direction."""
+  from mjlab_tpu_torch.kernels import newton
+  from mjlab_tpu_torch.physics import solver
+
+  x = rows.a0
+  grad, w, blocks = newton.newton_gradient(rows, x)
+  return x, solver.direction(rows, grad, w, blocks)
+
+
+def iteration_kernels(tag: str, rows, x, p, iters: int, safeguard: bool, checks: "KernelCheck",
+                      card: str, time_plain: bool = True) -> dict[str, dict]:
+  """The three kernels of the Newton iteration against their plain versions
+  on float32 rows (KernelCheck's rule) and, cast to float64, within 1e-10
+  relative; each kernel's ms on these rows (mean of 20 calls), its plain
+  version's and its bound. The comparisons' launches are the caller's to
+  leave out of a path's counts."""
+  from mjlab_tpu_torch.kernels import newton
+
+  X = torch.stack([x, x + p], dim=1).contiguous()
+  calls = {
+    "newton_gradient": (lambda r, x_, p_, X_: newton.newton_gradient(r, x_),
+                        lambda r, x_, p_, X_: newton.newton_gradient_plain(r, x_)),
+    "newton_forces": (lambda r, x_, p_, X_: newton.newton_gradient(r, x_, forces=True),
+                      lambda r, x_, p_, X_: newton.newton_gradient_plain(r, x_, forces=True)),
+    "newton_linesearch": (
+      lambda r, x_, p_, X_: newton.newton_linesearch(r, x_, p_, iters, safeguard),
+      lambda r, x_, p_, X_: newton.newton_linesearch_plain(r, x_, p_, iters, safeguard)),
+    "constraint_cost": (lambda r, x_, p_, X_: (newton.constraint_cost(r, X_),),
+                        lambda r, x_, p_, X_: (newton.constraint_cost_plain(r, X_),)),
+  }
+  rows64 = rows_as(rows, torch.float64)
+  a64 = (x.double(), p.double(), X.double())
+  worst64 = 0.0
+  for name, (kern, plain) in calls.items():
+    got, want = kern(rows, x, p, X), plain(rows, x, p, X)
+    ref = plain(rows64, *a64)
+    got64 = kern(rows64, *a64)
+    key = "newton_gradient" if name == "newton_forces" else name
+    keep = None
+    if name == "newton_linesearch":
+      # The acceptance may decide a cost tie the other way (the sums over
+      # the rows round differently): there the two chosen points' float64
+      # costs agree within 1e-5 relative in float32 (1e-12 in float64), and
+      # x' is compared in the other worlds.
+      keep = {}
+      for tol, g3, w3, label in ((1e-5, got, want, "f32"), (1e-12, got64, ref, "f64")):
+        flips = g3[2] != w3[2]
+        if flips.any():
+          c_got = rows64.total_cost(g3[0].double())[flips]
+          c_plain = rows64.total_cost(w3[0].double())[flips]
+          tie = ((c_got - c_plain).abs() <= tol * c_plain.abs().clamp_min(1.0)).all().item()
+          print(f"  {tag}: the {label} acceptance decided {int(flips.sum())} cost ties the "
+                f"other way (costs agree within {tol:g}: {tie})")
+          if not tie:
+            raise AssertionError(f"{tag}: an {label} acceptance differs where costs do not tie")
+        keep[label] = ~flips
+      got, want, ref, got64 = got[:2], want[:2], ref[:2], got64[:2]
+    for i, (g, w_, r) in enumerate(zip(got, want, ref)):
+      if g is None:
+        continue
+      r_full, g64 = r, got64[i]
+      if keep is not None and i == 0:
+        g, w_, r = g[keep["f32"]], w_[keep["f32"]], r[keep["f32"]]
+        g64, r_full = g64[keep["f64"]], r_full[keep["f64"]]
+      flat = [t.reshape(t.shape[0], -1) for t in (g, w_, r)]
+      checks.check(key, f"{tag} {name[7:] if name.startswith('newton_') else 'cost'}[{i}]",
+                   *flat)
+      ok = ~torch.isnan(r_full)
+      if ok.any():
+        err = ((g64 - r_full)[ok].abs().max().item()
+               / max(1.0, r_full[ok].abs().max().item()))
+        worst64 = max(worst64, err)
+  torch.cuda.synchronize()
+  print(f"  the Newton iteration's kernels in float64 on {tag}: largest relative error "
+        f"{worst64:.3e} (tol 1e-10)")
+  if not worst64 <= 1e-10:
+    raise AssertionError(f"{tag}: a float64 Newton-iteration kernel differs by {worst64:.3e}")
+  bnd = newton_bounds(rows, iters, safeguard)
+  out = {}
+  for name in NEWTON_KERNELS:
+    kern, plain = calls[name]
+    ms = time_ms(lambda: kern(rows, x, p, X), [()])
+    plain_ms = time_ms(lambda: plain(rows, x, p, X), [()], iters=3) if time_plain else None
+    out[name] = {"ms": ms, "plain_ms": plain_ms, "bound": bnd[name]}
+    print(f"  {name:18s} on {tag}: kernel {ms:.4f} ms  plain "
+          + (f"{plain_ms:.4f} ms" if plain_ms is not None else "not timed")
+          + f"  bound {bnd[name][0]:.6f} ms ({bnd[name][1]}) [{card}]")
+  return out
+
+
+def print_iteration_launch(what: str, dtype, n: int, m: int, ncone: int = 0) -> dict:
+  """The Newton-iteration kernels' launch at these shapes (resident worlds
+  per SM, shared bytes, registers, local bytes)."""
+  from mjlab_tpu_torch.kernels import newton
+
+  cfgs = {name: newton.launch_config(name, dtype, n, m, ncone) for name in NEWTON_KERNELS}
+  for name, cfg in cfgs.items():
+    print(f"  {name} launch ({what}): one-warp blocks, {cfg['worlds_per_sm']} resident worlds "
+          f"per SM of {cfg['sms']}, {cfg['shared_bytes']} shared bytes per world, "
+          f"{cfg['registers']} registers and {cfg['spill_bytes']} local bytes per thread")
+  return cfgs
+
+
 def stage_times(tp, m, d, reps: int = 3) -> dict[str, float]:
   """Mean ms of each stage of one physics substep, in the order of
   physics.forward.step, each fed the previous stage's output."""
@@ -577,11 +794,13 @@ def stage_times(tp, m, d, reps: int = 3) -> dict[str, float]:
   return out
 
 
-def solve_split(m, d, reps: int = 3) -> dict[str, float]:
+def solve_split(tp, m, d, reps: int = 3) -> dict[str, float]:
   """Mean ms of solver.solve's parts on one substep's data, run as
   solver.solve runs them: the Newton directions (H and its factor and
-  solves), the linesearches (with the step's acceptance test), and the
-  rest (warm start, residuals, gradients, the final forces)."""
+  solves), the gradient kernel (each iteration's and the final forces'),
+  the linesearch kernel (with the step's acceptance), and the rest (the
+  rows' set-up and the warm start's constraint_cost)."""
+  from mjlab_tpu_torch.kernels import newton
   from mjlab_tpu_torch.physics import solver
 
   marks = []
@@ -595,16 +814,18 @@ def solve_split(m, d, reps: int = 3) -> dict[str, float]:
     marks.append((part, start, end))
     return out
 
+  cone = tp.dev.con.cone_groups != []
   for _ in range(reps):
-    a0 = d.qacc_smooth
-    x = timed("rest", solver._warm_start, d, a0)
+    rows = timed("rest", newton.Rows.of, tp, d)
+    x = timed("rest", solver.warm_start, rows, d.qacc_warmstart.contiguous())
     for _ in range(m.opt.iterations):
-      r, grad = timed("rest", solver._gradient, d, a0, x)
-      p = timed("H + direction", solver._direction, d, r, grad)
-      x = timed("linesearch", solver._linesearch, m, d, a0, x, r, p)
-    timed("rest", solver._forces, d, x)
+      grad, w, blocks = timed("gradient kernel", newton.newton_gradient, rows, x)
+      p = timed("H + direction", solver.direction, rows, grad, w, blocks)
+      x = timed("linesearch kernel", newton.newton_linesearch, rows, x, p,
+                m.opt.ls_iterations, cone)[0]
+    timed("gradient kernel", newton.newton_gradient, rows, x, True)
   torch.cuda.synchronize()
-  out = {"H + direction": 0.0, "linesearch": 0.0, "rest": 0.0}
+  out = {"H + direction": 0.0, "gradient kernel": 0.0, "linesearch kernel": 0.0, "rest": 0.0}
   for part, start, end in marks:
     out[part] += start.elapsed_time(end) / reps
   return out
@@ -915,7 +1136,7 @@ def span_busy_ms(prof) -> tuple[dict[str, tuple[float, float]], set[str]]:
   events = prof.events()
   kernels = sorted(
     (e.time_range.start, e.time_range.elapsed_us()) for e in events
-    if str(e.device_type).endswith("CUDA") and e.name not in TRAIN_SPANS
+    if str(e.device_type).endswith("CUDA") and e.name not in (*TRAIN_SPANS, SOLVE_SPAN)
     and not getattr(e, "is_user_annotation", False)
   )
   starts = [k[0] for k in kernels]
@@ -931,12 +1152,13 @@ def span_busy_ms(prof) -> tuple[dict[str, tuple[float, float]], set[str]]:
 
 
 def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
-                     iters: int = TRAIN_ITERS, expect: tuple[str, ...] = KERNELS,
+                     iters: int = TRAIN_ITERS, expect: tuple[str, ...] = PATH_KERNELS,
                      steps: int = TRAIN_STEPS):
   """`iters` `train_iteration`s under set_sync_debug_mode("error") with
-  the kernels' counters (chol's and pgs') set to 0 just before and read
-  just after. Checks 1416 factorizations and 120 `chol_solve` per
-  iteration (at 10 Newton iterations), finite losses, the lr inside
+  every kernel's counter set to 0 just before and read just after. Checks
+  1416 factorizations, 120 `chol_solve` and 120 `constraint_cost`, 1320
+  `newton_gradient` and 1200 `newton_linesearch` per iteration (at 10
+  Newton iterations; `newton_per_env_step`), finite losses, the lr inside
   [1e-5, 1e-2], the rollout buffers' shapes and that every parameter
   moved. Each iteration runs as
   `timed_iteration`. Returns the launches, the steady ms per iteration
@@ -957,8 +1179,7 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
                          f"not {steps}")
   before = runner_state_to_arrays(runner)
   metrics, marks, mems = [], [], []
-  chol.reset_counts()
-  pgs.reset_counts()
+  reset_counts()
   torch.cuda.set_sync_debug_mode("error")
   t0 = time.perf_counter()
   for _ in range(iters):
@@ -969,7 +1190,7 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
   torch.cuda.set_sync_debug_mode("default")
   torch.cuda.synchronize()
   t_train = time.perf_counter() - t0
-  launches = {**chol.LAUNCHES, **pgs.LAUNCHES}
+  launches = launch_counts()
   fact = chol.factorizations()
   peak_gb = max(max(mem.values()) for mem in mems)
   iter_ms = [mk[0][1].elapsed_time(mk[-1][1]) for mk in marks]
@@ -995,11 +1216,14 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
   opt = runner.env.sim.model.opt
   per_step = fact_per_env_step(opt.iterations, decimation, opt.solver == mjtSolver.mjSOL_PGS)
   solves = decimation + 1  # each substep's solve_m and the post-reset forward's
+  newton_want = {k: steps * v for k, v in newton_per_env_step(opt, decimation).items()}
+  print(f"  the Newton iteration's kernels per iteration {newton_want} (newton_per_env_step)")
   if (fact != steps * per_step * iters
       or launches["chol_solve"] != steps * solves * iters
+      or any(launches[k] != v * iters for k, v in newton_want.items())
       or any(launches[k] == 0 for k in expect)):
-    raise AssertionError(f"{phase}: expected {steps * per_step} factorizations "
-                         f"and {steps * solves} solves per iteration, got "
+    raise AssertionError(f"{phase}: expected {steps * per_step} factorizations, "
+                         f"{steps * solves} solves and {newton_want} per iteration, got "
                          f"{launches}")
   for m in host:
     if not all(np.isfinite(m[k]) for k in ("Loss/loss", "Loss/kl", "Loss/value_loss")):
@@ -1087,7 +1311,8 @@ def profile_iteration(runner, card: str, attr: str, tag: str, steady_iter_ms: fl
     table = OUT / f"chip_smoke_{tag}_{name}_profile.txt"
     table.write_text(averages.table(sort_by=attr, row_limit=40))
     events = [e for e in averages if str(e.device_type).endswith("CUDA")
-              and e.key not in TRAIN_SPANS and not getattr(e, "is_user_annotation", False)]
+              and e.key not in (*TRAIN_SPANS, SOLVE_SPAN)
+              and not getattr(e, "is_user_annotation", False)]
     profiled[part] = (sum(getattr(e, attr) for e in events) / 1e3, sum(e.count for e in events))
     if spans:
       got, seen = span_busy_ms(prof)
@@ -1455,7 +1680,7 @@ def asimov_path(card: str, attr: str, checks: KernelCheck):
   both tasks' iterations and each kernel's ms on each run's matrices
   (keyed by nv)."""
   t_phase = time.perf_counter()
-  launches = {k: 0 for k in KERNELS}
+  launches = {k: 0 for k in PATH_KERNELS}
   path_ms: dict[str, dict[str, float]] = {k: {} for k in KERNELS}
 
   def hulls(runner):
@@ -1498,7 +1723,7 @@ def rough_go1_path(card: str, attr: str, checks: KernelCheck):
   from mjlab_tpu_torch.scripts.play import run_play
 
   t_phase = time.perf_counter()
-  launches = {k: 0 for k in KERNELS}
+  launches = {k: 0 for k in PATH_KERNELS}
   path_ms: dict[str, dict[str, float]] = {k: {} for k in KERNELS}
   for task, obs_dims in ROUGH_GO1_OBS_DIMS.items():
     rough = "Rough" in task
@@ -1513,11 +1738,11 @@ def rough_go1_path(card: str, attr: str, checks: KernelCheck):
 
   gc.collect()
   torch.cuda.empty_cache()
-  chol.reset_counts()
+  reset_counts()
   t0 = time.perf_counter()
   res = run_play(ROUGH_TASK, {"num_envs": str(NUM_WORLDS), "steps": str(EARLY_PLAY_STEPS),
                               "policy": "random"})
-  play_launches = dict(chol.LAUNCHES)
+  play_launches = launch_counts()
   env = res.env
   print(f"  run_play {ROUGH_TASK} --policy random: {NUM_WORLDS} envs x {EARLY_PLAY_STEPS} steps in "
         f"{res.seconds:.2f} s ({time.perf_counter() - t0:.2f} s with the build), mean reward "
@@ -1528,9 +1753,9 @@ def rough_go1_path(card: str, attr: str, checks: KernelCheck):
   if (Path(env.cfg.scene.model_file) != assets.G1_VELOCITY_FLAT
       or env.scene.terrain.terrain_origins.shape[:2] != (3, 3)
       or not np.isfinite(res.mean_reward) or not np.isfinite(res.base_z).all()
-      or any(play_launches[k] == 0 for k in KERNELS)):
+      or any(play_launches[k] == 0 for k in PATH_KERNELS)):
     raise AssertionError("phase 12: the rough task's play")
-  for k in KERNELS:
+  for k in PATH_KERNELS:
     launches[k] += play_launches[k]
   del res, env
   print(f"phase 12: {time.perf_counter() - t_phase:.1f} s; launches over G1 rough's and "
@@ -1644,7 +1869,7 @@ def rough13_path(card: str, attr: str, checks: KernelCheck):
   from mjlab_tpu_torch.scripts.play import run_play
 
   t_phase = time.perf_counter()
-  launches = {k: 0 for k in KERNELS}
+  launches = {k: 0 for k in PATH_KERNELS}
   path_ms: dict[str, dict[str, float]] = {k: {} for k in KERNELS}
   sat: dict[str, tuple[int, float]] = {}
   for task, obs_dims in ROUGH13_OBS_DIMS.items():
@@ -1681,11 +1906,11 @@ def rough13_path(card: str, attr: str, checks: KernelCheck):
   gc.collect()
   torch.cuda.empty_cache()
   go1 = "Mjlab-Velocity-Rough-Unitree-Go1"
-  chol.reset_counts()
+  reset_counts()
   t0 = time.perf_counter()
   res = run_play(go1, {"num_envs": str(NUM_WORLDS), "steps": str(EARLY_PLAY_STEPS),
                        "policy": "random"})
-  play_launches = dict(chol.LAUNCHES)
+  play_launches = launch_counts()
   env = res.env
   print(f"  run_play {go1} --policy random: {NUM_WORLDS} envs x {EARLY_PLAY_STEPS} steps in "
         f"{res.seconds:.2f} s ({time.perf_counter() - t0:.2f} s with the build), mean reward "
@@ -1696,9 +1921,9 @@ def rough13_path(card: str, attr: str, checks: KernelCheck):
   if (Path(env.cfg.scene.model_file) != assets.GO1_VELOCITY_FLAT
       or env.scene.terrain.terrain_origins.shape[:2] != (3, 3)
       or not np.isfinite(res.mean_reward) or not np.isfinite(res.base_z).all()
-      or any(play_launches[k] == 0 for k in KERNELS)):
+      or any(play_launches[k] == 0 for k in PATH_KERNELS)):
     raise AssertionError("phase 13: Go1 rough's play")
-  for k in KERNELS:
+  for k in PATH_KERNELS:
     launches[k] += play_launches[k]
   del res, env
   print(f"phase 13: {time.perf_counter() - t_phase:.1f} s; launches over the three tasks' "
@@ -2016,7 +2241,7 @@ def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dic
     originals["load"](self, path)
     loaded.append((path, runner_state_to_arrays(self), self.iteration))
 
-  chol.reset_counts()
+  reset_counts()
   t_phase = time.perf_counter()
   OnPolicyRunner.save, OnPolicyRunner._pull_metrics = lifted("save"), lifted("_pull_metrics")
   OnPolicyRunner.learn, OnPolicyRunner.load = strict_learn, recording_load
@@ -2094,14 +2319,14 @@ def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dic
   if not (err <= 1e-5 * scale and np.isfinite(res.mean_reward) and np.isfinite(res.base_z).all()):
     raise AssertionError("phase 10: play")
   print("  kernels vs plain on the play env's matrices, f32:")
-  before = dict(chol.LAUNCHES)  # the comparison's launches do not count as the path's
+  before = launch_counts()  # the comparison's launches do not count as the path's
   d = env.data
   dev = d.qM.device
   grad = torch.randn(NUM_WORLDS, N, generator=torch.Generator(device=dev).manual_seed(10),
                      device=dev)
   checks.all_three("play qM", d.qM.contiguous(), d.qfrc_smooth.contiguous())
   checks.newton("play qM,J,w", d.qM, d.efc_J, solver.newton_weights(d, d.qacc), grad)
-  compared = {k: chol.LAUNCHES[k] - before[k] for k in before}
+  compared = {k: launch_counts()[k] - before[k] for k in before}
 
   guard = NanGuard(NanGuardCfg(enabled=True, output_dir=str(run_dir / "nan_dumps")), env)
   watch_ms = []
@@ -2139,9 +2364,9 @@ def lifecycle_path(card: str, checks: KernelCheck, steady_iter_ms: float) -> dic
   print(f"  ONNX: export_policy_as_onnx returned {onnx!r}")
   gc.collect()
   torch.cuda.empty_cache()
-  launches = {k: v - compared[k] for k, v in chol.LAUNCHES.items()}
+  launches = {k: v - compared[k] for k, v in launch_counts().items()}
   print(f"  phase 10 in {time.perf_counter() - t_phase:.1f} s; launches {launches}")
-  if any(launches[k] == 0 for k in KERNELS):
+  if any(launches[k] == 0 for k in PATH_KERNELS):
     raise AssertionError(f"phase 10: a kernel was not launched: {launches}")
   return launches
 
@@ -2229,7 +2454,7 @@ def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
   plain version on the run's last matrices (f32 and f64), its times, and
   the card's float64 env against the CPU's. Returns the launches and the
   kernel's numbers for the JSON line."""
-  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.kernels import chol, newton
   from mjlab_tpu_torch.physics import solver
   from mjlab_tpu_torch.scripts.train import build_runner
 
@@ -2250,7 +2475,7 @@ def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
     raise AssertionError(f"phase 14 elliptic: nefc {tp.nefc}, obs {env.group_obs_dim}")
   got, steady_iter_ms, _, split = train_iterations(
     runner, card, "phase 14 elliptic", (99, 111), iters=CUT_ITERS,
-    expect=KERNELS[:3] + (CONE_KERNEL,), steps=CUT_STEPS)
+    expect=KERNELS[:3] + NEWTON_KERNELS + (CONE_KERNEL,), steps=CUT_STEPS)
   it = env.sim.model.opt.iterations
   per_iter = CUT_STEPS * (DECIMATION * it + it)
   print(f"  {CONE_KERNEL} launches {got[CONE_KERNEL]} = {got[CONE_KERNEL] / CUT_ITERS:.0f} "
@@ -2264,7 +2489,7 @@ def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
   del split
 
   d, n = env.data, tp.nv
-  gen = solver.GeneralCost(tp, env.sim.model, d)
+  gen = newton.Rows.of(tp, d)
   r = gen.residual(d.qacc)
   w, Bc = gen.row_hess(r), gen.cone_blocks(r)
   grad = torch.randn(NUM_WORLDS, n, generator=torch.Generator(device="cuda").manual_seed(14),
@@ -2311,25 +2536,33 @@ def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
   print(f"  {CONE_KERNEL} on the run's matrices: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
         f"library (einsum + cholesky_ex + cholesky_solve) {lib_ms:.4f} ms  bound "
         f"{bnd[0]:.6f} ms ({bnd[1]}) [{card}]")
-  del runner, env, d, gen, r, w, Bc, args, args64, x64, got64, qM, J
+  del args, args64, x64, got64, qM, J, w, Bc
+  # The Newton iteration's kernels on the run's rows (the elliptic
+  # safeguard's acceptance), from a0 along its Newton direction.
+  iter_res = iteration_kernels("the G1 elliptic run's rows", gen, *iteration_inputs(gen),
+                               env.sim.model.opt.ls_iterations, True, checks, card)
+  del runner, env, d, gen, r
   gc.collect()
   torch.cuda.empty_cache()
   f64_env_check(TASK, n_steps=CUT_F64_STEPS, nudges=PHASE14_NUDGES,
                 overrides={"sim.mujoco.cone": "elliptic"})
-  return {"launches": got, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+  return {"launches": got, "iter": iter_res, "ms": ms, "plain_ms": plain_ms,
+          "library_ms": lib_ms,
           "bound": bnd, "steady_iter_ms": steady_iter_ms, "launch": launch}
 
 
-def cg_path(card: str) -> dict[str, int]:
+def cg_path(card: str, checks: KernelCheck) -> tuple[dict[str, int], dict]:
   """Phase 14, part 2: G1 velocity-flat under solver="cg", 10 env steps of
   N(0, 1) actions at 4096 envs under set_sync_debug_mode("error"): ms per
   env step, and the Cholesky launches per env step against the code's count
   (per forward, M's factor and CG's factor of M + 1e-12·I, M's solve for
   qacc_smooth and CG's 1 + iterations solves; 4 substeps and the post-reset
-  forward, and the integrator's factor-solve per substep); then the card's
+  forward, and the integrator's factor-solve per substep) and the Newton
+  iteration's (`newton_per_env_step`); the three kernels against their plain
+  versions on the run's last state (`iteration_kernels`); then the card's
   float64 env against the CPU's."""
   from mjlab_tpu_torch.envs import ManagerBasedRlEnv
-  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.kernels import newton
   from mjlab_tpu_torch.scripts.cli import apply_overrides
   from mjlab_tpu_torch.tasks import load_env_cfg
 
@@ -2342,13 +2575,14 @@ def cg_path(card: str) -> dict[str, int]:
   it = env.sim.model.opt.iterations
   forwards = DECIMATION + 1
   want = {"chol_factor": 2 * forwards, "chol_solve": (2 + it) * forwards,
-          "chol_factor_solve": DECIMATION, "newton_direction": 0, CONE_KERNEL: 0}
+          "chol_factor_solve": DECIMATION, "newton_direction": 0, CONE_KERNEL: 0,
+          **newton_per_env_step(env.sim.model.opt)}
   gen = torch.Generator(device="cuda").manual_seed(3)
   actions = [torch.randn(NUM_WORLDS, env.total_action_dim, generator=gen, device="cuda")
              for _ in range(CG_STEPS)]
   env.step(actions[0])
   torch.cuda.synchronize()
-  chol.reset_counts()
+  reset_counts()
   torch.cuda.set_sync_debug_mode("error")
   start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
   start.record()
@@ -2358,7 +2592,7 @@ def cg_path(card: str) -> dict[str, int]:
   torch.cuda.set_sync_debug_mode("default")
   torch.cuda.synchronize()
   steps = CG_STEPS - 1
-  launches = dict(chol.LAUNCHES)
+  launches = launch_counts()
   print(f"phase 14 cg: {TASK} --env.sim.mujoco.solver cg ({it} iterations), {NUM_WORLDS} "
         f"envs, {steps} env steps after one warm-up under set_sync_debug_mode('error'): "
         f"{start.elapsed_time(end) / steps:.2f} ms per env step [{card}]")
@@ -2369,12 +2603,15 @@ def cg_path(card: str) -> dict[str, int]:
   for x in (obs["policy"], obs["critic"], rew, env.data.qpos):
     if not torch.isfinite(x).all():
       raise AssertionError("phase 14 cg: non-finite state")
-  del env, obs, rew, actions
+  rows = newton.Rows.of(env.tp, env.data)
+  iter_res = iteration_kernels("the G1 CG run's rows", rows, *iteration_inputs(rows),
+                               env.sim.model.opt.ls_iterations, False, checks, card)
+  del env, obs, rew, actions, rows
   gc.collect()
   torch.cuda.empty_cache()
   f64_env_check(TASK, n_steps=CUT_F64_STEPS, nudges=PHASE14_NUDGES,
                 overrides={"sim.mujoco.solver": "cg"})
-  return launches
+  return launches, iter_res
 
 
 def scenes_path(card: str) -> dict[str, int]:
@@ -2390,7 +2627,7 @@ def scenes_path(card: str) -> dict[str, int]:
   from mjlab_tpu_torch.kernels import chol
 
   torch.set_num_threads(1)
-  total = {k: 0 for k in ALL_KERNELS}
+  total = {k: 0 for k in (*ALL_KERNELS, PGS_KERNEL)}
   print(f"phase 14 scenes: {SCENE_SUBSTEPS} substeps at {NUM_WORLDS} worlds, float64, "
         f"{SCENE_ITERATIONS} iterations x {SCENE_LS_ITERATIONS} linesearch steps; the first "
         f"{SCENE_CPU_WORLDS} worlds against the CPU (tol 1e-8) [{card}]")
@@ -2417,7 +2654,7 @@ def scenes_path(card: str) -> dict[str, int]:
       qvel[:, :len(sc.qvel)] = torch.tensor(sc.qvel, dtype=torch.float64)
       qvel += 0.05 * torch.randn(NUM_WORLDS, tp.nv, generator=rng, dtype=torch.float64)
       d = physics.make_data(tp, m, NUM_WORLDS).replace(qvel=qvel.cuda())
-      chol.reset_counts()
+      reset_counts()
       d = physics.step(tp, m, d)
       torch.cuda.synchronize()
       start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2426,8 +2663,8 @@ def scenes_path(card: str) -> dict[str, int]:
         d = physics.step(tp, m, d)
       end.record()
       torch.cuda.synchronize()
-      launched = {k: v for k, v in chol.LAUNCHES.items() if v}
-      for k, v in chol.LAUNCHES.items():
+      launched = {k: v for k, v in launch_counts().items() if v}
+      for k, v in launch_counts().items():
         total[k] += v
       if not (torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()):
         raise AssertionError(f"phase 14 scene {name} (cone {cone}): non-finite state")
@@ -2508,7 +2745,7 @@ def surface_path(card: str, attr: str, checks: KernelCheck, train_launches: dict
   print(f"  ms of its iteration (warm-up in) {iter_ms:.2f} against phase 8's steady "
         f"{steady_iter_ms:.2f} in this call: {100 * (iter_ms / steady_iter_ms - 1):+.2f}% "
         f"[{card}]")
-  if any(got[k] * TRAIN_ITERS != train_launches[k] * CUT_ITERS for k in KERNELS):
+  if any(got[k] * TRAIN_ITERS != train_launches[k] * CUT_ITERS for k in PATH_KERNELS):
     raise AssertionError(f"phase 15: launches {got} differ from phase 8's {train_launches}")
   profile_iteration(runner, card, attr, "surface", iter_ms, split, trace=False)  # cut, PR 14
   del split
@@ -2765,11 +3002,11 @@ def user_scenes_path(card: str, checks: KernelCheck, path_ms: dict):
   launches of the scenes' and the humanoid's runs."""
   from mjlab_tpu_torch import physics
   from mjlab_tpu_torch.assets import surface_scenes
-  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.kernels import chol, newton
   from mjlab_tpu_torch.physics import solver
 
   torch.set_num_threads(1)
-  total = {k: 0 for k in ALL_KERNELS}
+  total = {k: 0 for k in (*ALL_KERNELS, PGS_KERNEL)}
   seen: set[int] = set()
   print(f"phase 16b the surface scenes: {SCENE_SUBSTEPS} substeps at {NUM_WORLDS} worlds, "
         f"float64, {SCENE_ITERATIONS} iterations x {SCENE_LS_ITERATIONS} linesearch steps; the "
@@ -2799,7 +3036,7 @@ def user_scenes_path(card: str, checks: KernelCheck, path_ms: dict):
       tp, m = models["cuda"]
       rng = torch.Generator().manual_seed(16)
       state = scene_state(sc, tp, m, NUM_WORLDS, rng)
-      chol.reset_counts()
+      reset_counts()
       d = run(tp, m, state, 1)
       torch.cuda.synchronize()
       start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2808,8 +3045,8 @@ def user_scenes_path(card: str, checks: KernelCheck, path_ms: dict):
         d = physics.step(tp, m, d)
       end.record()
       torch.cuda.synchronize()
-      launched = {k: v for k, v in chol.LAUNCHES.items() if v}
-      for k, v in chol.LAUNCHES.items():
+      launched = {k: v for k, v in launch_counts().items() if v}
+      for k, v in launch_counts().items():
         total[k] += v
       if not all(torch.isfinite(getattr(d, f)).all() for f in ("qpos", "qvel", "sensordata")):
         raise AssertionError(f"phase 16 scene {name} (cone {cone}): non-finite state or sensor")
@@ -2852,14 +3089,14 @@ def user_scenes_path(card: str, checks: KernelCheck, path_ms: dict):
     qpos=qpos.float().cuda(), qvel=qvel.float().cuda(), ctrl=ctrl.float().cuda())
   d = physics.step(tp, m, d)
   torch.cuda.synchronize()
-  chol.reset_counts()
+  reset_counts()
   start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
   start.record()
   for _ in range(HUMANOID_SUBSTEPS):
     d = physics.step(tp, m, d)
   end.record()
   torch.cuda.synchronize()
-  hum = dict(chol.LAUNCHES)
+  hum = launch_counts()
   for k, v in hum.items():
     total[k] += v
   ms = start.elapsed_time(end) / HUMANOID_SUBSTEPS
@@ -2884,15 +3121,15 @@ def user_scenes_path(card: str, checks: KernelCheck, path_ms: dict):
   tp_e, m_e = physics.put_model(mjm, dtype=torch.float32, device="cuda")
   d_e = physics.make_data(tp_e, m_e, NUM_WORLDS).replace(
     qpos=qpos.float().cuda(), qvel=qvel.float().cuda(), ctrl=ctrl.float().cuda())
-  chol.reset_counts()
+  reset_counts()
   for _ in range(3):
     d_e = physics.step(tp_e, m_e, d_e)
   torch.cuda.synchronize()
-  ell = dict(chol.LAUNCHES)
+  ell = launch_counts()
   for k, v in ell.items():
     total[k] += v
   layout = tp_e.dev.con.cone_kernel_layout
-  gcost = solver.GeneralCost(tp_e, m_e, d_e)
+  gcost = newton.Rows.of(tp_e, d_e)
   r = gcost.residual(d_e.qacc)
   w, Bc = gcost.row_hess(r), gcost.cone_blocks(r)
   grad = torch.randn(NUM_WORLDS, tp_e.nv, generator=torch.Generator(device="cuda").manual_seed(6),
@@ -3005,15 +3242,15 @@ def pgs_path(card: str, checks: KernelCheck) -> dict:
   tp, it = env.tp, env.sim.model.opt.iterations
   forwards = DECIMATION + 1
   want = {"chol_factor": forwards, "chol_solve": forwards, "chol_factor_solve": DECIMATION,
-          "newton_direction": 0, CONE_KERNEL: 0, PGS_KERNEL: forwards}
+          "newton_direction": 0, CONE_KERNEL: 0, PGS_KERNEL: forwards,
+          **newton_per_env_step(env.sim.model.opt)}
   env.step(actions[0])
   torch.cuda.synchronize()
   print(f"phase 17 pgs: {TASK} --env.sim.mujoco.solver pgs ({it} sweeps), {NUM_WORLDS} envs, "
         f"nv {tp.nv}, rows {tp.nefc}; build, reset and a warm-up step "
         f"{time.perf_counter() - t0:.2f} s [{card}]")
   finite = torch.ones((), dtype=torch.bool, device="cuda")
-  chol.reset_counts()
-  pgs.reset_counts()
+  reset_counts()
   torch.cuda.set_sync_debug_mode("error")
   start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
   start.record()
@@ -3024,7 +3261,7 @@ def pgs_path(card: str, checks: KernelCheck) -> dict:
   end.record()
   torch.cuda.set_sync_debug_mode("default")
   torch.cuda.synchronize()
-  launches = {**chol.LAUNCHES, **pgs.LAUNCHES}
+  launches = launch_counts()
   env_step_ms = start.elapsed_time(end) / PGS_ENV_STEPS
   print(f"  {PGS_ENV_STEPS} env steps under set_sync_debug_mode('error'): no host-device "
         f"synchronization; {env_step_ms:.2f} ms per env step [{card}]")
@@ -3164,8 +3401,7 @@ def muscle_scenes_path(card: str) -> dict[str, int]:
                torch.tensor(sc.ctrl(k, tp.nu), dtype=torch.float64)[None]
                for k in range(MUSCLE_SUBSTEPS)]
       cuda_ctrls = [None if c is None else c.cuda() for c in ctrls]
-      chol.reset_counts()
-      pgs.reset_counts()
+      reset_counts()
       d = run(tp, m, qpos[:, :].cuda(), qvel.cuda(), cuda_ctrls[:1])
       torch.cuda.synchronize()
       start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3174,8 +3410,8 @@ def muscle_scenes_path(card: str) -> dict[str, int]:
         d = physics.step(tp, m, d if c is None else d.replace(ctrl=c.expand(NUM_WORLDS, -1)))
       end.record()
       torch.cuda.synchronize()
-      launched = {k: v for k, v in {**chol.LAUNCHES, **pgs.LAUNCHES}.items() if v}
-      for k, v in {**chol.LAUNCHES, **pgs.LAUNCHES}.items():
+      launched = {k: v for k, v in launch_counts().items() if v}
+      for k, v in launch_counts().items():
         total[k] += v
       if not all(torch.isfinite(getattr(d, f)).all() for f in ("qpos", "qvel", "act")):
         raise AssertionError(f"phase 17 scene {name}: non-finite state")
@@ -3321,8 +3557,7 @@ def generic_mdp_path(card: str, checks: KernelCheck) -> dict:
   finite = torch.ones((), dtype=torch.bool, device="cuda")
   staged = []
   start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-  chol.reset_counts()
-  pgs.reset_counts()
+  reset_counts()
   torch.cuda.set_sync_debug_mode("error")
   for i in range(GENERIC_ENV_STEPS):
     if i == 1:
@@ -3334,7 +3569,7 @@ def generic_mdp_path(card: str, checks: KernelCheck) -> dict:
   end.record()
   torch.cuda.set_sync_debug_mode("default")
   torch.cuda.synchronize()
-  launches = {**chol.LAUNCHES, **pgs.LAUNCHES}
+  launches = launch_counts()
   step_ms = start.elapsed_time(end) / (GENERIC_ENV_STEPS - 1)
   values = {}
   for name in GENERIC_REWARDS:
@@ -3363,7 +3598,9 @@ def generic_mdp_path(card: str, checks: KernelCheck) -> dict:
     raise AssertionError(f"phase 18a: the staged weight {staged}, expected {want}")
   if (chol.factorizations() != RL_FACT_PER_STEP * GENERIC_ENV_STEPS
       or launches["chol_solve"] != RL_SOLVES_PER_STEP * GENERIC_ENV_STEPS
-      or any(launches[k] == 0 for k in KERNELS)):
+      or any(launches[k] != v * GENERIC_ENV_STEPS
+             for k, v in newton_per_env_step(env.sim.model.opt).items())
+      or any(launches[k] == 0 for k in PATH_KERNELS)):
     raise AssertionError(f"phase 18a: launches {launches}")
   poisoned = torch.zeros(NUM_WORLDS, dtype=torch.bool, device="cuda")
   poisoned[list(GENERIC_POISONED)] = True
@@ -3470,8 +3707,7 @@ def pair_scenes_path(card: str) -> dict[str, int]:
     qvel = torch.tensor(sc.qvel, dtype=torch.float64).expand(NUM_WORLDS, -1).clone()
     qvel += 0.05 * torch.randn(NUM_WORLDS, tp.nv, generator=rng, dtype=torch.float64)
     d = physics.make_data(tp, m, NUM_WORLDS).replace(qvel=qvel.cuda())
-    chol.reset_counts()
-    pgs.reset_counts()
+    reset_counts()
     d = physics.step(tp, m, d)
     active0 = (d.contact.dist < d.contact.includemargin).sum(1).double().mean().item()
     torch.cuda.synchronize()
@@ -3481,8 +3717,8 @@ def pair_scenes_path(card: str) -> dict[str, int]:
       d = physics.step(tp, m, d)
     end.record()
     torch.cuda.synchronize()
-    launched = {k: v for k, v in {**chol.LAUNCHES, **pgs.LAUNCHES}.items() if v}
-    for k, v in {**chol.LAUNCHES, **pgs.LAUNCHES}.items():
+    launched = {k: v for k, v in launch_counts().items() if v}
+    for k, v in launch_counts().items():
       total[k] += v
     if not (torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()):
       raise AssertionError(f"phase 18b scene {name}: non-finite state")
@@ -4040,6 +4276,37 @@ def main() -> int:
   del nsets
   torch.cuda.empty_cache()
 
+  # The rest of the Newton iteration at the main path's shapes: random qM
+  # and J (4096 x 1699 x 35), D on ~2% of the rows (the run's share), on all
+  # of them (every world past the kernels' CAP of rows in shared memory) and
+  # on none; x = a0 + noise, p random, 20 linesearch steps.
+  from mjlab_tpu_torch.kernels import newton
+
+  def iteration_set(share: float):
+    qM_ = spd_batch(gen, NUM_WORLDS, N, torch.float32)
+    J_ = torch.randn(NUM_WORLDS, NEFC, N, generator=gen, device="cuda") / N**0.5
+    on = torch.rand(NUM_WORLDS, NEFC, generator=gen, device="cuda") < share
+    D_ = torch.where(on, 0.5 + torch.rand(NUM_WORLDS, NEFC, generator=gen, device="cuda"),
+                     torch.zeros((), device="cuda"))
+    a0_ = torch.randn(NUM_WORLDS, N, generator=gen, device="cuda")
+    rows_ = newton.Rows(qM_, J_, D_, torch.randn(NUM_WORLDS, NEFC, generator=gen,
+                                                 device="cuda"), a0_)
+    return (rows_, a0_ + 0.3 * torch.randn(NUM_WORLDS, N, generator=gen, device="cuda"),
+            torch.randn(NUM_WORLDS, N, generator=gen, device="cuda"))
+
+  print(f"  the Newton iteration's kernels, f32 ({NUM_WORLDS}, {NEFC}, {N}), 20 linesearch "
+        f"steps; the 2% input touches ~57 MB, more than L2's 50 MB:")
+  for label, share in (("2% active", 0.02), ("dense", 1.0), ("none active", 0.0)):
+    res = iteration_kernels(f"random, {label}", *iteration_set(share), 20, False, checks, card,
+                            time_plain=share == 0.02)
+    if share == 0.02:
+      iter_times = res
+    del res
+    torch.cuda.empty_cache()
+  iter_cfg = print_iteration_launch(f"f32, {NUM_WORLDS} x {NEFC} x {N}", torch.float32, N,
+                                    NEFC)
+  print_iteration_launch("f64", torch.float64, N, NEFC)
+
   clock.done(2)
   # -- 3. the main path ---------------------------------------------------------
   model = load_model_npz()
@@ -4061,7 +4328,7 @@ def main() -> int:
   torch.cuda.synchronize()
   print("phase 3 warm-up substep: no host-device synchronization inside the step")
   torch.cuda.reset_peak_memory_stats()
-  chol.reset_counts()
+  reset_counts()
   t0 = time.perf_counter()
   for i in range(ENV_STEPS):
     if i == 10:
@@ -4073,7 +4340,7 @@ def main() -> int:
       d = step(sim.model, d)
   torch.cuda.synchronize()
   t1 = time.perf_counter()
-  launches = dict(chol.LAUNCHES)
+  launches = launch_counts()
   nfact = chol.factorizations()
   peak_gb = torch.cuda.max_memory_allocated() / 1e9
   substeps = ENV_STEPS * DECIMATION
@@ -4102,10 +4369,14 @@ def main() -> int:
         f"min {active.min().item():.0f}")
   if not active.sum() > 0:
     raise AssertionError("no active contacts")
+  newton_want = {k: substeps * v for k, v in newton_per_solve().items()}
+  print(f"  the Newton iteration's kernels: {sum(newton_want.values()) // substeps} launches "
+        f"per substep expected ({newton_want} in all)")
   if (nfact != 12 * substeps or launches["chol_solve"] != substeps
-      or launches["newton_direction"] != 10 * substeps):
-    raise AssertionError("expected 12 factorizations (10 Newton directions) and 1 "
-                         f"solve per substep, got {launches}")
+      or launches["newton_direction"] != 10 * substeps
+      or any(launches[k] != v for k, v in newton_want.items())):
+    raise AssertionError("expected 12 factorizations (10 Newton directions), 1 solve and "
+                         f"{newton_want} per substep, got {launches}")
 
   print("phase 3b kernels vs plain on the run's matrices, f32:")
   grad = torch.randn(NUM_WORLDS, N, generator=gen, device=dev)
@@ -4125,6 +4396,12 @@ def main() -> int:
   print_launch("newton_direction", "the run's, f32", newton_cfg)
   print_launch("newton_direction", "phase 4's, f64, 4 worlds",
                newton_launch(False, torch.float64, 4, N, NEFC))
+  # The Newton iteration's kernels on the run's rows, at a first iteration
+  # from a0 along its Newton direction.
+  rows_run = newton.Rows.of(sim.tp, d)
+  run_iter = iteration_kernels("the run's rows", rows_run, *iteration_inputs(rows_run),
+                               sim.model.opt.ls_iterations, False, checks, card)
+  del rows_run
 
   clock.done(3)
   # -- 4. the card's kernel path against the CPU's plain path (float64) -------
@@ -4162,7 +4439,7 @@ def main() -> int:
   for name, ms in per_stage.items():
     print(f"  {name:18s} {ms:9.3f} ms  {100 * ms / total:5.1f}%")
   print(f"  {'sum':18s} {total:9.3f} ms")
-  split = solve_split(sim.model, d)
+  split = solve_split(sim.tp, sim.model, d)
   print(f"  solve, run again part by part (CUDA events, mean of 3) [{card}]:")
   for part, ms in split.items():
     print(f"    {part:16s} {ms:9.3f} ms  {100 * ms / sum(split.values()):5.1f}% of solve")
@@ -4183,7 +4460,7 @@ def main() -> int:
   (OUT / "chip_smoke_profile.txt").write_text(
     averages.table(sort_by=attr, row_limit=40)
   )
-  events = [e for e in averages if str(e.device_type).endswith("CUDA")]
+  events = [e for e in averages if str(e.device_type).endswith("CUDA") and e.key != SOLVE_SPAN]
   dev_ms = sum(getattr(e, attr) for e in events) / 1e3
   steady_env_step_ms = dt_steady / (ENV_STEPS - 10) * 1e3
   print(f"phase 6 profile of 1 env step: device time {dev_ms:.2f} ms in "
@@ -4203,10 +4480,39 @@ def main() -> int:
         f"path: {len(jtwj)}")
   if jtwj:
     raise AssertionError("the JᵀWJ product still runs on the main path")
-  # Each kernel's device time per launch on the main path, from the profile.
+  # No product with a (B, nefc, nv) operand (J) may run inside solve: the
+  # Newton iteration's kernels read J's active rows themselves.
+  def in_solve(e) -> bool:
+    up = e.cpu_parent
+    while up is not None:
+      if up.name == SOLVE_SPAN:
+        return True
+      up = up.cpu_parent
+    return False
+
+  j_shape = sorted([NUM_WORLDS, NEFC, N])
+  solve_spans = sum(1 for e in prof.events()
+                    if e.name == SOLVE_SPAN and str(e.device_type).endswith("CPU"))
+  dense = [e for e in prof.events()
+           if e.name in ("aten::bmm", "aten::matmul") and in_solve(e)
+           and any(len(sh) == 3 and sorted(sh) == j_shape for sh in e.input_shapes)]
+  print(f"  products with a ({NUM_WORLDS}, {NEFC}, {N}) operand inside the {solve_spans} "
+        f"solver.solve spans: {len(dense)}")
+  if solve_spans != DECIMATION or dense:
+    raise AssertionError(f"{len(dense)} (B, nefc, nv) products inside solve "
+                         f"({solve_spans} spans)")
+  # Each kernel's device time per launch on the main path, from the profile
+  # (the Newton iteration's modes are instances of one kernel template:
+  # newton_iter_kernel<T, mode>, mode 0-1 the gradient, 2-3 the linesearch,
+  # 4 the cost).
+  kernel_keys = {name: (f"{name}_kernel<",) for name in KERNELS}
+  kernel_keys.update({"newton_gradient": ("newton_iter_kernel<float, 0>",
+                                          "newton_iter_kernel<float, 1>"),
+                      "newton_linesearch": ("newton_iter_kernel<float, 2>",),
+                      "constraint_cost": ("newton_iter_kernel<float, 4>",)})
   path_ms = {}
-  for name in KERNELS:
-    hits = [e for e in events if f"{name}_kernel<" in e.key]
+  for name in PATH_KERNELS:
+    hits = [e for e in events if any(key in e.key for key in kernel_keys[name])]
     count = sum(e.count for e in hits)
     if not count:
       raise AssertionError(f"{name}: no launch of its kernel in the profile")
@@ -4250,7 +4556,7 @@ def main() -> int:
   finite = torch.ones((), dtype=torch.bool, device="cuda")
   ev_start = torch.cuda.Event(enable_timing=True)
   ev_end = torch.cuda.Event(enable_timing=True)
-  chol.reset_counts()
+  reset_counts()
   torch.cuda.set_sync_debug_mode("error")
   t0 = time.perf_counter()
   for i in range(RL_STEPS):
@@ -4265,7 +4571,7 @@ def main() -> int:
   torch.cuda.set_sync_debug_mode("default")
   torch.cuda.synchronize()
   t_loop = time.perf_counter() - t0
-  env_launches = dict(chol.LAUNCHES)
+  env_launches = launch_counts()
   env_fact = chol.factorizations()
   env_peak_gb = torch.cuda.max_memory_allocated() / 1e9
   steady_ms = ev_start.elapsed_time(ev_end) / (RL_STEPS - RL_STEADY_FROM)
@@ -4287,11 +4593,17 @@ def main() -> int:
     raise AssertionError("non-finite observation or reward on the env path")
   if resets < 2 * NUM_WORLDS:
     raise AssertionError(f"{resets} resets < 2 per env")
+  env_newton = newton_per_env_step(env.sim.model.opt)
+  print(f"  the Newton iteration's kernels per env step: "
+        + ", ".join(f"{k} {env_launches[k] / RL_STEPS:g}" for k in NEWTON_KERNELS)
+        + f" (expected {env_newton})")
   if (env_fact != RL_FACT_PER_STEP * RL_STEPS
       or env_launches["chol_solve"] != RL_SOLVES_PER_STEP * RL_STEPS
-      or any(env_launches[k] == 0 for k in KERNELS)):
-    raise AssertionError(f"expected {RL_FACT_PER_STEP} factorizations and "
-                         f"{RL_SOLVES_PER_STEP} solves per env step, got {env_launches}")
+      or any(env_launches[k] != v * RL_STEPS for k, v in env_newton.items())
+      or any(env_launches[k] == 0 for k in PATH_KERNELS)):
+    raise AssertionError(f"expected {RL_FACT_PER_STEP} factorizations, "
+                         f"{RL_SOLVES_PER_STEP} solves and {env_newton} per env step, got "
+                         f"{env_launches}")
 
   # The env's state against phase 3's: the Newton rows with a weight, the
   # active contacts, and one substep's stages on it.
@@ -4320,7 +4632,7 @@ def main() -> int:
     torch.cuda.synchronize()
   averages = prof.key_averages()
   (OUT / "chip_smoke_env_profile.txt").write_text(averages.table(sort_by=attr, row_limit=40))
-  events = [e for e in averages if str(e.device_type).endswith("CUDA")]
+  events = [e for e in averages if str(e.device_type).endswith("CUDA") and e.key != SOLVE_SPAN]
   env_dev_ms = sum(getattr(e, attr) for e in events) / 1e3
   env_kernel_launches = sum(e.count for e in events)
   print(f"  profile of 1 env step: device time {env_dev_ms:.2f} ms in "
@@ -4362,7 +4674,7 @@ def main() -> int:
   clock.done(13)
   # -- 14. the solver surface: G1 under the elliptic cone and CG, and the scenes --
   ell = elliptic_path(card, attr, checks)
-  cg_launches = cg_path(card)
+  cg_launches, cg_iter = cg_path(card, checks)
   scene_launches = scenes_path(card)
   print(f"phase 14 launches: G1 elliptic's {CUT_ITERS} iteration {ell['launches']}; G1 cg's "
         f"{CG_STEPS - 1} env steps {cg_launches}; the scenes' runs {scene_launches}")
@@ -4379,7 +4691,7 @@ def main() -> int:
   user_ms: dict[str, dict[str, float]] = {k: {} for k in ALL_KERNELS}
   cart_launches = cartpole_path(card, checks, user_ms)
   user_launches = user_scenes_path(card, checks, user_ms)
-  for k in KERNELS:
+  for k in PATH_KERNELS:
     user_launches[k] += cart_launches[k]
   print(f"phase 16: {time.perf_counter() - t16:.1f} s; launches over CartPole's 2 iterations, "
         f"the scenes and the humanoid {user_launches}")
@@ -4522,6 +4834,49 @@ def main() -> int:
     "launch": pgs_run["launch"],
     "max_active_rows": pgs_run["max_rows"],
   })
+  newton_replaces = {
+    "newton_gradient": "mjlab_tpu/physics/solver.py:218-224 (newton_iter's residual, forces, "
+                       "grad, row_hess, cone blocks), :300-301 (cg_solve's grad_at) and "
+                       ":378-386 (the final forces)",
+    "newton_linesearch": "mjlab_tpu/physics/solver.py:231-266 (newton_iter's linesearch and "
+                         "acceptance, the elliptic safeguard) and :268-287, :308-313 "
+                         "(cg_solve's linesearch and acceptance)",
+    "constraint_cost": "mjlab_tpu/physics/solver.py:182-192 (total_cost, the warm start's "
+                       "choice)",
+  }
+  paths = {"physics": launches, "training": train_launches, "tracking": track_launches,
+           "lifecycle": lifecycle_launches, "asimov": asimov_launches,
+           "rough_go1": rough_launches, "rough": rough13_launches,
+           "elliptic": ell["launches"], "cg": cg_launches, "scenes": scene_launches,
+           "surface": surface_launches, "user_robot": user_launches,
+           "pgs": pgs_run["launches"], "muscle_scenes": muscle_launches,
+           "generic_mdp": generic["launches"], "pair_scenes": pair_launches,
+           "hf": hf_launches}
+  for name in NEWTON_KERNELS:
+    kernels.append({
+      "name": name,
+      "route": "cuda",
+      "source": "mjlab_tpu_torch/csrc/newton_iter.cu",
+      "replaces": newton_replaces[name],
+      "launches": env_launches[name],
+      **{f"launches_{k}_path": v[name] for k, v in paths.items()},
+      "max_abs_err": checks.max_abs_err[name],
+      "ms": iter_times[name]["ms"],
+      "ms_main_path": path_ms[name],
+      "ms_run_rows": run_iter[name]["ms"],
+      "ms_elliptic_rows": ell["iter"][name]["ms"],
+      "ms_cg_rows": cg_iter[name]["ms"],
+      "plain_ms": iter_times[name]["plain_ms"],
+      "plain_ms_run_rows": run_iter[name]["plain_ms"],
+      "bound_ms": iter_times[name]["bound"][0],
+      "bound_by": iter_times[name]["bound"][1],
+      "bound_ms_run_rows": run_iter[name]["bound"][0],
+      "bound_ms_elliptic_rows": ell["iter"][name]["bound"][0],
+      # No PyTorch call computes an exact linesearch or this cost; the torch
+      # path the kernel replaces is its plain version (plain_ms).
+      "library_ms": None,
+      "launch": iter_cfg[name],
+    })
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({
     "ok": True,

@@ -251,7 +251,7 @@ def main(argv: list[str] | None = None) -> int:
   if not torch.cuda.is_available():
     print("kernel_ab: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
     return 2
-  from mjlab_tpu_torch.kernels import chol
+  from mjlab_tpu_torch.kernels import chol, newton
   from mjlab_tpu_torch.physics import solver
 
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -344,7 +344,7 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
     sim, d = g1_state(gen, "elliptic", 8)
     layout = sim.tp.dev.con.cone_kernel_layout
-    gcost = solver.GeneralCost(sim.tp, sim.model, d)
+    gcost = newton.Rows.of(sim.tp, d)
     r = gcost.residual(d.qacc)
     w, Bc = gcost.row_hess(r), gcost.cone_blocks(r)
     slots = (Bc.reshape(cs.NUM_WORLDS, -1, 9) != 0).any(-1).sum(1).float()

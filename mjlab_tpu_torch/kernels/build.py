@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("chol", "newton_dir", "pgs")
+SOURCES = ("chol", "newton_dir", "newton_iter", "pgs")
 NVCC_FLAGS = (
   "-gencode=arch=compute_90a,code=sm_90a",
   "-std=c++17",

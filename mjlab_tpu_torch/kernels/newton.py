@@ -1,0 +1,525 @@
+"""The rest of the Newton iteration on each world's active rows: the gradient,
+the exact linesearch with the step's acceptance, and the cost, as CUDA
+kernels' wrappers and their plain PyTorch versions.
+
+Replaces what XLA fused in the JAX package's solver (no TPU kernel existed
+for it): `newton_iter` up to H and its linesearch and acceptance
+(mjlab_tpu/physics/solver.py:217-266), `linesearch` (:268-287), the
+gradients and steps of `cg_solve` (:289-325), the warm start (:189-192) and
+the final forces (:378-386), with the cost pieces they call (`residual`
+:166, `row_cost` :169, `total_cost` :182, `row_force` :194, `row_hess` :207
+and the cone functions :105-164). The Newton direction stays with
+`chol.newton_direction[_cone]`.
+
+The cost, per world, over qacc x (a0 = qacc_smooth):
+  Φ(x) = 0.5 (x − a0)ᵀ M (x − a0) + Σ_i cost_i(J_i x − aref_i) + Σ_s cone_s
+with each row's cost by its class (`Rows.kind`): one-sided quadratic
+0.5 D r² iff r < 0 (limits, pyramidal facets, condim-1 contacts), bilateral
+quadratic (equality rows), Huber (dof friction-loss rows, linear outside
+|D r| ≤ fl), and the elliptic cone's three zones per slot (condim ≥ 3
+contacts under cone="elliptic"), whose rows are left out of the regular sum.
+A row with D = 0 is inert.
+
+Entry points, each taking a `Rows` (one solve's inputs):
+- `newton_gradient(rows, x)` → (∇Φ(x), the row weights w, the packed cone
+  Hessians or None); with `forces=True` → (efc_force, qfrc_constraint =
+  Jᵀ efc_force) at x instead, the end of a solve.
+- `newton_linesearch(rows, x, p, iterations, safeguard)` → (x', α,
+  improved): `iterations` steps of the 1-D Newton on φ'(α) from α = 1, then
+  x + αp if its cost is lower than x's (else x) or, with `safeguard` (the
+  elliptic Newton step), the best improving step of {α, 1, 0.5, 0.25, 0.1,
+  0.01} (ties to the earlier candidate), x + 0·p if none.
+- `constraint_cost(rows, X)` → Φ at the k points X (B, k, n) of each world.
+
+Kernels (csrc/newton_iter.cu): one world per one-warp block, the whole
+batch in one grid; each world's active rows (D ≠ 0, NaN counted) and active
+cone slots (Dn > 0) listed from one scan of D; the listed rows of J through
+a 32-row tile in shared memory, one lane per row; their residuals, J p, D
+and fl kept in shared memory up to CAP rows and in a global scratch beyond;
+qM in shared memory. Bound: the bytes of D on every row, the active rows of
+J, aref and fl, qM and the vectors (chip_smoke.py reckons it from the run's
+rows).
+
+A linesearch step and a Newton or CG iteration are functions of α, x (and
+CG's state) alone: once one returns its input bitwise, so does every later
+one. The kernel stops a world's linesearch there; on the CPU the plain
+linesearch and the solver's iterations stop there too (a host check that
+the card path does not make). Either way the result is the one every step
+would give, bitwise.
+
+Each wrapper takes the plain version for a CPU tensor and launches the
+kernel for a CUDA tensor, with no fallback between them. Launches are
+counted in `LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from types import SimpleNamespace
+
+import torch
+
+MAX_N = 64
+MAX_ROWS = 65535
+CAP = 128  # listed rows per world kept in shared memory
+FIELDS = 5  # per listed row: r, J p, D, fl, and a scratch value
+_EPS = 1e-15
+# Row classes (`Rows.kind`).
+ONE_SIDED, EQUALITY, FRICTION, CONE_ROW = 0, 1, 2, 3
+SAFEGUARD_STEPS = (1.0, 0.5, 0.25, 0.1, 0.01)
+
+LAUNCHES = {"newton_gradient": 0, "newton_linesearch": 0, "constraint_cost": 0}
+
+
+def reset_counts() -> None:
+  for k in LAUNCHES:
+    LAUNCHES[k] = 0
+
+
+def _bdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  return torch.sum(a * b, dim=-1)
+
+
+def _mv(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+  """Batched matrix-vector product (B, n, m) @ (B, m) → (B, n)."""
+  return (M @ x[..., None])[..., 0]
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+  """Whether two float tensors hold the same bits (a NaN equals itself, and
+  −0 differs from +0)."""
+  as_int = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+  return torch.equal(a.view(as_int), b.view(as_int))
+
+
+class Rows:
+  """One solve's inputs: qM (B, n, n), J (B, m, n), D, aref (B, m), a0
+  (B, n); the friction loss fl (B, m) where the model has friction-loss
+  rows; the row classes as the constraint tables hold them (float masks
+  is_eq, is_fric and reg, 0 on the cone rows, each None where the model has
+  no such row, and `kind` (m,) int32 for the kernels, None where every row
+  is one-sided); the cone slots' layout (chol.ConeLayout) and their
+  friction coefficients mu0 (B, S) in layout order, or None. The methods
+  are the plain version's cost pieces."""
+
+  def __init__(self, qM, J, D, aref, a0, *, fl=None, is_eq=None, is_fric=None, reg=None,
+               kind=None, layout=None, mu0=None):
+    self.qM, self.J, self.D, self.aref, self.a0 = qM, J, D, aref, a0
+    self.fl, self.is_eq, self.is_fric, self.reg, self.kind = fl, is_eq, is_fric, reg, kind
+    self.layout = layout if layout is not None and layout.table.shape[0] else None
+    self.mu0 = mu0 if self.layout is not None else None
+
+  @classmethod
+  def of(cls, tp, d) -> "Rows":
+    """A solve's rows from the forward's Data and the constraint tables."""
+    t = tp.dev.con
+    mu0 = None
+    if t.cone_groups:
+      mu0 = torch.cat([d.contact.friction[:, g.slots, 0] for g in t.cone_groups], 1)
+    return cls(d.qM.contiguous(), d.efc_J.contiguous(), d.efc_D.contiguous(),
+               d.efc_aref.contiguous(), d.qacc_smooth.contiguous(),
+               fl=d.efc_frictionloss.contiguous() if t.is_fric is not None else None,
+               is_eq=t.is_eq, is_fric=t.is_fric, reg=t.reg, kind=t.kind,
+               layout=t.cone_kernel_layout,
+               mu0=mu0.contiguous() if mu0 is not None else None)
+
+  @functools.cached_property
+  def groups(self) -> list[SimpleNamespace]:
+    """Per condim group of cone slots: its rows and per-solve whitening."""
+    out = []
+    if self.layout is None:
+      return out
+    for cd, s0, n in self.layout.groups:
+      rows = (self.layout.table[s0 : s0 + n, 0].long()[:, None]
+              + torch.arange(cd, device=self.D.device))
+      mu0 = self.mu0[:, s0 : s0 + n]
+      Dn = self.D[:, rows[:, 0]]
+      Df = self.D[:, rows[:, 1:]]
+      safe_Dn = torch.clamp_min(Dn, _EPS)
+      mu = mu0 * torch.sqrt(safe_Dn / torch.clamp_min(Df[..., 0], _EPS))
+      out.append(SimpleNamespace(
+        rows=rows, flat_rows=rows.reshape(-1), Dn=Dn, Df=Df, active=Dn > 0,
+        s=torch.sqrt(torch.clamp_min(Df, _EPS) / safe_Dn[..., None]), mu=mu,
+        one_mu2=1.0 + mu * mu,
+      ))
+    return out
+
+  def residual(self, x):
+    return _mv(self.J, x) - self.aref
+
+  # -- per-row costs (regular rows) --
+
+  def _masked(self, fric, eq, other):
+    """Pick each row's value by its class."""
+    out = other
+    if self.is_eq is not None:
+      out = torch.where(self.is_eq > 0, eq, out)
+    if self.is_fric is not None:
+      out = torch.where(self.is_fric > 0, fric, out)
+    if self.reg is not None:
+      out = out * self.reg
+    return out
+
+  def row_cost(self, r):
+    quad = 0.5 * self.D * r * r
+    huber = None
+    if self.is_fric is not None:
+      lin = self.fl / torch.clamp_min(self.D, 1e-30)
+      huber = torch.where(torch.abs(r) > lin, self.fl * torch.abs(r) - 0.5 * self.fl * lin, quad)
+    return self._masked(huber, quad, torch.where(r < 0, quad, torch.zeros_like(r)))
+
+  def row_hess(self, r):
+    huber = None
+    if self.is_fric is not None:
+      lin = self.fl / torch.clamp_min(self.D, 1e-30)
+      huber = torch.where(torch.abs(r) <= lin, self.D, torch.zeros_like(r))
+    return self._masked(huber, self.D, torch.where(r < 0, self.D, torch.zeros_like(r)))
+
+  def regular_force(self, r):
+    """−∂cost/∂r per row, 0 on the cone rows."""
+    quad = -self.D * r
+    huber = torch.clamp(quad, -self.fl, self.fl) if self.is_fric is not None else None
+    return self._masked(huber, quad, torch.where(r < 0, quad, torch.zeros_like(r)))
+
+  def row_force(self, r):
+    """−∂cost/∂r per row, the cone rows' included."""
+    f = self.regular_force(r)
+    for g in self.groups:
+      f = f.index_copy(1, g.flat_rows, self.cone_force(g, r[:, g.rows]).flatten(1))
+    return f
+
+  # -- the elliptic cone --
+
+  @staticmethod
+  def zones(g, u):
+    """u (B, Sg, cd) cone-row residuals → zone classification."""
+    N = u[..., 0]
+    ut_w = u[..., 1:] * g.s
+    T = torch.sqrt(torch.sum(ut_w * ut_w, dim=-1) + _EPS)
+    top = g.mu * T <= N
+    bottom = T <= -g.mu * N
+    a = (g.mu * T - N) / g.one_mu2
+    return N, ut_w, T, top, bottom, a
+
+  def cone_cost(self, r):
+    total = 0.0
+    for g in self.groups:
+      u = r[:, g.rows]
+      N, ut_w, T, top, bottom, a = self.zones(g, u)
+      c_bot = 0.5 * (g.Dn * N * N + torch.sum(g.Df * u[..., 1:] ** 2, dim=-1))
+      c_mid = 0.5 * g.Dn * a * a * g.one_mu2
+      c = torch.where(top, torch.zeros_like(N), torch.where(bottom, c_bot, c_mid))
+      total = total + torch.sum(torch.where(g.active, c, torch.zeros_like(c)), dim=-1)
+    return total
+
+  def cone_force(self, g, u):
+    """Per-row cone forces (B, Sg, cd) in row space."""
+    N, ut_w, T, top, bottom, a = self.zones(g, u)
+    f_bot = -torch.cat([(g.Dn * u[..., 0])[..., None], g.Df * u[..., 1:]], dim=-1)
+    fn_mid = g.Dn * a
+    ft_mid = -g.mu[..., None] * fn_mid[..., None] * ut_w / T[..., None] * g.s
+    f_mid = torch.cat([fn_mid[..., None], ft_mid], dim=-1)
+    f = torch.where(top[..., None], torch.zeros_like(f_mid),
+                    torch.where(bottom[..., None], f_bot, f_mid))
+    return torch.where(g.active[..., None], f, torch.zeros_like(f))
+
+  def cone_hess(self, g, u):
+    """Per-slot (B, Sg, cd, cd) cost Hessians (row space, exact)."""
+    N, ut_w, T, top, bottom, a = self.zones(g, u)
+    s, mu, one_mu2, Dn = g.s, g.mu, g.one_mu2, g.Dn
+    g_t = mu[..., None] * s * ut_w / T[..., None] / one_mu2[..., None]
+    gr = torch.cat([(-1.0 / one_mu2)[..., None], g_t], dim=-1)
+    gg = gr[..., :, None] * gr[..., None, :]
+    s2u = s * ut_w
+    t_outer = s2u[..., :, None] * s2u[..., None, :] / (T ** 3)[..., None, None]
+    t_diag = torch.diag_embed(s * s) / T[..., None, None]
+    hess_a = torch.zeros_like(gg)
+    hess_a[..., 1:, 1:] = (mu / one_mu2)[..., None, None] * (t_diag - t_outer)
+    B_mid = (Dn * one_mu2)[..., None, None] * (gg + a[..., None, None] * hess_a)
+    B_bot = torch.diag_embed(torch.cat([Dn[..., None], g.Df], dim=-1))
+    Bm = torch.where(top[..., None, None], torch.zeros_like(B_mid),
+                     torch.where(bottom[..., None, None], B_bot, B_mid))
+    return torch.where(g.active[..., None, None], Bm, torch.zeros_like(Bm))
+
+  @staticmethod
+  def cone_line(g, r0, v):
+    """The linesearch's cone terms along u(α) = r0 + α v (solver.py:
+    239-244): a function of α (B,) giving, per slot (B, Sg), the force's
+    slope Σ_i f_i v_i and the curvature vᵀ B v, without forming the force
+    rows or B. In the middle zone f = Dn·a·[1, −μ S ũ/T] and
+    B = Dn(1+μ²)(∇a∇aᵀ + a∇²a); at the bottom f = −D u and B = diag(D); 0
+    at the top. What does not depend on α is taken once."""
+    s, mu, one_mu2, Dn = g.s, g.mu, g.one_mu2, g.Dn
+    v0, vt, r00, rt = v[..., 0], v[..., 1:], r0[..., 0], r0[..., 1:]
+    sv_t = s * vt
+    vsv = torch.sum(sv_t * sv_t, dim=-1)  # Σ s² v_t²
+    curv_bot = Dn * v0 * v0 + torch.sum(g.Df * vt * vt, dim=-1)
+    Dn_v0, Df_vt = Dn * v0, g.Df * vt
+    inv1, k, Dn1, neg_mu = 1.0 / one_mu2, mu / one_mu2, Dn * one_mu2, -mu
+    zeros = torch.zeros_like(v0)
+
+    def at(alpha):
+      al = alpha[:, None]
+      N = r00 + al * v0
+      ut = rt + al[..., None] * vt
+      ut_w = ut * s
+      T = torch.sqrt(torch.sum(ut_w * ut_w, dim=-1) + _EPS)
+      muT = mu * T
+      top, bottom = muT <= N, T <= neg_mu * N
+      a = (muT - N) * inv1
+      sv = torch.sum(ut_w * sv_t, dim=-1)
+      q = mu * sv / T
+      slope_mid = (Dn * a) * (v0 - q)
+      slope_bot = -(Dn_v0 * N + torch.sum(Df_vt * ut, dim=-1))
+      ga = (q - v0) * inv1
+      ha = k * (vsv / T - sv * sv / (T * T * T))
+      curv_mid = Dn1 * (ga * ga + a * ha)
+
+      def pick(mid, bot):
+        return torch.where(g.active, torch.where(top, zeros, torch.where(bottom, bot, mid)),
+                           zeros)
+
+      return pick(slope_mid, slope_bot), pick(curv_mid, curv_bot)
+
+    return at
+
+  def cone_blocks(self, r):
+    """The packed cone Hessians (B, nb) the Newton kernel reads."""
+    return torch.cat([self.cone_hess(g, r[:, g.rows]).flatten(1) for g in self.groups], dim=1)
+
+  # -- the cost and the linesearch --
+
+  def total_cost(self, x):
+    dx = x - self.a0
+    r = self.residual(x)
+    c = 0.5 * _bdot(dx, _mv(self.qM, dx)) + torch.sum(self.row_cost(r), dim=-1)
+    return c + self.cone_cost(r) if self.groups else c
+
+  def linesearch(self, x, r, p, iterations: int):
+    """Exact 1-D Newton linesearch along p from x (shared by Newton and CG)."""
+    jv = _mv(self.J, p)
+    p_m_dx = _bdot(p, _mv(self.qM, x - self.a0))
+    p_m_p = _bdot(p, _mv(self.qM, p))
+    cones = [self.cone_line(g, r[:, g.rows], jv[:, g.rows]) for g in self.groups]
+    alpha = torch.ones_like(p_m_p)
+    for _ in range(iterations):
+      ra = r + alpha[:, None] * jv
+      dphi = p_m_dx + alpha * p_m_p - _bdot(self.regular_force(ra), jv)
+      ddphi = p_m_p + _bdot(self.row_hess(ra), jv * jv)
+      for line in cones:
+        slope, curv = line(alpha)
+        dphi = dphi - torch.sum(slope, dim=-1)
+        ddphi = ddphi + torch.sum(curv, dim=-1)
+      step = alpha - dphi / torch.clamp_min(ddphi, 1e-30)
+      # A step is a function of α alone: once it returns α in every world,
+      # so does every later one. On the CPU the loop stops there.
+      if step.device.type == "cpu" and same_bits(step, alpha):
+        break
+      alpha = step
+    return alpha
+
+
+def row_classes(kind, dtype, device) -> dict:
+  """The class tables of rows whose classes are `kind` (m,) (numpy ints,
+  ONE_SIDED ... CONE_ROW): the masks the plain version reads and the int32
+  table the kernels read, each None where no row has that class."""
+  import numpy as np
+
+  kind = np.asarray(kind, dtype=np.int32)
+
+  def mask(x):
+    return torch.as_tensor(x.astype(np.float64), dtype=dtype, device=device)
+
+  return dict(
+    is_eq=mask(kind == EQUALITY) if (kind == EQUALITY).any() else None,
+    is_fric=mask(kind == FRICTION) if (kind == FRICTION).any() else None,
+    reg=mask(kind != CONE_ROW) if (kind == CONE_ROW).any() else None,
+    kind=torch.as_tensor(kind, device=device) if kind.any() else None,
+  )
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (CPU path and the kernels' check).
+# ---------------------------------------------------------------------------
+
+
+def newton_gradient_plain(rows: Rows, x: torch.Tensor, forces: bool = False):
+  r = rows.residual(x)
+  f = rows.row_force(r)
+  Jt = rows.J.transpose(-1, -2)
+  if forces:
+    return f, _mv(Jt, f)
+  grad = _mv(rows.qM, x - rows.a0) - _mv(Jt, f)
+  return grad, rows.row_hess(r), rows.cone_blocks(r) if rows.groups else None
+
+
+def newton_linesearch_plain(rows: Rows, x: torch.Tensor, p: torch.Tensor, iterations: int,
+                            safeguard: bool):
+  alpha = rows.linesearch(x, rows.residual(x), p, iterations)
+  if safeguard:
+    # The elliptic Newton step: the 1-D Newton can diverge on the cone
+    # landscape; keep the best improving step of a small candidate set.
+    best_cost, best_alpha = rows.total_cost(x), torch.zeros_like(alpha)
+    improved = torch.zeros_like(alpha, dtype=torch.bool)
+    for cand in (alpha, *SAFEGUARD_STEPS):
+      ca = cand if torch.is_tensor(cand) else torch.full_like(alpha, cand)
+      c = rows.total_cost(x + ca[:, None] * p)
+      better = c < best_cost
+      best_cost = torch.where(better, c, best_cost)
+      best_alpha = torch.where(better, ca, best_alpha)
+      improved = improved | better
+    return x + best_alpha[:, None] * p, alpha, improved
+  # Reject non-improving steps (keeps lockstep envs safe post-convergence).
+  x_new = x + alpha[:, None] * p
+  improved = rows.total_cost(x_new) < rows.total_cost(x)
+  return torch.where(improved[:, None], x_new, x), alpha, improved
+
+
+def constraint_cost_plain(rows: Rows, X: torch.Tensor) -> torch.Tensor:
+  return torch.stack([rows.total_cost(X[:, j]) for j in range(X.shape[1])], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers.
+# ---------------------------------------------------------------------------
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_bound: dict[str, ctypes._CFuncPtr] = {}
+_NPTR, _NINT = 16, 7
+
+
+def _fn(key: str):
+  if key not in _bound:
+    from mjlab_tpu_torch.kernels import build
+
+    f = getattr(build.library("newton_iter"), key)
+    if key == "newton_iter_config":
+      f.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    else:
+      f.argtypes = [ctypes.c_void_p] * _NPTR + [ctypes.c_int] * _NINT + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    _bound[key] = f
+  return _bound[key]
+
+
+def scratch_elems(m: int) -> int:
+  """Elements per world of the kernels' scratch: FIELDS values for each
+  listed row beyond CAP."""
+  return FIELDS * max(m - CAP, 0)
+
+
+def _check(rows: Rows, what: str, *vecs) -> tuple[int, int, int]:
+  qM = rows.qM
+  if qM.device.type != "cuda":
+    raise ValueError(f"{what}: expected a CUDA tensor, got {qM.device}")
+  if qM.dtype not in _SUFFIX:
+    raise TypeError(f"{what}: dtype {qM.dtype} (float32/float64 only)")
+  if qM.dim() != 3 or qM.shape[1] != qM.shape[2] or not 1 <= qM.shape[1] <= MAX_N:
+    raise ValueError(f"{what}: expected qM (B, n, n) with n <= {MAX_N}, got {tuple(qM.shape)}")
+  B, n = qM.shape[:2]
+  if rows.J.dim() != 3 or not 1 <= rows.J.shape[1] <= MAX_ROWS:
+    raise ValueError(f"{what}: expected J (B, m, n) with 1 <= m <= {MAX_ROWS}")
+  m = rows.J.shape[1]
+  shapes = [(rows.J, (B, m, n)), (rows.D, (B, m)), (rows.aref, (B, m)), (rows.a0, (B, n))]
+  if rows.fl is not None:
+    shapes.append((rows.fl, (B, m)))
+  if rows.layout is not None:
+    shapes.append((rows.mu0, (B, rows.layout.table.shape[0])))
+  shapes += [(v, shape) for v, shape in vecs]
+  for t, shape in shapes:
+    if t.device != qM.device or t.dtype != qM.dtype:
+      raise ValueError(f"{what}: every tensor must match qM's device and dtype")
+    if tuple(t.shape) != shape:
+      raise ValueError(f"{what}: shape {tuple(t.shape)} != {shape}")
+    if not t.is_contiguous():
+      raise ValueError(f"{what}: tensors must be contiguous")
+  for t in (rows.kind, None if rows.layout is None else rows.layout.table):
+    if t is not None and (t.device != qM.device or t.dtype != torch.int32
+                          or not t.is_contiguous()):
+      raise ValueError(f"{what}: the row classes and cone layout must be contiguous int32 "
+                       "on the card")
+  if rows.kind is not None and tuple(rows.kind.shape) != (m,):
+    raise ValueError(f"{what}: kind has shape {tuple(rows.kind.shape)}, expected ({m},)")
+  return B, n, m
+
+
+def _launch(name: str, rows: Rows, x, p, outs: tuple, improved, count: int, flag: int) -> None:
+  B, n = rows.qM.shape[:2]
+  m = rows.J.shape[1]
+  lay = rows.layout
+  S, nb = (0, 0) if lay is None else (lay.table.shape[0], lay.nb)
+  scratch = torch.empty((B, scratch_elems(m)), dtype=rows.qM.dtype, device=rows.qM.device)
+  ptrs = [rows.qM, rows.J, rows.D, rows.aref, rows.fl, rows.kind,
+          None if lay is None else lay.table, rows.mu0, rows.a0, x, p, *outs, improved, scratch]
+  ptrs += [None] * (_NPTR - len(ptrs))
+  stream = torch.cuda.current_stream(rows.qM.device).cuda_stream
+  with torch.cuda.device(rows.qM.device):
+    rc = _fn(f"{name}_{_SUFFIX[rows.qM.dtype]}")(
+      *[None if t is None else t.data_ptr() for t in ptrs], B, n, m, S, nb, count, flag, stream)
+  if rc != 0:
+    raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+  LAUNCHES[name] += 1
+
+
+def newton_gradient(rows: Rows, x: torch.Tensor, forces: bool = False):
+  """(∇Φ(x) (B, n), the row weights w (B, m), the packed cone Hessians
+  (B, nb) or None) at x; with `forces`, (efc_force (B, m), qfrc_constraint
+  (B, n)) at x instead."""
+  if rows.qM.device.type == "cpu":
+    return newton_gradient_plain(rows, x, forces)
+  B, n, m = _check(rows, "newton_gradient", (x, tuple(rows.a0.shape)))
+  vec = torch.empty_like(x)
+  per_row = torch.empty_like(rows.D)
+  cone = None
+  if not forces and rows.layout is not None:
+    cone = torch.empty((B, rows.layout.nb), dtype=x.dtype, device=x.device)
+  _launch("newton_gradient", rows, x, None, (vec, per_row, cone), None, 0, int(forces))
+  return (per_row, vec) if forces else (vec, per_row, cone)
+
+
+def newton_linesearch(rows: Rows, x: torch.Tensor, p: torch.Tensor, iterations: int,
+                      safeguard: bool):
+  """(x' (B, n), α (B,), improved (B,) bool): the exact linesearch along p
+  from x, then the step's acceptance (see the module's docstring)."""
+  if rows.qM.device.type == "cpu":
+    return newton_linesearch_plain(rows, x, p, iterations, safeguard)
+  if iterations < 0:
+    raise ValueError(f"newton_linesearch: iterations {iterations} < 0")
+  B = rows.qM.shape[0]
+  _check(rows, "newton_linesearch", (x, tuple(rows.a0.shape)), (p, tuple(rows.a0.shape)))
+  x_out = torch.empty_like(x)
+  alpha = torch.empty((B,), dtype=x.dtype, device=x.device)
+  improved = torch.empty((B,), dtype=torch.bool, device=x.device)
+  _launch("newton_linesearch", rows, x, p, (x_out, alpha, None), improved, int(iterations),
+          int(bool(safeguard)))
+  return x_out, alpha, improved
+
+
+def constraint_cost(rows: Rows, X: torch.Tensor) -> torch.Tensor:
+  """Φ (B, k) at the k points X (B, k, n) of each world."""
+  if rows.qM.device.type == "cpu":
+    return constraint_cost_plain(rows, X)
+  B, n = rows.qM.shape[:2]
+  if X.dim() != 3 or X.shape[1] < 1:
+    raise ValueError(f"constraint_cost: expected X (B, k, n), got {tuple(X.shape)}")
+  k = X.shape[1]
+  _check(rows, "constraint_cost", (X, (B, k, n)))
+  cost = torch.empty((B, k), dtype=X.dtype, device=X.device)
+  _launch("constraint_cost", rows, X, None, (cost, None, None), None, k, 0)
+  return cost
+
+
+def launch_config(name: str, dtype: torch.dtype, n: int, m: int, ncone: int = 0) -> dict:
+  """The launch an entry point makes for these shapes (on the current card),
+  launching nothing: resident worlds per SM, SMs, shared bytes per world,
+  registers and local (spill) bytes per thread."""
+  out = (ctypes.c_int * 5)()
+  mode = {"newton_gradient": 0, "newton_linesearch": 2, "constraint_cost": 4}[name]
+  rc = _fn("newton_iter_config")(mode + int(ncone > 0 and name == "newton_linesearch"),
+                                 torch.empty((), dtype=dtype).element_size(), n, m, ncone, 1,
+                                 out)
+  if rc != 0:
+    raise RuntimeError(f"newton_iter_config failed with CUDA error {rc}")
+  return dict(zip(("worlds_per_sm", "sms", "shared_bytes", "registers", "spill_bytes"),
+                  list(out)))

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from mjlab_tpu_torch.core import math as mt
-from mjlab_tpu_torch.kernels import chol
+from mjlab_tpu_torch.kernels import chol, newton
 from mjlab_tpu_torch.physics import smooth
 from mjlab_tpu_torch.physics.types import (
   ConeType,
@@ -259,17 +259,25 @@ def device_tables(tp: Topology, dtype, device, cone: int = ConeType.PYRAMIDAL) -
     rot_rows=any(cd >= 4 for cd in condims),
     force_groups=force_groups,
     ncon=len(st.condim),
-    # Solver: row-class masks over [equality | friction | limits | contacts]
-    # (each only where the model has such rows) and the cone layout.
-    is_eq=f(np.arange(tp.nefc) < ne) if ne else None,
-    is_fric=f((np.arange(tp.nefc) >= ne) & (np.arange(tp.nefc) < ne + nf)) if nf else None,
-    reg=f(reg) if cone_groups else None,
+    # Solver: the row classes over [equality | friction | limits | contacts]
+    # (is_eq, is_fric, reg and kind, each only where the model has such
+    # rows) and the cone layout.
+    **newton.row_classes(_row_kinds(tp.nefc, ne, nf, reg), dtype, device),
     cone_groups=cone_groups,
     cone_kernel_layout=chol.ConeLayout(
       table=torch.as_tensor(np.asarray(layout, dtype=np.int32).reshape(-1, 3), device=device),
       groups=tuple(_runs(layout)), nb=boff,
     ),
   )
+
+
+def _row_kinds(nefc: int, ne: int, nf: int, reg: np.ndarray) -> np.ndarray:
+  """Each row's class (kernels/newton.py): equality, friction loss, cone
+  row (reg 0), else one-sided."""
+  rows = np.arange(nefc)
+  kind = np.where(rows < ne, newton.EQUALITY,
+                  np.where(rows < ne + nf, newton.FRICTION, newton.ONE_SIDED))
+  return np.where(reg == 0, newton.CONE_ROW, kind)
 
 
 def _runs(layout: list[tuple[int, int, int]]):

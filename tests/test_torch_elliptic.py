@@ -32,10 +32,9 @@ from mjlab_tpu import physics as jphysics
 from mjlab_tpu.physics import constraint as jcon
 from mjlab_tpu_torch import physics as tphysics
 from mjlab_tpu_torch.assets.solver_scenes import SCENES
-from mjlab_tpu_torch.kernels import chol
+from mjlab_tpu_torch.kernels import chol, newton
 from mjlab_tpu_torch.physics import constraint as tcon
 from mjlab_tpu_torch.physics import io as tio
-from mjlab_tpu_torch.physics import solver as tsolver
 from mjlab_tpu_torch.physics.types import mjtCone
 from tests.torch_parity import (
   assert_close,
@@ -156,7 +155,7 @@ def test_cone_zones_forces_and_hessians_match_jax():
     td = tphysics.forward(ttp, tm, to_torch(arrays))
     got = tio.data_to_arrays(td)
     # The zones at the starting point (the warm start or a0, by cost).
-    gen = tsolver.GeneralCost(ttp, tm, td)
+    gen = newton.Rows.of(ttp, td)
     x0 = torch.where((gen.total_cost(td.qacc_warmstart) < gen.total_cost(td.qacc_smooth))[:, None],
                      td.qacc_warmstart, td.qacc_smooth)
     g = gen.groups[0]
@@ -175,7 +174,7 @@ def test_cone_force_and_hessian_are_the_cost_derivatives():
   _, _, ttp, tm, arrays = _puck_zone_states(seed=1)
   with torch_threads(1):
     td = tphysics.forward(ttp, tm, to_torch(arrays))
-    gen = tsolver.GeneralCost(ttp, tm, td)
+    gen = newton.Rows.of(ttp, td)
     g = gen.groups[0]
     r = gen.residual(td.qacc_warmstart)
     u = r[:, g.rows]
@@ -213,7 +212,7 @@ def test_newton_direction_cone_plain_against_a_formed_matrix():
   _, _, ttp, tm, arrays = _puck_zone_states(seed=2)
   with torch_threads(1):
     td = tphysics.forward(ttp, tm, to_torch(arrays))
-    gen = tsolver.GeneralCost(ttp, tm, td)
+    gen = newton.Rows.of(ttp, td)
     r = gen.residual(td.qacc_warmstart)
     w, Bc = gen.row_hess(r), gen.cone_blocks(r)
     grad = torch.ones_like(td.qacc)
@@ -267,7 +266,7 @@ def test_cone_line_gives_the_forces_and_hessians_along_a_direction():
   _, _, ttp, tm, arrays = _puck_zone_states(seed=3)
   with torch_threads(1):
     td = tphysics.forward(ttp, tm, to_torch(arrays))
-    gen = tsolver.GeneralCost(ttp, tm, td)
+    gen = newton.Rows.of(ttp, td)
     g = gen.groups[0]
     r0 = gen.residual(td.qacc_warmstart)[:, g.rows]
     v = torch.randn(r0.shape, generator=torch.Generator().manual_seed(0), dtype=r0.dtype)

@@ -37,6 +37,7 @@ def test_import_leaves_out_jax_mjlab_tpu_and_mujoco():
     "import json, sys\n"
     "import mjlab_tpu_torch, mjlab_tpu_torch.sim, mjlab_tpu_torch.physics\n"
     "import mjlab_tpu_torch.kernels.chol, mjlab_tpu_torch.kernels.build\n"
+    "import mjlab_tpu_torch.kernels.newton, mjlab_tpu_torch.kernels.pgs\n"
     "import mjlab_tpu_torch.assets\n"
     "import mjlab_tpu_torch.entity, mjlab_tpu_torch.scene, mjlab_tpu_torch.sensors\n"
     "import mjlab_tpu_torch.managers, mjlab_tpu_torch.envs, mjlab_tpu_torch.envs.mdp\n"
