@@ -305,8 +305,12 @@ on phase 2's 2%-active input, `ms_main_path` per launch in phase 6's
 profile, `ms_run_rows`, `ms_elliptic_rows` and `ms_cg_rows` on phases 3b's
 and 14's rows, the bounds on those inputs and `library_ms` null: no
 PyTorch call computes an exact linesearch (the torch path each replaces is
-its plain version, `plain_ms`); the last line is
-{"ok": true, "device": {...}}.
+its plain version, `plain_ms`); `newton_gradient`'s times are the solve's
+first launch, with the list's build (`ms_list_reused` without it), and
+`newton_linesearch`'s a whole launch with the gradient at x', one Newton
+iteration's non-direction work (`bound_ms_iteration_run_rows` its bound
+by `newton_bounds`' rule); the last line is {"ok": true, "device":
+{...}}.
 
 The Newton iteration's kernels add: in phase 2 the three against
 their plain versions at the main path's shapes (4096 x 1699 x 35, f32) with
@@ -314,14 +318,18 @@ their plain versions at the main path's shapes (4096 x 1699 x 35, f32) with
 plain times and bounds and their launch (resident worlds per SM, shared
 bytes, registers, spills); in phases 3, 7 and 8 (and every path through
 `train_iterations`, and phase 14's CG run) their launches per substep, env
-step and iteration: per Newton solve of K iterations 1 `constraint_cost`,
-K + 1 `newton_gradient` and K `newton_linesearch` (22 per G1 substep, 5 /
-55 / 50 per env step), per CG solve 1, K + 2 and K, none under PGS; in
-phase 3b and phase 14's elliptic and CG runs the three against their plain
-versions on the run's rows (f32 and f64) and their times there; in phase 5
-the solve split into the directions, the gradient kernel, the linesearch
-kernel and the rest; in phase 6 a failure if a product with a (B, nefc,
-nv) operand runs inside the solver.solve profiler span.
+step and iteration: per Newton or CG solve of K iterations 1
+`constraint_cost`, 1 `newton_gradient` (the solve's first, which lists its
+active rows) and K `newton_linesearch` (each ending with the next
+iteration's gradient, the last with the forces: 12 per G1 substep, 5 / 5 /
+50 per env step), none under PGS; in phase 3b and phase 14's elliptic and
+CG runs the three against their plain versions on the run's rows (f32 and
+f64; the linesearch against newton_linesearch_plain followed by
+newton_gradient_plain at the point it returns, and its gradient bitwise
+against newton_gradient's there) and their times there; in phase 5 the
+solve split into the directions, the first gradient kernel, the
+linesearch kernel and the rest; in phase 6 a failure if a product with a
+(B, nefc, nv) operand runs inside the solver.solve profiler span.
 """
 
 from __future__ import annotations
@@ -382,24 +390,24 @@ def fact_per_env_step(newton_iters: int = 10, decimation: int = DECIMATION,
 RL_FACT_PER_STEP = fact_per_env_step()
 
 
-def newton_per_solve(iterations: int = 10, cg: bool = False) -> dict[str, int]:
-  """The Newton iteration's kernels per solve: a Newton solve of K
-  iterations launches 1 constraint_cost (the warm start), K + 1
-  newton_gradient (each iteration's and the final forces') and K
-  newton_linesearch; a CG solve 1, K + 2 (its first gradient too) and K."""
-  return {"constraint_cost": 1, "newton_gradient": iterations + (2 if cg else 1),
-          "newton_linesearch": iterations}
+def newton_per_solve(iterations: int = 10) -> dict[str, int]:
+  """The Newton iteration's kernels per solve: a Newton or CG solve of K ≥ 1
+  iterations launches 1 constraint_cost (the warm start), 1
+  newton_gradient (at the solve's first point, listing its active rows) and
+  K newton_linesearch (each with the gradient at the point it returns, the
+  last with the final forces)."""
+  return {"constraint_cost": 1, "newton_gradient": 1, "newton_linesearch": iterations}
 
 
 def newton_per_env_step(opt, decimation: int = DECIMATION) -> dict[str, int]:
   """The Newton iteration's kernels per env step for the model's solver
   options: one solve per substep and the post-reset forward's (5 solves at
-  4 substeps: 5, 55 and 50 for G1's 10 Newton iterations); none under PGS."""
+  4 substeps: 5, 5 and 50 for G1's 10 Newton iterations); none under PGS."""
   from mjlab_tpu_torch.physics.types import mjtSolver
 
   if opt.solver == mjtSolver.mjSOL_PGS:
     return {k: 0 for k in NEWTON_KERNELS}
-  per = newton_per_solve(opt.iterations, opt.solver == mjtSolver.mjSOL_CG)
+  per = newton_per_solve(opt.iterations)
   return {k: (decimation + 1) * v for k, v in per.items()}
 
 
@@ -621,31 +629,46 @@ def rows_as(rows, dtype):
                      mu0=cast(rows.mu0))
 
 
-def newton_bounds(rows, iters: int, safeguard: bool = False,
-                  k: int = 2) -> dict[str, tuple[float, str]]:
+def newton_bounds(rows, iters: int, safeguard: bool = False, k: int = 2,
+                  solve_iters: int = 10) -> dict[str, tuple[float, str]]:
   """Least time (ms) of each of the Newton iteration's kernels on these
-  float32 rows: the larger of the bytes it must move (D on every row; J,
-  aref and fl on the active rows, D != 0, a cone slot's rows with it; qM's
-  lower triangle; its vectors and outputs: w or efc_force on every row and
-  the cone blocks for the gradient) over HBM's rate, and its FLOP over the
-  float32 rate (per active row 2n for each product with J, a few per
-  linesearch step; 2n² per quadratic form; the linesearch's cost at x and
-  each candidate, 2 points, or 7 with the safeguard)."""
+  rows: the larger of the bytes it must move over HBM's rate and its FLOP
+  over the float32 rate. One rule for any split of the work: D on every
+  row, w on the inactive rows and the list's entries are once per solve
+  (the solve's first `newton_gradient`); each iteration then moves the
+  active rows' (D != 0, a cone slot's rows with it) J, aref, fl, D and list
+  entry, qM's lower triangle, x and p in, x', the gradient and α out, w on
+  the active rows and the active slots' cone blocks. FLOP: per active row 2n for each
+  product with J, a few per linesearch step; 2n² per quadratic form.
+  "iteration" is one Newton iteration's non-direction work (x, p → x', ∇,
+  w, blocks) with the once-per-solve bytes spread over `solve_iters`
+  iterations; "newton_gradient" the solve's first launch (the list's build
+  and the gradient), "newton_linesearch" one launch without the
+  once-per-solve bytes."""
   B, m = rows.D.shape
   n, e = rows.qM.shape[1], rows.D.element_size()
   active = int((rows.D != 0).sum().item())
-  per_row = (n + 1 + int(rows.fl is not None)) * e
-  common = B * m * e + active * per_row + B * n * (n + 1) // 2 * e
-  nb = rows.layout.nb if rows.layout is not None else 0
-  costs = 7 if safeguard else 2
+  row_bytes = (n + 2 + int(rows.fl is not None)) * e + 4
+  tri = B * n * (n + 1) // 2 * e
+  blocks = inactive_blocks = 0  # cone block elements of the active and the other slots
+  if rows.layout is not None:
+    tab = rows.layout.table.long()
+    on = rows.D[:, tab[:, 0]] > 0
+    size = (tab[:, 1] * tab[:, 1])[None, :]
+    blocks = int((on * size).sum().item())
+    inactive_blocks = int((~on * size).sum().item())
+  per_iter = active * row_bytes + tri + 4 * B * n * e + B * (e + 1) + (active + blocks) * e
+  once = B * m * e + (B * m - active + inactive_blocks) * e + active * 4
+  pts = 6 if safeguard else 1
+  ls_flop = (active * (4 * n + 8 * iters + pts * 2 * n + 4 * n)
+             + B * (3 + pts + int(safeguard)) * 2 * n * n)
   work = {
-    "newton_gradient": (common + 3 * B * n * e + B * m * e + B * nb * e,
+    "newton_gradient": (once + active * row_bytes + tri + 2 * B * n * e + (active + blocks) * e,
                         4 * active * n + 2 * B * n * n),
-    "newton_linesearch": (common + 4 * B * n * e + B * (e + 1),
-                          4 * active * n + 8 * iters * active
-                          + costs * (2 * active * n + 2 * B * n * n) + 4 * B * n * n),
-    "constraint_cost": (common + B * (k + 1) * n * e + B * k * e,
-                        k * (2 * active * n + 2 * B * n * n)),
+    "newton_linesearch": (per_iter, ls_flop),
+    "iteration": (per_iter + once / solve_iters, ls_flop),
+    "constraint_cost": (B * m * e + active * (row_bytes - 4) + tri + B * (k + 1) * n * e
+                        + B * k * e, k * (2 * active * n + 2 * B * n * n)),
   }
   out = {}
   for name, (byt, flop) in work.items():
@@ -665,24 +688,48 @@ def iteration_inputs(rows):
   return x, solver.direction(rows, grad, w, blocks)
 
 
+def _copies(out):
+  """A kernel's outputs, the solve's buffers among them copied."""
+  return tuple(None if t is None else t.clone() for t in out)
+
+
 def iteration_kernels(tag: str, rows, x, p, iters: int, safeguard: bool, checks: "KernelCheck",
                       card: str, time_plain: bool = True) -> dict[str, dict]:
   """The three kernels of the Newton iteration against their plain versions
   on float32 rows (KernelCheck's rule) and, cast to float64, within 1e-10
-  relative; each kernel's ms on these rows (mean of 20 calls), its plain
-  version's and its bound. The comparisons' launches are the caller's to
-  leave out of a path's counts."""
+  relative: newton_gradient at x (and its forces mode), newton_linesearch
+  along p with the gradient and with the forces at the point it returns
+  (against newton_linesearch_plain followed by newton_gradient_plain at the
+  point that returns), constraint_cost at x and x + p; the gradient (and
+  the forces) a linesearch returns at x' bitwise equal to newton_gradient's
+  at x'. Each kernel's ms on these rows (mean of 20 calls;
+  newton_gradient's as the solve's first launch runs it, with the list's
+  build, and without it), its plain version's and its bound
+  (`newton_bounds`); "iteration" is the linesearch's launch against one
+  iteration's bound. The comparisons' launches are the caller's to leave
+  out of a path's counts."""
   from mjlab_tpu_torch.kernels import newton
 
   X = torch.stack([x, x + p], dim=1).contiguous()
+
+  def ls_kern(r, x_, p_, forces=False):
+    xo, alpha, improved, at = newton.newton_linesearch(r, x_, p_, iters, safeguard,
+                                                       forces=forces)
+    return (xo, alpha, improved, *_copies(at))
+
+  def ls_plain(r, x_, p_, forces=False):
+    xo, alpha, improved = newton.newton_linesearch_plain(r, x_, p_, iters, safeguard)
+    return (xo, alpha, improved, *newton.newton_gradient_plain(r, xo, forces))
+
   calls = {
-    "newton_gradient": (lambda r, x_, p_, X_: newton.newton_gradient(r, x_),
+    "newton_gradient": (lambda r, x_, p_, X_: _copies(newton.newton_gradient(r, x_)),
                         lambda r, x_, p_, X_: newton.newton_gradient_plain(r, x_)),
     "newton_forces": (lambda r, x_, p_, X_: newton.newton_gradient(r, x_, forces=True),
                       lambda r, x_, p_, X_: newton.newton_gradient_plain(r, x_, forces=True)),
-    "newton_linesearch": (
-      lambda r, x_, p_, X_: newton.newton_linesearch(r, x_, p_, iters, safeguard),
-      lambda r, x_, p_, X_: newton.newton_linesearch_plain(r, x_, p_, iters, safeguard)),
+    "newton_linesearch": (lambda r, x_, p_, X_: ls_kern(r, x_, p_),
+                          lambda r, x_, p_, X_: ls_plain(r, x_, p_)),
+    "newton_linesearch_forces": (lambda r, x_, p_, X_: ls_kern(r, x_, p_, True),
+                                 lambda r, x_, p_, X_: ls_plain(r, x_, p_, True)),
     "constraint_cost": (lambda r, x_, p_, X_: (newton.constraint_cost(r, X_),),
                         lambda r, x_, p_, X_: (newton.constraint_cost_plain(r, X_),)),
   }
@@ -693,13 +740,14 @@ def iteration_kernels(tag: str, rows, x, p, iters: int, safeguard: bool, checks:
     got, want = kern(rows, x, p, X), plain(rows, x, p, X)
     ref = plain(rows64, *a64)
     got64 = kern(rows64, *a64)
-    key = "newton_gradient" if name == "newton_forces" else name
+    key = {"newton_forces": "newton_gradient",
+           "newton_linesearch_forces": "newton_linesearch"}.get(name, name)
     keep = None
-    if name == "newton_linesearch":
+    if key == "newton_linesearch":
       # The acceptance may decide a cost tie the other way (the sums over
       # the rows round differently): there the two chosen points' float64
       # costs agree within 1e-5 relative in float32 (1e-12 in float64), and
-      # x' is compared in the other worlds.
+      # x' and the outputs at x' are compared in the other worlds.
       keep = {}
       for tol, g3, w3, label in ((1e-5, got, want, "f32"), (1e-12, got64, ref, "f64")):
         flips = g3[2] != w3[2]
@@ -712,12 +760,12 @@ def iteration_kernels(tag: str, rows, x, p, iters: int, safeguard: bool, checks:
           if not tie:
             raise AssertionError(f"{tag}: an {label} acceptance differs where costs do not tie")
         keep[label] = ~flips
-      got, want, ref, got64 = got[:2], want[:2], ref[:2], got64[:2]
+      got, want, ref, got64 = (t[:2] + t[3:] for t in (got, want, ref, got64))
     for i, (g, w_, r) in enumerate(zip(got, want, ref)):
       if g is None:
         continue
       r_full, g64 = r, got64[i]
-      if keep is not None and i == 0:
+      if keep is not None and i != 1:  # alpha does not depend on the acceptance
         g, w_, r = g[keep["f32"]], w_[keep["f32"]], r[keep["f32"]]
         g64, r_full = g64[keep["f64"]], r_full[keep["f64"]]
       flat = [t.reshape(t.shape[0], -1) for t in (g, w_, r)]
@@ -733,25 +781,60 @@ def iteration_kernels(tag: str, rows, x, p, iters: int, safeguard: bool, checks:
         f"{worst64:.3e} (tol 1e-10)")
   if not worst64 <= 1e-10:
     raise AssertionError(f"{tag}: a float64 Newton-iteration kernel differs by {worst64:.3e}")
+  for r_ in (rows, rows64):
+    xr, pr = (x, p) if r_ is rows else a64[:2]
+    for forces in (False, True):
+      res = ls_kern(r_, xr, pr, forces)
+      xo, at = res[0], res[3:]
+      want = newton.newton_gradient(r_, xo, forces=forces)
+      if not all(a_ is None and b_ is None or newton.same_bits(a_, b_)
+                 for a_, b_ in zip(at, want)):
+        raise AssertionError(f"{tag}: the linesearch's output at x' differs from "
+                             f"newton_gradient's there ({r_.qM.dtype}, forces {forces})")
+  print(f"  the gradient, w and blocks (and the forces) a linesearch returns at x' are bitwise "
+        f"newton_gradient's there, f32 and f64")
   bnd = newton_bounds(rows, iters, safeguard)
+
+  def first_gradient():
+    rows._card.built = False  # as at a solve's first launch: the list is built again
+    return newton.newton_gradient(rows, x)
+
+  timed = {
+    "newton_gradient": (first_gradient, lambda: newton.newton_gradient_plain(rows, x)),
+    "newton_linesearch": (lambda: newton.newton_linesearch(rows, x, p, iters, safeguard),
+                          lambda: ls_plain(rows, x, p)),
+    "constraint_cost": (lambda: newton.constraint_cost(rows, X),
+                        lambda: newton.constraint_cost_plain(rows, X)),
+  }
   out = {}
   for name in NEWTON_KERNELS:
-    kern, plain = calls[name]
-    ms = time_ms(lambda: kern(rows, x, p, X), [()])
-    plain_ms = time_ms(lambda: plain(rows, x, p, X), [()], iters=3) if time_plain else None
+    kern, plain = timed[name]
+    ms = time_ms(kern, [()])
+    plain_ms = time_ms(plain, [()], iters=3) if time_plain else None
     out[name] = {"ms": ms, "plain_ms": plain_ms, "bound": bnd[name]}
     print(f"  {name:18s} on {tag}: kernel {ms:.4f} ms  plain "
           + (f"{plain_ms:.4f} ms" if plain_ms is not None else "not timed")
           + f"  bound {bnd[name][0]:.6f} ms ({bnd[name][1]}) [{card}]")
+  out["newton_gradient"]["ms_list_reused"] = time_ms(lambda: newton.newton_gradient(rows, x),
+                                                     [()])
+  out["iteration"] = {"ms": out["newton_linesearch"]["ms"], "bound": bnd["iteration"]}
+  print(f"  newton_gradient without the list's build {out['newton_gradient']['ms_list_reused']:.4f}"
+        f" ms; one iteration's non-direction work (a linesearch launch) "
+        f"{out['iteration']['ms']:.4f} ms against its bound {bnd['iteration'][0]:.6f} ms "
+        f"({bnd['iteration'][1]}; the once-per-solve bytes over 10 iterations) [{card}]")
   return out
 
 
 def print_iteration_launch(what: str, dtype, n: int, m: int, ncone: int = 0) -> dict:
   """The Newton-iteration kernels' launch at these shapes (resident worlds
-  per SM, shared bytes, registers, local bytes)."""
+  per SM, shared bytes, registers, local bytes); with cone slots the
+  linesearch's with the safeguard too."""
   from mjlab_tpu_torch.kernels import newton
 
   cfgs = {name: newton.launch_config(name, dtype, n, m, ncone) for name in NEWTON_KERNELS}
+  if ncone:
+    cfgs["newton_linesearch_safeguard"] = newton.launch_config("newton_linesearch", dtype, n, m,
+                                                               ncone, safeguard=True)
   for name, cfg in cfgs.items():
     print(f"  {name} launch ({what}): one-warp blocks, {cfg['worlds_per_sm']} resident worlds "
           f"per SM of {cfg['sms']}, {cfg['shared_bytes']} shared bytes per world, "
@@ -797,35 +880,39 @@ def stage_times(tp, m, d, reps: int = 3) -> dict[str, float]:
 def solve_split(tp, m, d, reps: int = 3) -> dict[str, float]:
   """Mean ms of solver.solve's parts on one substep's data, run as
   solver.solve runs them: the Newton directions (H and its factor and
-  solves), the gradient kernel (each iteration's and the final forces'),
-  the linesearch kernel (with the step's acceptance), and the rest (the
+  solves), the solve's first gradient kernel (with the list of its active
+  rows), the linesearch kernel (the step's acceptance and the gradient at
+  the accepted point, the last launch's with the forces), and the rest (the
   rows' set-up and the warm start's constraint_cost)."""
   from mjlab_tpu_torch.kernels import newton
   from mjlab_tpu_torch.physics import solver
 
   marks = []
 
-  def timed(part, fn, *args):
+  def timed(part, fn, *args, **kw):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    out = fn(*args)
+    out = fn(*args, **kw)
     end.record()
     marks.append((part, start, end))
     return out
 
   cone = tp.dev.con.cone_groups != []
+  parts = ("H + direction", "first gradient kernel", "linesearch kernel", "rest")
+  K = m.opt.iterations
   for _ in range(reps):
     rows = timed("rest", newton.Rows.of, tp, d)
     x = timed("rest", solver.warm_start, rows, d.qacc_warmstart.contiguous())
-    for _ in range(m.opt.iterations):
-      grad, w, blocks = timed("gradient kernel", newton.newton_gradient, rows, x)
-      p = timed("H + direction", solver.direction, rows, grad, w, blocks)
-      x = timed("linesearch kernel", newton.newton_linesearch, rows, x, p,
-                m.opt.ls_iterations, cone)[0]
-    timed("gradient kernel", newton.newton_gradient, rows, x, True)
+    grad, w, blocks = timed(parts[1], newton.newton_gradient, rows, x)
+    for k in range(K):
+      p = timed(parts[0], solver.direction, rows, grad, w, blocks)
+      x, _, _, at = timed(parts[2], newton.newton_linesearch, rows, x, p, m.opt.ls_iterations,
+                          cone, forces=k == K - 1)
+      if k < K - 1:
+        grad, w, blocks = at
   torch.cuda.synchronize()
-  out = {"H + direction": 0.0, "gradient kernel": 0.0, "linesearch kernel": 0.0, "rest": 0.0}
+  out = {part: 0.0 for part in parts}
   for part, start, end in marks:
     out[part] += start.elapsed_time(end) / reps
   return out
@@ -1156,7 +1243,7 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
                      steps: int = TRAIN_STEPS):
   """`iters` `train_iteration`s under set_sync_debug_mode("error") with
   every kernel's counter set to 0 just before and read just after. Checks
-  1416 factorizations, 120 `chol_solve` and 120 `constraint_cost`, 1320
+  1416 factorizations, 120 `chol_solve` and 120 `constraint_cost`, 120
   `newton_gradient` and 1200 `newton_linesearch` per iteration (at 10
   Newton iterations; `newton_per_env_step`), finite losses, the lr inside
   [1e-5, 1e-2], the rollout buffers' shapes and that every parameter
@@ -2541,6 +2628,7 @@ def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
   # safeguard's acceptance), from a0 along its Newton direction.
   iter_res = iteration_kernels("the G1 elliptic run's rows", gen, *iteration_inputs(gen),
                                env.sim.model.opt.ls_iterations, True, checks, card)
+  print_iteration_launch("G1 elliptic, f32", torch.float32, n, tp.nefc, layout.table.shape[0])
   del runner, env, d, gen, r
   gc.collect()
   torch.cuda.empty_cache()
@@ -2556,7 +2644,8 @@ def cg_path(card: str, checks: KernelCheck) -> tuple[dict[str, int], dict]:
   N(0, 1) actions at 4096 envs under set_sync_debug_mode("error"): ms per
   env step, and the Cholesky launches per env step against the code's count
   (per forward, M's factor and CG's factor of M + 1e-12·I, M's solve for
-  qacc_smooth and CG's 1 + iterations solves; 4 substeps and the post-reset
+  qacc_smooth and CG's iterations solves, one per iteration but the last;
+  4 substeps and the post-reset
   forward, and the integrator's factor-solve per substep) and the Newton
   iteration's (`newton_per_env_step`); the three kernels against their plain
   versions on the run's last state (`iteration_kernels`); then the card's
@@ -2574,7 +2663,7 @@ def cg_path(card: str, checks: KernelCheck) -> tuple[dict[str, int], dict]:
   env.reset(seed=0)
   it = env.sim.model.opt.iterations
   forwards = DECIMATION + 1
-  want = {"chol_factor": 2 * forwards, "chol_solve": (2 + it) * forwards,
+  want = {"chol_factor": 2 * forwards, "chol_solve": (1 + it) * forwards,
           "chol_factor_solve": DECIMATION, "newton_direction": 0, CONE_KERNEL: 0,
           **newton_per_env_step(env.sim.model.opt)}
   gen = torch.Generator(device="cuda").manual_seed(3)
@@ -4502,14 +4591,14 @@ def main() -> int:
     raise AssertionError(f"{len(dense)} (B, nefc, nv) products inside solve "
                          f"({solve_spans} spans)")
   # Each kernel's device time per launch on the main path, from the profile
-  # (the Newton iteration's modes are instances of one kernel template:
-  # newton_iter_kernel<T, mode>, mode 0-1 the gradient, 2-3 the linesearch,
-  # 4 the cost).
+  # (the gradient and the linesearch are instances of one kernel template,
+  # newton_iter_kernel<T, mode, cone>: mode 0 the gradient, 1-2 the
+  # linesearch; the cost is cost_kernel<T>).
   kernel_keys = {name: (f"{name}_kernel<",) for name in KERNELS}
-  kernel_keys.update({"newton_gradient": ("newton_iter_kernel<float, 0>",
-                                          "newton_iter_kernel<float, 1>"),
-                      "newton_linesearch": ("newton_iter_kernel<float, 2>",),
-                      "constraint_cost": ("newton_iter_kernel<float, 4>",)})
+  kernel_keys.update({"newton_gradient": ("newton_iter_kernel<float, 0,",),
+                      "newton_linesearch": ("newton_iter_kernel<float, 1,",
+                                            "newton_iter_kernel<float, 2,"),
+                      "constraint_cost": ("cost_kernel<float>",)})
   path_ms = {}
   for name in PATH_KERNELS:
     hits = [e for e in events if any(key in e.key for key in kernel_keys[name])]
@@ -4839,8 +4928,9 @@ def main() -> int:
                        "grad, row_hess, cone blocks), :300-301 (cg_solve's grad_at) and "
                        ":378-386 (the final forces)",
     "newton_linesearch": "mjlab_tpu/physics/solver.py:231-266 (newton_iter's linesearch and "
-                         "acceptance, the elliptic safeguard) and :268-287, :308-313 "
-                         "(cg_solve's linesearch and acceptance)",
+                         "acceptance, the elliptic safeguard), :268-287, :308-313 "
+                         "(cg_solve's), then at the accepted point :218-224 (the next "
+                         "iteration's grad, row_hess, cone blocks), :300-301 or :378-386",
     "constraint_cost": "mjlab_tpu/physics/solver.py:182-192 (total_cost, the warm start's "
                        "choice)",
   }
@@ -4872,6 +4962,13 @@ def main() -> int:
       "bound_by": iter_times[name]["bound"][1],
       "bound_ms_run_rows": run_iter[name]["bound"][0],
       "bound_ms_elliptic_rows": ell["iter"][name]["bound"][0],
+      "bound_ms_cg_rows": cg_iter[name]["bound"][0],
+      **({"ms_list_reused_run_rows": run_iter[name]["ms_list_reused"]}
+         if name == "newton_gradient" else {}),
+      **({"bound_ms_iteration_run_rows": run_iter["iteration"]["bound"][0],
+          "bound_ms_iteration_elliptic_rows": ell["iter"]["iteration"]["bound"][0],
+          "bound_ms_iteration_cg_rows": cg_iter["iteration"]["bound"][0]}
+         if name == "newton_linesearch" else {}),
       # No PyTorch call computes an exact linesearch or this cost; the torch
       # path the kernel replaces is its plain version (plain_ms).
       "library_ms": None,

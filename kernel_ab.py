@@ -1,23 +1,27 @@
-"""Times this checkout's Newton-direction, Cholesky and PGS kernels
-against other versions of their sources, on one CUDA card.
+"""Times this checkout's Newton-direction, Cholesky, PGS and Newton
+iteration kernels against other versions of their sources, on one CUDA
+card.
 
 Run from the root of a checkout:
 
-    python3 kernel_ab.py DIR [DIR ...] [--cut DIR ...] [--cases newton chol pgs]
+    python3 kernel_ab.py DIR [DIR ...] [--cut DIR ...] [--cases newton chol pgs newton_iter]
 
 Each DIR holds one version's sources, any of `newton_dir.cu` (with
-`chol_core.cuh`), `chol.cu` and `pgs.cu`: for example a parent commit's
-`mjlab_tpu_torch/csrc`, unpacked with `git archive` into a directory that
-.gitignore lists. A version is named by its DIR's last component; this
-checkout's `mjlab_tpu_torch/csrc` is `this`. Every source is built with
-`kernels.build.NVCC_FLAGS` into `build/kernel_ab/`, held against the plain
-versions (chip_smoke.KernelCheck's rule) and timed with CUDA events in
-turns (the others, this, this, the others in reverse; twice) on the cases
-below, each case with the versions that have its source. A version given
-with `--cut` is one cut short to split the time (for example, without the
-factor): it is timed, not held to the plain versions. `--cases` picks the
-groups to run (all three by default): `newton` is run, m0, wzero, dense
-and ell, `chol` the Cholesky entries, `pgs` the PGS case. The cases:
+`chol_core.cuh`), `chol.cu`, `pgs.cu` and `newton_iter.cu`: for example a
+parent commit's `mjlab_tpu_torch/csrc`, unpacked with `git archive` into a
+directory that .gitignore lists. A version is named by its DIR's last
+component; this checkout's `mjlab_tpu_torch/csrc` is `this`. Every source is
+built into `build/kernel_ab/` with `kernels.build.NVCC_FLAGS` (this
+checkout's, and a `newton_iter.cu` with the solve's list, with
+`kernels.build.flags`, their source's own flags), held
+against the plain versions (chip_smoke.KernelCheck's rule) and timed with
+CUDA events in turns (the others, this, this, the others in reverse; twice)
+on the cases below, each case with the versions that have its source. A
+version given with `--cut` is one cut short to split the time (for example,
+without the factor): it is timed, not held to the plain versions. `--cases`
+picks the groups to run (all four by default): `newton` is run, m0, wzero,
+dense and ell, `chol` the Cholesky entries, `pgs` the PGS case,
+`newton_iter` the Newton iteration's. The cases:
 
 - `run`: G1 velocity-flat's Newton inputs (qM, J, the weights at qacc, a
   seeded grad) after 30 env steps of `Simulation.step_fn()` at 4096
@@ -35,7 +39,18 @@ and ell, `chol` the Cholesky entries, `pgs` the PGS case. The cases:
   J, a0, aref, D, lo and hi, f, u and qfrc held to the plain version. A
   `pgs.cu` whose entry takes b (no `pgs_solve_config`, the form before the
   kernel formed b and Jᵀf) is timed with b = J a0 − aref and qfrc = Jᵀf in
-  torch around it, so that every version times the same function.
+  torch around it, so that every version times the same function;
+- `newton_iter`: one Newton iteration's non-direction work, from (x, p) to
+  (x', ∇, w, the cone blocks), on the rows of G1 velocity-flat after 30 env
+  steps (phase 3b's run), under the elliptic cone after 8 (the safeguard's
+  acceptance) and under CG after 8, at 4096 worlds, f32, x = a0 and p its
+  Newton direction: a `newton_iter.cu` whose linesearch returns the
+  gradient at x' (`newton_iter_scratch_elems`) runs one newton_linesearch
+  launch on the solve's list, one without runs newton_linesearch and then
+  newton_gradient at x'. Each is held to newton_linesearch_plain followed
+  by newton_gradient_plain; each time is printed beside chip_smoke's
+  `newton_bounds` "iteration" bound, and the list's one-time build (the
+  solve's first newton_gradient with it and without) is timed too.
 
 Each line of times names the card and its power limit as nvidia-smi
 prints them.
@@ -62,19 +77,20 @@ OUT = ROOT / "build" / "kernel_ab"
 P, I = ctypes.c_void_p, ctypes.c_int
 
 
-SOURCES = ("newton_dir", "chol", "pgs")
-CASES = ("newton", "chol", "pgs")
+SOURCES = ("newton_dir", "chol", "pgs", "newton_iter")
+CASES = ("newton", "chol", "pgs", "newton_iter")
 
 
-def _build(job: tuple[str, Path]) -> tuple[str, ctypes.CDLL, list[str]]:
-  """Builds one source; returns its library and ptxas' register and spill
-  lines for G1's f32 instances (the Newton pair's N 35, regular and cone;
-  every f32 instance of a PGS kernel)."""
+def _build(job: tuple[str, Path, tuple[str, ...]]) -> tuple[str, ctypes.CDLL, list[str]]:
+  """Builds one source with these flags; returns its library and ptxas'
+  register and spill lines for G1's f32 instances (the Newton pair's N 35,
+  regular and cone; every f32 instance of a PGS kernel and of the Newton
+  iteration's)."""
   from mjlab_tpu_torch.kernels import build
 
-  tag, src = job
+  tag, src, flags = job
   so = OUT / f"lib{tag}.so"
-  p = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
+  p = subprocess.run([build._nvcc(), *flags, "-o", str(so), str(src)],
                      capture_output=True, text=True)
   if p.returncode:
     raise SystemExit(f"kernel_ab: nvcc failed for {src}:\n{p.stdout}{p.stderr}")
@@ -88,6 +104,8 @@ def _build(job: tuple[str, Path]) -> tuple[str, ctypes.CDLL, list[str]]:
         kind = "cone" if "IfLi35ELb0ELb1E" in fn else "regular"
         ptxas.append(f"ptxas {tag} f32 N35 {kind}: {what}")
       elif (k := re.search(r"pgs_kernelIfLi(\d+)E", fn)) is not None:
+        ptxas.append(f"ptxas {tag} f32 {k.group(1)}: {what}")
+      elif (k := re.search(r"(newton_iter_kernelIfLi\d+E\w{0,4}|cost_kernelIf)", fn)):
         ptxas.append(f"ptxas {tag} f32 {k.group(1)}: {what}")
   return tag, ctypes.CDLL(str(so)), ptxas
 
@@ -118,6 +136,7 @@ class Version:
     self.name, self.libs = name, libs
     self.newton_lib, self.chol_lib = libs.get("newton_dir"), libs.get("chol")
     self.pgs_lib = libs.get("pgs")
+    self.iter_lib = libs.get("newton_iter")
 
   def newton(self, qM, J, w, g, Bc=None, layout=None):
     cone = Bc is not None
@@ -192,7 +211,17 @@ def build_versions(dirs: list[Path]) -> list[Version]:
   named = [(d.name, d) for d in dirs] + [("this", ROOT / "mjlab_tpu_torch" / "csrc")]
   if len({name for name, _ in named}) != len(named):
     raise SystemExit("kernel_ab: the directories' last components must differ, and not be 'this'")
-  jobs = [(f"{name}_{src}", d / f"{src}.cu") for name, d in named for src in version_sources(d)]
+  from mjlab_tpu_torch.kernels import build
+
+  def flags(name: str, d: Path, src: str) -> tuple[str, ...]:
+    # A newton_iter.cu with the solve's list builds as this checkout's does.
+    if name == "this" or (src == "newton_iter"
+                          and "newton_iter_scratch_elems" in (d / f"{src}.cu").read_text()):
+      return build.flags(src)
+    return build.NVCC_FLAGS
+
+  jobs = [(f"{name}_{src}", d / f"{src}.cu", flags(name, d, src))
+          for name, d in named for src in version_sources(d)]
   t0 = time.perf_counter()
   with ThreadPoolExecutor(len(jobs)) as ex:
     built = list(ex.map(_build, jobs))
@@ -211,7 +240,7 @@ def turns(versions: list) -> list:
   return (others + [this, this] + others[::-1]) * 2
 
 
-def g1_state(gen, cone: str, steps: int):
+def g1_state(gen, cone: str, steps: int, solver: str = "newton"):
   """G1 velocity-flat at cs.NUM_WORLDS worlds after `steps` env steps of
   keyframe targets plus a seeded 0.1-scaled action, as phase 3 runs it."""
   from mjlab_tpu_torch.assets import g1_velocity_sim_cfg, load_model_npz
@@ -219,6 +248,7 @@ def g1_state(gen, cone: str, steps: int):
 
   cfg = g1_velocity_sim_cfg()
   cfg.mujoco.cone = cone
+  cfg.mujoco.solver = solver
   model = load_model_npz()
   sim = Simulation(cs.NUM_WORLDS, cfg, model)
   key = torch.tensor(model.key_qpos[0], dtype=torch.float32, device="cuda")
@@ -234,6 +264,76 @@ def g1_state(gen, cone: str, steps: int):
       d = step(sim.model, d)
   torch.cuda.synchronize()
   return sim, d
+
+
+def iteration_call(lib: ctypes.CDLL, rows, x, p, iters: int, safeguard: bool):
+  """One version's non-direction work of a Newton iteration on these f32
+  rows, from (x, p) to (x', ∇, w, blocks), into buffers allocated here
+  once: (call, outputs, first, reused) where `first` is the solve's first
+  newton_gradient with the list's build and `reused` the same without it
+  (both None for a version without a list). `rows` is this version's own
+  Rows (a fused version keeps its list there)."""
+  from mjlab_tpu_torch.kernels import newton
+
+  (B, n), m = x.shape, rows.J.shape[1]
+  lay = rows.layout
+  S, nb = (0, 0) if lay is None else (lay.table.shape[0], lay.nb)
+  st = torch.cuda.current_stream().cuda_stream
+  base = dict(qM=rows.qM, J=rows.J, D=rows.D, aref=rows.aref, fl=rows.fl, kind=rows.kind,
+              tab=None if lay is None else lay.table, mu0=rows.mu0, a0=rows.a0)
+  xo, grad = torch.empty_like(x), torch.empty_like(x)
+  alpha = torch.empty((B,), device="cuda")
+  improved = torch.empty((B,), dtype=torch.bool, device="cuda")
+
+  def ptr(t):
+    return None if t is None else t.data_ptr()
+
+  if hasattr(lib, "newton_iter_scratch_elems"):
+    state = newton._state(rows)
+    # The scratch as this version sizes it (its caps are this checkout's).
+    sizes = newton._bind(lib, "newton_iter_scratch_elems")
+    scratch = torch.empty((B, max(sizes(0, m, newton.cone_rows(lay)), 1)), device="cuda")
+    solve = dict(w=state.w, blocks=state.blocks, lst=state.lst, counts=state.counts,
+                 slots=state.slots, scratch=scratch)
+    ls_fn = newton._bind(lib, "newton_linesearch_f32")
+    gr_fn = newton._bind(lib, "newton_gradient_f32")
+    g0 = torch.empty_like(x)
+    t_ls = {**base, **solve, "x": x, "p": p, "xo": xo, "alpha": alpha, "improved": improved,
+            "vec": grad}
+    t_gr = {**base, **solve, "x": x, "vec": g0}
+    ls_args = [ptr(t_ls.get(k)) for k in newton._PTRS]
+    gr_args = [ptr(t_gr.get(k)) for k in newton._PTRS]
+    ints = (B, n, m, S, nb)
+    flags = newton.WITH_SAFEGUARD if safeguard else 0
+
+    def first(keep=(g0, state, scratch)):
+      _check_rc(gr_fn(*gr_args, *ints, 0, newton.BUILD, *state.ext, st), "newton_gradient")
+
+    def reused(keep=(g0, state, scratch)):
+      _check_rc(gr_fn(*gr_args, *ints, 0, 0, *state.ext, st), "newton_gradient")
+
+    def call(keep=(xo, grad, alpha, improved, state, scratch)):
+      _check_rc(ls_fn(*ls_args, *ints, iters, flags, *state.ext, st), "newton_linesearch")
+
+    first()
+    return call, (xo, alpha, improved, grad, state.w, state.blocks), first, reused
+  # A version without a list: its newton_linesearch, then its newton_gradient
+  # at x' (16 pointers, 7 ints).
+  scratch = torch.empty((B, max(5 * max(m - 128, 0), 1)), device="cuda")
+  w = torch.empty_like(rows.D)
+  blocks = None if lay is None else torch.empty((B, nb), device="cuda")
+  ls_fn, gr_fn = _entry(lib, "newton_linesearch_f32", 16, 7), _entry(lib, "newton_gradient_f32", 16, 7)
+  b = [ptr(base[k]) for k in ("qM", "J", "D", "aref", "fl", "kind", "tab", "mu0", "a0")]
+  ls_args = b + [ptr(x), ptr(p), ptr(xo), ptr(alpha), None, ptr(improved), ptr(scratch),
+                 B, n, m, S, nb, iters, int(safeguard), st]
+  gr_args = b + [ptr(xo), None, ptr(grad), ptr(w), ptr(blocks), None, ptr(scratch),
+                 B, n, m, S, nb, 0, 0, st]
+
+  def call(keep=(xo, grad, alpha, improved, scratch, w, blocks)):
+    _check_rc(ls_fn(*ls_args), "newton_linesearch")
+    _check_rc(gr_fn(*gr_args), "newton_gradient")
+
+  return call, (xo, alpha, improved, grad, w, blocks), None, None
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -357,6 +457,67 @@ def main(argv: list[str] | None = None) -> int:
                  Bc.contiguous()], layout)
     del sim, d, gcost, r, w, Bc
     torch.cuda.empty_cache()
+
+  if "newton_iter" in args.cases:
+    with_iter = [v for v in versions if v.iter_lib is not None]
+    for what, cone, solver_, steps, sg in (("run", "pyramidal", "newton", 30, False),
+                                          ("ell", "elliptic", "newton", 8, True),
+                                          ("cg", "pyramidal", "cg", 8, False)):
+      sim, d = g1_state(gen, cone, steps, solver_)
+      rows = newton.Rows.of(sim.tp, d)
+      x, p = cs.iteration_inputs(rows)
+      iters = sim.model.opt.ls_iterations
+      del sim, d
+      active = int((rows.D != 0).sum())
+      bnd = cs.newton_bounds(rows, iters, sg)
+      print(f"newton_iter {what}: active rows per world {active / cs.NUM_WORLDS:.2f}; one "
+            f"iteration's bound {bnd['iteration'][0]:.5f} ms ({bnd['iteration'][1]}); "
+            f"{iters} linesearch steps{', the safeguard' if sg else ''}", flush=True)
+      xp, ap, ip = newton.newton_linesearch_plain(rows, x, p, iters, sg)
+      plain = (xp, ap, *newton.newton_gradient_plain(rows, xp))
+      rows64 = cs.rows_as(rows, torch.float64)
+      xp64, ap64, _ = newton.newton_linesearch_plain(rows64, x.double(), p.double(), iters, sg)
+      plain64 = (xp64, ap64, *newton.newton_gradient_plain(rows64, xp64))
+      calls = {}
+      for v in with_iter:
+        call, outs, first, reused = iteration_call(v.iter_lib, cs.rows_as(rows, torch.float32),
+                                                   x, p, iters, sg)
+        calls[v.name] = call
+        if v.name in cut:
+          continue
+        call()
+        flips = outs[2] != ip
+        if flips.any():
+          c_got = rows64.total_cost(outs[0].double())[flips]
+          c_plain = rows64.total_cost(xp.double())[flips]
+          tie = ((c_got - c_plain).abs() <= 1e-5 * c_plain.abs().clamp_min(1.0)).all().item()
+          print(f"  {v.name}: {int(flips.sum())} acceptances decided otherwise (cost ties "
+                f"within 1e-5: {tie})", flush=True)
+          if not tie:
+            raise AssertionError(f"{v.name}: an acceptance differs where costs do not tie")
+        keep = ~flips
+        for i, label in enumerate(("x'", "alpha", "grad", "w", "blocks")):
+          got, want, want64 = (outs[:2] + outs[3:])[i], plain[i], plain64[i]
+          if got is None:
+            continue
+          if i != 1:
+            got, want, want64 = got[keep], want[keep], want64[keep]
+          checks.check(v.name, f"{what} {label}", got.reshape(got.shape[0], -1),
+                       want.reshape(want.shape[0], -1), want64.reshape(want64.shape[0], -1))
+        if first is not None:
+          ms = [cs.time_ms(f, [()], iters=20) for f in (first, reused, first, reused)]
+          print(f"  {v.name}: the solve's first newton_gradient with the list's build "
+                f"{ms[0]:.4f} {ms[2]:.4f} ms, without {ms[1]:.4f} {ms[3]:.4f} ms [{card}]",
+                flush=True)
+      del plain, plain64, rows64
+      times: dict[str, list[float]] = {}
+      for v in turns(with_iter):
+        times.setdefault(v.name, []).append(cs.time_ms(calls[v.name], [()], iters=20))
+      report(f"newton_iter {what}: one iteration's non-direction work (bound "
+             f"{bnd['iteration'][0]:.5f} ms)", times)
+      del calls, rows, x, p
+      gc.collect()
+      torch.cuda.empty_cache()
 
   if "chol" in args.cases:
     with_chol = [v for v in versions if v.chol_lib is not None and v.name not in cut]

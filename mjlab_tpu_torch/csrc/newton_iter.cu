@@ -1,7 +1,8 @@
 // The rest of the Newton iteration, on each world's active rows: the
 // gradient (and the row weights and cone blocks the Newton direction
-// reads), the exact linesearch with the step's acceptance, and the cost at
-// given points; the solve's final forces as a mode of the gradient.
+// reads), the exact linesearch with the step's acceptance that ends with the
+// gradient at the point it returns (or, for a solve's last iteration, the
+// final forces), and the cost at given points.
 //
 // Replaces what XLA fused in the JAX package's solver, for which no TPU
 // kernel existed: mjlab_tpu/physics/solver.py newton_iter up to H and after
@@ -19,51 +20,59 @@
 // with D == 0 (and a slot with Dn <= 0) adds exactly nothing to any output:
 // the kernels never read its J or aref.
 //
-// Bound on the H100 (3.35 TB/s; 67 TFLOP/s f32 on the CUDA cores): per
-// launch the bytes of D on every row, the active rows of J, their aref (and
-// fl), qM's lower triangle, the vectors and the outputs (w or efc_force on
-// every row for the gradient): at G1's shapes (4096 worlds, nefc 1699,
-// nv 35, f32) with ~40 active rows per world ~63 MB, ~19 us, for the
-// linesearch; the arithmetic (a few FLOP per active row and linesearch
-// step, 2 n^2 per quadratic form) is far below. Each world is a chain of
-// dependent steps (scan D, list, read the rows, reduce, then the
-// linesearch's steps, each a warp reduction), so the kernels are bound by
-// that chain's latency at this share of active rows, not by bytes.
+// Bound on the H100 (3.35 TB/s; 67 TFLOP/s f32 on the CUDA cores): D does
+// not change during a solve, so its scan, the list of active rows and the
+// zeros of w on the inactive rows are once per solve (in the solve's first
+// newton_gradient); each Newton iteration then moves the active rows' J,
+// aref, fl, D and list entry, qM's lower triangle, the vectors and w and the
+// blocks on the active rows: at G1's shapes (4096 worlds, nefc 1699, nv 35,
+// f32, ~76 active rows per world) ~58 MB, ~0.018 ms. The arithmetic (a few
+// FLOP per active row and linesearch step, 2 n^2 per quadratic form) is far
+// below. Each world is a chain of dependent steps (read the rows, reduce,
+// the linesearch's steps, each two warp reductions), so the kernels are
+// bound by that chain's latency at this share of active rows.
 //
 // Design: one world per block of one warp, the whole batch in one grid, so
-// that many worlds share an SM and one world's chain overlaps others'
-// loads. Per world, with no block barrier:
-//   1. qM, a0, x (and p) into shared memory; D is scanned with 16-byte
-//      loads, kBatch in flight per lane, and the active rows (D != 0, a NaN
-//      counts; not a cone row) listed in row order (uint16), a lane's rank
-//      from one ballot per element; in the gradient modes w (or efc_force)
-//      is written 0 on every other row during the scan. The cone slots with
-//      Dn > 0 follow, one lane per slot, their rows appended to the list
-//      (a warp prefix sum of their dims); an inactive slot's Hessian block
-//      is written 0.
-//   2. The listed rows of J stream through a tile of 32 rows in shared
-//      memory (coalesced loads, kBatch in flight per lane; an odd row
-//      stride, so that lane l reading row l is free of bank conflicts), and
-//      lane l takes the tile's row l: r = J x - aref (and J p) by one FMA
-//      chain over the columns, in one order wherever a product is taken.
-//      Each row's r, J p, D and fl go to shared memory for the first kCap
-//      rows and to a global scratch (the wrapper's) beyond them: a world
-//      with more active rows runs the same steps over both.
-//   3. Gradient: each regular row's force and weight by its lane, J^T f
-//      into the lanes' columns from the tile; each active slot's forces and
-//      (cd x cd) Hessian block by one lane, then J^T f over its rows;
-//      grad = M (x - a0) - J^T f from qM in shared memory.
-//      Linesearch: p M (x - a0) and p M p, then `iterations` steps of the
-//      1-D Newton on phi'(alpha) from alpha = 1, the lanes over the stored
-//      rows and slots (cone_line's closed forms), two warp reductions per
-//      step, until a step returns alpha bitwise (every later one would);
-//      then the acceptance, each candidate's cost from the candidate
-//      point x + c p (rounded as PyTorch rounds it, no FMA), two points per
-//      pass over the rows, so that a candidate equal to x ties with x
-//      exactly.
+// that many worlds share an SM and one world's chain overlaps others'.
+//   * One list per solve, kept on the card (the wrapper's buffers): the
+//     solve's first newton_gradient scans D with 16-byte loads, lists the
+//     active regular rows (D != 0, a NaN counts) in row order and then the
+//     rows of the active cone slots (Dn > 0), each entry row | class << 16,
+//     writes 0 once on every other row of w and in every inactive slot's
+//     block, and keeps the counts on the card. Every later launch reads the
+//     list; none scans D or writes an inactive row again.
+//   * The listed rows of J stream through a ring of kStages tiles of 32
+//     rows in shared memory by 4-byte (8 in float64) cp.async copies, each
+//     tile with its rows' list entries, aref, D and fl, the next tile's
+//     copies in flight while lane l computes on this tile's row l (an odd
+//     row stride: no bank conflicts); a lane loads its list entry a tile
+//     ahead, so that no copy waits on the list; qM joins the first tile's
+//     copies, and the acceptance's pass issues its first tiles before the
+//     linesearch's steps.
+//   * The linesearch holds its first kCap regular rows' r, J p, D, fl and
+//     entry in registers (kRegs a lane), past them in a global scratch; the
+//     cone rows' values live in shared memory up to kConeCap, past it in
+//     the scratch. Its steps run from registers, two warp reductions each,
+//     a lane's cone slot kept whole in registers, until a step returns alpha
+//     bitwise (every later one would).
+//   * The acceptance takes each candidate's cost from its own point x + c p
+//     (rounded as PyTorch rounds it, no FMA): one more pass over the rows
+//     forms each row's residual at the candidate by the same dot, its cost,
+//     force and weight, and J^T f at x (from the first pass) and at the
+//     candidate; the cost comparison picks one, whose weights (or forces),
+//     cone blocks and gradient the launch writes. With the safeguard the
+//     six candidates' residuals come from one read of each row, and one
+//     more pass over the rows at the chosen point gives the output.
+//   * Every product is taken in one order wherever it is taken (one FMA
+//     chain per dot, J^T f row by row in list order, the regular rows'
+//     first) and the file builds without contraction (-fmad=false), so the
+//     gradient a linesearch returns at x' is bitwise newton_gradient's at x'.
 // The quadratic forms and products run as f32 (or f64) FMAs on the CUDA
 // cores; tensor cores and TMA are later work (a world's J starts at an odd
 // offset and a row of J is 140 bytes at nv 35).
+//
+// constraint_cost (the warm start, before the solve's first gradient) keeps
+// its own scan of D and a list in shared memory.
 //
 // C interface (ctypes): the entry points return cudaGetLastError() of the
 // launch (cudaErrorInvalidValue for shapes they do not take) and run on the
@@ -77,16 +86,27 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kCap = 128;   // listed rows per world in shared memory
-constexpr int kFields = 5;  // per listed row: r, J p, D, fl, a scratch value
-enum Field { kR = 0, kJv = 1, kD = 2, kFl = 3, kT = 4 };
+constexpr int kCap = 128;         // listed regular rows a linesearch holds in registers
+constexpr int kRegs = kCap / 32;  // ... a lane
+constexpr int kConeCap = 64;      // listed cone rows per world in shared memory
+constexpr int kRegFields = 5;     // per regular row past kCap: r, J p, D, fl, r at the candidate
+enum RegField { kR = 0, kJv = 1, kD = 2, kFl = 3, kRy = 4 };
+// Per cone row: r, J p (after the steps, the residual at the first
+// candidate), the residuals at five more candidates (or a force).
+constexpr int kConeFields = 7;
+enum ConeField { kCr = 0, kCv = 1, kCt = 2 };
+constexpr int kCand = 6;    // the safeguard's candidates
+constexpr int kStages = 2;  // tiles of J in flight
 constexpr int kMaxN = 64;
-constexpr int kMaxRows = 65535;  // row and slot indices are kept as uint16
+constexpr int kMaxRows = 65535;  // row indices and offsets are kept in 16 bits
 constexpr int kMaxConeDim = 6;
-constexpr int kBatch = 8;  // 16-byte loads of D (and of a tile of J) in flight per lane
+constexpr int kBatch = 8;  // 16-byte loads of D in flight per lane
 constexpr size_t kMaxSmem = 227 * 1024;
+constexpr int kCostCap = 128;  // constraint_cost's listed rows in shared memory
+constexpr int kCostFields = 2;  // ... per cone row: its residuals at two points
 
-enum Mode { kGradient = 0, kForces = 1, kLinesearch = 2, kSafeguard = 3, kCost = 4 };
+enum Mode { kGradient = 0, kLinesearch = 1, kSafeguard = 2, kCost = 3 };
+enum Flag { kForcesOut = 1, kBuild = 2, kWithSafeguard = 4 };
 enum Kind { kOneSided = 0, kEq = 1, kFric = 2, kConeRow = 3 };
 
 __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) / 16 * 16; }
@@ -95,19 +115,46 @@ __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) / 16 * 
 // row l's column c hits bank (l ld + c) % 32: 32 banks in float32.
 __host__ __device__ constexpr int lead(int n) { return n | 1; }
 
-// One warp's shared memory: qM (n x n), seven vectors of n (x, p, a0, two
-// points whose cost is taken together and their differences from a0), a
-// tile of 32 rows of J and their 32 forces, the first kCap listed rows'
-// fields, the list (m at most) and the active slots' ids and offsets in it.
+// Vectors of n in shared memory: x (or the point z), a0, z - a0; the
+// linesearch's p, y - a0 and its candidate points (1, or kCand).
+__host__ __device__ constexpr int vectors(int mode) {
+  return mode == kGradient ? 3 : mode == kLinesearch ? 6 : 5 + kCand;
+}
+__host__ __device__ constexpr int cone_fields(int mode) {
+  return mode == kSafeguard ? kConeFields : 3;
+}
+
+// One warp's shared memory: qM (n x n), the vectors, kStages tiles of 32
+// rows of J with their entries, aref, D and fl, 32 forces, and the first
+// kConeCap cone rows' fields.
 template <typename T>
 struct Layout {
-  size_t vec, tile, ftile, store, idx, slot, slot_off, total;
-  __host__ __device__ Layout(int n, int m, int ncone) {
+  size_t vec, tile, ents, sides, ftile, cone, total;
+  __host__ __device__ Layout(int n, int mode, bool cone_rows) {
     vec = align16(static_cast<size_t>(n) * n * sizeof(T));
-    tile = align16(vec + 7 * static_cast<size_t>(n) * sizeof(T));
-    ftile = align16(tile + 32 * static_cast<size_t>(lead(n)) * sizeof(T));
-    store = align16(ftile + 32 * sizeof(T));
-    idx = align16(store + kFields * kCap * sizeof(T));
+    tile = align16(vec + static_cast<size_t>(vectors(mode)) * n * sizeof(T));
+    ents = align16(tile + static_cast<size_t>(kStages) * 32 * lead(n) * sizeof(T));
+    sides = align16(ents + static_cast<size_t>(kStages) * 32 * sizeof(unsigned));
+    ftile = align16(sides + static_cast<size_t>(kStages) * 3 * 32 * sizeof(T));
+    cone = align16(ftile + 32 * sizeof(T));
+    total = align16(cone + (cone_rows ? static_cast<size_t>(cone_fields(mode)) * kConeCap *
+                                            sizeof(T)
+                                      : 0));
+  }
+};
+
+// constraint_cost's: qM, five vectors (a0, two points, their differences
+// from a0), a tile of 32 rows and their forces, the first kCostCap listed
+// rows' two fields, the list (m at most) and the active slots' ids and
+// offsets in it.
+template <typename T>
+struct CostLayout {
+  size_t vec, tile, store, idx, slot, slot_off, total;
+  __host__ __device__ CostLayout(int n, int m, int ncone) {
+    vec = align16(static_cast<size_t>(n) * n * sizeof(T));
+    tile = align16(vec + 5 * static_cast<size_t>(n) * sizeof(T));
+    store = align16(tile + 32 * static_cast<size_t>(lead(n)) * sizeof(T));
+    idx = align16(store + kCostFields * kCostCap * sizeof(T));
     slot = align16(idx + static_cast<size_t>(m) * sizeof(uint16_t));
     slot_off = align16(slot + static_cast<size_t>(ncone) * sizeof(uint16_t));
     total = align16(slot_off + static_cast<size_t>(ncone) * sizeof(uint16_t));
@@ -120,19 +167,25 @@ struct Args {
   const T* J;
   const T* D;
   const T* aref;
-  const T* fl;        // (batch, m) or null: no friction-loss row
-  const int* kind;    // (m) row classes or null: every row one-sided
-  const int* tab;     // (ncone, 3) [first row, cd, block offset]
-  const T* mu0;       // (batch, ncone)
+  const T* fl;         // (batch, m) or null: no friction-loss row
+  const int* kind;     // (m) row classes or null: every row one-sided
+  const int* tab;      // (ncone, 3) [first row, cd, block offset]
+  const T* mu0;        // (batch, ncone)
   const T* a0;
-  const T* x;         // (batch, n); (batch, count, n) for the cost
+  const T* x;          // (batch, n); (batch, count, n) for the cost
   const T* p;
-  T* out0;
-  T* out1;
-  T* out2;
+  T* xo;               // the linesearch's x' (batch, n)
+  T* alpha;            // the linesearch's alpha (batch)
   unsigned char* improved;
-  T* scratch;         // (batch, kFields, max(m - kCap, 0))
-  int batch, n, m, ncone, nb, count;
+  T* vec;              // grad, or qfrc with forces (batch, n); the cost (batch, count)
+  T* force;            // efc_force (batch, m), with forces: 0 on the unlisted rows
+  T* w;                // the solve's row weights (batch, m)
+  T* blocks;           // the solve's cone blocks (batch, nb)
+  unsigned* lst;       // the solve's list (batch, m): row | class << 16
+  int* counts;         // the solve's (batch, 4): regular rows, listed rows, active slots
+  unsigned* slots;     // the solve's active slots (batch, ncone): slot | offset << 16
+  T* scratch;          // (batch, kRegFields ext_reg + kConeFields ext_cone)
+  int batch, n, m, ncone, nb, count, flags, ext_reg, ext_cone;
 };
 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
@@ -158,6 +211,135 @@ __device__ __forceinline__ bool same_bits(double a, double b) {
 // torch.clamp_min: a NaN stays NaN.
 template <typename T>
 __device__ __forceinline__ T clamp_min(T v, T lo) { return v < lo ? lo : v; }
+
+// A lane's register slot i of kRegs, with i known only at run time (selects,
+// no local memory).
+template <typename V>
+__device__ __forceinline__ V pick(const V (&a)[kRegs], int i) {
+  V v = a[0];
+#pragma unroll
+  for (int j = 1; j < kRegs; ++j) v = i == j ? a[j] : v;
+  return v;
+}
+template <typename V>
+__device__ __forceinline__ void put(V (&a)[kRegs], int i, V v) {
+#pragma unroll
+  for (int j = 0; j < kRegs; ++j) a[j] = i == j ? v : a[j];
+}
+
+// -- asynchronous copies to shared memory --
+
+template <typename T>
+__device__ __forceinline__ void async_copy(T* dst, const T* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"(sizeof(T))
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+__device__ __forceinline__ void async_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+template <int N>
+__device__ __forceinline__ void async_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// The listed rows k0 .. k1 - 1 of J through kStages tiles of 32 rows, each
+// with its rows' list entries, aref, D and fl: start issues the first
+// tiles' copies; wait returns the tile `used` once its copies have landed
+// (entry and side then read its row of this lane); release lets its stage
+// take the next tile. A lane loads its entry of the next tile one issue
+// ahead, so that no copy waits on the list. Every group is committed, empty
+// ones past the end too, so that wait_group counts alike in every lane and
+// call.
+template <typename T>
+struct Ring {
+  T* tiles;        // kStages x 32 rows x ld
+  unsigned* ents;  // kStages x 32 list entries
+  T* sides;        // kStages x 3 x 32: the rows' aref, D and fl
+  const T* J;
+  const T* aref;
+  const T* D;
+  const T* fl;
+  const unsigned* lst;
+  int n, ld, lane;
+  int k0, k1, issued, used;
+  unsigned next;  // this lane's entry of the tile `issued`
+
+  __device__ __forceinline__ void start(int a, int b) {
+    k0 = a;
+    k1 = b;
+    issued = used = 0;
+    next = a + lane < b ? lst[a + lane] : 0u;
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) issue();
+  }
+  __device__ __forceinline__ bool more() const { return k0 + 32 * used < k1; }
+  __device__ __forceinline__ int first() const { return k0 + 32 * used; }
+  __device__ __forceinline__ int rows() const { return min(32, k1 - first()); }
+  __device__ __forceinline__ const T* wait() {
+    async_wait<kStages - 1>();
+    __syncwarp();
+    return tiles + (used % kStages) * 32 * ld;
+  }
+  __device__ __forceinline__ unsigned entry() const { return ents[(used % kStages) * 32 + lane]; }
+  __device__ __forceinline__ T side(int f) const {
+    return sides[((used % kStages) * 3 + f) * 32 + lane];
+  }
+  __device__ __forceinline__ void release() {
+    __syncwarp();
+    ++used;
+    issue();
+  }
+  __device__ __forceinline__ void issue() {
+    const int t0 = k0 + 32 * issued;
+    const unsigned e = next;
+    next = t0 + 32 + lane < k1 ? lst[t0 + 32 + lane] : 0u;
+    if (t0 < k1) {
+      const int rows = min(32, k1 - t0), count = rows * n, st = issued % kStages;
+      T* dst = tiles + st * 32 * ld;
+      const unsigned mine = lane < rows ? (e & 0xffffu) : 0u;
+      if (lane < rows) {
+        T* sd = sides + st * 3 * 32 + lane;
+        ents[st * 32 + lane] = e;
+        async_copy(sd, aref + mine);
+        async_copy(sd + 32, D + mine);
+        if (fl != nullptr) async_copy(sd + 64, fl + mine);
+      }
+      const int q = 32 / n, s = 32 % n;
+      int t = lane / n, c = lane % n;
+      for (int e0 = 0; e0 < count; e0 += 32) {
+        const unsigned row = __shfl_sync(kFull, mine, t & 31);
+        if (e0 + lane < count) async_copy(dst + t * ld + c, J + static_cast<size_t>(row) * n + c);
+        c += s;
+        t += q;
+        if (c >= n) {
+          c -= n;
+          ++t;
+        }
+      }
+    }
+    async_commit();
+    ++issued;
+  }
+};
+
+// A row's product with v (shared memory): one FMA chain over the columns,
+// wherever the product is taken.
+template <typename T>
+__device__ __forceinline__ T dot(const T* jr, const T* v, int n) {
+  T acc = T(0);
+  for (int c = 0; c < n; ++c) acc = fma(jr[c], v[c], acc);
+  return acc;
+}
 
 // -- regular rows (kernels/newton.py Rows.row_cost, row_hess, regular_force) --
 
@@ -196,6 +378,8 @@ struct Cone {
   static constexpr int kTan = kMaxConeDim - 1;
   int cd;
   T Dn, Df[kTan], s[kTan], mu, one_mu2;
+
+  Cone() = default;
 
   // Dv: the slot's cd values of D, Dv[0] = Dn > 0.
   __device__ __forceinline__ Cone(int cd_, const T* Dv, T mu0) : cd(cd_) {
@@ -341,14 +525,22 @@ struct Cone {
   }
 };
 
+// Resident worlds per SM that each launch asks registers for: what its
+// shared memory allows at G1's shapes (nv 35; 1 KB of each block's shared
+// memory is the card's): f32 14.4 KB for the gradient (15 worlds), 15.9 KB
+// for the linesearch (13), 18.6 KB with the safeguard (12); f64 about twice.
 template <typename T>
-constexpr int min_blocks() { return sizeof(T) == 4 ? 16 : 8; }
+constexpr int min_blocks(int mode = kCost) {
+  return sizeof(T) == 4 ? (mode == kLinesearch ? 13 : mode == kSafeguard ? 12 : 16)
+                        : (mode == kLinesearch ? 7 : mode == kSafeguard ? 6 : 8);
+}
 
-// The safeguard's fixed candidates after the linesearch's alpha, in the
-// plain version's order (kernels/newton.py SAFEGUARD_STEPS).
+// The safeguard's candidates in the plain version's order
+// (kernels/newton.py SAFEGUARD_STEPS after the linesearch's alpha).
 template <typename T>
-__device__ __forceinline__ T safeguard_step(int c) {
+__device__ __forceinline__ T safeguard_step(int c, T alpha) {
   switch (c) {
+    case 0: return alpha;
     case 1: return T(1);
     case 2: return T(0.5);
     case 3: return T(0.25);
@@ -357,56 +549,630 @@ __device__ __forceinline__ T safeguard_step(int c) {
   }
 }
 
-template <typename T, int kMode>
-__global__ void __launch_bounds__(32, (min_blocks<T>()))
+// newton_gradient (kMode kGradient; with kBuild it lists the solve's rows
+// first) and newton_linesearch (kLinesearch, kSafeguard), each ending with
+// the output at one point: grad, w and the blocks, or with kForcesOut
+// efc_force and qfrc.
+template <typename T, int kMode, bool kCone>
+__global__ void __launch_bounds__(32, (min_blocks<T>(kMode)))
 newton_iter_kernel(const Args<T> g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kLine = kMode != kGradient;
+  constexpr bool kSafe = kMode == kSafeguard;
+  const int lane = threadIdx.x;
+  const size_t wd = blockIdx.x;
+  const int n = g.n, m = g.m, S = kCone ? g.ncone : 0;
+  const Layout<T> lay(n, kMode, kCone);
+  T* qs = reinterpret_cast<T*>(smem);
+  T* xs = reinterpret_cast<T*>(smem + lay.vec);
+  T* a0s = xs + n;
+  T* dz = a0s + n;
+  T* ps = dz + n;
+  T* dy = ps + n;
+  T* ys = dy + n;
+  T* ftile = reinterpret_cast<T*>(smem + lay.ftile);
+  T* cst = reinterpret_cast<T*>(smem + lay.cone);
+  const bool forces = (g.flags & kForcesOut) != 0;
+  const T* Dw = g.D + wd * m;
+  const T* arw = g.aref + wd * m;
+  const T* flw = g.fl != nullptr ? g.fl + wd * m : nullptr;
+  unsigned* lw = g.lst + wd * m;
+  T* ww = g.w + wd * m;
+  T* fw = g.force != nullptr ? g.force + wd * m : nullptr;
+  unsigned* sw = g.slots + wd * S;
+  T* gsr = g.scratch + wd * (static_cast<size_t>(kRegFields) * g.ext_reg +
+                             static_cast<size_t>(kConeFields) * g.ext_cone);
+  T* gsc = gsr + static_cast<size_t>(kRegFields) * g.ext_reg;
+  // A regular row's field past kCap (the global scratch), a cone row's
+  // (shared memory for the first kConeCap, the scratch beyond).
+  auto reg_ref = [&](int f, int k) -> T& {
+    return gsr[static_cast<size_t>(f) * g.ext_reg + (k - kCap)];
+  };
+  auto cone_ref = [&](int f, int c) -> T& {
+    return c < kConeCap ? cst[f * kConeCap + c]
+                        : gsc[static_cast<size_t>(f) * g.ext_cone + (c - kConeCap)];
+  };
+  auto kind_of = [&](int row) { return g.kind != nullptr ? __ldg(g.kind + row) : int(kOneSided); };
+
+  // 1. qM by asynchronous copies (they join the first tile's group; the
+  // final forces need none); the vectors.
+  {
+    const T* q = g.qM + wd * static_cast<size_t>(n) * n;
+    if (kLine || !forces) {
+      for (int e = lane; e < n * n; e += 32) async_copy(qs + e, q + e);
+    }
+    for (int i = lane; i < n; i += 32) {
+      xs[i] = g.x[wd * n + i];
+      a0s[i] = g.a0[wd * n + i];
+      if (kLine) ps[i] = g.p[wd * n + i];
+    }
+  }
+
+  // 2. The solve's list: built here by the solve's first gradient, read
+  // otherwise.
+  int nreg = 0, cnt = 0, nslot = 0;
+  if (!kLine && (g.flags & kBuild) != 0) {
+    // 2a. The active regular rows, in row order; 0 on every other row of w.
+    const unsigned below = (1u << lane) - 1u;
+    constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+    const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(Dw) % 16) /
+                   static_cast<int>(sizeof(T));
+    const T* base = Dw - sh;  // 16-byte aligned
+    const int chunks = (m + sh + kVec - 1) / kVec;
+    for (int c0 = 0; c0 < chunks; c0 += 32 * kBatch) {
+      T v[kBatch][kVec];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int c = c0 + 32 * u + lane, r0 = c * kVec - sh;
+        if (r0 >= 0 && r0 + kVec <= m) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(base + static_cast<size_t>(c) * kVec);
+          memcpy(v[u], &raw, 16);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) {
+            v[u][e] = r0 + e >= 0 && r0 + e < m ? Dw[r0 + e] : T(0);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int r0 = (c0 + 32 * u + lane) * kVec - sh;
+        bool listed[kVec];
+        unsigned ent[kVec];
+        int rank = nreg, here = 0;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const int row = r0 + e;
+          const bool in = row >= 0 && row < m && v[u][e] != T(0);
+          const int kd = in ? kind_of(row) : int(kOneSided);
+          listed[e] = in && kd != kConeRow;
+          ent[e] = static_cast<unsigned>(row) | (static_cast<unsigned>(kd) << 16);
+          const unsigned ball = __ballot_sync(kFull, listed[e]);
+          rank += __popc(ball & below);
+          here += __popc(ball);
+        }
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const int row = r0 + e;
+          if (listed[e]) {
+            lw[rank++] = ent[e];
+          } else if (row >= 0 && row < m) {
+            ww[row] = T(0);
+          }
+        }
+        nreg += here;
+      }
+    }
+    // 2b. The cone slots with Dn > 0, their rows after the regular ones; 0
+    // in every other slot's block.
+    cnt = nreg;
+    for (int s0 = 0; s0 < S; s0 += 32) {
+      const int s = s0 + lane;
+      int first = 0, cd = 0;
+      bool act = false;
+      if (s < S) {
+        first = __ldg(g.tab + 3 * s);
+        cd = __ldg(g.tab + 3 * s + 1);
+        act = Dw[first] > T(0);
+      }
+      const int c = act ? cd : 0;
+      int incl = c;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += t;
+      }
+      const unsigned ball = __ballot_sync(kFull, act);
+      if (act) {
+        const int j = nslot + __popc(ball & below), off = cnt + incl - c;
+        sw[j] = static_cast<unsigned>(s) | (static_cast<unsigned>(off) << 16);
+        for (int q = 0; q < cd; ++q) {
+          lw[off + q] = static_cast<unsigned>(first + q) | (static_cast<unsigned>(kConeRow) << 16);
+        }
+      } else if (s < S) {
+        T* blk = g.blocks + wd * g.nb + __ldg(g.tab + 3 * s + 2);
+        for (int q = 0; q < cd * cd; ++q) blk[q] = T(0);
+      }
+      nslot += __popc(ball);
+      cnt += __shfl_sync(kFull, incl, 31);
+    }
+    if (lane == 0) {
+      g.counts[wd * 4] = nreg;
+      g.counts[wd * 4 + 1] = cnt;
+      g.counts[wd * 4 + 2] = nslot;
+      g.counts[wd * 4 + 3] = 0;
+    }
+  } else {
+    nreg = g.counts[wd * 4];
+    cnt = g.counts[wd * 4 + 1];
+    nslot = g.counts[wd * 4 + 2];
+  }
+  __syncwarp();
+
+  const int ld = lead(n);
+  Ring<T> ring{reinterpret_cast<T*>(smem + lay.tile),
+               reinterpret_cast<unsigned*>(smem + lay.ents),
+               reinterpret_cast<T*>(smem + lay.sides),
+               g.J + wd * static_cast<size_t>(m) * n,
+               arw, Dw, flw, lw, n, ld, lane, 0, 0, 0, 0, 0u};
+  // The lanes' columns of sum over the tile's rows of ftile[t] J_t, row by
+  // row.
+  auto add_jtf = [&](const T* tl, int rows, T& acc0, T& acc1) {
+    for (int t = 0; t < rows; ++t) {
+      const T f = ftile[t];
+      if (lane < n) acc0 = fma(f, tl[t * ld + lane], acc0);
+      if (lane + 32 < n) acc1 = fma(f, tl[t * ld + lane + 32], acc1);
+    }
+  };
+  // (M v)_i from qM in shared memory.
+  auto mv_row = [&](int i, const T* v) {
+    T s = T(0);
+    for (int j = 0; j < n; ++j) s = fma(qs[i * n + j], v[j], s);
+    return s;
+  };
+  // d = z - a0 and the lanes' rows of M d (`drain`: qM's copies may be in
+  // flight yet).
+  auto m_of = [&](const T* z, T* d, T& m0, T& m1, bool drain = true) {
+    __syncwarp();
+    for (int i = lane; i < n; i += 32) d[i] = z[i] - a0s[i];
+    if (drain) async_wait<0>();
+    __syncwarp();
+    m0 = lane < n ? mv_row(lane, d) : T(0);
+    m1 = lane + 32 < n ? mv_row(lane + 32, d) : T(0);
+  };
+  // The quadratic form d^T M d from d and the lanes' rows of M d.
+  auto quad = [&](const T* d, T m0, T m1) {
+    T q = T(0);
+    if (lane < n) q += d[lane] * m0;
+    if (lane + 32 < n) q += d[lane + 32] * m1;
+    return warp_sum(q);
+  };
+  // Active slot j: its u (cd values of cone field fu) and its Cone.
+  auto slot_of = [&](int j, int fu, T* u, int& cd, int& first, int& c0) {
+    const unsigned e = sw[j];
+    const int s = static_cast<int>(e & 0xffffu);
+    first = __ldg(g.tab + 3 * s);
+    cd = __ldg(g.tab + 3 * s + 1);
+    c0 = static_cast<int>(e >> 16) - nreg;
+    T Dv[kMaxConeDim];
+#pragma unroll
+    for (int q = 0; q < kMaxConeDim; ++q) {
+      u[q] = q < cd ? cone_ref(fu, c0 + q) : T(0);
+      Dv[q] = q < cd ? Dw[first + q] : T(0);
+    }
+    return Cone<T>(cd, Dv, g.mu0[wd * S + s]);
+  };
+  // The cone slots' forces (and efc_force on their rows) and blocks at the
+  // point whose residuals are in cone field fu, then the cone rows' J^T f.
+  auto cone_out = [&](int fu, T& acc0, T& acc1) {
+    __syncwarp();
+    for (int j = lane; j < nslot; j += 32) {
+      T u[kMaxConeDim], f[kMaxConeDim];
+      int cd, first, c0;
+      const Cone<T> cone = slot_of(j, fu, u, cd, first, c0);
+      cone.force(u, f);
+#pragma unroll
+      for (int q = 0; q < kMaxConeDim; ++q) {
+        if (q < cd) {
+          cone_ref(kCt, c0 + q) = f[q];
+          if (forces) fw[first + q] = f[q];
+        }
+      }
+      if (!forces) cone.hess(u, g.blocks + wd * g.nb + __ldg(g.tab + 3 * (sw[j] & 0xffffu) + 2));
+    }
+    __syncwarp();
+    for (ring.start(nreg, cnt); ring.more(); ring.release()) {
+      const T* tl = ring.wait();
+      const int k = ring.first() + lane;
+      ftile[lane] = k < cnt ? cone_ref(kCt, k - nreg) : T(0);
+      __syncwarp();
+      add_jtf(tl, ring.rows(), acc0, acc1);
+    }
+  };
+  // grad = M (z - a0) - J^T f (or qfrc = J^T f) from the lanes' rows of
+  // M (z - a0).
+  auto finish = [&](T m0, T m1, T acc0, T acc1) {
+    async_wait<0>();  // nothing left in flight at the kernel's end
+    T* out = g.vec + wd * n;
+    if (lane < n) out[lane] = forces ? acc0 : m0 - acc0;
+    if (lane + 32 < n) out[lane + 32] = forces ? acc1 : m1 - acc1;
+  };
+  // The whole output at the point z (shared memory; d a vector of scratch).
+  auto output_at = [&](const T* z, T* d) {
+    T acc0 = T(0), acc1 = T(0);
+    for (ring.start(0, cnt); ring.more(); ring.release()) {
+      const T* tl = ring.wait();
+      const int k = ring.first() + lane;
+      T f = T(0);
+      if (k < cnt) {
+        const unsigned e = ring.entry();
+        const int row = static_cast<int>(e & 0xffffu);
+        const T r = dot(tl + lane * ld, z, n) - ring.side(0);
+        if (k < nreg) {
+          const int kd = static_cast<int>(e >> 16);
+          const T Dr = ring.side(1), flr = flw != nullptr ? ring.side(2) : T(0);
+          f = row_force(kd, Dr, flr, r);
+          if (forces) {
+            fw[row] = f;
+          } else {
+            ww[row] = row_hess(kd, Dr, flr, r);
+          }
+        } else if (kCone) {
+          cone_ref(kCr, k - nreg) = r;
+        }
+      }
+      ftile[lane] = f;
+      __syncwarp();
+      add_jtf(tl, ring.rows(), acc0, acc1);
+    }
+    if (kCone) cone_out(kCr, acc0, acc1);
+    T m0 = T(0), m1 = T(0);
+    if (!forces) m_of(z, d, m0, m1);
+    finish(m0, m1, acc0, acc1);
+  };
+
+  if constexpr (!kLine) {
+    output_at(xs, dz);
+    return;
+  }
+
+  // 3. The rows' r = J x - aref and J p, D, fl and entry (registers up to
+  // kCap, the scratch beyond), the cone rows' r and J p; without the
+  // safeguard also J^T f at x over the regular rows.
+  T rr[kRegs], rv[kRegs], rD[kRegs], rfl[kRegs], ry[kRegs];
+  unsigned re[kRegs];
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) {
+    rr[i] = rv[i] = rD[i] = rfl[i] = ry[i] = T(0);
+    re[i] = 0u;
+  }
+  T ax0 = T(0), ax1 = T(0);
+  for (ring.start(0, cnt); ring.more(); ring.release()) {
+    const T* tl = ring.wait();
+    const int i = ring.used, k = ring.first() + lane;
+    T f = T(0);
+    if (k < cnt) {
+      const unsigned e = ring.entry();
+      const T* jr = tl + lane * ld;
+      T r = T(0), v = T(0);
+      for (int c = 0; c < n; ++c) {
+        r = fma(jr[c], xs[c], r);
+        v = fma(jr[c], ps[c], v);
+      }
+      r = r - ring.side(0);
+      if (k < nreg) {
+        const T Dr = ring.side(1), flr = flw != nullptr ? ring.side(2) : T(0);
+        if (k < kCap) {
+          put(rr, i, r);
+          put(rv, i, v);
+          put(rD, i, Dr);
+          put(rfl, i, flr);
+          put(re, i, e);
+        } else {
+          reg_ref(kR, k) = r;
+          reg_ref(kJv, k) = v;
+          reg_ref(kD, k) = Dr;
+          reg_ref(kFl, k) = flr;
+        }
+        if (!kSafe) f = row_force(static_cast<int>(e >> 16), Dr, flr, r);
+      } else if (kCone) {
+        cone_ref(kCr, k - nreg) = r;
+        cone_ref(kCv, k - nreg) = v;
+      }
+    }
+    if (!kSafe) {
+      ftile[lane] = f;
+      __syncwarp();
+      add_jtf(tl, ring.rows(), ax0, ax1);
+    }
+  }
+  // The acceptance's pass reads the same rows: their copies go in flight
+  // now (they need no candidate point) and land during the steps.
+  async_wait<0>();
+  __syncwarp();
+  ring.start(0, cnt);
+  const int nr = min(nreg, kCap);
+  // p M (x - a0) and p M p; M (x - a0) kept for x's cost and gradient.
+  T mx0, mx1;
+  m_of(xs, dz, mx0, mx1, false);
+  T pmdx = T(0), pmp = T(0);
+  if (lane < n) {
+    pmdx += ps[lane] * mx0;
+    pmp += ps[lane] * mv_row(lane, ps);
+  }
+  if (lane + 32 < n) {
+    pmdx += ps[lane + 32] * mx1;
+    pmp += ps[lane + 32] * mv_row(lane + 32, ps);
+  }
+  pmdx = warp_sum(pmdx);
+  pmp = warp_sum(pmp);
+
+  // 4. The 1-D Newton on phi'(alpha). With at most 32 active slots each
+  // lane keeps its slot whole in registers.
+  __syncwarp();
+  const bool cached = kCone && nslot <= 32;
+  Cone<T> mine;
+  T cu[kMaxConeDim], cv[kMaxConeDim];
+  if (kCone && cached && lane < nslot) {
+    int cd, first, c0;
+    mine = slot_of(lane, kCr, cu, cd, first, c0);
+#pragma unroll
+    for (int q = 0; q < kMaxConeDim; ++q) cv[q] = q < cd ? cone_ref(kCv, c0 + q) : T(0);
+  }
+  T alpha = T(1);
+  for (int it = 0; it < g.count; ++it) {
+    T sf = T(0), sh = T(0), ss = T(0), sc = T(0);
+#pragma unroll
+    for (int i = 0; i < kRegs; ++i) {
+      if (lane + 32 * i < nr) {
+        const int kd = static_cast<int>(re[i] >> 16);
+        const T ra = rr[i] + alpha * rv[i];
+        sf += row_force(kd, rD[i], rfl[i], ra) * rv[i];
+        sh += row_hess(kd, rD[i], rfl[i], ra) * (rv[i] * rv[i]);
+      }
+    }
+    for (int k = kCap + lane; k < nreg; k += 32) {
+      const T v = reg_ref(kJv, k), Dr = reg_ref(kD, k), flr = reg_ref(kFl, k);
+      const int kd = static_cast<int>(lw[k] >> 16);
+      const T ra = reg_ref(kR, k) + alpha * v;
+      sf += row_force(kd, Dr, flr, ra) * v;
+      sh += row_hess(kd, Dr, flr, ra) * (v * v);
+    }
+    if (kCone) {
+      if (cached) {
+        if (lane < nslot) {
+          T slope, curv;
+          mine.line(cu, cv, alpha, slope, curv);
+          ss += slope;
+          sc += curv;
+        }
+      } else {
+        for (int j = lane; j < nslot; j += 32) {
+          T u[kMaxConeDim], v[kMaxConeDim];
+          int cd, first, c0;
+          const Cone<T> cone = slot_of(j, kCr, u, cd, first, c0);
+#pragma unroll
+          for (int q = 0; q < kMaxConeDim; ++q) v[q] = q < cd ? cone_ref(kCv, c0 + q) : T(0);
+          T slope, curv;
+          cone.line(u, v, alpha, slope, curv);
+          ss += slope;
+          sc += curv;
+        }
+      }
+    }
+    const T slope = warp_sum(sf + ss), curv = warp_sum(sh + sc);
+    const T dphi = pmdx + alpha * pmp - slope;
+    const T ddphi = pmp + curv;
+    const T next = alpha - dphi / clamp_min(ddphi, T(1e-30));
+    // A step is a function of alpha alone: once it returns alpha, so does
+    // every later one (the same in every lane, so the warp leaves
+    // together).
+    if (same_bits(next, alpha)) break;
+    alpha = next;
+  }
+
+  // 5. The acceptance, each candidate's cost from its own point.
+  T* xo = g.xo + wd * n;
+  constexpr int kPts = kSafe ? kCand : 1;
+  __syncwarp();
+  for (int i = lane; i < n; i += 32) {
+#pragma unroll
+    for (int c = 0; c < kPts; ++c) {
+      ys[c * n + i] = add_rn(xs[i], mul_rn(safeguard_step<T>(c, alpha), ps[i]));
+    }
+  }
+  __syncwarp();
+  // One pass over the rows: each row's residual at the candidates by the
+  // dot's own chain, x's and their costs; without the safeguard the
+  // candidate's forces, its J^T f and r kept for the output.
+  T rc[kPts + 1];
+#pragma unroll
+  for (int c = 0; c <= kPts; ++c) rc[c] = T(0);
+  T ay0 = T(0), ay1 = T(0);
+  for (; ring.more(); ring.release()) {
+    const T* tl = ring.wait();
+    const int i = ring.used, k = ring.first() + lane;
+    T f = T(0);
+    if (k < cnt) {
+      const unsigned e = ring.entry();
+      const T* jr = tl + lane * ld;
+      T r[kPts];
+#pragma unroll
+      for (int c = 0; c < kPts; ++c) r[c] = T(0);
+      for (int col = 0; col < n; ++col) {
+        const T jc = jr[col];
+#pragma unroll
+        for (int c = 0; c < kPts; ++c) r[c] = fma(jc, ys[c * n + col], r[c]);
+      }
+      const T ar = ring.side(0);
+#pragma unroll
+      for (int c = 0; c < kPts; ++c) r[c] = r[c] - ar;
+      if (k < nreg) {
+        const int kd = static_cast<int>(e >> 16);
+        T r_x, Dr, flr;
+        if (k < kCap) {
+          r_x = pick(rr, i);
+          Dr = pick(rD, i);
+          flr = pick(rfl, i);
+          if (!kSafe) put(ry, i, r[0]);
+        } else {
+          r_x = reg_ref(kR, k);
+          Dr = reg_ref(kD, k);
+          flr = reg_ref(kFl, k);
+          if (!kSafe) reg_ref(kRy, k) = r[0];
+        }
+        rc[0] += row_cost(kd, Dr, flr, r_x);
+#pragma unroll
+        for (int c = 0; c < kPts; ++c) rc[1 + c] += row_cost(kd, Dr, flr, r[c]);
+        if (!kSafe) f = row_force(kd, Dr, flr, r[0]);
+      } else if (kCone) {
+#pragma unroll
+        for (int c = 0; c < kPts; ++c) cone_ref(kCv + c, k - nreg) = r[c];
+      }
+    }
+    if (!kSafe) {
+      ftile[lane] = f;
+      __syncwarp();
+      add_jtf(tl, ring.rows(), ay0, ay1);
+    }
+  }
+  // The costs: 0.5 d^T M d, the regular rows', the cone slots'.
+  T cost[kPts + 1], my0 = T(0), my1 = T(0);
+  cost[0] = quad(dz, mx0, mx1);
+#pragma unroll
+  for (int c = 0; c < kPts; ++c) {
+    T m0, m1;
+    m_of(ys + c * n, dy, m0, m1);
+    cost[1 + c] = quad(dy, m0, m1);
+    if (c == 0) {
+      my0 = m0;
+      my1 = m1;
+    }
+  }
+  T cc[kPts + 1];
+#pragma unroll
+  for (int c = 0; c <= kPts; ++c) cc[c] = T(0);
+  if (kCone) {
+    __syncwarp();
+    for (int j = lane; j < nslot; j += 32) {
+      T u[kMaxConeDim];
+      int cd, first, c0;
+      const Cone<T> cone = slot_of(j, kCr, u, cd, first, c0);
+      cc[0] += cone.cost(u);
+#pragma unroll
+      for (int c = 0; c < kPts; ++c) {
+#pragma unroll
+        for (int q = 0; q < kMaxConeDim; ++q) u[q] = q < cd ? cone_ref(kCv + c, c0 + q) : T(0);
+        cc[1 + c] += cone.cost(u);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c <= kPts; ++c) {
+    cost[c] = T(0.5) * cost[c] + warp_sum(rc[c]) + warp_sum(cc[c]);
+  }
+  __syncwarp();
+
+  if constexpr (kSafe) {
+    // x, then the candidates in order; x + 0 p where none is better.
+    T best_cost = cost[0], best = T(0);
+    bool better = false;
+#pragma unroll
+    for (int c = 0; c < kCand; ++c) {
+      if (cost[1 + c] < best_cost) {
+        best_cost = cost[1 + c];
+        best = safeguard_step<T>(c, alpha);
+        better = true;
+      }
+    }
+    for (int i = lane; i < n; i += 32) {
+      const T v = add_rn(xs[i], mul_rn(best, ps[i]));
+      xo[i] = v;
+      ys[i] = v;
+    }
+    if (lane == 0) {
+      g.alpha[wd] = alpha;
+      g.improved[wd] = better ? 1 : 0;
+    }
+    // 6. The output at x' from one more pass over the rows.
+    output_at(ys, dy);
+  } else {
+    const bool better = cost[1] < cost[0];
+    for (int i = lane; i < n; i += 32) xo[i] = better ? ys[i] : xs[i];
+    if (lane == 0) {
+      g.alpha[wd] = alpha;
+      g.improved[wd] = better ? 1 : 0;
+    }
+    // 6. The output at the chosen point from the two passes: the regular
+    // rows' weights (or forces), then the cone slots' and J^T f.
+#pragma unroll
+    for (int i = 0; i < kRegs; ++i) {
+      if (lane + 32 * i < nr) {
+        const int row = static_cast<int>(re[i] & 0xffffu), kd = static_cast<int>(re[i] >> 16);
+        const T r = better ? ry[i] : rr[i];
+        if (forces) {
+          fw[row] = row_force(kd, rD[i], rfl[i], r);
+        } else {
+          ww[row] = row_hess(kd, rD[i], rfl[i], r);
+        }
+      }
+    }
+    for (int k = kCap + lane; k < nreg; k += 32) {
+      const unsigned e = lw[k];
+      const int row = static_cast<int>(e & 0xffffu), kd = static_cast<int>(e >> 16);
+      const T r = reg_ref(better ? kRy : kR, k), Dr = reg_ref(kD, k), flr = reg_ref(kFl, k);
+      if (forces) {
+        fw[row] = row_force(kd, Dr, flr, r);
+      } else {
+        ww[row] = row_hess(kd, Dr, flr, r);
+      }
+    }
+    T acc0 = better ? ay0 : ax0, acc1 = better ? ay1 : ax1;
+    if (kCone) cone_out(better ? kCv : kCr, acc0, acc1);
+    finish(better ? my0 : mx0, better ? my1 : mx1, acc0, acc1);
+  }
+}
+
+// constraint_cost: the cost at `count` points per world, with its own scan
+// of D and its list in shared memory.
+template <typename T>
+__global__ void __launch_bounds__(32, (min_blocks<T>()))
+cost_kernel(const Args<T> g) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
   const size_t wd = blockIdx.x;
   const int n = g.n, m = g.m, S = g.ncone;
-  const Layout<T> lay(n, m, S);
+  const CostLayout<T> lay(n, m, S);
   T* qs = reinterpret_cast<T*>(smem);
-  T* xs = reinterpret_cast<T*>(smem + lay.vec);
-  T* ps = xs + n;
-  T* a0s = ps + n;
+  T* a0s = reinterpret_cast<T*>(smem + lay.vec);
   T* ya = a0s + n;
   T* yb = ya + n;
   T* dya = yb + n;
   T* dyb = dya + n;
   T* tile = reinterpret_cast<T*>(smem + lay.tile);
-  T* ftile = reinterpret_cast<T*>(smem + lay.ftile);
   T* st = reinterpret_cast<T*>(smem + lay.store);
   uint16_t* idx = reinterpret_cast<uint16_t*>(smem + lay.idx);
   uint16_t* slot_id = reinterpret_cast<uint16_t*>(smem + lay.slot);
   uint16_t* slot_off = reinterpret_cast<uint16_t*>(smem + lay.slot_off);
-  const int ext = m > kCap ? m - kCap : 0;
-  T* gs = g.scratch + wd * kFields * static_cast<size_t>(ext);
-  // A listed row's field: shared memory for the first kCap rows, the
-  // global scratch beyond.
+  const int ext = g.ext_reg;
+  T* gs = g.scratch + wd * kCostFields * static_cast<size_t>(ext);
+  // A listed cone row's residual at the first or second point: shared
+  // memory for the first kCostCap rows, the global scratch beyond.
   auto ref = [&](int f, int k) -> T& {
-    return k < kCap ? st[f * kCap + k] : gs[static_cast<size_t>(f) * ext + (k - kCap)];
+    return k < kCostCap ? st[f * kCostCap + k] : gs[static_cast<size_t>(f) * ext + (k - kCostCap)];
   };
   const T* Dw = g.D + wd * m;
   const T* Jw = g.J + wd * static_cast<size_t>(m) * n;
   const T* arw = g.aref + wd * m;
   const T* flw = g.fl != nullptr ? g.fl + wd * m : nullptr;
   auto kind_of = [&](int row) { return g.kind != nullptr ? __ldg(g.kind + row) : int(kOneSided); };
-  constexpr bool kGrad = kMode == kGradient || kMode == kForces;
-  constexpr bool kLine = kMode == kLinesearch || kMode == kSafeguard;
 
-  // 1. qM, a0, x (and p) into shared memory.
   {
     const T* q = g.qM + wd * static_cast<size_t>(n) * n;
     for (int e = lane; e < n * n; e += 32) qs[e] = q[e];
-    for (int i = lane; i < n; i += 32) {
-      a0s[i] = g.a0[wd * n + i];
-      if (kMode != kCost) xs[i] = g.x[wd * n + i];
-      if (kLine) ps[i] = g.p[wd * n + i];
-    }
+    for (int i = lane; i < n; i += 32) a0s[i] = g.a0[wd * n + i];
   }
-  // 1b. The active regular rows, in row order; the gradient modes write w
-  // (or efc_force) 0 on every other row.
-  T* per_row = kGrad ? g.out1 + wd * m : nullptr;
+  // The active regular rows, in row order.
   const unsigned below = (1u << lane) - 1u;
   int nreg = 0;
   {
@@ -445,18 +1211,13 @@ newton_iter_kernel(const Args<T> g) {
         }
 #pragma unroll
         for (int e = 0; e < kVec; ++e) {
-          const int row = r0 + e;
-          if (listed[e]) {
-            idx[rank++] = static_cast<uint16_t>(row);
-          } else if (kGrad && row >= 0 && row < m) {
-            per_row[row] = T(0);
-          }
+          if (listed[e]) idx[rank++] = static_cast<uint16_t>(r0 + e);
         }
         nreg += here;
       }
     }
   }
-  // 1c. The cone slots with Dn > 0, their rows after the regular ones.
+  // The cone slots with Dn > 0, their rows after the regular ones.
   int cnt = nreg, nslot = 0;
   for (int s0 = 0; s0 < S; s0 += 32) {
     const int s = s0 + lane;
@@ -480,19 +1241,15 @@ newton_iter_kernel(const Args<T> g) {
       slot_id[j] = static_cast<uint16_t>(s);
       slot_off[j] = static_cast<uint16_t>(off);
       for (int q = 0; q < cd; ++q) idx[off + q] = static_cast<uint16_t>(first + q);
-    } else if (kMode == kGradient && s < S) {
-      T* blk = g.out2 + wd * g.nb + __ldg(g.tab + 3 * s + 2);
-      for (int q = 0; q < cd * cd; ++q) blk[q] = T(0);
     }
     nslot += __popc(ball);
     cnt += __shfl_sync(kFull, incl, 31);
   }
   __syncwarp();
 
-  // 2. The listed rows k0 .. k1 - 1 of J, 32 at a time: a tile's rows are
-  // copied into shared memory with coalesced loads (kBatch in flight per
-  // lane), then `fn(lane's row k or -1, its J row in the tile, rows)` runs
-  // with lane l on the tile's row l; the tile stays until the next one.
+  // The listed rows k0 .. k1 - 1 of J, 32 at a time, copied into shared
+  // memory; `fn(lane's row k or -1, its J row in the tile)` runs with lane l
+  // on the tile's row l.
   const int ld = lead(n);
   auto each_tile = [&](int k0, int k1, auto&& fn) {
     const int q = 32 / n, s = 32 % n;
@@ -521,47 +1278,16 @@ newton_iter_kernel(const Args<T> g) {
         }
       }
       __syncwarp();
-      fn(lane < rows ? t0 + lane : -1, tile + lane * ld, rows);
+      fn(lane < rows ? t0 + lane : -1, tile + lane * ld);
     }
   };
-  // A row's product with v (shared memory), in one order wherever taken.
-  auto dot = [&](const T* jr, const T* v) {
-    T acc = T(0);
-    for (int c = 0; c < n; ++c) acc = fma(jr[c], v[c], acc);
-    return acc;
-  };
-  // The lanes' columns of sum over the tile's rows of ftile[t] J_t.
-  auto add_jtf = [&](int rows, T& acc0, T& acc1) {
-    __syncwarp();
-    for (int t = 0; t < rows; ++t) {
-      const T f = ftile[t];
-      if (lane < n) acc0 = fma(f, tile[t * ld + lane], acc0);
-      if (lane + 32 < n) acc1 = fma(f, tile[t * ld + lane + 32], acc1);
-    }
-  };
-  // (M v)_i from qM in shared memory.
   auto mv_row = [&](int i, const T* v) {
     T s = T(0);
-    for (int j = 0; j < n; ++j) s += qs[i * n + j] * v[j];
+    for (int j = 0; j < n; ++j) s = fma(qs[i * n + j], v[j], s);
     return s;
   };
-  // The slot's u (cd values of field f) and D.
-  auto slot_rows = [&](int j, int f, T* u, T* Dv, int& cd, int& first) {
-    const int s = slot_id[j], off = slot_off[j];
-    first = __ldg(g.tab + 3 * s);
-    cd = __ldg(g.tab + 3 * s + 1);
-#pragma unroll
-    for (int q = 0; q < kMaxConeDim; ++q) {
-      u[q] = q < cd ? ref(f, off + q) : T(0);
-      Dv[q] = q < cd ? Dw[first + q] : T(0);
-    }
-    return Cone<T>(cd, Dv, g.mu0[wd * S + s]);
-  };
-
   // The costs at the points pa and pb (shared memory), the same in every
-  // lane; each point's arithmetic is its own (a point's cost does not
-  // depend on the other point). The cone rows' residuals go to the fields
-  // kT (pa) and kJv (pb), free by then.
+  // lane; each point's arithmetic is its own.
   auto cost_pair = [&](const T* pa, const T* pb, T& ca, T& cb) {
     __syncwarp();
     for (int i = lane; i < n; i += 32) {
@@ -577,19 +1303,19 @@ newton_iter_kernel(const Args<T> g) {
     qa = warp_sum(qa);
     qb = warp_sum(qb);
     T rca = T(0), rcb = T(0);
-    each_tile(0, cnt, [&](int k, const T* jr, int) {
+    each_tile(0, cnt, [&](int k, const T* jr) {
       if (k < 0) return;
       const int row = idx[k];
       const T ar = arw[row];
-      const T ra = dot(jr, pa) - ar, rb = dot(jr, pb) - ar;
+      const T ra = dot(jr, pa, n) - ar, rb = dot(jr, pb, n) - ar;
       if (k < nreg) {
         const int kd = kind_of(row);
         const T Dr = Dw[row], flr = flw != nullptr ? flw[row] : T(0);
         rca += row_cost(kd, Dr, flr, ra);
         rcb += row_cost(kd, Dr, flr, rb);
       } else {
-        ref(kT, k) = ra;
-        ref(kJv, k) = rb;
+        ref(0, k) = ra;
+        ref(1, k) = rb;
       }
     });
     rca = warp_sum(rca);
@@ -598,11 +1324,15 @@ newton_iter_kernel(const Args<T> g) {
     T cca = T(0), ccb = T(0);
     for (int j = lane; j < nslot; j += 32) {
       T ua[kMaxConeDim], ub[kMaxConeDim], Dv[kMaxConeDim];
-      int cd, first;
-      const Cone<T> cone = slot_rows(j, kT, ua, Dv, cd, first);
-      const int off = slot_off[j];
+      const int s = slot_id[j], off = slot_off[j];
+      const int first = __ldg(g.tab + 3 * s), cd = __ldg(g.tab + 3 * s + 1);
 #pragma unroll
-      for (int q = 0; q < kMaxConeDim; ++q) ub[q] = q < cd ? ref(kJv, off + q) : T(0);
+      for (int q = 0; q < kMaxConeDim; ++q) {
+        ua[q] = q < cd ? ref(0, off + q) : T(0);
+        ub[q] = q < cd ? ref(1, off + q) : T(0);
+        Dv[q] = q < cd ? Dw[first + q] : T(0);
+      }
+      const Cone<T> cone(cd, Dv, g.mu0[wd * S + s]);
       cca += cone.cost(ua);
       ccb += cone.cost(ub);
     }
@@ -612,248 +1342,85 @@ newton_iter_kernel(const Args<T> g) {
     ca = T(0.5) * qa + rca + cca;
     cb = T(0.5) * qb + rcb + ccb;
   };
-  // A candidate point x + c p into y, rounded as PyTorch rounds it.
-  auto fill = [&](T* y, T c) {
-    __syncwarp();
-    for (int i = lane; i < n; i += 32) y[i] = add_rn(xs[i], mul_rn(c, ps[i]));
-  };
 
-  if constexpr (kMode == kCost) {
-    // The points two at a time (the last one twice for an odd count).
-    for (int j = 0; j < g.count; j += 2) {
-      const int j2 = j + 1 < g.count ? j + 1 : j;
-      __syncwarp();
-      for (int i = lane; i < n; i += 32) {
-        ya[i] = g.x[(wd * g.count + j) * n + i];
-        yb[i] = g.x[(wd * g.count + j2) * n + i];
-      }
-      T ca, cb;
-      cost_pair(ya, yb, ca, cb);
-      if (lane == 0) {
-        g.out0[wd * g.count + j] = ca;
-        g.out0[wd * g.count + j2] = cb;
-      }
-    }
-    return;
-  }
-
-  if constexpr (kGrad) {
-    // 3. Forces and weights (lane l on the tile's row l); J^T f in the
-    // lanes' columns, the tile's regular rows first, the cone rows' after
-    // their slots' forces.
-    T acc0 = T(0), acc1 = T(0);
-    each_tile(0, cnt, [&](int k, const T* jr, int rows) {
-      T f = T(0);
-      if (k >= 0) {
-        const int row = idx[k];
-        const T r = dot(jr, xs) - arw[row];
-        if (k < nreg) {
-          const int kd = kind_of(row);
-          const T Dr = Dw[row], flr = flw != nullptr ? flw[row] : T(0);
-          f = row_force(kd, Dr, flr, r);
-          per_row[row] = kMode == kForces ? f : row_hess(kd, Dr, flr, r);
-        } else {
-          ref(kR, k) = r;
-        }
-      }
-      ftile[lane] = f;
-      add_jtf(rows, acc0, acc1);
-    });
+  // The points two at a time (the last one twice for an odd count).
+  for (int j = 0; j < g.count; j += 2) {
+    const int j2 = j + 1 < g.count ? j + 1 : j;
     __syncwarp();
-    for (int j = lane; j < nslot; j += 32) {
-      T u[kMaxConeDim], Dv[kMaxConeDim], f[kMaxConeDim];
-      int cd, first;
-      const Cone<T> cone = slot_rows(j, kR, u, Dv, cd, first);
-      cone.force(u, f);
-      const int off = slot_off[j];
-#pragma unroll
-      for (int q = 0; q < kMaxConeDim; ++q) {
-        if (q < cd) {
-          ref(kT, off + q) = f[q];
-          if (kMode == kForces) per_row[first + q] = f[q];
-        }
-      }
-      if (kMode == kGradient) cone.hess(u, g.out2 + wd * g.nb + __ldg(g.tab + 3 * slot_id[j] + 2));
-    }
-    __syncwarp();
-    each_tile(nreg, cnt, [&](int k, const T*, int rows) {
-      ftile[lane] = k >= 0 ? ref(kT, k) : T(0);
-      add_jtf(rows, acc0, acc1);
-    });
-    T* out = g.out0 + wd * n;
-    if (kMode == kForces) {
-      if (lane < n) out[lane] = acc0;
-      if (lane + 32 < n) out[lane + 32] = acc1;
-    } else {
-      for (int i = lane; i < n; i += 32) dya[i] = xs[i] - a0s[i];
-      __syncwarp();
-      if (lane < n) out[lane] = mv_row(lane, dya) - acc0;
-      if (lane + 32 < n) out[lane + 32] = mv_row(lane + 32, dya) - acc1;
-    }
-    return;
-  }
-
-  if constexpr (kLine) {
-    // 3. The rows' r, J p, D and fl; p M (x - a0) and p M p.
-    each_tile(0, cnt, [&](int k, const T* jr, int) {
-      if (k < 0) return;
-      const int row = idx[k];
-      ref(kR, k) = dot(jr, xs) - arw[row];
-      ref(kJv, k) = dot(jr, ps);
-      ref(kD, k) = Dw[row];
-      ref(kFl, k) = flw != nullptr ? flw[row] : T(0);
-    });
-    for (int i = lane; i < n; i += 32) dya[i] = xs[i] - a0s[i];
-    __syncwarp();
-    T pmdx = T(0), pmp = T(0);
     for (int i = lane; i < n; i += 32) {
-      pmdx += ps[i] * mv_row(i, dya);
-      pmp += ps[i] * mv_row(i, ps);
+      ya[i] = g.x[(wd * g.count + j) * n + i];
+      yb[i] = g.x[(wd * g.count + j2) * n + i];
     }
-    pmdx = warp_sum(pmdx);
-    pmp = warp_sum(pmp);
-    // The 1-D Newton on phi'(alpha).
-    T alpha = T(1);
-    for (int it = 0; it < g.count; ++it) {
-      T sf = T(0), sh = T(0), ss = T(0), sc = T(0);
-      for (int k = lane; k < nreg; k += 32) {
-        const T v = ref(kJv, k), Dr = ref(kD, k), flr = ref(kFl, k);
-        const int kd = kind_of(idx[k]);
-        const T ra = ref(kR, k) + alpha * v;
-        sf += row_force(kd, Dr, flr, ra) * v;
-        sh += row_hess(kd, Dr, flr, ra) * (v * v);
-      }
-      for (int j = lane; j < nslot; j += 32) {
-        T u[kMaxConeDim], v[kMaxConeDim], Dv[kMaxConeDim];
-        int cd, first;
-        const Cone<T> cone = slot_rows(j, kR, u, Dv, cd, first);
-        const int off = slot_off[j];
-#pragma unroll
-        for (int q = 0; q < kMaxConeDim; ++q) v[q] = q < cd ? ref(kJv, off + q) : T(0);
-        T slope, curv;
-        cone.line(u, v, alpha, slope, curv);
-        ss += slope;
-        sc += curv;
-      }
-      const T slope = warp_sum(sf + ss), curv = warp_sum(sh + sc);
-      const T dphi = pmdx + alpha * pmp - slope;
-      const T ddphi = pmp + curv;
-      const T next = alpha - dphi / clamp_min(ddphi, T(1e-30));
-      // A step is a function of alpha alone: once it returns alpha, so
-      // does every later one (the same in every lane, so the warp leaves
-      // together).
-      if (same_bits(next, alpha)) break;
-      alpha = next;
-    }
-    // 4. The acceptance, each candidate's cost from its own point, two
-    // points per pass over the rows.
-    T* out = g.out0 + wd * n;
-    bool better = false;
-    if constexpr (kMode == kLinesearch) {
-      fill(yb, alpha);
-      T c0, c1;
-      cost_pair(xs, yb, c0, c1);
-      better = c1 < c0;
-      for (int i = lane; i < n; i += 32) out[i] = better ? yb[i] : xs[i];
-    } else {
-      // x, then the candidates alpha, 1, 0.5, 0.25, 0.1, 0.01 in order.
-      T cand[6], best_cost;
-      fill(yb, alpha);
-      cost_pair(xs, yb, best_cost, cand[0]);
-#pragma unroll
-      for (int c = 1; c < 6; c += 2) {
-        const int c2 = c + 1 < 6 ? c + 1 : c;
-        fill(ya, safeguard_step<T>(c));
-        fill(yb, safeguard_step<T>(c2));
-        T cb;
-        cost_pair(ya, yb, cand[c], cb);
-        if (c2 != c) cand[c2] = cb;
-      }
-      T best = T(0);
-#pragma unroll
-      for (int c = 0; c < 6; ++c) {
-        if (cand[c] < best_cost) {
-          best_cost = cand[c];
-          best = c == 0 ? alpha : safeguard_step<T>(c);
-          better = true;
-        }
-      }
-      __syncwarp();
-      for (int i = lane; i < n; i += 32) out[i] = add_rn(xs[i], mul_rn(best, ps[i]));
-    }
+    T ca, cb;
+    cost_pair(ya, yb, ca, cb);
     if (lane == 0) {
-      g.out1[wd] = alpha;
-      g.improved[wd] = better ? 1 : 0;
+      g.vec[wd * g.count + j] = ca;
+      g.vec[wd * g.count + j2] = cb;
     }
   }
 }
 
-// Lets the instance take up to kMaxSmem of dynamic shared memory, once per
-// device.
-template <typename T, int kMode>
-cudaError_t prepare(int* dev) {
-  static int dev_seen = -1;
-  cudaError_t e = cudaGetDevice(dev);
-  if (e != cudaSuccess || *dev == dev_seen) return e;
-  e = cudaFuncSetAttribute(newton_iter_kernel<T, kMode>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kMaxSmem));
-  if (e == cudaSuccess) dev_seen = *dev;
-  return e;
-}
-
-// One block of one warp per world. With `report`, launches nothing and
-// fills it instead (see newton_iter_config).
-template <typename T, int kMode>
-int launch(const Args<T>& a, cudaStream_t stream, int* report = nullptr) {
-  if (a.n < 1 || a.n > kMaxN || a.batch < 1 || a.m < 1 || a.m > kMaxRows || a.ncone < 0 ||
-      a.ncone > kMaxRows || a.nb < 0 || a.count < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t bytes = Layout<T>(a.n, a.m, a.ncone).total;
+// Runs `kernel`, one block of one warp per world, letting it take up to
+// kMaxSmem of dynamic shared memory (once per device, `seen`). With
+// `report`, launches nothing and fills it instead (see newton_iter_config).
+template <typename T, typename K>
+int run(K kernel, int& seen, size_t bytes, const Args<T>& a, cudaStream_t stream, int* report) {
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
-  cudaError_t e = prepare<T, kMode>(&dev);
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev != seen) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kMaxSmem));
+    if (e == cudaSuccess) seen = dev;
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
   if (report != nullptr) {
     cudaFuncAttributes attr;
     int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, newton_iter_kernel<T, kMode>, 32,
-                                                        bytes);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32, bytes);
     }
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, newton_iter_kernel<T, kMode>);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int out[5] = {per_sm, sms, static_cast<int>(bytes), attr.numRegs,
                         static_cast<int>(attr.localSizeBytes)};
     for (int k = 0; k < 5; ++k) report[k] = out[k];
     return static_cast<int>(cudaSuccess);
   }
-  newton_iter_kernel<T, kMode><<<a.batch, 32, bytes, stream>>>(a);
+  kernel<<<a.batch, 32, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int kMode, bool kCone>
+int launch(const Args<T>& a, cudaStream_t stream, int* report) {
+  static int seen = -1;
+  return run<T>(newton_iter_kernel<T, kMode, kCone>, seen, Layout<T>(a.n, kMode, kCone).total, a,
+                stream, report);
 }
 
 template <typename T>
 int dispatch(int mode, const Args<T>& a, cudaStream_t stream, int* report = nullptr) {
+  if (a.n < 1 || a.n > kMaxN || a.batch < 1 || a.m < 1 || a.m > kMaxRows || a.ncone < 0 ||
+      a.ncone > kMaxRows || a.nb < 0 || a.count < 0 || a.ext_reg < 0 || a.ext_cone < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool cone = a.ncone > 0;
   switch (mode) {
-    case kGradient: return launch<T, kGradient>(a, stream, report);
-    case kForces: return launch<T, kForces>(a, stream, report);
-    case kLinesearch: return launch<T, kLinesearch>(a, stream, report);
-    case kSafeguard: return launch<T, kSafeguard>(a, stream, report);
-    case kCost: return launch<T, kCost>(a, stream, report);
+    case kGradient:
+      return cone ? launch<T, kGradient, true>(a, stream, report)
+                  : launch<T, kGradient, false>(a, stream, report);
+    case kLinesearch:
+      return cone ? launch<T, kLinesearch, true>(a, stream, report)
+                  : launch<T, kLinesearch, false>(a, stream, report);
+    case kSafeguard: return launch<T, kSafeguard, true>(a, stream, report);
+    case kCost: {
+      static int seen = -1;
+      return run<T>(cost_kernel<T>, seen, CostLayout<T>(a.n, a.m, a.ncone).total, a, stream,
+                    report);
+    }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-template <typename T>
-int entry(int mode, const T* qM, const T* J, const T* D, const T* aref, const T* fl,
-          const int* kind, const int* tab, const T* mu0, const T* a0, const T* x, const T* p,
-          T* out0, T* out1, T* out2, unsigned char* improved, T* scratch, int batch, int n,
-          int m, int ncone, int nb, int count, void* stream) {
-  const Args<T> a{qM, J, D, aref, fl, kind, tab, mu0, a0, x, p, out0, out1, out2, improved,
-                  scratch, batch, n, m, ncone, nb, count};
-  return dispatch<T>(mode, a, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -861,54 +1428,57 @@ int entry(int mode, const T* qM, const T* J, const T* D, const T* aref, const T*
 // Every entry point takes the same arguments: qM (batch, n, n), J (batch,
 // m, n), D, aref (batch, m), fl (batch, m) or null, kind (m) int32 or null,
 // tab (ncone, 3) int32 [first row, cd <= 6, block offset] and mu0 (batch,
-// ncone) (null when ncone is 0), a0 (batch, n), x, p, out0, out1, out2,
-// improved (uint8), scratch (batch, 5 * max(m - 128, 0)), then batch, n, m,
-// ncone, nb (the packed cone blocks per world), count, flag and the stream.
-//   newton_gradient: x (batch, n); flag 0: out0 = grad (batch, n), out1 =
-//     w (batch, m), out2 = the cone blocks (batch, nb); flag 1: out0 =
-//     qfrc = J^T f (batch, n), out1 = efc_force (batch, m).
-//   newton_linesearch: x, p (batch, n), count = linesearch steps, flag 1
-//     for the safeguard's acceptance; out0 = x' (batch, n), out1 = alpha
-//     (batch), improved (batch).
-//   constraint_cost: x = X (batch, count, n); out0 = cost (batch, count).
-#define NEWTON_ENTRIES(T, SUF)                                                                   \
-  int newton_gradient_##SUF(const T* qM, const T* J, const T* D, const T* aref, const T* fl,   \
-                            const int* kind, const int* tab, const T* mu0, const T* a0,        \
-                            const T* x, const T* p, T* out0, T* out1, T* out2,                 \
-                            unsigned char* improved, T* scratch, int batch, int n, int m,      \
-                            int ncone, int nb, int count, int flag, void* stream) {            \
-    return entry<T>(flag ? kForces : kGradient, qM, J, D, aref, fl, kind, tab, mu0, a0, x, p,   \
-                    out0, out1, out2, improved, scratch, batch, n, m, ncone, nb, count,        \
-                    stream);                                                                   \
-  }                                                                                            \
-  int newton_linesearch_##SUF(const T* qM, const T* J, const T* D, const T* aref, const T* fl, \
-                              const int* kind, const int* tab, const T* mu0, const T* a0,      \
-                              const T* x, const T* p, T* out0, T* out1, T* out2,               \
-                              unsigned char* improved, T* scratch, int batch, int n, int m,    \
-                              int ncone, int nb, int count, int flag, void* stream) {          \
-    return entry<T>(flag ? kSafeguard : kLinesearch, qM, J, D, aref, fl, kind, tab, mu0, a0, x, \
-                    p, out0, out1, out2, improved, scratch, batch, n, m, ncone, nb, count,     \
-                    stream);                                                                   \
-  }                                                                                            \
-  int constraint_cost_##SUF(const T* qM, const T* J, const T* D, const T* aref, const T* fl,   \
-                            const int* kind, const int* tab, const T* mu0, const T* a0,        \
-                            const T* x, const T* p, T* out0, T* out1, T* out2,                 \
-                            unsigned char* improved, T* scratch, int batch, int n, int m,      \
-                            int ncone, int nb, int count, int flag, void* stream) {            \
-    (void)flag;                                                                                \
-    return entry<T>(kCost, qM, J, D, aref, fl, kind, tab, mu0, a0, x, p, out0, out1, out2,      \
-                    improved, scratch, batch, n, m, ncone, nb, count, stream);                 \
+// ncone) (null when ncone is 0), a0 (batch, n), x, p, xo, alpha, improved
+// (uint8), vec, force, w, blocks, lst, counts, slots, scratch, then batch,
+// n, m, ncone, nb (the packed cone blocks per world), count, flags, ext_reg
+// and ext_cone (rows past the register and shared caps that the scratch
+// holds, newton_iter_scratch_elems) and the stream. w (batch, m), blocks
+// (batch, nb), lst (batch, m) int32, counts (batch, 4) int32, slots (batch,
+// ncone) int32 and scratch are one solve's: the first newton_gradient
+// (flags & 2) fills lst, counts, slots and the zeros of w and blocks, and
+// every later launch on the solve reads them.
+//   newton_gradient: x (batch, n); vec = grad (batch, n), w and blocks at x;
+//     with flags & 1, vec = qfrc = J^T f and force = efc_force (batch, m),
+//     zero-filled by the caller, instead.
+//   newton_linesearch: x, p (batch, n), count = linesearch steps, flags & 4
+//     for the safeguard's acceptance; xo = x', alpha, improved (batch), and
+//     newton_gradient's outputs at x' (flags & 1: the forces).
+//   constraint_cost: x = X (batch, count, n), scratch (batch, 2 ext_reg),
+//     ext_reg = max(m - 128, 0); vec = cost (batch, count).
+#define NEWTON_ENTRY(NAME, T, SUF, MODE)                                                         \
+  int NAME##_##SUF(const T* qM, const T* J, const T* D, const T* aref, const T* fl,             \
+                   const int* kind, const int* tab, const T* mu0, const T* a0, const T* x,      \
+                   const T* p, T* xo, T* alpha, unsigned char* improved, T* vec, T* force,      \
+                   T* w, T* blocks, unsigned* lst, int* counts, unsigned* slots, T* scratch,    \
+                   int batch, int n, int m, int ncone, int nb, int count, int flags,           \
+                   int ext_reg, int ext_cone, void* stream) {                                   \
+    const Args<T> a{qM,    J,     D,     aref,  fl,     kind,  tab,     mu0,      a0,          \
+                    x,     p,     xo,    alpha, improved, vec, force,   w,        blocks,      \
+                    lst,   counts, slots, scratch, batch, n,   m,       ncone,    nb,          \
+                    count, flags, ext_reg, ext_cone};                                           \
+    return dispatch<T>(MODE, a, static_cast<cudaStream_t>(stream));                             \
   }
 
 extern "C" {
 
-NEWTON_ENTRIES(float, f32)
-NEWTON_ENTRIES(double, f64)
+NEWTON_ENTRY(newton_gradient, float, f32, kGradient)
+NEWTON_ENTRY(newton_gradient, double, f64, kGradient)
+NEWTON_ENTRY(newton_linesearch, float, f32, (flags & kWithSafeguard) ? kSafeguard : kLinesearch)
+NEWTON_ENTRY(newton_linesearch, double, f64, (flags & kWithSafeguard) ? kSafeguard : kLinesearch)
+NEWTON_ENTRY(constraint_cost, float, f32, kCost)
+NEWTON_ENTRY(constraint_cost, double, f64, kCost)
 
-// The launch of `mode` (0 gradient, 1 forces, 2 linesearch, 3 with the
-// safeguard, 4 cost) for these shapes and element size, launching nothing:
-// out[0..4] = resident worlds per SM, SMs, shared bytes per world,
-// registers and local (spill) bytes per thread.
+// Elements per world of the scratch: of a solve (cost 0) for m rows of
+// which mc are cone rows, or of a constraint_cost launch (cost 1).
+int newton_iter_scratch_elems(int cost, int m, int mc) {
+  if (cost) return kCostFields * (m > kCostCap ? m - kCostCap : 0);
+  return kRegFields * (m > kCap ? m - kCap : 0) + kConeFields * (mc > kConeCap ? mc - kConeCap : 0);
+}
+
+// The launch of `mode` (0 gradient, 1 linesearch, 2 with the safeguard, 3
+// cost) for these shapes and element size, launching nothing: out[0..4] =
+// resident worlds per SM, SMs, shared bytes per world, registers and local
+// (spill) bytes per thread.
 int newton_iter_config(int mode, int elem_bytes, int n, int m, int ncone, int batch, int* out) {
   if (elem_bytes == 4) {
     Args<float> a{};

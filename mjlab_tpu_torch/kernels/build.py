@@ -30,6 +30,15 @@ NVCC_FLAGS = (
   "-fPIC",
   "--ptxas-options=-v",
 )
+# Flags of one source beside NVCC_FLAGS: newton_iter.cu takes no
+# contraction, so that a product is rounded alike in every kernel that takes
+# it (its header).
+SOURCE_FLAGS = {"newton_iter": ("-fmad=false",)}
+
+
+def flags(name: str) -> tuple[str, ...]:
+  """nvcc's flags for csrc/<name>.cu."""
+  return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -52,9 +61,9 @@ def _target(name: str) -> tuple[Path, list[str]]:
   h = hashlib.sha256()
   for p in (src, *deps):
     h.update(p.read_bytes())
-  h.update(" ".join(NVCC_FLAGS).encode())
+  h.update(" ".join(flags(name)).encode())
   out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-  cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+  cmd = [_nvcc(), *flags(name), "-o", str(out), str(src)]
   return out, cmd
 
 

@@ -24,21 +24,30 @@ Entry points, each taking a `Rows` (one solve's inputs):
 - `newton_gradient(rows, x)` → (∇Φ(x), the row weights w, the packed cone
   Hessians or None); with `forces=True` → (efc_force, qfrc_constraint =
   Jᵀ efc_force) at x instead, the end of a solve.
-- `newton_linesearch(rows, x, p, iterations, safeguard)` → (x', α,
-  improved): `iterations` steps of the 1-D Newton on φ'(α) from α = 1, then
-  x + αp if its cost is lower than x's (else x) or, with `safeguard` (the
-  elliptic Newton step), the best improving step of {α, 1, 0.5, 0.25, 0.1,
-  0.01} (ties to the earlier candidate), x + 0·p if none.
+- `newton_linesearch(rows, x, p, iterations, safeguard[, forces])` → (x',
+  α, improved, at): `iterations` steps of the 1-D Newton on φ'(α) from
+  α = 1, then x + αp if its cost is lower than x's (else x) or, with
+  `safeguard` (the elliptic Newton step), the best improving step of {α, 1,
+  0.5, 0.25, 0.1, 0.01} (ties to the earlier candidate), x + 0·p if none;
+  `at` is `newton_gradient(rows, x', forces)`'s output, from the same launch.
 - `constraint_cost(rows, X)` → Φ at the k points X (B, k, n) of each world.
+A Newton or CG solve launches one constraint_cost (the warm start), one
+newton_gradient and then one newton_linesearch per iteration, the last one
+with `forces`.
 
 Kernels (csrc/newton_iter.cu): one world per one-warp block, the whole
-batch in one grid; each world's active rows (D ≠ 0, NaN counted) and active
-cone slots (Dn > 0) listed from one scan of D; the listed rows of J through
-a 32-row tile in shared memory, one lane per row; their residuals, J p, D
-and fl kept in shared memory up to CAP rows and in a global scratch beyond;
-qM in shared memory. Bound: the bytes of D on every row, the active rows of
-J, aref and fl, qM and the vectors (chip_smoke.py reckons it from the run's
-rows).
+batch in one grid. The solve's first newton_gradient lists each world's
+active rows (D ≠ 0, NaN counted) and active cone slots (Dn > 0) from one
+scan of D into buffers the Rows keeps on the card (`_state`), and writes w
+and the cone blocks on the inactive rows and slots once; every later launch
+of the solve reads that list, and the w and blocks it returns are those
+buffers, rewritten by the next launch on the same Rows. The listed rows of J
+stream through a ring of 32-row tiles in shared memory (cp.async), one lane
+per row; the linesearch holds its rows' residuals, J p, D and fl in
+registers up to CAP rows and in a global scratch beyond; qM in shared
+memory. Bound: the bytes of D on every row and w on the inactive rows once
+per solve, then per iteration the active rows of J, aref, fl and D, qM and
+the vectors (chip_smoke.py `newton_bounds` reckons it from the run's rows).
 
 A linesearch step and a Newton or CG iteration are functions of α, x (and
 CG's state) alone: once one returns its input bitwise, so does every later
@@ -62,8 +71,11 @@ import torch
 
 MAX_N = 64
 MAX_ROWS = 65535
-CAP = 128  # listed rows per world kept in shared memory
-FIELDS = 5  # per listed row: r, J p, D, fl, and a scratch value
+CAP = 128  # listed regular rows per world a linesearch holds in registers
+FIELDS = 5  # per regular row past CAP: r, J p, D, fl, r at the candidate
+CONE_CAP = 64  # listed cone rows per world in shared memory
+CONE_FIELDS = 7  # per cone row past CONE_CAP: r, J p, and five values at other points
+COST_CAP, COST_FIELDS = 128, 2  # constraint_cost's own list in shared memory
 _EPS = 1e-15
 # Row classes (`Rows.kind`).
 ONE_SIDED, EQUALITY, FRICTION, CONE_ROW = 0, 1, 2, 3
@@ -109,6 +121,7 @@ class Rows:
     self.fl, self.is_eq, self.is_fric, self.reg, self.kind = fl, is_eq, is_fric, reg, kind
     self.layout = layout if layout is not None and layout.table.shape[0] else None
     self.mu0 = mu0 if self.layout is not None else None
+    self._card = None  # the solve's buffers on the card (`_state`)
 
   @classmethod
   def of(cls, tp, d) -> "Rows":
@@ -386,27 +399,55 @@ def constraint_cost_plain(rows: Rows, X: torch.Tensor) -> torch.Tensor:
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _bound: dict[str, ctypes._CFuncPtr] = {}
-_NPTR, _NINT = 16, 7
+_PTRS = ("qM", "J", "D", "aref", "fl", "kind", "tab", "mu0", "a0", "x", "p", "xo", "alpha",
+         "improved", "vec", "force", "w", "blocks", "lst", "counts", "slots", "scratch")
+_NINT = 9  # batch, n, m, ncone, nb, count, flags, ext_reg, ext_cone
+FORCES, BUILD, WITH_SAFEGUARD = 1, 2, 4  # the entry points' flags
+
+
+def _bind(lib: ctypes.CDLL, key: str):
+  """An entry point of a newton_iter library with its argument types."""
+  f = getattr(lib, key)
+  if key == "newton_iter_config":
+    f.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+  elif key == "newton_iter_scratch_elems":
+    f.argtypes = [ctypes.c_int] * 3
+  else:
+    f.argtypes = [ctypes.c_void_p] * len(_PTRS) + [ctypes.c_int] * _NINT + [ctypes.c_void_p]
+  f.restype = ctypes.c_int
+  return f
+
+
+def check_library(lib: ctypes.CDLL) -> None:
+  """Raises unless the library sizes its scratch as `scratch_elems` does."""
+  sizes = _bind(lib, "newton_iter_scratch_elems")
+  if (sizes(0, 1000, 200) != scratch_elems(1000, 200)
+      or sizes(1, 1000, 0) != COST_FIELDS * (1000 - COST_CAP)):
+    raise RuntimeError("kernels/newton.py's scratch sizes disagree with csrc/newton_iter.cu's")
 
 
 def _fn(key: str):
   if key not in _bound:
     from mjlab_tpu_torch.kernels import build
 
-    f = getattr(build.library("newton_iter"), key)
-    if key == "newton_iter_config":
-      f.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    else:
-      f.argtypes = [ctypes.c_void_p] * _NPTR + [ctypes.c_int] * _NINT + [ctypes.c_void_p]
-    f.restype = ctypes.c_int
-    _bound[key] = f
+    lib = build.library("newton_iter")
+    if not _bound:
+      check_library(lib)
+    _bound[key] = _bind(lib, key)
   return _bound[key]
 
 
-def scratch_elems(m: int) -> int:
-  """Elements per world of the kernels' scratch: FIELDS values for each
-  listed row beyond CAP."""
-  return FIELDS * max(m - CAP, 0)
+def scratch_elems(m: int, mc: int = 0) -> int:
+  """Elements per world of a solve's scratch for m rows of which mc are cone
+  rows: FIELDS values for each regular row past CAP, CONE_FIELDS for each
+  cone row past CONE_CAP (the library's newton_iter_scratch_elems)."""
+  return FIELDS * max(m - CAP, 0) + CONE_FIELDS * max(mc - CONE_CAP, 0)
+
+
+def cone_rows(layout) -> int:
+  """The cone rows of a layout (Σ cd over its slots), from its host-side
+  groups."""
+  return 0 if layout is None else sum(cd * k for cd, _, k in layout.groups)
 
 
 def _check(rows: Rows, what: str, *vecs) -> tuple[int, int, int]:
@@ -444,56 +485,120 @@ def _check(rows: Rows, what: str, *vecs) -> tuple[int, int, int]:
   return B, n, m
 
 
-def _launch(name: str, rows: Rows, x, p, outs: tuple, improved, count: int, flag: int) -> None:
+def _state(rows: Rows) -> SimpleNamespace:
+  """The solve's buffers on the card, allocated at its first launch: the
+  list of active rows (B, m) int32 (row | class << 16), the counts (B, 4)
+  int32 (regular rows, listed rows, active slots), the active slots (B, S)
+  int32 (slot | offset << 16), the row weights w (B, m), the cone blocks
+  (B, nb) and the scratch; `built` once the first newton_gradient has
+  launched (a host flag: nothing leaves the card)."""
+  if rows._card is None:
+    B, m = rows.D.shape
+    lay = rows.layout
+    S, mc = (0, 0) if lay is None else (lay.table.shape[0], cone_rows(lay))
+    like = dict(dtype=rows.D.dtype, device=rows.D.device)
+    ints = dict(dtype=torch.int32, device=rows.D.device)
+    rows._card = SimpleNamespace(
+      built=False, lst=torch.empty((B, m), **ints), counts=torch.empty((B, 4), **ints),
+      slots=torch.empty((B, max(S, 1)), **ints), w=torch.empty((B, m), **like),
+      blocks=None if lay is None else torch.empty((B, lay.nb), **like),
+      scratch=torch.empty((B, max(scratch_elems(m, mc), 1)), **like),
+      ext=(max(m - CAP, 0), max(mc - CONE_CAP, 0)))
+  return rows._card
+
+
+def _launch(name: str, rows: Rows, tensors: dict, count: int, flags: int,
+            ext: tuple[int, int]) -> None:
+  """One launch of an entry point on the tensors' pointers (`_PTRS`). A CPU
+  tensor reaches it only from the CPU emulation of the kernels
+  (tools/warp_emu), with no stream."""
   B, n = rows.qM.shape[:2]
   m = rows.J.shape[1]
   lay = rows.layout
   S, nb = (0, 0) if lay is None else (lay.table.shape[0], lay.nb)
-  scratch = torch.empty((B, scratch_elems(m)), dtype=rows.qM.dtype, device=rows.qM.device)
-  ptrs = [rows.qM, rows.J, rows.D, rows.aref, rows.fl, rows.kind,
-          None if lay is None else lay.table, rows.mu0, rows.a0, x, p, *outs, improved, scratch]
-  ptrs += [None] * (_NPTR - len(ptrs))
-  stream = torch.cuda.current_stream(rows.qM.device).cuda_stream
-  with torch.cuda.device(rows.qM.device):
-    rc = _fn(f"{name}_{_SUFFIX[rows.qM.dtype]}")(
-      *[None if t is None else t.data_ptr() for t in ptrs], B, n, m, S, nb, count, flag, stream)
+  t = dict(qM=rows.qM, J=rows.J, D=rows.D, aref=rows.aref, fl=rows.fl, kind=rows.kind,
+           tab=None if lay is None else lay.table, mu0=rows.mu0, a0=rows.a0, **tensors)
+  ptrs = [None if t.get(k) is None else t[k].data_ptr() for k in _PTRS]
+  fn = _fn(f"{name}_{_SUFFIX[rows.qM.dtype]}")
+  dev = rows.qM.device
+  if dev.type == "cuda":
+    with torch.cuda.device(dev):
+      rc = fn(*ptrs, B, n, m, S, nb, count, flags, *ext, torch.cuda.current_stream(dev).cuda_stream)
+  else:
+    rc = fn(*ptrs, B, n, m, S, nb, count, flags, *ext, None)
   if rc != 0:
     raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
   LAUNCHES[name] += 1
 
 
+def _gradient_kernel(rows: Rows, x: torch.Tensor, forces: bool = False):
+  st = _state(rows)
+  vec = torch.empty_like(x)
+  force = torch.zeros_like(rows.D) if forces else None
+  _launch("newton_gradient", rows, dict(x=x, vec=vec, force=force, w=st.w, blocks=st.blocks,
+                                         lst=st.lst, counts=st.counts, slots=st.slots,
+                                         scratch=st.scratch),
+          0, (FORCES if forces else 0) | (0 if st.built else BUILD), st.ext)
+  st.built = True
+  return (force, vec) if forces else (vec, st.w, st.blocks)
+
+
+def _linesearch_kernel(rows: Rows, x, p, iterations: int, safeguard: bool,
+                       forces: bool = False):
+  st = rows._card
+  if st is None or not st.built:
+    raise ValueError("newton_linesearch: the rows' list is not built (the solve's first "
+                     "newton_gradient builds it)")
+  B = x.shape[0]
+  xo = torch.empty_like(x)
+  alpha = torch.empty((B,), dtype=x.dtype, device=x.device)
+  improved = torch.empty((B,), dtype=torch.bool, device=x.device)
+  vec = torch.empty_like(x)
+  force = torch.zeros_like(rows.D) if forces else None
+  _launch("newton_linesearch", rows,
+          dict(x=x, p=p, xo=xo, alpha=alpha, improved=improved, vec=vec, force=force, w=st.w,
+               blocks=st.blocks, lst=st.lst, counts=st.counts, slots=st.slots,
+               scratch=st.scratch),
+          int(iterations), (FORCES if forces else 0) | (WITH_SAFEGUARD if safeguard else 0),
+          st.ext)
+  return xo, alpha, improved, (force, vec) if forces else (vec, st.w, st.blocks)
+
+
+def _cost_kernel(rows: Rows, X: torch.Tensor) -> torch.Tensor:
+  B, k = X.shape[:2]
+  m = rows.J.shape[1]
+  cost = torch.empty((B, k), dtype=X.dtype, device=X.device)
+  scratch = torch.empty((B, max(COST_FIELDS * max(m - COST_CAP, 0), 1)), dtype=X.dtype,
+                        device=X.device)
+  _launch("constraint_cost", rows, dict(x=X, vec=cost, scratch=scratch), k, 0,
+          (max(m - COST_CAP, 0), 0))
+  return cost
+
+
 def newton_gradient(rows: Rows, x: torch.Tensor, forces: bool = False):
   """(∇Φ(x) (B, n), the row weights w (B, m), the packed cone Hessians
   (B, nb) or None) at x; with `forces`, (efc_force (B, m), qfrc_constraint
-  (B, n)) at x instead."""
+  (B, n)) at x instead. On the card w and the blocks are the solve's buffers
+  (see the module's docstring)."""
   if rows.qM.device.type == "cpu":
     return newton_gradient_plain(rows, x, forces)
-  B, n, m = _check(rows, "newton_gradient", (x, tuple(rows.a0.shape)))
-  vec = torch.empty_like(x)
-  per_row = torch.empty_like(rows.D)
-  cone = None
-  if not forces and rows.layout is not None:
-    cone = torch.empty((B, rows.layout.nb), dtype=x.dtype, device=x.device)
-  _launch("newton_gradient", rows, x, None, (vec, per_row, cone), None, 0, int(forces))
-  return (per_row, vec) if forces else (vec, per_row, cone)
+  _check(rows, "newton_gradient", (x, tuple(rows.a0.shape)))
+  return _gradient_kernel(rows, x, forces)
 
 
 def newton_linesearch(rows: Rows, x: torch.Tensor, p: torch.Tensor, iterations: int,
-                      safeguard: bool):
-  """(x' (B, n), α (B,), improved (B,) bool): the exact linesearch along p
-  from x, then the step's acceptance (see the module's docstring)."""
+                      safeguard: bool, forces: bool = False):
+  """(x' (B, n), α (B,), improved (B,) bool, at): the exact linesearch along
+  p from x, the step's acceptance (see the module's docstring), and `at`,
+  newton_gradient(rows, x', forces)'s output at the point it returns. On
+  the card the rows' first newton_gradient must have launched."""
   if rows.qM.device.type == "cpu":
-    return newton_linesearch_plain(rows, x, p, iterations, safeguard)
+    xo, alpha, improved = newton_linesearch_plain(rows, x, p, iterations, safeguard)
+    return xo, alpha, improved, newton_gradient_plain(rows, xo, forces)
   if iterations < 0:
     raise ValueError(f"newton_linesearch: iterations {iterations} < 0")
-  B = rows.qM.shape[0]
   _check(rows, "newton_linesearch", (x, tuple(rows.a0.shape)), (p, tuple(rows.a0.shape)))
-  x_out = torch.empty_like(x)
-  alpha = torch.empty((B,), dtype=x.dtype, device=x.device)
-  improved = torch.empty((B,), dtype=torch.bool, device=x.device)
-  _launch("newton_linesearch", rows, x, p, (x_out, alpha, None), improved, int(iterations),
-          int(bool(safeguard)))
-  return x_out, alpha, improved
+  return _linesearch_kernel(rows, x, p, iterations, safeguard, forces)
 
 
 def constraint_cost(rows: Rows, X: torch.Tensor) -> torch.Tensor:
@@ -503,22 +608,20 @@ def constraint_cost(rows: Rows, X: torch.Tensor) -> torch.Tensor:
   B, n = rows.qM.shape[:2]
   if X.dim() != 3 or X.shape[1] < 1:
     raise ValueError(f"constraint_cost: expected X (B, k, n), got {tuple(X.shape)}")
-  k = X.shape[1]
-  _check(rows, "constraint_cost", (X, (B, k, n)))
-  cost = torch.empty((B, k), dtype=X.dtype, device=X.device)
-  _launch("constraint_cost", rows, X, None, (cost, None, None), None, k, 0)
-  return cost
+  _check(rows, "constraint_cost", (X, (B, X.shape[1], n)))
+  return _cost_kernel(rows, X)
 
 
-def launch_config(name: str, dtype: torch.dtype, n: int, m: int, ncone: int = 0) -> dict:
+def launch_config(name: str, dtype: torch.dtype, n: int, m: int, ncone: int = 0,
+                  safeguard: bool = False) -> dict:
   """The launch an entry point makes for these shapes (on the current card),
   launching nothing: resident worlds per SM, SMs, shared bytes per world,
   registers and local (spill) bytes per thread."""
   out = (ctypes.c_int * 5)()
-  mode = {"newton_gradient": 0, "newton_linesearch": 2, "constraint_cost": 4}[name]
-  rc = _fn("newton_iter_config")(mode + int(ncone > 0 and name == "newton_linesearch"),
-                                 torch.empty((), dtype=dtype).element_size(), n, m, ncone, 1,
-                                 out)
+  mode = {"newton_gradient": 0, "newton_linesearch": 2 if safeguard else 1,
+          "constraint_cost": 3}[name]
+  rc = _fn("newton_iter_config")(mode, torch.empty((), dtype=dtype).element_size(), n, m, ncone,
+                                 1, out)
   if rc != 0:
     raise RuntimeError(f"newton_iter_config failed with CUDA error {rc}")
   return dict(zip(("worlds_per_sm", "sms", "shared_bytes", "registers", "spill_bytes"),

@@ -20,24 +20,27 @@ Where each stage runs (the kernels' wrappers take their plain PyTorch
 versions on a CPU tensor):
   * the warm start's choice between qacc_warmstart and a0:
     `newton.constraint_cost`, both costs in one launch;
-  * per Newton iteration, the gradient, the row weights and the cone
-    blocks: `newton.newton_gradient`; the direction:
-    `chol.newton_direction` (diagonal weights) or, with cone slots,
-    `chol.newton_direction_cone`, which solve with H = M + Jᵀ diag(w) J
-    (+ Σ J_sᵀ B_s J_s) + 1e-10·I without forming H in device memory; the
-    exact linesearch and the step's acceptance (with cone slots, the
-    safeguard's candidates): `newton.newton_linesearch`. A non-positive
-    pivot gives a NaN step that the cost comparison rejects, as in the JAX
-    package;
+  * the gradient, the row weights and the cone blocks at the solve's first
+    point: `newton.newton_gradient`, which also lists the solve's active
+    rows on the card;
+  * per Newton iteration, the direction: `chol.newton_direction` (diagonal
+    weights) or, with cone slots, `chol.newton_direction_cone`, which solve
+    with H = M + Jᵀ diag(w) J (+ Σ J_sᵀ B_s J_s) + 1e-10·I without forming H
+    in device memory; then the exact linesearch and the step's acceptance
+    (with cone slots, the safeguard's candidates), ending with the next
+    iteration's gradient, weights and blocks at the accepted point:
+    `newton.newton_linesearch`. A non-positive pivot gives a NaN step that
+    the cost comparison rejects, as in the JAX package;
   * CG: M + 1e-12·I factored once (`chol.chol_factor`), per iteration the
-    linesearch and acceptance (`newton.newton_linesearch`), the gradient
-    (`newton.newton_gradient`) and its preconditioning (`chol.chol_solve`);
-    β in PyTorch;
-  * efc_force and qfrc_constraint at the solution:
-    `newton.newton_gradient(..., forces=True)`.
-A Newton solve of K iterations launches 1 constraint_cost, K + 1
-newton_gradient and K newton_linesearch; a CG solve of K iterations 1, K + 2
-and K.
+    linesearch and acceptance with the gradient at the accepted point
+    (`newton.newton_linesearch`) and its preconditioning
+    (`chol.chol_solve`); β in PyTorch;
+  * efc_force and qfrc_constraint at the solution: the last iteration's
+    `newton.newton_linesearch(..., forces=True)` (with no iteration,
+    `newton.newton_gradient(..., forces=True)`).
+A Newton or CG solve of K ≥ 1 iterations launches 1 constraint_cost, 1
+newton_gradient and K newton_linesearch (on the CPU the solve may stop early
+at an exact fixed point, with one more newton_gradient for the forces).
 
 The PGS solver (mjSOL_PGS, pyramidal cone) works on the dual instead
 (`_pgs`, the JAX package's pgs_solve): one `pgs.pgs_solve` per forward, from
@@ -83,32 +86,53 @@ def direction(rows: newton.Rows, grad: torch.Tensor, w: torch.Tensor, blocks) ->
   return -chol.newton_direction(rows.qM, rows.J, w, grad)
 
 
-def newton_solve(m: Model, rows: newton.Rows, x: torch.Tensor) -> torch.Tensor:
-  """`m.opt.iterations` Newton iterations from x."""
-  for _ in range(m.opt.iterations):
-    grad, w, blocks = newton.newton_gradient(rows, x)
-    x_new, _, _ = newton.newton_linesearch(rows, x, direction(rows, grad, w, blocks),
-                                           m.opt.ls_iterations, rows.layout is not None)
+def _forces(rows: newton.Rows, x: torch.Tensor):
+  """(x, efc_force, qfrc_constraint) at x."""
+  return (x, *newton.newton_gradient(rows, x, forces=True))
+
+
+def newton_solve(m: Model, rows: newton.Rows, x: torch.Tensor):
+  """`m.opt.iterations` Newton iterations from x: (x, efc_force,
+  qfrc_constraint) at the end."""
+  iterations = m.opt.iterations
+  if iterations == 0:
+    return _forces(rows, x)
+  grad, w, blocks = newton.newton_gradient(rows, x)
+  for k in range(iterations):
+    last = k == iterations - 1
+    x_new, _, _, at = newton.newton_linesearch(rows, x, direction(rows, grad, w, blocks),
+                                               m.opt.ls_iterations, rows.layout is not None,
+                                               forces=last)
+    if last:
+      return (x_new, *at)
     # An iteration is a function of x alone: once it returns x in every
     # world, so does every later one. On the CPU the loop stops there.
     if x.device.type == "cpu" and newton.same_bits(x_new, x):
-      break
+      return _forces(rows, x)
     x = x_new
-  return x
+    grad, w, blocks = at
 
 
-def cg_solve(m: Model, rows: newton.Rows, x: torch.Tensor) -> torch.Tensor:
+def cg_solve(m: Model, rows: newton.Rows, x: torch.Tensor):
   """Nonlinear CG (Polak-Ribière+, M-preconditioned), MuJoCo's mjSOL_CG:
-  M + 1e-12·I factored once, its solves per iteration."""
+  M + 1e-12·I factored once, its solves per iteration. Returns (x,
+  efc_force, qfrc_constraint) at the end."""
+  iterations = m.opt.iterations
+  if iterations == 0:
+    return _forces(rows, x)
   qM = rows.qM
   Lm = chol.chol_factor(qM + 1e-12 * torch.eye(qM.shape[-1], dtype=qM.dtype, device=qM.device))
   g_prev = newton.newton_gradient(rows, x)[0]
   mg_prev = chol.chol_solve(Lm, g_prev)
   p = -mg_prev
-  for _ in range(m.opt.iterations):
+  for k in range(iterations):
+    last = k == iterations - 1
     state = (x, g_prev, mg_prev, p)
-    x, _, improve = newton.newton_linesearch(rows, x, p, m.opt.ls_iterations, False)
-    g = newton.newton_gradient(rows, x)[0]
+    x, _, improve, at = newton.newton_linesearch(rows, x, p, m.opt.ls_iterations, False,
+                                                 forces=last)
+    if last:
+      return (x, *at)
+    g = at[0]
     mg = chol.chol_solve(Lm, g)
     beta = torch.clamp_min(
       _bdot(g, mg - mg_prev) / torch.clamp_min(_bdot(g_prev, mg_prev), _EPS), 0.0)
@@ -118,8 +142,7 @@ def cg_solve(m: Model, rows: newton.Rows, x: torch.Tensor) -> torch.Tensor:
     # them in every world, so does every later one. On the CPU the loop
     # stops there.
     if x.device.type == "cpu" and all(map(newton.same_bits, state, (x, g, mg, p))):
-      break
-  return x
+      return _forces(rows, x)
 
 
 def pgs_inputs(tp: Topology, d: Data):
@@ -172,11 +195,8 @@ def _solve(tp: Topology, m: Model, d: Data) -> Data:
     return _pgs(tp, m, d)
   rows = newton.Rows.of(tp, d)
   x = warm_start(rows, d.qacc_warmstart.contiguous())
-  if m.opt.solver == mjtSolver.mjSOL_CG:
-    x = cg_solve(m, rows, x)
-  else:
-    x = newton_solve(m, rows, x)
-  efc_force, qfrc_constraint = newton.newton_gradient(rows, x, forces=True)
+  solve_fn = cg_solve if m.opt.solver == mjtSolver.mjSOL_CG else newton_solve
+  x, efc_force, qfrc_constraint = solve_fn(m, rows, x)
   return d.replace(
     qacc=x, efc_force=efc_force, qfrc_constraint=qfrc_constraint,
     qacc_warmstart=x,

@@ -1,5 +1,5 @@
-"""kernel_ab.py, the A/B timer of the Newton-direction, Cholesky and PGS
-kernels' sources, on the CPU: the order in which it times versions, the
+"""kernel_ab.py, the A/B timer of the Newton-direction, Cholesky, PGS and
+Newton iteration kernels' sources, on the CPU: the order in which it times versions, the
 sources a version's directory gives it, the cases it is asked for, and
 that it runs nothing without a card."""
 
@@ -41,7 +41,7 @@ def test_runs_nothing_without_a_card_or_a_directory(args):
 
 
 @pytest.mark.parametrize("argv, cases", [
-  (["build/parent"], ["newton", "chol", "pgs"]),
+  (["build/parent"], ["newton", "chol", "pgs", "newton_iter"]),
   (["build/parent", "--cases", "pgs"], ["pgs"]),
   (["build/parent", "--cut", "build/a", "--cut", "build/b", "--cases", "chol", "pgs"],
    ["chol", "pgs"]),
@@ -66,10 +66,11 @@ def test_refuses_an_unknown_case_or_no_directory(argv, capsys):
   (["pgs.cu"], ["pgs"]),
   (["newton_dir.cu", "chol.cu"], ["chol"]),  # newton_dir.cu needs its chol_core.cuh
   (["newton_dir.cu", "chol_core.cuh", "chol.cu", "pgs.cu"], ["newton_dir", "chol", "pgs"]),
+  (["newton_iter.cu"], ["newton_iter"]),
 ])
 def test_a_version_joins_the_cases_of_the_sources_it_has(tmp_path, files, sources):
   for name in files:
     (tmp_path / name).write_text("// a source\n")
   assert kernel_ab.version_sources(tmp_path) == sources
   this = kernel_ab.version_sources(ROOT / "mjlab_tpu_torch" / "csrc")
-  assert this == ["newton_dir", "chol", "pgs"]
+  assert this == ["newton_dir", "chol", "pgs", "newton_iter"]

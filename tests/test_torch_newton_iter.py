@@ -1,6 +1,7 @@
 """The rest of the Newton iteration (kernels/newton.py): the gradient, the
-exact linesearch with the step's acceptance and the cost, their plain
-versions on the CPU and their kernels (csrc/newton_iter.cu) on the card.
+exact linesearch with the step's acceptance (ending with the gradient, or
+the forces, at the point it returns) and the cost, their plain versions on
+the CPU and their kernels (csrc/newton_iter.cu) on the card.
 
 On the CPU (float64):
 * the solver through the plain versions against the JAX package's
@@ -12,23 +13,30 @@ On the CPU (float64):
 * one solve split into the three entry points against the same solve
   written out whole (as the solver computed it before the split, every
   Newton iteration and linesearch step taken) bitwise, on those scenes and
-  G1 velocity-flat (port only);
+  G1 velocity-flat (port only); the solve's launch structure: one
+  constraint_cost, one newton_gradient, one newton_linesearch per
+  iteration, the last with the forces;
 * garbage in the J and aref rows of inactive rows (D = 0) changes no
   output, bitwise;
 * a NaN direction leaves x unchanged where the step is accepted by its
   cost (NaN < c is false); the elliptic safeguard returns x + 0·p, NaN, as
   the JAX package's does.
 On the card (`gpu`, skipped elsewhere): each kernel against its plain
-version on seeded problems, float64 within 1e-10 relative, float32 within
-max(1e-5 × scale, 4 × the plain float32 version's own error against
-float64) (where the float32 acceptance decides a cost tie the other way,
-the two chosen points' costs agree within 1e-5), NaN patterns equal, a
-step that rounds to x not taken: active counts per world below, at and above
-the kernels' CAP of rows in shared memory, row counts ragged at the edges
-of the 16-byte scan, every row inactive, a NaN direction, cone dims 3, 4
-and 6 with equality and friction-loss rows, nv 64, and a grid of more
-worlds than the card holds at once. This file imports JAX only inside its
-CPU tests. On the card:
+version on seeded problems (a linesearch launch against
+newton_linesearch_plain followed by newton_gradient_plain at the point it
+returns), float64 within 1e-10 relative, float32 within max(1e-5 × scale,
+4 × the plain float32 version's own error against float64) (where the
+float32 acceptance decides a cost tie the other way, the two chosen points'
+costs agree within 1e-5), NaN patterns equal, a step that rounds to x not
+taken: active counts per world below, at and above the kernels' CAP of
+rows in registers, row counts ragged at the edges of the 16-byte scan,
+every row inactive, a NaN direction, cone dims 3, 4 and 6 with equality and
+friction-loss rows, nv 64, and a grid of more worlds than the card holds at
+once; the gradient, w and blocks (and the forces) a linesearch returns at
+x' bitwise newton_gradient's there; w exactly 0 on every unlisted row after
+three iterations. tests/test_torch_newton_iter_emu.py runs the kernels'
+source on the CPU in the warp emulator. This file imports JAX only inside
+its CPU tests. On the card:
   python -m pytest --noconftest -m gpu tests/test_torch_newton_iter.py
 """
 
@@ -112,22 +120,48 @@ def problem(seed, batch, n, m_reg, ne=0, nf=0, cds=(), active=0.3, counts=None,
   return rows, t(x), t(p)
 
 
+def linesearch_plain(rows, x, p, iterations, safeguard, forces=False):
+  """One linesearch launch by the plain versions: newton_linesearch_plain,
+  then newton_gradient_plain at the point it returns."""
+  xo, alpha, improved = newton.newton_linesearch_plain(rows, x, p, iterations, safeguard)
+  return xo, alpha, improved, newton.newton_gradient_plain(rows, xo, forces)
+
+
+# The outputs that depend on the linesearch's acceptance (suffixed 0, or 1
+# with the safeguard).
+AT_POINT = ("x", "xf", "grad_ls", "w_ls", "blocks_ls", "force_ls", "qfrc_ls")
+
+
 def outputs(rows, x, p, fn):
-  """Every entry point's outputs on (rows, x, p), by `fn`'s versions."""
+  """Every entry point's outputs on (rows, x, p), by `fn`'s versions: the
+  gradient and the forces at x, each linesearch (with and without the
+  safeguard where the rows have cone slots) with the gradient and with the
+  forces at the point it returns, and the cost. The solve's buffers that
+  the kernels return (w, the blocks) are copied as they come."""
+
+  def keep(t):
+    return None if t is None else t.clone()
+
   grad, w, blocks = fn["gradient"](rows, x)
-  force, qfrc = fn["gradient"](rows, x, forces=True)
-  out = {"grad": grad, "w": w, "force": force, "qfrc": qfrc}
+  out = {"grad": grad, "w": keep(w)}
   if blocks is not None:
-    out["blocks"] = blocks
+    out["blocks"] = keep(blocks)
+  force, qfrc = fn["gradient"](rows, x, forces=True)
+  out.update(force=force, qfrc=qfrc)
   for sg in (False, True) if rows.layout is not None else (False,):
-    xo, alpha, improved = fn["linesearch"](rows, x, p, LS_STEPS, sg)
-    out.update({f"x{int(sg)}": xo, f"alpha{int(sg)}": alpha,
-                f"improved{int(sg)}": improved})
+    s = int(sg)
+    xo, alpha, improved, (g, w, b) = fn["linesearch"](rows, x, p, LS_STEPS, sg)
+    out.update({f"x{s}": xo, f"alpha{s}": alpha, f"improved{s}": improved, f"grad_ls{s}": g,
+                f"w_ls{s}": keep(w)})
+    if b is not None:
+      out[f"blocks_ls{s}"] = keep(b)
+    xf, _, _, (f, q) = fn["linesearch"](rows, x, p, LS_STEPS, sg, forces=True)
+    out.update({f"xf{s}": xf, f"force_ls{s}": f, f"qfrc_ls{s}": q})
   out["cost"] = fn["cost"](rows, torch.stack([x, rows.a0, x + p], dim=1).contiguous())
   return out
 
 
-PLAIN = {"gradient": newton.newton_gradient_plain, "linesearch": newton.newton_linesearch_plain,
+PLAIN = {"gradient": newton.newton_gradient_plain, "linesearch": linesearch_plain,
          "cost": newton.constraint_cost_plain}
 WRAPPED = {"gradient": newton.newton_gradient, "linesearch": newton.newton_linesearch,
            "cost": newton.constraint_cost}
@@ -407,8 +441,46 @@ def test_wrappers_take_the_plain_path_on_the_cpu():
   a, b = outputs(rows, x, p, WRAPPED), outputs(rows, x, p, PLAIN)
   assert all(torch.equal(a[k], b[k]) for k in a)
   assert all(v == 0 for v in newton.LAUNCHES.values())
+  assert rows._card is None  # no buffer of the card's
   assert newton.scratch_elems(newton.CAP) == 0
   assert newton.scratch_elems(1699) == newton.FIELDS * (1699 - newton.CAP)
+  assert newton.scratch_elems(1320, 1137) == (newton.FIELDS * (1320 - newton.CAP)
+                                              + newton.CONE_FIELDS * (1137 - newton.CONE_CAP))
+
+
+@pytest.mark.parametrize("name, cone", [("connect_with_contact", None), ("cg_box", None),
+                                        ("cone_dims", None)])
+def test_solve_launch_structure(name, cone, monkeypatch):
+  """A solve calls constraint_cost once, newton_gradient once at its first
+  point and newton_linesearch once per iteration, the last one with the
+  forces; on the CPU a solve that stops early at a fixed point calls
+  newton_gradient once more for the forces instead."""
+  import tests.torch_parity as tp
+  from mjlab_tpu_torch.physics import solver as tsolver
+
+  calls = []
+
+  def counted(name, fn):
+    def call(*args, **kw):
+      calls.append((name, bool(kw.get("forces", False))))
+      return fn(*args, **kw)
+    return call
+
+  for f in ("newton_gradient", "newton_linesearch", "constraint_cost"):
+    monkeypatch.setattr(newton, f, counted(f, getattr(newton, f)))
+  with tp.torch_threads(1):
+    _, tp_, m, d = _scene_state(name, cone, worlds=2)
+    m.opt.iterations = 4
+    calls.clear()
+    tsolver.solve(tp_, m, d)
+  K = m.opt.iterations
+  ls = [f for n, f in calls if n == "newton_linesearch"]
+  assert calls[0] == ("constraint_cost", False) and calls[1] == ("newton_gradient", False)
+  assert 1 <= len(ls) <= K and sum(n == "constraint_cost" for n, _ in calls) == 1
+  if len(ls) == K and ls[-1]:
+    assert not any(ls[:-1]) and sum(n == "newton_gradient" for n, _ in calls) == 1
+  else:
+    assert not any(ls) and calls[-1] == ("newton_gradient", True)
 
 
 def test_row_classes_follow_the_constraint_tables():
@@ -450,13 +522,14 @@ def _check_on_card(args, dtype):
   scale, 4 × the plain float32 version's error against float64). In float32
   the step's acceptance may decide a cost tie the other way (two sums over
   the rows rounded differently): where it does, the two chosen points' costs
-  (in float64) agree within 1e-5 relative, and x' is compared elsewhere."""
+  (in float64) agree within 1e-5 relative, and the outputs at the chosen
+  point are compared elsewhere."""
   rows, x, p = problem(*args[0], **args[1], dtype=dtype, device="cuda")
   newton.reset_counts()
   got = outputs(rows, x, p, WRAPPED)
   torch.cuda.synchronize()
   ls = 2 if rows.layout is not None else 1
-  assert newton.LAUNCHES == {"newton_gradient": 2, "newton_linesearch": ls,
+  assert newton.LAUNCHES == {"newton_gradient": 2, "newton_linesearch": 2 * ls,
                              "constraint_cost": 1}
   plain = outputs(rows, x, p, PLAIN)
   rows64, *_ = problem(*args[0], **args[1], dtype=torch.float64, device="cuda")
@@ -469,7 +542,8 @@ def _check_on_card(args, dtype):
       c_got = rows64.total_cost(got[f"x{sg}"].double())[flips]
       c_plain = rows64.total_cost(plain[f"x{sg}"].double())[flips]
       assert ((c_got - c_plain).abs() <= 1e-5 * c_plain.abs().clamp_min(1.0)).all(), sg
-    keep[f"x{sg}"] = ~flips
+    for k in AT_POINT:
+      keep[f"{k}{sg}"] = ~flips
   for k, g in got.items():
     if k.startswith("improved"):
       continue
@@ -505,6 +579,38 @@ CARD_CASES = {
 }
 
 
+def linesearch_gradient_differences(rows, x, p, fn) -> list[str]:
+  """The outputs of each linesearch launch at the point it returns (the
+  gradient, w and the blocks; the forces) that differ by a bit from `fn`'s
+  newton_gradient at that point."""
+  fn["gradient"](rows, x)
+  bad = []
+  for sg in (False, True) if rows.layout is not None else (False,):
+    for forces in (False, True):
+      xo, _, _, at = fn["linesearch"](rows, x, p, LS_STEPS, sg, forces=forces)
+      at = [None if t is None else t.clone() for t in at]
+      want = fn["gradient"](rows, xo, forces=forces)
+      for i, (a, b) in enumerate(zip(at, want)):
+        if (a is None) != (b is None) or (a is not None and not newton.same_bits(a, b)):
+          bad.append(f"safeguard {sg} forces {forces} output {i}")
+  return bad
+
+
+def inactive_weights_after_iterations(rows, x, p, fn, iterations=3) -> torch.Tensor:
+  """w on the rows that no launch lists (D = 0, and the cone rows) after the
+  solve's first gradient and `iterations` linesearches along p, their
+  buffer filled with NaN before the first launch."""
+  newton._state(rows).w.fill_(float("nan"))
+  fn["gradient"](rows, x)
+  w = None
+  for _ in range(iterations):
+    x, _, _, (_, w, _) = fn["linesearch"](rows, x, p, LS_STEPS, rows.layout is not None)
+  listed = rows.D != 0
+  if rows.kind is not None:
+    listed &= rows.kind != newton.CONE_ROW
+  return w[~listed]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(CARD_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -514,15 +620,40 @@ def test_kernels_match_plain_on_card(case, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["g1 shapes, 2% active", "cap edges", "dense above cap",
+                                  "cones 3 4 6", "many cone rows above cap"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_linesearch_gradient_is_newton_gradient_bitwise_on_card(case, dtype):
+  """The gradient, w and blocks (and the forces) that a linesearch launch
+  returns at x' are bitwise newton_gradient's at x'."""
+  _card()
+  args, kw = CARD_CASES[case]
+  rows, x, p = problem(*args, **kw, dtype=dtype, device="cuda")
+  assert not linesearch_gradient_differences(rows, x, p, WRAPPED)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["cap edges", "ragged 257", "cones 3 4 6"])
+def test_w_is_zero_on_inactive_rows_after_iterations_on_card(case):
+  _card()
+  args, kw = CARD_CASES[case]
+  rows, x, p = problem(*args, **kw, device="cuda")
+  w = inactive_weights_after_iterations(rows, x, 0.1 * p, WRAPPED)
+  assert w.numel() and torch.equal(w, torch.zeros_like(w))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernels_on_a_nan_direction_on_card(dtype):
   _card()
   rows, x, p = problem(12, 4, 10, 40, ne=1, nf=2, cds=(3, 4), dtype=dtype, device="cuda")
   p[1, 3] = float("nan")
+  newton.newton_gradient(rows, x)
   for sg in (False, True):
-    xo, alpha, improved = newton.newton_linesearch(rows, x, p, LS_STEPS, sg)
-    xp, ap, ip = newton.newton_linesearch_plain(rows, x, p, LS_STEPS, sg)
+    xo, alpha, improved, (g, _, _) = newton.newton_linesearch(rows, x, p, LS_STEPS, sg)
+    xp, ap, ip, (gp, _, _) = linesearch_plain(rows, x, p, LS_STEPS, sg)
     assert torch.equal(torch.isnan(xo), torch.isnan(xp)) and torch.equal(improved, ip)
+    assert torch.equal(torch.isnan(g), torch.isnan(gp))
     if not sg:
       assert torch.equal(xo[1], x[1])
 
@@ -531,13 +662,15 @@ def test_kernels_on_a_nan_direction_on_card(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_a_step_that_leaves_x_as_it_is_ties_on_card(dtype):
   """p so small that x + αp rounds to x: the candidate's cost is x's own,
-  exactly, so the step is not taken, as on the CPU."""
+  exactly, so the step is not taken, as on the CPU, and the gradient
+  returned is x's."""
   _card()
   rows, x, p = problem(15, 6, 10, 40, ne=1, nf=2, cds=(3, 4), dtype=dtype, device="cuda")
   p = p * 1e-30
+  grad = newton.newton_gradient(rows, x)[0]
   for sg in (False, True):
-    xo, _, improved = newton.newton_linesearch(rows, x, p, LS_STEPS, sg)
-    assert not improved.any() and torch.equal(xo, x)
+    xo, _, improved, (g, _, _) = newton.newton_linesearch(rows, x, p, LS_STEPS, sg)
+    assert not improved.any() and torch.equal(xo, x) and torch.equal(g, grad)
 
 
 @pytest.mark.gpu
@@ -555,3 +688,27 @@ def test_inactive_rows_garbage_changes_nothing_on_card():
               WRAPPED)
   for k in a:
     assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.gpu
+def test_linesearch_needs_the_solves_list_on_card():
+  _card()
+  rows, x, p = problem(16, 3, 7, 20, device="cuda")
+  with pytest.raises(ValueError, match="newton_gradient builds it"):
+    newton.newton_linesearch(rows, x, p, LS_STEPS, False)
+
+
+# The CPU emulation's problems (tests/test_torch_newton_iter_emu.py,
+# tools/warp_emu/run.py): every class, cone dims, the caps' edges, a world
+# past CAP, nv 64, no row active; float64.
+EMU_CASES = {
+  "pyramidal": ((0, 3, 7, 20), {}),
+  "equality and friction loss, nv 35": ((1, 3, 35, 60), dict(ne=4, nf=5)),
+  "cone dims 3, 4, 6": ((2, 4, 12, 30), dict(ne=2, nf=3, cds=(3, 3, 4, 6))),
+  "active counts 127-129 (the cap)": ((3, 3, 35, 300), dict(counts=[127, 128, 129])),
+  "every row, nv 64": ((4, 2, 64, 131), dict(active=1.0)),
+  "cone rows past the cap": ((5, 2, 33, 5), dict(cds=(6,) * 30)),
+  "ragged m 13": ((6, 5, 9, 13), dict(ne=1)),
+  "no row active": ((7, 2, 11, 40), dict(ne=2, nf=2, cds=(3, 4), zero=True)),
+  "more than 32 slots, past both caps": ((8, 2, 10, 140), dict(cds=(3,) * 56, active=1.0)),
+}

@@ -2,8 +2,10 @@
 // checking a one-warp-per-block kernel's logic on a machine without a GPU:
 // each block runs as 32 std::threads (one block at a time); shuffles,
 // ballots and __syncwarp go through a barrier-synchronised exchange;
-// shared memory is a per-block buffer filled with garbage first. It says
-// nothing of speed, registers or what nvcc accepts. Used by run.py.
+// shared memory is a per-block buffer filled with garbage first; the
+// source's cp.async helpers take their plain-copy branch (no __CUDA_ARCH__).
+// It says nothing of speed, registers or what nvcc accepts. Used by run.py
+// and tests/test_torch_newton_iter_emu.py.
 #pragma once
 #include <atomic>
 #include <barrier>
@@ -16,6 +18,7 @@
 #include <thread>
 #include <vector>
 using std::sqrt;
+using std::fma;
 using std::fabs;
 using std::max;
 using std::min;
