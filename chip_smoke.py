@@ -299,18 +299,21 @@ phase 17a's env steps' launches, its times on that run's rows and
 `library_ms` null: no PyTorch call computes a projected Gauss-Seidel
 sweep); every entry has `launches_hf_path`, phase 19b's iteration, and the
 four Cholesky and Newton entries `ms_hf_run_matrices`; the seventh to
-ninth, `newton_gradient`, `newton_linesearch` and `constraint_cost`,
-have every path's launches (`launches_<path>_path`; PGS's 0), `ms`
-on phase 2's 2%-active input, `ms_main_path` per launch in phase 6's
-profile, `ms_run_rows`, `ms_elliptic_rows` and `ms_cg_rows` on phases 3b's
-and 14's rows, the bounds on those inputs and `library_ms` null: no
-PyTorch call computes an exact linesearch (the torch path each replaces is
-its plain version, `plain_ms`); `newton_gradient`'s times are the solve's
-first launch, with the list's build (`ms_list_reused` without it), and
-`newton_linesearch`'s a whole launch with the gradient at x', one Newton
-iteration's non-direction work (`bound_ms_iteration_run_rows` its bound
-by `newton_bounds`' rule); the last line is {"ok": true, "device":
-{...}}.
+ninth, `warm_start`, `newton_linesearch` and `newton_gradient`, have every
+path's launches (`launches_<path>_path`; PGS's 0; `newton_gradient`'s
+`launches` and `launches_zero_iteration_path` from phase 3c, the only
+path that launches it), `ms` on phase 2's 2%-active input, `ms_main_path`
+per launch in phase 6's profile (null for `newton_gradient`, which the
+main path does not launch), `ms_run_rows`, `ms_elliptic_rows` and
+`ms_cg_rows` on phases 3b's and 14's rows, the bounds on those inputs and
+`library_ms` null: no PyTorch call computes an exact linesearch or this
+cost (the torch path each replaces is its plain version, `plain_ms`);
+`warm_start`'s times are the solve's first launch with the list's build,
+`newton_gradient`'s a launch with the list's build (`ms_list_reused`
+without it), and `newton_linesearch`'s a whole launch with the gradient at
+x', one Newton iteration's non-direction work
+(`bound_ms_iteration_run_rows` its bound by `newton_bounds`' rule); the
+last line is {"ok": true, "device": {...}}.
 
 The Newton iteration's kernels add: in phase 2 the three against
 their plain versions at the main path's shapes (4096 x 1699 x 35, f32) with
@@ -318,16 +321,19 @@ their plain versions at the main path's shapes (4096 x 1699 x 35, f32) with
 plain times and bounds and their launch (resident worlds per SM, shared
 bytes, registers, spills); in phases 3, 7 and 8 (and every path through
 `train_iterations`, and phase 14's CG run) their launches per substep, env
-step and iteration: per Newton or CG solve of K iterations 1
-`constraint_cost`, 1 `newton_gradient` (the solve's first, which lists its
-active rows) and K `newton_linesearch` (each ending with the next
-iteration's gradient, the last with the forces: 12 per G1 substep, 5 / 5 /
-50 per env step), none under PGS; in phase 3b and phase 14's elliptic and
-CG runs the three against their plain versions on the run's rows (f32 and
-f64; the linesearch against newton_linesearch_plain followed by
-newton_gradient_plain at the point it returns, and its gradient bitwise
-against newton_gradient's there) and their times there; in phase 5 the
-solve split into the directions, the first gradient kernel, the
+step and iteration: per Newton or CG solve of K iterations 1 `warm_start`
+(which lists the solve's active rows, picks its first point and ends with
+the gradient there) and K `newton_linesearch` (each ending with the next
+iteration's gradient, the last with the forces: 11 per G1 substep, 5 / 0 /
+50 per env step), no `newton_gradient`, none under PGS; in phase 3c, solves
+of 0 iterations, 1 `warm_start` and 1 `newton_gradient` (the forces) per
+substep, and in phase 4 their f64 result against the CPU's; in phase 3b and
+phase 14's elliptic and CG runs the three against their plain versions on
+the run's rows (f32 and f64; the linesearch against
+newton_linesearch_plain followed by newton_gradient_plain at the point it
+returns, the warm start against warm_start_plain, and their gradients
+bitwise against newton_gradient's at their points) and their times there;
+in phase 5 the solve split into the directions, the warm start kernel, the
 linesearch kernel and the rest; in phase 6 a failure if a product with a
 (B, nefc, nv) operand runs inside the solver.solve profiler span.
 """
@@ -361,11 +367,15 @@ KERNELS = ("chol_factor", "chol_solve", "chol_factor_solve", "newton_direction")
 # The elliptic cone's Newton kernel (phase 14); the pyramidal paths launch
 # KERNELS only.
 CONE_KERNEL = "newton_direction_cone"
-# The rest of the Newton iteration (kernels/newton.py): every Newton
-# or CG solve launches these, the pyramidal paths KERNELS and these.
-NEWTON_KERNELS = ("newton_gradient", "newton_linesearch", "constraint_cost")
-PATH_KERNELS = KERNELS + NEWTON_KERNELS
+# The rest of the Newton iteration (kernels/newton.py): every Newton or CG
+# solve of K >= 1 iterations launches the first two (the pyramidal paths
+# KERNELS and these); newton_gradient launches in a solve of 0 iterations
+# (its forces), and is held against its plain version and timed beside them.
+NEWTON_KERNELS = ("warm_start", "newton_linesearch", "newton_gradient")
+PATH_KERNELS = KERNELS + NEWTON_KERNELS[:2]
 ALL_KERNELS = PATH_KERNELS + (CONE_KERNEL,)
+# Every counter of chol and newton (launch_counts' keys but pgs_solve's).
+COUNTED = ALL_KERNELS + NEWTON_KERNELS[2:]
 OUT = Path("chiprun_out")
 TASK = "Mjlab-Velocity-Flat-Unitree-G1"
 RL_EPISODE_S = 0.4  # cut from 20 s: 20 env steps, every env resets in-step
@@ -392,11 +402,14 @@ RL_FACT_PER_STEP = fact_per_env_step()
 
 def newton_per_solve(iterations: int = 10) -> dict[str, int]:
   """The Newton iteration's kernels per solve: a Newton or CG solve of K ≥ 1
-  iterations launches 1 constraint_cost (the warm start), 1
-  newton_gradient (at the solve's first point, listing its active rows) and
-  K newton_linesearch (each with the gradient at the point it returns, the
-  last with the final forces)."""
-  return {"constraint_cost": 1, "newton_gradient": 1, "newton_linesearch": iterations}
+  iterations launches 1 warm_start (listing its active rows, with the
+  gradient at the point it picks) and K newton_linesearch (each with the
+  gradient at the point it returns, the last with the final forces), no
+  newton_gradient; a solve of 0 iterations 1 warm_start and 1
+  newton_gradient (the forces)."""
+  if iterations == 0:
+    return {"warm_start": 1, "newton_gradient": 1, "newton_linesearch": 0}
+  return {"warm_start": 1, "newton_gradient": 0, "newton_linesearch": iterations}
 
 
 def newton_per_env_step(opt, decimation: int = DECIMATION) -> dict[str, int]:
@@ -629,22 +642,27 @@ def rows_as(rows, dtype):
                      mu0=cast(rows.mu0))
 
 
-def newton_bounds(rows, iters: int, safeguard: bool = False, k: int = 2,
+def newton_bounds(rows, iters: int, safeguard: bool = False,
                   solve_iters: int = 10) -> dict[str, tuple[float, str]]:
   """Least time (ms) of each of the Newton iteration's kernels on these
   rows: the larger of the bytes it must move over HBM's rate and its FLOP
   over the float32 rate. One rule for any split of the work: D on every
-  row, w on the inactive rows and the list's entries are once per solve
-  (the solve's first `newton_gradient`); each iteration then moves the
-  active rows' (D != 0, a cone slot's rows with it) J, aref, fl, D and list
-  entry, qM's lower triangle, x and p in, x', the gradient and α out, w on
-  the active rows and the active slots' cone blocks. FLOP: per active row 2n for each
-  product with J, a few per linesearch step; 2n² per quadratic form.
-  "iteration" is one Newton iteration's non-direction work (x, p → x', ∇,
-  w, blocks) with the once-per-solve bytes spread over `solve_iters`
-  iterations; "newton_gradient" the solve's first launch (the list's build
-  and the gradient), "newton_linesearch" one launch without the
-  once-per-solve bytes."""
+  row, w on the inactive rows, the inactive slots' blocks and the list's
+  entries are once per solve (the list's build: the warm start); each
+  iteration then moves the active rows' (D != 0, a cone slot's rows with
+  it) J, aref, fl, D and list entry, qM's lower triangle, x and p in, x',
+  the gradient and α out, w on the active rows and the active slots' cone
+  blocks. FLOP: per active row 2n for each product with J, a few per
+  linesearch step; 2n² per quadratic form. "iteration" is one Newton
+  iteration's non-direction work (x, p → x', ∇, w, blocks) with the
+  once-per-solve bytes spread over `solve_iters` iterations;
+  "newton_linesearch" one launch without the once-per-solve bytes;
+  "warm_start" the solve's start: the list's build, the active rows' J,
+  aref and fl once (their D and entries are the build's), qM's triangle,
+  ws and a0 in, x0, the gradient and the two costs out, w on the active
+  rows and the active slots' blocks (two residuals, two Jᵀf and two
+  quadratic forms); "newton_gradient" the same launch from one point with
+  the list's build (as a caller without a warm start runs it)."""
   B, m = rows.D.shape
   n, e = rows.qM.shape[1], rows.D.element_size()
   active = int((rows.D != 0).sum().item())
@@ -662,13 +680,14 @@ def newton_bounds(rows, iters: int, safeguard: bool = False, k: int = 2,
   pts = 6 if safeguard else 1
   ls_flop = (active * (4 * n + 8 * iters + pts * 2 * n + 4 * n)
              + B * (3 + pts + int(safeguard)) * 2 * n * n)
+  # A launch that builds the list has read D on every row and wrote the
+  # entries itself: of the active rows it still needs J and aref (and fl).
+  start = once + active * (n + 1 + int(rows.fl is not None)) * e + tri + (active + blocks) * e
   work = {
-    "newton_gradient": (once + active * row_bytes + tri + 2 * B * n * e + (active + blocks) * e,
-                        4 * active * n + 2 * B * n * n),
+    "warm_start": (start + 4 * B * n * e + 2 * B * e, 8 * active * n + 4 * B * n * n),
+    "newton_gradient": (start + 2 * B * n * e, 4 * active * n + 2 * B * n * n),
     "newton_linesearch": (per_iter, ls_flop),
     "iteration": (per_iter + once / solve_iters, ls_flop),
-    "constraint_cost": (B * m * e + active * (row_bytes - 4) + tri + B * (k + 1) * n * e
-                        + B * k * e, k * (2 * active * n + 2 * B * n * n)),
   }
   out = {}
   for name, (byt, flop) in work.items():
@@ -679,12 +698,13 @@ def newton_bounds(rows, iters: int, safeguard: bool = False, k: int = 2,
 
 def iteration_inputs(rows):
   """(x, p) of a first Newton iteration on these rows: x = a0 (qacc_smooth,
-  where the violated rows are active) and p its Newton direction."""
+  where the violated rows are active) and p its Newton direction (from the
+  warm start at a0)."""
   from mjlab_tpu_torch.kernels import newton
   from mjlab_tpu_torch.physics import solver
 
   x = rows.a0
-  grad, w, blocks = newton.newton_gradient(rows, x)
+  _, _, grad, w, blocks = newton.warm_start(rows, x)
   return x, solver.direction(rows, grad, w, blocks)
 
 
@@ -697,20 +717,27 @@ def iteration_kernels(tag: str, rows, x, p, iters: int, safeguard: bool, checks:
                       card: str, time_plain: bool = True) -> dict[str, dict]:
   """The three kernels of the Newton iteration against their plain versions
   on float32 rows (KernelCheck's rule) and, cast to float64, within 1e-10
-  relative: newton_gradient at x (and its forces mode), newton_linesearch
-  along p with the gradient and with the forces at the point it returns
-  (against newton_linesearch_plain followed by newton_gradient_plain at the
-  point that returns), constraint_cost at x and x + p; the gradient (and
-  the forces) a linesearch returns at x' bitwise equal to newton_gradient's
-  at x'. Each kernel's ms on these rows (mean of 20 calls;
-  newton_gradient's as the solve's first launch runs it, with the list's
-  build, and without it), its plain version's and its bound
-  (`newton_bounds`); "iteration" is the linesearch's launch against one
-  iteration's bound. The comparisons' launches are the caller's to leave
-  out of a path's counts."""
+  relative: the warm start from ws = x + p (against warm_start_plain; its
+  choice compared as the acceptance's), newton_gradient at x (and its
+  forces mode), newton_linesearch along p with the gradient and with the
+  forces at the point it returns (against newton_linesearch_plain followed
+  by newton_gradient_plain at the point that returns); the gradient, w and
+  blocks (and the forces) the warm start and a linesearch return at their
+  point bitwise equal to newton_gradient's there. Each kernel's ms on these
+  rows (mean of 20 calls; the warm start's and newton_gradient's with the
+  list's build, newton_gradient's also without it), its plain version's
+  and its bound (`newton_bounds`); "iteration" is the linesearch's launch
+  against one iteration's bound. The comparisons' launches are the
+  caller's to leave out of a path's counts."""
   from mjlab_tpu_torch.kernels import newton
 
-  X = torch.stack([x, x + p], dim=1).contiguous()
+  ws = (x + p).contiguous()
+
+  def ws_kern(r, x_, p_):
+    return _copies(newton.warm_start(r, (x_ + p_).contiguous()))
+
+  def ws_plain(r, x_, p_):
+    return newton.warm_start_plain(r, x_ + p_)
 
   def ls_kern(r, x_, p_, forces=False):
     xo, alpha, improved, at = newton.newton_linesearch(r, x_, p_, iters, safeguard,
@@ -722,35 +749,40 @@ def iteration_kernels(tag: str, rows, x, p, iters: int, safeguard: bool, checks:
     return (xo, alpha, improved, *newton.newton_gradient_plain(r, xo, forces))
 
   calls = {
-    "newton_gradient": (lambda r, x_, p_, X_: _copies(newton.newton_gradient(r, x_)),
-                        lambda r, x_, p_, X_: newton.newton_gradient_plain(r, x_)),
-    "newton_forces": (lambda r, x_, p_, X_: newton.newton_gradient(r, x_, forces=True),
-                      lambda r, x_, p_, X_: newton.newton_gradient_plain(r, x_, forces=True)),
-    "newton_linesearch": (lambda r, x_, p_, X_: ls_kern(r, x_, p_),
-                          lambda r, x_, p_, X_: ls_plain(r, x_, p_)),
-    "newton_linesearch_forces": (lambda r, x_, p_, X_: ls_kern(r, x_, p_, True),
-                                 lambda r, x_, p_, X_: ls_plain(r, x_, p_, True)),
-    "constraint_cost": (lambda r, x_, p_, X_: (newton.constraint_cost(r, X_),),
-                        lambda r, x_, p_, X_: (newton.constraint_cost_plain(r, X_),)),
+    "warm_start": (ws_kern, ws_plain),
+    "newton_gradient": (lambda r, x_, p_: _copies(newton.newton_gradient(r, x_)),
+                        lambda r, x_, p_: newton.newton_gradient_plain(r, x_)),
+    "newton_forces": (lambda r, x_, p_: newton.newton_gradient(r, x_, forces=True),
+                      lambda r, x_, p_: newton.newton_gradient_plain(r, x_, forces=True)),
+    "newton_linesearch": (lambda r, x_, p_: ls_kern(r, x_, p_),
+                          lambda r, x_, p_: ls_plain(r, x_, p_)),
+    "newton_linesearch_forces": (lambda r, x_, p_: ls_kern(r, x_, p_, True),
+                                 lambda r, x_, p_: ls_plain(r, x_, p_, True)),
   }
+
+  def chose(out, key):
+    """Where the acceptance (or the warm start) took its candidate."""
+    return out[2] if key == "newton_linesearch" else out[1][:, 0] < out[1][:, 1]
+
   rows64 = rows_as(rows, torch.float64)
-  a64 = (x.double(), p.double(), X.double())
+  a64 = (x.double(), p.double())
   worst64 = 0.0
   for name, (kern, plain) in calls.items():
-    got, want = kern(rows, x, p, X), plain(rows, x, p, X)
+    got, want = kern(rows, x, p), plain(rows, x, p)
     ref = plain(rows64, *a64)
     got64 = kern(rows64, *a64)
     key = {"newton_forces": "newton_gradient",
            "newton_linesearch_forces": "newton_linesearch"}.get(name, name)
     keep = None
-    if key == "newton_linesearch":
-      # The acceptance may decide a cost tie the other way (the sums over
-      # the rows round differently): there the two chosen points' float64
-      # costs agree within 1e-5 relative in float32 (1e-12 in float64), and
-      # x' and the outputs at x' are compared in the other worlds.
+    if key in ("newton_linesearch", "warm_start"):
+      # The acceptance (the warm start's choice) may decide a cost tie the
+      # other way (the sums over the rows round differently): there the two
+      # chosen points' float64 costs agree within 1e-5 relative in float32
+      # (1e-12 in float64), and the outputs at the chosen point are compared
+      # in the other worlds.
       keep = {}
       for tol, g3, w3, label in ((1e-5, got, want, "f32"), (1e-12, got64, ref, "f64")):
-        flips = g3[2] != w3[2]
+        flips = chose(g3, key) != chose(w3, key)
         if flips.any():
           c_got = rows64.total_cost(g3[0].double())[flips]
           c_plain = rows64.total_cost(w3[0].double())[flips]
@@ -760,16 +792,17 @@ def iteration_kernels(tag: str, rows, x, p, iters: int, safeguard: bool, checks:
           if not tie:
             raise AssertionError(f"{tag}: an {label} acceptance differs where costs do not tie")
         keep[label] = ~flips
-      got, want, ref, got64 = (t[:2] + t[3:] for t in (got, want, ref, got64))
+      if key == "newton_linesearch":
+        got, want, ref, got64 = (t[:2] + t[3:] for t in (got, want, ref, got64))
     for i, (g, w_, r) in enumerate(zip(got, want, ref)):
       if g is None:
         continue
       r_full, g64 = r, got64[i]
-      if keep is not None and i != 1:  # alpha does not depend on the acceptance
+      if keep is not None and i != 1:  # neither alpha nor the costs depend on the choice
         g, w_, r = g[keep["f32"]], w_[keep["f32"]], r[keep["f32"]]
         g64, r_full = g64[keep["f64"]], r_full[keep["f64"]]
       flat = [t.reshape(t.shape[0], -1) for t in (g, w_, r)]
-      checks.check(key, f"{tag} {name[7:] if name.startswith('newton_') else 'cost'}[{i}]",
+      checks.check(key, f"{tag} {name[7:] if name.startswith('newton_') else name}[{i}]",
                    *flat)
       ok = ~torch.isnan(r_full)
       if ok.any():
@@ -781,18 +814,24 @@ def iteration_kernels(tag: str, rows, x, p, iters: int, safeguard: bool, checks:
         f"{worst64:.3e} (tol 1e-10)")
   if not worst64 <= 1e-10:
     raise AssertionError(f"{tag}: a float64 Newton-iteration kernel differs by {worst64:.3e}")
+
+  def same_as_gradient(at, xo, r_, forces=False):
+    want = newton.newton_gradient(r_, xo, forces=forces)
+    return all(a_ is None and b_ is None or newton.same_bits(a_, b_) for a_, b_ in zip(at, want))
+
   for r_ in (rows, rows64):
-    xr, pr = (x, p) if r_ is rows else a64[:2]
+    xr, pr = (x, p) if r_ is rows else a64
+    res = ws_kern(r_, xr, pr)
+    if not same_as_gradient(res[2:], res[0], r_):
+      raise AssertionError(f"{tag}: the warm start's output at x0 differs from "
+                           f"newton_gradient's there ({r_.qM.dtype})")
     for forces in (False, True):
       res = ls_kern(r_, xr, pr, forces)
-      xo, at = res[0], res[3:]
-      want = newton.newton_gradient(r_, xo, forces=forces)
-      if not all(a_ is None and b_ is None or newton.same_bits(a_, b_)
-                 for a_, b_ in zip(at, want)):
+      if not same_as_gradient(res[3:], res[0], r_, forces):
         raise AssertionError(f"{tag}: the linesearch's output at x' differs from "
                              f"newton_gradient's there ({r_.qM.dtype}, forces {forces})")
-  print(f"  the gradient, w and blocks (and the forces) a linesearch returns at x' are bitwise "
-        f"newton_gradient's there, f32 and f64")
+  print(f"  the gradient, w and blocks (and the forces) the warm start and a linesearch return "
+        f"at their point are bitwise newton_gradient's there, f32 and f64")
   bnd = newton_bounds(rows, iters, safeguard)
 
   def first_gradient():
@@ -800,11 +839,10 @@ def iteration_kernels(tag: str, rows, x, p, iters: int, safeguard: bool, checks:
     return newton.newton_gradient(rows, x)
 
   timed = {
-    "newton_gradient": (first_gradient, lambda: newton.newton_gradient_plain(rows, x)),
+    "warm_start": (lambda: newton.warm_start(rows, ws), lambda: ws_plain(rows, x, p)),
     "newton_linesearch": (lambda: newton.newton_linesearch(rows, x, p, iters, safeguard),
                           lambda: ls_plain(rows, x, p)),
-    "constraint_cost": (lambda: newton.constraint_cost(rows, X),
-                        lambda: newton.constraint_cost_plain(rows, X)),
+    "newton_gradient": (first_gradient, lambda: newton.newton_gradient_plain(rows, x)),
   }
   out = {}
   for name in NEWTON_KERNELS:
@@ -840,6 +878,40 @@ def print_iteration_launch(what: str, dtype, n: int, m: int, ncone: int = 0) -> 
           f"per SM of {cfg['sms']}, {cfg['shared_bytes']} shared bytes per world, "
           f"{cfg['registers']} registers and {cfg['spill_bytes']} local bytes per thread")
   return cfgs
+
+
+def zero_iteration(m):
+  """The model `m` with the solver's iterations set to 0 (each solve returns
+  the warm start's point and the forces there); its tensors shared."""
+  import dataclasses
+
+  return dataclasses.replace(m, opt=dataclasses.replace(m.opt, iterations=0))
+
+
+def zero_iteration_path(tp, m, d, card: str) -> dict[str, int]:
+  """Phase 3c: one substep of G1 velocity-flat at NUM_WORLDS worlds, f32,
+  from phase 3's last state with the solver's iterations set to 0, under
+  set_sync_debug_mode("error") with the counters set to 0 just before: 1
+  warm_start and 1 newton_gradient (the forces, on the warm start's list),
+  no linesearch and no Newton direction; the state finite. (More substeps
+  at 0 iterations leave the physics: G1 leaves the ground within ~6 from
+  rest, on the CPU as on the card.) Returns the substep's launches."""
+  from mjlab_tpu_torch import physics
+
+  torch.cuda.synchronize()
+  reset_counts()
+  torch.cuda.set_sync_debug_mode("error")
+  d = physics.step(tp, zero_iteration(m), d)
+  torch.cuda.set_sync_debug_mode("default")
+  torch.cuda.synchronize()
+  launches = launch_counts()
+  want = newton_per_solve(0)
+  print(f"phase 3c a solve of 0 iterations: {NUM_WORLDS} worlds x 1 substep, f32, no "
+        f"host-device synchronization; launches {launches}; expected {want} [{card}]")
+  if (any(launches[k] != v for k, v in want.items()) or launches["newton_direction"]
+      or not all(torch.isfinite(getattr(d, f)).all() for f in ("qpos", "qvel", "efc_force"))):
+    raise AssertionError(f"phase 3c: launches {launches} (expected {want}) or a non-finite state")
+  return launches
 
 
 def stage_times(tp, m, d, reps: int = 3) -> dict[str, float]:
@@ -880,10 +952,10 @@ def stage_times(tp, m, d, reps: int = 3) -> dict[str, float]:
 def solve_split(tp, m, d, reps: int = 3) -> dict[str, float]:
   """Mean ms of solver.solve's parts on one substep's data, run as
   solver.solve runs them: the Newton directions (H and its factor and
-  solves), the solve's first gradient kernel (with the list of its active
-  rows), the linesearch kernel (the step's acceptance and the gradient at
-  the accepted point, the last launch's with the forces), and the rest (the
-  rows' set-up and the warm start's constraint_cost)."""
+  solves), the warm start kernel (the list of the solve's active rows, the
+  choice of its first point and the gradient there), the linesearch kernel
+  (the step's acceptance and the gradient at the accepted point, the last
+  launch's with the forces), and the rest (the rows' set-up)."""
   from mjlab_tpu_torch.kernels import newton
   from mjlab_tpu_torch.physics import solver
 
@@ -899,12 +971,12 @@ def solve_split(tp, m, d, reps: int = 3) -> dict[str, float]:
     return out
 
   cone = tp.dev.con.cone_groups != []
-  parts = ("H + direction", "first gradient kernel", "linesearch kernel", "rest")
+  parts = ("H + direction", "warm start kernel", "linesearch kernel", "rest")
   K = m.opt.iterations
   for _ in range(reps):
     rows = timed("rest", newton.Rows.of, tp, d)
-    x = timed("rest", solver.warm_start, rows, d.qacc_warmstart.contiguous())
-    grad, w, blocks = timed(parts[1], newton.newton_gradient, rows, x)
+    x, _, grad, w, blocks = timed(parts[1], newton.warm_start, rows,
+                                  d.qacc_warmstart.contiguous())
     for k in range(K):
       p = timed(parts[0], solver.direction, rows, grad, w, blocks)
       x, _, _, at = timed(parts[2], newton.newton_linesearch, rows, x, p, m.opt.ls_iterations,
@@ -1243,7 +1315,7 @@ def train_iterations(runner, card: str, phase: str, obs_dims: tuple[int, int],
                      steps: int = TRAIN_STEPS):
   """`iters` `train_iteration`s under set_sync_debug_mode("error") with
   every kernel's counter set to 0 just before and read just after. Checks
-  1416 factorizations, 120 `chol_solve` and 120 `constraint_cost`, 120
+  1416 factorizations, 120 `chol_solve` and 120 `warm_start`, 0
   `newton_gradient` and 1200 `newton_linesearch` per iteration (at 10
   Newton iterations; `newton_per_env_step`), finite losses, the lr inside
   [1e-5, 1e-2], the rollout buffers' shapes and that every parameter
@@ -1767,7 +1839,7 @@ def asimov_path(card: str, attr: str, checks: KernelCheck):
   both tasks' iterations and each kernel's ms on each run's matrices
   (keyed by nv)."""
   t_phase = time.perf_counter()
-  launches = {k: 0 for k in PATH_KERNELS}
+  launches = {k: 0 for k in COUNTED}
   path_ms: dict[str, dict[str, float]] = {k: {} for k in KERNELS}
 
   def hulls(runner):
@@ -1810,7 +1882,7 @@ def rough_go1_path(card: str, attr: str, checks: KernelCheck):
   from mjlab_tpu_torch.scripts.play import run_play
 
   t_phase = time.perf_counter()
-  launches = {k: 0 for k in PATH_KERNELS}
+  launches = {k: 0 for k in COUNTED}
   path_ms: dict[str, dict[str, float]] = {k: {} for k in KERNELS}
   for task, obs_dims in ROUGH_GO1_OBS_DIMS.items():
     rough = "Rough" in task
@@ -1842,7 +1914,7 @@ def rough_go1_path(card: str, attr: str, checks: KernelCheck):
       or not np.isfinite(res.mean_reward) or not np.isfinite(res.base_z).all()
       or any(play_launches[k] == 0 for k in PATH_KERNELS)):
     raise AssertionError("phase 12: the rough task's play")
-  for k in PATH_KERNELS:
+  for k in launches:
     launches[k] += play_launches[k]
   del res, env
   print(f"phase 12: {time.perf_counter() - t_phase:.1f} s; launches over G1 rough's and "
@@ -1956,7 +2028,7 @@ def rough13_path(card: str, attr: str, checks: KernelCheck):
   from mjlab_tpu_torch.scripts.play import run_play
 
   t_phase = time.perf_counter()
-  launches = {k: 0 for k in PATH_KERNELS}
+  launches = {k: 0 for k in COUNTED}
   path_ms: dict[str, dict[str, float]] = {k: {} for k in KERNELS}
   sat: dict[str, tuple[int, float]] = {}
   for task, obs_dims in ROUGH13_OBS_DIMS.items():
@@ -2010,7 +2082,7 @@ def rough13_path(card: str, attr: str, checks: KernelCheck):
       or not np.isfinite(res.mean_reward) or not np.isfinite(res.base_z).all()
       or any(play_launches[k] == 0 for k in PATH_KERNELS)):
     raise AssertionError("phase 13: Go1 rough's play")
-  for k in PATH_KERNELS:
+  for k in launches:
     launches[k] += play_launches[k]
   del res, env
   print(f"phase 13: {time.perf_counter() - t_phase:.1f} s; launches over the three tasks' "
@@ -2562,7 +2634,7 @@ def elliptic_path(card: str, attr: str, checks: KernelCheck) -> dict:
     raise AssertionError(f"phase 14 elliptic: nefc {tp.nefc}, obs {env.group_obs_dim}")
   got, steady_iter_ms, _, split = train_iterations(
     runner, card, "phase 14 elliptic", (99, 111), iters=CUT_ITERS,
-    expect=KERNELS[:3] + NEWTON_KERNELS + (CONE_KERNEL,), steps=CUT_STEPS)
+    expect=KERNELS[:3] + NEWTON_KERNELS[:2] + (CONE_KERNEL,), steps=CUT_STEPS)
   it = env.sim.model.opt.iterations
   per_iter = CUT_STEPS * (DECIMATION * it + it)
   print(f"  {CONE_KERNEL} launches {got[CONE_KERNEL]} = {got[CONE_KERNEL] / CUT_ITERS:.0f} "
@@ -2716,7 +2788,7 @@ def scenes_path(card: str) -> dict[str, int]:
   from mjlab_tpu_torch.kernels import chol
 
   torch.set_num_threads(1)
-  total = {k: 0 for k in (*ALL_KERNELS, PGS_KERNEL)}
+  total = {k: 0 for k in (*COUNTED, PGS_KERNEL)}
   print(f"phase 14 scenes: {SCENE_SUBSTEPS} substeps at {NUM_WORLDS} worlds, float64, "
         f"{SCENE_ITERATIONS} iterations x {SCENE_LS_ITERATIONS} linesearch steps; the first "
         f"{SCENE_CPU_WORLDS} worlds against the CPU (tol 1e-8) [{card}]")
@@ -3095,7 +3167,7 @@ def user_scenes_path(card: str, checks: KernelCheck, path_ms: dict):
   from mjlab_tpu_torch.physics import solver
 
   torch.set_num_threads(1)
-  total = {k: 0 for k in (*ALL_KERNELS, PGS_KERNEL)}
+  total = {k: 0 for k in (*COUNTED, PGS_KERNEL)}
   seen: set[int] = set()
   print(f"phase 16b the surface scenes: {SCENE_SUBSTEPS} substeps at {NUM_WORLDS} worlds, "
         f"float64, {SCENE_ITERATIONS} iterations x {SCENE_LS_ITERATIONS} linesearch steps; the "
@@ -3455,7 +3527,7 @@ def muscle_scenes_path(card: str) -> dict[str, int]:
   from mjlab_tpu_torch.kernels import chol, pgs
 
   torch.set_num_threads(1)
-  total = {k: 0 for k in (*ALL_KERNELS, PGS_KERNEL)}
+  total = {k: 0 for k in (*COUNTED, PGS_KERNEL)}
   print(f"phase 17 muscle scenes: {MUSCLE_SUBSTEPS} substeps at {NUM_WORLDS} worlds, float64, "
         f"{SCENE_ITERATIONS} Newton iterations x {SCENE_LS_ITERATIONS} linesearch steps (PGS "
         f"scenes their own sweeps); the first {SCENE_CPU_WORLDS} worlds against the CPU "
@@ -3774,7 +3846,7 @@ def pair_scenes_path(card: str) -> dict[str, int]:
   from mjlab_tpu_torch.kernels import chol, pgs
 
   torch.set_num_threads(1)
-  total = {k: 0 for k in (*ALL_KERNELS, PGS_KERNEL)}
+  total = {k: 0 for k in (*COUNTED, PGS_KERNEL)}
   print(f"phase 18b pair scenes: {PAIR_SUBSTEPS} substeps at {NUM_WORLDS} worlds, float64; the "
         f"first {SCENE_CPU_WORLDS} worlds against the CPU (tol 1e-8) [{card}]")
 
@@ -4185,7 +4257,7 @@ def hf_path(card: str, attr: str, checks: KernelCheck) -> tuple[dict, dict]:
   if efc_j > HF_EFC_J_CEILING:
     raise AssertionError("phase 19b: efc_J passes its ceiling; the phase must cut its envs")
   del tp_cpu
-  launches = {k: 0 for k in (*ALL_KERNELS, PGS_KERNEL)}
+  launches = {k: 0 for k in (*COUNTED, PGS_KERNEL)}
   path_ms: dict[str, dict[str, float]] = {k: {} for k in KERNELS}
   timed: dict[str, float] = {}
 
@@ -4491,6 +4563,7 @@ def main() -> int:
   run_iter = iteration_kernels("the run's rows", rows_run, *iteration_inputs(rows_run),
                                sim.model.opt.ls_iterations, False, checks, card)
   del rows_run
+  zero_launches = zero_iteration_path(sim.tp, sim.model, d, card)
 
   clock.done(3)
   # -- 4. the card's kernel path against the CPU's plain path (float64) -------
@@ -4518,6 +4591,18 @@ def main() -> int:
     print(f"  {f:10s} max_abs_err {err:.3e} (tol 1e-8 x {scale:.3e})")
     if not err <= 1e-8 * scale:
       raise AssertionError(f"card vs CPU mismatch on {f}")
+  # One more substep from there with solves of 0 iterations (phase 3c's
+  # path).
+  for dv, s in sims.items():
+    ref[dv] = s.step_fn()(zero_iteration(s.model), ref[dv])
+  for f in ("qacc", "efc_force", "qvel"):
+    a, b_ = getattr(ref["cuda"], f).cpu(), getattr(ref["cpu"], f)
+    err = (a - b_).abs().max().item()
+    scale = max(1.0, b_.abs().max().item())
+    print(f"  then 1 substep at 0 iterations: {f:10s} max_abs_err {err:.3e} "
+          f"(tol 1e-8 x {scale:.3e}; max |efc_force| {ref['cpu'].efc_force.abs().max().item():.3e})")
+    if not err <= 1e-8 * scale:
+      raise AssertionError(f"card vs CPU mismatch on {f} at 0 iterations")
   del sims, ref
 
   clock.done(4)
@@ -4591,14 +4676,13 @@ def main() -> int:
     raise AssertionError(f"{len(dense)} (B, nefc, nv) products inside solve "
                          f"({solve_spans} spans)")
   # Each kernel's device time per launch on the main path, from the profile
-  # (the gradient and the linesearch are instances of one kernel template,
-  # newton_iter_kernel<T, mode, cone>: mode 0 the gradient, 1-2 the
-  # linesearch; the cost is cost_kernel<T>).
+  # (the Newton iteration's are instances of one kernel template,
+  # newton_iter_kernel<T, mode, cone>: mode 1-2 the linesearch, 3 the warm
+  # start; mode 0, the gradient, launches only in a solve of 0 iterations).
   kernel_keys = {name: (f"{name}_kernel<",) for name in KERNELS}
-  kernel_keys.update({"newton_gradient": ("newton_iter_kernel<float, 0,",),
+  kernel_keys.update({"warm_start": ("newton_iter_kernel<float, 3,",),
                       "newton_linesearch": ("newton_iter_kernel<float, 1,",
-                                            "newton_iter_kernel<float, 2,"),
-                      "constraint_cost": ("cost_kernel<float>",)})
+                                            "newton_iter_kernel<float, 2,")})
   path_ms = {}
   for name in PATH_KERNELS:
     hits = [e for e in events if any(key in e.key for key in kernel_keys[name])]
@@ -4780,7 +4864,7 @@ def main() -> int:
   user_ms: dict[str, dict[str, float]] = {k: {} for k in ALL_KERNELS}
   cart_launches = cartpole_path(card, checks, user_ms)
   user_launches = user_scenes_path(card, checks, user_ms)
-  for k in PATH_KERNELS:
+  for k in user_launches:
     user_launches[k] += cart_launches[k]
   print(f"phase 16: {time.perf_counter() - t16:.1f} s; launches over CartPole's 2 iterations, "
         f"the scenes and the humanoid {user_launches}")
@@ -4924,15 +5008,16 @@ def main() -> int:
     "max_active_rows": pgs_run["max_rows"],
   })
   newton_replaces = {
-    "newton_gradient": "mjlab_tpu/physics/solver.py:218-224 (newton_iter's residual, forces, "
-                       "grad, row_hess, cone blocks), :300-301 (cg_solve's grad_at) and "
-                       ":378-386 (the final forces)",
+    "warm_start": "mjlab_tpu/physics/solver.py:182-192 (total_cost, the warm start's choice), "
+                  "then at the chosen point :218-224 (newton_iter's residual, forces, grad, "
+                  "row_hess, cone blocks) or :300-303 (cg_solve's grad_at(x0))",
     "newton_linesearch": "mjlab_tpu/physics/solver.py:231-266 (newton_iter's linesearch and "
                          "acceptance, the elliptic safeguard), :268-287, :308-313 "
                          "(cg_solve's), then at the accepted point :218-224 (the next "
                          "iteration's grad, row_hess, cone blocks), :300-301 or :378-386",
-    "constraint_cost": "mjlab_tpu/physics/solver.py:182-192 (total_cost, the warm start's "
-                       "choice)",
+    "newton_gradient": "mjlab_tpu/physics/solver.py:378-386 (the final forces, in a solve of 0 "
+                       "iterations), :218-224 and :300-301 (the gradient, w and blocks at a "
+                       "given point, with the list's build)",
   }
   paths = {"physics": launches, "training": train_launches, "tracking": track_launches,
            "lifecycle": lifecycle_launches, "asimov": asimov_launches,
@@ -4942,17 +5027,20 @@ def main() -> int:
            "pgs": pgs_run["launches"], "muscle_scenes": muscle_launches,
            "generic_mdp": generic["launches"], "pair_scenes": pair_launches,
            "hf": hf_launches}
+  paths["zero_iteration"] = zero_launches
   for name in NEWTON_KERNELS:
+    gradient = name == "newton_gradient"
     kernels.append({
       "name": name,
       "route": "cuda",
       "source": "mjlab_tpu_torch/csrc/newton_iter.cu",
       "replaces": newton_replaces[name],
-      "launches": env_launches[name],
+      # newton_gradient launches in solves of 0 iterations only (phase 3c).
+      "launches": zero_launches[name] if gradient else env_launches[name],
       **{f"launches_{k}_path": v[name] for k, v in paths.items()},
       "max_abs_err": checks.max_abs_err[name],
       "ms": iter_times[name]["ms"],
-      "ms_main_path": path_ms[name],
+      "ms_main_path": None if gradient else path_ms[name],
       "ms_run_rows": run_iter[name]["ms"],
       "ms_elliptic_rows": ell["iter"][name]["ms"],
       "ms_cg_rows": cg_iter[name]["ms"],

@@ -4,7 +4,8 @@ card.
 
 Run from the root of a checkout:
 
-    python3 kernel_ab.py DIR [DIR ...] [--cut DIR ...] [--cases newton chol pgs newton_iter]
+    python3 kernel_ab.py DIR [DIR ...] [--cut DIR ...] [--cases newton chol pgs newton_iter
+                                                           warm_start]
 
 Each DIR holds one version's sources, any of `newton_dir.cu` (with
 `chol_core.cuh`), `chol.cu`, `pgs.cu` and `newton_iter.cu`: for example a
@@ -19,9 +20,10 @@ CUDA events in turns (the others, this, this, the others in reverse; twice)
 on the cases below, each case with the versions that have its source. A
 version given with `--cut` is one cut short to split the time (for example,
 without the factor): it is timed, not held to the plain versions. `--cases`
-picks the groups to run (all four by default): `newton` is run, m0, wzero,
+picks the groups to run (all five by default): `newton` is run, m0, wzero,
 dense and ell, `chol` the Cholesky entries, `pgs` the PGS case,
-`newton_iter` the Newton iteration's. The cases:
+`newton_iter` the Newton iteration's, `warm_start` the solve's start. The
+cases:
 
 - `run`: G1 velocity-flat's Newton inputs (qM, J, the weights at qacc, a
   seeded grad) after 30 env steps of `Simulation.step_fn()` at 4096
@@ -49,8 +51,16 @@ dense and ell, `chol` the Cholesky entries, `pgs` the PGS case,
   launch on the solve's list, one without runs newton_linesearch and then
   newton_gradient at x'. Each is held to newton_linesearch_plain followed
   by newton_gradient_plain; each time is printed beside chip_smoke's
-  `newton_bounds` "iteration" bound, and the list's one-time build (the
-  solve's first newton_gradient with it and without) is timed too.
+  `newton_bounds` "iteration" bound, and the list's one-time build
+  (newton_gradient with it and without) is timed too;
+- `warm_start`: the solve's start, from (ws, a0) to (x0, ∇, w, the cone
+  blocks) with the list of active rows built, on the same three states'
+  rows with ws = their qacc_warmstart: a `newton_iter.cu` with a
+  `warm_start` entry runs that one launch; one with `constraint_cost` (the
+  form before it) runs constraint_cost at (ws, a0), torch.where for x0, and
+  newton_gradient at x0 with the list's build, as the solver ran them. Each
+  is held to warm_start_plain and timed beside chip_smoke's `newton_bounds`
+  "warm_start" bound.
 
 Each line of times names the card and its power limit as nvidia-smi
 prints them.
@@ -78,7 +88,7 @@ P, I = ctypes.c_void_p, ctypes.c_int
 
 
 SOURCES = ("newton_dir", "chol", "pgs", "newton_iter")
-CASES = ("newton", "chol", "pgs", "newton_iter")
+CASES = ("newton", "chol", "pgs", "newton_iter", "warm_start")
 
 
 def _build(job: tuple[str, Path, tuple[str, ...]]) -> tuple[str, ctypes.CDLL, list[str]]:
@@ -266,6 +276,69 @@ def g1_state(gen, cone: str, steps: int, solver: str = "newton"):
   return sim, d
 
 
+def solve_scratch_elems(lib: ctypes.CDLL, m: int, mc: int) -> int:
+  """Elements per world of a solve's scratch as this version sizes it: (m,
+  mc) for a library with the warm start's entry, (0, m, mc) before it,
+  when one entry also sized constraint_cost's scratch."""
+  f = lib.newton_iter_scratch_elems
+  f.restype = I
+  if hasattr(lib, "warm_start_f32"):
+    f.argtypes = [I, I]
+    return f(m, mc)
+  f.argtypes = [I, I, I]
+  return f(0, m, mc)
+
+
+def warm_start_call(lib: ctypes.CDLL, rows, ws):
+  """One version's start of a solve on these f32 rows, from ws, into buffers
+  allocated here once: (call, (x0, cost, grad, w, blocks)). A library with
+  a warm_start entry launches it; one without launches constraint_cost at
+  (ws, a0), torch.where for x0 and newton_gradient at x0 with the list's
+  build. `rows` is this version's own Rows (its list is kept there)."""
+  from mjlab_tpu_torch.kernels import newton
+
+  (B, n), m = ws.shape, rows.J.shape[1]
+  lay = rows.layout
+  S, nb = (0, 0) if lay is None else (lay.table.shape[0], lay.nb)
+  st = torch.cuda.current_stream().cuda_stream
+  state = newton._state(rows)
+  scratch = torch.empty((B, max(solve_scratch_elems(lib, m, newton.cone_rows(lay)), 1)),
+                        device="cuda")
+  x0, grad = torch.empty_like(ws), torch.empty_like(ws)
+  cost = torch.empty((B, 2), device="cuda")
+  t = dict(qM=rows.qM, J=rows.J, D=rows.D, aref=rows.aref, fl=rows.fl, kind=rows.kind,
+           tab=None if lay is None else lay.table, mu0=rows.mu0, a0=rows.a0, w=state.w,
+           blocks=state.blocks, lst=state.lst, counts=state.counts, slots=state.slots,
+           scratch=scratch, vec=grad)
+  ints = (B, n, m, S, nb)
+
+  def args(**more):
+    return [None if (v := {**t, **more}.get(k)) is None else v.data_ptr() for k in newton._PTRS]
+
+  if hasattr(lib, "warm_start_f32"):
+    fn = newton._bind(lib, "warm_start_f32")
+    ptrs = args(x=ws, xo=x0, alpha=cost)
+
+    def call(keep=(x0, cost, grad, state, scratch)):
+      _check_rc(fn(*ptrs, *ints, 0, 0, *state.ext, st), "warm_start")
+
+    return call, (x0, cost, grad, state.w, state.blocks)
+  ext = max(m - 128, 0)  # constraint_cost's own list held 128 rows in shared memory
+  X = torch.stack([ws, rows.a0], dim=1).contiguous()
+  cost_scratch = torch.empty((B, max(2 * ext, 1)), device="cuda")
+  cost_fn = newton._bind(lib, "constraint_cost_f32")
+  gr_fn = newton._bind(lib, "newton_gradient_f32")
+  cost_ptrs = args(x=X, vec=cost, scratch=cost_scratch)
+  gr_ptrs = args(x=x0)
+
+  def call_pair(keep=(X, x0, cost, grad, state, scratch, cost_scratch)):
+    _check_rc(cost_fn(*cost_ptrs, *ints, 2, 0, ext, 0, st), "constraint_cost")
+    torch.where((cost[:, 0] < cost[:, 1])[:, None], ws, rows.a0, out=x0)
+    _check_rc(gr_fn(*gr_ptrs, *ints, 0, newton.BUILD, *state.ext, st), "newton_gradient")
+
+  return call_pair, (x0, cost, grad, state.w, state.blocks)
+
+
 def iteration_call(lib: ctypes.CDLL, rows, x, p, iters: int, safeguard: bool):
   """One version's non-direction work of a Newton iteration on these f32
   rows, from (x, p) to (x', ∇, w, blocks), into buffers allocated here
@@ -291,8 +364,8 @@ def iteration_call(lib: ctypes.CDLL, rows, x, p, iters: int, safeguard: bool):
   if hasattr(lib, "newton_iter_scratch_elems"):
     state = newton._state(rows)
     # The scratch as this version sizes it (its caps are this checkout's).
-    sizes = newton._bind(lib, "newton_iter_scratch_elems")
-    scratch = torch.empty((B, max(sizes(0, m, newton.cone_rows(lay)), 1)), device="cuda")
+    scratch = torch.empty((B, max(solve_scratch_elems(lib, m, newton.cone_rows(lay)), 1)),
+                          device="cuda")
     solve = dict(w=state.w, blocks=state.blocks, lst=state.lst, counts=state.counts,
                  slots=state.slots, scratch=scratch)
     ls_fn = newton._bind(lib, "newton_linesearch_f32")
@@ -506,7 +579,7 @@ def main(argv: list[str] | None = None) -> int:
                        want.reshape(want.shape[0], -1), want64.reshape(want64.shape[0], -1))
         if first is not None:
           ms = [cs.time_ms(f, [()], iters=20) for f in (first, reused, first, reused)]
-          print(f"  {v.name}: the solve's first newton_gradient with the list's build "
+          print(f"  {v.name}: newton_gradient with the list's build "
                 f"{ms[0]:.4f} {ms[2]:.4f} ms, without {ms[1]:.4f} {ms[3]:.4f} ms [{card}]",
                 flush=True)
       del plain, plain64, rows64
@@ -516,6 +589,57 @@ def main(argv: list[str] | None = None) -> int:
       report(f"newton_iter {what}: one iteration's non-direction work (bound "
              f"{bnd['iteration'][0]:.5f} ms)", times)
       del calls, rows, x, p
+      gc.collect()
+      torch.cuda.empty_cache()
+
+  if "warm_start" in args.cases:
+    with_iter = [v for v in versions if v.iter_lib is not None]
+    for what, cone, solver_, steps, sg in (("run", "pyramidal", "newton", 30, False),
+                                          ("ell", "elliptic", "newton", 8, True),
+                                          ("cg", "pyramidal", "cg", 8, False)):
+      sim, d = g1_state(gen, cone, steps, solver_)
+      rows = newton.Rows.of(sim.tp, d)
+      ws = d.qacc_warmstart.contiguous()
+      del sim, d
+      bnd = cs.newton_bounds(rows, 0, sg)["warm_start"]
+      plain = newton.warm_start_plain(rows, ws)
+      rows64 = cs.rows_as(rows, torch.float64)
+      plain64 = newton.warm_start_plain(rows64, ws.double())
+      took = plain[1][:, 0] < plain[1][:, 1]
+      print(f"warm_start {what}: active rows per world {int((rows.D != 0).sum()) / cs.NUM_WORLDS:.2f}"
+            f"; ws taken in {int(took.sum())} of {cs.NUM_WORLDS} worlds; bound {bnd[0]:.5f} ms "
+            f"({bnd[1]})", flush=True)
+      calls = {}
+      for v in with_iter:
+        call, outs = warm_start_call(v.iter_lib, cs.rows_as(rows, torch.float32), ws)
+        calls[v.name] = call
+        if v.name in cut:
+          continue
+        call()
+        flips = (outs[1][:, 0] < outs[1][:, 1]) != took
+        if flips.any():
+          c_got = rows64.total_cost(outs[0].double())[flips]
+          c_plain = rows64.total_cost(plain[0].double())[flips]
+          tie = ((c_got - c_plain).abs() <= 1e-5 * c_plain.abs().clamp_min(1.0)).all().item()
+          print(f"  {v.name}: {int(flips.sum())} warm starts decided otherwise (cost ties "
+                f"within 1e-5: {tie})", flush=True)
+          if not tie:
+            raise AssertionError(f"{v.name}: a warm start differs where costs do not tie")
+        for i, label in enumerate(("x0", "cost", "grad", "w", "blocks")):
+          got, want, want64 = outs[i], plain[i], plain64[i]
+          if got is None:
+            continue
+          if i != 1:
+            got, want, want64 = got[~flips], want[~flips], want64[~flips]
+          checks.check(v.name, f"warm_start {what} {label}", got.reshape(got.shape[0], -1),
+                       want.reshape(want.shape[0], -1), want64.reshape(want64.shape[0], -1))
+      del plain, plain64, rows64
+      times: dict[str, list[float]] = {}
+      for v in turns(with_iter):
+        times.setdefault(v.name, []).append(cs.time_ms(calls[v.name], [()], iters=20))
+      report(f"warm_start {what}: the solve's start with the list's build (bound "
+             f"{bnd[0]:.5f} ms)", times)
+      del calls, rows, ws
       gc.collect()
       torch.cuda.empty_cache()
 

@@ -1,16 +1,19 @@
-// The rest of the Newton iteration, on each world's active rows: the
-// gradient (and the row weights and cone blocks the Newton direction
-// reads), the exact linesearch with the step's acceptance that ends with the
-// gradient at the point it returns (or, for a solve's last iteration, the
-// final forces), and the cost at given points.
+// The rest of the Newton iteration, on each world's active rows: the warm
+// start (the solve's first launch: it lists the solve's active rows, picks
+// between qacc_warmstart and a0 by cost and ends with the gradient, the row
+// weights and the cone blocks at the point it picks), the exact linesearch
+// with the step's acceptance that ends with the gradient at the point it
+// returns (or, for a solve's last iteration, the final forces), and the
+// gradient (or the forces) at a given point.
 //
 // Replaces what XLA fused in the JAX package's solver, for which no TPU
-// kernel existed: mjlab_tpu/physics/solver.py newton_iter up to H and after
-// the direction (:218-224, :231-266), linesearch (:268-287), the gradients
-// and steps of cg_solve (:289-325), the warm start (:189-192) and the final
-// forces (:378-386), with the cost pieces they call (residual :166,
-// row_cost :169, total_cost :182, row_force :194, row_hess :207, the cone
-// functions :105-164). The plain PyTorch versions are in
+// kernel existed: mjlab_tpu/physics/solver.py's warm start (:182-192) with
+// the first iteration's gradient at the chosen point (:218-224; cg_solve's
+// :300-303), newton_iter up to H and after the direction (:218-224,
+// :231-266), linesearch (:268-287), the gradients and steps of cg_solve
+// (:289-325) and the final forces (:378-386), with the cost pieces they call
+// (residual :166, row_cost :169, total_cost :182, row_force :194, row_hess
+// :207, the cone functions :105-164). The plain PyTorch versions are in
 // kernels/newton.py.
 //
 // Per world, over qacc x (a0 = qacc_smooth, r = J x - aref):
@@ -22,25 +25,26 @@
 //
 // Bound on the H100 (3.35 TB/s; 67 TFLOP/s f32 on the CUDA cores): D does
 // not change during a solve, so its scan, the list of active rows and the
-// zeros of w on the inactive rows are once per solve (in the solve's first
-// newton_gradient); each Newton iteration then moves the active rows' J,
-// aref, fl, D and list entry, qM's lower triangle, the vectors and w and the
-// blocks on the active rows: at G1's shapes (4096 worlds, nefc 1699, nv 35,
-// f32, ~76 active rows per world) ~58 MB, ~0.018 ms. The arithmetic (a few
-// FLOP per active row and linesearch step, 2 n^2 per quadratic form) is far
-// below. Each world is a chain of dependent steps (read the rows, reduce,
-// the linesearch's steps, each two warp reductions), so the kernels are
-// bound by that chain's latency at this share of active rows.
+// zeros of w on the inactive rows are once per solve (in the warm start);
+// each launch then moves the active rows' J, aref, fl, D and list entry,
+// qM's lower triangle, the vectors and w and the blocks on the active rows:
+// at G1's shapes (4096 worlds, nefc 1699, nv 35, f32, ~76 active rows per
+// world) ~58 MB, ~0.018 ms. The arithmetic (a few FLOP per active row and
+// linesearch step, 2 n^2 per quadratic form) is far below. Each world is a
+// chain of dependent steps (read the rows, reduce, the linesearch's steps,
+// each two warp reductions), so the kernels are bound by that chain's
+// latency at this share of active rows.
 //
 // Design: one world per block of one warp, the whole batch in one grid, so
 // that many worlds share an SM and one world's chain overlaps others'.
-//   * One list per solve, kept on the card (the wrapper's buffers): the
-//     solve's first newton_gradient scans D with 16-byte loads, lists the
-//     active regular rows (D != 0, a NaN counts) in row order and then the
-//     rows of the active cone slots (Dn > 0), each entry row | class << 16,
-//     writes 0 once on every other row of w and in every inactive slot's
-//     block, and keeps the counts on the card. Every later launch reads the
-//     list; none scans D or writes an inactive row again.
+//   * One list per solve, kept on the card (the wrapper's buffers): the warm
+//     start scans D with 16-byte loads, lists the active regular rows (D !=
+//     0, a NaN counts) in row order and then the rows of the active cone
+//     slots (Dn > 0), each entry row | class << 16, writes 0 once on every
+//     other row of w and in every inactive slot's block, and keeps the counts
+//     on the card. Every later launch reads the list; none scans D or writes
+//     an inactive row again. newton_gradient builds it too (kBuild) for a
+//     caller that starts without a warm start.
 //   * The listed rows of J stream through a ring of kStages tiles of 32
 //     rows in shared memory by 4-byte (8 in float64) cp.async copies, each
 //     tile with its rows' list entries, aref, D and fl, the next tile's
@@ -63,16 +67,20 @@
 //     cone blocks and gradient the launch writes. With the safeguard the
 //     six candidates' residuals come from one read of each row, and one
 //     more pass over the rows at the chosen point gives the output.
+//   * The warm start is that acceptance from x = a0 to the candidate ws =
+//     qacc_warmstart after the list's build: its one pass over the listed
+//     rows forms each row's residual at both points, their costs and forces
+//     and J^T f at both; ws is taken where its cost is lower (a tie or a NaN
+//     keeps a0), and the output at the point taken needs no second read of
+//     the regular rows (the cone rows' J^T f reads the cone rows again).
 //   * Every product is taken in one order wherever it is taken (one FMA
 //     chain per dot, J^T f row by row in list order, the regular rows'
 //     first) and the file builds without contraction (-fmad=false), so the
-//     gradient a linesearch returns at x' is bitwise newton_gradient's at x'.
+//     gradient a linesearch or the warm start returns at its point is
+//     bitwise newton_gradient's there.
 // The quadratic forms and products run as f32 (or f64) FMAs on the CUDA
 // cores; tensor cores and TMA are later work (a world's J starts at an odd
 // offset and a row of J is 140 bytes at nv 35).
-//
-// constraint_cost (the warm start, before the solve's first gradient) keeps
-// its own scan of D and a list in shared memory.
 //
 // C interface (ctypes): the entry points return cudaGetLastError() of the
 // launch (cudaErrorInvalidValue for shapes they do not take) and run on the
@@ -102,10 +110,8 @@ constexpr int kMaxRows = 65535;  // row indices and offsets are kept in 16 bits
 constexpr int kMaxConeDim = 6;
 constexpr int kBatch = 8;  // 16-byte loads of D in flight per lane
 constexpr size_t kMaxSmem = 227 * 1024;
-constexpr int kCostCap = 128;  // constraint_cost's listed rows in shared memory
-constexpr int kCostFields = 2;  // ... per cone row: its residuals at two points
 
-enum Mode { kGradient = 0, kLinesearch = 1, kSafeguard = 2, kCost = 3 };
+enum Mode { kGradient = 0, kLinesearch = 1, kSafeguard = 2, kWarmStart = 3 };
 enum Flag { kForcesOut = 1, kBuild = 2, kWithSafeguard = 4 };
 enum Kind { kOneSided = 0, kEq = 1, kFric = 2, kConeRow = 3 };
 
@@ -116,17 +122,20 @@ __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) / 16 * 
 __host__ __device__ constexpr int lead(int n) { return n | 1; }
 
 // Vectors of n in shared memory: x (or the point z), a0, z - a0; the
-// linesearch's p, y - a0 and its candidate points (1, or kCand).
+// linesearch's p, y - a0 and its candidate points (1, or kCand); the warm
+// start's x = a0 and its candidate ws in the linesearch's places (p unused).
 __host__ __device__ constexpr int vectors(int mode) {
-  return mode == kGradient ? 3 : mode == kLinesearch ? 6 : 5 + kCand;
+  return mode == kGradient ? 3 : mode == kSafeguard ? 5 + kCand : 6;
 }
+// Columns of 32 row forces: the warm start's at its two points.
+__host__ __device__ constexpr int force_tiles(int mode) { return mode == kWarmStart ? 2 : 1; }
 __host__ __device__ constexpr int cone_fields(int mode) {
   return mode == kSafeguard ? kConeFields : 3;
 }
 
 // One warp's shared memory: qM (n x n), the vectors, kStages tiles of 32
-// rows of J with their entries, aref, D and fl, 32 forces, and the first
-// kConeCap cone rows' fields.
+// rows of J with their entries, aref, D and fl, 32 forces (twice for the
+// warm start), and the first kConeCap cone rows' fields.
 template <typename T>
 struct Layout {
   size_t vec, tile, ents, sides, ftile, cone, total;
@@ -136,28 +145,10 @@ struct Layout {
     ents = align16(tile + static_cast<size_t>(kStages) * 32 * lead(n) * sizeof(T));
     sides = align16(ents + static_cast<size_t>(kStages) * 32 * sizeof(unsigned));
     ftile = align16(sides + static_cast<size_t>(kStages) * 3 * 32 * sizeof(T));
-    cone = align16(ftile + 32 * sizeof(T));
+    cone = align16(ftile + static_cast<size_t>(force_tiles(mode)) * 32 * sizeof(T));
     total = align16(cone + (cone_rows ? static_cast<size_t>(cone_fields(mode)) * kConeCap *
                                             sizeof(T)
                                       : 0));
-  }
-};
-
-// constraint_cost's: qM, five vectors (a0, two points, their differences
-// from a0), a tile of 32 rows and their forces, the first kCostCap listed
-// rows' two fields, the list (m at most) and the active slots' ids and
-// offsets in it.
-template <typename T>
-struct CostLayout {
-  size_t vec, tile, store, idx, slot, slot_off, total;
-  __host__ __device__ CostLayout(int n, int m, int ncone) {
-    vec = align16(static_cast<size_t>(n) * n * sizeof(T));
-    tile = align16(vec + 5 * static_cast<size_t>(n) * sizeof(T));
-    store = align16(tile + 32 * static_cast<size_t>(lead(n)) * sizeof(T));
-    idx = align16(store + kCostFields * kCostCap * sizeof(T));
-    slot = align16(idx + static_cast<size_t>(m) * sizeof(uint16_t));
-    slot_off = align16(slot + static_cast<size_t>(ncone) * sizeof(uint16_t));
-    total = align16(slot_off + static_cast<size_t>(ncone) * sizeof(uint16_t));
   }
 };
 
@@ -172,12 +163,12 @@ struct Args {
   const int* tab;      // (ncone, 3) [first row, cd, block offset]
   const T* mu0;        // (batch, ncone)
   const T* a0;
-  const T* x;          // (batch, n); (batch, count, n) for the cost
+  const T* x;          // (batch, n): the point, or the warm start's ws
   const T* p;
   T* xo;               // the linesearch's x' (batch, n)
-  T* alpha;            // the linesearch's alpha (batch)
+  T* alpha;            // the linesearch's alpha (batch); the warm start's costs (batch, 2)
   unsigned char* improved;
-  T* vec;              // grad, or qfrc with forces (batch, n); the cost (batch, count)
+  T* vec;              // grad, or qfrc with forces (batch, n)
   T* force;            // efc_force (batch, m), with forces: 0 on the unlisted rows
   T* w;                // the solve's row weights (batch, m)
   T* blocks;           // the solve's cone blocks (batch, nb)
@@ -527,12 +518,13 @@ struct Cone {
 
 // Resident worlds per SM that each launch asks registers for: what its
 // shared memory allows at G1's shapes (nv 35; 1 KB of each block's shared
-// memory is the card's): f32 14.4 KB for the gradient (15 worlds), 15.9 KB
-// for the linesearch (13), 18.6 KB with the safeguard (12); f64 about twice.
+// memory is the card's): f32 15.5 KB for the gradient (14 worlds), 15.9 KB
+// for the linesearch (13), 16.0 KB for the warm start (13), 18.4 KB with the
+// safeguard (12); f64 about twice.
 template <typename T>
-constexpr int min_blocks(int mode = kCost) {
-  return sizeof(T) == 4 ? (mode == kLinesearch ? 13 : mode == kSafeguard ? 12 : 16)
-                        : (mode == kLinesearch ? 7 : mode == kSafeguard ? 6 : 8);
+constexpr int min_blocks(int mode) {
+  return sizeof(T) == 4 ? (mode == kGradient ? 16 : mode == kSafeguard ? 12 : 13)
+                        : (mode == kGradient ? 8 : mode == kSafeguard ? 6 : 7);
 }
 
 // The safeguard's candidates in the plain version's order
@@ -550,14 +542,16 @@ __device__ __forceinline__ T safeguard_step(int c, T alpha) {
 }
 
 // newton_gradient (kMode kGradient; with kBuild it lists the solve's rows
-// first) and newton_linesearch (kLinesearch, kSafeguard), each ending with
-// the output at one point: grad, w and the blocks, or with kForcesOut
-// efc_force and qfrc.
+// first), newton_linesearch (kLinesearch, kSafeguard) and the warm start
+// (kWarmStart: the list's build, then the linesearch's acceptance from a0 to
+// ws), each ending with the output at one point: grad, w and the blocks, or
+// with kForcesOut efc_force and qfrc.
 template <typename T, int kMode, bool kCone>
 __global__ void __launch_bounds__(32, (min_blocks<T>(kMode)))
 newton_iter_kernel(const Args<T> g) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool kLine = kMode != kGradient;
+  constexpr bool kWarm = kMode == kWarmStart;
+  constexpr bool kLine = kMode == kLinesearch || kMode == kSafeguard;
   constexpr bool kSafe = kMode == kSafeguard;
   const int lane = threadIdx.x;
   const size_t wd = blockIdx.x;
@@ -595,23 +589,26 @@ newton_iter_kernel(const Args<T> g) {
   auto kind_of = [&](int row) { return g.kind != nullptr ? __ldg(g.kind + row) : int(kOneSided); };
 
   // 1. qM by asynchronous copies (they join the first tile's group; the
-  // final forces need none); the vectors.
+  // final forces need none); the vectors (the warm start's x is a0, its
+  // candidate ws).
   {
     const T* q = g.qM + wd * static_cast<size_t>(n) * n;
     if (kLine || !forces) {
       for (int e = lane; e < n * n; e += 32) async_copy(qs + e, q + e);
     }
     for (int i = lane; i < n; i += 32) {
-      xs[i] = g.x[wd * n + i];
-      a0s[i] = g.a0[wd * n + i];
+      const T a = g.a0[wd * n + i];
+      a0s[i] = a;
+      xs[i] = kWarm ? a : g.x[wd * n + i];
+      if (kWarm) ys[i] = g.x[wd * n + i];
       if (kLine) ps[i] = g.p[wd * n + i];
     }
   }
 
-  // 2. The solve's list: built here by the solve's first gradient, read
-  // otherwise.
+  // 2. The solve's list: built here by the warm start (or a gradient with
+  // kBuild), read otherwise.
   int nreg = 0, cnt = 0, nslot = 0;
-  if (!kLine && (g.flags & kBuild) != 0) {
+  if (kWarm || (!kLine && (g.flags & kBuild) != 0)) {
     // 2a. The active regular rows, in row order; 0 on every other row of w.
     const unsigned below = (1u << lane) - 1u;
     constexpr int kVec = 16 / static_cast<int>(sizeof(T));
@@ -724,6 +721,23 @@ newton_iter_kernel(const Args<T> g) {
       if (lane + 32 < n) acc1 = fma(f, tl[t * ld + lane + 32], acc1);
     }
   };
+  // The same for the warm start's two force columns (ftile, ftile + 32),
+  // each sum rounded as add_jtf rounds it.
+  auto add_jtf2 = [&](const T* tl, int rows, T& acc0, T& acc1, T& bcc0, T& bcc1) {
+    for (int t = 0; t < rows; ++t) {
+      const T f = ftile[t], h = ftile[32 + t];
+      if (lane < n) {
+        const T j = tl[t * ld + lane];
+        acc0 = fma(f, j, acc0);
+        bcc0 = fma(h, j, bcc0);
+      }
+      if (lane + 32 < n) {
+        const T j = tl[t * ld + lane + 32];
+        acc1 = fma(f, j, acc1);
+        bcc1 = fma(h, j, bcc1);
+      }
+    }
+  };
   // (M v)_i from qM in shared memory.
   auto mv_row = [&](int i, const T* v) {
     T s = T(0);
@@ -831,14 +845,15 @@ newton_iter_kernel(const Args<T> g) {
     finish(m0, m1, acc0, acc1);
   };
 
-  if constexpr (!kLine) {
+  if constexpr (!kLine && !kWarm) {
     output_at(xs, dz);
     return;
   }
 
   // 3. The rows' r = J x - aref and J p, D, fl and entry (registers up to
   // kCap, the scratch beyond), the cone rows' r and J p; without the
-  // safeguard also J^T f at x over the regular rows.
+  // safeguard also J^T f at x over the regular rows. The warm start keeps
+  // r at both of its points instead (ry for ws).
   T rr[kRegs], rv[kRegs], rD[kRegs], rfl[kRegs], ry[kRegs];
   unsigned re[kRegs];
 #pragma unroll
@@ -846,517 +861,365 @@ newton_iter_kernel(const Args<T> g) {
     rr[i] = rv[i] = rD[i] = rfl[i] = ry[i] = T(0);
     re[i] = 0u;
   }
-  T ax0 = T(0), ax1 = T(0);
-  for (ring.start(0, cnt); ring.more(); ring.release()) {
-    const T* tl = ring.wait();
-    const int i = ring.used, k = ring.first() + lane;
-    T f = T(0);
-    if (k < cnt) {
-      const unsigned e = ring.entry();
-      const T* jr = tl + lane * ld;
-      T r = T(0), v = T(0);
-      for (int c = 0; c < n; ++c) {
-        r = fma(jr[c], xs[c], r);
-        v = fma(jr[c], ps[c], v);
-      }
-      r = r - ring.side(0);
-      if (k < nreg) {
-        const T Dr = ring.side(1), flr = flw != nullptr ? ring.side(2) : T(0);
-        if (k < kCap) {
-          put(rr, i, r);
-          put(rv, i, v);
-          put(rD, i, Dr);
-          put(rfl, i, flr);
-          put(re, i, e);
-        } else {
-          reg_ref(kR, k) = r;
-          reg_ref(kJv, k) = v;
-          reg_ref(kD, k) = Dr;
-          reg_ref(kFl, k) = flr;
-        }
-        if (!kSafe) f = row_force(static_cast<int>(e >> 16), Dr, flr, r);
-      } else if (kCone) {
-        cone_ref(kCr, k - nreg) = r;
-        cone_ref(kCv, k - nreg) = v;
-      }
-    }
-    if (!kSafe) {
-      ftile[lane] = f;
-      __syncwarp();
-      add_jtf(tl, ring.rows(), ax0, ax1);
-    }
-  }
-  // The acceptance's pass reads the same rows: their copies go in flight
-  // now (they need no candidate point) and land during the steps.
-  async_wait<0>();
-  __syncwarp();
-  ring.start(0, cnt);
-  const int nr = min(nreg, kCap);
-  // p M (x - a0) and p M p; M (x - a0) kept for x's cost and gradient.
-  T mx0, mx1;
-  m_of(xs, dz, mx0, mx1, false);
-  T pmdx = T(0), pmp = T(0);
-  if (lane < n) {
-    pmdx += ps[lane] * mx0;
-    pmp += ps[lane] * mv_row(lane, ps);
-  }
-  if (lane + 32 < n) {
-    pmdx += ps[lane + 32] * mx1;
-    pmp += ps[lane + 32] * mv_row(lane + 32, ps);
-  }
-  pmdx = warp_sum(pmdx);
-  pmp = warp_sum(pmp);
-
-  // 4. The 1-D Newton on phi'(alpha). With at most 32 active slots each
-  // lane keeps its slot whole in registers.
-  __syncwarp();
-  const bool cached = kCone && nslot <= 32;
-  Cone<T> mine;
-  T cu[kMaxConeDim], cv[kMaxConeDim];
-  if (kCone && cached && lane < nslot) {
-    int cd, first, c0;
-    mine = slot_of(lane, kCr, cu, cd, first, c0);
-#pragma unroll
-    for (int q = 0; q < kMaxConeDim; ++q) cv[q] = q < cd ? cone_ref(kCv, c0 + q) : T(0);
-  }
-  T alpha = T(1);
-  for (int it = 0; it < g.count; ++it) {
-    T sf = T(0), sh = T(0), ss = T(0), sc = T(0);
-#pragma unroll
-    for (int i = 0; i < kRegs; ++i) {
-      if (lane + 32 * i < nr) {
-        const int kd = static_cast<int>(re[i] >> 16);
-        const T ra = rr[i] + alpha * rv[i];
-        sf += row_force(kd, rD[i], rfl[i], ra) * rv[i];
-        sh += row_hess(kd, rD[i], rfl[i], ra) * (rv[i] * rv[i]);
-      }
-    }
-    for (int k = kCap + lane; k < nreg; k += 32) {
-      const T v = reg_ref(kJv, k), Dr = reg_ref(kD, k), flr = reg_ref(kFl, k);
-      const int kd = static_cast<int>(lw[k] >> 16);
-      const T ra = reg_ref(kR, k) + alpha * v;
-      sf += row_force(kd, Dr, flr, ra) * v;
-      sh += row_hess(kd, Dr, flr, ra) * (v * v);
-    }
-    if (kCone) {
-      if (cached) {
-        if (lane < nslot) {
-          T slope, curv;
-          mine.line(cu, cv, alpha, slope, curv);
-          ss += slope;
-          sc += curv;
-        }
-      } else {
-        for (int j = lane; j < nslot; j += 32) {
-          T u[kMaxConeDim], v[kMaxConeDim];
-          int cd, first, c0;
-          const Cone<T> cone = slot_of(j, kCr, u, cd, first, c0);
-#pragma unroll
-          for (int q = 0; q < kMaxConeDim; ++q) v[q] = q < cd ? cone_ref(kCv, c0 + q) : T(0);
-          T slope, curv;
-          cone.line(u, v, alpha, slope, curv);
-          ss += slope;
-          sc += curv;
-        }
-      }
-    }
-    const T slope = warp_sum(sf + ss), curv = warp_sum(sh + sc);
-    const T dphi = pmdx + alpha * pmp - slope;
-    const T ddphi = pmp + curv;
-    const T next = alpha - dphi / clamp_min(ddphi, T(1e-30));
-    // A step is a function of alpha alone: once it returns alpha, so does
-    // every later one (the same in every lane, so the warp leaves
-    // together).
-    if (same_bits(next, alpha)) break;
-    alpha = next;
-  }
-
-  // 5. The acceptance, each candidate's cost from its own point.
-  T* xo = g.xo + wd * n;
   constexpr int kPts = kSafe ? kCand : 1;
-  __syncwarp();
-  for (int i = lane; i < n; i += 32) {
+
+  // 5b-6. The acceptance from the pass's sums (rc, the regular rows' costs
+  // at x and at the candidates; J^T f at x and at ws in ax, ay) and
+  // M (x - a0) (mx), then the output at the point it keeps. Each mode
+  // declares these where its passes first need them: declared before both
+  // modes' first pass, they made the safeguard linesearch 3-8% slower on an
+  // H100 (kernel_ab.py's elliptic rows).
+  auto accept = [&](const T (&rc)[kPts + 1], T mx0, T mx1, T ax0, T ax1, T ay0, T ay1,
+                    T alpha) {
+    T* xo = g.xo + wd * n;
+    const int nr = min(nreg, kCap);
+    // The costs: 0.5 d^T M d, the regular rows', the cone slots'.
+    T cost[kPts + 1], my0 = T(0), my1 = T(0);
+    cost[0] = quad(dz, mx0, mx1);
 #pragma unroll
     for (int c = 0; c < kPts; ++c) {
-      ys[c * n + i] = add_rn(xs[i], mul_rn(safeguard_step<T>(c, alpha), ps[i]));
-    }
-  }
-  __syncwarp();
-  // One pass over the rows: each row's residual at the candidates by the
-  // dot's own chain, x's and their costs; without the safeguard the
-  // candidate's forces, its J^T f and r kept for the output.
-  T rc[kPts + 1];
-#pragma unroll
-  for (int c = 0; c <= kPts; ++c) rc[c] = T(0);
-  T ay0 = T(0), ay1 = T(0);
-  for (; ring.more(); ring.release()) {
-    const T* tl = ring.wait();
-    const int i = ring.used, k = ring.first() + lane;
-    T f = T(0);
-    if (k < cnt) {
-      const unsigned e = ring.entry();
-      const T* jr = tl + lane * ld;
-      T r[kPts];
-#pragma unroll
-      for (int c = 0; c < kPts; ++c) r[c] = T(0);
-      for (int col = 0; col < n; ++col) {
-        const T jc = jr[col];
-#pragma unroll
-        for (int c = 0; c < kPts; ++c) r[c] = fma(jc, ys[c * n + col], r[c]);
-      }
-      const T ar = ring.side(0);
-#pragma unroll
-      for (int c = 0; c < kPts; ++c) r[c] = r[c] - ar;
-      if (k < nreg) {
-        const int kd = static_cast<int>(e >> 16);
-        T r_x, Dr, flr;
-        if (k < kCap) {
-          r_x = pick(rr, i);
-          Dr = pick(rD, i);
-          flr = pick(rfl, i);
-          if (!kSafe) put(ry, i, r[0]);
-        } else {
-          r_x = reg_ref(kR, k);
-          Dr = reg_ref(kD, k);
-          flr = reg_ref(kFl, k);
-          if (!kSafe) reg_ref(kRy, k) = r[0];
-        }
-        rc[0] += row_cost(kd, Dr, flr, r_x);
-#pragma unroll
-        for (int c = 0; c < kPts; ++c) rc[1 + c] += row_cost(kd, Dr, flr, r[c]);
-        if (!kSafe) f = row_force(kd, Dr, flr, r[0]);
-      } else if (kCone) {
-#pragma unroll
-        for (int c = 0; c < kPts; ++c) cone_ref(kCv + c, k - nreg) = r[c];
+      T m0, m1;
+      m_of(ys + c * n, dy, m0, m1);
+      cost[1 + c] = quad(dy, m0, m1);
+      if (c == 0) {
+        my0 = m0;
+        my1 = m1;
       }
     }
-    if (!kSafe) {
-      ftile[lane] = f;
+    T cc[kPts + 1];
+#pragma unroll
+    for (int c = 0; c <= kPts; ++c) cc[c] = T(0);
+    if (kCone) {
       __syncwarp();
-      add_jtf(tl, ring.rows(), ay0, ay1);
-    }
-  }
-  // The costs: 0.5 d^T M d, the regular rows', the cone slots'.
-  T cost[kPts + 1], my0 = T(0), my1 = T(0);
-  cost[0] = quad(dz, mx0, mx1);
+      for (int j = lane; j < nslot; j += 32) {
+        T u[kMaxConeDim];
+        int cd, first, c0;
+        const Cone<T> cone = slot_of(j, kCr, u, cd, first, c0);
+        cc[0] += cone.cost(u);
 #pragma unroll
-  for (int c = 0; c < kPts; ++c) {
-    T m0, m1;
-    m_of(ys + c * n, dy, m0, m1);
-    cost[1 + c] = quad(dy, m0, m1);
-    if (c == 0) {
-      my0 = m0;
-      my1 = m1;
-    }
-  }
-  T cc[kPts + 1];
+        for (int c = 0; c < kPts; ++c) {
 #pragma unroll
-  for (int c = 0; c <= kPts; ++c) cc[c] = T(0);
-  if (kCone) {
+          for (int q = 0; q < kMaxConeDim; ++q) u[q] = q < cd ? cone_ref(kCv + c, c0 + q) : T(0);
+          cc[1 + c] += cone.cost(u);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c <= kPts; ++c) {
+      cost[c] = T(0.5) * cost[c] + warp_sum(rc[c]) + warp_sum(cc[c]);
+    }
     __syncwarp();
-    for (int j = lane; j < nslot; j += 32) {
-      T u[kMaxConeDim];
+
+    if constexpr (kSafe) {
+      // x, then the candidates in order; x + 0 p where none is better.
+      T best_cost = cost[0], best = T(0);
+      bool better = false;
+#pragma unroll
+      for (int c = 0; c < kCand; ++c) {
+        if (cost[1 + c] < best_cost) {
+          best_cost = cost[1 + c];
+          best = safeguard_step<T>(c, alpha);
+          better = true;
+        }
+      }
+      for (int i = lane; i < n; i += 32) {
+        const T v = add_rn(xs[i], mul_rn(best, ps[i]));
+        xo[i] = v;
+        ys[i] = v;
+      }
+      if (lane == 0) {
+        g.alpha[wd] = alpha;
+        g.improved[wd] = better ? 1 : 0;
+      }
+      // 6. The output at x' from one more pass over the rows.
+      output_at(ys, dy);
+    } else {
+      // The candidate where its cost is lower (a tie or a NaN keeps x).
+      const bool better = cost[1] < cost[0];
+      for (int i = lane; i < n; i += 32) xo[i] = better ? ys[i] : xs[i];
+      if (lane == 0) {
+        if constexpr (kWarm) {
+          g.alpha[2 * wd] = cost[1];
+          g.alpha[2 * wd + 1] = cost[0];
+        } else {
+          g.alpha[wd] = alpha;
+          g.improved[wd] = better ? 1 : 0;
+        }
+      }
+      // 6. The output at the chosen point from the passes: the regular rows'
+      // weights (or forces), then the cone slots' and J^T f.
+#pragma unroll
+      for (int i = 0; i < kRegs; ++i) {
+        if (lane + 32 * i < nr) {
+          const int row = static_cast<int>(re[i] & 0xffffu), kd = static_cast<int>(re[i] >> 16);
+          const T r = better ? ry[i] : rr[i];
+          if (forces) {
+            fw[row] = row_force(kd, rD[i], rfl[i], r);
+          } else {
+            ww[row] = row_hess(kd, rD[i], rfl[i], r);
+          }
+        }
+      }
+      for (int k = kCap + lane; k < nreg; k += 32) {
+        const unsigned e = lw[k];
+        const int row = static_cast<int>(e & 0xffffu), kd = static_cast<int>(e >> 16);
+        const T r = reg_ref(better ? kRy : kR, k), Dr = reg_ref(kD, k), flr = reg_ref(kFl, k);
+        if (forces) {
+          fw[row] = row_force(kd, Dr, flr, r);
+        } else {
+          ww[row] = row_hess(kd, Dr, flr, r);
+        }
+      }
+      T acc0 = better ? ay0 : ax0, acc1 = better ? ay1 : ax1;
+      if (kCone) cone_out(better ? kCv : kCr, acc0, acc1);
+      finish(better ? my0 : mx0, better ? my1 : mx1, acc0, acc1);
+    }
+  };
+
+  if constexpr (kWarm) {
+    // 3-5a of the warm start: one pass over the rows gives each row's
+    // residual at x = a0 and at y = ws by the dot's own chain, the regular
+    // rows' costs and forces at both, J^T f at both and the cone rows'
+    // residuals at both (cone fields kCr and kCv).
+    T ax0 = T(0), ax1 = T(0), ay0 = T(0), ay1 = T(0);
+    T rc[kPts + 1] = {T(0), T(0)};
+    for (ring.start(0, cnt); ring.more(); ring.release()) {
+      const T* tl = ring.wait();
+      const int i = ring.used, k = ring.first() + lane;
+      T fx = T(0), fy = T(0);
+      if (k < cnt) {
+        const unsigned e = ring.entry();
+        const T* jr = tl + lane * ld;
+        T r = T(0), r1 = T(0);
+        for (int c = 0; c < n; ++c) {
+          r = fma(jr[c], xs[c], r);
+          r1 = fma(jr[c], ys[c], r1);
+        }
+        const T ar = ring.side(0);
+        r = r - ar;
+        r1 = r1 - ar;
+        if (k < nreg) {
+          const int kd = static_cast<int>(e >> 16);
+          const T Dr = ring.side(1), flr = flw != nullptr ? ring.side(2) : T(0);
+          if (k < kCap) {
+            put(rr, i, r);
+            put(ry, i, r1);
+            put(rD, i, Dr);
+            put(rfl, i, flr);
+            put(re, i, e);
+          } else {
+            reg_ref(kR, k) = r;
+            reg_ref(kRy, k) = r1;
+            reg_ref(kD, k) = Dr;
+            reg_ref(kFl, k) = flr;
+          }
+          rc[0] += row_cost(kd, Dr, flr, r);
+          rc[1] += row_cost(kd, Dr, flr, r1);
+          fx = row_force(kd, Dr, flr, r);
+          fy = row_force(kd, Dr, flr, r1);
+        } else if (kCone) {
+          cone_ref(kCr, k - nreg) = r;
+          cone_ref(kCv, k - nreg) = r1;
+        }
+      }
+      ftile[lane] = fx;
+      ftile[32 + lane] = fy;
+      __syncwarp();
+      add_jtf2(tl, ring.rows(), ax0, ax1, ay0, ay1);
+    }
+    T mx0, mx1;
+    m_of(xs, dz, mx0, mx1);
+    accept(rc, mx0, mx1, ax0, ax1, ay0, ay1, T(1));
+  } else {
+    T ax0 = T(0), ax1 = T(0);
+    for (ring.start(0, cnt); ring.more(); ring.release()) {
+      const T* tl = ring.wait();
+      const int i = ring.used, k = ring.first() + lane;
+      T f = T(0);
+      if (k < cnt) {
+        const unsigned e = ring.entry();
+        const T* jr = tl + lane * ld;
+        T r = T(0), v = T(0);
+        for (int c = 0; c < n; ++c) {
+          r = fma(jr[c], xs[c], r);
+          v = fma(jr[c], ps[c], v);
+        }
+        r = r - ring.side(0);
+        if (k < nreg) {
+          const T Dr = ring.side(1), flr = flw != nullptr ? ring.side(2) : T(0);
+          if (k < kCap) {
+            put(rr, i, r);
+            put(rv, i, v);
+            put(rD, i, Dr);
+            put(rfl, i, flr);
+            put(re, i, e);
+          } else {
+            reg_ref(kR, k) = r;
+            reg_ref(kJv, k) = v;
+            reg_ref(kD, k) = Dr;
+            reg_ref(kFl, k) = flr;
+          }
+          if (!kSafe) f = row_force(static_cast<int>(e >> 16), Dr, flr, r);
+        } else if (kCone) {
+          cone_ref(kCr, k - nreg) = r;
+          cone_ref(kCv, k - nreg) = v;
+        }
+      }
+      if (!kSafe) {
+        ftile[lane] = f;
+        __syncwarp();
+        add_jtf(tl, ring.rows(), ax0, ax1);
+      }
+    }
+    // The acceptance's pass reads the same rows: their copies go in flight
+    // now (they need no candidate point) and land during the steps.
+    async_wait<0>();
+    __syncwarp();
+    ring.start(0, cnt);
+    const int nr = min(nreg, kCap);
+    // p M (x - a0) and p M p; M (x - a0) kept for x's cost and gradient.
+    T mx0, mx1;
+    m_of(xs, dz, mx0, mx1, false);
+    T pmdx = T(0), pmp = T(0);
+    if (lane < n) {
+      pmdx += ps[lane] * mx0;
+      pmp += ps[lane] * mv_row(lane, ps);
+    }
+    if (lane + 32 < n) {
+      pmdx += ps[lane + 32] * mx1;
+      pmp += ps[lane + 32] * mv_row(lane + 32, ps);
+    }
+    pmdx = warp_sum(pmdx);
+    pmp = warp_sum(pmp);
+
+    // 4. The 1-D Newton on phi'(alpha). With at most 32 active slots each
+    // lane keeps its slot whole in registers.
+    __syncwarp();
+    const bool cached = kCone && nslot <= 32;
+    Cone<T> mine;
+    T cu[kMaxConeDim], cv[kMaxConeDim];
+    if (kCone && cached && lane < nslot) {
       int cd, first, c0;
-      const Cone<T> cone = slot_of(j, kCr, u, cd, first, c0);
-      cc[0] += cone.cost(u);
+      mine = slot_of(lane, kCr, cu, cd, first, c0);
+#pragma unroll
+      for (int q = 0; q < kMaxConeDim; ++q) cv[q] = q < cd ? cone_ref(kCv, c0 + q) : T(0);
+    }
+    T alpha = T(1);
+    for (int it = 0; it < g.count; ++it) {
+      T sf = T(0), sh = T(0), ss = T(0), sc = T(0);
+#pragma unroll
+      for (int i = 0; i < kRegs; ++i) {
+        if (lane + 32 * i < nr) {
+          const int kd = static_cast<int>(re[i] >> 16);
+          const T ra = rr[i] + alpha * rv[i];
+          sf += row_force(kd, rD[i], rfl[i], ra) * rv[i];
+          sh += row_hess(kd, rD[i], rfl[i], ra) * (rv[i] * rv[i]);
+        }
+      }
+      for (int k = kCap + lane; k < nreg; k += 32) {
+        const T v = reg_ref(kJv, k), Dr = reg_ref(kD, k), flr = reg_ref(kFl, k);
+        const int kd = static_cast<int>(lw[k] >> 16);
+        const T ra = reg_ref(kR, k) + alpha * v;
+        sf += row_force(kd, Dr, flr, ra) * v;
+        sh += row_hess(kd, Dr, flr, ra) * (v * v);
+      }
+      if (kCone) {
+        if (cached) {
+          if (lane < nslot) {
+            T slope, curv;
+            mine.line(cu, cv, alpha, slope, curv);
+            ss += slope;
+            sc += curv;
+          }
+        } else {
+          for (int j = lane; j < nslot; j += 32) {
+            T u[kMaxConeDim], v[kMaxConeDim];
+            int cd, first, c0;
+            const Cone<T> cone = slot_of(j, kCr, u, cd, first, c0);
+#pragma unroll
+            for (int q = 0; q < kMaxConeDim; ++q) v[q] = q < cd ? cone_ref(kCv, c0 + q) : T(0);
+            T slope, curv;
+            cone.line(u, v, alpha, slope, curv);
+            ss += slope;
+            sc += curv;
+          }
+        }
+      }
+      const T slope = warp_sum(sf + ss), curv = warp_sum(sh + sc);
+      const T dphi = pmdx + alpha * pmp - slope;
+      const T ddphi = pmp + curv;
+      const T next = alpha - dphi / clamp_min(ddphi, T(1e-30));
+      // A step is a function of alpha alone: once it returns alpha, so does
+      // every later one (the same in every lane, so the warp leaves
+      // together).
+      if (same_bits(next, alpha)) break;
+      alpha = next;
+    }
+
+    // 5a. The acceptance, each candidate's cost from its own point.
+    __syncwarp();
+    for (int i = lane; i < n; i += 32) {
 #pragma unroll
       for (int c = 0; c < kPts; ++c) {
-#pragma unroll
-        for (int q = 0; q < kMaxConeDim; ++q) u[q] = q < cd ? cone_ref(kCv + c, c0 + q) : T(0);
-        cc[1 + c] += cone.cost(u);
+        ys[c * n + i] = add_rn(xs[i], mul_rn(safeguard_step<T>(c, alpha), ps[i]));
       }
     }
-  }
+    __syncwarp();
+    // One pass over the rows: each row's residual at the candidates by the
+    // dot's own chain, x's and their costs; without the safeguard the
+    // candidate's forces, its J^T f and r kept for the output.
+    T rc[kPts + 1];
 #pragma unroll
-  for (int c = 0; c <= kPts; ++c) {
-    cost[c] = T(0.5) * cost[c] + warp_sum(rc[c]) + warp_sum(cc[c]);
-  }
-  __syncwarp();
-
-  if constexpr (kSafe) {
-    // x, then the candidates in order; x + 0 p where none is better.
-    T best_cost = cost[0], best = T(0);
-    bool better = false;
+    for (int c = 0; c <= kPts; ++c) rc[c] = T(0);
+    T ay0 = T(0), ay1 = T(0);
+    for (; ring.more(); ring.release()) {
+      const T* tl = ring.wait();
+      const int i = ring.used, k = ring.first() + lane;
+      T f = T(0);
+      if (k < cnt) {
+        const unsigned e = ring.entry();
+        const T* jr = tl + lane * ld;
+        T r[kPts];
 #pragma unroll
-    for (int c = 0; c < kCand; ++c) {
-      if (cost[1 + c] < best_cost) {
-        best_cost = cost[1 + c];
-        best = safeguard_step<T>(c, alpha);
-        better = true;
-      }
-    }
-    for (int i = lane; i < n; i += 32) {
-      const T v = add_rn(xs[i], mul_rn(best, ps[i]));
-      xo[i] = v;
-      ys[i] = v;
-    }
-    if (lane == 0) {
-      g.alpha[wd] = alpha;
-      g.improved[wd] = better ? 1 : 0;
-    }
-    // 6. The output at x' from one more pass over the rows.
-    output_at(ys, dy);
-  } else {
-    const bool better = cost[1] < cost[0];
-    for (int i = lane; i < n; i += 32) xo[i] = better ? ys[i] : xs[i];
-    if (lane == 0) {
-      g.alpha[wd] = alpha;
-      g.improved[wd] = better ? 1 : 0;
-    }
-    // 6. The output at the chosen point from the two passes: the regular
-    // rows' weights (or forces), then the cone slots' and J^T f.
+        for (int c = 0; c < kPts; ++c) r[c] = T(0);
+        for (int col = 0; col < n; ++col) {
+          const T jc = jr[col];
 #pragma unroll
-    for (int i = 0; i < kRegs; ++i) {
-      if (lane + 32 * i < nr) {
-        const int row = static_cast<int>(re[i] & 0xffffu), kd = static_cast<int>(re[i] >> 16);
-        const T r = better ? ry[i] : rr[i];
-        if (forces) {
-          fw[row] = row_force(kd, rD[i], rfl[i], r);
-        } else {
-          ww[row] = row_hess(kd, rD[i], rfl[i], r);
+          for (int c = 0; c < kPts; ++c) r[c] = fma(jc, ys[c * n + col], r[c]);
         }
-      }
-    }
-    for (int k = kCap + lane; k < nreg; k += 32) {
-      const unsigned e = lw[k];
-      const int row = static_cast<int>(e & 0xffffu), kd = static_cast<int>(e >> 16);
-      const T r = reg_ref(better ? kRy : kR, k), Dr = reg_ref(kD, k), flr = reg_ref(kFl, k);
-      if (forces) {
-        fw[row] = row_force(kd, Dr, flr, r);
-      } else {
-        ww[row] = row_hess(kd, Dr, flr, r);
-      }
-    }
-    T acc0 = better ? ay0 : ax0, acc1 = better ? ay1 : ax1;
-    if (kCone) cone_out(better ? kCv : kCr, acc0, acc1);
-    finish(better ? my0 : mx0, better ? my1 : mx1, acc0, acc1);
-  }
-}
-
-// constraint_cost: the cost at `count` points per world, with its own scan
-// of D and its list in shared memory.
-template <typename T>
-__global__ void __launch_bounds__(32, (min_blocks<T>()))
-cost_kernel(const Args<T> g) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x;
-  const size_t wd = blockIdx.x;
-  const int n = g.n, m = g.m, S = g.ncone;
-  const CostLayout<T> lay(n, m, S);
-  T* qs = reinterpret_cast<T*>(smem);
-  T* a0s = reinterpret_cast<T*>(smem + lay.vec);
-  T* ya = a0s + n;
-  T* yb = ya + n;
-  T* dya = yb + n;
-  T* dyb = dya + n;
-  T* tile = reinterpret_cast<T*>(smem + lay.tile);
-  T* st = reinterpret_cast<T*>(smem + lay.store);
-  uint16_t* idx = reinterpret_cast<uint16_t*>(smem + lay.idx);
-  uint16_t* slot_id = reinterpret_cast<uint16_t*>(smem + lay.slot);
-  uint16_t* slot_off = reinterpret_cast<uint16_t*>(smem + lay.slot_off);
-  const int ext = g.ext_reg;
-  T* gs = g.scratch + wd * kCostFields * static_cast<size_t>(ext);
-  // A listed cone row's residual at the first or second point: shared
-  // memory for the first kCostCap rows, the global scratch beyond.
-  auto ref = [&](int f, int k) -> T& {
-    return k < kCostCap ? st[f * kCostCap + k] : gs[static_cast<size_t>(f) * ext + (k - kCostCap)];
-  };
-  const T* Dw = g.D + wd * m;
-  const T* Jw = g.J + wd * static_cast<size_t>(m) * n;
-  const T* arw = g.aref + wd * m;
-  const T* flw = g.fl != nullptr ? g.fl + wd * m : nullptr;
-  auto kind_of = [&](int row) { return g.kind != nullptr ? __ldg(g.kind + row) : int(kOneSided); };
-
-  {
-    const T* q = g.qM + wd * static_cast<size_t>(n) * n;
-    for (int e = lane; e < n * n; e += 32) qs[e] = q[e];
-    for (int i = lane; i < n; i += 32) a0s[i] = g.a0[wd * n + i];
-  }
-  // The active regular rows, in row order.
-  const unsigned below = (1u << lane) - 1u;
-  int nreg = 0;
-  {
-    constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-    const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(Dw) % 16) /
-                   static_cast<int>(sizeof(T));
-    const T* base = Dw - sh;  // 16-byte aligned
-    const int chunks = (m + sh + kVec - 1) / kVec;
-    for (int c0 = 0; c0 < chunks; c0 += 32 * kBatch) {
-      T v[kBatch][kVec];
+        const T ar = ring.side(0);
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int c = c0 + 32 * u + lane, r0 = c * kVec - sh;
-        if (r0 >= 0 && r0 + kVec <= m) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(base + static_cast<size_t>(c) * kVec);
-          memcpy(v[u], &raw, 16);
-        } else {
-#pragma unroll
-          for (int e = 0; e < kVec; ++e) {
-            v[u][e] = r0 + e >= 0 && r0 + e < m ? Dw[r0 + e] : T(0);
+        for (int c = 0; c < kPts; ++c) r[c] = r[c] - ar;
+        if (k < nreg) {
+          const int kd = static_cast<int>(e >> 16);
+          T r_x, Dr, flr;
+          if (k < kCap) {
+            r_x = pick(rr, i);
+            Dr = pick(rD, i);
+            flr = pick(rfl, i);
+            if (!kSafe) put(ry, i, r[0]);
+          } else {
+            r_x = reg_ref(kR, k);
+            Dr = reg_ref(kD, k);
+            flr = reg_ref(kFl, k);
+            if (!kSafe) reg_ref(kRy, k) = r[0];
           }
+          rc[0] += row_cost(kd, Dr, flr, r_x);
+#pragma unroll
+          for (int c = 0; c < kPts; ++c) rc[1 + c] += row_cost(kd, Dr, flr, r[c]);
+          if (!kSafe) f = row_force(kd, Dr, flr, r[0]);
+        } else if (kCone) {
+#pragma unroll
+          for (int c = 0; c < kPts; ++c) cone_ref(kCv + c, k - nreg) = r[c];
         }
       }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int r0 = (c0 + 32 * u + lane) * kVec - sh;
-        bool listed[kVec];
-        int rank = nreg, here = 0;
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          const int row = r0 + e;
-          listed[e] = row >= 0 && row < m && v[u][e] != T(0) && kind_of(row) != kConeRow;
-          const unsigned ball = __ballot_sync(kFull, listed[e]);
-          rank += __popc(ball & below);
-          here += __popc(ball);
-        }
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          if (listed[e]) idx[rank++] = static_cast<uint16_t>(r0 + e);
-        }
-        nreg += here;
+      if (!kSafe) {
+        ftile[lane] = f;
+        __syncwarp();
+        add_jtf(tl, ring.rows(), ay0, ay1);
       }
     }
-  }
-  // The cone slots with Dn > 0, their rows after the regular ones.
-  int cnt = nreg, nslot = 0;
-  for (int s0 = 0; s0 < S; s0 += 32) {
-    const int s = s0 + lane;
-    int first = 0, cd = 0;
-    bool act = false;
-    if (s < S) {
-      first = __ldg(g.tab + 3 * s);
-      cd = __ldg(g.tab + 3 * s + 1);
-      act = Dw[first] > T(0);
-    }
-    const int c = act ? cd : 0;
-    int incl = c;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += t;
-    }
-    const unsigned ball = __ballot_sync(kFull, act);
-    if (act) {
-      const int j = nslot + __popc(ball & below), off = cnt + incl - c;
-      slot_id[j] = static_cast<uint16_t>(s);
-      slot_off[j] = static_cast<uint16_t>(off);
-      for (int q = 0; q < cd; ++q) idx[off + q] = static_cast<uint16_t>(first + q);
-    }
-    nslot += __popc(ball);
-    cnt += __shfl_sync(kFull, incl, 31);
-  }
-  __syncwarp();
-
-  // The listed rows k0 .. k1 - 1 of J, 32 at a time, copied into shared
-  // memory; `fn(lane's row k or -1, its J row in the tile)` runs with lane l
-  // on the tile's row l.
-  const int ld = lead(n);
-  auto each_tile = [&](int k0, int k1, auto&& fn) {
-    const int q = 32 / n, s = 32 % n;
-    for (int t0 = k0; t0 < k1; t0 += 32) {
-      const int rows = min(32, k1 - t0), count = rows * n;
-      __syncwarp();
-      int t = lane / n, c = lane % n;
-      for (int e0 = lane; e0 < count; e0 += 32 * kBatch) {
-        T v[kBatch];
-        int at[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const bool in = e0 + 32 * u < count;
-          at[u] = t * ld + c;
-          v[u] = in ? __ldg(Jw + static_cast<size_t>(idx[t0 + t]) * n + c) : T(0);
-          c += s;
-          t += q;
-          if (c >= n) {
-            c -= n;
-            ++t;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          if (e0 + 32 * u < count) tile[at[u]] = v[u];
-        }
-      }
-      __syncwarp();
-      fn(lane < rows ? t0 + lane : -1, tile + lane * ld);
-    }
-  };
-  auto mv_row = [&](int i, const T* v) {
-    T s = T(0);
-    for (int j = 0; j < n; ++j) s = fma(qs[i * n + j], v[j], s);
-    return s;
-  };
-  // The costs at the points pa and pb (shared memory), the same in every
-  // lane; each point's arithmetic is its own.
-  auto cost_pair = [&](const T* pa, const T* pb, T& ca, T& cb) {
-    __syncwarp();
-    for (int i = lane; i < n; i += 32) {
-      dya[i] = pa[i] - a0s[i];
-      dyb[i] = pb[i] - a0s[i];
-    }
-    __syncwarp();
-    T qa = T(0), qb = T(0);
-    for (int i = lane; i < n; i += 32) {
-      qa += dya[i] * mv_row(i, dya);
-      qb += dyb[i] * mv_row(i, dyb);
-    }
-    qa = warp_sum(qa);
-    qb = warp_sum(qb);
-    T rca = T(0), rcb = T(0);
-    each_tile(0, cnt, [&](int k, const T* jr) {
-      if (k < 0) return;
-      const int row = idx[k];
-      const T ar = arw[row];
-      const T ra = dot(jr, pa, n) - ar, rb = dot(jr, pb, n) - ar;
-      if (k < nreg) {
-        const int kd = kind_of(row);
-        const T Dr = Dw[row], flr = flw != nullptr ? flw[row] : T(0);
-        rca += row_cost(kd, Dr, flr, ra);
-        rcb += row_cost(kd, Dr, flr, rb);
-      } else {
-        ref(0, k) = ra;
-        ref(1, k) = rb;
-      }
-    });
-    rca = warp_sum(rca);
-    rcb = warp_sum(rcb);
-    __syncwarp();
-    T cca = T(0), ccb = T(0);
-    for (int j = lane; j < nslot; j += 32) {
-      T ua[kMaxConeDim], ub[kMaxConeDim], Dv[kMaxConeDim];
-      const int s = slot_id[j], off = slot_off[j];
-      const int first = __ldg(g.tab + 3 * s), cd = __ldg(g.tab + 3 * s + 1);
-#pragma unroll
-      for (int q = 0; q < kMaxConeDim; ++q) {
-        ua[q] = q < cd ? ref(0, off + q) : T(0);
-        ub[q] = q < cd ? ref(1, off + q) : T(0);
-        Dv[q] = q < cd ? Dw[first + q] : T(0);
-      }
-      const Cone<T> cone(cd, Dv, g.mu0[wd * S + s]);
-      cca += cone.cost(ua);
-      ccb += cone.cost(ub);
-    }
-    cca = warp_sum(cca);
-    ccb = warp_sum(ccb);
-    __syncwarp();
-    ca = T(0.5) * qa + rca + cca;
-    cb = T(0.5) * qb + rcb + ccb;
-  };
-
-  // The points two at a time (the last one twice for an odd count).
-  for (int j = 0; j < g.count; j += 2) {
-    const int j2 = j + 1 < g.count ? j + 1 : j;
-    __syncwarp();
-    for (int i = lane; i < n; i += 32) {
-      ya[i] = g.x[(wd * g.count + j) * n + i];
-      yb[i] = g.x[(wd * g.count + j2) * n + i];
-    }
-    T ca, cb;
-    cost_pair(ya, yb, ca, cb);
-    if (lane == 0) {
-      g.vec[wd * g.count + j] = ca;
-      g.vec[wd * g.count + j2] = cb;
-    }
+    accept(rc, mx0, mx1, ax0, ax1, ay0, ay1, alpha);
   }
 }
 
@@ -1414,11 +1277,9 @@ int dispatch(int mode, const Args<T>& a, cudaStream_t stream, int* report = null
       return cone ? launch<T, kLinesearch, true>(a, stream, report)
                   : launch<T, kLinesearch, false>(a, stream, report);
     case kSafeguard: return launch<T, kSafeguard, true>(a, stream, report);
-    case kCost: {
-      static int seen = -1;
-      return run<T>(cost_kernel<T>, seen, CostLayout<T>(a.n, a.m, a.ncone).total, a, stream,
-                    report);
-    }
+    case kWarmStart:
+      return cone ? launch<T, kWarmStart, true>(a, stream, report)
+                  : launch<T, kWarmStart, false>(a, stream, report);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1434,17 +1295,18 @@ int dispatch(int mode, const Args<T>& a, cudaStream_t stream, int* report = null
 // and ext_cone (rows past the register and shared caps that the scratch
 // holds, newton_iter_scratch_elems) and the stream. w (batch, m), blocks
 // (batch, nb), lst (batch, m) int32, counts (batch, 4) int32, slots (batch,
-// ncone) int32 and scratch are one solve's: the first newton_gradient
-// (flags & 2) fills lst, counts, slots and the zeros of w and blocks, and
-// every later launch on the solve reads them.
+// ncone) int32 and scratch are one solve's: the warm start (or a
+// newton_gradient with flags & 2) fills lst, counts, slots and the zeros of w
+// and blocks, and every later launch on the solve reads them.
+//   warm_start: x = ws (batch, n); xo = x0, ws where its cost is lower than
+//     a0's (else a0), alpha = the costs at ws and a0 (batch, 2), and
+//     newton_gradient's outputs at x0 (vec = grad, w, blocks).
 //   newton_gradient: x (batch, n); vec = grad (batch, n), w and blocks at x;
 //     with flags & 1, vec = qfrc = J^T f and force = efc_force (batch, m),
 //     zero-filled by the caller, instead.
 //   newton_linesearch: x, p (batch, n), count = linesearch steps, flags & 4
 //     for the safeguard's acceptance; xo = x', alpha, improved (batch), and
 //     newton_gradient's outputs at x' (flags & 1: the forces).
-//   constraint_cost: x = X (batch, count, n), scratch (batch, 2 ext_reg),
-//     ext_reg = max(m - 128, 0); vec = cost (batch, count).
 #define NEWTON_ENTRY(NAME, T, SUF, MODE)                                                         \
   int NAME##_##SUF(const T* qM, const T* J, const T* D, const T* aref, const T* fl,             \
                    const int* kind, const int* tab, const T* mu0, const T* a0, const T* x,      \
@@ -1465,18 +1327,17 @@ NEWTON_ENTRY(newton_gradient, float, f32, kGradient)
 NEWTON_ENTRY(newton_gradient, double, f64, kGradient)
 NEWTON_ENTRY(newton_linesearch, float, f32, (flags & kWithSafeguard) ? kSafeguard : kLinesearch)
 NEWTON_ENTRY(newton_linesearch, double, f64, (flags & kWithSafeguard) ? kSafeguard : kLinesearch)
-NEWTON_ENTRY(constraint_cost, float, f32, kCost)
-NEWTON_ENTRY(constraint_cost, double, f64, kCost)
+NEWTON_ENTRY(warm_start, float, f32, kWarmStart)
+NEWTON_ENTRY(warm_start, double, f64, kWarmStart)
 
-// Elements per world of the scratch: of a solve (cost 0) for m rows of
-// which mc are cone rows, or of a constraint_cost launch (cost 1).
-int newton_iter_scratch_elems(int cost, int m, int mc) {
-  if (cost) return kCostFields * (m > kCostCap ? m - kCostCap : 0);
+// Elements per world of a solve's scratch for m rows of which mc are cone
+// rows.
+int newton_iter_scratch_elems(int m, int mc) {
   return kRegFields * (m > kCap ? m - kCap : 0) + kConeFields * (mc > kConeCap ? mc - kConeCap : 0);
 }
 
 // The launch of `mode` (0 gradient, 1 linesearch, 2 with the safeguard, 3
-// cost) for these shapes and element size, launching nothing: out[0..4] =
+// warm start) for these shapes and element size, launching nothing: out[0..4] =
 // resident worlds per SM, SMs, shared bytes per world, registers and local
 // (spill) bytes per thread.
 int newton_iter_config(int mode, int elem_bytes, int n, int m, int ncone, int batch, int* out) {

@@ -1,14 +1,14 @@
-"""The rest of the Newton iteration on each world's active rows: the gradient,
-the exact linesearch with the step's acceptance, and the cost, as CUDA
-kernels' wrappers and their plain PyTorch versions.
+"""The rest of the Newton iteration on each world's active rows: the warm
+start, the exact linesearch with the step's acceptance, and the gradient, as
+CUDA kernels' wrappers and their plain PyTorch versions.
 
 Replaces what XLA fused in the JAX package's solver (no TPU kernel existed
-for it): `newton_iter` up to H and its linesearch and acceptance
-(mjlab_tpu/physics/solver.py:217-266), `linesearch` (:268-287), the
-gradients and steps of `cg_solve` (:289-325), the warm start (:189-192) and
-the final forces (:378-386), with the cost pieces they call (`residual`
-:166, `row_cost` :169, `total_cost` :182, `row_force` :194, `row_hess` :207
-and the cone functions :105-164). The Newton direction stays with
+for it): the warm start (mjlab_tpu/physics/solver.py:182-192), `newton_iter`
+up to H and its linesearch and acceptance (:217-266), `linesearch`
+(:268-287), the gradients and steps of `cg_solve` (:289-325) and the final
+forces (:378-386), with the cost pieces they call (`residual` :166,
+`row_cost` :169, `total_cost` :182, `row_force` :194, `row_hess` :207 and
+the cone functions :105-164). The Newton direction stays with
 `chol.newton_direction[_cone]`.
 
 The cost, per world, over qacc x (a0 = qacc_smooth):
@@ -21,33 +21,37 @@ contacts under cone="elliptic"), whose rows are left out of the regular sum.
 A row with D = 0 is inert.
 
 Entry points, each taking a `Rows` (one solve's inputs):
+- `warm_start(rows, ws)` → (x0, cost (B, 2), ∇Φ(x0), w, blocks): MuJoCo's
+  choice x0 = ws where Φ(ws) < Φ(a0), else a0 (a tie or a NaN keeps a0),
+  the two costs [Φ(ws), Φ(a0)], and `newton_gradient(rows, x0)`'s output,
+  from one launch: the solve's first.
 - `newton_gradient(rows, x)` → (∇Φ(x), the row weights w, the packed cone
   Hessians or None); with `forces=True` → (efc_force, qfrc_constraint =
-  Jᵀ efc_force) at x instead, the end of a solve.
+  Jᵀ efc_force) at x instead, the end of a solve of 0 iterations.
 - `newton_linesearch(rows, x, p, iterations, safeguard[, forces])` → (x',
   α, improved, at): `iterations` steps of the 1-D Newton on φ'(α) from
   α = 1, then x + αp if its cost is lower than x's (else x) or, with
   `safeguard` (the elliptic Newton step), the best improving step of {α, 1,
   0.5, 0.25, 0.1, 0.01} (ties to the earlier candidate), x + 0·p if none;
   `at` is `newton_gradient(rows, x', forces)`'s output, from the same launch.
-- `constraint_cost(rows, X)` → Φ at the k points X (B, k, n) of each world.
-A Newton or CG solve launches one constraint_cost (the warm start), one
-newton_gradient and then one newton_linesearch per iteration, the last one
-with `forces`.
+A Newton or CG solve of K ≥ 1 iterations launches one warm_start and then
+one newton_linesearch per iteration, the last one with `forces`.
 
 Kernels (csrc/newton_iter.cu): one world per one-warp block, the whole
-batch in one grid. The solve's first newton_gradient lists each world's
-active rows (D ≠ 0, NaN counted) and active cone slots (Dn > 0) from one
-scan of D into buffers the Rows keeps on the card (`_state`), and writes w
-and the cone blocks on the inactive rows and slots once; every later launch
-of the solve reads that list, and the w and blocks it returns are those
-buffers, rewritten by the next launch on the same Rows. The listed rows of J
-stream through a ring of 32-row tiles in shared memory (cp.async), one lane
-per row; the linesearch holds its rows' residuals, J p, D and fl in
-registers up to CAP rows and in a global scratch beyond; qM in shared
-memory. Bound: the bytes of D on every row and w on the inactive rows once
-per solve, then per iteration the active rows of J, aref, fl and D, qM and
-the vectors (chip_smoke.py `newton_bounds` reckons it from the run's rows).
+batch in one grid. The warm start lists each world's active rows (D ≠ 0,
+NaN counted) and active cone slots (Dn > 0) from one scan of D into buffers
+the Rows keeps on the card (`_state`), and writes w and the cone blocks on
+the inactive rows and slots once (a newton_gradient on a Rows without a
+list builds it the same way); every later launch of the solve reads that
+list, and the w and blocks it returns are those buffers, rewritten by the
+next launch on the same Rows. The listed rows of J stream through a ring of
+32-row tiles in shared memory (cp.async), one lane per row: the warm start
+takes one pass over them for its two points' residuals, costs and Jᵀf; the
+linesearch holds its rows' residuals, J p, D and fl in registers up to CAP
+rows and in a global scratch beyond; qM in shared memory. Bound: the bytes
+of D on every row and w on the inactive rows once per solve, then per
+launch the active rows of J, aref, fl and D, qM and the vectors
+(chip_smoke.py `newton_bounds` reckons it from the run's rows).
 
 A linesearch step and a Newton or CG iteration are functions of α, x (and
 CG's state) alone: once one returns its input bitwise, so does every later
@@ -75,13 +79,12 @@ CAP = 128  # listed regular rows per world a linesearch holds in registers
 FIELDS = 5  # per regular row past CAP: r, J p, D, fl, r at the candidate
 CONE_CAP = 64  # listed cone rows per world in shared memory
 CONE_FIELDS = 7  # per cone row past CONE_CAP: r, J p, and five values at other points
-COST_CAP, COST_FIELDS = 128, 2  # constraint_cost's own list in shared memory
 _EPS = 1e-15
 # Row classes (`Rows.kind`).
 ONE_SIDED, EQUALITY, FRICTION, CONE_ROW = 0, 1, 2, 3
 SAFEGUARD_STEPS = (1.0, 0.5, 0.25, 0.1, 0.01)
 
-LAUNCHES = {"newton_gradient": 0, "newton_linesearch": 0, "constraint_cost": 0}
+LAUNCHES = {"warm_start": 0, "newton_gradient": 0, "newton_linesearch": 0}
 
 
 def reset_counts() -> None:
@@ -389,8 +392,10 @@ def newton_linesearch_plain(rows: Rows, x: torch.Tensor, p: torch.Tensor, iterat
   return torch.where(improved[:, None], x_new, x), alpha, improved
 
 
-def constraint_cost_plain(rows: Rows, X: torch.Tensor) -> torch.Tensor:
-  return torch.stack([rows.total_cost(X[:, j]) for j in range(X.shape[1])], dim=1)
+def warm_start_plain(rows: Rows, ws: torch.Tensor):
+  cost = torch.stack([rows.total_cost(ws), rows.total_cost(rows.a0)], dim=1)
+  x0 = torch.where((cost[:, 0] < cost[:, 1])[:, None], ws, rows.a0)
+  return (x0, cost, *newton_gradient_plain(rows, x0))
 
 
 # ---------------------------------------------------------------------------
@@ -411,7 +416,7 @@ def _bind(lib: ctypes.CDLL, key: str):
   if key == "newton_iter_config":
     f.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
   elif key == "newton_iter_scratch_elems":
-    f.argtypes = [ctypes.c_int] * 3
+    f.argtypes = [ctypes.c_int] * 2
   else:
     f.argtypes = [ctypes.c_void_p] * len(_PTRS) + [ctypes.c_int] * _NINT + [ctypes.c_void_p]
   f.restype = ctypes.c_int
@@ -421,8 +426,7 @@ def _bind(lib: ctypes.CDLL, key: str):
 def check_library(lib: ctypes.CDLL) -> None:
   """Raises unless the library sizes its scratch as `scratch_elems` does."""
   sizes = _bind(lib, "newton_iter_scratch_elems")
-  if (sizes(0, 1000, 200) != scratch_elems(1000, 200)
-      or sizes(1, 1000, 0) != COST_FIELDS * (1000 - COST_CAP)):
+  if sizes(1000, 200) != scratch_elems(1000, 200):
     raise RuntimeError("kernels/newton.py's scratch sizes disagree with csrc/newton_iter.cu's")
 
 
@@ -490,8 +494,9 @@ def _state(rows: Rows) -> SimpleNamespace:
   list of active rows (B, m) int32 (row | class << 16), the counts (B, 4)
   int32 (regular rows, listed rows, active slots), the active slots (B, S)
   int32 (slot | offset << 16), the row weights w (B, m), the cone blocks
-  (B, nb) and the scratch; `built` once the first newton_gradient has
-  launched (a host flag: nothing leaves the card)."""
+  (B, nb) and the scratch; `built` once a launch has listed the rows (the
+  warm start, or a newton_gradient on a Rows without a list; a host flag:
+  nothing leaves the card)."""
   if rows._card is None:
     B, m = rows.D.shape
     lay = rows.layout
@@ -543,12 +548,25 @@ def _gradient_kernel(rows: Rows, x: torch.Tensor, forces: bool = False):
   return (force, vec) if forces else (vec, st.w, st.blocks)
 
 
+def _warm_start_kernel(rows: Rows, ws: torch.Tensor):
+  st = _state(rows)
+  B = ws.shape[0]
+  x0, vec = torch.empty_like(ws), torch.empty_like(ws)
+  cost = torch.empty((B, 2), dtype=ws.dtype, device=ws.device)
+  _launch("warm_start", rows, dict(x=ws, xo=x0, alpha=cost, vec=vec, w=st.w, blocks=st.blocks,
+                                   lst=st.lst, counts=st.counts, slots=st.slots,
+                                   scratch=st.scratch),
+          0, 0, st.ext)
+  st.built = True
+  return x0, cost, vec, st.w, st.blocks
+
+
 def _linesearch_kernel(rows: Rows, x, p, iterations: int, safeguard: bool,
                        forces: bool = False):
   st = rows._card
   if st is None or not st.built:
-    raise ValueError("newton_linesearch: the rows' list is not built (the solve's first "
-                     "newton_gradient builds it)")
+    raise ValueError("newton_linesearch: the rows' list is not built (the solve's warm_start "
+                     "builds it)")
   B = x.shape[0]
   xo = torch.empty_like(x)
   alpha = torch.empty((B,), dtype=x.dtype, device=x.device)
@@ -564,15 +582,15 @@ def _linesearch_kernel(rows: Rows, x, p, iterations: int, safeguard: bool,
   return xo, alpha, improved, (force, vec) if forces else (vec, st.w, st.blocks)
 
 
-def _cost_kernel(rows: Rows, X: torch.Tensor) -> torch.Tensor:
-  B, k = X.shape[:2]
-  m = rows.J.shape[1]
-  cost = torch.empty((B, k), dtype=X.dtype, device=X.device)
-  scratch = torch.empty((B, max(COST_FIELDS * max(m - COST_CAP, 0), 1)), dtype=X.dtype,
-                        device=X.device)
-  _launch("constraint_cost", rows, dict(x=X, vec=cost, scratch=scratch), k, 0,
-          (max(m - COST_CAP, 0), 0))
-  return cost
+def warm_start(rows: Rows, ws: torch.Tensor):
+  """(x0 (B, n), the costs [Φ(ws), Φ(a0)] (B, 2), ∇Φ(x0), w, blocks): the
+  solve's start, x0 = ws where its cost is lower than a0's, else a0, with
+  newton_gradient(rows, x0)'s output. On the card it lists the solve's
+  active rows (see the module's docstring)."""
+  if rows.qM.device.type == "cpu":
+    return warm_start_plain(rows, ws)
+  _check(rows, "warm_start", (ws, tuple(rows.a0.shape)))
+  return _warm_start_kernel(rows, ws)
 
 
 def newton_gradient(rows: Rows, x: torch.Tensor, forces: bool = False):
@@ -591,7 +609,7 @@ def newton_linesearch(rows: Rows, x: torch.Tensor, p: torch.Tensor, iterations: 
   """(x' (B, n), α (B,), improved (B,) bool, at): the exact linesearch along
   p from x, the step's acceptance (see the module's docstring), and `at`,
   newton_gradient(rows, x', forces)'s output at the point it returns. On
-  the card the rows' first newton_gradient must have launched."""
+  the card the rows' list must be built (the solve's warm_start)."""
   if rows.qM.device.type == "cpu":
     xo, alpha, improved = newton_linesearch_plain(rows, x, p, iterations, safeguard)
     return xo, alpha, improved, newton_gradient_plain(rows, xo, forces)
@@ -601,17 +619,6 @@ def newton_linesearch(rows: Rows, x: torch.Tensor, p: torch.Tensor, iterations: 
   return _linesearch_kernel(rows, x, p, iterations, safeguard, forces)
 
 
-def constraint_cost(rows: Rows, X: torch.Tensor) -> torch.Tensor:
-  """Φ (B, k) at the k points X (B, k, n) of each world."""
-  if rows.qM.device.type == "cpu":
-    return constraint_cost_plain(rows, X)
-  B, n = rows.qM.shape[:2]
-  if X.dim() != 3 or X.shape[1] < 1:
-    raise ValueError(f"constraint_cost: expected X (B, k, n), got {tuple(X.shape)}")
-  _check(rows, "constraint_cost", (X, (B, X.shape[1], n)))
-  return _cost_kernel(rows, X)
-
-
 def launch_config(name: str, dtype: torch.dtype, n: int, m: int, ncone: int = 0,
                   safeguard: bool = False) -> dict:
   """The launch an entry point makes for these shapes (on the current card),
@@ -619,7 +626,7 @@ def launch_config(name: str, dtype: torch.dtype, n: int, m: int, ncone: int = 0,
   registers and local (spill) bytes per thread."""
   out = (ctypes.c_int * 5)()
   mode = {"newton_gradient": 0, "newton_linesearch": 2 if safeguard else 1,
-          "constraint_cost": 3}[name]
+          "warm_start": 3}[name]
   rc = _fn("newton_iter_config")(mode, torch.empty((), dtype=dtype).element_size(), n, m, ncone,
                                  1, out)
   if rc != 0:

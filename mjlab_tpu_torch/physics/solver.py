@@ -18,11 +18,10 @@ package's `fori_loop`s are Python loops here.
 
 Where each stage runs (the kernels' wrappers take their plain PyTorch
 versions on a CPU tensor):
-  * the warm start's choice between qacc_warmstart and a0:
-    `newton.constraint_cost`, both costs in one launch;
-  * the gradient, the row weights and the cone blocks at the solve's first
-    point: `newton.newton_gradient`, which also lists the solve's active
-    rows on the card;
+  * the warm start's choice between qacc_warmstart and a0 by cost, and the
+    gradient, the row weights and the cone blocks at the point it picks:
+    `newton.warm_start`, one launch that also lists the solve's active rows
+    on the card;
   * per Newton iteration, the direction: `chol.newton_direction` (diagonal
     weights) or, with cone slots, `chol.newton_direction_cone`, which solve
     with H = M + Jᵀ diag(w) J (+ Σ J_sᵀ B_s J_s) + 1e-10·I without forming H
@@ -37,10 +36,11 @@ versions on a CPU tensor):
     (`chol.chol_solve`); β in PyTorch;
   * efc_force and qfrc_constraint at the solution: the last iteration's
     `newton.newton_linesearch(..., forces=True)` (with no iteration,
-    `newton.newton_gradient(..., forces=True)`).
-A Newton or CG solve of K ≥ 1 iterations launches 1 constraint_cost, 1
-newton_gradient and K newton_linesearch (on the CPU the solve may stop early
-at an exact fixed point, with one more newton_gradient for the forces).
+    `newton.newton_gradient(..., forces=True)` at the warm start's point, on
+    its list).
+A Newton or CG solve of K ≥ 1 iterations launches 1 warm_start and K
+newton_linesearch (on the CPU the solve may stop early at an exact fixed
+point, with one newton_gradient for the forces).
 
 The PGS solver (mjSOL_PGS, pyramidal cone) works on the dual instead
 (`_pgs`, the JAX package's pgs_solve): one `pgs.pgs_solve` per forward, from
@@ -73,12 +73,6 @@ def hessian(d: Data, x: torch.Tensor) -> torch.Tensor:
   return chol.newton_matrix(d.qM, d.efc_J, newton_weights(d, x))
 
 
-def warm_start(rows: newton.Rows, ws: torch.Tensor) -> torch.Tensor:
-  """MuJoCo's choice between the warm start and a0, by cost."""
-  cost = newton.constraint_cost(rows, torch.stack([ws, rows.a0], dim=1))
-  return torch.where((cost[:, 0] < cost[:, 1])[:, None], ws, rows.a0)
-
-
 def direction(rows: newton.Rows, grad: torch.Tensor, w: torch.Tensor, blocks) -> torch.Tensor:
   """The Newton step −H⁻¹∇Φ."""
   if rows.layout is not None:
@@ -91,13 +85,14 @@ def _forces(rows: newton.Rows, x: torch.Tensor):
   return (x, *newton.newton_gradient(rows, x, forces=True))
 
 
-def newton_solve(m: Model, rows: newton.Rows, x: torch.Tensor):
-  """`m.opt.iterations` Newton iterations from x: (x, efc_force,
+def newton_solve(m: Model, rows: newton.Rows, x: torch.Tensor, at):
+  """`m.opt.iterations` Newton iterations from x, `at` the gradient, the
+  row weights and the cone blocks there (the warm start's): (x, efc_force,
   qfrc_constraint) at the end."""
   iterations = m.opt.iterations
   if iterations == 0:
     return _forces(rows, x)
-  grad, w, blocks = newton.newton_gradient(rows, x)
+  grad, w, blocks = at
   for k in range(iterations):
     last = k == iterations - 1
     x_new, _, _, at = newton.newton_linesearch(rows, x, direction(rows, grad, w, blocks),
@@ -113,16 +108,17 @@ def newton_solve(m: Model, rows: newton.Rows, x: torch.Tensor):
     grad, w, blocks = at
 
 
-def cg_solve(m: Model, rows: newton.Rows, x: torch.Tensor):
+def cg_solve(m: Model, rows: newton.Rows, x: torch.Tensor, at):
   """Nonlinear CG (Polak-Ribière+, M-preconditioned), MuJoCo's mjSOL_CG:
-  M + 1e-12·I factored once, its solves per iteration. Returns (x,
-  efc_force, qfrc_constraint) at the end."""
+  M + 1e-12·I factored once, its solves per iteration, from x with `at` the
+  warm start's gradient there. Returns (x, efc_force, qfrc_constraint) at
+  the end."""
   iterations = m.opt.iterations
   if iterations == 0:
     return _forces(rows, x)
   qM = rows.qM
   Lm = chol.chol_factor(qM + 1e-12 * torch.eye(qM.shape[-1], dtype=qM.dtype, device=qM.device))
-  g_prev = newton.newton_gradient(rows, x)[0]
+  g_prev = at[0]
   mg_prev = chol.chol_solve(Lm, g_prev)
   p = -mg_prev
   for k in range(iterations):
@@ -194,9 +190,9 @@ def _solve(tp: Topology, m: Model, d: Data) -> Data:
   if m.opt.solver == mjtSolver.mjSOL_PGS:
     return _pgs(tp, m, d)
   rows = newton.Rows.of(tp, d)
-  x = warm_start(rows, d.qacc_warmstart.contiguous())
+  x, _, *at = newton.warm_start(rows, d.qacc_warmstart.contiguous())
   solve_fn = cg_solve if m.opt.solver == mjtSolver.mjSOL_CG else newton_solve
-  x, efc_force, qfrc_constraint = solve_fn(m, rows, x)
+  x, efc_force, qfrc_constraint = solve_fn(m, rows, x, at)
   return d.replace(
     qacc=x, efc_force=efc_force, qfrc_constraint=qfrc_constraint,
     qacc_warmstart=x,

@@ -1,5 +1,5 @@
-"""kernel_ab.py, the A/B timer of the Newton-direction, Cholesky, PGS and
-Newton iteration kernels' sources, on the CPU: the order in which it times versions, the
+"""kernel_ab.py, the A/B timer of the Newton-direction, Cholesky, PGS,
+Newton iteration and warm-start kernels' sources, on the CPU: the order in which it times versions, the
 sources a version's directory gives it, the cases it is asked for, and
 that it runs nothing without a card."""
 
@@ -41,8 +41,9 @@ def test_runs_nothing_without_a_card_or_a_directory(args):
 
 
 @pytest.mark.parametrize("argv, cases", [
-  (["build/parent"], ["newton", "chol", "pgs", "newton_iter"]),
+  (["build/parent"], ["newton", "chol", "pgs", "newton_iter", "warm_start"]),
   (["build/parent", "--cases", "pgs"], ["pgs"]),
+  (["build/parent", "--cases", "warm_start", "newton_iter"], ["warm_start", "newton_iter"]),
   (["build/parent", "--cut", "build/a", "--cut", "build/b", "--cases", "chol", "pgs"],
    ["chol", "pgs"]),
 ])

@@ -1,7 +1,9 @@
-"""The rest of the Newton iteration (kernels/newton.py): the gradient, the
-exact linesearch with the step's acceptance (ending with the gradient, or
-the forces, at the point it returns) and the cost, their plain versions on
-the CPU and their kernels (csrc/newton_iter.cu) on the card.
+"""The rest of the Newton iteration (kernels/newton.py): the warm start (the
+choice between qacc_warmstart and a0 by cost, ending with the gradient at
+the point it picks), the gradient, and the exact linesearch with the step's
+acceptance (ending with the gradient, or the forces, at the point it
+returns), their plain versions on the CPU and their kernels
+(csrc/newton_iter.cu) on the card.
 
 On the CPU (float64):
 * the solver through the plain versions against the JAX package's
@@ -10,12 +12,13 @@ On the CPU (float64):
   of mjlab_tpu_torch/assets/solver_scenes.py (equality rows beside
   pyramidal contacts, friction-loss rows, CG) and three balls of condim 3,
   4 and 6 under the elliptic cone;
-* one solve split into the three entry points against the same solve
-  written out whole (as the solver computed it before the split, every
-  Newton iteration and linesearch step taken) bitwise, on those scenes and
-  G1 velocity-flat (port only); the solve's launch structure: one
-  constraint_cost, one newton_gradient, one newton_linesearch per
-  iteration, the last with the forces;
+* one solve split into the entry points against the same solve written
+  out whole (as the solver computed it before the split, every Newton
+  iteration and linesearch step taken) bitwise, on those scenes and G1
+  velocity-flat (port only); the solve's launch structure: one warm_start,
+  one newton_linesearch per iteration, the last with the forces, and
+  newton_gradient's forces only for a solve of 0 iterations (or one that
+  stops early on the CPU);
 * garbage in the J and aref rows of inactive rows (D = 0) changes no
   output, bitwise;
 * a NaN direction leaves x unchanged where the step is accepted by its
@@ -25,16 +28,17 @@ On the card (`gpu`, skipped elsewhere): each kernel against its plain
 version on seeded problems (a linesearch launch against
 newton_linesearch_plain followed by newton_gradient_plain at the point it
 returns), float64 within 1e-10 relative, float32 within max(1e-5 × scale,
-4 × the plain float32 version's own error against float64) (where the
-float32 acceptance decides a cost tie the other way, the two chosen points'
-costs agree within 1e-5), NaN patterns equal, a step that rounds to x not
-taken: active counts per world below, at and above the kernels' CAP of
-rows in registers, row counts ragged at the edges of the 16-byte scan,
-every row inactive, a NaN direction, cone dims 3, 4 and 6 with equality and
-friction-loss rows, nv 64, and a grid of more worlds than the card holds at
-once; the gradient, w and blocks (and the forces) a linesearch returns at
-x' bitwise newton_gradient's there; w exactly 0 on every unlisted row after
-three iterations. tests/test_torch_newton_iter_emu.py runs the kernels'
+4 × the plain float32 version's own error against float64) (where a
+float32 acceptance or warm start decides a cost tie the other way, the two
+chosen points' costs agree within 1e-5), NaN patterns equal, a step that
+rounds to x not taken: active counts per world below, at and above the
+kernels' CAP of rows in registers, row counts ragged at the edges of the
+16-byte scan, every row inactive, a NaN direction, cone dims 3, 4 and 6 with
+equality and friction-loss rows, nv 64, a grid of more worlds than the card
+holds at once, and warm starts that win, lose, equal a0 or hold a NaN; the
+gradient, w and blocks (and the forces) a linesearch or the warm start
+returns at its point bitwise newton_gradient's there; w exactly 0 on every
+unlisted row after the list's build and three iterations. tests/test_torch_newton_iter_emu.py runs the kernels'
 source on the CPU in the warp emulator. This file imports JAX only inside
 its CPU tests. On the card:
   python -m pytest --noconftest -m gpu tests/test_torch_newton_iter.py
@@ -58,14 +62,38 @@ COST_TIE_TOL = 1e-7  # test_torch_elliptic.py's, for a cost tie
 # ---------------------------------------------------------------------------
 
 
+# The warm starts `problem` makes: x itself, a point of lower cost than
+# a0's, a0 exactly (a tie: a0 is kept), a point far from a0 (a0's cost is
+# lower), x with a NaN (a0 is kept).
+WARM_KINDS = ("x", "better", "a0", "far", "nan")
+
+
+def _lower_cost_point(rows, x, p):
+  """Per world, the point of least cost among a0 + s d (d = ±(x − a0) or
+  ±p, s = 2⁻ᵏ, k < 30), a0 itself where none is lower."""
+  a0 = rows.a0
+  best, best_c = a0.clone(), rows.total_cost(a0)
+  for d in (x - a0, a0 - x, p, -p):
+    for k in range(30):
+      y = a0 + 2.0**-k * d
+      c = rows.total_cost(y)
+      take = c < best_c
+      best = torch.where(take[:, None], y, best)
+      best_c = torch.where(take, c, best_c)
+  return best
+
+
 def problem(seed, batch, n, m_reg, ne=0, nf=0, cds=(), active=0.3, counts=None,
-            dtype=torch.float64, device="cpu", garbage=False, zero=False):
-  """(Rows, x, p): M = X Xᵀ/n + 0.5 I, J, a0, aref normal, D uniform on the
-  active rows (a share `active`, or `counts` per world) and 0 elsewhere;
-  the first `ne` rows equality rows, the next `nf` friction-loss rows, then
-  one cone slot of each dim in `cds` after the regular rows, active in
-  about 70% of the worlds. With `garbage`, the inactive rows' J and aref
-  are replaced by large seeded values; with `zero`, every row is inactive."""
+            dtype=torch.float64, device="cpu", garbage=False, zero=False, warm="mixed"):
+  """(Rows, x, p, ws): M = X Xᵀ/n + 0.5 I, J, a0, aref normal, D uniform on
+  the active rows (a share `active`, or `counts` per world) and 0
+  elsewhere; the first `ne` rows equality rows, the next `nf` friction-loss
+  rows, then one cone slot of each dim in `cds` after the regular rows,
+  active in about 70% of the worlds. With `garbage`, the inactive rows' J
+  and aref are replaced by large seeded values; with `zero`, every row is
+  inactive. ws is a warm start of the kind `warm` (WARM_KINDS) in every
+  world, or with "mixed" world i's of kind WARM_KINDS[i % 5], made in
+  float64."""
   rng = np.random.default_rng(seed)
   m = m_reg + sum(cds)
   X = rng.normal(size=(batch, n, n))
@@ -102,22 +130,48 @@ def problem(seed, batch, n, m_reg, ne=0, nf=0, cds=(), active=0.3, counts=None,
   x = a0 + 0.3 * rng.normal(size=(batch, n))
   p = rng.normal(size=(batch, n))
 
-  def t(a):
-    return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+  def rows_of(dtype, device):
+    def t(a):
+      return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
-  layout = None
-  if cds:
-    groups, start = [], 0
-    for i in range(1, len(table) + 1):
-      if i == len(table) or table[i][1] != table[start][1]:
-        groups.append((table[start][1], start, i - start))
-        start = i
-    layout = chol.ConeLayout(table=torch.tensor(table, dtype=torch.int32, device=device),
-                             groups=tuple(groups), nb=off)
-  rows = newton.Rows(t(M), t(J), t(D), t(aref), t(a0), fl=t(fl) if nf else None,
-                     **newton.row_classes(kind, dtype, device), layout=layout,
-                     mu0=t(mu0) if cds else None)
-  return rows, t(x), t(p)
+    layout = None
+    if cds:
+      groups, start = [], 0
+      for i in range(1, len(table) + 1):
+        if i == len(table) or table[i][1] != table[start][1]:
+          groups.append((table[start][1], start, i - start))
+          start = i
+      layout = chol.ConeLayout(table=torch.tensor(table, dtype=torch.int32, device=device),
+                               groups=tuple(groups), nb=off)
+    return newton.Rows(t(M), t(J), t(D), t(aref), t(a0), fl=t(fl) if nf else None,
+                       **newton.row_classes(kind, dtype, device), layout=layout,
+                       mu0=t(mu0) if cds else None), t
+
+  kinds = [WARM_KINDS[w % len(WARM_KINDS)] if warm == "mixed" else warm for w in range(batch)]
+  gw = np.random.default_rng(seed + 2000)
+  ws = x.copy()
+  if "better" in kinds:
+    rows64, t64 = rows_of(torch.float64, "cpu")
+    better = _lower_cost_point(rows64, t64(x), t64(p)).numpy()
+  for w, k in enumerate(kinds):
+    if k == "better":
+      ws[w] = better[w]
+    elif k == "a0":
+      ws[w] = a0[w]
+    elif k == "far":
+      ws[w] = a0[w] + 100.0 * gw.normal(size=n)
+    elif k == "nan":
+      ws[w, gw.integers(n)] = np.nan
+  rows, t = rows_of(dtype, device)
+  return rows, t(x), t(p), t(ws)
+
+
+def same(a, b) -> bool:
+  """torch.equal, with a NaN equal to a NaN."""
+  if not a.is_floating_point():
+    return torch.equal(a, b)
+  nan = torch.isnan(a)
+  return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
 
 
 def linesearch_plain(rows, x, p, iterations, safeguard, forces=False):
@@ -132,12 +186,19 @@ def linesearch_plain(rows, x, p, iterations, safeguard, forces=False):
 AT_POINT = ("x", "xf", "grad_ls", "w_ls", "blocks_ls", "force_ls", "qfrc_ls")
 
 
-def outputs(rows, x, p, fn):
-  """Every entry point's outputs on (rows, x, p), by `fn`'s versions: the
-  gradient and the forces at x, each linesearch (with and without the
+# The warm start's outputs that depend on its choice ("improved_ws": ws
+# taken).
+WS_AT_POINT = ("ws_x0", "ws_grad", "ws_w", "ws_blocks")
+
+
+def outputs(rows, x, p, ws, fn):
+  """Every entry point's outputs on (rows, x, p, ws), by `fn`'s versions:
+  the gradient and the forces at x, each linesearch (with and without the
   safeguard where the rows have cone slots) with the gradient and with the
-  forces at the point it returns, and the cost. The solve's buffers that
-  the kernels return (w, the blocks) are copied as they come."""
+  forces at the point it returns, and the warm start from ws (its point,
+  both costs, the gradient, w and blocks there, and whether it took ws).
+  The solve's buffers that the kernels return (w, the blocks) are copied as
+  they come."""
 
   def keep(t):
     return None if t is None else t.clone()
@@ -157,14 +218,18 @@ def outputs(rows, x, p, fn):
       out[f"blocks_ls{s}"] = keep(b)
     xf, _, _, (f, q) = fn["linesearch"](rows, x, p, LS_STEPS, sg, forces=True)
     out.update({f"xf{s}": xf, f"force_ls{s}": f, f"qfrc_ls{s}": q})
-  out["cost"] = fn["cost"](rows, torch.stack([x, rows.a0, x + p], dim=1).contiguous())
+  x0, cost, g, w, b = fn["warm_start"](rows, ws)
+  out.update(ws_x0=x0, ws_cost=cost, ws_grad=g, ws_w=keep(w),
+             improved_ws=cost[:, 0] < cost[:, 1])
+  if b is not None:
+    out["ws_blocks"] = keep(b)
   return out
 
 
 PLAIN = {"gradient": newton.newton_gradient_plain, "linesearch": linesearch_plain,
-         "cost": newton.constraint_cost_plain}
+         "warm_start": newton.warm_start_plain}
 WRAPPED = {"gradient": newton.newton_gradient, "linesearch": newton.newton_linesearch,
-           "cost": newton.constraint_cost}
+           "warm_start": newton.warm_start}
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +477,7 @@ def test_inactive_rows_garbage_changes_nothing_bitwise(cds):
   assert not torch.equal(clean[0].J, dirty[0].J)
   a, b = outputs(*clean, PLAIN), outputs(*dirty, PLAIN)
   for k in a:
-    assert torch.equal(a[k], b[k]), k
+    assert same(a[k], b[k]), k
 
 
 @pytest.mark.parametrize("cds", [(), (3, 4)])
@@ -421,7 +486,7 @@ def test_nan_direction(cds):
   false) and the other worlds step as they would alone; the elliptic
   safeguard keeps no candidate and returns x + 0·p, NaN, as the JAX
   package's does."""
-  rows, x, p = problem(4, 3, 8, 30, ne=1, nf=2, cds=cds)
+  rows, x, p, _ = problem(4, 3, 8, 30, ne=1, nf=2, cds=cds)
   p_nan = p.clone()
   p_nan[1, 2] = float("nan")
   xo, _, improved = newton.newton_linesearch_plain(rows, x, p_nan, LS_STEPS, False)
@@ -436,25 +501,26 @@ def test_nan_direction(cds):
 
 
 def test_wrappers_take_the_plain_path_on_the_cpu():
-  rows, x, p = problem(5, 3, 7, 20, ne=1, nf=1, cds=(3,))
+  prob = problem(5, 5, 7, 20, ne=1, nf=1, cds=(3,))
   newton.reset_counts()
-  a, b = outputs(rows, x, p, WRAPPED), outputs(rows, x, p, PLAIN)
-  assert all(torch.equal(a[k], b[k]) for k in a)
+  a, b = outputs(*prob, WRAPPED), outputs(*prob, PLAIN)
+  assert all(same(a[k], b[k]) for k in a)
   assert all(v == 0 for v in newton.LAUNCHES.values())
-  assert rows._card is None  # no buffer of the card's
+  assert prob[0]._card is None  # no buffer of the card's
   assert newton.scratch_elems(newton.CAP) == 0
   assert newton.scratch_elems(1699) == newton.FIELDS * (1699 - newton.CAP)
   assert newton.scratch_elems(1320, 1137) == (newton.FIELDS * (1320 - newton.CAP)
                                               + newton.CONE_FIELDS * (1137 - newton.CONE_CAP))
 
 
+@pytest.mark.parametrize("iterations", [4, 0])
 @pytest.mark.parametrize("name, cone", [("connect_with_contact", None), ("cg_box", None),
                                         ("cone_dims", None)])
-def test_solve_launch_structure(name, cone, monkeypatch):
-  """A solve calls constraint_cost once, newton_gradient once at its first
-  point and newton_linesearch once per iteration, the last one with the
-  forces; on the CPU a solve that stops early at a fixed point calls
-  newton_gradient once more for the forces instead."""
+def test_solve_launch_structure(name, cone, iterations, monkeypatch):
+  """A solve calls warm_start once, first, and newton_linesearch once per
+  iteration, the last one with the forces; newton_gradient only for the
+  forces: after the warm start in a solve of 0 iterations, or on the CPU
+  where a solve stops early at a fixed point."""
   import tests.torch_parity as tp
   from mjlab_tpu_torch.physics import solver as tsolver
 
@@ -466,21 +532,23 @@ def test_solve_launch_structure(name, cone, monkeypatch):
       return fn(*args, **kw)
     return call
 
-  for f in ("newton_gradient", "newton_linesearch", "constraint_cost"):
+  for f in ("warm_start", "newton_gradient", "newton_linesearch"):
     monkeypatch.setattr(newton, f, counted(f, getattr(newton, f)))
   with tp.torch_threads(1):
     _, tp_, m, d = _scene_state(name, cone, worlds=2)
-    m.opt.iterations = 4
+    m.opt.iterations = iterations
     calls.clear()
     tsolver.solve(tp_, m, d)
-  K = m.opt.iterations
   ls = [f for n, f in calls if n == "newton_linesearch"]
-  assert calls[0] == ("constraint_cost", False) and calls[1] == ("newton_gradient", False)
-  assert 1 <= len(ls) <= K and sum(n == "constraint_cost" for n, _ in calls) == 1
-  if len(ls) == K and ls[-1]:
-    assert not any(ls[:-1]) and sum(n == "newton_gradient" for n, _ in calls) == 1
+  gradients = [f for n, f in calls if n == "newton_gradient"]
+  assert calls[0] == ("warm_start", False) and sum(n == "warm_start" for n, _ in calls) == 1
+  if iterations == 0:
+    assert calls == [("warm_start", False), ("newton_gradient", True)]
+  elif len(ls) == iterations and ls[-1]:
+    assert not any(ls[:-1]) and not gradients
   else:
-    assert not any(ls) and calls[-1] == ("newton_gradient", True)
+    assert 1 <= len(ls) < iterations and not any(ls)
+    assert gradients == [True] and calls[-1] == ("newton_gradient", True)
 
 
 def test_row_classes_follow_the_constraint_tables():
@@ -520,30 +588,33 @@ def _check_on_card(args, dtype):
   """Every kernel against its plain version on the problem `args` of
   `problem`: float64 within 1e-10 relative, float32 within max(1e-5 ×
   scale, 4 × the plain float32 version's error against float64). In float32
-  the step's acceptance may decide a cost tie the other way (two sums over
-  the rows rounded differently): where it does, the two chosen points' costs
-  (in float64) agree within 1e-5 relative, and the outputs at the chosen
-  point are compared elsewhere."""
-  rows, x, p = problem(*args[0], **args[1], dtype=dtype, device="cuda")
+  the step's acceptance or the warm start may decide a cost tie the other
+  way (two sums over the rows rounded differently): where it does, the two
+  chosen points' costs (in float64) agree within 1e-5 relative, and the
+  outputs at the chosen point are compared elsewhere."""
+  prob = problem(*args[0], **args[1], dtype=dtype, device="cuda")
+  rows = prob[0]
   newton.reset_counts()
-  got = outputs(rows, x, p, WRAPPED)
+  got = outputs(*prob, WRAPPED)
   torch.cuda.synchronize()
   ls = 2 if rows.layout is not None else 1
-  assert newton.LAUNCHES == {"newton_gradient": 2, "newton_linesearch": 2 * ls,
-                             "constraint_cost": 1}
-  plain = outputs(rows, x, p, PLAIN)
+  assert newton.LAUNCHES == {"warm_start": 1, "newton_gradient": 2, "newton_linesearch": 2 * ls}
+  plain = outputs(*prob, PLAIN)
   rows64, *_ = problem(*args[0], **args[1], dtype=torch.float64, device="cuda")
   ref = outputs(*problem(*args[0], **args[1], dtype=torch.float64, device="cuda"), PLAIN)
+  # Each acceptance: the point it picks and the outputs that depend on it.
+  accepted = {f"improved{sg}": (f"x{sg}", [f"{k}{sg}" for k in AT_POINT]) for sg in range(ls)}
+  accepted["improved_ws"] = ("ws_x0", WS_AT_POINT)
   keep = {}
-  for sg in range(ls):
-    flips = got[f"improved{sg}"] != plain[f"improved{sg}"]
+  for acc, (point, dependents) in accepted.items():
+    flips = got[acc] != plain[acc]
     if flips.any():
-      assert dtype == torch.float32, f"improved{sg}: {int(flips.sum())} worlds"
-      c_got = rows64.total_cost(got[f"x{sg}"].double())[flips]
-      c_plain = rows64.total_cost(plain[f"x{sg}"].double())[flips]
-      assert ((c_got - c_plain).abs() <= 1e-5 * c_plain.abs().clamp_min(1.0)).all(), sg
-    for k in AT_POINT:
-      keep[f"{k}{sg}"] = ~flips
+      assert dtype == torch.float32, f"{acc}: {int(flips.sum())} worlds"
+      c_got = rows64.total_cost(got[point].double())[flips]
+      c_plain = rows64.total_cost(plain[point].double())[flips]
+      assert ((c_got - c_plain).abs() <= 1e-5 * c_plain.abs().clamp_min(1.0)).all(), acc
+    for k in dependents:
+      keep[k] = ~flips
   for k, g in got.items():
     if k.startswith("improved"):
       continue
@@ -576,15 +647,23 @@ CARD_CASES = {
   "many cone rows above cap": ((8, 6, 18, 20), dict(cds=(3,) * 40 + (6,) * 10)),
   "nv 64": ((9, 5, 64, 90), dict(ne=2, nf=2, cds=(3, 4))),
   "all inactive": ((10, 5, 11, 50), dict(ne=2, nf=2, cds=(3, 4), zero=True)),
+  "warm start wins": ((17, 9, 35, 300), dict(ne=2, nf=3, cds=(3, 4), warm="better")),
+  "a0 wins": ((18, 6, 35, 300), dict(ne=2, nf=3, cds=(3, 4), warm="far")),
+  "warm start is a0": ((19, 6, 35, 300), dict(ne=2, nf=3, cds=(3, 4), warm="a0")),
+  "NaN in the warm start": ((20, 6, 35, 300), dict(ne=2, nf=3, cds=(3, 4), warm="nan")),
 }
 
 
-def linesearch_gradient_differences(rows, x, p, fn) -> list[str]:
-  """The outputs of each linesearch launch at the point it returns (the
-  gradient, w and the blocks; the forces) that differ by a bit from `fn`'s
-  newton_gradient at that point."""
-  fn["gradient"](rows, x)
+def linesearch_gradient_differences(rows, x, p, ws, fn) -> list[str]:
+  """The outputs of the warm start and of each linesearch launch at the
+  point it returns (the gradient, w and the blocks; the forces) that differ
+  by a bit from `fn`'s newton_gradient at that point."""
   bad = []
+  x0, _, *at = fn["warm_start"](rows, ws)
+  at = [None if t is None else t.clone() for t in at]
+  for i, (a, b) in enumerate(zip(at, fn["gradient"](rows, x0))):
+    if (a is None) != (b is None) or (a is not None and not newton.same_bits(a, b)):
+      bad.append(f"warm start output {i}")
   for sg in (False, True) if rows.layout is not None else (False,):
     for forces in (False, True):
       xo, _, _, at = fn["linesearch"](rows, x, p, LS_STEPS, sg, forces=forces)
@@ -596,12 +675,17 @@ def linesearch_gradient_differences(rows, x, p, fn) -> list[str]:
   return bad
 
 
-def inactive_weights_after_iterations(rows, x, p, fn, iterations=3) -> torch.Tensor:
+def inactive_weights_after_iterations(rows, x, p, ws, fn, first="warm_start",
+                                      iterations=3) -> torch.Tensor:
   """w on the rows that no launch lists (D = 0, and the cone rows) after the
-  solve's first gradient and `iterations` linesearches along p, their
-  buffer filled with NaN before the first launch."""
+  launch that lists them (`first`: the warm start from ws, or
+  newton_gradient at x) and `iterations` linesearches along p, their buffer
+  filled with NaN before the first launch."""
   newton._state(rows).w.fill_(float("nan"))
-  fn["gradient"](rows, x)
+  if first == "warm_start":
+    fn["warm_start"](rows, ws)
+  else:
+    fn["gradient"](rows, x)
   w = None
   for _ in range(iterations):
     x, _, _, (_, w, _) = fn["linesearch"](rows, x, p, LS_STEPS, rows.layout is not None)
@@ -621,24 +705,26 @@ def test_kernels_match_plain_on_card(case, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["g1 shapes, 2% active", "cap edges", "dense above cap",
-                                  "cones 3 4 6", "many cone rows above cap"])
+                                  "cones 3 4 6", "many cone rows above cap", "warm start wins"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_linesearch_gradient_is_newton_gradient_bitwise_on_card(case, dtype):
-  """The gradient, w and blocks (and the forces) that a linesearch launch
-  returns at x' are bitwise newton_gradient's at x'."""
+  """The gradient, w and blocks (and the forces) that the warm start and a
+  linesearch launch return at their point are bitwise newton_gradient's
+  there."""
   _card()
   args, kw = CARD_CASES[case]
-  rows, x, p = problem(*args, **kw, dtype=dtype, device="cuda")
-  assert not linesearch_gradient_differences(rows, x, p, WRAPPED)
+  assert not linesearch_gradient_differences(*problem(*args, **kw, dtype=dtype, device="cuda"),
+                                             WRAPPED)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("first", ["warm_start", "gradient"])
 @pytest.mark.parametrize("case", ["cap edges", "ragged 257", "cones 3 4 6"])
-def test_w_is_zero_on_inactive_rows_after_iterations_on_card(case):
+def test_w_is_zero_on_inactive_rows_after_iterations_on_card(case, first):
   _card()
   args, kw = CARD_CASES[case]
-  rows, x, p = problem(*args, **kw, device="cuda")
-  w = inactive_weights_after_iterations(rows, x, 0.1 * p, WRAPPED)
+  rows, x, p, ws = problem(*args, **kw, device="cuda")
+  w = inactive_weights_after_iterations(rows, x, 0.1 * p, ws, WRAPPED, first)
   assert w.numel() and torch.equal(w, torch.zeros_like(w))
 
 
@@ -646,9 +732,9 @@ def test_w_is_zero_on_inactive_rows_after_iterations_on_card(case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernels_on_a_nan_direction_on_card(dtype):
   _card()
-  rows, x, p = problem(12, 4, 10, 40, ne=1, nf=2, cds=(3, 4), dtype=dtype, device="cuda")
+  rows, x, p, ws = problem(12, 4, 10, 40, ne=1, nf=2, cds=(3, 4), dtype=dtype, device="cuda")
   p[1, 3] = float("nan")
-  newton.newton_gradient(rows, x)
+  newton.warm_start(rows, ws)
   for sg in (False, True):
     xo, alpha, improved, (g, _, _) = newton.newton_linesearch(rows, x, p, LS_STEPS, sg)
     xp, ap, ip, (gp, _, _) = linesearch_plain(rows, x, p, LS_STEPS, sg)
@@ -665,7 +751,7 @@ def test_a_step_that_leaves_x_as_it_is_ties_on_card(dtype):
   exactly, so the step is not taken, as on the CPU, and the gradient
   returned is x's."""
   _card()
-  rows, x, p = problem(15, 6, 10, 40, ne=1, nf=2, cds=(3, 4), dtype=dtype, device="cuda")
+  rows, x, p, _ = problem(15, 6, 10, 40, ne=1, nf=2, cds=(3, 4), dtype=dtype, device="cuda")
   p = p * 1e-30
   grad = newton.newton_gradient(rows, x)[0]
   for sg in (False, True):
@@ -687,20 +773,21 @@ def test_inactive_rows_garbage_changes_nothing_on_card():
   b = outputs(*problem(14, 5, 9, 200, ne=2, nf=3, cds=(3, 4, 6), device="cuda", garbage=True),
               WRAPPED)
   for k in a:
-    assert torch.equal(a[k], b[k]), k
+    assert same(a[k], b[k]), k
 
 
 @pytest.mark.gpu
 def test_linesearch_needs_the_solves_list_on_card():
   _card()
-  rows, x, p = problem(16, 3, 7, 20, device="cuda")
-  with pytest.raises(ValueError, match="newton_gradient builds it"):
+  rows, x, p, _ = problem(16, 3, 7, 20, device="cuda")
+  with pytest.raises(ValueError, match="warm_start builds it"):
     newton.newton_linesearch(rows, x, p, LS_STEPS, False)
 
 
 # The CPU emulation's problems (tests/test_torch_newton_iter_emu.py,
 # tools/warp_emu/run.py): every class, cone dims, the caps' edges, a world
-# past CAP, nv 64, no row active; float64.
+# past CAP, nv 64, no row active, warm starts that win, lose, equal a0 or
+# hold a NaN (and each kind in every problem of 5 worlds or more); float64.
 EMU_CASES = {
   "pyramidal": ((0, 3, 7, 20), {}),
   "equality and friction loss, nv 35": ((1, 3, 35, 60), dict(ne=4, nf=5)),
@@ -711,4 +798,8 @@ EMU_CASES = {
   "ragged m 13": ((6, 5, 9, 13), dict(ne=1)),
   "no row active": ((7, 2, 11, 40), dict(ne=2, nf=2, cds=(3, 4), zero=True)),
   "more than 32 slots, past both caps": ((8, 2, 10, 140), dict(cds=(3,) * 56, active=1.0)),
+  "warm start wins": ((9, 3, 12, 30), dict(ne=2, nf=3, cds=(3, 4), warm="better")),
+  "a0 wins": ((10, 3, 12, 30), dict(ne=2, nf=3, cds=(3, 4), warm="far")),
+  "warm start is a0": ((11, 3, 12, 30), dict(ne=2, nf=3, cds=(3, 4), warm="a0")),
+  "NaN in the warm start": ((12, 3, 12, 30), dict(ne=2, nf=3, cds=(3, 4), warm="nan")),
 }

@@ -4,14 +4,17 @@ warp primitives it uses, each block run as 32 threads), called through
 kernels/newton.py's own launch code on CPU tensors, in float64:
 
 * every entry point against its plain version within 1e-12 relative (the
-  acceptances equal) on the seeded problems of EMU_CASES: every row class,
-  cone dims 3, 4 and 6 with and without the safeguard, active counts at
-  the register cap, worlds past it and past the cone rows' shared cap,
-  more than 32 active slots, nv 64, no row active;
-* the gradient, w and blocks (and the forces) a linesearch launch returns
-  at x' bitwise equal to newton_gradient's at x';
-* w exactly 0 on every row no launch lists after the solve's first
-  gradient and three linesearches, from a buffer filled with NaN;
+  acceptances and the warm starts' choices equal) on the seeded problems of
+  EMU_CASES: every row class, cone dims 3, 4 and 6 with and without the
+  safeguard, active counts at the register cap, worlds past it and past the
+  cone rows' shared cap, more than 32 active slots, nv 64, no row active,
+  warm starts that win, lose, equal a0 or hold a NaN;
+* the gradient, w and blocks (and the forces) the warm start and a
+  linesearch launch return at their point bitwise equal to
+  newton_gradient's there;
+* w exactly 0 on every row no launch lists after the list's build (by the
+  warm start, or by newton_gradient) and three linesearches, from a buffer
+  filled with NaN;
 * a step that rounds to x not taken, and a NaN direction, as the plain
   versions do.
 
@@ -60,13 +63,12 @@ def emu(tmp_path_factory):
 @pytest.mark.parametrize("case", sorted(EMU_CASES))
 def test_entry_points_match_plain_in_emulation(case, emu):
   args, kw = EMU_CASES[case]
-  rows, x, p = problem(*args, **kw)
+  prob = problem(*args, **kw)
   newton.reset_counts()
-  got = outputs(rows, x, p, emu)
-  ls = 2 if rows.layout is not None else 1
-  assert newton.LAUNCHES == {"newton_gradient": 2, "newton_linesearch": 2 * ls,
-                             "constraint_cost": 1}
-  want = outputs(rows, x, p, PLAIN)
+  got = outputs(*prob, emu)
+  ls = 2 if prob[0].layout is not None else 1
+  assert newton.LAUNCHES == {"warm_start": 1, "newton_gradient": 2, "newton_linesearch": 2 * ls}
+  want = outputs(*prob, PLAIN)
   for k, g in got.items():
     w = want[k]
     if k.startswith("improved"):
@@ -81,22 +83,23 @@ def test_entry_points_match_plain_in_emulation(case, emu):
 
 @pytest.mark.parametrize("case", ["pyramidal", "equality and friction loss, nv 35",
                                   "cone dims 3, 4, 6", "active counts 127-129 (the cap)",
-                                  "more than 32 slots, past both caps"])
+                                  "more than 32 slots, past both caps", "warm start wins"])
 def test_linesearch_gradient_is_newton_gradient_bitwise_in_emulation(case, emu):
   args, kw = EMU_CASES[case]
   assert not linesearch_gradient_differences(*problem(*args, **kw), emu)
 
 
+@pytest.mark.parametrize("first", ["warm_start", "gradient"])
 @pytest.mark.parametrize("case", ["cone dims 3, 4, 6", "more than 32 slots, past both caps"])
-def test_w_is_zero_on_inactive_rows_after_iterations_in_emulation(case, emu):
+def test_w_is_zero_on_inactive_rows_after_iterations_in_emulation(case, first, emu):
   args, kw = EMU_CASES[case]
-  rows, x, p = problem(*args, **kw)
-  w = inactive_weights_after_iterations(rows, x, 0.1 * p, emu)
+  rows, x, p, ws = problem(*args, **kw)
+  w = inactive_weights_after_iterations(rows, x, 0.1 * p, ws, emu, first)
   assert w.numel() and torch.equal(w, torch.zeros_like(w))
 
 
 def test_a_step_that_leaves_x_as_it_is_ties_in_emulation(emu):
-  rows, x, p = problem(15, 4, 10, 40, ne=1, nf=2, cds=(3, 4))
+  rows, x, p, _ = problem(15, 4, 10, 40, ne=1, nf=2, cds=(3, 4))
   p = p * 1e-30
   grad = emu["gradient"](rows, x)[0]
   for sg in (False, True):
@@ -105,9 +108,9 @@ def test_a_step_that_leaves_x_as_it_is_ties_in_emulation(emu):
 
 
 def test_a_nan_direction_in_emulation(emu):
-  rows, x, p = problem(12, 4, 10, 40, ne=1, nf=2, cds=(3, 4))
+  rows, x, p, ws = problem(12, 4, 10, 40, ne=1, nf=2, cds=(3, 4))
   p[1, 3] = float("nan")
-  emu["gradient"](rows, x)
+  emu["warm_start"](rows, ws)
   for sg in (False, True):
     xo, _, improved, (g, _, _) = emu["linesearch"](rows, x, p, LS_STEPS, sg)
     xp, _, ip, (gp, _, _) = linesearch_plain(rows, x, p, LS_STEPS, sg)

@@ -39,7 +39,7 @@ def build(out: Path = OUT) -> ctypes.CDLL:
   src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
   src, k = re.subn(r"extern __shared__ __align__\(16\) unsigned char smem\[\];",
                    "unsigned char* smem = emu::smem();", src)
-  if k != 2:
+  if k != 1:
     raise RuntimeError("the kernels' shared memory changed: update the emulation's rewrite")
   src, k = re.subn(r"kernel<<<a\.batch, 32, bytes, stream>>>\(a\);",
                    "emu::launch(a.batch, bytes, [&] { kernel(a); });", src)
@@ -71,7 +71,7 @@ def entry_points(lib: ctypes.CDLL):
 # The wrappers' kernel paths, which take CPU tensors while `newton._fn` is
 # the emulated library's.
 KERNELS = {"gradient": newton._gradient_kernel, "linesearch": newton._linesearch_kernel,
-           "cost": newton._cost_kernel}
+           "warm_start": newton._warm_start_kernel}
 
 
 @contextlib.contextmanager
@@ -108,9 +108,9 @@ def main() -> int:
   worst = 0.0
   with emulated(build()) as fn:
     for name, (args, kw) in EMU_CASES.items():
-      rows, x, p = problem(*args, **kw)
-      errs = errors(outputs(rows, x, p, fn), outputs(rows, x, p, PLAIN), name)
-      if rows.qM.dtype == torch.float64:
+      prob = problem(*args, **kw)
+      errs = errors(outputs(*prob, fn), outputs(*prob, PLAIN), name)
+      if prob[0].qM.dtype == torch.float64:
         worst = max([worst] + [v for k, v in errs.items() if not k.startswith("improved")])
       print(f"{name}: " + ", ".join(f"{k} {v:.1e}" if isinstance(v, float) else f"{k} {v}"
                                     for k, v in errs.items()))
